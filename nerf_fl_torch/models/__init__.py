@@ -1,0 +1,5 @@
+from .embeddings import embedding_lookup, init_embedding, validate_vocab
+from .mlp import NeRF, NeRFConfig, apply_nerf, init_nerf, num_params
+
+__all__ = ["NeRF", "NeRFConfig", "apply_nerf", "init_nerf", "num_params",
+           "embedding_lookup", "init_embedding", "validate_vocab"]

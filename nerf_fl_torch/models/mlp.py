@@ -1,0 +1,193 @@
+"""The NeRF-W MLP as an ``nn.Module`` plus its plain forward.
+
+Counterpart of ``nerf_fl_tpu/models/mlp.py``.  Layer names follow the JAX
+parameter tree (``xyz.0..7``, ``xyz_final``, ``dir``, ``static_sigma``,
+``static_rgb``, ``transient.layers.0..3``, ``transient.sigma/rgb/beta``).
+Weights use ``nn.Linear``'s (out, in) layout; ``bridge.from_jax_params``
+transposes the JAX (in, out) arrays.
+
+``apply_nerf`` keeps the JAX path's rounding points: every hidden matmul is
+rounded to the compute dtype before the bias (also rounded) is added,
+concatenated operands are contracted per part and summed in the compute
+dtype (``_dense_cat``), per-ray conditioning is contracted per ray and
+broadcast-added (``_dense_ray_cond``), and the heads emit f32.  It serves
+the test-time coarse ``sigma_only`` pass and every architecture the fused
+kernel does not take.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+
+@dataclass(frozen=True)
+class NeRFConfig:
+    typ: str = "coarse"
+    D: int = 8
+    W: int = 256
+    skips: Tuple[int, ...] = (4,)
+    in_channels_xyz: int = 63
+    in_channels_dir: int = 27
+    encode_appearance: bool = False
+    in_channels_a: int = 48
+    encode_transient: bool = False
+    in_channels_t: int = 16
+    beta_min: float = 0.03
+
+    def __post_init__(self):
+        # the coarse model drops appearance/transient conditioning
+        if self.typ == "coarse":
+            object.__setattr__(self, "encode_appearance", False)
+            object.__setattr__(self, "encode_transient", False)
+
+    @property
+    def a_dim(self) -> int:
+        return self.in_channels_a if self.encode_appearance else 0
+
+
+class TransientBranch(nn.Module):
+    def __init__(self, cfg: NeRFConfig, device=None):
+        super().__init__()
+        h = cfg.W // 2
+        self.layers = nn.ModuleList(
+            [nn.Linear(cfg.W + cfg.in_channels_t, h, device=device)]
+            + [nn.Linear(h, h, device=device) for _ in range(3)])
+        self.sigma = nn.Linear(h, 1, device=device)
+        self.rgb = nn.Linear(h, 3, device=device)
+        self.beta = nn.Linear(h, 1, device=device)
+
+
+class NeRF(nn.Module):
+    def __init__(self, cfg: NeRFConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        fan_in = [cfg.in_channels_xyz if i == 0 else (
+            cfg.W + cfg.in_channels_xyz if i in cfg.skips else cfg.W)
+            for i in range(cfg.D)]
+        self.xyz = nn.ModuleList(
+            [nn.Linear(f, cfg.W, device=device) for f in fan_in])
+        self.xyz_final = nn.Linear(cfg.W, cfg.W, device=device)
+        self.dir = nn.Linear(cfg.W + cfg.in_channels_dir + cfg.a_dim,
+                             cfg.W // 2, device=device)
+        self.static_sigma = nn.Linear(cfg.W, 1, device=device)
+        self.static_rgb = nn.Linear(cfg.W // 2, 3, device=device)
+        self.transient = (TransientBranch(cfg, device)
+                          if cfg.encode_transient else None)
+
+    def forward(self, xyz_emb, dir_a_emb=None, t_emb=None, **kw):
+        return apply_nerf(self, xyz_emb, dir_a_emb, t_emb, **kw)
+
+
+def init_nerf(cfg: NeRFConfig, *, generator: Optional[torch.Generator] = None,
+              device=None) -> NeRF:
+    """torch ``nn.Linear`` default init, U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    for weight and bias, drawn from ``generator``."""
+    model = NeRF(cfg, device=device)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Linear):
+                bound = 1.0 / m.in_features ** 0.5
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.uniform_(-bound, bound, generator=generator)
+    return model
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` = logaddexp(x, 0), written the same way."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _mm(x, w_t, out_dtype):
+    """x @ w_t with f32 accumulation, rounded once to ``out_dtype`` (a bf16
+    matmul accumulates in f32 and rounds its result)."""
+    if x.dtype == out_dtype:
+        return x @ w_t
+    return (x.float() @ w_t.float()).to(out_dtype)
+
+
+def _dense(x, layer: nn.Linear, dt, out_dtype=None):
+    od = out_dtype or dt
+    w = layer.weight.to(dt).t()
+    return _mm(x.to(dt), w, od) + layer.bias.to(od)
+
+
+def _dense_cat(parts, layer: nn.Linear, dt, out_dtype=None):
+    od = out_dtype or dt
+    w = layer.weight.to(dt).t()
+    acc, lo = None, 0
+    for p in parts:
+        hi = lo + p.shape[-1]
+        y = _mm(p.to(dt), w[lo:hi], od)
+        acc = y if acc is None else acc + y
+        lo = hi
+    return acc + layer.bias.to(od)
+
+
+def _dense_ray_cond(x_sample, x_ray, samples_per_ray, layer: nn.Linear, dt):
+    w = layer.weight.to(dt).t()
+    cs = x_sample.shape[-1]
+    y_s = _mm(x_sample.to(dt), w[:cs], dt)
+    y_r = _mm(x_ray.to(dt), w[cs:], dt) + layer.bias.to(dt)
+    n = x_ray.shape[0]
+    out = y_s.reshape(n, samples_per_ray, -1) + y_r[:, None, :]
+    return out.reshape(n * samples_per_ray, -1)
+
+
+def apply_nerf(model: NeRF, xyz_emb: torch.Tensor,
+               dir_a_emb: Optional[torch.Tensor] = None,
+               t_emb: Optional[torch.Tensor] = None, *,
+               sigma_only: bool = False, output_transient: bool = False,
+               compute_dtype=torch.float32,
+               samples_per_ray: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
+    """Plain forward returning named heads (static_sigma (B,), static_rgb
+    (B, 3), transient_sigma/rgb/beta).  With ``samples_per_ray`` the
+    conditioning inputs dir_a_emb / t_emb are per ray."""
+    cfg, dt, f32 = model.cfg, compute_dtype, torch.float32
+    xyz_c = xyz_emb.to(dt)
+    h = xyz_c
+    for i, layer in enumerate(model.xyz):
+        if i in cfg.skips:
+            h = _dense_cat([xyz_c, h], layer, dt)
+        else:
+            h = _dense(h, layer, dt)
+        h = torch.relu(h)
+
+    out = {"static_sigma": softplus(
+        _dense(h, model.static_sigma, dt, out_dtype=f32))[..., 0]}
+    if sigma_only:
+        return out
+
+    xyz_final = _dense(h, model.xyz_final, dt)
+    if samples_per_ray is None:
+        dir_h = torch.relu(_dense_cat([xyz_final, dir_a_emb], model.dir, dt))
+    else:
+        dir_h = torch.relu(_dense_ray_cond(
+            xyz_final, dir_a_emb, samples_per_ray, model.dir, dt))
+    out["static_rgb"] = torch.sigmoid(
+        _dense(dir_h, model.static_rgb, dt, out_dtype=f32))
+    if not output_transient:
+        return out
+
+    tp = model.transient
+    first, rest = tp.layers[0], tp.layers[1:]
+    if samples_per_ray is None:
+        th = torch.relu(_dense_cat([xyz_final, t_emb], first, dt))
+    else:
+        th = torch.relu(_dense_ray_cond(xyz_final, t_emb, samples_per_ray,
+                                        first, dt))
+    for layer in rest:
+        th = torch.relu(_dense(th, layer, dt))
+    out["transient_sigma"] = softplus(
+        _dense(th, tp.sigma, dt, out_dtype=f32))[..., 0]
+    out["transient_rgb"] = torch.sigmoid(_dense(th, tp.rgb, dt, out_dtype=f32))
+    out["transient_beta"] = softplus(
+        _dense(th, tp.beta, dt, out_dtype=f32))[..., 0]
+    return out
+
+
+def num_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

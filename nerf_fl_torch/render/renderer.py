@@ -1,0 +1,257 @@
+"""The volume-rendering pipeline: coarse pass -> importance sampling -> fine
+pass -> compositing.
+
+Counterpart of ``nerf_fl_tpu/render/renderer.py``.  The result dict is keyed
+exactly as the JAX one for every ``test_time`` / ``output_transient``
+combination.  The fine pass goes through the fused PE + MLP kernel
+(``ops/fused_mlp.py``) whenever the tensors are on CUDA and the architecture
+is one the kernel takes; the test-time coarse ``sigma_only`` pass and every
+other architecture run the plain ``models.mlp.apply_nerf``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..core import compositing, encoding, sampling
+from ..models.embeddings import embedding_lookup
+from ..models.mlp import NeRFConfig, apply_nerf
+from ..ops.fused_mlp import fused_apply_nerf
+from ..ops.sorting import rank_merge_sorted
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """Render/model hyperparameters; field names track the JAX RenderConfig.
+
+    ``use_fused`` is the counterpart of ``use_pallas``: None runs the fused
+    kernel whenever the tensors are on CUDA and ``_fused_ok`` holds, True
+    runs it (its plain version on CPU tensors) wherever ``_fused_ok`` holds,
+    False never runs it.
+    """
+    N_samples: int = 64
+    N_importance: int = 0
+    use_disp: bool = False
+    perturb: float = 1.0
+    noise_std: float = 1.0
+    white_back: bool = False
+    N_emb_xyz: int = 10
+    N_emb_dir: int = 4
+    encode_a: bool = False
+    N_a: int = 48
+    encode_t: bool = False
+    N_tau: int = 16
+    beta_min: float = 0.1
+    refine_pose: bool = False
+    barf_epoch_start: int = 4
+    barf_epoch_end: int = 8
+    barf_schedule: str = "fork"
+    compute_dtype: str = "float32"
+    use_fused: Optional[bool] = None
+    fast_trig: Optional[bool] = None
+    mlp_depth: int = 8
+    mlp_width: int = 256
+
+    @property
+    def use_fast_trig(self) -> bool:
+        if self.fast_trig is not None:
+            return self.fast_trig
+        return self.compute_dtype == "bfloat16"
+
+    @property
+    def in_channels_xyz(self) -> int:
+        return 6 * self.N_emb_xyz + 3
+
+    @property
+    def in_channels_dir(self) -> int:
+        return 6 * self.N_emb_dir + 3
+
+    def nerf_config(self, typ: str) -> NeRFConfig:
+        return NeRFConfig(
+            typ=typ, D=self.mlp_depth, W=self.mlp_width,
+            skips=(self.mlp_depth // 2,),
+            in_channels_xyz=self.in_channels_xyz,
+            in_channels_dir=self.in_channels_dir,
+            encode_appearance=self.encode_a, in_channels_a=self.N_a,
+            encode_transient=self.encode_t, in_channels_t=self.N_tau,
+            beta_min=self.beta_min)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+
+def _embed(cfg: RenderConfig, x, n_freqs, epoch):
+    return encoding.embed(
+        x, n_freqs, barf=cfg.refine_pose, epoch=epoch,
+        epoch_start=cfg.barf_epoch_start, epoch_end=cfg.barf_epoch_end,
+        fast=cfg.use_fast_trig, schedule=cfg.barf_schedule)
+
+
+def _fused_ok(mcfg: NeRFConfig) -> bool:
+    """Whether the fused kernel supports this architecture."""
+    return (mcfg.D == 8 and mcfg.W == 256 and tuple(mcfg.skips) == (4,)
+            and mcfg.in_channels_xyz <= 128
+            and mcfg.in_channels_dir + mcfg.a_dim <= 128
+            and mcfg.in_channels_t <= 128)
+
+
+def _run_mlp(model, mcfg: NeRFConfig, cfg: RenderConfig, xyz, dirs=None,
+             a_emb=None, t_emb=None, *, epoch=0.0, sigma_only=False,
+             output_transient=False) -> Dict[str, torch.Tensor]:
+    """Run the field MLP over a (N_rays, S, 3) sample grid of raw positions;
+    per-ray conditioning is broadcast to samples.  Returns (N, S, ...)."""
+    N, S = xyz.shape[:2]
+
+    def flat(x):
+        return x.reshape(N * S, x.shape[-1])
+
+    def per_sample(x):
+        return flat(x[:, None, :].expand(N, S, x.shape[-1]))
+
+    use_fused = cfg.use_fused if cfg.use_fused is not None else xyz.is_cuda
+    if use_fused and not sigma_only and _fused_ok(mcfg):
+        bw_x = bw_d = None
+        if cfg.refine_pose:
+            bw_x, bw_d = (encoding.barf_weights(
+                epoch, n, cfg.barf_epoch_start, cfg.barf_epoch_end,
+                schedule=cfg.barf_schedule, device=xyz.device)
+                for n in (cfg.N_emb_xyz, cfg.N_emb_dir))
+        out = fused_apply_nerf(
+            model, flat(xyz), per_sample(dirs),
+            per_sample(a_emb) if a_emb is not None else None,
+            per_sample(t_emb) if output_transient else None,
+            output_transient=output_transient, compute_dtype=cfg.dtype,
+            n_freq_xyz=cfg.N_emb_xyz, n_freq_dir=cfg.N_emb_dir,
+            barf_w_xyz=bw_x, barf_w_dir=bw_d)
+    else:
+        xyz_emb = flat(_embed(cfg, xyz, cfg.N_emb_xyz, epoch))
+        dir_a = None
+        if not sigma_only:
+            # stays per ray: apply_nerf contracts it per ray and
+            # broadcast-adds (models/mlp.py:_dense_ray_cond)
+            parts = [_embed(cfg, dirs, cfg.N_emb_dir, epoch)]
+            if a_emb is not None:
+                parts.append(a_emb)
+            dir_a = torch.cat(parts, dim=-1)
+        out = apply_nerf(model, xyz_emb, dir_a,
+                         t_emb if output_transient else None,
+                         sigma_only=sigma_only,
+                         output_transient=output_transient,
+                         compute_dtype=cfg.dtype, samples_per_ray=S)
+    return {k: v.reshape((N, S) + v.shape[1:]) for k, v in out.items()}
+
+
+def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
+                cfg: RenderConfig, *, generator: Optional[torch.Generator] = None,
+                epoch=0.0, test_time: bool = False,
+                output_transient: bool = True,
+                a_embedded: Optional[torch.Tensor] = None,
+                t_embedded: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Render a batch of rays.
+
+    params: {'nerf_coarse', ['nerf_fine'], ['embedding_a'], ['embedding_t']}
+    (NeRF modules and (N_vocab, dim) tables); rays (N_rays, 8) = [o, d,
+    near, far]; ts (N_rays,) image ids.  ``generator`` drives the stochastic
+    draws (perturb > 0, noise_std > 0).  test_time runs the coarse pass
+    sigma-only and adds the static/transient decomposition maps;
+    output_transient=False disables the transient field; a_embedded /
+    t_embedded override the embedding lookups.
+    """
+    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+    near, far = rays[:, 6:7], rays[:, 7:8]
+
+    z_vals = sampling.stratified_z_vals(
+        near, far, cfg.N_samples, use_disp=cfg.use_disp, perturb=cfg.perturb,
+        generator=generator)
+    xyz_coarse = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+
+    results: Dict[str, torch.Tensor] = {}
+    ccfg = cfg.nerf_config("coarse")
+    # without a fine model the coarse pass renders fully even at test time
+    if test_time and cfg.N_importance > 0:
+        out = _run_mlp(params["nerf_coarse"], ccfg, cfg, xyz_coarse,
+                       epoch=epoch, sigma_only=True)
+        comp = compositing.composite_static(
+            z_vals, None, out["static_sigma"], noise_std=0.0,
+            white_back=cfg.white_back, weights_only=True)
+        results["weights_coarse"] = comp.weights
+        results["opacity_coarse"] = comp.opacity
+    else:
+        out = _run_mlp(params["nerf_coarse"], ccfg, cfg, xyz_coarse, rays_d,
+                       epoch=epoch)
+        comp = compositing.composite_static(
+            z_vals, out["static_rgb"], out["static_sigma"],
+            noise_std=cfg.noise_std, generator=generator,
+            white_back=cfg.white_back)
+        results["weights_coarse"] = comp.weights
+        results["opacity_coarse"] = comp.opacity
+        results["rgb_coarse"] = comp.rgb
+        results["depth_coarse"] = comp.depth
+
+    if cfg.N_importance == 0:
+        return results
+
+    z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+    inner_weights = results["weights_coarse"][:, 1:-1].detach()
+    z_fine = sampling.sample_pdf(z_mid, inner_weights, cfg.N_importance,
+                                 det=(cfg.perturb == 0), generator=generator)
+    z_vals = rank_merge_sorted(z_vals, z_fine)
+    xyz_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+
+    fcfg = cfg.nerf_config("fine")
+    a_emb = None
+    if fcfg.encode_appearance:
+        a_emb = a_embedded if a_embedded is not None else \
+            embedding_lookup(params["embedding_a"], ts)
+    do_transient = output_transient and fcfg.encode_transient
+    t_emb = None
+    if do_transient:
+        t_emb = t_embedded if t_embedded is not None else \
+            embedding_lookup(params["embedding_t"], ts)
+
+    out = _run_mlp(params["nerf_fine"], fcfg, cfg, xyz_fine, rays_d,
+                   a_emb=a_emb, t_emb=t_emb, output_transient=do_transient,
+                   epoch=epoch)
+
+    if do_transient:
+        comp = compositing.composite_transient(
+            z_vals, out["static_rgb"], out["static_sigma"],
+            out["transient_rgb"], out["transient_sigma"],
+            out["transient_beta"], beta_min=cfg.beta_min,
+            white_back=cfg.white_back)
+        results["weights_fine"] = comp.weights
+        results["opacity_fine"] = comp.opacity
+        results["transient_sigmas"] = out["transient_sigma"]
+        results["beta"] = comp.beta
+        results["_rgb_fine_static"] = comp.static_rgb
+        results["_rgb_fine_transient"] = comp.transient_rgb
+        results["rgb_fine"] = comp.rgb
+        results["depth_fine"] = comp.depth
+        if test_time:
+            rgb_s, depth_s = compositing.composite_solo_field(
+                z_vals, out["static_rgb"], out["static_sigma"],
+                white_back=cfg.white_back, combined_opacity=comp.opacity)
+            results["rgb_fine_static"] = rgb_s
+            results["depth_fine_static"] = depth_s
+            rgb_t, depth_t = compositing.composite_solo_field(
+                z_vals, out["transient_rgb"], out["transient_sigma"],
+                white_back=False)
+            results["rgb_fine_transient"] = rgb_t
+            results["depth_fine_transient"] = depth_t
+    else:
+        comp = compositing.composite_static(
+            z_vals, out["static_rgb"], out["static_sigma"],
+            noise_std=cfg.noise_std, generator=generator,
+            white_back=cfg.white_back)
+        results["weights_fine"] = comp.weights
+        results["opacity_fine"] = comp.opacity
+        results["rgb_fine"] = comp.rgb
+        results["depth_fine"] = comp.depth
+
+    return results

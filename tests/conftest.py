@@ -59,6 +59,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running e2e/multihost/parity tests "
         "(deselect with -m 'not slow' for a <5-min smoke)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skips without one; "
+        "run on the card with pytest --noconftest -m cuda "
+        "tests/test_torch_cuda.py)")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,78 @@
+"""The fused forward kernel on the card, against its plain version.
+
+Marked ``cuda``: each test skips without a CUDA card.  This file imports
+nothing of JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: f32 2e-4 (as tests/test_fused_mlp.py; on the card the two agree
+exactly); bf16 3e-2, since kernel and plain version sum the same exact
+products in another order and a hidden value near a rounding boundary can
+land one bf16 ulp apart.
+"""
+import numpy as np
+import pytest
+import torch
+
+from nerf_fl_torch.models import NeRFConfig, init_nerf
+from nerf_fl_torch.ops import fused_mlp as fm
+
+N = 1001                     # ragged: not a multiple of the 64-point tile
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, a_dim=48, seed=0):
+    model = init_nerf(NeRFConfig(typ="fine", encode_appearance=a_dim > 0,
+                                 in_channels_a=a_dim or 48,
+                                 encode_transient=True),
+                      generator=torch.Generator().manual_seed(seed)).to(dev)
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-3, 3, (N, 3))
+    dirs = rng.normal(0, 1, (N, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    a = rng.normal(0, 1, (N, a_dim)) if a_dim else None
+    t = rng.normal(0, 1, (N, 16))
+    to = [None if x is None else torch.tensor(x, dtype=torch.float32,
+                                              device=dev)
+          for x in (xyz, dirs, a, t)]
+    return model, to
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transient", [True, False])
+@pytest.mark.parametrize("a_dim", [48, 0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_card(dtype, a_dim, transient):
+    dev = _card()
+    model, (xyz, dirs, a, t) = _inputs(dev, a_dim)
+    dt = getattr(torch, dtype)
+    inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
+    net = fm.pack_weights(model, a_dim, transient, dt, 10, 4, 16)
+    sx, sd = fm.default_scale_rows(10, 4, a_dim, device=dev)
+    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
+              t_dim=16 if transient else 0, has_transient=transient, dtype=dt)
+    before = fm.fused_mlp_fwd_cuda.launches
+    got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+    ref = fm.fused_mlp_reference(inp, net, sx, sd, **kw)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_fwd_cuda.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=2e-4 if dtype == "float32" else 3e-2)
+
+
+@pytest.mark.cuda
+def test_wrapper_is_forward_only_on_card():
+    dev = _card()
+    model, (xyz, dirs, _, _) = _inputs(dev)
+    with pytest.raises(NotImplementedError, match="backward"):
+        fm.fused_apply_nerf(model, xyz, dirs, output_transient=False)
+    with torch.no_grad():
+        out = fm.fused_apply_nerf(model, xyz, dirs, output_transient=False)
+    assert out["static_rgb"].shape == (N, 3)
+    assert torch.isfinite(out["static_sigma"]).all()

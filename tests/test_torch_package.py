@@ -1,0 +1,85 @@
+"""Package rules of nerf_fl_torch: no JAX, no silent CPU fallback."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import pkgutil, sys
+import nerf_fl_torch
+for m in pkgutil.walk_packages(nerf_fl_torch.__path__, "nerf_fl_torch."):
+    __import__(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "optax",
+                                            "nerf_fl_tpu")))
+print("MODULES", len([m for m in sys.modules if m.startswith("nerf_fl_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_imports_nothing_of_jax():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    # core, models, ops, render, training, bridge, device and their modules
+    n = int(out.stdout.split("MODULES")[1].split()[0])
+    assert n >= 20, out.stdout
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from nerf_fl_torch import resolve_device
+    from nerf_fl_torch.render import RenderConfig
+    from nerf_fl_torch.training import build_params
+    from nerf_fl_torch.training.system import render_chunked
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RenderConfig(N_samples=4, N_importance=4, mlp_depth=4,
+                       mlp_width=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_params(cfg, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    params = build_params(cfg, 3, device="cpu")
+    rays = np.zeros((4, 8), np.float32)
+    rays[:, 5], rays[:, 6], rays[:, 7] = -1, 2, 6
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_chunked(params, rays, np.zeros(4, np.int32), cfg)
+    out = render_chunked(params, rays, np.zeros(4, np.int32), cfg,
+                         device="cpu")
+    assert out["rgb_fine"].shape == (4, 3)
+
+
+def test_fused_wrapper_on_cpu_does_not_launch():
+    from nerf_fl_torch.models import NeRFConfig, init_nerf
+    from nerf_fl_torch.ops import fused_mlp as fm
+
+    model = init_nerf(NeRFConfig(typ="fine", encode_appearance=True,
+                                 encode_transient=True),
+                      generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = [torch.randn(37, c, generator=g) for c in (3, 3, 48, 16)]
+    before = fm.fused_mlp_fwd_cuda.launches
+    out = fm.fused_apply_nerf(model, *x, output_transient=True)
+    assert fm.fused_mlp_fwd_cuda.launches == before == 0
+    assert out["static_rgb"].shape == (37, 3)
+    assert torch.isfinite(out["transient_beta"]).all()
+
+
+def test_chip_smoke_refuses_without_the_package(tmp_path):
+    """Alone in a directory, the script exits non-zero and prints no
+    result line."""
+    src = os.path.join(ROOT, "chip_smoke.py")
+    dst = tmp_path / "chip_smoke.py"
+    dst.write_text(open(src).read())
+    out = subprocess.run([sys.executable, str(dst)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
