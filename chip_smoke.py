@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's render path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's render and train paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and continued):
   1. print the card's name and power limit, turn TF32 off, build every CUDA
-     kernel under nerf_fl_torch/csrc/ (one nvcc each, in parallel);
+     kernel under nerf_fl_torch/csrc/ (one nvcc each, in parallel; forward
+     and backward);
   2. hold the fused PE + MLP forward kernel against its plain PyTorch
      version on the card: transient on/off x appearance 48/0 x bf16/f32, a
      ragged 70,001 points, plain and BARF-annealed scale rows;
@@ -14,8 +15,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      count the kernel's launches, and hold the first chunk against the
      plain MLP path, with and without the transient field;
   4. time the whole frame and split one frame's device time by kernel
-     (torch.profiler); time the kernel at the render chunk's 4,194,304
-     points against its bound and its plain version.
+     (torch.profiler); hold the kernel against its plain version at the
+     render chunk's 4,194,304 points and time both against its bound;
+  5. hold the fused backward kernel against its plain version in the same
+     16 variants (every unpacked weight / bias grad and d_inp), and
+     require two launches to agree bit for bit;
+  6. train the flagship (bf16, batch 1024, Adam 5e-4, perturb 1) from a
+     device-resident pool of 2^20 rays: one f32 step's gradients through
+     the fused kernels against the plain MLP path, the kernel launches of
+     one bf16 step, TRAIN_STEPS steps whose loss must fall, the step time
+     beside that of the same step through the plain MLP path, and one
+     step of each by kernel;
+  7. hold the forward and the backward kernel (bf16) against their plain
+     versions at the fine pass's 131,072 points and the coarse pass's
+     65,536, and time the backward against its bound and its plain version.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -46,6 +59,18 @@ BF16_MEAN = 1e-3               # a layout fault moves the mean, not just a few
 # the plain MLP path rounds at other places (xyz_final, per-ray
 # conditioning), so the rendered colours agree less closely
 RENDER_MAX, RENDER_MEAN = 5e-2, 5e-3
+# backward kernel vs plain, per unpacked tensor: f32 max |d| <= 1e-4 of the
+# tensor's largest magnitude (the same products summed in another order);
+# bf16 ||d|| <= 2e-2 ||ref|| (a sum near a rounding boundary flips one bf16
+# ulp of a cotangent on one side only, and every later product carries it)
+BWD_F32_REL, BWD_BF16_NORM = 1e-4, 2e-2
+# one f32 train step, fused vs plain MLP path: max |x - y| / (|y| + 1e-3)
+# per leaf, the metric and limit of tests/test_fused_mlp.py:81-86
+GRAD_REL = 2e-3
+TRAIN_STEPS = 200
+POOL = 1 << 20                 # bench.py's synthetic ray pool
+BATCH = 1024
+N_VOCAB = 1500
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, HBM B/s
 PEAKS = {"H100 SXM": (989e12, 3.35e12), "H100 PCIe": (756e12, 2.0e12),
@@ -76,14 +101,17 @@ def nvidia_smi() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
-def fine_macs(cfg) -> int:
-    """Multiply-adds per point of the fine MLP, unpadded."""
+def fine_macs(cfg, a_dim=None, transient=None) -> int:
+    """Multiply-adds per point of the fine MLP, unpadded (the coarse one
+    with a_dim 0 and no transient)."""
+    a_dim = cfg.N_a * cfg.encode_a if a_dim is None else a_dim
+    transient = cfg.encode_t if transient is None else transient
     W, H = cfg.mlp_width, cfg.mlp_width // 2
-    x, d = cfg.in_channels_xyz, cfg.in_channels_dir + cfg.N_a * cfg.encode_a
+    x, d = cfg.in_channels_xyz, cfg.in_channels_dir + a_dim
     m = x * W + 6 * W * W + (x + W) * W          # trunk
     m += W * W + W                               # xyz_final, sigma
     m += (W + d) * H + H * 3                     # dir, rgb
-    if cfg.encode_t:
+    if transient:
         m += (W + cfg.N_tau) * H + 3 * H * H + H * 5
     return m
 
@@ -113,16 +141,37 @@ def make_points(n, a_dim, t_dim, gen, dev):
     return xyz, dirs, a, t
 
 
+def fwd_errors(got, ref, transient, dtype):
+    """Forward kernel vs plain, per head: ({head: max |d|}, [faults])."""
+    import torch
+    from nerf_fl_torch.ops import fused_mlp as fm
+    got, ref = fm.heads(got, transient), fm.heads(ref, transient)
+    errs, faults = {}, []
+    for k in ref:
+        diff = (got[k] - ref[k]).abs()
+        errs[k] = float(diff.max())
+        if not torch.isfinite(got[k]).all():
+            faults.append(f"non-finite kernel output {k}")
+        if dtype == torch.float32:
+            bad = errs[k] > F32_ATOL
+        else:
+            bad = bool((diff > BF16_ATOL + BF16_RTOL * ref[k].abs()).any()) \
+                or float(diff.mean()) > BF16_MEAN
+        if bad:
+            faults.append(f"{k}: max {errs[k]:.3e} mean "
+                          f"{float(diff.mean()):.3e}")
+    return errs, faults
+
+
 def phase_kernels(dev):
-    """Kernel vs plain version in every variant; returns the errors of the
-    main-path variant (bf16, transient, a_dim 48)."""
+    """Kernel vs plain version in every variant."""
     import torch
     from nerf_fl_torch.core.encoding import barf_weights
     from nerf_fl_torch.models import NeRFConfig, init_nerf
     from nerf_fl_torch.ops import fused_mlp as fm
 
     gen = torch.Generator().manual_seed(1)
-    main_err, failures = None, []
+    failures = []
     for a_dim in (48, 0):
         mcfg = NeRFConfig(typ="fine", encode_appearance=a_dim > 0,
                           in_channels_a=a_dim or 48, encode_transient=True)
@@ -141,38 +190,19 @@ def phase_kernels(dev):
                     kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
                               t_dim=16 if transient else 0,
                               has_transient=transient, dtype=dtype)
-                    got = fm.heads(fm.fused_mlp_fwd_cuda(
-                        inp, net, sx, sd, **kw), transient)
-                    ref = fm.heads(fm.fused_mlp_reference(
-                        inp, net, sx, sd, **kw), transient)
-                    torch.cuda.synchronize()
-                    errs = {}
-                    for k in ref:
-                        diff = (got[k] - ref[k]).abs()
-                        errs[k] = float(diff.max())
-                        if not torch.isfinite(got[k]).all():
-                            fail(f"non-finite kernel output {k}")
-                        if dtype == torch.float32:
-                            bad = errs[k] > F32_ATOL
-                        else:
-                            bad = bool((diff > BF16_ATOL + BF16_RTOL
-                                        * ref[k].abs()).any()) \
-                                or float(diff.mean()) > BF16_MEAN
-                        if bad:
-                            failures.append(f"kernel != plain: {k} a_dim={a_dim} "
-                                 f"barf={barf} transient={transient} "
-                                 f"{dtype}: max {errs[k]:.3e} mean "
-                                 f"{float(diff.mean()):.3e}")
+                    errs, faults = fwd_errors(
+                        fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw),
+                        fm.fused_mlp_reference(inp, net, sx, sd, **kw),
+                        transient, dtype)
+                    failures += [f"kernel != plain: a_dim={a_dim} barf={barf} "
+                                 f"transient={transient} {dtype}: {f}"
+                                 for f in faults]
                     name = str(dtype).split(".")[-1]
                     print(f"[kernel] a_dim={a_dim:2d} barf={barf!s:5} "
                           f"transient={transient!s:5} {name:8s} max_abs_err "
                           + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
-                    if (a_dim, transient, dtype, barf) == (
-                            48, True, torch.bfloat16, False):
-                        main_err = max(errs.values())
     if failures:
         fail("\n".join(failures))
-    return main_err
 
 
 def frame_rays(dev):
@@ -277,9 +307,9 @@ def phase_render(dev):
     return launches, cfg
 
 
-def profile_frame(frame):
-    """Device time of one frame by kernel (torch.profiler), and the share
-    of the frame's wall time in which the device was busy."""
+def profile_frame(frame, what="frame"):
+    """Device time of one call by kernel (torch.profiler), and the share
+    of its wall time in which the device was busy."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -297,13 +327,15 @@ def profile_frame(frame):
     busy_ms = sum(r[0] for r in rows)
     if not rows:
         print("[profile] the profiler saw no device time: not measured")
-        return
-    print(f"[profile] one frame: device busy {busy_ms:.1f} ms of "
+        return None
+    print(f"[profile] one {what}: device busy {busy_ms:.1f} ms of "
           f"{wall_ms:.1f} ms wall ({100 * busy_ms / wall_ms:.1f}%), "
-          f"idle {100 * (1 - busy_ms / wall_ms):.1f}%")
+          f"idle {100 * (1 - busy_ms / wall_ms):.1f}%; "
+          f"{sum(r[1] for r in rows)} device kernels")
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         print(f"[profile] {ms:9.2f} ms {100 * ms / busy_ms:5.1f}% "
               f"x{count:<4d} {key[:90]}")
+    return busy_ms, wall_ms
 
 
 def phase_timing(dev, cfg, smi_name):
@@ -325,11 +357,17 @@ def phase_timing(dev, cfg, smi_name):
     kw = dict(n_freq_xyz=cfg.N_emb_xyz, n_freq_dir=cfg.N_emb_dir,
               a_dim=cfg.N_a, t_dim=cfg.N_tau, has_transient=True, dtype=dtype)
     with torch.no_grad():
+        errs, faults = fwd_errors(fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw),
+                                  fm.fused_mlp_reference(inp, net, sx, sd,
+                                                         **kw), True, dtype)
+        print(f"[timing] fused_mlp_fwd vs plain at {n} points: max_abs_err "
+              + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+        if faults:
+            fail(f"forward kernel != plain at {n} points: " + "; ".join(faults))
         for _ in range(2):                                   # warm up
             fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
         k_ms, k_all = cuda_ms(lambda: fm.fused_mlp_fwd_cuda(
             inp, net, sx, sd, **kw), 7)
-        fm.fused_mlp_reference(inp, net, sx, sd, **kw)
         p_ms, p_all = cuda_ms(lambda: fm.fused_mlp_reference(
             inp, net, sx, sd, **kw), 5)
     flops = 2.0 * fine_macs(cfg) * n
@@ -348,7 +386,304 @@ def phase_timing(dev, cfg, smi_name):
           f"({peak_flops / 1e12:.0f} TFLOP/s bf16, {peak_bw / 1e12:.2f} TB/s);"
           f" {flops / k_ms / 1e9:.1f} TFLOP/s achieved = "
           f"{100 * bound_ms / k_ms:.1f}% of bound")
-    return k_ms, p_ms, bound_ms, bound_by
+    return k_ms, p_ms, bound_ms, bound_by, max(errs.values())
+
+
+def bwd_errors(got, ref, a_dim, transient):
+    """Per unpacked tensor (every weight and bias grad, then d_inp): (max
+    |d|, max |ref|, ||d||, ||ref||)."""
+    from nerf_fl_torch.ops import fused_mlp as fm
+    widths = (63, 27 + a_dim, 16, transient)
+    pairs = list(zip(fm.unpack_weight_grads(got[0], got[1], *widths),
+                     fm.unpack_weight_grads(ref[0], ref[1], *widths)))
+    pairs.append((got[2], ref[2]))
+    out = []
+    for x, y in pairs:
+        d = (x - y).float()
+        out.append((float(d.abs().max()), float(y.abs().max()),
+                    float(d.norm()), float(y.norm())))
+    return out
+
+
+def bwd_faults(errs, dtype):
+    """The backward gate: f32 max |d| <= BWD_F32_REL max |ref| per tensor,
+    bf16 ||d|| <= BWD_BF16_NORM ||ref||; one line per tensor outside it."""
+    import torch
+    return [f"tensor {j}: max {mx:.3e} of {ref_mx:.3e}, norm {nd:.3e} of "
+            f"{nref:.3e}" for j, (mx, ref_mx, nd, nref) in enumerate(errs)
+            if (mx > BWD_F32_REL * ref_mx if dtype == torch.float32
+                else nd > BWD_BF16_NORM * nref)]
+
+
+def norm_rel(errs) -> float:
+    """Worst ||d|| / ||ref|| over the tensors of bwd_errors."""
+    return max(e[2] / max(e[3], 1e-30) for e in errs)
+
+
+def phase_bwd_kernels(dev):
+    """Backward kernel vs plain version in every variant, and two launches
+    bitwise equal."""
+    import torch
+    from nerf_fl_torch.core.encoding import barf_weights
+    from nerf_fl_torch.models import NeRFConfig, init_nerf
+    from nerf_fl_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(3)
+    failures = []
+    for a_dim in (48, 0):
+        mcfg = NeRFConfig(typ="fine", encode_appearance=a_dim > 0,
+                          in_channels_a=a_dim or 48, encode_transient=True)
+        model = init_nerf(mcfg, generator=gen).to(dev)
+        xyz, dirs, a, t = make_points(N_KERNEL_CHECK, a_dim, 16, gen, dev)
+        g = torch.zeros(N_KERNEL_CHECK, fm.OUT_W)
+        g[:, :9] = torch.randn(N_KERNEL_CHECK, 9, generator=gen)
+        g = g.to(dev)
+        for barf in (False, True):
+            bw = (barf_weights(6.0, 10, 4, 8, device=dev),
+                  barf_weights(6.0, 4, 4, 8, device=dev)) if barf \
+                else (None, None)
+            sx, sd = fm.default_scale_rows(10, 4, a_dim, *bw, device=dev)
+            for transient in (True, False):
+                inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
+                for dtype in (torch.bfloat16, torch.float32):
+                    net = fm.pack_weights(model, a_dim, transient, dtype,
+                                          10, 4, 16)
+                    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
+                              t_dim=16 if transient else 0,
+                              has_transient=transient, dtype=dtype)
+                    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+                    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+                    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g,
+                                                     **kw)
+                    torch.cuda.synchronize()
+                    name = str(dtype).split(".")[-1]
+                    tag = (f"a_dim={a_dim} barf={barf} transient={transient}"
+                           f" {name}")
+                    outs = got[0] + got[1] + [got[2]]
+                    if not all(torch.isfinite(x).all() for x in outs):
+                        failures.append(f"non-finite backward output {tag}")
+                    if not all(torch.equal(x, y) for x, y in zip(
+                            outs, again[0] + again[1] + [again[2]])):
+                        failures.append(f"two launches differ: {tag}")
+                    errs = bwd_errors(got, ref, a_dim, transient)
+                    failures += [f"backward kernel != plain {tag}: {f}"
+                                 for f in bwd_faults(errs, dtype)]
+                    rel = [e[0] / max(e[1], 1e-30) for e in errs]
+                    print(f"[bwd kernel] {tag:42s} deterministic: max |d| "
+                          f"/ max |ref| per leaf "
+                          + " ".join(f"{r:.1e}" for r in rel[:-1])
+                          + f"; d_inp {rel[-1]:.1e}; worst norm-rel "
+                          f"{norm_rel(errs):.1e}")
+    if failures:
+        fail("\n".join(failures))
+
+
+def train_pool(dev, gen):
+    """bench.py's synthetic pool on the card: o ~ N(0, 1), unit d, near 2,
+    far 6, ts in [0, 1500), and the learnable target rgb = 0.5 + 0.4 d."""
+    import torch
+    o = torch.randn(POOL, 3, generator=gen, device=dev)
+    d = torch.randn(POOL, 3, generator=gen, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    ones = torch.ones(POOL, 1, device=dev)
+    return {"rays": torch.cat([o, d, 2 * ones, 6 * ones], 1),
+            "ts": torch.randint(0, N_VOCAB, (POOL,), generator=gen,
+                                device=dev),
+            "rgbs": 0.5 + 0.4 * d}
+
+
+def phase_train(dev):
+    """Train the flagship from the device pool.  Returns the fused forward
+    and backward launch counts of one bf16 step."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+    from types import SimpleNamespace
+    from nerf_fl_torch.ops import fused_mlp as fm
+    from nerf_fl_torch.render import RenderConfig, render_rays
+    from nerf_fl_torch.training import (build_params, epoch_perm, losses,
+                                        make_device_pool_step, optimizers)
+
+    cfg = RenderConfig(**{**FLAGSHIP, "perturb": 1.0})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build_params(cfg, N_VOCAB, generator=gen, device=dev)
+    pool = train_pool(dev, gen)
+    perm = torch.from_numpy(epoch_perm(0, 0, POOL, POOL)).to(dev)
+    leaves = optimizers.named_leaves(params)
+
+    # (a) one f32 step's gradients: fused kernels vs the plain MLP path
+    f32 = replace(cfg, compute_dtype="float32", perturb=0.0)
+    idx = perm[:BATCH].long()
+    batch = {k: v.index_select(0, idx) for k, v in pool.items()}
+    grads = []
+    for use_fused in (None, False):
+        for _, leaf in leaves:
+            leaf.grad = None
+        res = render_rays(params, batch["rays"], batch["ts"],
+                          replace(f32, use_fused=use_fused))
+        sum(losses.nerfw_loss(res, batch["rgbs"]).values()).backward()
+        grads.append({k: leaf.grad.clone() for k, leaf in leaves})
+    rel = {k: float(((grads[0][k] - grads[1][k]).abs()
+                     / (grads[1][k].abs() + 1e-3)).max()) for k in grads[0]}
+    worst = max(rel, key=rel.get)
+    print(f"[train] f32 step, fused vs plain MLP path: {len(rel)} leaves, "
+          f"max rel err {rel[worst]:.2e} ({worst})")
+    if rel[worst] > GRAD_REL or not all(
+            torch.isfinite(g).all() for g in grads[0].values()):
+        fail(f"fused and plain gradients disagree: {rel}")
+    for _, leaf in leaves:
+        leaf.grad = None
+
+    # (b) the main path: counts at 0 just before one bf16 step, read after
+    opt = optimizers.build_optimizer(
+        SimpleNamespace(optimizer="adam", lr=5e-4, weight_decay=0.0),
+        optimizers.trainable_parameters(
+            params, optimizers.make_trainable_mask(params, False)))
+    run = make_device_pool_step(cfg, opt, batch_size=BATCH)
+    fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+    first = run(params, pool, perm, 0, 5e-4, generator=gen)
+    torch.cuda.synchronize()
+    launches = (fm.fused_mlp_fwd_cuda.launches,
+                fm.fused_mlp_bwd_cuda.launches)
+    print(f"[train] one bf16 step: fused forward launches {launches[0]}, "
+          f"backward launches {launches[1]} (expected 2 and 2); metrics "
+          + " ".join(f"{k}={float(v):.4f}" for k, v in first.items()))
+    if launches != (2, 2):
+        fail(f"a train step made {launches} fused launches, expected (2, 2)")
+
+    # (c) train: the loss must stay finite and fall
+    curve = [float(first["train/loss"])]
+    for i in range(1, TRAIN_STEPS):
+        curve.append(run(params, pool, perm, i, 5e-4,
+                         generator=gen)["train/loss"])
+    curve = np.array([float(v) for v in curve])
+    head, tail = curve[:10].mean(), curve[-10:].mean()
+    print(f"[train] {TRAIN_STEPS} steps: loss mean of the first 10 "
+          f"{head:.4f}, of the last 10 {tail:.4f} (min {curve.min():.4f}, "
+          f"max {curve.max():.4f})")
+    if not np.isfinite(curve).all() or not tail < head:
+        fail("the training loss did not fall")
+
+    # (d) step time: host clock over windows that end in a synchronize;
+    # then the same step through the plain MLP path (cuBLAS GEMMs under
+    # autograd) as the yardstick, and the fused step once more
+    i0 = TRAIN_STEPS
+    plain = make_device_pool_step(replace(cfg, use_fused=False), opt,
+                                  batch_size=BATCH)
+    results = {}
+    for name, fn in (("fused", run), ("plain MLP path", plain),
+                     ("fused", run)):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            for i in range(i0, i0 + 20):
+                fn(params, pool, perm, i, 5e-4, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - s) * 1e3 / 20)
+            i0 += 20
+        results.setdefault(name, []).append(sorted(times)[1])
+        print(f"[train] {name} step ms {sorted(times)[1]:.2f} (windows of "
+              f"20: {[round(x, 2) for x in times]}), train rays/s "
+              f"{BATCH / sorted(times)[1] * 1e3:.0f}")
+    step_ms = results["fused"][0]
+
+    # (e) one step's device time by kernel, up to its last kernel's end
+    def one_step():
+        run(params, pool, perm, i0, 5e-4, generator=gen)
+        torch.cuda.synchronize()
+
+    share = profile_frame(one_step, what="train step")
+    if share is not None:
+        # the profiler slows the host; the unprofiled step is the yardstick
+        print(f"[train] device busy {share[0]:.1f} ms of the {step_ms:.2f} "
+              f"ms timed step: {100 * share[0] / step_ms:.1f}% busy, "
+              f"{100 * (1 - share[0] / step_ms):.1f}% idle")
+
+    def one_plain_step():
+        plain(params, pool, perm, i0 + 1, 5e-4, generator=gen)
+        torch.cuda.synchronize()
+
+    profile_frame(one_plain_step, what="plain MLP path train step")
+    return launches
+
+
+def phase_bwd_timing(cfg, smi_name):
+    """The forward and backward kernels at the train step's shapes, fine
+    (131,072 points, a_dim 48, transient) and coarse (65,536 points, a_dim
+    0), held against their plain versions; then the backward timed."""
+    import torch
+    from nerf_fl_torch.models import NeRFConfig, init_nerf
+    from nerf_fl_torch.ops import fused_mlp as fm
+
+    dev = torch.device("cuda", 0)
+    part, (peak_flops, peak_bw) = peak_for(smi_name)
+    out = {}
+    gen = torch.Generator().manual_seed(4)
+    for name, n, a_dim, transient in (
+            ("fine", BATCH * (cfg.N_samples + cfg.N_importance), cfg.N_a,
+             True),
+            ("coarse", BATCH * cfg.N_samples, 0, False)):
+        model = init_nerf(NeRFConfig(typ="fine", encode_appearance=a_dim > 0,
+                                     encode_transient=True),
+                          generator=gen).to(dev)
+        xyz, dirs, a, t = make_points(n, a_dim, cfg.N_tau, gen, dev)
+        inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
+        g = torch.zeros(n, fm.OUT_W)
+        g[:, :9] = torch.randn(n, 9, generator=gen)
+        g = g.to(dev)
+        net = fm.pack_weights(model, a_dim, transient, cfg.dtype,
+                              cfg.N_emb_xyz, cfg.N_emb_dir, cfg.N_tau)
+        sx, sd = fm.default_scale_rows(cfg.N_emb_xyz, cfg.N_emb_dir, a_dim,
+                                       device=dev)
+        kw = dict(n_freq_xyz=cfg.N_emb_xyz, n_freq_dir=cfg.N_emb_dir,
+                  a_dim=a_dim, t_dim=cfg.N_tau if transient else 0,
+                  has_transient=transient, dtype=cfg.dtype)
+        with torch.no_grad():
+            f_errs, faults = fwd_errors(
+                fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw),
+                fm.fused_mlp_reference(inp, net, sx, sd, **kw), transient,
+                cfg.dtype)
+        errs = bwd_errors(fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw),
+                          fm.fused_mlp_bwd_reference(inp, net, sx, sd, g,
+                                                     **kw), a_dim, transient)
+        faults += bwd_faults(errs, cfg.dtype)
+        print(f"[bwd timing] {name}: at {n} points, fused_mlp_fwd vs plain "
+              f"max_abs_err {max(f_errs.values()):.2e}; fused_mlp_bwd vs "
+              f"plain max_abs_err {max(e[0] for e in errs):.2e}, worst "
+              f"norm-rel {norm_rel(errs):.2e} (limit {BWD_BF16_NORM:g})")
+        if faults:
+            fail(f"kernel != plain at the {name} pass's {n} points: "
+                 + "; ".join(faults))
+        for _ in range(2):                                   # warm up
+            fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+        k_ms, k_all = cuda_ms(lambda: fm.fused_mlp_bwd_cuda(
+            inp, net, sx, sd, g, **kw), 7)
+        p_ms, p_all = cuda_ms(lambda: fm.fused_mlp_bwd_reference(
+            inp, net, sx, sd, g, **kw), 5)
+        # forward recompute + dgrad + wgrad: 3x the forward's operations
+        flops = 3 * 2.0 * fine_macs(cfg, a_dim, transient) * n
+        w_bytes = sum(w.numel() * w.element_size() for w in net.ws) \
+            + sum(b.numel() * 4 for b in net.bs)
+        # inp, g and d_inp once, weights read once, f32 grads written once
+        n_bytes = n * (128 + fm.OUT_W + 128) * 4 + w_bytes \
+            + sum(w.numel() * 4 for w in net.ws) + 2 * 128 * 4
+        t_ops, t_bytes = flops / peak_flops * 1e3, n_bytes / peak_bw * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[bwd timing] {name}: fused_mlp_bwd {cfg.compute_dtype} at {n} "
+              f"points: {k_ms:.3f} ms/launch (runs "
+              f"{[round(x, 3) for x in k_all]}); plain {p_ms:.3f} ms (runs "
+              f"{[round(x, 3) for x in p_all]})")
+        print(f"[bwd timing] {name}: work {flops / 1e12:.3f} TFLOP, "
+              f"{n_bytes / 1e9:.3f} GB; bound {bound_ms:.3f} ms by {bound_by} "
+              f"at {part} peaks; {flops / k_ms / 1e9:.1f} TFLOP/s achieved "
+              f"= {100 * bound_ms / k_ms:.1f}% of bound")
+        out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, fwd_err=max(f_errs.values()),
+                         bwd_err=max(e[0] for e in errs),
+                         bwd_norm_rel=norm_rel(errs))
+    return out
 
 
 def main() -> int:
@@ -376,21 +711,45 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(_build.sources())
     print(f"[build] {_build.sources()} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log("fused_mlp_fwd").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("[ptxas]", line.strip())
+    for src in _build.sources():
+        for line in _build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[ptxas] {src}:", line.strip())
 
-    max_err = phase_kernels(dev)
+    smi_name = smi.split(",")[0]
+    phase_kernels(dev)
     launches, cfg = phase_render(dev)
-    k_ms, p_ms, bound_ms, bound_by = phase_timing(dev, cfg, smi.split(",")[0])
+    k_ms, p_ms, bound_ms, bound_by, chunk_err = phase_timing(dev, cfg,
+                                                             smi_name)
+    phase_bwd_kernels(dev)
+    fwd_train, bwd_train = phase_train(dev)
+    train = phase_bwd_timing(cfg, smi_name)
+    bwd = train["fine"]
 
+    # launches: each main path's run (the render frame, one train step);
+    # errors: the worst over the main paths' shapes (the render chunk, the
+    # fine and the coarse pass of a train step), bf16
     kernels = [{
         "name": "fused_mlp_fwd", "route": "cuda",
         "source": "nerf_fl_torch/csrc/fused_mlp_fwd.cu",
         "replaces": "nerf_fl_tpu/ops/fused_mlp.py:319",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + fwd_train,
+        "launches_by_path": {"render_frame": launches,
+                             "train_step": fwd_train},
+        "max_abs_err": max([chunk_err] + [v["fwd_err"] for v in train.values()]),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]
+        "bound_by": bound_by, "library_ms": None}, {
+        "name": "fused_mlp_bwd", "route": "cuda",
+        "source": "nerf_fl_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "nerf_fl_tpu/ops/fused_mlp.py:359",
+        "launches": bwd_train,
+        "launches_by_path": {"render_frame": 0, "train_step": bwd_train},
+        "max_abs_err": max(v["bwd_err"] for v in train.values()),
+        "max_norm_rel_err": max(v["bwd_norm_rel"] for v in train.values()),
+        "norm_rel_limit": BWD_BF16_NORM,
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": None}]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,16 +41,21 @@ def _get(tree, path):
     return tree
 
 
-def _dense(lin: nn.Linear) -> Dict[str, np.ndarray]:
-    return {"w": lin.weight.detach().cpu().numpy().T.copy(),
-            "b": lin.bias.detach().cpu().numpy().copy()}
+def _leaf(t: torch.Tensor, grad: bool) -> np.ndarray:
+    if grad:
+        t = torch.zeros_like(t) if t.grad is None else t.grad
+    return t.detach().cpu().numpy().copy()
+
+
+def _dense(lin: nn.Linear, grad: bool = False) -> Dict[str, np.ndarray]:
+    return {"w": _leaf(lin.weight, grad).T.copy(), "b": _leaf(lin.bias, grad)}
 
 
 def from_jax_params(tree: Dict[str, Any], cfg: RenderConfig, *,
                     device="cpu") -> Dict[str, Any]:
     """JAX param pytree (numpy leaves, (in, out) weights) -> the port's
-    params: NeRF modules for the fields, (N_vocab, dim) f32 tensors for the
-    embeddings.  Shapes are checked against ``cfg``."""
+    params: NeRF modules for the fields, (N_vocab, dim) f32 ``nn.Parameter``
+    tables for the embeddings.  Shapes are checked against ``cfg``."""
     unknown = set(tree) - set(_KEYS)
     if unknown:
         raise ValueError(f"not ported yet: {sorted(unknown)}")
@@ -73,26 +78,36 @@ def from_jax_params(tree: Dict[str, Any], cfg: RenderConfig, *,
         out[key] = model.to(device)
     for key in ("embedding_a", "embedding_t"):
         if key in tree:
-            out[key] = torch.tensor(np.asarray(tree[key], np.float32),
-                                    device=device)
+            out[key] = nn.Parameter(torch.tensor(
+                np.asarray(tree[key], np.float32), device=device))
     return out
 
 
 def to_numpy_tree(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's params -> the JAX layout with numpy leaves."""
+    return _numpy_tree(params, grads=False)
+
+
+def grads_to_numpy_tree(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Each leaf's ``.grad`` (zeros where it is None) in the JAX gradient
+    tree's layout, numpy, so tests compare gradients leaf for leaf."""
+    return _numpy_tree(params, grads=True)
+
+
+def _numpy_tree(params: Dict[str, Any], grads: bool) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for key, v in params.items():
         if isinstance(v, NeRF):
-            sub = {"xyz": [_dense(lin) for lin in v.xyz]}
+            sub = {"xyz": [_dense(lin, grads) for lin in v.xyz]}
             for name in ("xyz_final", "dir", "static_sigma", "static_rgb"):
-                sub[name] = _dense(getattr(v, name))
+                sub[name] = _dense(getattr(v, name), grads)
             if v.transient is not None:
                 tp = v.transient
                 sub["transient"] = {
-                    "layers": [_dense(lin) for lin in tp.layers],
-                    **{n: _dense(getattr(tp, n))
+                    "layers": [_dense(lin, grads) for lin in tp.layers],
+                    **{n: _dense(getattr(tp, n), grads)
                        for n in ("sigma", "rgb", "beta")}}
             out[key] = sub
         else:
-            out[key] = v.detach().cpu().numpy().copy()
+            out[key] = _leaf(v, grads)
     return out

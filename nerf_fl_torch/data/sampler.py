@@ -1,0 +1,65 @@
+"""Shuffled-epoch ray batches over flat host buffers.
+
+The port's own copy of ``nerf_fl_tpu/data/sampler.py``: the same
+``np.random.default_rng([seed, epoch])`` permutation, so for a given seed
+the port and the JAX package train on identical batches, and the device
+pool (``training/system.py:epoch_perm``) draws the same order.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+
+class RayBatcher:
+    """Shuffled-epoch batch iterator over flat (rays, ts, rgbs) buffers."""
+
+    def __init__(self, rays: np.ndarray, ts: np.ndarray, rgbs: np.ndarray,
+                 batch_size: int, seed: int = 0, drop_last: bool = True,
+                 host_index: int = 0, host_count: int = 1):
+        """``batch_size`` is the global batch; with ``host_count`` > 1 every
+        process draws the same permutation and keeps its contiguous
+        batch_size / host_count slice."""
+        if not len(rays) == len(ts) == len(rgbs):
+            raise ValueError("rays, ts and rgbs differ in length")
+        if batch_size % host_count:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"host_count {host_count}")
+        if host_count > 1 and not drop_last:
+            raise ValueError("drop_last=False is not supported with "
+                             "host-sharded batching")
+        self.rays, self.ts, self.rgbs = rays, ts, rgbs
+        self.batch_size = batch_size
+        self.seed = seed
+        self.drop_last = drop_last
+        self.host_index = host_index
+        self.host_count = host_count
+        self.n = len(rays)
+
+    def steps_per_epoch(self) -> int:
+        if self.drop_last:
+            return self.n // self.batch_size
+        return -(-self.n // self.batch_size)
+
+    def epoch(self, epoch_idx: int) -> Iterator[Dict[str, np.ndarray]]:
+        """Deterministic shuffle per epoch, seeded by the pair [seed,
+        epoch] (not their sum, which collides across runs)."""
+        perm = np.random.default_rng([self.seed, epoch_idx]).permutation(
+            self.n)
+        B = self.batch_size
+        lo = self.host_index * B // self.host_count
+        hi = (self.host_index + 1) * B // self.host_count
+        stop = self.n - (self.n % B) if self.drop_last else self.n
+        for i in range(0, stop, B):
+            idx = perm[i:i + B][lo:hi]
+            yield {"rays": self.rays[idx], "ts": self.ts[idx],
+                   "rgbs": self.rgbs[idx]}
+
+    def sample(self, rng: np.random.Generator,
+               batch_size: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """IID random batch."""
+        B = batch_size or self.batch_size
+        idx = rng.integers(0, self.n, size=B)
+        return {"rays": self.rays[idx], "ts": self.ts[idx],
+                "rgbs": self.rgbs[idx]}

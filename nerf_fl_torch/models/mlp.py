@@ -95,9 +95,26 @@ def init_nerf(cfg: NeRFConfig, *, generator: Optional[torch.Generator] = None,
     return model
 
 
+class _Softplus(torch.autograd.Function):
+    """The forward of ``jax.nn.softplus`` = logaddexp(x, 0), written the
+    same way, with its gradient sigmoid(x) everywhere.  (Autograd of the
+    forward formula gives 1 at x = 0, through clamp and abs; JAX's
+    logaddexp JVP gives 0.5.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.sigmoid(x) * g
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus`` = logaddexp(x, 0), written the same way."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    """``jax.nn.softplus``: forward and gradient."""
+    return _Softplus.apply(x)
 
 
 def _mm(x, w_t, out_dtype):

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes a shared library with a plain C interface,
 ``nerf_fl_torch/_build/<name>-<hash>.so``, loaded with ctypes.  The hash
-covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing here runs at import time.
+covers the source, the shared headers under ``csrc/`` and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -35,9 +36,14 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"{name}-{h}.so"
+    """The library path for ``csrc/<name>.cu``, keyed by the source, every
+    header under ``csrc/`` (the sources share them) and the flags."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu"] + sorted(
+            p for p in CSRC.iterdir() if p.suffix in (".cuh", ".h")):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -1,12 +1,13 @@
-"""Fused positional encoding + NeRF-W MLP forward: the Hopper kernel, its
-plain PyTorch version and the wrapper that chooses between them.
+"""Fused positional encoding + NeRF-W MLP, forward and backward: the Hopper
+kernels, their plain PyTorch versions and the autograd wrapper.
 
-Counterpart of ``nerf_fl_tpu/ops/fused_mlp.py`` (forward only).  The kernel
-is ``csrc/fused_mlp_fwd.cu``; this module packs its operands, launches it,
-and keeps ``fused_mlp_reference``, the same arithmetic in eager torch with
-the same rounding points.  The wrapper ``fused_apply_nerf`` launches the
-kernel for CUDA tensors (or raises) and runs the plain version only for
-tensors on the CPU.
+Counterpart of ``nerf_fl_tpu/ops/fused_mlp.py``.  The kernels are
+``csrc/fused_mlp_fwd.cu`` and ``csrc/fused_mlp_bwd.cu``; this module packs
+their operands and launches them, and keeps ``fused_mlp_reference`` and
+``fused_mlp_bwd_reference``, the same arithmetic in eager torch with the
+same rounding points.  ``fused_apply_nerf`` is differentiable: it runs both
+through a ``torch.autograd.Function`` that launches the kernels for CUDA
+tensors (or raises) and runs the plain versions only for tensors on the CPU.
 
 Layouts:
   * input, one packed (N, 128) f32 row per point:
@@ -131,6 +132,19 @@ class PackedNet(NamedTuple):
     kt: int                   # padded t width (0 without transient)
 
 
+def field_linears(model: NeRF, has_transient: bool) -> List[torch.nn.Linear]:
+    """The field's layers in the fixed order the autograd Function takes
+    their (weight, bias) pairs: trunk 0..7, xyz_final, static_sigma, dir,
+    static_rgb, then with transient: transient layers 0..3, rgb, sigma,
+    beta."""
+    lins = list(model.xyz) + [model.xyz_final, model.static_sigma,
+                              model.dir, model.static_rgb]
+    if has_transient:
+        tp = model.transient
+        lins += list(tp.layers) + [tp.rgb, tp.sigma, tp.beta]
+    return lins
+
+
 def pack_weights(model: NeRF, a_dim: int, has_transient: bool, dtype,
                  n_freq_xyz: int, n_freq_dir: int,
                  t_dim: int = 0) -> PackedNet:
@@ -140,103 +154,146 @@ def pack_weights(model: NeRF, a_dim: int, has_transient: bool, dtype,
     [xyz_final | static sigma at col 256+3], dir, static rgb head, then with
     transient: transient 0..3, fused transient heads [rgb | sigma | beta] at
     cols 4..8."""
+    params = [t.detach() for lin in field_linears(model, has_transient)
+              for t in (lin.weight, lin.bias)]
+    return _pack(params, a_dim, has_transient, dtype, n_freq_xyz, n_freq_dir,
+                 t_dim)
+
+
+def _pack(params, a_dim: int, has_transient: bool, dtype, n_freq_xyz: int,
+          n_freq_dir: int, t_dim: int) -> PackedNet:
+    """``pack_weights`` from the flat [weight, bias, ...] list of
+    ``field_linears`` order."""
     f32 = torch.float32
-    dev = model.xyz[0].weight.device
+    dev = params[0].device
     k0 = _round16(3 + 6 * n_freq_xyz)
     kd = _round16(3 + 6 * n_freq_dir + a_dim)
     kt = _round16(t_dim) if has_transient else 0
-    n_xyz_in = model.xyz[0].in_features
-
-    def wt(lin, rows=None):
-        w = lin.weight.detach().t().to(f32)
-        return w if rows is None else w[rows]
+    lw = [w.to(f32).t() for w in params[0::2]]       # (in, out)
+    lb = [b.to(f32) for b in params[1::2]]
+    n_xyz_in = lw[0].shape[0]
 
     def pad_rows(w, rows):
         return torch.nn.functional.pad(w, (0, 0, 0, rows - w.shape[0]))
 
-    def bias(lin, n_out=None, at=0):
-        b = lin.bias.detach().to(f32)
-        if n_out is None:
-            return b
+    def cols(n_in, n_out, parts):
+        """(n_in, n_out) zeros with each (col, (in, k) block) placed."""
+        out = torch.zeros(n_in, n_out, dtype=f32, device=dev)
+        for at, w in parts:
+            out[:, at:at + w.shape[1]] = w
+        return out
+
+    def bias_at(n_out, parts):
         out = torch.zeros(n_out, dtype=f32, device=dev)
-        out[at:at + b.shape[0]] = b
+        for at, b in parts:
+            out[at:at + b.shape[0]] = b
         return out
 
     ws, bs = [], []
-    for i, lin in enumerate(model.xyz):
+    for i in range(8):
         if i == 0:
-            w = pad_rows(wt(lin), k0)
+            w = pad_rows(lw[0], k0)
         elif i == 4:
-            w = torch.cat([pad_rows(wt(lin)[:n_xyz_in], k0),
-                           wt(lin)[n_xyz_in:]])
+            w = torch.cat([pad_rows(lw[4][:n_xyz_in], k0), lw[4][n_xyz_in:]])
         else:
-            w = wt(lin)
+            w = lw[i]
         ws.append(w)
-        bs.append(bias(lin))
-    # fs2: (256, 256 + 16)
-    wfs = torch.zeros(W_TRUNK, W_TRUNK + OUT_W, dtype=f32, device=dev)
-    wfs[:, :W_TRUNK] = wt(model.xyz_final)
-    wfs[:, W_TRUNK + COL_S_SIGMA] = wt(model.static_sigma)[:, 0]
-    bfs = torch.zeros(W_TRUNK + OUT_W, dtype=f32, device=dev)
-    bfs[:W_TRUNK] = bias(model.xyz_final)
-    bfs[W_TRUNK + COL_S_SIGMA] = bias(model.static_sigma)[0]
-    ws.append(wfs)
-    bs.append(bfs)
+        bs.append(lb[i])
+    # fs2: (256, 256 + 16) = [xyz_final | static sigma at col 256 + 3]
+    ws.append(cols(W_TRUNK, W_TRUNK + OUT_W,
+                   [(0, lw[8]), (W_TRUNK + COL_S_SIGMA, lw[9])]))
+    bs.append(bias_at(W_TRUNK + OUT_W,
+                      [(0, lb[8]), (W_TRUNK + COL_S_SIGMA, lb[9])]))
     # dir branch: (256 + kd, 128)
-    wd = wt(model.dir)
-    ws.append(torch.cat([wd[:W_TRUNK], pad_rows(wd[W_TRUNK:], kd)]))
-    bs.append(bias(model.dir))
+    ws.append(torch.cat([lw[10][:W_TRUNK], pad_rows(lw[10][W_TRUNK:], kd)]))
+    bs.append(lb[10])
     # static rgb head at output cols 0..2: (128, 16)
-    wr = torch.zeros(W_HALF, OUT_W, dtype=f32, device=dev)
-    wr[:, COL_S_RGB:COL_S_RGB + 3] = wt(model.static_rgb)
-    ws.append(wr)
-    bs.append(bias(model.static_rgb, OUT_W, COL_S_RGB))
+    ws.append(cols(W_HALF, OUT_W, [(COL_S_RGB, lw[11])]))
+    bs.append(bias_at(OUT_W, [(COL_S_RGB, lb[11])]))
     if has_transient:
-        tp = model.transient
-        w0 = wt(tp.layers[0])
-        ws.append(torch.cat([w0[:W_TRUNK], pad_rows(w0[W_TRUNK:], kt)]))
-        bs.append(bias(tp.layers[0]))
-        for lin in tp.layers[1:]:
-            ws.append(wt(lin))
-            bs.append(bias(lin))
-        wth = torch.zeros(W_HALF, OUT_W, dtype=f32, device=dev)
-        wth[:, COL_T_RGB:COL_T_RGB + 3] = wt(tp.rgb)
-        wth[:, COL_T_SIGMA] = wt(tp.sigma)[:, 0]
-        wth[:, COL_T_BETA] = wt(tp.beta)[:, 0]
-        bth = torch.zeros(OUT_W, dtype=f32, device=dev)
-        bth[COL_T_RGB:COL_T_RGB + 3] = bias(tp.rgb)
-        bth[COL_T_SIGMA] = bias(tp.sigma)[0]
-        bth[COL_T_BETA] = bias(tp.beta)[0]
-        ws.append(wth)
-        bs.append(bth)
+        ws.append(torch.cat([lw[12][:W_TRUNK],
+                             pad_rows(lw[12][W_TRUNK:], kt)]))
+        bs.append(lb[12])
+        ws += lw[13:16]
+        bs += lb[13:16]
+        heads_at = [(COL_T_RGB, 16), (COL_T_SIGMA, 17), (COL_T_BETA, 18)]
+        ws.append(cols(W_HALF, OUT_W, [(c, lw[j]) for c, j in heads_at]))
+        bs.append(bias_at(OUT_W, [(c, lb[j]) for c, j in heads_at]))
     ws = [w.to(dtype).contiguous() for w in ws]
     bs = [b.contiguous() for b in bs]
     return PackedNet(ws, bs, k0, kd, kt)
+
+
+def unpack_weight_grads(dws: List[torch.Tensor], dbs: List[torch.Tensor],
+                        n_xyz_in: int, n_dir_in: int, n_t_in: int,
+                        has_transient: bool) -> List[torch.Tensor]:
+    """Padded (K, N_out) f32 weight-grad slabs and (N_out,) bias grads ->
+    the flat [dweight (out, in), dbias, ...] list of ``field_linears``
+    order.  ``n_dir_in`` / ``n_t_in`` are the dir / first transient layer's
+    conditioning widths beyond the 256 trunk columns (27 + a_dim, t_dim).
+    Every padded row and column is dropped: the kernels' heads compute all
+    16 output columns, only the live ones are parameters."""
+    k0 = dws[0].shape[0]
+
+    def lin(dw, db):
+        return [dw.t().contiguous(), db.contiguous()]
+
+    def split(dw, at, n, rest):
+        return torch.cat([dw[:at], dw[rest:rest + n]])
+
+    out = []
+    for i in range(8):
+        dw = dws[i]
+        if i == 0:
+            dw = dw[:n_xyz_in]
+        elif i == 4:
+            dw = torch.cat([dw[:n_xyz_in], dw[k0:]])
+        out += lin(dw, dbs[i])
+    c = W_TRUNK + COL_S_SIGMA
+    out += lin(dws[8][:, :W_TRUNK], dbs[8][:W_TRUNK])
+    out += lin(dws[8][:, c:c + 1], dbs[8][c:c + 1])
+    out += lin(dws[9][:W_TRUNK + n_dir_in], dbs[9])
+    out += lin(dws[10][:, COL_S_RGB:COL_S_RGB + 3],
+               dbs[10][COL_S_RGB:COL_S_RGB + 3])
+    if has_transient:
+        out += lin(dws[11][:W_TRUNK + n_t_in], dbs[11])
+        for i in (12, 13, 14):
+            out += lin(dws[i], dbs[i])
+        for c, n in ((COL_T_RGB, 3), (COL_T_SIGMA, 1), (COL_T_BETA, 1)):
+            out += lin(dws[15][:, c:c + n], dbs[15][c:c + n])
+    return out
 
 
 # ----------------------------------------------------------------------
 # plain version
 # ----------------------------------------------------------------------
 
-def _encode(inp, R, ph, trg, scale, src, width):
-    """Columns [0, width) of where(trg, sin_cw(E, ph), E) * scale with
-    E = sum_c inp[:, src+c] * R[c] (exact: one non-zero term per column)."""
-    R, ph, trg, scale = (x[:, :width] for x in (R, ph, trg, scale))
-    E = inp[:, src:src + 1] * R[0:1]
+def _pe_arg(inp, R, src, width):
+    """E = sum_c inp[:, src+c] * R[c], columns [0, width) (exact: one
+    non-zero term per column)."""
+    E = inp[:, src:src + 1] * R[0:1, :width]
     for c in (1, 2):
-        E = E + inp[:, src + c:src + c + 1] * R[c:c + 1]
+        E = E + inp[:, src + c:src + c + 1] * R[c:c + 1, :width]
+    return E
+
+
+def _encode(inp, R, ph, trg, scale, src, width):
+    """Columns [0, width) of where(trg, sin_cw(E, ph), E) * scale."""
+    ph, trg, scale = (x[:, :width] for x in (ph, trg, scale))
+    E = _pe_arg(inp, R, src, width)
     return torch.where(trg > 0, sin_cw(E, ph), E) * scale
 
 
-def fused_mlp_reference(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
-                        sd: torch.Tensor, *, n_freq_xyz: int, n_freq_dir: int,
-                        a_dim: int, t_dim: int, has_transient: bool,
-                        dtype) -> torch.Tensor:
-    """The kernel's function in eager torch: packed (N, 128) f32 input ->
-    (N, 16) f32 pre-activations, with the kernel's rounding points."""
+def _consts(n_freq_xyz, n_freq_dir, a_dim, device):
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in _encoder_consts(n_freq_xyz, n_freq_dir, a_dim).items()}
+
+
+def _forward(inp, net: PackedNet, sx, sd, c, *, n_freq_dir, a_dim, t_dim,
+             has_transient, dtype):
+    """The fused forward in eager torch, keeping every activation the
+    backward needs.  Returns (out, acts)."""
     f32 = torch.float32
-    c = {k: torch.as_tensor(v, device=inp.device)
-         for k, v in _encoder_consts(n_freq_xyz, n_freq_dir, a_dim).items()}
     ws, bs = net.ws, net.bs
 
     def mm(a, i):                       # f32 accumulation of exact products
@@ -247,9 +304,12 @@ def fused_mlp_reference(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
         return torch.relu(y + bs[i].to(dtype))
 
     pe = _encode(inp, c["PxR"], c["phx"], c["trgx"], sx, 0, net.k0).to(dtype)
-    h = hidden(pe, 0)
-    for i in range(1, 8):
-        h = hidden(torch.cat([pe, h], -1) if i == 4 else h, i)
+    ins, outs = [], []
+    h = pe
+    for i in range(8):
+        ins.append(torch.cat([pe, h], -1) if i == 4 else h)
+        h = hidden(ins[-1], i)
+        outs.append(h)
     fs2 = mm(h, 8) + bs[8]
     xyz_final = fs2[:, :W_TRUNK].to(dtype)
 
@@ -260,17 +320,112 @@ def fused_mlp_reference(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
         a_cols = torch.nn.functional.pad(
             inp[:, 6:6 + a_dim], (d_pe, net.kd - d_pe - a_dim))
         d_tail = torch.where(ma > 0, a_cols, d_tail)
-    hd = hidden(torch.cat([xyz_final, d_tail.to(dtype)], -1), 9)
+    din = torch.cat([xyz_final, d_tail.to(dtype)], -1)
+    hd = hidden(din, 9)
     out = (mm(hd, 10) + bs[10]) + fs2[:, W_TRUNK:]
+    acts = {"ins": ins, "outs": outs, "din": din, "hd": hd}
     if has_transient:
         t0 = 6 + a_dim
         t = torch.nn.functional.pad(inp[:, t0:t0 + t_dim],
                                     (0, net.kt - t_dim)).to(dtype)
-        th = hidden(torch.cat([xyz_final, t], -1), 11)
-        for i in (12, 13, 14):
-            th = hidden(th, i)
-        out = out + (mm(th, 15) + bs[15])
-    return out
+        tacts = [torch.cat([xyz_final, t], -1)]
+        for i in (11, 12, 13, 14):
+            tacts.append(hidden(tacts[-1], i))
+        out = out + (mm(tacts[-1], 15) + bs[15])
+        acts["tacts"] = tacts
+    return out, acts
+
+
+def fused_mlp_reference(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
+                        sd: torch.Tensor, *, n_freq_xyz: int, n_freq_dir: int,
+                        a_dim: int, t_dim: int, has_transient: bool,
+                        dtype) -> torch.Tensor:
+    """The kernel's function in eager torch: packed (N, 128) f32 input ->
+    (N, 16) f32 pre-activations, with the kernel's rounding points."""
+    c = _consts(n_freq_xyz, n_freq_dir, a_dim, inp.device)
+    return _forward(inp, net, sx, sd, c, n_freq_dir=n_freq_dir, a_dim=a_dim,
+                    t_dim=t_dim, has_transient=has_transient, dtype=dtype)[0]
+
+
+def fused_mlp_bwd_reference(inp: torch.Tensor, net: PackedNet,
+                            sx: torch.Tensor, sd: torch.Tensor,
+                            g: torch.Tensor, *, n_freq_xyz: int,
+                            n_freq_dir: int, a_dim: int, t_dim: int,
+                            has_transient: bool, dtype):
+    """The backward kernel's function in eager torch, step for step with
+    ``nerf_fl_tpu/ops/fused_mlp.py:_bwd_kernel`` and its rounding points:
+    recompute the forward, then backprop the (N, 16) f32 cotangent ``g`` of
+    the pre-activations.  Inter-layer cotangents are rounded to ``dtype``;
+    weight and bias grads are f32 sums of exact products.  Returns
+    (dws, dbs, d_inp): padded (K, N_out) and (N_out,) f32 grads per packed
+    layer, and the (N, 128) f32 cotangent of the packed input.  (Not
+    autograd of ``fused_mlp_reference``: that would keep f32 cotangents.)"""
+    f32 = torch.float32
+    c = _consts(n_freq_xyz, n_freq_dir, a_dim, inp.device)
+    _, acts = _forward(inp, net, sx, sd, c, n_freq_dir=n_freq_dir,
+                       a_dim=a_dim, t_dim=t_dim, has_transient=has_transient,
+                       dtype=dtype)
+    ws = net.ws
+    dws: List[torch.Tensor] = [None] * len(ws)
+    dbs: List[torch.Tensor] = [None] * len(ws)
+
+    def dense_bwd(a_in, act_out, g, i):
+        """dW += a_in^T g, db += sum g (f32); returns g W^T rounded."""
+        if act_out is not None:              # ReLU mask, compared in f32
+            g = torch.where(act_out.to(f32) > 0, g, torch.zeros_like(g))
+        gc = g.to(dtype).to(f32)
+        dws[i] = a_in.to(f32).t() @ gc
+        dbs[i] = gc.sum(0)
+        return (gc @ ws[i].to(f32).t()).to(dtype)
+
+    def add(a, b):                           # one rounding, as a bf16 add
+        return (a.to(f32) + b.to(f32)).to(dtype)
+
+    gd = g.to(dtype)                         # the heads' cotangent
+    d_hd = dense_bwd(acts["hd"], None, gd, 10)
+    d_din = dense_bwd(acts["din"], acts["hd"], d_hd, 9)
+    d_xf, d_dtail = d_din[:, :W_TRUNK], d_din[:, W_TRUNK:]
+    if has_transient:
+        tacts = acts["tacts"]
+        gt = dense_bwd(tacts[4], None, gd, 15)
+        for k in (2, 1, 0):
+            gt = dense_bwd(tacts[k + 1], tacts[k + 2], gt, 12 + k)
+        d_tin = dense_bwd(tacts[0], tacts[1], gt, 11)
+        d_xf = add(d_xf, d_tin[:, :W_TRUNK])
+        d_ttail = d_tin[:, W_TRUNK:]
+    # fs2: [d_xyz_final | g]; only the sigma column meets non-zero weights
+    ins, outs = acts["ins"], acts["outs"]
+    gg = dense_bwd(outs[7], None, torch.cat([d_xf, gd], -1), 8)
+    for i in range(7, -1, -1):
+        gg = dense_bwd(ins[i], outs[i], gg, i)
+        if i == 4:
+            d_pe_skip, gg = gg[:, :net.k0], gg[:, net.k0:]
+    d_pe = add(gg, d_pe_skip)
+
+    # PE chain rule: dE = where(trig, cos, 1) * scale * d_pe, summed per
+    # input component over its columns (the R rows hold 1 or 2^k)
+    def d_enc(R, ph, trg, scale, src, width, d, mask=None):
+        ph, trg, scale = (x[:, :width] for x in (ph, trg, scale))
+        E = _pe_arg(inp, R, src, width)
+        dE = torch.where(trg > 0, sin_cw(E, ph + 0.25),
+                         torch.ones_like(E)) * scale
+        if mask is not None:
+            dE = torch.where(mask > 0, torch.zeros_like(dE), dE)
+        dE = dE * d.to(f32)
+        return [(dE * R[k:k + 1, :width]).sum(1) for k in range(3)]
+
+    d_inp = torch.zeros(inp.shape, dtype=f32, device=inp.device)
+    d_inp[:, 0:3] = torch.stack(d_enc(c["PxR"], c["phx"], c["trgx"], sx, 0,
+                                      net.k0, d_pe), 1)
+    d_inp[:, 3:6] = torch.stack(d_enc(c["PdR"], c["phd"], c["trgd"], sd, 3,
+                                      net.kd, d_dtail,
+                                      c["ma"][:, :net.kd]), 1)
+    if a_dim:
+        d_pe_dim = 3 + 6 * n_freq_dir
+        d_inp[:, 6:6 + a_dim] = d_dtail[:, d_pe_dim:d_pe_dim + a_dim].to(f32)
+    if has_transient:
+        d_inp[:, 6 + a_dim:6 + a_dim + t_dim] = d_ttail[:, :t_dim].to(f32)
+    return dws, dbs, d_inp
 
 
 # ----------------------------------------------------------------------
@@ -289,6 +444,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("fused_mlp_bwd")
+    lib.nerf_fused_mlp_bwd_sizes.argtypes = (
+        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)])
+    lib.nerf_fused_mlp_bwd_sizes.restype = ctypes.c_int
+    lib.nerf_fused_mlp_bwd.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+           ctypes.c_void_p])
+    lib.nerf_fused_mlp_bwd.restype = ctypes.c_int
+    return lib
+
+
 def _expected_shapes(net: PackedNet, has_transient: bool):
     k0, kd, kt = net.k0, net.kd, net.kt
     shapes = [(k0, W_TRUNK)] + [(W_TRUNK, W_TRUNK)] * 3 \
@@ -301,16 +473,12 @@ def _expected_shapes(net: PackedNet, has_transient: bool):
     return shapes
 
 
-def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
-                       sd: torch.Tensor, *, n_freq_xyz: int, n_freq_dir: int,
-                       a_dim: int, t_dim: int, has_transient: bool,
-                       dtype) -> torch.Tensor:
-    """Launch csrc/fused_mlp_fwd.cu on the current stream: packed (N, 128)
-    f32 input -> (N, 16) f32 pre-activations.  Counts its launches in
-    ``fused_mlp_fwd_cuda.launches``."""
+def _check_operands(name, inp, net, sx, sd, has_transient, dtype):
+    """Raise unless the operands are what the kernels take; returns the
+    packed layer shapes."""
     dev = inp.device
     if dev.type != "cuda":
-        raise ValueError("fused_mlp_fwd_cuda takes CUDA tensors")
+        raise ValueError(f"{name} takes CUDA tensors")
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"unsupported compute dtype {dtype}")
     if inp.dtype != torch.float32 or inp.dim() != 2 \
@@ -332,18 +500,32 @@ def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
         if tuple(r.shape) != (1, LANES) or r.dtype != torch.float32 \
                 or r.device != dev or not r.is_contiguous():
             raise ValueError("scale rows must be contiguous (1, 128) float32")
-    n = inp.shape[0]
-    if n >= 2 ** 31 // LANES:
-        raise ValueError(f"too many points for one launch: {n}")
+    if inp.shape[0] >= 2 ** 31 // LANES:
+        raise ValueError(f"too many points for one launch: {inp.shape[0]}")
+    return shapes
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * N_LAYERS)(*[t.data_ptr() for t in ts])
+
+
+def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
+                       sd: torch.Tensor, *, n_freq_xyz: int, n_freq_dir: int,
+                       a_dim: int, t_dim: int, has_transient: bool,
+                       dtype) -> torch.Tensor:
+    """Launch csrc/fused_mlp_fwd.cu on the current stream: packed (N, 128)
+    f32 input -> (N, 16) f32 pre-activations.  Counts its launches in
+    ``fused_mlp_fwd_cuda.launches``."""
+    _check_operands("fused_mlp_fwd_cuda", inp, net, sx, sd, has_transient,
+                    dtype)
+    dev, n = inp.device, inp.shape[0]
     out = torch.empty((n, OUT_W), dtype=torch.float32, device=dev)
-    w_arr = (ctypes.c_void_p * N_LAYERS)(*[w.data_ptr() for w in net.ws])
-    b_arr = (ctypes.c_void_p * N_LAYERS)(*[b.data_ptr() for b in net.bs])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().nerf_fused_mlp_fwd(
-            _DTYPE_CODE[dtype], inp.data_ptr(), out.data_ptr(), n, w_arr,
-            b_arr, sx.data_ptr(), sd.data_ptr(), n_freq_xyz, n_freq_dir,
-            a_dim, t_dim, int(has_transient), stream)
+            _DTYPE_CODE[dtype], inp.data_ptr(), out.data_ptr(), n,
+            _ptrs(net.ws), _ptrs(net.bs), sx.data_ptr(), sd.data_ptr(),
+            n_freq_xyz, n_freq_dir, a_dim, t_dim, int(has_transient), stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -354,9 +536,103 @@ def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
 fused_mlp_fwd_cuda.launches = 0
 
 
+def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
+                       sd: torch.Tensor, g: torch.Tensor, *, n_freq_xyz: int,
+                       n_freq_dir: int, a_dim: int, t_dim: int,
+                       has_transient: bool, dtype):
+    """Launch csrc/fused_mlp_bwd.cu on the current stream (the backward
+    kernel, then its fixed-order reduction of per-block partial grads).
+    Same operands as ``fused_mlp_bwd_reference`` plus the (N, 16) f32
+    cotangent ``g``; returns (dws, dbs, d_inp) as it does.  Deterministic:
+    two launches on the same inputs give bitwise-equal results.  Counts its
+    launches in ``fused_mlp_bwd_cuda.launches``."""
+    shapes = _check_operands("fused_mlp_bwd_cuda", inp, net, sx, sd,
+                             has_transient, dtype)
+    dev, n = inp.device, inp.shape[0]
+    if g.dtype != torch.float32 or tuple(g.shape) != (n, OUT_W) \
+            or g.device != dev or not g.is_contiguous():
+        raise ValueError("g must be a contiguous (N, 16) float32 tensor on "
+                         "the input's device")
+    lib = _lib_bwd()
+    sizes = (ctypes.c_longlong * 3)()
+    err = lib.nerf_fused_mlp_bwd_sizes(
+        _DTYPE_CODE[dtype], n, n_freq_xyz, n_freq_dir, a_dim, t_dim,
+        int(has_transient), sizes)
+    if err != 0:
+        raise ValueError(f"fused_mlp_bwd: unsupported shapes (error {err})")
+    scratch_bytes, partial_floats, grad_floats = (int(v) for v in sizes)
+    if grad_floats != sum(k * m + m for k, m in shapes):
+        raise RuntimeError("fused_mlp_bwd: packed layout disagrees with the "
+                           "kernel's")
+    d_inp = torch.empty((n, LANES), dtype=torch.float32, device=dev)
+    grads = torch.empty(grad_floats, dtype=torch.float32, device=dev)
+    scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8,
+                          device=dev)
+    partial = torch.empty(max(partial_floats, 1), dtype=torch.float32,
+                          device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.nerf_fused_mlp_bwd(
+            _DTYPE_CODE[dtype], inp.data_ptr(), g.data_ptr(),
+            d_inp.data_ptr(), n, _ptrs(net.ws), _ptrs(net.bs),
+            sx.data_ptr(), sd.data_ptr(), n_freq_xyz, n_freq_dir, a_dim,
+            t_dim, int(has_transient), scratch.data_ptr(),
+            partial.data_ptr(), grads.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    fused_mlp_bwd_cuda.launches += 1
+    dws, dbs, at = [], [], 0
+    for k, m in shapes:
+        dws.append(grads[at:at + k * m].view(k, m))
+        dbs.append(grads[at + k * m:at + k * m + m])
+        at += k * m + m
+    return dws, dbs, d_inp
+
+
+fused_mlp_bwd_cuda.launches = 0
+
+
 # ----------------------------------------------------------------------
-# public entry
+# autograd and the public entry
 # ----------------------------------------------------------------------
+
+class _FusedField(torch.autograd.Function):
+    """Fused PE + MLP with its hand-written backward, as JAX's custom_vjp
+    (``nerf_fl_tpu/ops/fused_mlp.py:588-639``).  Inputs: a dict of static
+    settings, the packed input, the scale rows, and the f32 (weight, bias)
+    pairs of ``field_linears`` order.  The weights are packed to the
+    compute dtype inside ``forward``, so their grads reach ``.grad`` in f32.
+    CUDA tensors launch the kernels; CPU tensors run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, meta, inp, sx, sd, *params):
+        net = _pack(params, meta["a_dim"], meta["has_transient"],
+                    meta["dtype"], meta["n_freq_xyz"], meta["n_freq_dir"],
+                    meta["t_dim"])
+        run = fused_mlp_fwd_cuda if inp.is_cuda else fused_mlp_reference
+        pre = run(inp, net, sx, sd, **meta)
+        # conditioning widths for unpack_weight_grads, from the weights of
+        # xyz.0, dir and transient.layers.0 (field_linears order)
+        lw = params[0::2]
+        ctx.meta, ctx.net = meta, net
+        ctx.widths = (lw[0].shape[1], lw[10].shape[1] - W_TRUNK,
+                      lw[12].shape[1] - W_TRUNK
+                      if meta["has_transient"] else 0)
+        ctx.save_for_backward(inp, sx, sd)
+        return pre
+
+    @staticmethod
+    def backward(ctx, g):
+        inp, sx, sd = ctx.saved_tensors
+        run = fused_mlp_bwd_cuda if inp.is_cuda else fused_mlp_bwd_reference
+        dws, dbs, d_inp = run(inp, ctx.net, sx, sd, g.contiguous(),
+                              **ctx.meta)
+        grads = unpack_weight_grads(dws, dbs, *ctx.widths,
+                                    ctx.meta["has_transient"])
+        # the BARF scale rows are schedule values, not parameters
+        return (None, d_inp, None, None, *grads)
+
 
 def fused_apply_nerf(model: NeRF, xyz, dirs, a_emb=None, t_emb=None, *,
                      output_transient: bool = False,
@@ -364,14 +640,15 @@ def fused_apply_nerf(model: NeRF, xyz, dirs, a_emb=None, t_emb=None, *,
                      n_freq_xyz: int = 10, n_freq_dir: int = 4,
                      barf_w_xyz=None, barf_w_dir=None
                      ) -> Dict[str, torch.Tensor]:
-    """Fused PE + MLP forward in place of embed + models.mlp.apply_nerf.
+    """Fused PE + MLP in place of embed + models.mlp.apply_nerf,
+    differentiable in the field's parameters and in every input.
 
     xyz, dirs: (N, 3) raw positions and per-point view directions (the PE
     happens in the kernel); a_emb (N, a_dim) or None; t_emb (N, t_dim),
     required when output_transient; barf_w_xyz / barf_w_dir: (N_freqs,)
-    BARF annealing weights or None.  CUDA tensors launch the kernel; CPU
-    tensors run ``fused_mlp_reference``.  Forward only: the backward kernel
-    is not ported yet.  Returns the same named-head dict as apply_nerf.
+    BARF annealing weights or None.  CUDA tensors launch the forward kernel
+    (and the backward kernel under autograd); CPU tensors run the plain
+    versions.  Returns the same named-head dict as apply_nerf.
     """
     if output_transient and t_emb is None:
         raise ValueError("output_transient needs t_emb")
@@ -390,30 +667,19 @@ def fused_apply_nerf(model: NeRF, xyz, dirs, a_emb=None, t_emb=None, *,
     if model.xyz[0].weight.device != dev:
         raise ValueError("fused_apply_nerf: model and inputs on different "
                          "devices")
-    on_cuda = dev.type == "cuda"
-    if on_cuda and torch.is_grad_enabled() and (
-            any(x.requires_grad for x in inputs)
-            or any(p.requires_grad for p in model.parameters())):
-        raise NotImplementedError(
-            "fused_apply_nerf is forward-only: the backward kernel "
-            "(nerf_fl_tpu/ops/fused_mlp.py:_bwd_kernel) is ported in the "
-            "training slice; call it under torch.no_grad()")
     a_dim = 0 if a_emb is None else a_emb.shape[-1]
     t_dim = 0 if t_emb is None else t_emb.shape[-1]
+    inp = pack_inputs(xyz, dirs, a_emb, t_emb).contiguous()
     with torch.no_grad():
-        inp = pack_inputs(xyz, dirs, a_emb, t_emb).contiguous()
-        net = pack_weights(model, a_dim, output_transient, compute_dtype,
-                           n_freq_xyz, n_freq_dir, t_dim)
         sx, sd = default_scale_rows(n_freq_xyz, n_freq_dir, a_dim,
                                     barf_w_xyz, barf_w_dir, device=dev)
-        kw = dict(n_freq_xyz=n_freq_xyz, n_freq_dir=n_freq_dir, a_dim=a_dim,
-                  t_dim=t_dim, has_transient=bool(output_transient),
-                  dtype=compute_dtype)
-        if on_cuda:
-            pre = fused_mlp_fwd_cuda(inp, net, sx.contiguous(),
-                                     sd.contiguous(), **kw)
-        else:
-            pre = fused_mlp_reference(inp, net, sx, sd, **kw)
+    meta = dict(n_freq_xyz=n_freq_xyz, n_freq_dir=n_freq_dir, a_dim=a_dim,
+                t_dim=t_dim, has_transient=bool(output_transient),
+                dtype=compute_dtype)
+    params = [t for lin in field_linears(model, bool(output_transient))
+              for t in (lin.weight, lin.bias)]
+    pre = _FusedField.apply(meta, inp, sx.contiguous(), sd.contiguous(),
+                            *params)
     return heads(pre, output_transient)
 
 

@@ -3,10 +3,11 @@ pass -> compositing.
 
 Counterpart of ``nerf_fl_tpu/render/renderer.py``.  The result dict is keyed
 exactly as the JAX one for every ``test_time`` / ``output_transient``
-combination.  The fine pass goes through the fused PE + MLP kernel
-(``ops/fused_mlp.py``) whenever the tensors are on CUDA and the architecture
-is one the kernel takes; the test-time coarse ``sigma_only`` pass and every
-other architecture run the plain ``models.mlp.apply_nerf``.
+combination.  Every pass but the test-time coarse ``sigma_only`` one goes
+through the fused PE + MLP kernels (``ops/fused_mlp.py``; forward, and
+backward under autograd) whenever the tensors are on CUDA and the
+architecture is one the kernels take; that pass and every other
+architecture run the plain ``models.mlp.apply_nerf``.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-from . import metrics  # noqa: F401
+from . import losses, metrics, optimizers  # noqa: F401
 from .system import (  # noqa: F401
-    build_params, render_chunked, render_chunked_async, val_chunk_cap,
+    build_params, epoch_perm, make_device_pool_step, make_train_step,
+    render_chunked, render_chunked_async, val_chunk_cap,
 )

@@ -1,4 +1,5 @@
-"""The fused forward kernel on the card, against its plain version.
+"""The fused forward and backward kernels on the card, against their plain
+versions.
 
 Marked ``cuda``: each test skips without a CUDA card.  This file imports
 nothing of JAX, so it also runs where JAX is not installed:
@@ -8,7 +9,9 @@ nothing of JAX, so it also runs where JAX is not installed:
 Tolerances: f32 2e-4 (as tests/test_fused_mlp.py; on the card the two agree
 exactly); bf16 3e-2, since kernel and plain version sum the same exact
 products in another order and a hidden value near a rounding boundary can
-land one bf16 ulp apart.
+land one bf16 ulp apart.  Backward: f32 1e-4 of each tensor's largest
+magnitude (sums of the same products in another order); bf16 2e-2 of it,
+since a one-ulp flip in a rounded cotangent moves every sum it feeds.
 """
 import numpy as np
 import pytest
@@ -66,13 +69,68 @@ def test_kernel_matches_plain_on_card(dtype, a_dim, transient):
                                atol=2e-4 if dtype == "float32" else 3e-2)
 
 
+def _bwd_case(dev, dtype, transient, a_dim=48):
+    model, (xyz, dirs, a, t) = _inputs(dev, a_dim)
+    dt = getattr(torch, dtype)
+    inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
+    net = fm.pack_weights(model, a_dim, transient, dt, 10, 4, 16)
+    sx, sd = fm.default_scale_rows(10, 4, a_dim, device=dev)
+    g = torch.zeros(N, 16, device=dev)
+    g[:, :9] = torch.randn(N, 9, generator=torch.Generator().manual_seed(5)
+                           ).to(dev)
+    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
+              t_dim=16 if transient else 0, has_transient=transient, dtype=dt)
+    return inp, net, sx, sd, g, kw
+
+
 @pytest.mark.cuda
-def test_wrapper_is_forward_only_on_card():
+@pytest.mark.parametrize("transient", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_kernel_matches_plain_on_card(dtype, transient):
     dev = _card()
-    model, (xyz, dirs, _, _) = _inputs(dev)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fm.fused_apply_nerf(model, xyz, dirs, output_transient=False)
-    with torch.no_grad():
-        out = fm.fused_apply_nerf(model, xyz, dirs, output_transient=False)
-    assert out["static_rgb"].shape == (N, 3)
-    assert torch.isfinite(out["static_sigma"]).all()
+    inp, net, sx, sd, g, kw = _bwd_case(dev, dtype, transient)
+    before = fm.fused_mlp_bwd_cuda.launches
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_bwd_cuda.launches == before + 1
+    rel = 1e-4 if dtype == "float32" else 2e-2
+    for x, y in zip(got[0] + got[1] + [got[2]], ref[0] + ref[1] + [ref[2]]):
+        assert x.shape == y.shape
+        assert torch.isfinite(x).all()
+        assert float((x - y).abs().max()) <= rel * float(y.abs().max()) \
+            + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_kernel_is_deterministic(dtype):
+    dev = _card()
+    inp, net, sx, sd, g, kw = _bwd_case(dev, dtype, True)
+    a = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    b = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    for x, y in zip(a[0] + a[1] + [a[2]], b[0] + b[1] + [b[2]]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transient", [True, False])
+def test_backward_through_wrapper_fills_grads(transient):
+    dev = _card()
+    model, (xyz, dirs, a, t) = _inputs(dev)
+    xyz.requires_grad_(True)
+    a.requires_grad_(True)
+    before = (fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches)
+    out = fm.fused_apply_nerf(model, xyz, dirs, a, t if transient else None,
+                              output_transient=transient)
+    sum(v.sum() for v in out.values()).backward()
+    torch.cuda.synchronize()
+    assert (fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches) \
+        == (before[0] + 1, before[1] + 1)
+    lins = fm.field_linears(model, transient)
+    for lin in lins:
+        for p in (lin.weight, lin.bias):
+            assert p.grad is not None and p.grad.dtype == torch.float32
+            assert torch.isfinite(p.grad).all()
+    for x in (xyz, a):
+        assert x.grad is not None and torch.isfinite(x.grad).all()

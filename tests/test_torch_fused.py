@@ -61,10 +61,11 @@ def test_plain_fused_matches_pallas(transient, a_dim, barf):
         jp, _j(xyz), _j(dirs), _j(a), _j(t) if transient else None,
         output_transient=transient, compute_dtype=jnp.float32,
         barf_w_xyz=bw[0], barf_w_dir=bw[1], interpret=True)
-    got = tf.fused_apply_nerf(
-        model, _t(xyz), _t(dirs), _t(a), _t(t) if transient else None,
-        output_transient=transient, compute_dtype=torch.float32,
-        barf_w_xyz=_t(bw[0]), barf_w_dir=_t(bw[1]))
+    with torch.no_grad():
+        got = tf.fused_apply_nerf(
+            model, _t(xyz), _t(dirs), _t(a), _t(t) if transient else None,
+            output_transient=transient, compute_dtype=torch.float32,
+            barf_w_xyz=_t(bw[0]), barf_w_dir=_t(bw[1]))
     assert set(got) == set(ref)
     for k in ref:
         assert tuple(got[k].shape) == ref[k].shape
@@ -79,9 +80,10 @@ def test_plain_fused_bf16_close_to_pallas():
     ref = jf.fused_apply_nerf(jp, _j(xyz), _j(dirs), _j(a), _j(t),
                               output_transient=True,
                               compute_dtype=jnp.bfloat16, interpret=True)
-    got = tf.fused_apply_nerf(model, _t(xyz), _t(dirs), _t(a), _t(t),
-                              output_transient=True,
-                              compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        got = tf.fused_apply_nerf(model, _t(xyz), _t(dirs), _t(a), _t(t),
+                                  output_transient=True,
+                                  compute_dtype=torch.bfloat16)
     for k in ref:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
                                    atol=3e-2, err_msg=k)

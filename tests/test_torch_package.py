@@ -18,9 +18,26 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "optax",
                                             "nerf_fl_tpu")))
-print("MODULES", len([m for m in sys.modules if m.startswith("nerf_fl_torch")]))
+print("MODULES", " ".join(sorted(m for m in sys.modules
+                                  if m.startswith("nerf_fl_torch"))))
 print("BAD", bad)
 """
+
+# every module of the port, so a new one cannot slip past the rule
+PORT_MODULES = {
+    "nerf_fl_torch", "nerf_fl_torch.bridge", "nerf_fl_torch.device",
+    "nerf_fl_torch.core", "nerf_fl_torch.core.compositing",
+    "nerf_fl_torch.core.encoding", "nerf_fl_torch.core.rays",
+    "nerf_fl_torch.core.sampling", "nerf_fl_torch.data",
+    "nerf_fl_torch.data.sampler", "nerf_fl_torch.models",
+    "nerf_fl_torch.models.embeddings", "nerf_fl_torch.models.mlp",
+    "nerf_fl_torch.ops", "nerf_fl_torch.ops._build",
+    "nerf_fl_torch.ops.fused_mlp", "nerf_fl_torch.ops.sorting",
+    "nerf_fl_torch.render", "nerf_fl_torch.render.renderer",
+    "nerf_fl_torch.training", "nerf_fl_torch.training.losses",
+    "nerf_fl_torch.training.metrics", "nerf_fl_torch.training.optimizers",
+    "nerf_fl_torch.training.system",
+}
 
 
 def test_imports_nothing_of_jax():
@@ -29,9 +46,8 @@ def test_imports_nothing_of_jax():
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    # core, models, ops, render, training, bridge, device and their modules
-    n = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n >= 20, out.stdout
+    loaded = set(out.stdout.split("MODULES")[1].split("BAD")[0].split())
+    assert PORT_MODULES <= loaded, sorted(PORT_MODULES - loaded)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
