@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's render and train paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's render, train and kernel-anatomy paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and continued):
   1. print the card's name and power limit, turn TF32 off, build every CUDA
-     kernel under nerf_fl_torch/csrc/ (one nvcc each, in parallel; forward
-     and backward);
+     kernel under nerf_fl_torch/csrc/ (one nvcc each, in parallel: the
+     fused forward and backward and the three anatomy sources);
   2. hold the fused PE + MLP forward kernel against its plain PyTorch
      version on the card: transient on/off x appearance 48/0 x bf16/f32, a
      ragged 70,001 points, plain and BARF-annealed scale rows;
@@ -28,7 +29,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      step of each by kernel;
   7. hold the forward and the backward kernel (bf16) against their plain
      versions at the fine pass's 131,072 points and the coarse pass's
-     65,536, and time the backward against its bound and its plain version.
+     65,536, and time the backward against its bound and its plain version;
+  8. hold each of the eleven kernel-anatomy probes against its plain version
+     at the probes' own 524,288 points (operands from seed 0; the
+     consolidated net bit for bit against the static one), time each beside
+     its plain version and its bound, time the fused forward kernel at the
+     same point count and print the measured split of its time, then run
+     both anatomy entry points and require every result.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -68,6 +75,20 @@ BWD_F32_REL, BWD_BF16_NORM = 1e-4, 2e-2
 # per leaf, the metric and limit of tests/test_fused_mlp.py:81-86
 GRAD_REL = 2e-3
 TRAIN_STEPS = 200
+# anatomy probes in f32 (sin, pe_mm, pe_vpu, pe_mm_bf16): kernel and plain
+# version take the sin of the same exact arguments.  The first run on an
+# H100 showed a difference of 0 (torch.sin on the card is the same sinf),
+# so the gate is one decade under the 1e-5 that two sin implementations get
+PROBE_F32_ATOL = 1e-6
+# the six bf16 probes (chain and net families) against plain: |d| <=
+# PROBE_BF16_ATOL + PROBE_BF16_RTOL |ref| and mean |d| <= PROBE_BF16_MEAN,
+# the limits of tests/test_torch_anatomy.py.  Read on an H100 at 524,288
+# points: max |d| 9.8e-4 (chain8) to 3.9e-3 (one bf16 ulp of a hidden value
+# near 1, carried to an output), mean at most 6.7e-6
+PROBE_BF16_ATOL, PROBE_BF16_RTOL, PROBE_BF16_MEAN = 4e-3, 1e-2, 5e-5
+N_ANATOMY = 524_288            # the probes' own size
+ANATOMY_REPS = 5               # timed launches per probe in the entry points
+SIN_OPS = 20                   # f32 operations counted for one sin
 POOL = 1 << 20                 # bench.py's synthetic ray pool
 BATCH = 1024
 N_VOCAB = 1500
@@ -75,6 +96,9 @@ N_VOCAB = 1500
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, HBM B/s
 PEAKS = {"H100 SXM": (989e12, 3.35e12), "H100 PCIe": (756e12, 2.0e12),
          "H100 NVL": (835e12, 3.9e12), "H200": (989e12, 4.8e12)}
+# f32 FLOP/s outside the tensor cores, same data sheets
+F32_PEAKS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H100 NVL": 60e12,
+             "H200": 67e12}
 
 
 def fail(msg: str) -> None:
@@ -252,9 +276,10 @@ def phase_render(dev):
                               test_time=True, keys=keys)
 
     # the main path: counts at 0 just before, read just after
-    fm.fused_mlp_fwd_cuda.launches = 0
+    fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
     out = frame()
     launches = fm.fused_mlp_fwd_cuda.launches
+    bwd_launches = fm.fused_mlp_bwd_cuda.launches
     expect = -(-n // chunk)
     print(f"[render] {IMG}x{IMG} frame, chunk {chunk}: fused kernel "
           f"launches {launches} (expected {expect})")
@@ -263,8 +288,9 @@ def phase_render(dev):
         fail(f"bad output shapes {rgb.shape} {out['depth_fine'].shape}")
     if not (np.isfinite(rgb).all() and np.isfinite(out["depth_fine"]).all()):
         fail("non-finite frame")
-    if launches != expect:
-        fail(f"fused kernel launched {launches} times, expected {expect}")
+    if launches != expect or bwd_launches != 0:
+        fail(f"a frame launched the fused forward {launches} times and the "
+             f"backward {bwd_launches}, expected {expect} and 0")
 
     # first chunk again through the plain MLP path, with and without the
     # transient field (phototourism test renders disable it)
@@ -304,7 +330,7 @@ def phase_render(dev):
     print(f"[render] frame ms {frame_ms:.1f} (runs {[round(t, 1) for t in times]}), "
           f"rays/s {n / frame_ms * 1e3:.0f}")
     profile_frame(frame)
-    return launches, cfg
+    return (launches, bwd_launches), cfg
 
 
 def profile_frame(frame, what="frame"):
@@ -338,24 +364,34 @@ def profile_frame(frame, what="frame"):
     return busy_ms, wall_ms
 
 
-def phase_timing(dev, cfg, smi_name):
+def fused_case(dev, cfg, n, seed):
+    """The flagship fine pass's forward operands at ``n`` random points:
+    (inp, net, sx, sd, kw) of fused_mlp_fwd_cuda / fused_mlp_reference."""
     import torch
     from nerf_fl_torch.models import init_nerf
     from nerf_fl_torch.ops import fused_mlp as fm
 
-    n = 32 * 1024 * (cfg.N_samples + cfg.N_importance)     # 4,194,304
-    gen = torch.Generator().manual_seed(2)
+    gen = torch.Generator().manual_seed(seed)
     model = init_nerf(cfg.nerf_config("fine"), generator=gen).to(dev)
     xyz, dirs, a, t = make_points(n, cfg.N_a, cfg.N_tau, gen, dev)
     inp = fm.pack_inputs(xyz, dirs, a, t)
-    del xyz, dirs, a, t
-    dtype = cfg.dtype
-    net = fm.pack_weights(model, cfg.N_a, True, dtype, cfg.N_emb_xyz,
+    net = fm.pack_weights(model, cfg.N_a, True, cfg.dtype, cfg.N_emb_xyz,
                           cfg.N_emb_dir, cfg.N_tau)
     sx, sd = fm.default_scale_rows(cfg.N_emb_xyz, cfg.N_emb_dir, cfg.N_a,
                                    device=dev)
     kw = dict(n_freq_xyz=cfg.N_emb_xyz, n_freq_dir=cfg.N_emb_dir,
-              a_dim=cfg.N_a, t_dim=cfg.N_tau, has_transient=True, dtype=dtype)
+              a_dim=cfg.N_a, t_dim=cfg.N_tau, has_transient=True,
+              dtype=cfg.dtype)
+    return inp, net, sx, sd, kw
+
+
+def phase_timing(dev, cfg, smi_name):
+    import torch
+    from nerf_fl_torch.ops import fused_mlp as fm
+
+    n = 32 * 1024 * (cfg.N_samples + cfg.N_importance)     # 4,194,304
+    inp, net, sx, sd, kw = fused_case(dev, cfg, n, 2)
+    dtype = cfg.dtype
     with torch.no_grad():
         errs, faults = fwd_errors(fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw),
                                   fm.fused_mlp_reference(inp, net, sx, sd,
@@ -686,6 +722,174 @@ def phase_bwd_timing(cfg, smi_name):
     return out
 
 
+def probe_cases(dev, n):
+    """Operand lists of the eleven probes, as the anatomy entry points make
+    them (seed 0): {probe name: operands in the Pallas kernel's order}."""
+    from nerf_fl_torch.ops import anatomy
+
+    c = anatomy.chain_operands(n, 0, dev)
+    o = anatomy.net_operands(n, 0, dev)
+    rows = anatomy.pe_mm_rows(dev) + [c["x128"]]
+    return {"static": anatomy.net_inputs(o, "static"),
+            "full": anatomy.net_inputs(o, "full"),
+            "consol": anatomy.net_inputs(o, "consol"),
+            "chain8": anatomy.chain_inputs(c, False),
+            "concat": anatomy.chain_inputs(c, True),
+            "split": anatomy.chain_inputs(c, True),
+            "pe_mm": rows, "pe_vpu": rows, "sin": [c["x128"]],
+            "pe_mm_bf16": rows,
+            "pe_only": anatomy.encoder_rows(dev) + [o["inp"]]}
+
+
+def probe_work(name, ops, n):
+    """(operations, their type, bytes) one launch of a probe needs: each
+    input read once, the (n, 128) f32 output written once.  MACs per point
+    follow the padded layer shapes of the probes' files."""
+    trunk = 128 * 256 + 6 * 256 * 256 + 384 * 256
+    static = trunk + 256 * 384 + 384 * 128 + 128 * 128
+    skip = 7 * 256 * 256 + 384 * 256
+    macs = {"static": static, "consol": static,
+            "full": static + 384 * 128 + 4 * 128 * 128,
+            "chain8": 8 * 256 * 256, "concat": skip, "split": skip,
+            "pe_mm": 128 * 128, "pe_mm_bf16": 128 * 128}
+    if name in macs:
+        flops = 2.0 * macs[name] * n
+        kind = "f32" if name == "pe_mm" else "bf16"
+    else:
+        # per output element: pe_vpu 3 mul + 2 add, + phase, sin, * scale;
+        # pe_only two such encoders with a 12-step sin_cw each and two adds
+        per = {"pe_vpu": 7 + SIN_OPS, "sin": SIN_OPS,
+               "pe_only": 2 * (7 + SIN_OPS) + 2}[name]
+        flops, kind = float(per) * n * 128, "f32"
+    nbytes = sum(t.numel() * t.element_size() for t in ops) + n * 128 * 4
+    if name == "pe_vpu":
+        # its function depends on three of the input's 128 columns
+        nbytes -= n * (128 - 3) * 4
+    if name in ("concat", "split"):
+        nbytes -= ops[8].numel() * ops[8].element_size()   # w[4] is not read
+    return flops, kind, nbytes
+
+
+def phase_anatomy(dev, cfg, smi_name):
+    """Phase 8: the eleven probes against their plain versions, timed; the
+    fused forward at the same size; the measured split; the entry points."""
+    import torch
+    from nerf_fl_torch.experiments import kernel_anatomy, kernel_anatomy2
+    from nerf_fl_torch.ops import anatomy
+    from nerf_fl_torch.ops import fused_mlp as fm
+
+    n = N_ANATOMY
+    part, (peak_bf16, peak_bw) = peak_for(smi_name)
+    peak = {"bf16": peak_bf16, "f32": F32_PEAKS[part]}
+    t0 = time.perf_counter()
+    cases = probe_cases(dev, n)
+    print(f"[anatomy] operands for {n} points from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    f32_gate = {"sin": PROBE_F32_ATOL, "pe_mm": PROBE_F32_ATOL,
+                "pe_vpu": PROBE_F32_ATOL, "pe_mm_bf16": PROBE_F32_ATOL,
+                "pe_only": F32_ATOL}
+    failures, rows, outs = [], {}, {}
+    with torch.no_grad():
+        for name, ops in cases.items():
+            probe = anatomy.PROBES[name]
+            got, ref = probe.cuda(*ops), probe.plain(*ops)
+            torch.cuda.synchronize()
+            diff = (got - ref).abs()
+            err, mean = float(diff.max()), float(diff.mean())
+            if tuple(got.shape) != (n, 128) or not torch.isfinite(got).all():
+                failures.append(f"{name}: output not finite ({n}, 128)")
+            if name in f32_gate:
+                bad = err > f32_gate[name]
+                gate = f"atol {f32_gate[name]:g}"
+            else:
+                # worst |d| as a share of its limit: 1 is the gate
+                worst = float((diff / (PROBE_BF16_ATOL
+                                       + PROBE_BF16_RTOL * ref.abs())).max())
+                bad = worst > 1.0 or mean > PROBE_BF16_MEAN
+                gate = (f"{PROBE_BF16_ATOL:g} + {PROBE_BF16_RTOL:g} |ref| "
+                        f"(worst at {worst:.2f} of it), mean "
+                        f"{PROBE_BF16_MEAN:g}")
+            if bad:
+                failures.append(f"probe {name} != plain: max {err:.3e} mean "
+                                f"{mean:.3e} (gate {gate})")
+            if name in ("static", "consol"):
+                outs[name] = got
+            del got, ref, diff
+            for _ in range(2):                               # warm up
+                probe.cuda(*ops)
+            k_ms, k_all = cuda_ms(lambda: probe.cuda(*ops), 7)
+            p_ms, _ = cuda_ms(lambda: probe.plain(*ops), 5)
+            lib_ms = None
+            if name == "sin":
+                lib_ms, _ = cuda_ms(lambda: torch.sin(ops[0]), 7)
+            flops, kind, nbytes = probe_work(name, ops, n)
+            t_ops, t_bytes = flops / peak[kind] * 1e3, nbytes / peak_bw * 1e3
+            bound_ms = max(t_ops, t_bytes)
+            rows[name] = dict(
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=lib_ms)
+            print(f"[probe] {name:10s} max_abs_err {err:.2e} mean {mean:.2e} "
+                  f"(gate {gate}); {k_ms:.3f} ms/launch (runs "
+                  f"{[round(x, 3) for x in k_all]}), plain {p_ms:.3f} ms"
+                  + (f", torch.sin {lib_ms:.3f} ms" if lib_ms else "")
+                  + f"; {flops / 1e9:.1f} G{kind} op, {nbytes / 1e9:.3f} GB, "
+                  f"bound {bound_ms:.3f} ms by {rows[name]['bound_by']} = "
+                  f"{100 * bound_ms / k_ms:.1f}% of bound")
+        if not torch.equal(outs["static"], outs["consol"]):
+            failures.append("consol differs from static (must be bitwise "
+                            "equal)")
+        print("[probe] consol == static bit for bit: "
+              f"{torch.equal(outs['static'], outs['consol'])}")
+        del outs, cases
+        if failures:
+            fail("\n".join(failures))
+
+        # the fused forward kernel on the same number of points
+        inp, net, sx, sd, kw = fused_case(dev, cfg, n, 5)
+        for _ in range(2):
+            fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+        fused_ms, _ = cuda_ms(lambda: fm.fused_mlp_fwd_cuda(
+            inp, net, sx, sd, **kw), 7)
+        del inp
+    r = {k: v["ms"] for k, v in rows.items()}
+    print(f"[anatomy] at {n} points, ms per launch: fused_mlp_fwd (bf16, "
+          f"transient, a_dim 48) {fused_ms:.3f} | fullnet_nope {r['full']:.3f}"
+          f" + pe_only_vpu {r['pe_only']:.3f} = "
+          f"{r['full'] + r['pe_only']:.3f} | staticnet {r['static']:.3f} "
+          f"(transient branch +{r['full'] - r['static']:.3f}), consol "
+          f"{r['consol']:.3f} | chain8 {r['chain8']:.3f} (trunk-like ceiling "
+          f"of gemm / load_slab; staticnet - chain8 = "
+          f"{r['static'] - r['chain8']:.3f}) | concat skip {r['concat']:.3f} "
+          f"vs split skip {r['split']:.3f} | fused - fullnet_nope = "
+          f"{fused_ms - r['full']:.3f}")
+
+    # the entry points themselves: counts at 0 just before, read just after
+    for probe in anatomy.PROBES.values():
+        probe.launches = 0
+    fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+    for mod in (kernel_anatomy, kernel_anatomy2):
+        res = mod.main(device=dev, n=n, reps=ANATOMY_REPS)
+        missing = [k for k in mod.RESULT_NAMES
+                   if not math.isfinite(res["ms"].get(k, float("nan")))
+                   or not res["ms"][k] > 0]
+        if missing or res["device"] != torch.cuda.get_device_name(dev):
+            fail(f"{mod.__name__}: no finite time for {missing} on "
+                 f"{res['device']}")
+    counts = {k: p.launches for k, p in anatomy.PROBES.items()}
+    fused = (fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches)
+    print(f"[anatomy] entry points' launches: {counts}; fused forward and "
+          f"backward {fused}")
+    if fused != (0, 0):
+        fail(f"the anatomy entry points launched the fused kernels: {fused}")
+    expect = ANATOMY_REPS + 2          # first call, warm-up, timed launches
+    if any(v != expect for v in counts.values()):
+        fail(f"an anatomy probe was not launched {expect} times: {counts}")
+    for name, row in rows.items():
+        row["launches"] = counts[name]
+    return rows, fused
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "nerf_fl_torch")):
         print("chip_smoke: the nerf_fl_torch package is not beside this "
@@ -717,14 +921,22 @@ def main() -> int:
                 print(f"[ptxas] {src}:", line.strip())
 
     smi_name = smi.split(",")[0]
+    from nerf_fl_torch.ops import anatomy
+
+    def probe_counts():
+        return {k: p.launches for k, p in anatomy.PROBES.items()}
+
     phase_kernels(dev)
-    launches, cfg = phase_render(dev)
+    (launches, bwd_render), cfg = phase_render(dev)
+    on_render = probe_counts()
     k_ms, p_ms, bound_ms, bound_by, chunk_err = phase_timing(dev, cfg,
                                                              smi_name)
     phase_bwd_kernels(dev)
     fwd_train, bwd_train = phase_train(dev)
+    on_train = {k: v - on_render[k] for k, v in probe_counts().items()}
     train = phase_bwd_timing(cfg, smi_name)
     bwd = train["fine"]
+    probes, fused_on_anatomy = phase_anatomy(dev, cfg, smi_name)
 
     # launches: each main path's run (the render frame, one train step);
     # errors: the worst over the main paths' shapes (the render chunk, the
@@ -735,21 +947,38 @@ def main() -> int:
         "replaces": "nerf_fl_tpu/ops/fused_mlp.py:319",
         "launches": launches + fwd_train,
         "launches_by_path": {"render_frame": launches,
-                             "train_step": fwd_train},
+                             "train_step": fwd_train,
+                             "kernel_anatomy": fused_on_anatomy[0]},
         "max_abs_err": max([chunk_err] + [v["fwd_err"] for v in train.values()]),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
         "name": "fused_mlp_bwd", "route": "cuda",
         "source": "nerf_fl_torch/csrc/fused_mlp_bwd.cu",
         "replaces": "nerf_fl_tpu/ops/fused_mlp.py:359",
-        "launches": bwd_train,
-        "launches_by_path": {"render_frame": 0, "train_step": bwd_train},
+        "launches": bwd_render + bwd_train,
+        "launches_by_path": {"render_frame": bwd_render,
+                             "train_step": bwd_train,
+                             "kernel_anatomy": fused_on_anatomy[1]},
         "max_abs_err": max(v["bwd_err"] for v in train.values()),
         "max_norm_rel_err": max(v["bwd_norm_rel"] for v in train.values()),
         "norm_rel_limit": BWD_BF16_NORM,
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": None}]
+    # the probes: launches from the anatomy entry points' run (their counts
+    # read after the render frame and the train step are those paths')
+    for name, row in probes.items():
+        probe = anatomy.PROBES[name]
+        kernels.append({
+            "name": f"anatomy_{name}", "route": "cuda",
+            "source": f"nerf_fl_torch/csrc/{probe.source}.cu",
+            "replaces": probe.replaces, "launches": row["launches"],
+            "launches_by_path": {"render_frame": on_render[name],
+                                 "train_step": on_train[name],
+                                 "kernel_anatomy": row["launches"]},
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

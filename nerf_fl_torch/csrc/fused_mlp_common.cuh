@@ -1,5 +1,6 @@
 // Shared pieces of the fused PE + NeRF-W MLP kernels (fused_mlp_fwd.cu,
-// fused_mlp_bwd.cu): tile shape, compute-type traits, the Cody-Waite PE,
+// fused_mlp_bwd.cu) and of the anatomy probes built from the same blocks
+// (anatomy_net.cu, anatomy_chain.cu, anatomy_pe.cu): tile shape, compute-type traits, the Cody-Waite PE,
 // the cp.async weight-slab loader and the forward matrix product with its
 // hidden-layer epilogue.  The backward kernel recomputes the forward with
 // this same code, so its activations (and ReLU masks) are bit for bit the
@@ -116,16 +117,19 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [k0, k0 + rows) of the (K, NOUT) weight W into a slab of ld NOUT+PAD.
+// ldw is W's row stride in elements: NOUT for a weight of its own, more for
+// a column block of a wider stacked operand (then W points at the block's
+// first column, a multiple of 16 bytes in).
 template <typename T, int NOUT>
 __device__ __forceinline__ void load_slab(T* slab, const T* W, int k0,
-                                          int rows) {
+                                          int rows, int ldw = NOUT) {
   constexpr int EPC = 16 / sizeof(T);          // elements per 16-byte chunk
   constexpr int CPR = NOUT / EPC;              // chunks per row
   constexpr int SLD = NOUT + Cfg<T>::PAD;
   const int total = rows * CPR;
   for (int c = threadIdx.x; c < total; c += THREADS) {
     int r = c / CPR, q = c % CPR;
-    cp_async16(slab + r * SLD + q * EPC, W + (size_t)(k0 + r) * NOUT + q * EPC);
+    cp_async16(slab + r * SLD + q * EPC, W + (size_t)(k0 + r) * ldw + q * EPC);
   }
 }
 
@@ -133,17 +137,18 @@ __device__ __forceinline__ void load_slab(T* slab, const T* W, int k0,
 // global), then epi(row, col, value) once per element.  A may be
 // overwritten by epi: every warp finishes reading A before any epi runs.
 // K is a multiple of 16.  slab holds 2 x KS x (16*NF + PAD) elements; on
-// the bf16 path it doubles as the per-warp epilogue scratch.
+// the bf16 path it doubles as the per-warp epilogue scratch.  ldw: W's row
+// stride, as in load_slab.
 template <typename T, int NF, typename Epi>
 __device__ void gemm(const T* A, int lda, int K, const T* W, T* slab,
-                     Epi epi) {
+                     Epi epi, int ldw = 16 * NF) {
   constexpr int NOUT = 16 * NF;
   constexpr int KS = Cfg<T>::KS;
   constexpr int SLD = NOUT + Cfg<T>::PAD;
   const int nslab = (K + KS - 1) / KS;
   const int tid = threadIdx.x;
 
-  load_slab<T, NOUT>(slab, W, 0, min(KS, K));
+  load_slab<T, NOUT>(slab, W, 0, min(KS, K), ldw);
   cp_async_commit();
 
   if constexpr (std::is_same<T, bf16>::value) {
@@ -158,7 +163,7 @@ __device__ void gemm(const T* A, int lda, int K, const T* W, T* slab,
       const int k0 = s * KS;
       if (s + 1 < nslab)
         load_slab<T, NOUT>(slab + ((s + 1) & 1) * KS * SLD, W, k0 + KS,
-                           min(KS, K - k0 - KS));
+                           min(KS, K - k0 - KS), ldw);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
@@ -208,7 +213,7 @@ __device__ void gemm(const T* A, int lda, int K, const T* W, T* slab,
       const int k0 = s * KS;
       if (s + 1 < nslab)
         load_slab<T, NOUT>(slab + ((s + 1) & 1) * KS * SLD, W, k0 + KS,
-                           min(KS, K - k0 - KS));
+                           min(KS, K - k0 - KS), ldw);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();

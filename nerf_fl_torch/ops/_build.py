@@ -62,19 +62,23 @@ def _start(name: str):
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
-    """Compile the named sources in parallel (one nvcc each); raises with
-    nvcc's output if any fails.  Returns name -> library path."""
+    """Compile the named sources in parallel (one nvcc each).  Waits for
+    every job, then raises with each failed source's name and nvcc output.
+    Returns name -> library path."""
     started = {n: _start(n) for n in names}
-    out = {}
+    out, failed = {}, []
     for name, (job, target, log) in started.items():
         if job is not None:
             proc, tmp = job
             rc = proc.wait()
             if rc != 0:
-                raise RuntimeError(f"nvcc failed for {name} (rc={rc}):\n"
-                                   + log.read_text())
+                failed.append(f"nvcc failed for csrc/{name}.cu (rc={rc}):\n"
+                              + log.read_text())
+                continue
             os.replace(tmp, target)
         out[name] = target
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 

@@ -1,0 +1,380 @@
+"""The kernel-anatomy probes: eleven small kernels that take the fused PE +
+MLP kernel apart, each with its operands, its plain PyTorch version and the
+wrapper that launches its Hopper kernel.
+
+Counterpart of the Pallas probe kernels inside ``main()`` of
+``experiments/kernel_anatomy.py`` and ``experiments/kernel_anatomy2.py``.
+The CUDA sources are ``csrc/anatomy_chain.cu`` (chain8, concat, split),
+``csrc/anatomy_net.cu`` (static, full, consol) and ``csrc/anatomy_pe.cu``
+(pe_mm, pe_vpu, sin, pe_mm_bf16, pe_only); they are built from the fused
+kernels' own blocks in ``csrc/fused_mlp_common.cuh``.
+
+Every probe is a ``Probe`` in ``PROBES``.  Calling it with its operands, in
+the order the Pallas kernel takes its input refs, launches the kernel when
+they lie on a CUDA device (or raises) and runs the plain version only when
+they lie on the CPU; all return (N, 128) f32.  ``probe.launches`` counts
+kernel launches.  The entry points that time the probes are
+``nerf_fl_torch/experiments/kernel_anatomy.py`` and ``kernel_anatomy2.py``.
+
+The operand makers (``chain_operands``, ``net_operands``) carry state across
+from the JAX files: from the same seed they draw with numpy in those files'
+order and shapes and round as ``jnp.asarray(float64 array, dtype)`` does,
+to f32 to nearest and from there to bf16 to nearest even, so the tensors
+equal the JAX operands bit for bit.
+
+``experiments/kernel_anatomy.py:145`` calls ``_encoder_consts`` with an
+argument the function no longer takes and reads a key, ``Px``, that it no
+longer returns, so the four PE probes of that file cannot run in the JAX
+package as it stands.  The kernels take P, ph, trg and s as operands;
+``pe_mm_rows`` builds them as that line meant them: ``P`` is ``PxR`` padded
+with zero rows to (128, 128), ``ph`` the quarter-turn phases in radians
+(these kernels call a plain sin), ``trg = trgx``, ``s = 1``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.encoding import sin_cw
+from . import _build
+from .fused_mlp import (LANES, W_HALF, W_TRUNK, _encoder_consts, _pe_arg,
+                        default_scale_rows)
+
+BF, F32 = torch.bfloat16, torch.float32
+ACT_W = W_HALF + W_TRUNK           # 384: [pe | h], [xf | dt], fs2
+MID = (1, 2, 3, 5, 6, 7)           # trunk layers stacked into w_mid
+
+
+# ----------------------------------------------------------------------
+# operands
+# ----------------------------------------------------------------------
+
+def _draw(rng, scale: float, shape, dtype, device) -> torch.Tensor:
+    """One ``rng.normal`` draw, rounded f64 -> f32 -> dtype."""
+    a = torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32))
+    return a.to(dtype).to(device)
+
+
+def chain_operands(n: int, seed: int = 0, device="cpu") -> Dict[str, object]:
+    """The draws of ``experiments/kernel_anatomy.py:67-74``: ``ws`` 8 x
+    (256, 256) bf16, ``bs`` 8 x (1, 256) f32, ``w4c`` (384, 256) bf16,
+    ``x256`` (n, 256) bf16, ``x128`` (n, 128) f32."""
+    rng = np.random.default_rng(seed)
+    ws = [_draw(rng, 0.05, (W_TRUNK, W_TRUNK), BF, device) for _ in range(8)]
+    bs = [_draw(rng, 0.05, (1, W_TRUNK), F32, device) for _ in range(8)]
+    w4c = _draw(rng, 0.05, (ACT_W, W_TRUNK), BF, device)
+    x256 = _draw(rng, 1.0, (n, W_TRUNK), BF, device)
+    x128 = _draw(rng, 1.0, (n, LANES), F32, device)
+    return {"ws": ws, "bs": bs, "w4c": w4c, "x256": x256, "x128": x128}
+
+
+def chain_inputs(o, skip: bool) -> List[torch.Tensor]:
+    """chain8 / concat / split operand list: w0 b0 .. w7 b7 [w4c] x."""
+    ins = [t for pair in zip(o["ws"], o["bs"]) for t in pair]
+    return ins + ([o["w4c"]] if skip else []) + [o["x256"]]
+
+
+def pe_mm_rows(device="cpu") -> List[torch.Tensor]:
+    """P (128, 128), ph, trg, s (1, 128) f32 of the pe_mm / pe_vpu /
+    pe_mm_bf16 probes (see the module docstring)."""
+    c = _encoder_consts(10, 4, 48)
+    P = np.zeros((LANES, LANES), np.float32)
+    P[:3] = c["PxR"]
+    ph = (2.0 * np.pi * c["phx"].astype(np.float64)).astype(np.float32)
+    s = np.ones((1, LANES), np.float32)
+    return [torch.from_numpy(a).to(device) for a in (P, ph, c["trgx"], s)]
+
+
+def net_operands(n: int, seed: int = 0, device="cpu") -> Dict[str, object]:
+    """The draws of ``experiments/kernel_anatomy2.py:69-93`` and ``:175``:
+    ``trunk`` [w0, b0, .., w7, b7] at the padded shapes (128 / 256 / 384 ->
+    256), the fs2, dir, rgb, transient and transient-head layers, the bf16
+    inputs ``pe`` / ``dt`` / ``tt`` (n, 128) and the f32 ``inp`` (n, 128) of
+    the encoder probe."""
+    rng = np.random.default_rng(seed)
+
+    def W(r, c):
+        return _draw(rng, 0.05, (r, c), BF, device)
+
+    def B(c):
+        return _draw(rng, 0.05, (1, c), F32, device)
+
+    o: Dict[str, object] = {}
+    trunk = []
+    for i in range(8):
+        rows = W_HALF if i == 0 else (ACT_W if i == 4 else W_TRUNK)
+        trunk += [W(rows, W_TRUNK), B(W_TRUNK)]
+    o["trunk"] = trunk
+    o["wfs"], o["bfs"] = W(W_TRUNK, ACT_W), B(ACT_W)
+    o["wd"], o["bd"] = W(ACT_W, W_HALF), B(W_HALF)
+    o["wr"], o["br"] = W(W_HALF, W_HALF), B(W_HALF)
+    o["wt0"], o["bt0"] = W(ACT_W, W_HALF), B(W_HALF)
+    o["wtm"] = [W(W_HALF, W_HALF) for _ in range(3)]
+    o["btm"] = [B(W_HALF) for _ in range(3)]
+    o["wth"], o["bth"] = W(W_HALF, W_HALF), B(W_HALF)
+    for k in ("pe", "dt", "tt"):
+        o[k] = _draw(rng, 1.0, (n, LANES), BF, device)
+    o["inp"] = _draw(rng, 1.0, (n, LANES), F32, device)
+    return o
+
+
+def net_inputs(o, variant: str) -> List[torch.Tensor]:
+    """Operand list of ``static`` / ``full`` / ``consol`` from
+    ``net_operands``, in the Pallas kernel's order."""
+    heads = [o[k] for k in ("wfs", "bfs", "wd", "bd", "wr", "br")]
+    if variant == "static":
+        return o["trunk"] + heads + [o["pe"], o["dt"]]
+    if variant == "full":
+        return (o["trunk"] + heads + [o["wt0"], o["bt0"]] + o["wtm"]
+                + o["btm"] + [o["wth"], o["bth"], o["pe"], o["dt"], o["tt"]])
+    if variant == "consol":
+        return consolidate(o["trunk"]) + heads + [o["pe"], o["dt"]]
+    raise ValueError(f"unknown net variant {variant!r}")
+
+
+def consolidate(trunk: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """[w0, w_mid (256, 1536), w_skip, b_all (1, 2048)]: the six middle
+    trunk weights side by side, every trunk bias in one row
+    (``kernel_anatomy2.py:204-205``)."""
+    w_mid = torch.cat([trunk[2 * i] for i in MID], 1).contiguous()
+    b_all = torch.cat([trunk[2 * i + 1] for i in range(8)], 1).contiguous()
+    return [trunk[0], w_mid, trunk[8], b_all]
+
+
+def encoder_rows(device="cpu") -> List[torch.Tensor]:
+    """The nine encoder rows of the fused kernel at its flagship setting
+    (10 / 4 frequencies, appearance 48): PxR, phx, trgx, sx, PdR, phd, trgd,
+    sd, ma."""
+    c = _encoder_consts(10, 4, 48)
+    sx, sd = default_scale_rows(10, 4, 48)
+    rows = [c["PxR"], c["phx"], c["trgx"], sx, c["PdR"], c["phd"], c["trgd"],
+            sd, c["ma"]]
+    return [torch.as_tensor(r).to(device).contiguous() for r in rows]
+
+
+# ----------------------------------------------------------------------
+# plain versions (operands in the Pallas kernels' order)
+# ----------------------------------------------------------------------
+
+def _mm(a, w):                        # f32 accumulation of exact products
+    return a.to(F32) @ w.to(F32)
+
+
+def _chain_reference(skip: Optional[str], *ops):
+    w = ops[:16]
+    w4, x = (ops[16], ops[17]) if skip else (None, ops[16])
+    h = x
+    for i in range(8):
+        if i == 4 and skip == "concat":
+            y = _mm(torch.cat([x[:, :W_HALF], h], -1), w4)
+        elif i == 4 and skip == "split":
+            y = _mm(x[:, :W_HALF], w4[:W_HALF]) + _mm(h, w4[W_HALF:])
+        else:
+            y = _mm(h, w[2 * i])
+        h = torch.relu(y + w[2 * i + 1]).to(BF)   # f32 relu, one rounding
+    return h[:, :W_HALF].to(F32)
+
+
+def _dense(a, w, b):
+    """``kernel_anatomy2.py``'s dense: the fused kernel's own rounding."""
+    return torch.relu(_mm(a, w).to(BF) + b.to(BF))
+
+
+def _net_reference(transient: bool, *ops):
+    tw = ops[:16]
+    wfs, bfs, wd, bd, wr, br = ops[16:22]
+    pe, dt = (ops[32], ops[33]) if transient else (ops[22], ops[23])
+    h = pe
+    for i in range(8):
+        if i == 4:
+            h = torch.cat([pe, h], -1)
+        h = _dense(h, tw[2 * i], tw[2 * i + 1])
+    fs2 = _mm(h, wfs) + bfs
+    xf = fs2[:, :W_TRUNK].to(BF)
+    hd = _dense(torch.cat([xf, dt], -1), wd, bd)
+    out = (_mm(hd, wr) + br) + fs2[:, W_TRUNK:]
+    if transient:
+        wt0, bt0 = ops[22], ops[23]
+        wtm, btm = ops[24:27], ops[27:30]
+        wth, bth, tt = ops[30], ops[31], ops[34]
+        th = _dense(torch.cat([xf, tt], -1), wt0, bt0)
+        for k in range(3):
+            th = _dense(th, wtm[k], btm[k])
+        out = out + (_mm(th, wth) + bth)
+    return out
+
+
+def _consol_reference(w0, w_mid, w_skip, b_all, *rest):
+    """The static net reading the same numbers out of the stacked operands."""
+    ws = {0: w0, 4: w_skip}
+    for j, i in enumerate(MID):
+        ws[i] = w_mid[:, W_TRUNK * j:W_TRUNK * (j + 1)].contiguous()
+    trunk = []
+    for i in range(8):
+        trunk += [ws[i], b_all[:, W_TRUNK * i:W_TRUNK * (i + 1)]]
+    return _net_reference(False, *trunk, *rest)
+
+
+def _pe_out(E, ph, trg, s):
+    return torch.where(trg > 0, torch.sin(E + ph), E) * s
+
+
+def _pe_mm_reference(P, ph, trg, s, x):
+    return _pe_out(x @ P, ph, trg, s)
+
+
+def _pe_vpu_reference(P, ph, trg, s, x):
+    return _pe_out(_pe_arg(x, P, 0, LANES), ph, trg, s)
+
+
+def _pe_mm_bf16_reference(P, ph, trg, s, x):
+    return _pe_out(_mm(x.to(BF), P.to(BF)), ph, trg, s)
+
+
+def _sin_reference(x):
+    return torch.sin(x)
+
+
+def _pe_only_reference(PxR, phx, trgx, sx, PdR, phd, trgd, sd, ma, inp):
+    Ex = _pe_arg(inp, PxR, 0, LANES)
+    pe = torch.where(trgx > 0, sin_cw(Ex, phx), Ex) * sx
+    Ed = _pe_arg(inp, PdR, 3, LANES)
+    dt = torch.where(trgd > 0, sin_cw(Ed, phd), Ed) * sd
+    # roll(inp, s)[:, j] = inp[:, (j - s) mod 128], as pltpu.roll
+    dt = torch.where(ma > 0, torch.roll(inp, 21, 1), dt)
+    return pe + dt + torch.roll(inp, 74, 1)
+
+
+# ----------------------------------------------------------------------
+# the kernels
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _launcher(source: str):
+    """``nerf_<source>(variant, operand pointers, out, n, scratch, stream)``
+    of ``csrc/<source>.cu``."""
+    fn = getattr(_build.load(source), "nerf_" + source)
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+Spec = Tuple[Tuple[Optional[int], int], torch.dtype]   # (rows or None = N, cols)
+
+
+class Probe:
+    """One probe kernel: its plain version, its launcher and its launch
+    count.  ``spec`` lists each operand's (shape, dtype) in the Pallas
+    kernel's input order, ``None`` standing for the point count N."""
+
+    def __init__(self, name: str, replaces: str, source: str, variant: int,
+                 spec: Sequence[Spec], plain: Callable[..., torch.Tensor],
+                 scratch: Optional[Tuple[Tuple[int, int], torch.dtype]] = None):
+        self.name, self.replaces, self.variant = name, replaces, variant
+        self.source = source
+        self.spec, self.plain, self.scratch = list(spec), plain, scratch
+        self.launches = 0
+
+    def check(self, ops, device_type: Optional[str] = None) -> int:
+        """Raise unless ``ops`` are what the kernel takes; returns N."""
+        if len(ops) != len(self.spec):
+            raise ValueError(f"{self.name} takes {len(self.spec)} operands, "
+                             f"got {len(ops)}")
+        n, dev = ops[-1].shape[0], ops[-1].device
+        if device_type is not None and dev.type != device_type:
+            raise ValueError(f"{self.name}: the kernel takes CUDA tensors")
+        if n >= 2 ** 31 // (2 * LANES):
+            raise ValueError(f"too many points for one launch: {n}")
+        for k, (t, ((rows, cols), dtype)) in enumerate(zip(ops, self.spec)):
+            want = (n if rows is None else rows, cols)
+            if tuple(t.shape) != want or t.dtype != dtype \
+                    or t.device != dev or not t.is_contiguous():
+                raise ValueError(
+                    f"{self.name}: operand {k} is {tuple(t.shape)} {t.dtype} "
+                    f"on {t.device}, expected contiguous {want} {dtype} on "
+                    f"{dev}")
+        return n
+
+    def cuda(self, *ops: torch.Tensor) -> torch.Tensor:
+        """Launch the kernel on the current stream; counts in
+        ``self.launches``."""
+        n = self.check(ops, "cuda")
+        dev = ops[-1].device
+        out = torch.empty((n, LANES), dtype=F32, device=dev)
+        ptrs = (ctypes.c_void_p * len(ops))(*[t.data_ptr() for t in ops])
+        scratch = None
+        if self.scratch is not None:
+            scratch = torch.empty(self.scratch[0], dtype=self.scratch[1],
+                                  device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = _launcher(self.source)(
+                self.variant, ptrs, out.data_ptr(), n,
+                None if scratch is None else scratch.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {err}")
+        self.launches += 1
+        return out
+
+    def __call__(self, *ops: torch.Tensor) -> torch.Tensor:
+        if ops and ops[-1].is_cuda:
+            return self.cuda(*ops)
+        self.check(ops)
+        return self.plain(*ops)
+
+
+def _layers(shapes) -> List[Spec]:
+    """[(w, bf16), (b, f32)] per (K, N_out)."""
+    out: List[Spec] = []
+    for k, m in shapes:
+        out += [((k, m), BF), ((1, m), F32)]
+    return out
+
+
+_TRUNK = _layers([(W_HALF if i == 0 else ACT_W if i == 4 else W_TRUNK,
+                   W_TRUNK) for i in range(8)])
+_HEADS = _layers([(W_TRUNK, ACT_W), (ACT_W, W_HALF), (W_HALF, W_HALF)])
+_CHAIN = _layers([(W_TRUNK, W_TRUNK)] * 8)
+_ROW = ((1, LANES), F32)
+_PTS_BF, _PTS_F32 = ((None, LANES), BF), ((None, LANES), F32)
+_X256, _W4C = ((None, W_TRUNK), BF), ((ACT_W, W_TRUNK), BF)
+_PE_MM = [((LANES, LANES), F32), _ROW, _ROW, _ROW, _PTS_F32]
+_ENC = [((3, LANES), F32), _ROW, _ROW, _ROW] * 2 + [_ROW]
+_K1, _K2 = "experiments/kernel_anatomy.py", "experiments/kernel_anatomy2.py"
+
+PROBES: Dict[str, Probe] = {p.name: p for p in (
+    Probe("static", f"{_K2}:100", "anatomy_net", 0,
+          _TRUNK + _HEADS + [_PTS_BF] * 2,
+          functools.partial(_net_reference, False)),
+    Probe("full", f"{_K2}:130", "anatomy_net", 1,
+          _TRUNK + _HEADS + [((ACT_W, W_HALF), BF), _ROW]
+          + [((W_HALF, W_HALF), BF)] * 3 + [_ROW] * 3
+          + [((W_HALF, W_HALF), BF), _ROW] + [_PTS_BF] * 3,
+          functools.partial(_net_reference, True)),
+    Probe("consol", f"{_K2}:207", "anatomy_net", 2,
+          [((W_HALF, W_TRUNK), BF), ((W_TRUNK, 6 * W_TRUNK), BF),
+           ((ACT_W, W_TRUNK), BF), ((1, 8 * W_TRUNK), F32)]
+          + _HEADS + [_PTS_BF] * 2, _consol_reference),
+    Probe("chain8", f"{_K1}:77", "anatomy_chain", 0, _CHAIN + [_X256],
+          functools.partial(_chain_reference, None)),
+    Probe("concat", f"{_K1}:98", "anatomy_chain", 1,
+          _CHAIN + [_W4C, _X256],
+          functools.partial(_chain_reference, "concat")),
+    Probe("split", f"{_K1}:120", "anatomy_chain", 2, _CHAIN + [_W4C, _X256],
+          functools.partial(_chain_reference, "split")),
+    Probe("pe_mm", f"{_K1}:151", "anatomy_pe", 0, _PE_MM, _pe_mm_reference),
+    Probe("pe_vpu", f"{_K1}:164", "anatomy_pe", 1, _PE_MM,
+          _pe_vpu_reference),
+    Probe("sin", f"{_K1}:180", "anatomy_pe", 2, [_PTS_F32], _sin_reference),
+    Probe("pe_mm_bf16", f"{_K1}:188", "anatomy_pe", 3, _PE_MM,
+          _pe_mm_bf16_reference, scratch=((LANES, LANES), BF)),
+    Probe("pe_only", f"{_K2}:177", "anatomy_pe", 4, _ENC + [_PTS_F32],
+          _pe_only_reference),
+)}

@@ -1,5 +1,5 @@
-"""The fused forward and backward kernels on the card, against their plain
-versions.
+"""The fused forward and backward kernels and the kernel-anatomy probes on
+the card, against their plain versions.
 
 Marked ``cuda``: each test skips without a CUDA card.  This file imports
 nothing of JAX, so it also runs where JAX is not installed:
@@ -12,12 +12,19 @@ products in another order and a hidden value near a rounding boundary can
 land one bf16 ulp apart.  Backward: f32 1e-4 of each tensor's largest
 magnitude (sums of the same products in another order); bf16 2e-2 of it,
 since a one-ulp flip in a rounded cotangent moves every sum it feeds.
+Anatomy probes: the bf16 ones 4e-3 + 1e-2 |ref| with mean 5e-5 (the limits
+of tests/test_torch_anatomy.py and chip_smoke.py; on an H100 at 524,288
+points they read max 9.8e-4 to 3.9e-3, mean at most 6.7e-6), the f32
+encoder probes 1e-6 (exact arguments on both sides and the same sinf: they
+differed by 0 on an H100), pe_only 2e-4, the consolidated net equal to the
+static one bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from nerf_fl_torch.models import NeRFConfig, init_nerf
+from nerf_fl_torch.ops import anatomy
 from nerf_fl_torch.ops import fused_mlp as fm
 
 N = 1001                     # ragged: not a multiple of the 64-point tile
@@ -134,3 +141,58 @@ def test_backward_through_wrapper_fills_grads(transient):
             assert torch.isfinite(p.grad).all()
     for x in (xyz, a):
         assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+def _probe_ops(name, dev, n=N, seed=0):
+    if name in ("static", "full", "consol"):
+        return anatomy.net_inputs(anatomy.net_operands(n, seed, dev), name)
+    if name == "pe_only":
+        return anatomy.encoder_rows(dev) \
+            + [anatomy.net_operands(n, seed, dev)["inp"]]
+    c = anatomy.chain_operands(n, seed, dev)
+    if name in ("chain8", "concat", "split"):
+        return anatomy.chain_inputs(c, name != "chain8")
+    return ([] if name == "sin" else anatomy.pe_mm_rows(dev)) + [c["x128"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["static", "full", "consol", "chain8",
+                                  "concat", "split", "pe_mm", "pe_vpu", "sin",
+                                  "pe_mm_bf16", "pe_only"])
+def test_anatomy_probe_matches_plain_on_card(name):
+    dev = _card()
+    probe = anatomy.PROBES[name]
+    ops = _probe_ops(name, dev)
+    before = probe.launches
+    got = probe(*ops)                     # CUDA operands: the kernel
+    ref = probe.plain(*ops)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert got.shape == ref.shape == (N, 128) and torch.isfinite(got).all()
+    diff = (got - ref).abs()
+    if name in ("pe_mm", "pe_vpu", "sin", "pe_mm_bf16"):
+        assert float(diff.max()) <= 1e-6
+    elif name == "pe_only":
+        assert float(diff.max()) <= 2e-4
+    else:
+        assert bool((diff <= 4e-3 + 1e-2 * ref.abs()).all())
+        assert float(diff.mean()) <= 5e-5
+
+
+@pytest.mark.cuda
+def test_anatomy_consol_equals_static_on_card():
+    dev = _card()
+    o = anatomy.net_operands(N, 0, dev)
+    a = anatomy.PROBES["static"](*anatomy.net_inputs(o, "static"))
+    b = anatomy.PROBES["consol"](*anatomy.net_inputs(o, "consol"))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_anatomy_probe_refuses_bad_operands_on_card():
+    dev = _card()
+    ops = _probe_ops("chain8", dev)
+    with pytest.raises(ValueError, match="operand 16"):
+        anatomy.PROBES["chain8"](*ops[:-1], ops[-1].float())
+    with pytest.raises(ValueError, match="operand 0"):
+        anatomy.PROBES["chain8"](ops[0].cpu(), *ops[1:])

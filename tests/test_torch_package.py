@@ -31,8 +31,10 @@ PORT_MODULES = {
     "nerf_fl_torch.core.sampling", "nerf_fl_torch.data",
     "nerf_fl_torch.data.sampler", "nerf_fl_torch.models",
     "nerf_fl_torch.models.embeddings", "nerf_fl_torch.models.mlp",
+    "nerf_fl_torch.experiments", "nerf_fl_torch.experiments.kernel_anatomy",
+    "nerf_fl_torch.experiments.kernel_anatomy2",
     "nerf_fl_torch.ops", "nerf_fl_torch.ops._build",
-    "nerf_fl_torch.ops.fused_mlp", "nerf_fl_torch.ops.sorting",
+    "nerf_fl_torch.ops.anatomy", "nerf_fl_torch.ops.fused_mlp", "nerf_fl_torch.ops.sorting",
     "nerf_fl_torch.render", "nerf_fl_torch.render.renderer",
     "nerf_fl_torch.training", "nerf_fl_torch.training.losses",
     "nerf_fl_torch.training.metrics", "nerf_fl_torch.training.optimizers",
