@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      plain MLP path, with and without the transient field;
   4. time the whole frame and split one frame's device time by kernel
      (torch.profiler); hold the kernel against its plain version at the
-     render chunk's 4,194,304 points and time both against its bound;
+     render chunk's 4,194,304 points and time both against its bound; the
+     [fused] line adds what the block moves and takes (rows a tile, weight
+     bytes from L2 reckoned from the plan, registers and shared memory);
   5. hold the fused backward kernel against its plain version in the same
      16 variants (every unpacked weight / bias grad and d_inp), and
      require two launches to agree bit for bit;
@@ -29,7 +31,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      step of each by kernel;
   7. hold the forward and the backward kernel (bf16) against their plain
      versions at the fine pass's 131,072 points and the coarse pass's
-     65,536, and time the backward against its bound and its plain version;
+     65,536, time both against their bounds and the backward against its
+     plain version, with a [fused] line each (the backward's also counts
+     the operand tiles it saves and its wgrad reads);
   8. hold each of the eleven kernel-anatomy probes against its plain version
      at the probes' own 524,288 points (operands from seed 0; the
      consolidated net bit for bit against the static one), time each beside
@@ -56,7 +60,7 @@ FLAGSHIP = dict(N_samples=64, N_importance=64, encode_a=True, N_a=48,
                 encode_t=True, N_tau=16, beta_min=0.1, white_back=True,
                 perturb=0.0, noise_std=0.0, compute_dtype="bfloat16")
 IMG = 400                      # the reference README's lego size
-N_KERNEL_CHECK = 70_001        # ragged: not a multiple of the 64-point tile
+N_KERNEL_CHECK = 70_001        # ragged: no multiple of the 128- or 64-point tiles
 F32_ATOL = 2e-4                # as tests/test_fused_mlp.py
 # bf16: kernel and plain version sum the same exact products in another
 # order, so a hidden value near a bf16 rounding boundary can land one ulp
@@ -153,6 +157,59 @@ def cuda_ms(fn, reps: int):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2], times
+
+
+def ptxas_info(src: str, kernel: str):
+    """(registers, spill store bytes, spill load bytes) that ptxas reported
+    for the entry function of ``src`` whose mangled name holds ``kernel``."""
+    import re
+    from nerf_fl_torch.ops import _build
+    lines = _build.build_log(src).splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            text = " ".join(lines[i:i + 4])
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", text)
+            if regs and spill:
+                return int(regs.group(1)), int(spill.group(1)), \
+                    int(spill.group(2))
+    fail(f"no ptxas report for {kernel} in csrc/{src}.cu's build log")
+
+
+def fused_line(which, n, ms, flops, bound_ms, net, transient):
+    """The [fused] line of one bf16 kernel at one shape: rate on the
+    unpadded work, share of the bound, and what the block moves and takes.
+    Bytes are reckoned from the plans, not measured."""
+    from nerf_fl_torch.ops import fused_mlp as fm
+    info = fm.kernel_block_info()
+    tiles = fm.fwd_tiles(n)
+    plan = fm.bwd_image_plan if which == "bwd" else fm.image_plan
+    image = plan(net.k0, net.kd, net.kt, transient)[1]
+    head = (f"[fused] fused_mlp_{which} bf16 at {n} points: {ms:.3f} ms, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s on the unpadded work, "
+            f"{100 * bound_ms / ms:.1f}% of bound; {info['rows']} rows a tile,"
+            f" {tiles} tiles x {image} B = {tiles * image / 1e9:.3f} GB of "
+            f"weight slabs from L2 to shared memory; block {info['threads']} "
+            f"threads, ")
+    if which == "fwd":
+        r = ptxas_info("fused_mlp_fwd", "fused_mlp_fwd_bf16_kernel")
+        print(head + f"{r[0]} registers a thread at launch (spill {r[1]} / "
+              f"{r[2]} B), {info['fwd_smem']} B shared memory, ring of "
+              f"{info['stages']} slabs")
+        return
+    r = ptxas_info("fused_mlp_bwd", "fused_mlp_bwd_bf16_kernel")
+    w = ptxas_info("fused_mlp_bwd", "wgrad_kernel")
+    saved, read = fm.bwd_tile_counts(net.k0, net.kd, net.kt, transient)
+    blocks = 2 * tiles                       # 64-point row blocks
+    grad_floats = sum(x.numel() + x.shape[1] for x in net.ws)
+    print(head + f"{r[0]} registers (spill {r[1]} / {r[2]} B), "
+          f"{info['bwd_smem']} B shared memory; wgrad {w[0]} registers (spill "
+          f"{w[1]} / {w[2]} B), {info['wgrad_smem']} B; operand tiles "
+          f"(activations and cotangents, 8 KB each): {saved} saved per 64 "
+          f"points = {saved * blocks * 8192 / 1e9:.3f} GB written, {read} read "
+          f"by the wgrad = {read * blocks * 8192 / 1e9:.3f} GB; dW partial "
+          f"slabs {min(info['splits'], blocks)} x {grad_floats * 4} B")
 
 
 def make_points(n, a_dim, t_dim, gen, dev):
@@ -422,6 +479,7 @@ def phase_timing(dev, cfg, smi_name):
           f"({peak_flops / 1e12:.0f} TFLOP/s bf16, {peak_bw / 1e12:.2f} TB/s);"
           f" {flops / k_ms / 1e9:.1f} TFLOP/s achieved = "
           f"{100 * bound_ms / k_ms:.1f}% of bound")
+    fused_line("fwd", n, k_ms, flops, bound_ms, net, True)
     return k_ms, p_ms, bound_ms, bound_by, max(errs.values())
 
 
@@ -691,7 +749,12 @@ def phase_bwd_timing(cfg, smi_name):
         if faults:
             fail(f"kernel != plain at the {name} pass's {n} points: "
                  + "; ".join(faults))
-        for _ in range(2):                                   # warm up
+        with torch.no_grad():
+            for _ in range(2):                               # warm up
+                fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+            f_ms, _ = cuda_ms(lambda: fm.fused_mlp_fwd_cuda(
+                inp, net, sx, sd, **kw), 7)
+        for _ in range(2):
             fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
         k_ms, k_all = cuda_ms(lambda: fm.fused_mlp_bwd_cuda(
             inp, net, sx, sd, g, **kw), 7)
@@ -715,7 +778,13 @@ def phase_bwd_timing(cfg, smi_name):
               f"{n_bytes / 1e9:.3f} GB; bound {bound_ms:.3f} ms by {bound_by} "
               f"at {part} peaks; {flops / k_ms / 1e9:.1f} TFLOP/s achieved "
               f"= {100 * bound_ms / k_ms:.1f}% of bound")
-        out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+        # the forward at this shape: a third of the operations; its bytes
+        # are inp, out and the weights, far under its operations' time
+        fused_line("fwd", n, f_ms, flops / 3, flops / 3 / peak_flops * 1e3,
+                   net, transient)
+        fused_line("bwd", n, k_ms, flops, bound_ms, net, transient)
+        out[name] = dict(ms=k_ms, fwd_ms=f_ms, plain_ms=p_ms,
+                         bound_ms=bound_ms,
                          bound_by=bound_by, fwd_err=max(f_errs.values()),
                          bwd_err=max(e[0] for e in errs),
                          bwd_norm_rel=norm_rel(errs))
@@ -851,6 +920,9 @@ def phase_anatomy(dev, cfg, smi_name):
             fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
         fused_ms, _ = cuda_ms(lambda: fm.fused_mlp_fwd_cuda(
             inp, net, sx, sd, **kw), 7)
+        flops = 2.0 * fine_macs(cfg) * n
+        fused_line("fwd", n, fused_ms, flops, flops / peak_bf16 * 1e3, net,
+                   True)
         del inp
     r = {k: v["ms"] for k, v in rows.items()}
     print(f"[anatomy] at {n} points, ms per launch: fused_mlp_fwd (bf16, "
@@ -861,8 +933,9 @@ def phase_anatomy(dev, cfg, smi_name):
           f"{r['consol']:.3f} | chain8 {r['chain8']:.3f} (trunk-like ceiling "
           f"of gemm / load_slab; staticnet - chain8 = "
           f"{r['static'] - r['chain8']:.3f}) | concat skip {r['concat']:.3f} "
-          f"vs split skip {r['split']:.3f} | fused - fullnet_nope = "
-          f"{fused_ms - r['full']:.3f}")
+          f"vs split skip {r['split']:.3f} | the probes run on the header's "
+          f"first block (WMMA, 64 rows), the fused kernel on the Hopper "
+          f"block: fullnet_nope / fused = {r['full'] / fused_ms:.2f}")
 
     # the entry points themselves: counts at 0 just before, read just after
     for probe in anatomy.PROBES.values():

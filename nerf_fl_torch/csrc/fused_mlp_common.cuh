@@ -1,10 +1,25 @@
 // Shared pieces of the fused PE + NeRF-W MLP kernels (fused_mlp_fwd.cu,
-// fused_mlp_bwd.cu) and of the anatomy probes built from the same blocks
-// (anatomy_net.cu, anatomy_chain.cu, anatomy_pe.cu): tile shape, compute-type traits, the Cody-Waite PE,
-// the cp.async weight-slab loader and the forward matrix product with its
-// hidden-layer epilogue.  The backward kernel recomputes the forward with
-// this same code, so its activations (and ReLU masks) are bit for bit the
-// forward kernel's.
+// fused_mlp_bwd.cu) and of the anatomy probes (anatomy_net.cu,
+// anatomy_chain.cu, anatomy_pe.cu): compute-type traits, the Cody-Waite PE,
+// and two blocks to build a kernel from.
+//
+// The first block (TILE_M, gemm, load_slab, Hidden): 64 points a block, WMMA
+// m16n16k16 or f32 FMAs on operands that every warp loads from shared
+// memory, weights through a two-deep cp.async ring with block-wide
+// barriers.  It serves the f32 kernels, which are exact and on no main
+// path, and the probes.  On an H100 it reaches about 8% of the bf16 peak:
+// each 64-row tile streams the whole net from L2, mma_sync is the
+// pre-Hopper path, and a K = 256 layer passes 16 block-wide barriers.
+//
+// The Hopper block (namespace hop, bf16): 128 points a block as two
+// consumer warpgroups of 64 rows; wgmma with both operands in shared memory
+// in the 128-byte-swizzled layout; weight slabs copied by one producer
+// thread with cp.async.bulk from an image that is already the operand's
+// shared-memory image, through a ring tracked by mbarriers that runs across
+// layers and tiles; setmaxnreg; epilogues on the accumulator fragments.
+// Both bf16 fused kernels are built from it, and the backward recomputes
+// the forward with these same functions, so its activations (and ReLU
+// masks) are bit for bit the forward kernel's.
 //
 // Numerics (both kernels): PE steps use __fmul_rn / __fadd_rn so that no
 // multiply-add is contracted; build without --use_fast_math.
@@ -252,5 +267,673 @@ template <typename T> struct Hidden {
     dst[r * ld + c] = to_t<T>(fmaxf(h, 0.0f));
   }
 };
+
+// ======================================================================
+// The Hopper block (bf16 only): wgmma from shared memory behind an
+// asynchronous weight ring.  See the opening comment for the design.
+// ======================================================================
+namespace hop {
+
+constexpr int ROWS = 128;                   // points a block holds at a time
+constexpr int WG_ROWS = 64;                 // rows of one consumer warpgroup
+constexpr int CONSUMERS = ROWS / WG_ROWS;   // consumer warpgroups
+constexpr int H_THREADS = 128 * (CONSUMERS + 1);   // + the producer's
+constexpr int TILE_BYTES = WG_ROWS * 128;   // a 64 x 64 bf16 operand tile
+constexpr int N_TILES = 6;                  // activations: P0 P1 | H0 .. H3
+constexpr int T_P = 0;                      // pe, the dir / t tails, 128-wide hiddens
+constexpr int T_H = 2;                      // trunk hidden, then xyz_final
+constexpr int ACT_BYTES = N_TILES * TILE_BYTES;    // 48 KB a warpgroup
+constexpr int STAGES = 3;                   // weight slabs in flight
+constexpr int STAGE_BYTES = FS_OUT * 128;   // the tallest slab: fs2's 272 rows
+constexpr int MAX_SLABS = 128;
+constexpr int BIAS_FLOATS = 3008;
+constexpr int SCALE_FLOATS = 2 * IN_LD;     // the xyz and dir scale rows
+constexpr int CONST_FLOATS = BIAS_FLOATS + SCALE_FLOATS;
+constexpr int SMEM_BYTES = 1024 + CONSUMERS * ACT_BYTES +
+                           STAGES * STAGE_BYTES + CONST_FLOATS * 4 +
+                           2 * STAGES * 8;
+
+// output width of each packed layer, and where its bias sits in shared memory
+__host__ __device__ constexpr int layer_n(int l) {
+  return l < L_FS ? W_TRUNK
+         : l == L_FS ? FS_OUT
+         : (l == L_RGB || l == L_TH) ? OUT_LD : W_HALF;
+}
+__host__ __device__ constexpr int bias_off(int l) {
+  int at = 0;
+  for (int i = 0; i < l; ++i) at += layer_n(i);
+  return at;
+}
+static_assert(bias_off(N_LAYERS) <= BIAS_FLOATS, "bias table too small");
+
+// The weight image: every layer's weight cut into slabs of 64 input rows,
+// each slab stored as the B operand's shared-memory image (N_out rows of
+// 64 K-values = 128 bytes, 16-byte chunk c of row n at chunk c ^ (n % 8)),
+// in the order the kernel consumes them.  nerf_fl_torch/ops/fused_mlp.py:
+// weight_image lays it out; this is the same walk.
+struct Plan {
+  int n_slabs;
+  int off[MAX_SLABS];     // byte offset of the slab in the image
+  int bytes[MAX_SLABS];
+};
+
+// One slab of `height` image rows per 64 contraction values.
+inline void plan_seg(Plan& p, int& at, int rows, int height) {
+  for (int r = 0; r < rows; r += 64) {
+    if (p.n_slabs < MAX_SLABS) {
+      p.off[p.n_slabs] = at;
+      p.bytes[p.n_slabs] = height * 128;
+    }
+    at += height * 128;
+    ++p.n_slabs;
+  }
+}
+
+// Forward order.  Returns the image's size in bytes.
+inline int make_plan(Plan& p, int k0, int kd, int kt, int has_transient) {
+  p = Plan{};
+  int at = 0;
+  plan_seg(p, at, k0, W_TRUNK);
+  for (int l = 1; l < 8; ++l) {
+    if (l == 4) plan_seg(p, at, k0, W_TRUNK);
+    plan_seg(p, at, W_TRUNK, W_TRUNK);
+  }
+  plan_seg(p, at, W_TRUNK, FS_OUT);
+  plan_seg(p, at, W_TRUNK, W_HALF);
+  plan_seg(p, at, kd, W_HALF);
+  plan_seg(p, at, W_HALF, OUT_LD);
+  if (has_transient) {
+    plan_seg(p, at, W_TRUNK, W_HALF);
+    plan_seg(p, at, kt, W_HALF);
+    for (int l = 0; l < 3; ++l) plan_seg(p, at, W_HALF, W_HALF);
+    plan_seg(p, at, W_HALF, OUT_LD);
+  }
+  return at;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers and the bulk copy ----
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// spins until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// bytes (a multiple of 16) from global to shared; completion counts on bar
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// bytes from shared to global, tracked by the issuing thread's bulk groups
+__device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src,
+                                         uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::
+                   "l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until this thread's bulk stores have finished reading shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ordinary shared-memory stores made visible to the asynchronous proxy
+// (wgmma's operand reads)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// barrier over one consumer warpgroup (id 0 is __syncthreads')
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// ---- wgmma ----
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from reading accumulators before the wait above them
+template <int R> __device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// byte offset, stride byte offset (both in 16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// K-major tile: rows of 64 K-values (128 bytes), 8-row groups 1024 bytes
+// apart; a k16 step advances the start address by 32 bytes.
+__device__ __forceinline__ uint64_t kdesc(uint32_t addr) {
+  return sdesc(addr, 16, 1024);
+}
+
+// D (64 x N, f32, this warpgroup's registers) = or += A (64 x 16) B (16 x N),
+// both from shared memory; TA / TB = 1 reads that operand MN-major.  Thread t
+// of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and, for
+// each 8-column block j, columns 8 j + 2 (t % 4) (+ 1): d[4 j + 0, 1] in the
+// first row, d[4 j + 2, 3] in the second.
+template <int N> struct Wgmma;
+template <> struct Wgmma<256> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[128], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87,"
+        " %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103,"
+        " %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119,"
+        " %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+template <> struct Wgmma<128> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+template <> struct Wgmma<16> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+// The consumer's view of the weight ring.
+struct Ring {
+  uint32_t full, empty, buf;   // shared addresses: barriers 8 bytes a stage
+  uint32_t stride;             // bytes a stage
+  int stage;
+  uint32_t phase;
+  int pending;                 // stage whose products are not yet released
+};
+
+// One segment of a layer's contraction: `rows` input columns (a multiple
+// of 16) that start at the operand tile at a_tile, one weight slab per 64.
+// SIG also multiplies into fs2's 16-column block (the slab's rows 256..271).
+template <int N, bool SIG>
+__device__ __forceinline__ void mma_seg(float (&acc)[N / 2], float (&sig)[8],
+                                        uint32_t a_tile, int rows, Ring& r,
+                                        bool& fresh, bool elected) {
+  for (int k0 = 0; k0 < rows; k0 += 64, a_tile += TILE_BYTES) {
+    mbar_wait(r.full + 8 * r.stage, r.phase);
+    const uint32_t b = r.buf + r.stage * r.stride;
+    const int steps = min(64, rows - k0) / 16;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < steps) {
+        const int sd = fresh ? 0 : 1;
+        Wgmma<N>::template run<0, 0>(acc, kdesc(a_tile + 32 * kk),
+                                     kdesc(b + 32 * kk), sd);
+        if constexpr (SIG)
+          Wgmma<16>::template run<0, 0>(
+              sig, kdesc(a_tile + 32 * kk),
+              kdesc(b + W_TRUNK * 128 + 32 * kk), sd);
+        fresh = false;
+      }
+    }
+    wgmma_commit();
+    if (r.pending >= 0) {
+      wgmma_wait<1>();
+      if (elected) mbar_arrive(r.empty + 8 * r.pending);
+    }
+    r.pending = r.stage;
+    if (++r.stage == STAGES) {
+      r.stage = 0;
+      r.phase ^= 1;
+    }
+  }
+}
+
+// Waits for the layer's products and releases its last slab.
+__device__ __forceinline__ void mma_end(Ring& r, bool elected) {
+  wgmma_wait<0>();
+  if (elected) mbar_arrive(r.empty + 8 * r.pending);
+  r.pending = -1;
+}
+
+// The producer: one thread streams the plan's slabs through the ring, once
+// per tile of this block, and runs ahead of the consumers by STAGES slabs
+// across layer and tile boundaries.
+__device__ __forceinline__ void produce(const unsigned char* image,
+                                        const Plan& plan, uint32_t full,
+                                        uint32_t empty, uint32_t buf,
+                                        uint32_t stride, int n_tiles) {
+  int stage = 0;
+  uint32_t phase = 1;          // a fresh "empty" barrier lets parity 1 pass
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    for (int s = 0; s < plan.n_slabs; ++s) {
+      mbar_wait(empty + 8 * stage, phase);
+      mbar_expect_tx(full + 8 * stage, plan.bytes[s]);
+      bulk_g2s(buf + stage * stride, image + plan.off[s], plan.bytes[s],
+               full + 8 * stage);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);   // a in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Byte offset of element (r, c) of a warpgroup's activations: tile c / 64,
+// row r of 128 bytes, 16-byte chunk swizzled by the row.
+__device__ __forceinline__ int act_off(int tile0, int r, int c) {
+  return (tile0 + (c >> 6)) * TILE_BYTES + r * 128 +
+         ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// Two bf16 values of a packed pair as f32 (exact).
+__device__ __forceinline__ float lo_f(uint32_t p) {
+  return __uint_as_float(p << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t p) {
+  return __uint_as_float(p & 0xffff0000u);
+}
+
+// The accumulator fragments of a 64 x N product -> bf16 activations at
+// tiles tile0.., each pair of neighbouring columns f(sum0, sum1, bias pair)
+// packed.  r / q: this thread's fragment row and column-pair index (see
+// Wgmma).  The 32-bit stores of a warp fall in 32 different banks.
+template <int N, typename F>
+__device__ __forceinline__ void store_acc(const float (&acc)[N / 2],
+                                          unsigned char* act, int tile0,
+                                          const float* bias, int r, int q,
+                                          F f) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * q);
+    unsigned char* p = act + act_off(tile0, r, 8 * j) + q * 4;
+    *reinterpret_cast<uint32_t*>(p) = f(acc[4 * j], acc[4 * j + 1], b);
+    *reinterpret_cast<uint32_t*>(p + 8 * 128) =
+        f(acc[4 * j + 2], acc[4 * j + 3], b);
+  }
+}
+
+// hidden layer: round the sums, add the (already rounded) bias, round, ReLU;
+// two columns at a time on packed bf16 (the same roundings as Hidden)
+struct HiddenF {
+  __device__ __forceinline__ uint32_t operator()(float v0, float v1,
+                                                 float2 b) const {
+    const uint32_t y = pack2(v0, v1);
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo_f(y) + b.x, hi_f(y) + b.y);
+    h = __hmax2(h, __float2bfloat162_rn(0.0f));
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+};
+// fs2's xyz_final: f32 sum + f32 bias, rounded once
+struct LinearF {
+  __device__ __forceinline__ uint32_t operator()(float v0, float v1,
+                                                 float2 b) const {
+    return pack2(v0 + b.x, v1 + b.y);
+  }
+};
+
+// [v | sin(2^k v), cos(2^k v) for k < n_freq | extra | 0] times the scale
+// row, for this warpgroup's 64 rows -> columns [0, width) of the tiles at
+// tile0: the values of pe_col.  Two threads share a row: each reads the
+// row's three inputs once (one round trip to memory, which next_rows has
+// already brought into L2), then takes every second frequency (six
+// independent sin_cw each) and every second column past the trig columns.
+// v: the three floats at column src of the packed input row; extra:
+// n_extra columns copied from column extra_src (the appearance embedding);
+// rows past n are zero.
+__device__ __forceinline__ void encode_rows(unsigned char* act, int tile0,
+                                            const float* __restrict__ inp,
+                                            size_t row0, int n, int src,
+                                            int n_freq, const float* scale,
+                                            int extra_src, int n_extra,
+                                            int width, int t) {
+  auto put = [&](int r, int c, float v) {
+    *reinterpret_cast<bf16*>(act + act_off(tile0, r, c)) =
+        __float2bfloat16_rn(v);
+  };
+  const int r = t >> 1, half = t & 1;
+  const bool live = row0 + r < (size_t)n;
+  const float* p = inp + (row0 + r) * IN_LD;
+  float v[3] = {0.0f, 0.0f, 0.0f};
+  if (live) {
+    v[0] = p[src];
+    v[1] = p[src + 1];
+    v[2] = p[src + 2];
+  }
+  // everything past the trig columns
+  const int first = 3 + 6 * n_freq;
+  for (int i = half; i < width - first; i += 2)
+    put(r, first + i, live && i < n_extra ? p[extra_src + i] : 0.0f);
+  if (half == 0) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) put(r, j, __fmul_rn(v[j], scale[j]));
+  }
+  for (int k = half; k < n_freq; k += 2) {
+    const float f = (float)(1 << k);   // exact: 2^k
+    const int c0 = 3 + 6 * k;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float arg = __fmul_rn(v[j], f);
+      const float sn = __fmul_rn(sin_cw(arg, 0.0f), scale[c0 + j]);
+      const float cs = __fmul_rn(sin_cw(arg, 0.25f), scale[c0 + 3 + j]);
+      put(r, c0 + j, live ? sn : 0.0f);
+      put(r, c0 + 3 + j, live ? cs : 0.0f);
+    }
+  }
+}
+
+// Asks L2 for the first `bytes` of this warpgroup's 64 packed input rows
+// of a later tile (two threads a row, 128-byte lines), so that encode_rows
+// finds them there.
+__device__ __forceinline__ void next_rows(const float* inp, size_t row0, int n,
+                                          int bytes, int t) {
+  const size_t row = row0 + (t >> 1);
+  if (row >= (size_t)n) return;
+  const char* p = reinterpret_cast<const char*>(inp + row * IN_LD);
+  for (int at = 128 * (t & 1); at < bytes; at += 256)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p + at));
+}
+
+// ---- pieces of the backward kernels ----
+
+// Backward order: the forward recompute (fs2 without its sigma block, no
+// heads), then the dgrad slabs: rows of W itself (input rows, padded to
+// 128 or 256) by 64 output columns, in the order fused_mlp_bwd.cu consumes
+// them.  Returns the image's size in bytes
+// (nerf_fl_torch/ops/fused_mlp.py:bwd_image_plan is the same walk).
+inline int make_bwd_plan(Plan& p, int k0, int kd, int kt, int has_transient) {
+  p = Plan{};
+  int at = 0;
+  plan_seg(p, at, k0, W_TRUNK);
+  for (int l = 1; l < 8; ++l) {
+    if (l == 4) plan_seg(p, at, k0, W_TRUNK);
+    plan_seg(p, at, W_TRUNK, W_TRUNK);
+  }
+  plan_seg(p, at, W_TRUNK, W_TRUNK);          // xyz_final
+  plan_seg(p, at, W_TRUNK, W_HALF);           // dir
+  plan_seg(p, at, kd, W_HALF);
+  if (has_transient) {
+    plan_seg(p, at, W_TRUNK, W_HALF);
+    plan_seg(p, at, kt, W_HALF);
+    for (int l = 0; l < 3; ++l) plan_seg(p, at, W_HALF, W_HALF);
+    // dgrad, contraction over each layer's output columns
+    plan_seg(p, at, OUT_LD, W_HALF);          // t heads
+    for (int l = 0; l < 3; ++l) plan_seg(p, at, W_HALF, W_HALF);   // t3..t1
+    plan_seg(p, at, W_HALF, W_TRUNK);         // t0 -> d_xyz_final
+    plan_seg(p, at, W_HALF, W_HALF);          // t0 -> d_t
+  }
+  plan_seg(p, at, OUT_LD, W_HALF);            // rgb head
+  plan_seg(p, at, W_HALF, W_TRUNK);           // dir -> d_xyz_final
+  plan_seg(p, at, W_HALF, W_HALF);            // dir -> d_tail
+  plan_seg(p, at, FS_OUT, W_TRUNK);           // fs2
+  for (int l = 7; l >= 1; --l) {
+    if (l == 4) plan_seg(p, at, W_TRUNK, W_HALF);   // layer 4 -> d_pe
+    plan_seg(p, at, W_TRUNK, W_TRUNK);
+  }
+  plan_seg(p, at, W_TRUNK, W_HALF);           // layer 0 -> d_pe
+  return at;
+}
+
+// Where each saved tile lives in the scratch: tile id i of 64-point row
+// block rb is the 8 KB at ((i * n_rb) + rb) * TILE_BYTES.  Activations are
+// the wgrad's A operands, cotangents (masked, rounded) its B operands.
+struct TileMap {
+  int pe, h[8], xf, dtail, hd, ttail, th[4];   // activations
+  int g[N_LAYERS], gh;                          // cotangents; gh: the heads'
+  int total;
+};
+
+inline TileMap make_tile_map(int k0, int kd, int kt, int has_transient) {
+  TileMap m = {};
+  int at = 0;
+  auto take = [&](int cols) { int t = at; at += (cols + 63) / 64; return t; };
+  m.pe = take(k0);
+  for (int i = 0; i < 8; ++i) m.h[i] = take(W_TRUNK);
+  m.xf = take(W_TRUNK);
+  m.dtail = take(kd);
+  m.hd = take(W_HALF);
+  if (has_transient) {
+    m.ttail = take(kt);
+    for (int i = 0; i < 4; ++i) m.th[i] = take(W_HALF);
+  }
+  m.gh = take(OUT_LD);
+  for (int l = 0; l <= L_FS; ++l) m.g[l] = take(W_TRUNK);
+  m.g[L_DIR] = take(W_HALF);
+  m.g[L_RGB] = m.gh;
+  if (has_transient) {
+    for (int l = L_T0; l < L_TH; ++l) m.g[l] = take(W_HALF);
+    m.g[L_TH] = m.gh;
+  }
+  m.total = at;
+  return m;
+}
+
+// n tiles from this warpgroup's shared memory to the scratch (one thread)
+__device__ __forceinline__ void save_tiles(unsigned char* scratch, int tile,
+                                           int n, size_t n_rb, size_t rb,
+                                           uint32_t src) {
+  for (int i = 0; i < n; ++i)
+    bulk_s2g(scratch + ((size_t)(tile + i) * n_rb + rb) * TILE_BYTES,
+             src + i * TILE_BYTES, TILE_BYTES);
+  bulk_commit();
+}
+
+// Hidden epilogue that also returns the ReLU mask: bit i of m is set where
+// the stored value of acc[i] is positive.
+template <int N>
+__device__ __forceinline__ void store_hidden_mask(const float (&acc)[N / 2],
+                                                  unsigned char* act,
+                                                  int tile0, const float* bias,
+                                                  int r, int q,
+                                                  uint32_t (&m)[N / 64]) {
+#pragma unroll
+  for (int w = 0; w < N / 64; ++w) m[w] = 0;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * q);
+    const uint32_t p0 = HiddenF{}(acc[4 * j], acc[4 * j + 1], b);
+    const uint32_t p1 = HiddenF{}(acc[4 * j + 2], acc[4 * j + 3], b);
+    // after the ReLU a value is positive exactly when it is not zero
+    const uint32_t bits = ((p0 & 0x7fffu) ? 1u : 0u) |
+                          ((p0 & 0x7fff0000u) ? 2u : 0u) |
+                          ((p1 & 0x7fffu) ? 4u : 0u) |
+                          ((p1 & 0x7fff0000u) ? 8u : 0u);
+    m[(4 * j) / 32] |= bits << ((4 * j) % 32);
+    unsigned char* p = act + act_off(tile0, r, 8 * j) + q * 4;
+    *reinterpret_cast<uint32_t*>(p) = p0;
+    *reinterpret_cast<uint32_t*>(p + 8 * 128) = p1;
+  }
+}
+
+// dgrad epilogue: the sum rounded to bf16; ADD: plus the bf16 value already
+// at the destination, rounded again (a bf16 add); MASK: zero where the
+// forward activation was not positive (bits of m, as store_hidden_mask
+// made them); stored as the next operand.  DB: the f32 column sums of the
+// stored values over this warp's 16 rows go to db[column] (lanes 0..3).
+template <int N, bool MASK, bool ADD, bool DB>
+__device__ __forceinline__ void store_cot(const float (&acc)[N / 2],
+                                          unsigned char* act, int tile0,
+                                          const uint32_t* m, float* db, int r,
+                                          int q, int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    unsigned char* p = act + act_off(tile0, r, 8 * j) + q * 4;
+    uint32_t p0 = pack2(acc[4 * j], acc[4 * j + 1]);
+    uint32_t p1 = pack2(acc[4 * j + 2], acc[4 * j + 3]);
+    if constexpr (ADD) {
+      const uint32_t o0 = *reinterpret_cast<const uint32_t*>(p);
+      const uint32_t o1 = *reinterpret_cast<const uint32_t*>(p + 8 * 128);
+      p0 = pack2(lo_f(p0) + lo_f(o0), hi_f(p0) + hi_f(o0));
+      p1 = pack2(lo_f(p1) + lo_f(o1), hi_f(p1) + hi_f(o1));
+    }
+    if constexpr (MASK) {
+      const uint32_t bits = m[(4 * j) / 32] >> ((4 * j) % 32);
+      p0 &= ((bits & 1u) ? 0xffffu : 0u) | ((bits & 2u) ? 0xffff0000u : 0u);
+      p1 &= ((bits & 4u) ? 0xffffu : 0u) | ((bits & 8u) ? 0xffff0000u : 0u);
+    }
+    *reinterpret_cast<uint32_t*>(p) = p0;
+    *reinterpret_cast<uint32_t*>(p + 8 * 128) = p1;
+    if constexpr (DB) {
+      float s0 = lo_f(p0) + lo_f(p1), s1 = hi_f(p0) + hi_f(p1);
+#pragma unroll
+      for (int d = 4; d < 32; d <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, d);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, d);
+      }
+      if (lane < 4)
+        *reinterpret_cast<float2*>(db + 8 * j + 2 * q) = make_float2(s0, s1);
+    }
+  }
+}
+
+// d_inp[comp] for an input component from its PE columns' cotangents, read
+// through d(column): sum of where(trig, cos, 1) * scale * d times the
+// column's coefficient (1 on the identity column, 2^k on frequency k), in
+// column order.
+template <typename D>
+__device__ __forceinline__ float pe_bwd_at(float x, int comp, int n_freq,
+                                           const float* scale, D d) {
+  float acc = __fmul_rn(scale[comp], d(comp));
+  for (int k = 0; k < n_freq; ++k) {
+    const float f = (float)(1 << k);
+    const float arg = __fmul_rn(x, f);
+    const int cs = 3 + 6 * k + comp, cc = cs + 3;
+    // d sin = cos (+1/4 turn), d cos = -sin (+1/2 turn)
+    const float ds = __fmul_rn(__fmul_rn(sin_cw(arg, 0.25f), scale[cs]), d(cs));
+    const float dc = __fmul_rn(__fmul_rn(sin_cw(arg, 0.5f), scale[cc]), d(cc));
+    acc = __fadd_rn(acc, __fmul_rn(ds, f));
+    acc = __fadd_rn(acc, __fmul_rn(dc, f));
+  }
+  return acc;
+}
+
+}  // namespace hop
 
 }  // namespace

@@ -17,7 +17,9 @@ Layouts:
     sigma, 4-6 transient rgb, 7 transient sigma, 8 beta, the rest zero;
   * weights, (K, N_out) row-major in the compute dtype, each K and N_out
     padded with zeros only to the next multiple of 16 (the tensor-core
-    granule).  Biases f32.  See ``pack_weights``.
+    granule).  Biases f32.  See ``pack_weights``.  The bf16 forward kernel
+    streams them from ``weight_image``, the same values cut into 64-row
+    slabs in the layout its tensor-core operand has in shared memory.
 """
 from __future__ import annotations
 
@@ -47,6 +49,10 @@ COL_T_BETA = 8
 N_LAYERS = 16   # trunk 0..7, fs2, dir, rgb head, transient 0..3, t heads
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the bf16 forward kernel's block (csrc/fused_mlp_common.cuh, namespace hop)
+TILE_ROWS = 128     # points a block holds at a time
+SLAB_K = 64         # input rows of a weight slab: one 128-byte swizzle row
 
 
 def _round16(n: int) -> int:
@@ -265,6 +271,198 @@ def unpack_weight_grads(dws: List[torch.Tensor], dbs: List[torch.Tensor],
 
 
 # ----------------------------------------------------------------------
+# the bf16 forward kernel's weight image and grid
+# ----------------------------------------------------------------------
+
+class Slab(NamedTuple):
+    """One weight slab of an image: ``height`` image rows of 64 contraction
+    values (128 bytes).  Forward slabs (``dgrad`` False) are W^T tiles: image
+    row i is output column ``col0 + i``, contraction value k is input row
+    ``row0 + k`` (``rows`` of them are real).  Dgrad slabs are tiles of W
+    itself: image row i is input row ``row0 + i`` (``rows`` real),
+    contraction value k is output column ``col0 + k`` (``cols`` real)."""
+    layer: int
+    dgrad: bool
+    row0: int
+    rows: int
+    col0: int
+    cols: int
+    height: int
+    at: int         # byte offset in the image
+
+
+def _cut(slabs, at, layer, dgrad, row0, rows, col0, cols, height):
+    """Append the slabs of one segment (one per 64 contraction values);
+    returns the next byte offset."""
+    n = cols if dgrad else rows
+    for c in range(0, n, SLAB_K):
+        m = min(SLAB_K, n - c)
+        if dgrad:
+            slabs.append(Slab(layer, True, row0, rows, col0 + c, m, height, at))
+        else:
+            slabs.append(Slab(layer, False, row0 + c, m, col0, cols, height, at))
+        at += height * SLAB_K * 2
+    return at
+
+
+def _forward_slabs(slabs, at, k0, kd, kt, has_transient, heads):
+    """The forward's slabs in consumption order.  A layer whose input is
+    two sources ([pe | h], [xyz_final | tail]) is cut per source, so a slab
+    never straddles them; a source's last slab may hold fewer than 64 rows
+    and is zero-padded.  ``heads``: with fs2's sigma block and the two
+    heads (the backward's recompute needs neither)."""
+    def seg(layer, row0, rows, cols):
+        return _cut(slabs, at, layer, False, row0, rows, 0, cols, cols)
+
+    at = seg(0, 0, k0, W_TRUNK)
+    for i in range(1, 8):
+        if i == 4:
+            at = seg(4, 0, k0, W_TRUNK)
+        at = seg(i, k0 if i == 4 else 0, W_TRUNK, W_TRUNK)
+    at = seg(8, 0, W_TRUNK, W_TRUNK + OUT_W if heads else W_TRUNK)
+    at = seg(9, 0, W_TRUNK, W_HALF)
+    at = seg(9, W_TRUNK, kd, W_HALF)
+    if heads:
+        at = seg(10, 0, W_HALF, OUT_W)
+    if has_transient:
+        at = seg(11, 0, W_TRUNK, W_HALF)
+        at = seg(11, W_TRUNK, kt, W_HALF)
+        for i in (12, 13, 14):
+            at = seg(i, 0, W_HALF, W_HALF)
+        if heads:
+            at = seg(15, 0, W_HALF, OUT_W)
+    return at
+
+
+def image_plan(k0: int, kd: int, kt: int, has_transient: bool):
+    """The weight slabs in the order the bf16 forward kernel consumes them
+    (csrc/fused_mlp_common.cuh:make_plan walks the same list), and the
+    image's size in bytes."""
+    slabs = []
+    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, True)
+    return slabs, at
+
+
+def bwd_image_plan(k0: int, kd: int, kt: int, has_transient: bool):
+    """The bf16 backward kernel's slabs (make_bwd_plan in the same header):
+    the forward recompute, then for each layer from the heads down the
+    tiles of W that ``g W^T`` contracts over, 64 output columns a slab.  A
+    layer with two input sources runs two products: its 256 trunk rows
+    (height 256) and its other rows padded to 128 (the pe / dir / t part)."""
+    slabs = []
+    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, False)
+
+    def seg(layer, row0, rows, cols, height):
+        return _cut(slabs, at, layer, True, row0, rows, 0, cols, height)
+
+    if has_transient:
+        at = seg(15, 0, W_HALF, OUT_W, W_HALF)
+        for i in (14, 13, 12):
+            at = seg(i, 0, W_HALF, W_HALF, W_HALF)
+        at = seg(11, 0, W_TRUNK, W_HALF, W_TRUNK)
+        at = seg(11, W_TRUNK, kt, W_HALF, W_HALF)
+    at = seg(10, 0, W_HALF, OUT_W, W_HALF)
+    at = seg(9, 0, W_TRUNK, W_HALF, W_TRUNK)
+    at = seg(9, W_TRUNK, kd, W_HALF, W_HALF)
+    at = seg(8, 0, W_TRUNK, W_TRUNK + OUT_W, W_TRUNK)
+    for i in range(7, 0, -1):
+        if i == 4:
+            at = seg(4, 0, k0, W_TRUNK, W_HALF)
+        at = seg(i, k0 if i == 4 else 0, W_TRUNK, W_TRUNK, W_TRUNK)
+    at = seg(0, 0, k0, W_TRUNK, W_HALF)
+    return slabs, at
+
+
+@functools.lru_cache(maxsize=32)
+def _image_index(k0: int, kd: int, kt: int, has_transient: bool,
+                 backward: bool = False) -> np.ndarray:
+    """For every bf16 element of a weight image, its index in the flat
+    concatenation of ``PackedNet.ws`` (row-major, layer after layer), or the
+    index one past its end for zero padding.
+
+    A slab is a wgmma B operand's shared-memory image, K-major with the
+    128-byte swizzle: one image row of 64 contraction values per column of
+    the product, and 16-byte chunk c of image row i stored at chunk
+    ``c ^ (i % 8)``.  So element [slab][i][c ^ (i % 8)][e] is contraction
+    value ``8 c + e`` of image row i (see ``Slab``)."""
+    shapes = _packed_shapes(k0, kd, kt, has_transient)
+    base = np.concatenate([[0], np.cumsum([k * m for k, m in shapes])])
+    slabs, nbytes = (bwd_image_plan if backward else image_plan)(
+        k0, kd, kt, has_transient)
+    idx = np.full(nbytes // 2, base[-1], np.int64)
+    for sl in slabs:
+        n_out = shapes[sl.layer][1]
+        i = np.arange(sl.height)[:, None, None]
+        c = np.arange(8)[None, :, None]
+        e = np.arange(8)[None, None, :]
+        k = 8 * c + e + 0 * i
+        if sl.dgrad:
+            src = base[sl.layer] + (sl.row0 + i) * n_out + sl.col0 + k
+            real = (i < sl.rows) & (k < sl.cols)
+        else:
+            src = base[sl.layer] + (sl.row0 + k) * n_out + sl.col0 + i
+            real = (k < sl.rows) & (i < sl.cols)
+        dst = sl.at // 2 + i * SLAB_K + 8 * (c ^ (i % 8)) + e
+        idx[dst.ravel()] = np.where(real, src, base[-1]).ravel()
+    return idx
+
+
+_IMAGE_INDEX_ON = {}
+
+
+def weight_image(net: PackedNet, has_transient: bool,
+                 backward: bool = False) -> torch.Tensor:
+    """``net.ws`` (bf16) laid out as the bf16 forward kernel (or, with
+    ``backward``, the backward kernel) streams them: a flat bf16 tensor
+    whose elements are the weights, each at least once, and zero padding
+    (``_image_index``; the forward's image is a permutation).  Two device
+    launches: one cat, one gather."""
+    key = (net.k0, net.kd, net.kt, bool(has_transient), bool(backward))
+    dev = net.ws[0].device
+    idx = _IMAGE_INDEX_ON.get(key + (dev,))
+    if idx is None:
+        idx = torch.from_numpy(_image_index(*key)).to(dev)
+        _IMAGE_INDEX_ON[key + (dev,)] = idx
+    flat = torch.cat([w.reshape(-1) for w in net.ws]
+                     + [net.ws[0].new_zeros(1)])
+    return flat.index_select(0, idx)
+
+
+def bwd_tile_counts(k0: int, kd: int, kt: int, has_transient: bool):
+    """Operand tiles (64 points x 64 columns, 8 KB in bf16) the bf16
+    backward moves per 64 points: (saved by the fused kernel, read by the
+    wgrad kernel).  Saved: every layer's input activations and cotangent,
+    each once (the heads and fs2's sigma block share one cotangent tile).
+    Read: a wgrad block takes two 64-row chunks of a layer's input and all
+    of its cotangent, so the cotangent is read once per two chunks
+    (csrc/fused_mlp_bwd.cu:make_wplan)."""
+    def t(cols):
+        return -(-cols // SLAB_K)
+
+    # (input chunks, cotangent tiles) per packed layer
+    layers = [(t(k0), 4)] + [(4, 4)] * 3 + [(t(k0) + 4, 4)] + [(4, 4)] * 3 \
+        + [(4, 5), (4 + t(kd), 2), (2, 1)]
+    saved = t(k0) + 8 * 4 + 4 + t(kd) + 2 + 1 + 9 * 4 + 2
+    if has_transient:
+        layers += [(4 + t(kt), 2)] + [(2, 2)] * 3 + [(2, 1)]
+        saved += t(kt) + 4 * 2 + 4 * 2
+    read = sum(a + -(-a // 2) * g for a, g in layers)
+    return saved, read
+
+
+def fwd_tiles(n: int) -> int:
+    """Tiles of TILE_ROWS points in a launch of ``n`` points; rows past
+    ``n`` in the last one are computed as zeros and not stored."""
+    return -(-n // TILE_ROWS)
+
+
+def fwd_grid(n: int, n_sm: int) -> int:
+    """Persistent blocks of a bf16 forward or backward launch: one per SM,
+    block b takes tiles b, b + grid, ...; no more blocks than tiles."""
+    return min(fwd_tiles(n), n_sm)
+
+
+# ----------------------------------------------------------------------
 # plain version
 # ----------------------------------------------------------------------
 
@@ -432,15 +630,29 @@ def fused_mlp_bwd_reference(inp: torch.Tensor, net: PackedNet,
 # the kernel
 # ----------------------------------------------------------------------
 
+def kernel_block_info():
+    """The bf16 kernels' blocks as their sources define them (the card's
+    build): points a block, threads, dynamic shared-memory bytes, ring
+    depth, and the wgrad's splits."""
+    f, b = (ctypes.c_int * 4)(), (ctypes.c_int * 5)()
+    _lib().nerf_fused_mlp_fwd_info(f)
+    _lib_bwd().nerf_fused_mlp_bwd_info(b)
+    return {"rows": f[0], "threads": f[1], "fwd_smem": f[2], "stages": f[3],
+            "bwd_smem": b[2], "wgrad_smem": b[3], "splits": b[4]}
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_mlp_fwd")
     lib.nerf_fused_mlp_fwd.argtypes = (
         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p]
         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.nerf_fused_mlp_fwd.restype = ctypes.c_int
+    lib.nerf_fused_mlp_fwd_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.nerf_fused_mlp_fwd_info.restype = None
     return lib
 
 
@@ -448,21 +660,24 @@ def _lib() -> ctypes.CDLL:
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("fused_mlp_bwd")
     lib.nerf_fused_mlp_bwd_sizes.argtypes = (
-        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)])
+        [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)])
     lib.nerf_fused_mlp_bwd_sizes.restype = ctypes.c_int
     lib.nerf_fused_mlp_bwd.argtypes = (
         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]
+         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
            ctypes.c_void_p])
     lib.nerf_fused_mlp_bwd.restype = ctypes.c_int
+    lib.nerf_fused_mlp_bwd_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.nerf_fused_mlp_bwd_info.restype = None
     return lib
 
 
-def _expected_shapes(net: PackedNet, has_transient: bool):
-    k0, kd, kt = net.k0, net.kd, net.kt
+def _packed_shapes(k0: int, kd: int, kt: int, has_transient: bool):
+    """(K, N_out) of every packed layer, in ``pack_weights`` order."""
     shapes = [(k0, W_TRUNK)] + [(W_TRUNK, W_TRUNK)] * 3 \
         + [(k0 + W_TRUNK, W_TRUNK)] + [(W_TRUNK, W_TRUNK)] * 3 \
         + [(W_TRUNK, W_TRUNK + OUT_W), (W_TRUNK + kd, W_HALF),
@@ -484,7 +699,7 @@ def _check_operands(name, inp, net, sx, sd, has_transient, dtype):
     if inp.dtype != torch.float32 or inp.dim() != 2 \
             or inp.shape[1] != LANES or not inp.is_contiguous():
         raise ValueError("inp must be a contiguous (N, 128) float32 tensor")
-    shapes = _expected_shapes(net, has_transient)
+    shapes = _packed_shapes(net.k0, net.kd, net.kt, has_transient)
     if len(net.ws) != len(shapes) or len(net.bs) != len(shapes):
         raise ValueError(f"expected {len(shapes)} packed layers")
     for w, b, s in zip(net.ws, net.bs, shapes):
@@ -514,17 +729,27 @@ def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
                        a_dim: int, t_dim: int, has_transient: bool,
                        dtype) -> torch.Tensor:
     """Launch csrc/fused_mlp_fwd.cu on the current stream: packed (N, 128)
-    f32 input -> (N, 16) f32 pre-activations.  Counts its launches in
+    f32 input -> (N, 16) f32 pre-activations.  bf16 runs the wgmma kernel
+    on ``weight_image(net)`` with ``fwd_grid`` persistent blocks, f32 the
+    exact CUDA-core kernel on ``net.ws``.  Counts its launches in
     ``fused_mlp_fwd_cuda.launches``."""
     _check_operands("fused_mlp_fwd_cuda", inp, net, sx, sd, has_transient,
                     dtype)
     dev, n = inp.device, inp.shape[0]
     out = torch.empty((n, OUT_W), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    image, image_ptr, image_bytes, grid = None, None, 0, 0
+    if dtype == torch.bfloat16:
+        image = weight_image(net, has_transient)
+        image_ptr = image.data_ptr()
+        image_bytes = image.numel() * image.element_size()
+        grid = fwd_grid(n, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
     with torch.cuda.device(dev):
         err = _lib().nerf_fused_mlp_fwd(
             _DTYPE_CODE[dtype], inp.data_ptr(), out.data_ptr(), n,
-            _ptrs(net.ws), _ptrs(net.bs), sx.data_ptr(), sd.data_ptr(),
+            _ptrs(net.ws), _ptrs(net.bs), image_ptr, image_bytes, grid,
+            sx.data_ptr(), sd.data_ptr(),
             n_freq_xyz, n_freq_dir, a_dim, t_dim, int(has_transient), stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd kernel launch failed: CUDA error "
@@ -540,12 +765,15 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
                        sd: torch.Tensor, g: torch.Tensor, *, n_freq_xyz: int,
                        n_freq_dir: int, a_dim: int, t_dim: int,
                        has_transient: bool, dtype):
-    """Launch csrc/fused_mlp_bwd.cu on the current stream (the backward
-    kernel, then its fixed-order reduction of per-block partial grads).
-    Same operands as ``fused_mlp_bwd_reference`` plus the (N, 16) f32
-    cotangent ``g``; returns (dws, dbs, d_inp) as it does.  Deterministic:
-    two launches on the same inputs give bitwise-equal results.  Counts its
-    launches in ``fused_mlp_bwd_cuda.launches``."""
+    """Launch csrc/fused_mlp_bwd.cu on the current stream.  bf16: the fused
+    recompute + dgrad kernel on ``weight_image(net, backward=True)`` with
+    ``fwd_grid`` persistent blocks, the split-K wgrad kernel over the
+    operand tiles it saved, and the fixed-order reductions of dW and db;
+    f32: the exact CUDA-core kernel and its reduction of per-block partial
+    grads.  Same operands as ``fused_mlp_bwd_reference`` plus the (N, 16)
+    f32 cotangent ``g``; returns (dws, dbs, d_inp) as it does.
+    Deterministic: two launches on the same inputs give bitwise-equal
+    results.  Counts its launches in ``fused_mlp_bwd_cuda.launches``."""
     shapes = _check_operands("fused_mlp_bwd_cuda", inp, net, sx, sd,
                              has_transient, dtype)
     dev, n = inp.device, inp.shape[0]
@@ -554,9 +782,16 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
         raise ValueError("g must be a contiguous (N, 16) float32 tensor on "
                          "the input's device")
     lib = _lib_bwd()
+    image_ptr, image_bytes, grid = None, 0, 0
+    if dtype == torch.bfloat16:
+        image = weight_image(net, has_transient, backward=True)
+        image_ptr = image.data_ptr()
+        image_bytes = image.numel() * image.element_size()
+        grid = fwd_grid(n, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
     sizes = (ctypes.c_longlong * 3)()
     err = lib.nerf_fused_mlp_bwd_sizes(
-        _DTYPE_CODE[dtype], n, n_freq_xyz, n_freq_dir, a_dim, t_dim,
+        _DTYPE_CODE[dtype], n, grid, n_freq_xyz, n_freq_dir, a_dim, t_dim,
         int(has_transient), sizes)
     if err != 0:
         raise ValueError(f"fused_mlp_bwd: unsupported shapes (error {err})")
@@ -564,7 +799,9 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
     if grad_floats != sum(k * m + m for k, m in shapes):
         raise RuntimeError("fused_mlp_bwd: packed layout disagrees with the "
                            "kernel's")
-    d_inp = torch.empty((n, LANES), dtype=torch.float32, device=dev)
+    # the bf16 kernel writes d_inp's live columns only
+    d_inp = (torch.zeros if dtype == torch.bfloat16 else torch.empty)(
+        (n, LANES), dtype=torch.float32, device=dev)
     grads = torch.empty(grad_floats, dtype=torch.float32, device=dev)
     scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8,
                           device=dev)
@@ -574,9 +811,9 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.nerf_fused_mlp_bwd(
             _DTYPE_CODE[dtype], inp.data_ptr(), g.data_ptr(),
-            d_inp.data_ptr(), n, _ptrs(net.ws), _ptrs(net.bs),
-            sx.data_ptr(), sd.data_ptr(), n_freq_xyz, n_freq_dir, a_dim,
-            t_dim, int(has_transient), scratch.data_ptr(),
+            d_inp.data_ptr(), n, _ptrs(net.ws), _ptrs(net.bs), image_ptr,
+            image_bytes, grid, sx.data_ptr(), sd.data_ptr(), n_freq_xyz,
+            n_freq_dir, a_dim, t_dim, int(has_transient), scratch.data_ptr(),
             partial.data_ptr(), grads.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_bwd kernel launch failed: CUDA error "

@@ -11,7 +11,8 @@ exactly); bf16 3e-2, since kernel and plain version sum the same exact
 products in another order and a hidden value near a rounding boundary can
 land one bf16 ulp apart.  Backward: f32 1e-4 of each tensor's largest
 magnitude (sums of the same products in another order); bf16 2e-2 of it,
-since a one-ulp flip in a rounded cotangent moves every sum it feeds.
+since a one-ulp flip in a rounded cotangent moves every sum it feeds (at
+the ragged sizes up to 70,001 points: 2e-2 of each tensor's norm).
 Anatomy probes: the bf16 ones 4e-3 + 1e-2 |ref| with mean 5e-5 (the limits
 of tests/test_torch_anatomy.py and chip_smoke.py; on an H100 at 524,288
 points they read max 9.8e-4 to 3.9e-3, mean at most 6.7e-6), the f32
@@ -27,7 +28,9 @@ from nerf_fl_torch.models import NeRFConfig, init_nerf
 from nerf_fl_torch.ops import anatomy
 from nerf_fl_torch.ops import fused_mlp as fm
 
-N = 1001                     # ragged: not a multiple of the 64-point tile
+N = 1001                     # ragged: no multiple of the 128-point tile
+# around the bf16 kernels' 128-point tile, and many tiles with a ragged end
+RAGGED = [1, 127, 129, 70_001]
 
 
 def _card():
@@ -37,17 +40,17 @@ def _card():
     return torch.device("cuda")
 
 
-def _inputs(dev, a_dim=48, seed=0):
+def _inputs(dev, a_dim=48, seed=0, n=N):
     model = init_nerf(NeRFConfig(typ="fine", encode_appearance=a_dim > 0,
                                  in_channels_a=a_dim or 48,
                                  encode_transient=True),
                       generator=torch.Generator().manual_seed(seed)).to(dev)
     rng = np.random.default_rng(seed)
-    xyz = rng.uniform(-3, 3, (N, 3))
-    dirs = rng.normal(0, 1, (N, 3))
+    xyz = rng.uniform(-3, 3, (n, 3))
+    dirs = rng.normal(0, 1, (n, 3))
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    a = rng.normal(0, 1, (N, a_dim)) if a_dim else None
-    t = rng.normal(0, 1, (N, 16))
+    a = rng.normal(0, 1, (n, a_dim)) if a_dim else None
+    t = rng.normal(0, 1, (n, 16))
     to = [None if x is None else torch.tensor(x, dtype=torch.float32,
                                               device=dev)
           for x in (xyz, dirs, a, t)]
@@ -76,14 +79,50 @@ def test_kernel_matches_plain_on_card(dtype, a_dim, transient):
                                atol=2e-4 if dtype == "float32" else 3e-2)
 
 
-def _bwd_case(dev, dtype, transient, a_dim=48):
-    model, (xyz, dirs, a, t) = _inputs(dev, a_dim)
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dim,transient", [(48, True), (0, True),
+                                             (48, False), (0, False)])
+@pytest.mark.parametrize("n", RAGGED)
+def test_kernel_matches_plain_at_ragged_sizes_on_card(n, a_dim, transient):
+    """bf16 forward at one row, one row short of a tile, one row over and
+    70,001; with and without appearance (kd = 32) and the transient branch."""
+    dev = _card()
+    model, (xyz, dirs, a, t) = _inputs(dev, a_dim, n=n)
+    inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
+    net = fm.pack_weights(model, a_dim, transient, torch.bfloat16, 10, 4, 16)
+    sx, sd = fm.default_scale_rows(10, 4, a_dim, device=dev)
+    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
+              t_dim=16 if transient else 0, has_transient=transient,
+              dtype=torch.bfloat16)
+    got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+    ref = fm.fused_mlp_reference(inp, net, sx, sd, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 16) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=0, atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_fwd_kernel_takes_no_points_on_card():
+    dev = _card()
+    model, (xyz, dirs, a, t) = _inputs(dev, n=0)
+    net = fm.pack_weights(model, 48, True, torch.bfloat16, 10, 4, 16)
+    sx, sd = fm.default_scale_rows(10, 4, 48, device=dev)
+    out = fm.fused_mlp_fwd_cuda(
+        fm.pack_inputs(xyz, dirs, a, t), net, sx, sd, n_freq_xyz=10,
+        n_freq_dir=4, a_dim=48, t_dim=16, has_transient=True,
+        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.shape == (0, 16)
+
+
+def _bwd_case(dev, dtype, transient, a_dim=48, n=N):
+    model, (xyz, dirs, a, t) = _inputs(dev, a_dim, n=n)
     dt = getattr(torch, dtype)
     inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
     net = fm.pack_weights(model, a_dim, transient, dt, 10, 4, 16)
     sx, sd = fm.default_scale_rows(10, 4, a_dim, device=dev)
-    g = torch.zeros(N, 16, device=dev)
-    g[:, :9] = torch.randn(N, 9, generator=torch.Generator().manual_seed(5)
+    g = torch.zeros(n, 16, device=dev)
+    g[:, :9] = torch.randn(n, 9, generator=torch.Generator().manual_seed(5)
                            ).to(dev)
     kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
               t_dim=16 if transient else 0, has_transient=transient, dtype=dt)
@@ -107,6 +146,30 @@ def test_bwd_kernel_matches_plain_on_card(dtype, transient):
         assert torch.isfinite(x).all()
         assert float((x - y).abs().max()) <= rel * float(y.abs().max()) \
             + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dim,transient", [(48, True), (0, True),
+                                             (48, False), (0, False)])
+@pytest.mark.parametrize("n", RAGGED)
+def test_bwd_kernel_matches_plain_at_ragged_sizes_on_card(n, a_dim, transient):
+    """bf16 backward at the sizes and shapes of the forward's ragged test,
+    two launches bitwise equal at each.  The limit is chip_smoke.py's for
+    bf16, ||d|| <= 2e-2 ||ref|| per tensor: among 70,001 points one bf16 ulp
+    of a cotangent moves a single d_inp entry by several percent of the
+    largest (the first design read 9.3e-2 there), which a max-abs limit
+    cannot tell from a fault."""
+    dev = _card()
+    inp, net, sx, sd, g, kw = _bwd_case(dev, "bfloat16", transient, a_dim, n)
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+    torch.cuda.synchronize()
+    for x, y, z in zip(got[0] + got[1] + [got[2]], ref[0] + ref[1] + [ref[2]],
+                       again[0] + again[1] + [again[2]]):
+        assert x.shape == y.shape and torch.isfinite(x).all()
+        assert torch.equal(x, z)
+        assert float((x - y).norm()) <= 2e-2 * float(y.norm()) + 1e-30
 
 
 @pytest.mark.cuda

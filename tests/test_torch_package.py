@@ -33,6 +33,7 @@ PORT_MODULES = {
     "nerf_fl_torch.models.embeddings", "nerf_fl_torch.models.mlp",
     "nerf_fl_torch.experiments", "nerf_fl_torch.experiments.kernel_anatomy",
     "nerf_fl_torch.experiments.kernel_anatomy2",
+    "nerf_fl_torch.experiments.fused_ablation",
     "nerf_fl_torch.ops", "nerf_fl_torch.ops._build",
     "nerf_fl_torch.ops.anatomy", "nerf_fl_torch.ops.fused_mlp", "nerf_fl_torch.ops.sorting",
     "nerf_fl_torch.render", "nerf_fl_torch.render.renderer",
