@@ -37,9 +37,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   8. hold each of the eleven kernel-anatomy probes against its plain version
      at the probes' own 524,288 points (operands from seed 0; the
      consolidated net bit for bit against the static one), time each beside
-     its plain version and its bound, time the fused forward kernel at the
-     same point count and print the measured split of its time, then run
-     both anatomy entry points and require every result.
+     its plain version and its bound, both per call and queued behind a
+     device sleep (device time: the host out of the window), with the block
+     it runs on (concat on the Hopper block with its ring depth and shared
+     bytes, registers and spills from ptxas); time the fused forward kernel
+     at the same point count and print the measured split of its time, then
+     run both anatomy entry points and require every result.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -160,8 +163,9 @@ def cuda_ms(fn, reps: int):
 
 
 def ptxas_info(src: str, kernel: str):
-    """(registers, spill store bytes, spill load bytes) that ptxas reported
-    for the entry function of ``src`` whose mangled name holds ``kernel``."""
+    """(registers, spill store bytes, spill load bytes, stack frame bytes)
+    that ptxas reported for the entry function of ``src`` whose mangled
+    name holds ``kernel``."""
     import re
     from nerf_fl_torch.ops import _build
     lines = _build.build_log(src).splitlines()
@@ -169,11 +173,11 @@ def ptxas_info(src: str, kernel: str):
         if "Compiling entry function" in line and kernel in line:
             text = " ".join(lines[i:i + 4])
             regs = re.search(r"Used (\d+) registers", text)
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", text)
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", text)
             if regs and spill:
-                return int(regs.group(1)), int(spill.group(1)), \
-                    int(spill.group(2))
+                return int(regs.group(1)), int(spill.group(2)), \
+                    int(spill.group(3)), int(spill.group(1))
     fail(f"no ptxas report for {kernel} in csrc/{src}.cu's build log")
 
 
@@ -791,23 +795,26 @@ def phase_bwd_timing(cfg, smi_name):
     return out
 
 
-def probe_cases(dev, n):
-    """Operand lists of the eleven probes, as the anatomy entry points make
-    them (seed 0): {probe name: operands in the Pallas kernel's order}."""
-    from nerf_fl_torch.ops import anatomy
-
-    c = anatomy.chain_operands(n, 0, dev)
-    o = anatomy.net_operands(n, 0, dev)
-    rows = anatomy.pe_mm_rows(dev) + [c["x128"]]
-    return {"static": anatomy.net_inputs(o, "static"),
-            "full": anatomy.net_inputs(o, "full"),
-            "consol": anatomy.net_inputs(o, "consol"),
-            "chain8": anatomy.chain_inputs(c, False),
-            "concat": anatomy.chain_inputs(c, True),
-            "split": anatomy.chain_inputs(c, True),
-            "pe_mm": rows, "pe_vpu": rows, "sin": [c["x128"]],
-            "pe_mm_bf16": rows,
-            "pe_only": anatomy.encoder_rows(dev) + [o["inp"]]}
+def probe_block(name) -> str:
+    """Which block a probe's kernel is built from, for its [probe] line;
+    concat and sin with what ptxas and the build report."""
+    if name == "concat":
+        from nerf_fl_torch.ops import anatomy
+        info = anatomy.concat_plan()
+        r = ptxas_info("anatomy_chain", "concat_hopper_kernel")
+        return (f"block: hopper (wgmma m64n256k16, {info['rows']} rows a "
+                f"tile, {info['threads']} threads, ring of {info['stages']} x "
+                f"32 KB slabs, {info['smem']} B shared memory, {r[0]} "
+                f"registers, spill {r[1]} / {r[2]} B)")
+    if name == "sin":
+        r = ptxas_info("anatomy_pe", "sin_kernel")
+        return (f"block: a tile of 256 float4s a block, one block a tile "
+                f"({r[0]} registers, spill {r[1]} / {r[2]} B, {r[3]} B stack "
+                f"frame)")
+    if name in ("chain8", "split", "static", "full", "consol", "pe_mm",
+                "pe_mm_bf16"):
+        return "block: first (gemm / load_slab, 64 rows)"
+    return "block: elementwise, one column a thread"
 
 
 def probe_work(name, ops, n):
@@ -844,6 +851,8 @@ def phase_anatomy(dev, cfg, smi_name):
     fused forward at the same size; the measured split; the entry points."""
     import torch
     from nerf_fl_torch.experiments import kernel_anatomy, kernel_anatomy2
+    from nerf_fl_torch.experiments.probe_timing import CALLS, cases as \
+        probe_cases, queued_ms
     from nerf_fl_torch.ops import anatomy
     from nerf_fl_torch.ops import fused_mlp as fm
 
@@ -851,7 +860,7 @@ def phase_anatomy(dev, cfg, smi_name):
     part, (peak_bf16, peak_bw) = peak_for(smi_name)
     peak = {"bf16": peak_bf16, "f32": F32_PEAKS[part]}
     t0 = time.perf_counter()
-    cases = probe_cases(dev, n)
+    cases = probe_cases(anatomy, n, dev)
     print(f"[anatomy] operands for {n} points from seed 0 in "
           f"{time.perf_counter() - t0:.1f} s")
     f32_gate = {"sin": PROBE_F32_ATOL, "pe_mm": PROBE_F32_ATOL,
@@ -887,24 +896,33 @@ def phase_anatomy(dev, cfg, smi_name):
             for _ in range(2):                               # warm up
                 probe.cuda(*ops)
             k_ms, k_all = cuda_ms(lambda: probe.cuda(*ops), 7)
+            d_ms, d_all = queued_ms(lambda: probe.cuda(*ops))
             p_ms, _ = cuda_ms(lambda: probe.plain(*ops), 5)
-            lib_ms = None
+            lib_ms = lib_d_ms = None
             if name == "sin":
                 lib_ms, _ = cuda_ms(lambda: torch.sin(ops[0]), 7)
+                lib_d_ms, _ = queued_ms(lambda: torch.sin(ops[0]))
             flops, kind, nbytes = probe_work(name, ops, n)
             t_ops, t_bytes = flops / peak[kind] * 1e3, nbytes / peak_bw * 1e3
             bound_ms = max(t_ops, t_bytes)
             rows[name] = dict(
-                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                bound_ms=bound_ms,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=lib_ms)
+                library_ms=lib_ms, library_device_ms=lib_d_ms)
+            lib = "" if lib_ms is None else (
+                f", torch.sin {lib_ms:.3f} ms per call, {lib_d_ms:.4f} "
+                f"queued (kernel / torch.sin queued "
+                f"{d_ms / lib_d_ms:.3f})")
             print(f"[probe] {name:10s} max_abs_err {err:.2e} mean {mean:.2e} "
-                  f"(gate {gate}); {k_ms:.3f} ms/launch (runs "
-                  f"{[round(x, 3) for x in k_all]}), plain {p_ms:.3f} ms"
-                  + (f", torch.sin {lib_ms:.3f} ms" if lib_ms else "")
-                  + f"; {flops / 1e9:.1f} G{kind} op, {nbytes / 1e9:.3f} GB, "
-                  f"bound {bound_ms:.3f} ms by {rows[name]['bound_by']} = "
-                  f"{100 * bound_ms / k_ms:.1f}% of bound")
+                  f"(gate {gate}); {k_ms:.3f} ms per call (runs "
+                  f"{[round(x, 3) for x in k_all]}), {d_ms:.4f} ms queued "
+                  f"(windows of {CALLS}: {[round(x, 4) for x in d_all]}), "
+                  f"plain {p_ms:.3f} ms{lib}; {flops / 1e9:.1f} G{kind} op, "
+                  f"{nbytes / 1e9:.3f} GB, bound {bound_ms:.3f} ms by "
+                  f"{rows[name]['bound_by']} = {100 * bound_ms / k_ms:.1f}% of "
+                  f"bound per call, {100 * bound_ms / d_ms:.1f}% queued; "
+                  f"{probe_block(name)}")
         if not torch.equal(outs["static"], outs["consol"]):
             failures.append("consol differs from static (must be bitwise "
                             "equal)")
@@ -933,9 +951,12 @@ def phase_anatomy(dev, cfg, smi_name):
           f"{r['consol']:.3f} | chain8 {r['chain8']:.3f} (trunk-like ceiling "
           f"of gemm / load_slab; staticnet - chain8 = "
           f"{r['static'] - r['chain8']:.3f}) | concat skip {r['concat']:.3f} "
-          f"vs split skip {r['split']:.3f} | the probes run on the header's "
-          f"first block (WMMA, 64 rows), the fused kernel on the Hopper "
-          f"block: fullnet_nope / fused = {r['full'] / fused_ms:.2f}")
+          f"vs split skip {r['split']:.3f}: concat runs on the Hopper block "
+          f"(wgmma, 128 rows, 2-slab ring), split and chain8 still on the "
+          f"header's first block (WMMA, 64 rows), so their difference is the "
+          f"blocks' and not the skip's cost | the net probes run on the first "
+          f"block, the fused kernel on the Hopper block: fullnet_nope / fused "
+          f"= {r['full'] / fused_ms:.2f}")
 
     # the entry points themselves: counts at 0 just before, read just after
     for probe in anatomy.PROBES.values():
@@ -1050,8 +1071,10 @@ def main() -> int:
                                  "train_step": on_train[name],
                                  "kernel_anatomy": row["launches"]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

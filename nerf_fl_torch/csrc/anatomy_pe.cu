@@ -21,12 +21,23 @@
 //
 // What bounds them: bytes.  Each reads at most 512 and writes 512 bytes a
 // point; only pe_mm does real arithmetic (16,384 f32 MACs a point on the
-// CUDA cores, which puts it just on the operations side).  The elementwise
+// CUDA cores, which puts it just on the operations side).  The encoder
 // kernels give a thread one output column and a stride of rows, so a warp
 // writes 128 consecutive bytes and the per-column constants sit in
 // registers; pe_vpu reads only the three input columns it needs.  The two
 // products reuse the fused kernels' gemm on a 64-point tile: the f32
 // instance is plain FMAs (no TF32), the bf16 instance WMMA.
+//
+// sin is a pure stream (0.537 GB a launch at 524,288 points): one tile of
+// SIN_UNROLL x SIN_THREADS float4s a block, as many blocks as tiles, so the
+// hardware's block scheduler hands the next tile to whichever SM frees up
+// first; 16-byte loads and stores; a scalar tail takes a count that is not
+// a multiple of 4.  Measured on an H100 (experiments/sin_ablation.py): a
+// persistent grid that walks the tiles with a grid stride is ~5-8% slower
+// (each SM gets a fixed share and the slowest one sets the time); more
+// loads in flight a thread (SIN_UNROLL 4) do not help, since 2,048 resident
+// threads an SM already keep 32 KB in flight; streaming cache hints
+// (__ldcs / __stcs) gain nothing either.
 //
 // Numerics: sin is sinf (build without --use_fast_math, or it becomes
 // __sinf); multiply-adds that the Pallas kernels keep apart are __fmul_rn /
@@ -37,7 +48,10 @@
 namespace {
 
 constexpr int LANES = 128;
-constexpr int ROWS_PER_BLOCK = 16;     // elementwise kernels: 2 rows a pass
+constexpr int ROWS_PER_BLOCK = 16;     // encoder kernels: 2 rows a pass
+constexpr int SIN_THREADS = 256;
+constexpr int SIN_UNROLL = 1;          // float4s a thread a tile
+constexpr int SIN_TILE = SIN_THREADS * SIN_UNROLL;   // float4s a tile
 
 // where(trg > 0, sin(E + ph), E) * s
 __device__ __forceinline__ float pe_out(float E, float ph, float trg,
@@ -69,13 +83,41 @@ pe_vpu_kernel(const float* __restrict__ P, const float* __restrict__ ph,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-sin_kernel(const float4* __restrict__ x, float4* __restrict__ out,
-           size_t n4) {
-  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n4) return;
-  const float4 v = x[i];
-  out[i] = make_float4(sinf(v.x), sinf(v.y), sinf(v.z), sinf(v.w));
+__device__ __forceinline__ float4 sin4(float4 v) {
+  return make_float4(sinf(v.x), sinf(v.y), sinf(v.z), sinf(v.w));
+}
+
+// out[i] = sinf(x[i]) for i < n; x and out 16-byte aligned.  Block b takes
+// tiles b, b + gridDim.x, ...: the loads of a tile are issued before its
+// first sinf.
+__global__ void __launch_bounds__(SIN_THREADS)
+sin_kernel(const float* __restrict__ x, float* __restrict__ out, size_t n) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  const size_t n4 = n / 4;
+  for (size_t i = (size_t)blockIdx.x * SIN_TILE + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * SIN_TILE) {
+    float4 v[SIN_UNROLL];
+#pragma unroll
+    for (int u = 0; u < SIN_UNROLL; ++u)
+      if (i + u * SIN_THREADS < n4) v[u] = x4[i + u * SIN_THREADS];
+#pragma unroll
+    for (int u = 0; u < SIN_UNROLL; ++u)
+      if (i + u * SIN_THREADS < n4) o4[i + u * SIN_THREADS] = sin4(v[u]);
+  }
+  if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4) {
+    const size_t e = 4 * n4 + threadIdx.x;
+    out[e] = sinf(x[e]);
+  }
+}
+
+int launch_sin(const float* x, float* out, size_t n, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorInvalidValue;
+  size_t blocks = (n / 4 + SIN_TILE - 1) / SIN_TILE;   // one tile a block
+  if (blocks == 0) blocks = 1;                          // the tail alone
+  sin_kernel<<<(unsigned)blocks, SIN_THREADS, 0, stream>>>(x, out, n);
+  return (int)cudaGetLastError();
 }
 
 struct EncRows {
@@ -184,10 +226,7 @@ int nerf_anatomy_pe(int variant, const void* const* ops, float* out, int n,
     pe_vpu_kernel<<<row_blocks, THREADS, 0, st>>>(f[0], f[1], f[2], f[3], f[4],
                                                   out, n);
   } else if (variant == 2) {
-    const size_t n4 = (size_t)n * (LANES / 4);
-    sin_kernel<<<(unsigned)((n4 + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-        reinterpret_cast<const float4*>(f[0]), reinterpret_cast<float4*>(out),
-        n4);
+    return launch_sin(f[0], out, (size_t)n * LANES, st);
   } else if (variant == 3) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     bf16* pb = static_cast<bf16*>(scratch);

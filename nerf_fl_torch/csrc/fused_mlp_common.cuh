@@ -7,8 +7,9 @@
 // m16n16k16 or f32 FMAs on operands that every warp loads from shared
 // memory, weights through a two-deep cp.async ring with block-wide
 // barriers.  It serves the f32 kernels, which are exact and on no main
-// path, and the probes.  On an H100 it reaches about 8% of the bf16 peak:
-// each 64-row tile streams the whole net from L2, mma_sync is the
+// path, and the probes not yet rebuilt on the Hopper block (chain8, split,
+// the net family, pe_mm).  On an H100 it reaches about 8% of the bf16
+// peak: each 64-row tile streams the whole net from L2, mma_sync is the
 // pre-Hopper path, and a K = 256 layer passes 16 block-wide barriers.
 //
 // The Hopper block (namespace hop, bf16): 128 points a block as two
@@ -19,7 +20,9 @@
 // layers and tiles; setmaxnreg; epilogues on the accumulator fragments.
 // Both bf16 fused kernels are built from it, and the backward recomputes
 // the forward with these same functions, so its activations (and ReLU
-// masks) are bit for bit the forward kernel's.
+// masks) are bit for bit the forward kernel's.  The concat probe
+// (anatomy_chain.cu) is built from it too, with a ring of two slabs: the
+// ring depth is a template parameter whose default is the fused kernels'.
 //
 // Numerics (both kernels): PE steps use __fmul_rn / __fadd_rn so that no
 // multiply-add is contracted; build without --use_fast_math.
@@ -577,7 +580,7 @@ struct Ring {
 // One segment of a layer's contraction: `rows` input columns (a multiple
 // of 16) that start at the operand tile at a_tile, one weight slab per 64.
 // SIG also multiplies into fs2's 16-column block (the slab's rows 256..271).
-template <int N, bool SIG>
+template <int N, bool SIG, int NST = STAGES>
 __device__ __forceinline__ void mma_seg(float (&acc)[N / 2], float (&sig)[8],
                                         uint32_t a_tile, int rows, Ring& r,
                                         bool& fresh, bool elected) {
@@ -604,7 +607,7 @@ __device__ __forceinline__ void mma_seg(float (&acc)[N / 2], float (&sig)[8],
       if (elected) mbar_arrive(r.empty + 8 * r.pending);
     }
     r.pending = r.stage;
-    if (++r.stage == STAGES) {
+    if (++r.stage == NST) {
       r.stage = 0;
       r.phase ^= 1;
     }
@@ -619,8 +622,9 @@ __device__ __forceinline__ void mma_end(Ring& r, bool elected) {
 }
 
 // The producer: one thread streams the plan's slabs through the ring, once
-// per tile of this block, and runs ahead of the consumers by STAGES slabs
+// per tile of this block, and runs ahead of the consumers by NST slabs
 // across layer and tile boundaries.
+template <int NST = STAGES>
 __device__ __forceinline__ void produce(const unsigned char* image,
                                         const Plan& plan, uint32_t full,
                                         uint32_t empty, uint32_t buf,
@@ -633,7 +637,7 @@ __device__ __forceinline__ void produce(const unsigned char* image,
       mbar_expect_tx(full + 8 * stage, plan.bytes[s]);
       bulk_g2s(buf + stage * stride, image + plan.off[s], plan.bytes[s],
                full + 8 * stage);
-      if (++stage == STAGES) {
+      if (++stage == NST) {
         stage = 0;
         phase ^= 1;
       }
@@ -664,15 +668,17 @@ __device__ __forceinline__ float hi_f(uint32_t p) {
 // The accumulator fragments of a 64 x N product -> bf16 activations at
 // tiles tile0.., each pair of neighbouring columns f(sum0, sum1, bias pair)
 // packed.  r / q: this thread's fragment row and column-pair index (see
-// Wgmma).  The 32-bit stores of a warp fall in 32 different banks.
-template <int N, typename F>
+// Wgmma).  The 32-bit stores of a warp fall in 32 different banks.  LDG:
+// the bias is in global memory and read through the read-only path.
+template <int N, typename F, bool LDG = false>
 __device__ __forceinline__ void store_acc(const float (&acc)[N / 2],
                                           unsigned char* act, int tile0,
                                           const float* bias, int r, int q,
                                           F f) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * q);
+    const float2* bp = reinterpret_cast<const float2*>(bias + 8 * j + 2 * q);
+    const float2 b = LDG ? __ldg(bp) : *bp;
     unsigned char* p = act + act_off(tile0, r, 8 * j) + q * 4;
     *reinterpret_cast<uint32_t*>(p) = f(acc[4 * j], acc[4 * j + 1], b);
     *reinterpret_cast<uint32_t*>(p + 8 * 128) =
@@ -696,6 +702,14 @@ struct LinearF {
   __device__ __forceinline__ uint32_t operator()(float v0, float v1,
                                                  float2 b) const {
     return pack2(v0 + b.x, v1 + b.y);
+  }
+};
+// the anatomy probes' hidden layer: relu(sum + f32 bias) in f32, rounded
+// once (the Pallas probes' numerics, unlike HiddenF's three roundings)
+struct ReluRoundF {
+  __device__ __forceinline__ uint32_t operator()(float v0, float v1,
+                                                 float2 b) const {
+    return pack2(fmaxf(v0 + b.x, 0.0f), fmaxf(v1 + b.y, 0.0f));
   }
 };
 

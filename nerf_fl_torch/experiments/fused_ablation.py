@@ -21,9 +21,11 @@ A variant that is not faster shows that its part does not bound the kernel.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
-from typing import Dict, List, Tuple
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Tuple
 
 VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
     "as_is": [],
@@ -53,20 +55,45 @@ VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
 }
 
 
-def patched_sources(variant: str, csrc=None) -> Dict[str, str]:
+def patched_sources(variant: str, csrc=None,
+                    variants: Optional[Dict] = None) -> Dict[str, str]:
     """File name -> text of every source under ``csrc`` (the package's own
-    by default), with the variant's substitutions applied; raises if a
-    pattern does not occur exactly once."""
+    by default), with the substitutions of ``variants[variant]`` (this
+    module's ``VARIANTS`` by default) applied; raises if a pattern does not
+    occur exactly once."""
     from ..ops import _build
+    variants = VARIANTS if variants is None else variants
     texts = {p.name: p.read_text()
              for p in sorted((csrc or _build.CSRC).iterdir())
              if p.suffix in (".cu", ".cuh", ".h")}
-    for name, old, new in VARIANTS[variant]:
+    for name, old, new in variants[variant]:
         if texts[name].count(old) != 1:
             raise RuntimeError(f"ablation {variant}: pattern occurs "
                                f"{texts[name].count(old)} times in {name}")
         texts[name] = texts[name].replace(old, new)
     return texts
+
+
+@contextlib.contextmanager
+def built_from(texts: Dict[str, str], root: Path,
+               clear: Callable[[], None]):
+    """Inside the block, ``ops/_build`` builds and loads the kernels from
+    ``texts`` (file name -> source) written to ``root/csrc``, into
+    ``root/_build``; ``clear`` drops the caller's cached libraries on the
+    way in and out."""
+    from ..ops import _build
+    csrc, build = _build.CSRC, _build.BUILD
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "csrc").mkdir(parents=True)
+    for name, text in texts.items():
+        (root / "csrc" / name).write_text(text)
+    _build.CSRC, _build.BUILD = root / "csrc", root / "_build"
+    clear()
+    try:
+        yield
+    finally:
+        _build.CSRC, _build.BUILD = csrc, build
+        clear()
 
 
 def main(n: int = 32 * 1024 * 128, reps: int = 7, device=None) -> Dict:
@@ -94,17 +121,11 @@ def main(n: int = 32 * 1024 * 128, reps: int = 7, device=None) -> Dict:
     def run():
         return fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
 
-    csrc, build = _build.CSRC, _build.BUILD
     ms = {}
-    try:
-        for variant in list(VARIANTS) + ["as_is"]:
-            root = build / "ablation" / variant
-            shutil.rmtree(root, ignore_errors=True)
-            (root / "csrc").mkdir(parents=True)
-            for name, text in patched_sources(variant, csrc).items():
-                (root / "csrc" / name).write_text(text)
-            _build.CSRC, _build.BUILD = root / "csrc", root / "_build"
-            fm._lib.cache_clear()
+    for variant in list(VARIANTS) + ["as_is"]:
+        with built_from(patched_sources(variant),
+                        _build.BUILD / "ablation" / variant,
+                        fm._lib.cache_clear):
             for _ in range(3):
                 run()
             times = []
@@ -116,12 +137,9 @@ def main(n: int = 32 * 1024 * 128, reps: int = 7, device=None) -> Dict:
                 b.record()
                 b.synchronize()
                 times.append(a.elapsed_time(b))
-            ms.setdefault(variant, []).append(sorted(times)[reps // 2])
-            print(f"[ablation] {variant:16s} {ms[variant][-1]:8.3f} ms at {n} "
-                  f"points", flush=True)
-    finally:
-        _build.CSRC, _build.BUILD = csrc, build
-        fm._lib.cache_clear()
+        ms.setdefault(variant, []).append(sorted(times)[reps // 2])
+        print(f"[ablation] {variant:16s} {ms[variant][-1]:8.3f} ms at {n} "
+              f"points", flush=True)
     out = {"device": torch.cuda.get_device_name(dev), "n": n, "ms": ms}
     print(json.dumps(out))
     return out

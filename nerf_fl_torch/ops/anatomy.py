@@ -7,7 +7,11 @@ Counterpart of the Pallas probe kernels inside ``main()`` of
 The CUDA sources are ``csrc/anatomy_chain.cu`` (chain8, concat, split),
 ``csrc/anatomy_net.cu`` (static, full, consol) and ``csrc/anatomy_pe.cu``
 (pe_mm, pe_vpu, sin, pe_mm_bf16, pe_only); they are built from the fused
-kernels' own blocks in ``csrc/fused_mlp_common.cuh``.
+kernels' own blocks in ``csrc/fused_mlp_common.cuh``.  ``concat`` runs on
+the Hopper block, as the bf16 fused kernels do: it streams ``chain_image``,
+its weights laid out as the wgmma operand's shared-memory image, which the
+wrapper builds per call; the other chain and net probes still run on the
+first block (WMMA, 64-point tiles).
 
 Every probe is a ``Probe`` in ``PROBES``.  Calling it with its operands, in
 the order the Pallas kernel takes its input refs, launches the kernel when
@@ -41,8 +45,8 @@ import torch
 
 from ..core.encoding import sin_cw
 from . import _build
-from .fused_mlp import (LANES, W_HALF, W_TRUNK, _encoder_consts, _pe_arg,
-                        default_scale_rows)
+from .fused_mlp import (LANES, W_HALF, W_TRUNK, _cut, _encoder_consts,
+                        _pe_arg, default_scale_rows, gather_image, slab_index)
 
 BF, F32 = torch.bfloat16, torch.float32
 ACT_W = W_HALF + W_TRUNK           # 384: [pe | h], [xf | dt], fs2
@@ -76,6 +80,42 @@ def chain_inputs(o, skip: bool) -> List[torch.Tensor]:
     """chain8 / concat / split operand list: w0 b0 .. w7 b7 [w4c] x."""
     ins = [t for pair in zip(o["ws"], o["bs"]) for t in pair]
     return ins + ([o["w4c"]] if skip else []) + [o["x256"]]
+
+
+# the concat probe's weight image: layers 0-3, w4c, layers 5-7 (never ws[4],
+# which concat does not read), as (K, N_out) in consumption order
+CHAIN_IMAGE_SHAPES = [(W_TRUNK, W_TRUNK)] * 4 + [(ACT_W, W_TRUNK)] \
+    + [(W_TRUNK, W_TRUNK)] * 3
+
+
+def chain_image_plan():
+    """The concat kernel's weight slabs in the order it consumes them
+    (``csrc/anatomy_chain.cu:make_chain_plan`` walks the same list): every
+    layer of ``CHAIN_IMAGE_SHAPES`` cut into W^T slabs of 64 input rows x
+    256 image rows (32 KB); ``Slab.layer`` indexes that list.  Returns the
+    slabs and the image's size in bytes (34 slabs, 1,114,112 B)."""
+    slabs, at = [], 0
+    for layer, (k, m) in enumerate(CHAIN_IMAGE_SHAPES):
+        at = _cut(slabs, at, layer, False, 0, k, 0, m, m)
+    return slabs, at
+
+
+@functools.lru_cache(maxsize=1)
+def _chain_index():
+    slabs, nbytes = chain_image_plan()
+    return slab_index(CHAIN_IMAGE_SHAPES, slabs, nbytes)
+
+
+def chain_image(ws: Sequence[torch.Tensor], w4c: torch.Tensor
+                ) -> torch.Tensor:
+    """The eight chain weights ``ws`` (256, 256) and ``w4c`` (384, 256), bf16,
+    laid out as the concat kernel streams them (``chain_image_plan``): a
+    flat bf16 tensor, a permutation of ws[0..3], w4c, ws[5..7] (no padding:
+    every K and N is a multiple of 64).  ``ws[4]`` is never read.  Two
+    device launches: one cat, one gather through an index cached per
+    device."""
+    layers = list(ws[:4]) + [w4c] + list(ws[5:8])
+    return gather_image(layers, ("chain",), _chain_index)
 
 
 def pe_mm_rows(device="cpu") -> List[torch.Tensor]:
@@ -254,6 +294,44 @@ def _pe_only_reference(PxR, phx, trgx, sx, PdR, phd, trgd, sd, ma, inp):
 # ----------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
+def concat_plan() -> Dict[str, object]:
+    """The concat kernel's block and plan as its source defines them (the
+    card's build): points a block, threads, shared-memory bytes, ring depth,
+    and the plan's slab offsets and sizes and image bytes."""
+    lib = _build.load("anatomy_chain")
+    n = 128                                   # hop::MAX_SLABS
+    info, off, size = (ctypes.c_int * 6)(), (ctypes.c_int * n)(), \
+        (ctypes.c_int * n)()
+    lib.nerf_anatomy_concat_plan(info, off, size)
+    k = info[4]
+    return {"rows": info[0], "threads": info[1], "smem": info[2],
+            "stages": info[3], "slabs": k, "image_bytes": info[5],
+            "off": list(off[:k]), "bytes": list(size[:k])}
+
+
+@functools.lru_cache(maxsize=None)
+def _check_concat_plan() -> None:
+    """Raise unless the concat kernel's plan is ``chain_image_plan``."""
+    slabs, nbytes = chain_image_plan()
+    plan = concat_plan()
+    if plan["image_bytes"] != nbytes or plan["off"] != [s.at for s in slabs] \
+            or plan["bytes"] != [s.height * 128 for s in slabs]:
+        raise RuntimeError("concat: the kernel's weight plan disagrees with "
+                           "chain_image_plan")
+
+
+def _concat_image(ops) -> torch.Tensor:
+    """The concat kernel's scratch: its weight image."""
+    _check_concat_plan()
+    return chain_image(ops[0:16:2], ops[16])
+
+
+def _pe_mm_bf16_scratch(ops) -> torch.Tensor:
+    """pe_mm_bf16's scratch: P rounded to bf16 by the launcher."""
+    return torch.empty((LANES, LANES), dtype=BF, device=ops[-1].device)
+
+
+@functools.lru_cache(maxsize=None)
 def _launcher(source: str):
     """``nerf_<source>(variant, operand pointers, out, n, scratch, stream)``
     of ``csrc/<source>.cu``."""
@@ -271,11 +349,13 @@ Spec = Tuple[Tuple[Optional[int], int], torch.dtype]   # (rows or None = N, cols
 class Probe:
     """One probe kernel: its plain version, its launcher and its launch
     count.  ``spec`` lists each operand's (shape, dtype) in the Pallas
-    kernel's input order, ``None`` standing for the point count N."""
+    kernel's input order, ``None`` standing for the point count N;
+    ``scratch(ops)``, where given, makes the one tensor the launcher takes
+    besides them (concat's weight image, pe_mm_bf16's rounded P)."""
 
     def __init__(self, name: str, replaces: str, source: str, variant: int,
                  spec: Sequence[Spec], plain: Callable[..., torch.Tensor],
-                 scratch: Optional[Tuple[Tuple[int, int], torch.dtype]] = None):
+                 scratch: Optional[Callable[..., torch.Tensor]] = None):
         self.name, self.replaces, self.variant = name, replaces, variant
         self.source = source
         self.spec, self.plain, self.scratch = list(spec), plain, scratch
@@ -308,10 +388,8 @@ class Probe:
         dev = ops[-1].device
         out = torch.empty((n, LANES), dtype=F32, device=dev)
         ptrs = (ctypes.c_void_p * len(ops))(*[t.data_ptr() for t in ops])
-        scratch = None
-        if self.scratch is not None:
-            scratch = torch.empty(self.scratch[0], dtype=self.scratch[1],
-                                  device=dev)
+        # a tensor the launcher takes besides the operands, made from them
+        scratch = None if self.scratch is None else self.scratch(ops)
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             err = _launcher(self.source)(
@@ -366,7 +444,8 @@ PROBES: Dict[str, Probe] = {p.name: p for p in (
           functools.partial(_chain_reference, None)),
     Probe("concat", f"{_K1}:98", "anatomy_chain", 1,
           _CHAIN + [_W4C, _X256],
-          functools.partial(_chain_reference, "concat")),
+          functools.partial(_chain_reference, "concat"),
+          scratch=_concat_image),
     Probe("split", f"{_K1}:120", "anatomy_chain", 2, _CHAIN + [_W4C, _X256],
           functools.partial(_chain_reference, "split")),
     Probe("pe_mm", f"{_K1}:151", "anatomy_pe", 0, _PE_MM, _pe_mm_reference),
@@ -374,7 +453,7 @@ PROBES: Dict[str, Probe] = {p.name: p for p in (
           _pe_vpu_reference),
     Probe("sin", f"{_K1}:180", "anatomy_pe", 2, [_PTS_F32], _sin_reference),
     Probe("pe_mm_bf16", f"{_K1}:188", "anatomy_pe", 3, _PE_MM,
-          _pe_mm_bf16_reference, scratch=((LANES, LANES), BF)),
+          _pe_mm_bf16_reference, scratch=_pe_mm_bf16_scratch),
     Probe("pe_only", f"{_K2}:177", "anatomy_pe", 4, _ENC + [_PTS_F32],
           _pe_only_reference),
 )}

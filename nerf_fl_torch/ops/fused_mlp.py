@@ -373,22 +373,19 @@ def bwd_image_plan(k0: int, kd: int, kt: int, has_transient: bool):
     return slabs, at
 
 
-@functools.lru_cache(maxsize=32)
-def _image_index(k0: int, kd: int, kt: int, has_transient: bool,
-                 backward: bool = False) -> np.ndarray:
-    """For every bf16 element of a weight image, its index in the flat
-    concatenation of ``PackedNet.ws`` (row-major, layer after layer), or the
-    index one past its end for zero padding.
+def slab_index(shapes, slabs, nbytes: int) -> np.ndarray:
+    """For every bf16 element of an image of ``slabs`` (``nbytes`` long) cut
+    from layers of (K, N_out) ``shapes``, its index in the flat
+    concatenation of those layers (row-major, layer after layer; a slab's
+    ``layer`` is its position in ``shapes``), or the index one past its end
+    for zero padding.
 
     A slab is a wgmma B operand's shared-memory image, K-major with the
     128-byte swizzle: one image row of 64 contraction values per column of
     the product, and 16-byte chunk c of image row i stored at chunk
     ``c ^ (i % 8)``.  So element [slab][i][c ^ (i % 8)][e] is contraction
     value ``8 c + e`` of image row i (see ``Slab``)."""
-    shapes = _packed_shapes(k0, kd, kt, has_transient)
     base = np.concatenate([[0], np.cumsum([k * m for k, m in shapes])])
-    slabs, nbytes = (bwd_image_plan if backward else image_plan)(
-        k0, kd, kt, has_transient)
     idx = np.full(nbytes // 2, base[-1], np.int64)
     for sl in slabs:
         n_out = shapes[sl.layer][1]
@@ -407,7 +404,31 @@ def _image_index(k0: int, kd: int, kt: int, has_transient: bool,
     return idx
 
 
+@functools.lru_cache(maxsize=32)
+def _image_index(k0: int, kd: int, kt: int, has_transient: bool,
+                 backward: bool = False) -> np.ndarray:
+    """``slab_index`` of the fused kernels' image of ``PackedNet.ws``."""
+    slabs, nbytes = (bwd_image_plan if backward else image_plan)(
+        k0, kd, kt, has_transient)
+    return slab_index(_packed_shapes(k0, kd, kt, has_transient), slabs,
+                      nbytes)
+
+
 _IMAGE_INDEX_ON = {}
+
+
+def gather_image(ws, key, index) -> torch.Tensor:
+    """The bf16 weights ``ws`` laid out as an image: a flat tensor on their
+    device through the numpy index ``index()`` (``slab_index``), whose
+    device copy is cached under ``key``.  Two device launches: one cat, one
+    gather."""
+    dev = ws[0].device
+    idx = _IMAGE_INDEX_ON.get(key + (dev,))
+    if idx is None:
+        idx = torch.from_numpy(index()).to(dev)
+        _IMAGE_INDEX_ON[key + (dev,)] = idx
+    flat = torch.cat([w.reshape(-1) for w in ws] + [ws[0].new_zeros(1)])
+    return flat.index_select(0, idx)
 
 
 def weight_image(net: PackedNet, has_transient: bool,
@@ -415,17 +436,9 @@ def weight_image(net: PackedNet, has_transient: bool,
     """``net.ws`` (bf16) laid out as the bf16 forward kernel (or, with
     ``backward``, the backward kernel) streams them: a flat bf16 tensor
     whose elements are the weights, each at least once, and zero padding
-    (``_image_index``; the forward's image is a permutation).  Two device
-    launches: one cat, one gather."""
+    (``_image_index``; the forward's image is a permutation)."""
     key = (net.k0, net.kd, net.kt, bool(has_transient), bool(backward))
-    dev = net.ws[0].device
-    idx = _IMAGE_INDEX_ON.get(key + (dev,))
-    if idx is None:
-        idx = torch.from_numpy(_image_index(*key)).to(dev)
-        _IMAGE_INDEX_ON[key + (dev,)] = idx
-    flat = torch.cat([w.reshape(-1) for w in net.ws]
-                     + [net.ws[0].new_zeros(1)])
-    return flat.index_select(0, idx)
+    return gather_image(net.ws, key, lambda: _image_index(*key))
 
 
 def bwd_tile_counts(k0: int, kd: int, kt: int, has_transient: bool):

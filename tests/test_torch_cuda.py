@@ -17,8 +17,8 @@ Anatomy probes: the bf16 ones 4e-3 + 1e-2 |ref| with mean 5e-5 (the limits
 of tests/test_torch_anatomy.py and chip_smoke.py; on an H100 at 524,288
 points they read max 9.8e-4 to 3.9e-3, mean at most 6.7e-6), the f32
 encoder probes 1e-6 (exact arguments on both sides and the same sinf: they
-differed by 0 on an H100), pe_only 2e-4, the consolidated net equal to the
-static one bit for bit.
+differed by 0 on an H100), sin equal to torch.sin bit for bit, pe_only
+2e-4, the consolidated net equal to the static one bit for bit.
 """
 import numpy as np
 import pytest
@@ -259,3 +259,53 @@ def test_anatomy_probe_refuses_bad_operands_on_card():
         anatomy.PROBES["chain8"](*ops[:-1], ops[-1].float())
     with pytest.raises(ValueError, match="operand 0"):
         anatomy.PROBES["chain8"](ops[0].cpu(), *ops[1:])
+
+
+def _assert_probe_bf16_close(got, ref):
+    diff = (got - ref).abs()
+    assert bool((diff <= 4e-3 + 1e-2 * ref.abs()).all())
+    assert float(diff.mean()) <= 5e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0] + RAGGED[:2] + [128] + RAGGED[2:])
+def test_anatomy_concat_matches_plain_at_ragged_sizes_on_card(n):
+    """The concat kernel (the Hopper block, 128-point tiles) around its tile
+    and over many tiles with a ragged end; rows past n are never written."""
+    dev = _card()
+    ops = _probe_ops("concat", dev, n=n, seed=2)
+    got = anatomy.PROBES["concat"](*ops)
+    ref = anatomy.PROBES["concat"].plain(*ops)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (n, 128)
+    if n:
+        assert torch.isfinite(got).all()
+        _assert_probe_bf16_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_anatomy_concat_is_deterministic_and_plan_agrees_on_card():
+    dev = _card()
+    plan = anatomy.concat_plan()
+    slabs, nbytes = anatomy.chain_image_plan()
+    assert (plan["slabs"], plan["image_bytes"]) == (34, nbytes)
+    assert plan["off"] == [s.at for s in slabs]
+    assert plan["bytes"] == [32768] * 34
+    assert (plan["rows"], plan["threads"], plan["stages"]) == (128, 384, 2)
+    assert plan["smem"] <= 232448
+    ops = _probe_ops("concat", dev, n=70_001, seed=3)
+    a = anatomy.PROBES["concat"](*ops)
+    b = anatomy.PROBES["concat"](*ops)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 70_001])
+def test_anatomy_sin_equals_torch_sin_on_card(n):
+    dev = _card()
+    x = anatomy.chain_operands(n, 4, dev)["x128"] * 50.0
+    before = anatomy.PROBES["sin"].launches
+    got = anatomy.PROBES["sin"](x)
+    torch.cuda.synchronize()
+    assert anatomy.PROBES["sin"].launches == before + 1
+    assert got.shape == (n, 128) and torch.equal(got, torch.sin(x))

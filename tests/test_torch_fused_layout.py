@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from nerf_fl_torch.experiments import fused_ablation
+from nerf_fl_torch.experiments import fused_ablation, sin_ablation
 from nerf_fl_torch.models import NeRFConfig, init_nerf
 from nerf_fl_torch.ops import fused_mlp as fm
 
@@ -136,3 +136,16 @@ def test_ablation_patterns_match_the_sources(variant):
     assert changed == {name for name, _, _ in fused_ablation.VARIANTS[variant]}
     with pytest.raises(ValueError, match="need a card"):
         fused_ablation.main(n=128, device="cpu")
+
+
+@pytest.mark.parametrize("variant", sorted(sin_ablation.VARIANTS))
+def test_sin_ablation_patterns_match_the_source(variant):
+    """The sin kernel's layouts edit anatomy_pe.cu alone, each pattern
+    exactly once."""
+    texts = fused_ablation.patched_sources(variant,
+                                           variants=sin_ablation.VARIANTS)
+    plain = {p.name: p.read_text() for p in CSRC.iterdir()}
+    changed = {n for n in texts if texts[n] != plain[n]}
+    assert changed == (set() if variant == "as_is" else {"anatomy_pe.cu"})
+    with pytest.raises(ValueError, match="need a card"):
+        sin_ablation.main(n=128, device="cpu")
