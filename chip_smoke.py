@@ -39,10 +39,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      consolidated net bit for bit against the static one), time each beside
      its plain version and its bound, both per call and queued behind a
      device sleep (device time: the host out of the window), with the block
-     it runs on (concat on the Hopper block with its ring depth and shared
-     bytes, registers and spills from ptxas); time the fused forward kernel
-     at the same point count and print the measured split of its time, then
-     run both anatomy entry points and require every result.
+     it runs on (concat and the three net probes on the Hopper block, with
+     ring depth, slab and shared bytes, registers and spills from ptxas);
+     time the fused forward kernel at the same point count, as it is and
+     without its encoders (experiments/fused_ablation.py's no_encoders
+     variant, built here), and print the split of its time that the net
+     probes measure; then run both anatomy entry points and require every
+     result.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -797,22 +800,28 @@ def phase_bwd_timing(cfg, smi_name):
 
 def probe_block(name) -> str:
     """Which block a probe's kernel is built from, for its [probe] line;
-    concat and sin with what ptxas and the build report."""
-    if name == "concat":
+    the Hopper-block probes and sin with what ptxas and the build report."""
+    if name in ("concat", "static", "full", "consol"):
         from nerf_fl_torch.ops import anatomy
-        info = anatomy.concat_plan()
-        r = ptxas_info("anatomy_chain", "concat_hopper_kernel")
-        return (f"block: hopper (wgmma m64n256k16, {info['rows']} rows a "
-                f"tile, {info['threads']} threads, ring of {info['stages']} x "
-                f"32 KB slabs, {info['smem']} B shared memory, {r[0]} "
-                f"registers, spill {r[1]} / {r[2]} B)")
+        if name == "concat":
+            info, src = anatomy.concat_plan(), "anatomy_chain"
+            kernel = "concat_hopper_kernel"
+        else:
+            transient = name == "full"
+            info, src = anatomy.net_plan(transient), "anatomy_net"
+            kernel = f"net_hopper_kernelILb{int(transient)}E"
+        r = ptxas_info(src, kernel)
+        return (f"block: hopper (wgmma from shared memory, {info['rows']} "
+                f"rows a tile, {info['threads']} threads, ring of "
+                f"{info['stages']} x {info['stage_bytes'] // 1024} KB slabs, "
+                f"{info['slabs']} slabs a tile, {info['smem']} B shared "
+                f"memory, {r[0]} registers, spill {r[1]} / {r[2]} B)")
     if name == "sin":
         r = ptxas_info("anatomy_pe", "sin_kernel")
         return (f"block: a tile of 256 float4s a block, one block a tile "
                 f"({r[0]} registers, spill {r[1]} / {r[2]} B, {r[3]} B stack "
                 f"frame)")
-    if name in ("chain8", "split", "static", "full", "consol", "pe_mm",
-                "pe_mm_bf16"):
+    if name in ("chain8", "split", "pe_mm", "pe_mm_bf16"):
         return "block: first (gemm / load_slab, 64 rows)"
     return "block: elementwise, one column a thread"
 
@@ -851,9 +860,11 @@ def phase_anatomy(dev, cfg, smi_name):
     fused forward at the same size; the measured split; the entry points."""
     import torch
     from nerf_fl_torch.experiments import kernel_anatomy, kernel_anatomy2
+    from nerf_fl_torch.experiments.fused_ablation import built_from, \
+        patched_sources
     from nerf_fl_torch.experiments.probe_timing import CALLS, cases as \
         probe_cases, queued_ms
-    from nerf_fl_torch.ops import anatomy
+    from nerf_fl_torch.ops import _build, anatomy
     from nerf_fl_torch.ops import fused_mlp as fm
 
     n = N_ANATOMY
@@ -932,31 +943,48 @@ def phase_anatomy(dev, cfg, smi_name):
         if failures:
             fail("\n".join(failures))
 
-        # the fused forward kernel on the same number of points
+        # the fused forward kernel on the same number of points, as it is
+        # and without its encoders (fused_ablation.py's no_encoders variant:
+        # wrong values, time only), per call and queued
         inp, net, sx, sd, kw = fused_case(dev, cfg, n, 5)
+
+        def fused():
+            return fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+
         for _ in range(2):
-            fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
-        fused_ms, _ = cuda_ms(lambda: fm.fused_mlp_fwd_cuda(
-            inp, net, sx, sd, **kw), 7)
+            fused()
+        fused_ms, _ = cuda_ms(fused, 7)
+        fused_q, _ = queued_ms(fused)
         flops = 2.0 * fine_macs(cfg) * n
         fused_line("fwd", n, fused_ms, flops, flops / peak_bf16 * 1e3, net,
                    True)
+        t0 = time.perf_counter()
+        with built_from(patched_sources("no_encoders"),
+                        _build.BUILD / "ablation" / "no_encoders",
+                        fm._lib.cache_clear):
+            for _ in range(2):
+                fused()
+            build_s = time.perf_counter() - t0
+            nope_ms, _ = cuda_ms(fused, 7)
+            nope_q, _ = queued_ms(fused)
         del inp
-    r = {k: v["ms"] for k, v in rows.items()}
-    print(f"[anatomy] at {n} points, ms per launch: fused_mlp_fwd (bf16, "
-          f"transient, a_dim 48) {fused_ms:.3f} | fullnet_nope {r['full']:.3f}"
-          f" + pe_only_vpu {r['pe_only']:.3f} = "
-          f"{r['full'] + r['pe_only']:.3f} | staticnet {r['static']:.3f} "
-          f"(transient branch +{r['full'] - r['static']:.3f}), consol "
-          f"{r['consol']:.3f} | chain8 {r['chain8']:.3f} (trunk-like ceiling "
-          f"of gemm / load_slab; staticnet - chain8 = "
-          f"{r['static'] - r['chain8']:.3f}) | concat skip {r['concat']:.3f} "
-          f"vs split skip {r['split']:.3f}: concat runs on the Hopper block "
-          f"(wgmma, 128 rows, 2-slab ring), split and chain8 still on the "
-          f"header's first block (WMMA, 64 rows), so their difference is the "
-          f"blocks' and not the skip's cost | the net probes run on the first "
-          f"block, the fused kernel on the Hopper block: fullnet_nope / fused "
-          f"= {r['full'] / fused_ms:.2f}")
+    r = {k: v["device_ms"] for k, v in rows.items()}
+    print(f"[anatomy] at {n} points, queued ms (device time; per call in "
+          f"brackets): fused_mlp_fwd (bf16, transient, a_dim 48) "
+          f"{fused_q:.4f} ({fused_ms:.3f}), the same kernel without its "
+          f"encoders {nope_q:.4f} ({nope_ms:.3f}; built in {build_s:.1f} s) "
+          f"| fullnet_nope {r['full']:.4f}, staticnet {r['static']:.4f}, "
+          f"consol {r['consol']:.4f}: the net probes and the fused kernel "
+          f"on one block (hopper) | fused - fullnet_nope = "
+          f"{fused_q - r['full']:.4f} beside pe_only_vpu {r['pe_only']:.4f} "
+          f"and the encoders' share by ablation, fused - no_encoders = "
+          f"{fused_q - nope_q:.4f} | fullnet_nope / fused = "
+          f"{r['full'] / fused_q:.3f} | fullnet_nope - staticnet = "
+          f"{r['full'] - r['static']:.4f} (the transient branch) | chain8 "
+          f"{r['chain8']:.4f}, split skip {r['split']:.4f} on the first "
+          f"block (WMMA, 64 rows), concat skip {r['concat']:.4f} on the "
+          f"Hopper block (2-slab ring): their difference is the blocks', not "
+          f"the skip's")
 
     # the entry points themselves: counts at 0 just before, read just after
     for probe in anatomy.PROBES.values():

@@ -405,8 +405,9 @@ int nerf_anatomy_chain(int skip, const void* const* ops, float* out, int n,
 
 // The concat kernel's block and plan, for the wrapper and for reports:
 // info[0] points a block, [1] threads, [2] shared-memory bytes, [3] slabs
-// in the weight ring, [4] slabs in the plan, [5] the image's bytes; off /
-// bytes (hop::MAX_SLABS each): every slab's byte offset and size.
+// in the weight ring, [4] slabs in the plan, [5] the image's bytes, [6] bytes
+// a ring slab; off / bytes (hop::MAX_SLABS each): every slab's byte offset
+// and size.
 void nerf_anatomy_concat_plan(int* info, int* off, int* bytes) {
   hop::Plan plan;
   const int image_bytes = cc::make_chain_plan(plan);
@@ -416,6 +417,7 @@ void nerf_anatomy_concat_plan(int* info, int* off, int* bytes) {
   info[3] = cc::CC_STAGES;
   info[4] = plan.n_slabs;
   info[5] = image_bytes;
+  info[6] = cc::CC_STAGE_BYTES;
   for (int s = 0; s < plan.n_slabs && s < hop::MAX_SLABS; ++s) {
     off[s] = plan.off[s];
     bytes[s] = plan.bytes[s];

@@ -8,7 +8,7 @@
 // memory, weights through a two-deep cp.async ring with block-wide
 // barriers.  It serves the f32 kernels, which are exact and on no main
 // path, and the probes not yet rebuilt on the Hopper block (chain8, split,
-// the net family, pe_mm).  On an H100 it reaches about 8% of the bf16
+// pe_mm).  On an H100 it reaches about 8% of the bf16
 // peak: each 64-row tile streams the whole net from L2, mma_sync is the
 // pre-Hopper path, and a K = 256 layer passes 16 block-wide barriers.
 //
@@ -22,7 +22,8 @@
 // the forward with these same functions, so its activations (and ReLU
 // masks) are bit for bit the forward kernel's.  The concat probe
 // (anatomy_chain.cu) is built from it too, with a ring of two slabs: the
-// ring depth is a template parameter whose default is the fused kernels'.
+// ring depth is a template parameter whose default is the fused kernels';
+// so are the net probes (anatomy_net.cu), with the fused kernels' three.
 //
 // Numerics (both kernels): PE steps use __fmul_rn / __fadd_rn so that no
 // multiply-add is contracted; build without --use_fast_math.
@@ -135,19 +136,16 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [k0, k0 + rows) of the (K, NOUT) weight W into a slab of ld NOUT+PAD.
-// ldw is W's row stride in elements: NOUT for a weight of its own, more for
-// a column block of a wider stacked operand (then W points at the block's
-// first column, a multiple of 16 bytes in).
 template <typename T, int NOUT>
 __device__ __forceinline__ void load_slab(T* slab, const T* W, int k0,
-                                          int rows, int ldw = NOUT) {
+                                          int rows) {
   constexpr int EPC = 16 / sizeof(T);          // elements per 16-byte chunk
   constexpr int CPR = NOUT / EPC;              // chunks per row
   constexpr int SLD = NOUT + Cfg<T>::PAD;
   const int total = rows * CPR;
   for (int c = threadIdx.x; c < total; c += THREADS) {
     int r = c / CPR, q = c % CPR;
-    cp_async16(slab + r * SLD + q * EPC, W + (size_t)(k0 + r) * ldw + q * EPC);
+    cp_async16(slab + r * SLD + q * EPC, W + (size_t)(k0 + r) * NOUT + q * EPC);
   }
 }
 
@@ -155,18 +153,17 @@ __device__ __forceinline__ void load_slab(T* slab, const T* W, int k0,
 // global), then epi(row, col, value) once per element.  A may be
 // overwritten by epi: every warp finishes reading A before any epi runs.
 // K is a multiple of 16.  slab holds 2 x KS x (16*NF + PAD) elements; on
-// the bf16 path it doubles as the per-warp epilogue scratch.  ldw: W's row
-// stride, as in load_slab.
+// the bf16 path it doubles as the per-warp epilogue scratch.
 template <typename T, int NF, typename Epi>
 __device__ void gemm(const T* A, int lda, int K, const T* W, T* slab,
-                     Epi epi, int ldw = 16 * NF) {
+                     Epi epi) {
   constexpr int NOUT = 16 * NF;
   constexpr int KS = Cfg<T>::KS;
   constexpr int SLD = NOUT + Cfg<T>::PAD;
   const int nslab = (K + KS - 1) / KS;
   const int tid = threadIdx.x;
 
-  load_slab<T, NOUT>(slab, W, 0, min(KS, K), ldw);
+  load_slab<T, NOUT>(slab, W, 0, min(KS, K));
   cp_async_commit();
 
   if constexpr (std::is_same<T, bf16>::value) {
@@ -181,7 +178,7 @@ __device__ void gemm(const T* A, int lda, int K, const T* W, T* slab,
       const int k0 = s * KS;
       if (s + 1 < nslab)
         load_slab<T, NOUT>(slab + ((s + 1) & 1) * KS * SLD, W, k0 + KS,
-                           min(KS, K - k0 - KS), ldw);
+                           min(KS, K - k0 - KS));
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
@@ -231,7 +228,7 @@ __device__ void gemm(const T* A, int lda, int K, const T* W, T* slab,
       const int k0 = s * KS;
       if (s + 1 < nslab)
         load_slab<T, NOUT>(slab + ((s + 1) & 1) * KS * SLD, W, k0 + KS,
-                           min(KS, K - k0 - KS), ldw);
+                           min(KS, K - k0 - KS));
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();

@@ -7,11 +7,12 @@ Counterpart of the Pallas probe kernels inside ``main()`` of
 The CUDA sources are ``csrc/anatomy_chain.cu`` (chain8, concat, split),
 ``csrc/anatomy_net.cu`` (static, full, consol) and ``csrc/anatomy_pe.cu``
 (pe_mm, pe_vpu, sin, pe_mm_bf16, pe_only); they are built from the fused
-kernels' own blocks in ``csrc/fused_mlp_common.cuh``.  ``concat`` runs on
-the Hopper block, as the bf16 fused kernels do: it streams ``chain_image``,
-its weights laid out as the wgmma operand's shared-memory image, which the
-wrapper builds per call; the other chain and net probes still run on the
-first block (WMMA, 64-point tiles).
+kernels' own blocks in ``csrc/fused_mlp_common.cuh``.  ``concat`` and the
+three net probes run on the Hopper block, as the bf16 fused kernels do:
+each streams its weights laid out as the wgmma operand's shared-memory
+image (``chain_image``, ``net_image``), which the wrapper builds per call;
+``chain8`` and ``split`` still run on the first block (WMMA, 64-point
+tiles).
 
 Every probe is a ``Probe`` in ``PROBES``.  Calling it with its operands, in
 the order the Pallas kernel takes its input refs, launches the kernel when
@@ -51,6 +52,13 @@ from .fused_mlp import (LANES, W_HALF, W_TRUNK, _cut, _encoder_consts,
 BF, F32 = torch.bfloat16, torch.float32
 ACT_W = W_HALF + W_TRUNK           # 384: [pe | h], [xf | dt], fs2
 MID = (1, 2, 3, 5, 6, 7)           # trunk layers stacked into w_mid
+# (K, N_out) of the net probes' fs2, dir and rgb layers (padded shapes)
+NET_HEADS = [(W_TRUNK, ACT_W), (ACT_W, W_HALF), (W_HALF, W_HALF)]
+
+
+def _trunk_k(i: int) -> int:
+    """Input rows of trunk layer ``i`` at the net probes' padded shapes."""
+    return W_HALF if i == 0 else ACT_W if i == 4 else W_TRUNK
 
 
 # ----------------------------------------------------------------------
@@ -146,8 +154,7 @@ def net_operands(n: int, seed: int = 0, device="cpu") -> Dict[str, object]:
     o: Dict[str, object] = {}
     trunk = []
     for i in range(8):
-        rows = W_HALF if i == 0 else (ACT_W if i == 4 else W_TRUNK)
-        trunk += [W(rows, W_TRUNK), B(W_TRUNK)]
+        trunk += [W(_trunk_k(i), W_TRUNK), B(W_TRUNK)]
     o["trunk"] = trunk
     o["wfs"], o["bfs"] = W(W_TRUNK, ACT_W), B(ACT_W)
     o["wd"], o["bd"] = W(ACT_W, W_HALF), B(W_HALF)
@@ -174,6 +181,67 @@ def net_inputs(o, variant: str) -> List[torch.Tensor]:
     if variant == "consol":
         return consolidate(o["trunk"]) + heads + [o["pe"], o["dt"]]
     raise ValueError(f"unknown net variant {variant!r}")
+
+
+def net_image_shapes(transient: bool, stacked: bool = False
+                     ) -> List[Tuple[int, int]]:
+    """(K, N_out) of the weights a net image is cut from, in operand order:
+    the eight trunk weights (``stacked``: w0, w_mid (256, 1536), w_skip, as
+    ``consol`` takes them), fs2, dir, rgb, and with ``transient`` t0, t1-t3
+    and the transient head."""
+    trunk = [(W_HALF, W_TRUNK), (W_TRUNK, 6 * W_TRUNK), (ACT_W, W_TRUNK)] \
+        if stacked else [(_trunk_k(i), W_TRUNK) for i in range(8)]
+    heads = list(NET_HEADS)
+    if transient:
+        heads += [(ACT_W, W_HALF)] + [(W_HALF, W_HALF)] * 4
+    return trunk + heads
+
+
+def net_image_plan(transient: bool, stacked: bool = False):
+    """The net kernel's weight slabs in the order it consumes them
+    (``csrc/anatomy_net.cu:make_net_plan`` walks the same list), cut from
+    the layers of ``net_image_shapes``: W^T slabs of 64 input rows, 256
+    image rows for the trunk and 128 for the rest.  fs2 is three products
+    over h (its columns 256..383, then 0..127, then 128..255); a layer over
+    [pe | h] or [xf | dt] reads its rows in order.  ``stacked`` cuts the
+    middle trunk layers out of w_mid's column blocks (``Slab.col0``); the
+    offsets and sizes do not depend on it.  Returns the slabs and the
+    image's size in bytes (52 slabs, 1,376,256 B; 66 and 1,605,632 B with
+    the transient branch)."""
+    slabs, at = [], 0
+    for i in range(8):
+        layer, col0 = (i, 0) if not stacked else \
+            (0, 0) if i == 0 else (2, 0) if i == 4 else \
+            (1, W_TRUNK * MID.index(i))
+        at = _cut(slabs, at, layer, False, 0, _trunk_k(i), col0, W_TRUNK,
+                  W_TRUNK)
+    fs = 3 if stacked else 8
+    for col0 in (W_TRUNK, 0, W_HALF):
+        at = _cut(slabs, at, fs, False, 0, W_TRUNK, col0, W_HALF, W_HALF)
+    shapes = net_image_shapes(transient, stacked)
+    for layer in range(fs + 1, len(shapes)):
+        at = _cut(slabs, at, layer, False, 0, shapes[layer][0], 0, W_HALF,
+                  W_HALF)
+    return slabs, at
+
+
+@functools.lru_cache(maxsize=4)
+def _net_index(transient: bool, stacked: bool):
+    slabs, nbytes = net_image_plan(transient, stacked)
+    return slab_index(net_image_shapes(transient, stacked), slabs, nbytes)
+
+
+def net_image(layers: Sequence[torch.Tensor], transient: bool,
+              stacked: bool = False) -> torch.Tensor:
+    """The bf16 weights ``layers`` (shapes ``net_image_shapes``) laid out as
+    the net kernel streams them (``net_image_plan``): a flat bf16 tensor, a
+    permutation of the weights (no padding: every K and N is a multiple of
+    64), 688,128 elements for the static net and 802,816 with the
+    transient branch.  The stacked operands give the same bytes as the
+    separate ones.  Two device launches: one cat, one gather through an
+    index cached per device."""
+    key = ("net", bool(transient), bool(stacked))
+    return gather_image(layers, key, lambda: _net_index(*key[1:]))
 
 
 def consolidate(trunk: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -293,37 +361,74 @@ def _pe_only_reference(PxR, phx, trgx, sx, PdR, phd, trgd, sd, ma, inp):
 # the kernels
 # ----------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def concat_plan() -> Dict[str, object]:
-    """The concat kernel's block and plan as its source defines them (the
-    card's build): points a block, threads, shared-memory bytes, ring depth,
-    and the plan's slab offsets and sizes and image bytes."""
-    lib = _build.load("anatomy_chain")
+def _card_plan(source: str, fn: str, *args: int) -> Dict[str, object]:
+    """A Hopper-block kernel's block and plan as its source defines them
+    (the card's build): ``nerf_<fn>(*args, info, off, bytes)`` fills points
+    a block, threads, shared-memory bytes, ring depth, slabs, image bytes
+    and bytes a ring slab, then every slab's offset and size."""
     n = 128                                   # hop::MAX_SLABS
-    info, off, size = (ctypes.c_int * 6)(), (ctypes.c_int * n)(), \
+    info, off, size = (ctypes.c_int * 7)(), (ctypes.c_int * n)(), \
         (ctypes.c_int * n)()
-    lib.nerf_anatomy_concat_plan(info, off, size)
+    getattr(_build.load(source), "nerf_" + fn)(*args, info, off, size)
     k = info[4]
     return {"rows": info[0], "threads": info[1], "smem": info[2],
             "stages": info[3], "slabs": k, "image_bytes": info[5],
-            "off": list(off[:k]), "bytes": list(size[:k])}
+            "stage_bytes": info[6], "off": list(off[:k]),
+            "bytes": list(size[:k])}
+
+
+@functools.lru_cache(maxsize=None)
+def concat_plan() -> Dict[str, object]:
+    """The concat kernel's block and plan (``_card_plan``)."""
+    return _card_plan("anatomy_chain", "anatomy_concat_plan")
+
+
+@functools.lru_cache(maxsize=None)
+def net_plan(transient: bool) -> Dict[str, object]:
+    """The net kernel's block and plan (``_card_plan``), static or with the
+    transient branch."""
+    return _card_plan("anatomy_net", "anatomy_net_plan", int(transient))
+
+
+def _check_plan(name: str, plan, slabs, nbytes) -> None:
+    if plan["image_bytes"] != nbytes or plan["off"] != [s.at for s in slabs] \
+            or plan["bytes"] != [s.height * 128 for s in slabs]:
+        raise RuntimeError(f"{name}: the kernel's weight plan disagrees with "
+                           f"the Python plan")
 
 
 @functools.lru_cache(maxsize=None)
 def _check_concat_plan() -> None:
     """Raise unless the concat kernel's plan is ``chain_image_plan``."""
-    slabs, nbytes = chain_image_plan()
-    plan = concat_plan()
-    if plan["image_bytes"] != nbytes or plan["off"] != [s.at for s in slabs] \
-            or plan["bytes"] != [s.height * 128 for s in slabs]:
-        raise RuntimeError("concat: the kernel's weight plan disagrees with "
-                           "chain_image_plan")
+    _check_plan("concat", concat_plan(), *chain_image_plan())
+
+
+@functools.lru_cache(maxsize=None)
+def _check_net_plan(transient: bool) -> None:
+    """Raise unless the net kernel's plan is ``net_image_plan``."""
+    _check_plan("full" if transient else "static", net_plan(transient),
+                *net_image_plan(transient))
 
 
 def _concat_image(ops) -> torch.Tensor:
     """The concat kernel's scratch: its weight image."""
     _check_concat_plan()
     return chain_image(ops[0:16:2], ops[16])
+
+
+def _net_scratch(transient: bool, stacked: bool = False):
+    """The net kernel's scratch for ``static`` / ``full`` / ``consol``
+    (``stacked``): its weight image, cut from the probe's operands."""
+    def scratch(ops) -> torch.Tensor:
+        _check_net_plan(transient)
+        if stacked:                       # w0 w_mid w_skip b_all wfs bfs ..
+            layers = list(ops[0:3]) + list(ops[4:10:2])
+        else:                             # w0 b0 .. w7 b7 wfs bfs wd bd ..
+            layers = list(ops[0:22:2])
+            if transient:                 # wt0 bt0 wtm0-2 btm0-2 wth bth
+                layers += [ops[22], *ops[24:27], ops[30]]
+        return net_image(layers, transient, stacked)
+    return scratch
 
 
 def _pe_mm_bf16_scratch(ops) -> torch.Tensor:
@@ -351,7 +456,8 @@ class Probe:
     count.  ``spec`` lists each operand's (shape, dtype) in the Pallas
     kernel's input order, ``None`` standing for the point count N;
     ``scratch(ops)``, where given, makes the one tensor the launcher takes
-    besides them (concat's weight image, pe_mm_bf16's rounded P)."""
+    besides them (the Hopper-block probes' weight images, pe_mm_bf16's
+    rounded P)."""
 
     def __init__(self, name: str, replaces: str, source: str, variant: int,
                  spec: Sequence[Spec], plain: Callable[..., torch.Tensor],
@@ -416,9 +522,8 @@ def _layers(shapes) -> List[Spec]:
     return out
 
 
-_TRUNK = _layers([(W_HALF if i == 0 else ACT_W if i == 4 else W_TRUNK,
-                   W_TRUNK) for i in range(8)])
-_HEADS = _layers([(W_TRUNK, ACT_W), (ACT_W, W_HALF), (W_HALF, W_HALF)])
+_TRUNK = _layers([(_trunk_k(i), W_TRUNK) for i in range(8)])
+_HEADS = _layers(NET_HEADS)
 _CHAIN = _layers([(W_TRUNK, W_TRUNK)] * 8)
 _ROW = ((1, LANES), F32)
 _PTS_BF, _PTS_F32 = ((None, LANES), BF), ((None, LANES), F32)
@@ -430,16 +535,19 @@ _K1, _K2 = "experiments/kernel_anatomy.py", "experiments/kernel_anatomy2.py"
 PROBES: Dict[str, Probe] = {p.name: p for p in (
     Probe("static", f"{_K2}:100", "anatomy_net", 0,
           _TRUNK + _HEADS + [_PTS_BF] * 2,
-          functools.partial(_net_reference, False)),
+          functools.partial(_net_reference, False),
+          scratch=_net_scratch(False)),
     Probe("full", f"{_K2}:130", "anatomy_net", 1,
           _TRUNK + _HEADS + [((ACT_W, W_HALF), BF), _ROW]
           + [((W_HALF, W_HALF), BF)] * 3 + [_ROW] * 3
           + [((W_HALF, W_HALF), BF), _ROW] + [_PTS_BF] * 3,
-          functools.partial(_net_reference, True)),
+          functools.partial(_net_reference, True),
+          scratch=_net_scratch(True)),
     Probe("consol", f"{_K2}:207", "anatomy_net", 2,
           [((W_HALF, W_TRUNK), BF), ((W_TRUNK, 6 * W_TRUNK), BF),
            ((ACT_W, W_TRUNK), BF), ((1, 8 * W_TRUNK), F32)]
-          + _HEADS + [_PTS_BF] * 2, _consol_reference),
+          + _HEADS + [_PTS_BF] * 2, _consol_reference,
+          scratch=_net_scratch(False, stacked=True)),
     Probe("chain8", f"{_K1}:77", "anatomy_chain", 0, _CHAIN + [_X256],
           functools.partial(_chain_reference, None)),
     Probe("concat", f"{_K1}:98", "anatomy_chain", 1,

@@ -40,9 +40,11 @@ def _card():
     return torch.device("cuda")
 
 
-def _inputs(dev, a_dim=48, seed=0, n=N):
+def _inputs(dev, a_dim=48, seed=0, n=N, nfx=10, nfd=4):
     model = init_nerf(NeRFConfig(typ="fine", encode_appearance=a_dim > 0,
                                  in_channels_a=a_dim or 48,
+                                 in_channels_xyz=3 + 6 * nfx,
+                                 in_channels_dir=3 + 6 * nfd,
                                  encode_transient=True),
                       generator=torch.Generator().manual_seed(seed)).to(dev)
     rng = np.random.default_rng(seed)
@@ -115,16 +117,16 @@ def test_fwd_kernel_takes_no_points_on_card():
     assert out.shape == (0, 16)
 
 
-def _bwd_case(dev, dtype, transient, a_dim=48, n=N):
-    model, (xyz, dirs, a, t) = _inputs(dev, a_dim, n=n)
+def _bwd_case(dev, dtype, transient, a_dim=48, n=N, nfx=10, nfd=4):
+    model, (xyz, dirs, a, t) = _inputs(dev, a_dim, n=n, nfx=nfx, nfd=nfd)
     dt = getattr(torch, dtype)
     inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
-    net = fm.pack_weights(model, a_dim, transient, dt, 10, 4, 16)
-    sx, sd = fm.default_scale_rows(10, 4, a_dim, device=dev)
+    net = fm.pack_weights(model, a_dim, transient, dt, nfx, nfd, 16)
+    sx, sd = fm.default_scale_rows(nfx, nfd, a_dim, device=dev)
     g = torch.zeros(n, 16, device=dev)
     g[:, :9] = torch.randn(n, 9, generator=torch.Generator().manual_seed(5)
                            ).to(dev)
-    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
+    kw = dict(n_freq_xyz=nfx, n_freq_dir=nfd, a_dim=a_dim,
               t_dim=16 if transient else 0, has_transient=transient, dtype=dt)
     return inp, net, sx, sd, g, kw
 
@@ -169,6 +171,46 @@ def test_bwd_kernel_matches_plain_at_ragged_sizes_on_card(n, a_dim, transient):
                        again[0] + again[1] + [again[2]]):
         assert x.shape == y.shape and torch.isfinite(x).all()
         assert torch.equal(x, z)
+        assert float((x - y).norm()) <= 2e-2 * float(y.norm()) + 1e-30
+
+
+# frequency counts besides the flagship's 10 / 4 that renderer._fused_ok
+# sends to the kernels (6 n_xyz + 3 <= 128, 6 n_dir + 3 + a_dim <= 128):
+# k0 = 48, 64, 128 and kd = 64, 80 with appearance 48
+FREQS = [(nfx, nfd) for nfx in (5, 8, 20) for nfd in (2, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfx,nfd", FREQS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_at_other_frequency_counts_on_card(dtype, nfx,
+                                                               nfd):
+    dev = _card()
+    inp, net, sx, sd, _, kw = _bwd_case(dev, dtype, True, nfx=nfx, nfd=nfd)
+    assert (net.k0, net.kd) == (-(-(3 + 6 * nfx) // 16) * 16,
+                                -(-(3 + 6 * nfd + 48) // 16) * 16)
+    got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+    ref = fm.fused_mlp_reference(inp, net, sx, sd, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=2e-4 if dtype == "float32" else 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfx,nfd", FREQS)
+def test_bwd_kernel_matches_plain_at_other_frequency_counts_on_card(nfx, nfd):
+    """bf16, the limit of the ragged test: ||d|| <= 2e-2 ||ref|| per
+    tensor (the highest frequency multiplies an input's cotangent by
+    2^19)."""
+    dev = _card()
+    inp, net, sx, sd, g, kw = _bwd_case(dev, "bfloat16", True, nfx=nfx,
+                                        nfd=nfd)
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got[0] + got[1] + [got[2]], ref[0] + ref[1] + [ref[2]]):
+        assert x.shape == y.shape and torch.isfinite(x).all()
         assert float((x - y).norm()) <= 2e-2 * float(y.norm()) + 1e-30
 
 
@@ -297,6 +339,48 @@ def test_anatomy_concat_is_deterministic_and_plan_agrees_on_card():
     a = anatomy.PROBES["concat"](*ops)
     b = anatomy.PROBES["concat"](*ops)
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 70_001])
+@pytest.mark.parametrize("name", ["static", "full", "consol"])
+def test_anatomy_net_matches_plain_at_ragged_sizes_on_card(name, n):
+    """The net kernel (the Hopper block, 128-point tiles) around its tile
+    and over many tiles with a ragged end; rows past n are never written."""
+    dev = _card()
+    ops = _probe_ops(name, dev, n=n, seed=2)
+    before = anatomy.PROBES[name].launches
+    got = anatomy.PROBES[name](*ops)
+    ref = anatomy.PROBES[name].plain(*ops)
+    torch.cuda.synchronize()
+    assert anatomy.PROBES[name].launches == before + 1
+    assert got.shape == ref.shape == (n, 128)
+    if n:
+        assert torch.isfinite(got).all()
+        _assert_probe_bf16_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transient", [False, True])
+def test_anatomy_net_is_deterministic_and_plan_agrees_on_card(transient):
+    dev = _card()
+    plan = anatomy.net_plan(transient)
+    slabs, nbytes = anatomy.net_image_plan(transient)
+    assert (plan["slabs"], plan["image_bytes"]) \
+        == (66 if transient else 52, nbytes)
+    assert plan["off"] == [s.at for s in slabs]
+    assert plan["bytes"] == [s.height * 128 for s in slabs]
+    assert (plan["rows"], plan["threads"], plan["stages"],
+            plan["stage_bytes"]) == (128, 384, 3, 32768)
+    assert plan["smem"] == 210_992
+    o = anatomy.net_operands(70_001, 3, dev)
+    name = "full" if transient else "static"
+    a = anatomy.PROBES[name](*anatomy.net_inputs(o, name))
+    b = anatomy.PROBES[name](*anatomy.net_inputs(o, name))
+    assert torch.equal(a, b)
+    if not transient:
+        c = anatomy.PROBES["consol"](*anatomy.net_inputs(o, "consol"))
+        assert torch.equal(a, c)
 
 
 @pytest.mark.cuda
