@@ -39,13 +39,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      consolidated net bit for bit against the static one), time each beside
      its plain version and its bound, both per call and queued behind a
      device sleep (device time: the host out of the window), with the block
-     it runs on (concat and the three net probes on the Hopper block, with
-     ring depth, slab and shared bytes, registers and spills from ptxas);
-     time the fused forward kernel at the same point count, as it is and
-     without its encoders (experiments/fused_ablation.py's no_encoders
-     variant, built here), and print the split of its time that the net
-     probes measure; then run both anatomy entry points and require every
-     result.
+     it runs on (the three chain and the three net probes on the Hopper
+     block, with ring depth, slab and shared bytes, registers and spills
+     from ptxas); time the fused forward kernel at the same point count, as
+     it is and without its encoders (experiments/fused_ablation.py's
+     no_encoders variant, built here), and split at concat's ring depth
+     (experiments/chain_ablation.py, built here; bit for bit split as it
+     ships); print the split of the fused kernel's time that the net probes
+     measure and of the chain probes' times by skip; then run both anatomy
+     entry points and require every result.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -801,11 +803,12 @@ def phase_bwd_timing(cfg, smi_name):
 def probe_block(name) -> str:
     """Which block a probe's kernel is built from, for its [probe] line;
     the Hopper-block probes and sin with what ptxas and the build report."""
-    if name in ("concat", "static", "full", "consol"):
+    if name in ("chain8", "concat", "split", "static", "full", "consol"):
         from nerf_fl_torch.ops import anatomy
-        if name == "concat":
-            info, src = anatomy.concat_plan(), "anatomy_chain"
-            kernel = "concat_hopper_kernel"
+        if name in anatomy.CHAIN_PROBES:
+            skip = anatomy.PROBES[name].variant
+            info, src = anatomy.chain_plan(skip), "anatomy_chain"
+            kernel = f"chain_hopper_kernelILi{skip}ELi{info['stages']}EE"
         else:
             transient = name == "full"
             info, src = anatomy.net_plan(transient), "anatomy_net"
@@ -821,7 +824,7 @@ def probe_block(name) -> str:
         return (f"block: a tile of 256 float4s a block, one block a tile "
                 f"({r[0]} registers, spill {r[1]} / {r[2]} B, {r[3]} B stack "
                 f"frame)")
-    if name in ("chain8", "split", "pe_mm", "pe_mm_bf16"):
+    if name in ("pe_mm", "pe_mm_bf16"):
         return "block: first (gemm / load_slab, 64 rows)"
     return "block: elementwise, one column a thread"
 
@@ -860,6 +863,8 @@ def phase_anatomy(dev, cfg, smi_name):
     fused forward at the same size; the measured split; the entry points."""
     import torch
     from nerf_fl_torch.experiments import kernel_anatomy, kernel_anatomy2
+    from nerf_fl_torch.experiments.chain_ablation import ring_depth, \
+        shipped_depth
     from nerf_fl_torch.experiments.fused_ablation import built_from, \
         patched_sources
     from nerf_fl_torch.experiments.probe_timing import CALLS, cases as \
@@ -901,7 +906,7 @@ def phase_anatomy(dev, cfg, smi_name):
             if bad:
                 failures.append(f"probe {name} != plain: max {err:.3e} mean "
                                 f"{mean:.3e} (gate {gate})")
-            if name in ("static", "consol"):
+            if name in ("static", "consol", "split"):
                 outs[name] = got
             del got, ref, diff
             for _ in range(2):                               # warm up
@@ -939,6 +944,7 @@ def phase_anatomy(dev, cfg, smi_name):
                             "equal)")
         print("[probe] consol == static bit for bit: "
               f"{torch.equal(outs['static'], outs['consol'])}")
+        split_ops, split_out = cases["split"], outs["split"]
         del outs, cases
         if failures:
             fail("\n".join(failures))
@@ -968,7 +974,27 @@ def phase_anatomy(dev, cfg, smi_name):
             nope_ms, _ = cuda_ms(fused, 7)
             nope_q, _ = queued_ms(fused)
         del inp
+
+        # split with concat's ring depth (chain_ablation.py): the same
+        # arithmetic, so bit for bit split as it ships, and concat's work
+        # but for the copy
+        split = anatomy.PROBES["split"]
+        depth = shipped_depth("concat")
+        t0 = time.perf_counter()
+        with ring_depth("split", depth):
+            same = torch.equal(split.cuda(*split_ops), split_out)
+            ring_s = time.perf_counter() - t0
+            split.cuda(*split_ops)
+            split_cc_q, _ = queued_ms(lambda: split.cuda(*split_ops))
+        if not same:
+            fail(f"split with a ring of {depth} slabs differs from split as "
+                 f"it ships")
+        del split_ops, split_out
     r = {k: v["device_ms"] for k, v in rows.items()}
+    ring = {k: anatomy.chain_plan(anatomy.PROBES[k].variant)["stages"]
+            for k in anatomy.CHAIN_PROBES}
+    chain8_tf = 2.0 * 8 * 256 * 256 * n / r["chain8"] / 1e9
+    nope_tf = 2.0 * fine_macs(cfg) * n / nope_q / 1e9
     print(f"[anatomy] at {n} points, queued ms (device time; per call in "
           f"brackets): fused_mlp_fwd (bf16, transient, a_dim 48) "
           f"{fused_q:.4f} ({fused_ms:.3f}), the same kernel without its "
@@ -980,11 +1006,18 @@ def phase_anatomy(dev, cfg, smi_name):
           f"and the encoders' share by ablation, fused - no_encoders = "
           f"{fused_q - nope_q:.4f} | fullnet_nope / fused = "
           f"{r['full'] / fused_q:.3f} | fullnet_nope - staticnet = "
-          f"{r['full'] - r['static']:.4f} (the transient branch) | chain8 "
-          f"{r['chain8']:.4f}, split skip {r['split']:.4f} on the first "
-          f"block (WMMA, 64 rows), concat skip {r['concat']:.4f} on the "
-          f"Hopper block (2-slab ring): their difference is the blocks', not "
-          f"the skip's")
+          f"{r['full'] - r['static']:.4f} (the transient branch) | the chain "
+          f"probes on the same block: chain8 {r['chain8']:.4f} "
+          f"({ring['chain8']}-slab ring), split skip {r['split']:.4f} "
+          f"({ring['split']}), concat skip {r['concat']:.4f} ({ring['concat']}"
+          f"), split at {depth} slabs {split_cc_q:.4f} (built in "
+          f"{ring_s:.1f} s, bit for bit split) | concat - split = "
+          f"{r['concat'] - r['split']:.4f} (the copy and concat's shallower "
+          f"ring), concat - split@{depth} = {r['concat'] - split_cc_q:.4f} "
+          f"(the copy alone), split - chain8 = "
+          f"{r['split'] - r['chain8']:.4f} (the skip's 128 extra K rows) | "
+          f"chain8 {chain8_tf:.0f} TFLOP/s queued beside the fused forward "
+          f"without its encoders {nope_tf:.0f}")
 
     # the entry points themselves: counts at 0 just before, read just after
     for probe in anatomy.PROBES.values():

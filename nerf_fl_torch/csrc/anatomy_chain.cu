@@ -16,30 +16,35 @@
 // What bounds them: 524,288 MACs a point (557,056 with the skip) against
 // 1,024 bytes a point: operations, by a factor of ~3.5 on an H100.
 //
-// concat runs on the Hopper block of fused_mlp_common.cuh, as the fused
-// forward does: persistent blocks of 128 points, two consumer warpgroups of
-// 64 rows and a producer thread that streams the probe's weight image
-// (ops/anatomy.py:chain_image: layers 0-3, w4c, layers 5-7, 34 slabs of 256
-// image rows x 64 K-values) through an mbarrier ring with cp.async.bulk;
-// wgmma m64n256k16 with both operands in shared memory, K-major, 128-byte
-// swizzle; epilogues on the accumulator fragments.  In that layout
-// [x[:, :128] | h] held contiguously would need no copy at all: the fused
-// kernel's layer 4 is two segments over its P and H tiles, which is the
-// split.  So the concat stays a real copy: at layer 4 each warpgroup copies
-// its four h tiles (32 KB) behind the two x tiles of a separate 6-tile
-// operand and contracts K = 384 in one segment from there.  That operand
-// costs shared memory: 80 KB a warpgroup (h 4 tiles + concat 6), 160 KB for
-// two, which leaves room for a ring of two 32 KB slabs, not the fused
-// kernels' three; the biases (8 KB) stay in global memory and the epilogue
-// reads them through the read-only path.  The ring depth and the shared
-// bytes are what concat costs on this card, beside the copy.
+// All three run on the Hopper block of fused_mlp_common.cuh, as the fused
+// kernels do, as one template over the skip: persistent blocks of 128
+// points, two consumer warpgroups of 64 rows and a producer thread that
+// streams the probe's weight image (ops/anatomy.py:chain_image / chain8_image:
+// the layers in consumption order, 32 KB slabs of 256 image rows x 64
+// K-values) through an mbarrier ring with cp.async.bulk; wgmma m64n256k16
+// with both operands in shared memory, K-major, 128-byte swizzle; epilogues
+// on the accumulator fragments, biases read through the read-only path.
+// Each warpgroup holds h in operand tiles 0..3 and overwrites it in place
+// after each layer's products have completed.
 //
-// chain8 and split still run on the header's first block (gemm /
-// load_slab, WMMA, 64-point tiles): h is overwritten in place by each layer,
-// weights stream from L2 through the cp.async slab ring, two blocks an SM.
+// The skip at layer 4.  split keeps x[:, :128] in tiles 4..5 and contracts
+// two segments into one accumulator, x's (K = 128) then h's (K = 256), as the
+// fused forward's layer 4 runs over its P and H tiles: that order is the
+// rows of w4c, so split streams exactly concat's image.  Held contiguously
+// in the swizzled layout, [x[:, :128] | h] needs no copy at all, so concat's
+// copy is a real one: at layer 4 each warpgroup copies its four h tiles
+// (32 KB) behind the two x tiles of a separate 6-tile operand (tiles 4..9)
+// and contracts K = 384 in one segment from there.
+//
+// The ring depth is a template parameter, and what the operand tiles leave
+// of the 227 KB sets it: concat holds 10 tiles a warpgroup (80 KB) and a
+// ring of two slabs; split 6 tiles (48 KB, the fused kernels' operand
+// bytes) and chain8 4 (32 KB), each with the depth it ships with below.
 //
 // Numerics, as the Pallas kernels (and unlike the fused kernels' hidden
 // layers): relu(y + b) in f32 with the f32 bias, then one rounding to bf16.
+// Layer 7 computes all 256 columns, as the Pallas kernels do; its first 128
+// go out as f32.
 #include "fused_mlp_common.cuh"
 
 namespace {
@@ -49,167 +54,51 @@ enum { SKIP_NONE = 0, SKIP_CONCAT = 1, SKIP_SPLIT = 2 };
 constexpr int X_W = 256;          // input row
 constexpr int OUT_W = 128;        // output row: h[:, :128]
 
-struct ChainOps {
-  const bf16* w[8];
+struct ChainOps {                 // the weights come as the image
   const float* b[8];
-  const bf16* w4;                 // (384, 256), the skip layer's weight
   const bf16* x;
 };
 
-// ----------------------------------------------------------------------
-// chain8 and split: the header's first block, 64 points a block
-// ----------------------------------------------------------------------
-constexpr int PAD = Cfg<bf16>::PAD;
-constexpr int KS = Cfg<bf16>::KS;
-constexpr int HLD = W_TRUNK + PAD;
-constexpr int XLD = W_HALF + PAD;
-constexpr int SLD = W_TRUNK + PAD;
-
-struct ReluRound {
-  bf16* dst;
-  int ld;
-  const float* bias;
-  __device__ void operator()(int r, int c, float v) const {
-    dst[r * ld + c] = __float2bfloat16_rn(fmaxf(v + bias[c], 0.0f));
-  }
-};
-
-// C (64 x 256) = A0 (64 x K0) @ W0 + A1 (64 x K1) @ W1: fused_mlp_common's
-// bf16 gemm with its slab loop run once per source over ONE set of
-// accumulator fragments, then the same epilogue.  Nothing is copied.
-template <typename Epi>
-__device__ void gemm_split(const bf16* A0, int lda0, int K0, const bf16* W0,
-                           const bf16* A1, int lda1, int K1, const bf16* W1,
-                           bf16* slab, Epi epi) {
-  constexpr int NF = W_TRUNK / 16, NJ = NF / 2;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int mi = warp & 3, nj0 = warp >> 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  for (int src = 0; src < 2; ++src) {
-    const bf16* A = src ? A1 : A0;
-    const bf16* W = src ? W1 : W0;
-    const int lda = src ? lda1 : lda0, K = src ? K1 : K0;
-    const int nslab = (K + KS - 1) / KS;
-    load_slab<bf16, W_TRUNK>(slab, W, 0, min(KS, K));
-    cp_async_commit();
-    for (int s = 0; s < nslab; ++s) {
-      const int k0 = s * KS;
-      if (s + 1 < nslab)
-        load_slab<bf16, W_TRUNK>(slab + ((s + 1) & 1) * KS * SLD, W, k0 + KS,
-                                 min(KS, K - k0 - KS));
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const bf16* cur = slab + (s & 1) * KS * SLD;
-      const int rows = min(KS, K - k0);
-      for (int kk = 0; kk < rows; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, A + mi * 16 * lda + k0 + kk, lda);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, cur + kk * SLD + (nj0 + 2 * j) * 16, SLD);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  float* scratch = reinterpret_cast<float*>(slab) + warp * 256;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    wmma::store_matrix_sync(scratch, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32)
-      epi(mi * 16 + (e >> 4), (nj0 + 2 * j) * 16 + (e & 15), scratch[e]);
-    __syncwarp();
-  }
-  __syncthreads();
-}
-
-template <int SKIP> constexpr size_t smem_bytes() {
-  return sizeof(bf16) * ((size_t)TILE_M * HLD + 2 * KS * SLD +
-                         (SKIP == SKIP_SPLIT ? TILE_M * XLD : 0));
-}
-
-template <int SKIP>
-__global__ void __launch_bounds__(THREADS, 2)
-anatomy_chain_kernel(ChainOps o, float* __restrict__ out, int n) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* h = reinterpret_cast<bf16*>(smem);
-  bf16* slab = h + TILE_M * HLD;
-  bf16* xs = slab + 2 * KS * SLD;       // x[:, :128], kept for the skip
-
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)blockIdx.x * TILE_M;
-
-  for (int c = tid; c < TILE_M * (X_W / 8); c += THREADS) {
-    const int r = c / (X_W / 8), q = c % (X_W / 8);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < (size_t)n)
-      v = *reinterpret_cast<const uint4*>(o.x + (row0 + r) * X_W + q * 8);
-    *reinterpret_cast<uint4*>(h + r * HLD + q * 8) = v;
-    if (SKIP == SKIP_SPLIT && q < W_HALF / 8)
-      *reinterpret_cast<uint4*>(xs + r * XLD + q * 8) = v;
-  }
-  __syncthreads();
-
-  for (int i = 0; i < 8; ++i) {
-    const ReluRound epi{h, HLD, o.b[i]};
-    if (i == 4 && SKIP == SKIP_SPLIT)
-      gemm_split(xs, XLD, W_HALF, o.w4, h, HLD, W_TRUNK,
-                 o.w4 + (size_t)W_HALF * W_TRUNK, slab, epi);
-    else
-      gemm<bf16, 16>(h, HLD, W_TRUNK, o.w[i], slab, epi);
-  }
-
-  for (int e = tid; e < TILE_M * OUT_W; e += THREADS) {
-    const int r = e / OUT_W, c = e % OUT_W;
-    if (row0 + r < (size_t)n)
-      out[(row0 + r) * OUT_W + c] = __bfloat162float(h[r * HLD + c]);
-  }
-}
-
-template <int SKIP>
-int launch(const ChainOps& o, float* out, int n, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<SKIP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      anatomy_chain_kernel<SKIP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
-  const int grid = (n + TILE_M - 1) / TILE_M;
-  anatomy_chain_kernel<SKIP><<<grid, THREADS, smem, stream>>>(o, out, n);
-  return (int)cudaGetLastError();
-}
-
-// ----------------------------------------------------------------------
-// concat: the Hopper block, 128 points a block
-// ----------------------------------------------------------------------
 namespace cc {
 
 using namespace hop;
 
 constexpr int H_TILES = W_TRUNK / 64;         // h: tiles 0..3 of a warpgroup
-constexpr int T_C = H_TILES;                  // [x[:, :128] | h]: tiles 4..9
-constexpr int C_TILES = ACT_W / 64;
-constexpr int WG_BYTES = (H_TILES + C_TILES) * TILE_BYTES;   // 80 KB
-constexpr int CC_STAGES = 2;                  // weight slabs in flight
-constexpr int CC_STAGE_BYTES = W_TRUNK * 128; // 32 KB: 256 image rows
-constexpr int CC_SMEM = 1024 + CONSUMERS * WG_BYTES +
-                        CC_STAGES * CC_STAGE_BYTES + 2 * CC_STAGES * 8;
-static_assert(CC_SMEM <= 232448, "over the 227 KB a block can have");
+constexpr int T_X = H_TILES;                  // x[:, :128] (split), or
+                                              // [x[:, :128] | h] (concat)
+constexpr int CC_STAGES = 2;                  // weight slabs in flight: concat
+constexpr int CHAIN8_STAGES = 3;              //   chain8
+constexpr int SPLIT_STAGES = 3;               //   split
+constexpr int STAGE_BYTES_C = W_TRUNK * 128;  // 32 KB: 256 image rows
 
-// The image's walk: layers 0-3, w4c (384 input rows), layers 5-7, each cut
-// into slabs of 64 input rows x 256 image rows (ops/anatomy.py:
-// chain_image_plan is the same walk).  Returns the image's size in bytes.
-inline int make_chain_plan(Plan& p) {
+// operand tiles a warpgroup holds, the ring depth each probe ships with,
+// and the shared memory of a block
+__host__ __device__ constexpr int wg_tiles(int skip) {
+  return H_TILES + (skip == SKIP_CONCAT ? ACT_W / 64
+                    : skip == SKIP_SPLIT ? W_HALF / 64 : 0);
+}
+__host__ __device__ constexpr int ring_depth(int skip) {
+  return skip == SKIP_CONCAT ? CC_STAGES
+         : skip == SKIP_SPLIT ? SPLIT_STAGES : CHAIN8_STAGES;
+}
+__host__ __device__ constexpr int smem_bytes(int skip, int nst) {
+  return 1024 + CONSUMERS * wg_tiles(skip) * TILE_BYTES +
+         nst * STAGE_BYTES_C + 2 * nst * 8;
+}
+static_assert(smem_bytes(SKIP_NONE, CHAIN8_STAGES) <= 232448 &&
+                  smem_bytes(SKIP_CONCAT, CC_STAGES) <= 232448 &&
+                  smem_bytes(SKIP_SPLIT, SPLIT_STAGES) <= 232448,
+              "over the 227 KB a block can have");
+
+// The image's walk: layers 0-3, layer 4 (w4c's 384 input rows with a skip,
+// ws[4]'s 256 without), layers 5-7, each cut into slabs of 64 input rows x
+// 256 image rows (ops/anatomy.py:chain_image_plan is the same walk).
+// Returns the image's size in bytes.
+inline int make_chain_plan(Plan& p, int skip) {
   p = Plan{};
   int at = 0;
-  for (int l = 0; l < 8; ++l) plan_seg(p, at, l == 4 ? ACT_W : W_TRUNK, W_TRUNK);
+  for (int l = 0; l < 8; ++l)
+    plan_seg(p, at, l == 4 && skip != SKIP_NONE ? ACT_W : W_TRUNK, W_TRUNK);
   return at;
 }
 
@@ -217,44 +106,48 @@ struct Biases {
   const float* b[8];              // (256,) f32 each, in global memory
 };
 
-// This warpgroup's 64 rows of x -> h (tiles 0..3) and x[:, :128] -> the
-// first two tiles of the concat operand, 16 bytes a cp.async into the
-// swizzled layout (a warp reads one 512-byte row); rows past n are zero.
+// This warpgroup's 64 rows of x -> h (tiles 0..3) and, with KEEP_X,
+// x[:, :128] -> tiles T_X..T_X+1, 16 bytes a cp.async into the swizzled
+// layout (a warp reads one 512-byte row); rows past n are zero.
+template <bool KEEP_X>
 __device__ __forceinline__ void load_rows(unsigned char* act,
                                           const bf16* __restrict__ x,
                                           size_t row0, int n, int t) {
   for (int i = t; i < WG_ROWS * (X_W / 8); i += 128) {
     const int r = i / (X_W / 8), c = 8 * (i % (X_W / 8));
     unsigned char* dst = act + act_off(0, r, c);
-    unsigned char* cat = act + act_off(T_C, r, c);
+    unsigned char* keep = act + act_off(T_X, r, c);
     if (row0 + r < (size_t)n) {
       const bf16* src = x + (row0 + r) * X_W + c;
       cp_async16(dst, src);
-      if (c < W_HALF) cp_async16(cat, src);
+      if (KEEP_X && c < W_HALF) cp_async16(keep, src);
     } else {
       *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      if (c < W_HALF) *reinterpret_cast<uint4*>(cat) = make_uint4(0, 0, 0, 0);
+      if (KEEP_X && c < W_HALF)
+        *reinterpret_cast<uint4*>(keep) = make_uint4(0, 0, 0, 0);
     }
   }
   cp_async_commit();
   cp_async_wait<0>();
 }
 
+template <int SKIP, int NST>
 __global__ void __launch_bounds__(H_THREADS, 1)
-concat_hopper_kernel(const bf16* __restrict__ x, float* __restrict__ out,
-                     int n, const unsigned char* __restrict__ image,
-                     const __grid_constant__ Plan plan,
-                     const __grid_constant__ Biases bias) {
+chain_hopper_kernel(const bf16* __restrict__ x, float* __restrict__ out,
+                    int n, const unsigned char* __restrict__ image,
+                    const __grid_constant__ Plan plan,
+                    const __grid_constant__ Biases bias) {
+  constexpr int WG_BYTES = wg_tiles(SKIP) * TILE_BYTES;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle is a function of the address: tiles sit on 1024 bytes
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* stages = smem + CONSUMERS * WG_BYTES;
-  const uint32_t full = smem_u32(stages + CC_STAGES * CC_STAGE_BYTES);
-  const uint32_t empty = full + 8 * CC_STAGES;
+  const uint32_t full = smem_u32(stages + NST * STAGE_BYTES_C);
+  const uint32_t empty = full + 8 * NST;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int s = 0; s < CC_STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, CONSUMERS);
     }
@@ -268,8 +161,8 @@ concat_hopper_kernel(const bf16* __restrict__ x, float* __restrict__ out,
   if (wg == CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == CONSUMERS * 128)
-      produce<CC_STAGES>(image, plan, full, empty, smem_u32(stages),
-                         CC_STAGE_BYTES, n_tiles);
+      produce<NST>(image, plan, full, empty, smem_u32(stages), STAGE_BYTES_C,
+                   n_tiles);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
@@ -278,13 +171,13 @@ concat_hopper_kernel(const bf16* __restrict__ x, float* __restrict__ out,
   const bool elected = t == 0;
   unsigned char* act = smem + wg * WG_BYTES;
   const uint32_t tile_h = smem_u32(act);
-  const uint32_t tile_c = tile_h + T_C * TILE_BYTES;
-  Ring ring = {full, empty, smem_u32(stages), CC_STAGE_BYTES, 0, 0, -1};
+  const uint32_t tile_x = tile_h + T_X * TILE_BYTES;
+  Ring ring = {full, empty, smem_u32(stages), STAGE_BYTES_C, 0, 0, -1};
   float none[8];
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const size_t row0 = (size_t)tile * ROWS + wg * WG_ROWS;
-    load_rows(act, x, row0, n, t);
+    load_rows<SKIP != SKIP_NONE>(act, x, row0, n, t);
     // the next tile's rows on their way into L2 meanwhile (an x row is 512
     // bytes, as a packed f32 input row of next_rows)
     next_rows(reinterpret_cast<const float*>(x),
@@ -294,12 +187,12 @@ concat_hopper_kernel(const bf16* __restrict__ x, float* __restrict__ out,
 
     float acc[W_TRUNK / 2];
     for (int i = 0; i < 8; ++i) {
-      if (i == 4) {
+      if (SKIP == SKIP_CONCAT && i == 4) {
         // the concat: h's four tiles behind x[:, :128], a real 32 KB copy.
         // Tiles sit on 1024 bytes and the swizzle is a function of the
         // row, so a tile's bytes copy as they are.
         const uint4* src = reinterpret_cast<const uint4*>(act);
-        uint4* dst = reinterpret_cast<uint4*>(act + (T_C + 2) * TILE_BYTES);
+        uint4* dst = reinterpret_cast<uint4*>(act + (T_X + 2) * TILE_BYTES);
 #pragma unroll 4
         for (int e = t; e < H_TILES * TILE_BYTES / 16; e += 128)
           dst[e] = src[e];
@@ -308,12 +201,18 @@ concat_hopper_kernel(const bf16* __restrict__ x, float* __restrict__ out,
       }
       bool fresh = true;
       wgmma_fence();
-      if (i == 4)
-        mma_seg<W_TRUNK, false, CC_STAGES>(acc, none, tile_c, ACT_W, ring,
-                                           fresh, elected);
-      else
-        mma_seg<W_TRUNK, false, CC_STAGES>(acc, none, tile_h, W_TRUNK, ring,
-                                           fresh, elected);
+      if (SKIP == SKIP_CONCAT && i == 4) {
+        mma_seg<W_TRUNK, false, NST>(acc, none, tile_x, ACT_W, ring, fresh,
+                                     elected);
+      } else {
+        // split: x's two slabs, then h's four, into one accumulator; the
+        // ring releases x's last slab once h's first products are issued
+        if (SKIP == SKIP_SPLIT && i == 4)
+          mma_seg<W_TRUNK, false, NST>(acc, none, tile_x, W_HALF, ring, fresh,
+                                       elected);
+        mma_seg<W_TRUNK, false, NST>(acc, none, tile_h, W_TRUNK, ring, fresh,
+                                     elected);
+      }
       mma_end(ring, elected);
       fence_acc(acc);
       if (i == 7) break;
@@ -341,15 +240,18 @@ concat_hopper_kernel(const bf16* __restrict__ x, float* __restrict__ out,
   }
 }
 
+template <int SKIP>
 int launch(const ChainOps& o, float* out, int n, const void* image,
            cudaStream_t stream) {
+  constexpr int NST = ring_depth(SKIP);
+  constexpr int SMEM = smem_bytes(SKIP, NST);
   // cp.async and cp.async.bulk take 16-byte aligned global addresses, the
   // epilogue reads the biases as float2
   if (image == nullptr || (reinterpret_cast<uintptr_t>(image) & 15) ||
       (reinterpret_cast<uintptr_t>(o.x) & 15))
     return (int)cudaErrorInvalidValue;
   Plan plan;
-  make_chain_plan(plan);
+  make_chain_plan(plan, SKIP);
   Biases bias;
   for (int i = 0; i < 8; ++i) {
     if (reinterpret_cast<uintptr_t>(o.b[i]) & 7)
@@ -357,8 +259,8 @@ int launch(const ChainOps& o, float* out, int n, const void* image,
     bias.b[i] = o.b[i];
   }
   cudaError_t err = cudaFuncSetAttribute(
-      concat_hopper_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      CC_SMEM);
+      chain_hopper_kernel<SKIP, NST>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
   int dev = 0, sms = 0;
@@ -368,7 +270,7 @@ int launch(const ChainOps& o, float* out, int n, const void* image,
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (n + ROWS - 1) / ROWS;
   const int grid = n_tiles < sms ? n_tiles : sms;   // persistent blocks
-  concat_hopper_kernel<<<grid, H_THREADS, CC_SMEM, stream>>>(
+  chain_hopper_kernel<SKIP, NST><<<grid, H_THREADS, SMEM, stream>>>(
       o.x, out, n, static_cast<const unsigned char*>(image), plan, bias);
   return (int)cudaGetLastError();
 }
@@ -379,45 +281,42 @@ int launch(const ChainOps& o, float* out, int n, const void* image,
 
 extern "C" {
 
-// skip 0 none, 1 concat, 2 split.  ops: device pointers in the Pallas
-// kernel's operand order: w0 b0 .. w7 b7 [w4 with a skip] x.  out: (n, 128)
-// f32.  scratch: for concat, its weight image (ops/anatomy.py:chain_image,
-// the bytes of nerf_anatomy_concat_plan); unused otherwise (the probes'
-// launchers share one signature).  Returns 0 or the cudaError_t of the
-// launch.
+// skip 0 none (chain8), 1 concat, 2 split.  ops: device pointers in the
+// Pallas kernel's operand order: w0 b0 .. w7 b7 [w4 with a skip] x.  out:
+// (n, 128) f32.  scratch: the probe's weight image (ops/anatomy.py:
+// chain8_image without a skip, chain_image with one: the bytes of
+// nerf_anatomy_chain_plan), which the kernel streams in place of the w
+// operands.  Returns 0 or the cudaError_t of the launch.
 int nerf_anatomy_chain(int skip, const void* const* ops, float* out, int n,
                        void* scratch, void* stream) {
   if (n < 0 || skip < SKIP_NONE || skip > SKIP_SPLIT)
     return (int)cudaErrorInvalidValue;
   ChainOps o = {};
-  for (int i = 0; i < 8; ++i) {
-    o.w[i] = static_cast<const bf16*>(ops[2 * i]);
+  for (int i = 0; i < 8; ++i)
     o.b[i] = static_cast<const float*>(ops[2 * i + 1]);
-  }
-  int at = 16;
-  if (skip != SKIP_NONE) o.w4 = static_cast<const bf16*>(ops[at++]);
-  o.x = static_cast<const bf16*>(ops[at]);
+  o.x = static_cast<const bf16*>(ops[skip == SKIP_NONE ? 16 : 17]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (skip == SKIP_CONCAT) return cc::launch(o, out, n, scratch, s);
-  if (skip == SKIP_SPLIT) return launch<SKIP_SPLIT>(o, out, n, s);
-  return launch<SKIP_NONE>(o, out, n, s);
+  if (skip == SKIP_CONCAT)
+    return cc::launch<SKIP_CONCAT>(o, out, n, scratch, s);
+  if (skip == SKIP_SPLIT) return cc::launch<SKIP_SPLIT>(o, out, n, scratch, s);
+  return cc::launch<SKIP_NONE>(o, out, n, scratch, s);
 }
 
-// The concat kernel's block and plan, for the wrapper and for reports:
+// A chain kernel's block and plan, for the wrapper and for reports:
 // info[0] points a block, [1] threads, [2] shared-memory bytes, [3] slabs
-// in the weight ring, [4] slabs in the plan, [5] the image's bytes, [6] bytes
-// a ring slab; off / bytes (hop::MAX_SLABS each): every slab's byte offset
-// and size.
-void nerf_anatomy_concat_plan(int* info, int* off, int* bytes) {
+// in the weight ring, [4] slabs in the plan, [5] the image's bytes, [6]
+// bytes a ring slab; off / bytes (hop::MAX_SLABS each): every slab's byte
+// offset and size.
+void nerf_anatomy_chain_plan(int skip, int* info, int* off, int* bytes) {
   hop::Plan plan;
-  const int image_bytes = cc::make_chain_plan(plan);
+  const int image_bytes = cc::make_chain_plan(plan, skip);
   info[0] = hop::ROWS;
   info[1] = hop::H_THREADS;
-  info[2] = cc::CC_SMEM;
-  info[3] = cc::CC_STAGES;
+  info[2] = cc::smem_bytes(skip, cc::ring_depth(skip));
+  info[3] = cc::ring_depth(skip);
   info[4] = plan.n_slabs;
   info[5] = image_bytes;
-  info[6] = cc::CC_STAGE_BYTES;
+  info[6] = cc::STAGE_BYTES_C;
   for (int s = 0; s < plan.n_slabs && s < hop::MAX_SLABS; ++s) {
     off[s] = plan.off[s];
     bytes[s] = plan.bytes[s];

@@ -7,8 +7,8 @@
 // m16n16k16 or f32 FMAs on operands that every warp loads from shared
 // memory, weights through a two-deep cp.async ring with block-wide
 // barriers.  It serves the f32 kernels, which are exact and on no main
-// path, and the probes not yet rebuilt on the Hopper block (chain8, split,
-// pe_mm).  On an H100 it reaches about 8% of the bf16
+// path, and the probes not yet rebuilt on the Hopper block (pe_mm,
+// pe_mm_bf16).  On an H100 it reaches about 8% of the bf16
 // peak: each 64-row tile streams the whole net from L2, mma_sync is the
 // pre-Hopper path, and a K = 256 layer passes 16 block-wide barriers.
 //
@@ -20,10 +20,11 @@
 // layers and tiles; setmaxnreg; epilogues on the accumulator fragments.
 // Both bf16 fused kernels are built from it, and the backward recomputes
 // the forward with these same functions, so its activations (and ReLU
-// masks) are bit for bit the forward kernel's.  The concat probe
-// (anatomy_chain.cu) is built from it too, with a ring of two slabs: the
-// ring depth is a template parameter whose default is the fused kernels';
-// so are the net probes (anatomy_net.cu), with the fused kernels' three.
+// masks) are bit for bit the forward kernel's.  The chain probes
+// (anatomy_chain.cu: chain8, concat, split) are built from it too, each
+// with the ring depth its operand tiles leave room for: the ring depth is a
+// template parameter whose default is the fused kernels'; so are the net
+// probes (anatomy_net.cu), with the fused kernels' three.
 //
 // Numerics (both kernels): PE steps use __fmul_rn / __fadd_rn so that no
 // multiply-add is contracted; build without --use_fast_math.

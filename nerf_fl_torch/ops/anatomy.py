@@ -7,12 +7,12 @@ Counterpart of the Pallas probe kernels inside ``main()`` of
 The CUDA sources are ``csrc/anatomy_chain.cu`` (chain8, concat, split),
 ``csrc/anatomy_net.cu`` (static, full, consol) and ``csrc/anatomy_pe.cu``
 (pe_mm, pe_vpu, sin, pe_mm_bf16, pe_only); they are built from the fused
-kernels' own blocks in ``csrc/fused_mlp_common.cuh``.  ``concat`` and the
-three net probes run on the Hopper block, as the bf16 fused kernels do:
-each streams its weights laid out as the wgmma operand's shared-memory
-image (``chain_image``, ``net_image``), which the wrapper builds per call;
-``chain8`` and ``split`` still run on the first block (WMMA, 64-point
-tiles).
+kernels' own blocks in ``csrc/fused_mlp_common.cuh``.  The three chain
+probes and the three net probes run on the Hopper block, as the bf16 fused
+kernels do: each streams its weights laid out as the wgmma operand's
+shared-memory image (``chain8_image``, ``chain_image``, ``net_image``),
+which the wrapper builds per call; ``pe_mm`` and ``pe_mm_bf16`` still run
+on the first block (WMMA, 64-point tiles).
 
 Every probe is a ``Probe`` in ``PROBES``.  Calling it with its operands, in
 the order the Pallas kernel takes its input refs, launches the kernel when
@@ -90,40 +90,57 @@ def chain_inputs(o, skip: bool) -> List[torch.Tensor]:
     return ins + ([o["w4c"]] if skip else []) + [o["x256"]]
 
 
-# the concat probe's weight image: layers 0-3, w4c, layers 5-7 (never ws[4],
-# which concat does not read), as (K, N_out) in consumption order
+# the skip probes' (concat, split) weight image: layers 0-3, w4c, layers
+# 5-7 (never ws[4], which they do not read), as (K, N_out) in consumption
+# order; chain8's: the eight layers
 CHAIN_IMAGE_SHAPES = [(W_TRUNK, W_TRUNK)] * 4 + [(ACT_W, W_TRUNK)] \
     + [(W_TRUNK, W_TRUNK)] * 3
+CHAIN8_IMAGE_SHAPES = [(W_TRUNK, W_TRUNK)] * 8
+CHAIN_PROBES = ("chain8", "concat", "split")   # by the kernel's skip
 
 
-def chain_image_plan():
-    """The concat kernel's weight slabs in the order it consumes them
+def chain_image_plan(skip: bool = True):
+    """The chain kernel's weight slabs in the order it consumes them
     (``csrc/anatomy_chain.cu:make_chain_plan`` walks the same list): every
-    layer of ``CHAIN_IMAGE_SHAPES`` cut into W^T slabs of 64 input rows x
-    256 image rows (32 KB); ``Slab.layer`` indexes that list.  Returns the
-    slabs and the image's size in bytes (34 slabs, 1,114,112 B)."""
+    layer of ``CHAIN_IMAGE_SHAPES`` (with a skip: concat, split) or
+    ``CHAIN8_IMAGE_SHAPES`` (without: chain8) cut into W^T slabs of 64
+    input rows x 256 image rows (32 KB); ``Slab.layer`` indexes that list.
+    Returns the slabs and the image's size in bytes (34 slabs, 1,114,112 B
+    with a skip; 32 slabs, 1,048,576 B without).  split's two products at
+    layer 4 (x[:, :128] with w4c[:128], then h with w4c[128:]) read w4c's
+    slabs in this order, so split streams concat's image."""
     slabs, at = [], 0
-    for layer, (k, m) in enumerate(CHAIN_IMAGE_SHAPES):
+    shapes = CHAIN_IMAGE_SHAPES if skip else CHAIN8_IMAGE_SHAPES
+    for layer, (k, m) in enumerate(shapes):
         at = _cut(slabs, at, layer, False, 0, k, 0, m, m)
     return slabs, at
 
 
-@functools.lru_cache(maxsize=1)
-def _chain_index():
-    slabs, nbytes = chain_image_plan()
-    return slab_index(CHAIN_IMAGE_SHAPES, slabs, nbytes)
+@functools.lru_cache(maxsize=2)
+def _chain_index(skip: bool = True):
+    slabs, nbytes = chain_image_plan(skip)
+    return slab_index(CHAIN_IMAGE_SHAPES if skip else CHAIN8_IMAGE_SHAPES,
+                      slabs, nbytes)
 
 
 def chain_image(ws: Sequence[torch.Tensor], w4c: torch.Tensor
                 ) -> torch.Tensor:
     """The eight chain weights ``ws`` (256, 256) and ``w4c`` (384, 256), bf16,
-    laid out as the concat kernel streams them (``chain_image_plan``): a
-    flat bf16 tensor, a permutation of ws[0..3], w4c, ws[5..7] (no padding:
-    every K and N is a multiple of 64).  ``ws[4]`` is never read.  Two
-    device launches: one cat, one gather through an index cached per
-    device."""
+    laid out as the concat and split kernels stream them
+    (``chain_image_plan``): a flat bf16 tensor, a permutation of ws[0..3],
+    w4c, ws[5..7] (no padding: every K and N is a multiple of 64).
+    ``ws[4]`` is never read.  Two device launches: one cat, one gather
+    through an index cached per device."""
     layers = list(ws[:4]) + [w4c] + list(ws[5:8])
     return gather_image(layers, ("chain",), _chain_index)
+
+
+def chain8_image(ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The eight chain weights ``ws`` (256, 256) bf16 laid out as the
+    chain8 kernel streams them (``chain_image_plan(False)``): a flat bf16
+    tensor, a permutation of ws[0..7].  One cat, one gather."""
+    return gather_image(list(ws[:8]), ("chain8",),
+                        lambda: _chain_index(False))
 
 
 def pe_mm_rows(device="cpu") -> List[torch.Tensor]:
@@ -378,9 +395,10 @@ def _card_plan(source: str, fn: str, *args: int) -> Dict[str, object]:
 
 
 @functools.lru_cache(maxsize=None)
-def concat_plan() -> Dict[str, object]:
-    """The concat kernel's block and plan (``_card_plan``)."""
-    return _card_plan("anatomy_chain", "anatomy_concat_plan")
+def chain_plan(skip: int) -> Dict[str, object]:
+    """The chain kernel's block and plan (``_card_plan``) for ``skip`` 0
+    (chain8), 1 (concat) or 2 (split): ``CHAIN_PROBES``."""
+    return _card_plan("anatomy_chain", "anatomy_chain_plan", skip)
 
 
 @functools.lru_cache(maxsize=None)
@@ -398,9 +416,11 @@ def _check_plan(name: str, plan, slabs, nbytes) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _check_concat_plan() -> None:
-    """Raise unless the concat kernel's plan is ``chain_image_plan``."""
-    _check_plan("concat", concat_plan(), *chain_image_plan())
+def _check_chain_plan(skip: int) -> None:
+    """Raise unless the chain kernel's plan for ``skip`` is
+    ``chain_image_plan``'s."""
+    _check_plan(CHAIN_PROBES[skip], chain_plan(skip),
+                *chain_image_plan(skip != 0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -410,10 +430,16 @@ def _check_net_plan(transient: bool) -> None:
                 *net_image_plan(transient))
 
 
-def _concat_image(ops) -> torch.Tensor:
-    """The concat kernel's scratch: its weight image."""
-    _check_concat_plan()
-    return chain_image(ops[0:16:2], ops[16])
+def _chain_scratch(skip: int):
+    """The chain kernel's scratch for chain8 / concat / split (``skip``
+    0 / 1 / 2): its weight image, cut from the probe's operands (split's
+    is concat's)."""
+    def scratch(ops) -> torch.Tensor:
+        _check_chain_plan(skip)
+        if skip == 0:
+            return chain8_image(ops[0:16:2])
+        return chain_image(ops[0:16:2], ops[16])
+    return scratch
 
 
 def _net_scratch(transient: bool, stacked: bool = False):
@@ -549,13 +575,15 @@ PROBES: Dict[str, Probe] = {p.name: p for p in (
           + _HEADS + [_PTS_BF] * 2, _consol_reference,
           scratch=_net_scratch(False, stacked=True)),
     Probe("chain8", f"{_K1}:77", "anatomy_chain", 0, _CHAIN + [_X256],
-          functools.partial(_chain_reference, None)),
+          functools.partial(_chain_reference, None),
+          scratch=_chain_scratch(0)),
     Probe("concat", f"{_K1}:98", "anatomy_chain", 1,
           _CHAIN + [_W4C, _X256],
           functools.partial(_chain_reference, "concat"),
-          scratch=_concat_image),
+          scratch=_chain_scratch(1)),
     Probe("split", f"{_K1}:120", "anatomy_chain", 2, _CHAIN + [_W4C, _X256],
-          functools.partial(_chain_reference, "split")),
+          functools.partial(_chain_reference, "split"),
+          scratch=_chain_scratch(2)),
     Probe("pe_mm", f"{_K1}:151", "anatomy_pe", 0, _PE_MM, _pe_mm_reference),
     Probe("pe_vpu", f"{_K1}:164", "anatomy_pe", 1, _PE_MM,
           _pe_vpu_reference),

@@ -1,13 +1,14 @@
-"""The concat probe's weight image and plan on the CPU, and the generalised
-image helper behind both it and the fused kernels' images.
+"""The chain probes' weight images and plans on the CPU, and the
+generalised image helper behind both them and the fused kernels' images.
 
-``ops/anatomy.py:chain_image`` lays the chain weights out as the concat
-kernel (``csrc/anatomy_chain.cu``, the Hopper block) streams them: layers
-0-3, ``w4c``, layers 5-7, each cut into slabs of 64 input rows x 256 image
-rows, every slab the K-major, 128-byte-swizzled wgmma B operand image
-(16-byte chunk c of image row i at chunk ``c ^ (i % 8)``).  The kernel runs
-only on a card (``tests/test_torch_cuda.py``); what it reads is checked
-here exactly.
+``ops/anatomy.py:chain_image`` lays the chain weights out as the concat and
+split kernels (``csrc/anatomy_chain.cu``, the Hopper block) stream them:
+layers 0-3, ``w4c``, layers 5-7; ``chain8_image`` as the chain8 kernel
+does: the eight layers.  Each layer is cut into slabs of 64 input rows x
+256 image rows, every slab the K-major, 128-byte-swizzled wgmma B operand
+image (16-byte chunk c of image row i at chunk ``c ^ (i % 8)``).  The
+kernels run only on a card (``tests/test_torch_cuda.py``); what they read
+is checked here exactly.
 """
 import hashlib
 import re
@@ -28,13 +29,17 @@ def _layers(c):
     return list(c["ws"][:4]) + [c["w4c"]] + list(c["ws"][5:])
 
 
-def _decode(image):
+def _shapes(skip):
+    return anatomy.CHAIN_IMAGE_SHAPES if skip else anatomy.CHAIN8_IMAGE_SHAPES
+
+
+def _decode(image, skip=True):
     """Every layer of the image back as its (K, 256) matrix, through the
     swizzle: element (image row i, contraction value 8 c + e) of a slab is
     at [slab][i][c ^ (i % 8)][e]."""
-    slabs, _ = anatomy.chain_image_plan()
+    slabs, _ = anatomy.chain_image_plan(skip)
     flat = image.view(torch.int16).numpy()
-    out = [np.zeros((k, m), np.int16) for k, m in anatomy.CHAIN_IMAGE_SHAPES]
+    out = [np.zeros((k, m), np.int16) for k, m in _shapes(skip)]
     i = np.arange(256)[:, None, None]
     c = np.arange(8)[None, :, None]
     e = np.arange(8)[None, None, :]
@@ -57,30 +62,82 @@ def test_chain_plan_is_34_slabs_of_32_kb_in_consumption_order():
                                                        256, 320]
 
 
+def test_chain8_plan_is_32_slabs_of_32_kb_in_consumption_order():
+    slabs, nbytes = anatomy.chain_image_plan(False)
+    assert len(slabs) == 32 and nbytes == 32 * 32768 == 1_048_576
+    assert [s.at for s in slabs] == [32768 * j for j in range(32)]
+    assert all(s.height == 256 and s.rows == 64 and s.cols == 256
+               and not s.dgrad for s in slabs)
+    assert [s.layer for s in slabs] == sum(([layer] * 4
+                                            for layer in range(8)), [])
+    assert [s.row0 for s in slabs] == [0, 64, 128, 192] * 8
+
+
 def test_chain_plan_is_the_kernels_walk():
-    """``make_chain_plan`` in the source: one ``plan_seg`` a layer, 384
-    rows at layer 4 and 256 elsewhere, 256 image rows; plan_seg cuts
-    ``rows`` into slabs of 64 of ``height * 128`` bytes each, in order.
-    The card's build is compared with the Python plan at its first launch
-    (``ops/anatomy.py:_check_concat_plan``) and by tests/test_torch_cuda.py."""
+    """``make_chain_plan`` in the source, for each skip (0 chain8, 1
+    concat, 2 split): one ``plan_seg`` a layer, 384 rows at layer 4 with a
+    skip and 256 elsewhere, 256 image rows; plan_seg cuts ``rows`` into
+    slabs of 64 of ``height * 128`` bytes each, in order.  The card's build
+    is compared with the Python plan at its first launch
+    (``ops/anatomy.py:_check_chain_plan``) and by tests/test_torch_cuda.py."""
     src = (CSRC / "anatomy_chain.cu").read_text()
     hdr = (CSRC / "fused_mlp_common.cuh").read_text()
-    body = re.search(r"inline int make_chain_plan\(Plan& p\) \{(.*?)\n\}",
-                     src, re.S).group(1)
+    body = re.search(
+        r"inline int make_chain_plan\(Plan& p, int skip\) \{(.*?)\n\}",
+        src, re.S).group(1)
     seg = re.findall(r"plan_seg\(p, at, (.*?), (\w+)\);", body)
-    assert seg == [("l == 4 ? ACT_W : W_TRUNK", "W_TRUNK")]
+    assert seg == [("l == 4 && skip != SKIP_NONE ? ACT_W : W_TRUNK",
+                    "W_TRUNK")]
     assert "for (int l = 0; l < 8; ++l)" in body
+    skips = dict(re.findall(r"SKIP_(\w+) = (\d)", src))
+    assert skips == {"NONE": "0", "CONCAT": "1", "SPLIT": "2"}
+    assert anatomy.CHAIN_PROBES == ("chain8", "concat", "split")
     const = {k: int(v) for k, v in re.findall(
         r"constexpr int (\w+) = (\d+);", hdr)}
-    off, at = [], 0
-    for layer in range(8):
-        rows = const["ACT_W"] if layer == 4 else const["W_TRUNK"]
-        for _ in range(0, rows, 64):
-            off.append(at)
-            at += const["W_TRUNK"] * 128
-    slabs, nbytes = anatomy.chain_image_plan()
-    assert off == [s.at for s in slabs] and at == nbytes
-    assert len(off) <= const["MAX_SLABS"]
+    for skip, name in enumerate(anatomy.CHAIN_PROBES):
+        assert anatomy.PROBES[name].variant == skip
+        off, at = [], 0
+        for layer in range(8):
+            rows = const["ACT_W"] if layer == 4 and skip != 0 \
+                else const["W_TRUNK"]
+            for _ in range(0, rows, 64):
+                off.append(at)
+                at += const["W_TRUNK"] * 128
+        slabs, nbytes = anatomy.chain_image_plan(skip != 0)
+        assert off == [s.at for s in slabs] and at == nbytes
+        assert len(off) <= const["MAX_SLABS"]
+
+
+def _stages(name):
+    src = (CSRC / "anatomy_chain.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("probe,tiles", [("chain8", 4), ("split", 6)])
+def test_chain_shared_memory_budget_at_the_shipped_ring_depth(probe, tiles):
+    """chain8's two warpgroups hold h (4 operand tiles of 8 KB each); split
+    adds x[:, :128] (2 tiles, the fused kernels' 48 KB a warpgroup).  At the
+    ring depth each ships with, the 32 KB slabs, their barriers and the
+    1024-byte alignment slack fit the 232,448 bytes a block can have; the
+    source's own reckoning (``smem_bytes``) is the same sum."""
+    stages = _stages({"chain8": "CHAIN8_STAGES",
+                      "split": "SPLIT_STAGES"}[probe])
+    assert 2 <= stages
+    smem = 1024 + 2 * tiles * 8192 + stages * 32768 + 2 * stages * 8
+    assert smem <= 232_448
+    # at the fused kernels' three slabs
+    at3 = 1024 + 2 * tiles * 8192 + 3 * 32768 + 48
+    assert at3 == {"chain8": 164_912, "split": 197_680}[probe]
+    # the deepest ring that fits: 5 slabs for chain8, 4 for split
+    deepest = max(d for d in range(1, 8)
+                  if 1024 + 2 * tiles * 8192 + d * 32784 <= 232_448)
+    assert deepest == {"chain8": 5, "split": 4}[probe] and stages <= deepest
+    src = (CSRC / "anatomy_chain.cu").read_text()
+    body = re.search(
+        r"constexpr int smem_bytes\(int skip, int nst\) \{(.*?)\n\}", src,
+        re.S).group(1)
+    assert "1024 + CONSUMERS * wg_tiles(skip) * TILE_BYTES" in body
+    assert "nst * STAGE_BYTES_C + 2 * nst * 8" in body
 
 
 def test_concat_shared_memory_budget():
@@ -137,6 +194,57 @@ def test_chain_reference_on_the_decoded_matrices_is_bitwise():
     got = anatomy._chain_reference("concat",
                                    *anatomy.chain_inputs(mine, True))
     assert ref.shape == (256, 128) and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chain8_image_is_a_permutation_that_decodes_to_each_layer(seed):
+    c = anatomy.chain_operands(8, seed)
+    image = anatomy.chain8_image(c["ws"])
+    total = 8 * W * W
+    assert image.dtype == torch.bfloat16 and image.numel() == total
+    idx = anatomy._chain_index(False)
+    assert np.array_equal(np.sort(idx), np.arange(total))
+    flat = torch.cat([w.reshape(-1) for w in c["ws"]])
+    assert torch.equal(image, flat[torch.from_numpy(idx)])
+    got = _decode(image, skip=False)
+    assert len(got) == 8
+    for g, w in zip(got, c["ws"]):
+        assert torch.equal(g, w)
+    # one element by hand: ws[5][200, 33] is in slab 4 * 5 + 200 // 64 = 23,
+    # image row 33, chunk (200 % 64) // 8 ^ 33 % 8
+    at = 23 * 16384 + 33 * 64 + 8 * ((8 // 8) ^ 1) + 8 % 8
+    assert float(image[at]) == float(c["ws"][5][200, 33])
+
+
+def test_chain8_reference_on_the_decoded_matrices_is_bitwise():
+    """chain8's plain version on the matrices read back out of its image
+    equals it on the originals bit for bit."""
+    c = anatomy.chain_operands(256, 6)
+    dec = _decode(anatomy.chain8_image(c["ws"]), skip=False)
+    ref = anatomy._chain_reference(None, *anatomy.chain_inputs(c, False))
+    got = anatomy._chain_reference(
+        None, *anatomy.chain_inputs(dict(c, ws=dec), False))
+    assert ref.shape == (256, 128) and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_split_scratch_is_concat_image_byte_for_byte(seed, monkeypatch):
+    """split streams exactly concat's image (its two products at layer 4
+    read w4c's slabs in the image's order), chain8 its own; each wrapper
+    checks its own variant's plan against the card's build (stubbed here:
+    there is no card)."""
+    checked = []
+    monkeypatch.setattr(anatomy, "_check_chain_plan", checked.append)
+    c = anatomy.chain_operands(8, seed)
+    skip_ops = anatomy.chain_inputs(c, True)
+    split = anatomy.PROBES["split"].scratch(skip_ops)
+    concat = anatomy.PROBES["concat"].scratch(skip_ops)
+    assert split.dtype == concat.dtype == torch.bfloat16
+    assert torch.equal(split.view(torch.int16), concat.view(torch.int16))
+    assert torch.equal(split, anatomy.chain_image(c["ws"], c["w4c"]))
+    chain8 = anatomy.PROBES["chain8"].scratch(anatomy.chain_inputs(c, False))
+    assert torch.equal(chain8, anatomy.chain8_image(c["ws"]))
+    assert checked == [2, 1, 0]
 
 
 # sha256 of the fused kernels' image indices before the image helper was

@@ -328,7 +328,7 @@ def test_anatomy_concat_matches_plain_at_ragged_sizes_on_card(n):
 @pytest.mark.cuda
 def test_anatomy_concat_is_deterministic_and_plan_agrees_on_card():
     dev = _card()
-    plan = anatomy.concat_plan()
+    plan = anatomy.chain_plan(1)
     slabs, nbytes = anatomy.chain_image_plan()
     assert (plan["slabs"], plan["image_bytes"]) == (34, nbytes)
     assert plan["off"] == [s.at for s in slabs]
@@ -339,6 +339,84 @@ def test_anatomy_concat_is_deterministic_and_plan_agrees_on_card():
     a = anatomy.PROBES["concat"](*ops)
     b = anatomy.PROBES["concat"](*ops)
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 70_001])
+@pytest.mark.parametrize("name", ["chain8", "split"])
+def test_anatomy_chain_matches_plain_at_ragged_sizes_on_card(name, n):
+    """chain8 and split on the Hopper block (128-point tiles) around their
+    tile and over many tiles with a ragged end; rows past n are zero on
+    load and never written."""
+    dev = _card()
+    ops = _probe_ops(name, dev, n=n, seed=2)
+    before = anatomy.PROBES[name].launches
+    got = anatomy.PROBES[name](*ops)
+    ref = anatomy.PROBES[name].plain(*ops)
+    torch.cuda.synchronize()
+    assert anatomy.PROBES[name].launches == before + 1
+    assert got.shape == ref.shape == (n, 128)
+    if n:
+        assert torch.isfinite(got).all()
+        _assert_probe_bf16_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["chain8", "split"])
+def test_anatomy_chain_is_deterministic_and_plan_agrees_on_card(name):
+    dev = _card()
+    skip = anatomy.PROBES[name].variant
+    plan = anatomy.chain_plan(skip)
+    slabs, nbytes = anatomy.chain_image_plan(name == "split")
+    k = 34 if name == "split" else 32
+    assert (plan["slabs"], plan["image_bytes"]) == (k, nbytes)
+    assert plan["off"] == [s.at for s in slabs]
+    assert plan["bytes"] == [32768] * k
+    assert (plan["rows"], plan["threads"], plan["stage_bytes"]) \
+        == (128, 384, 32768)
+    tiles = 6 if name == "split" else 4
+    assert plan["smem"] == 1024 + 2 * tiles * 8192 + plan["stages"] * 32784
+    assert plan["smem"] <= 232448
+    ops = _probe_ops(name, dev, n=70_001, seed=3)
+    a = anatomy.PROBES[name](*ops)
+    b = anatomy.PROBES[name](*ops)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["chain8", "concat", "split"])
+def test_anatomy_chain_launcher_refuses_a_missing_image_on_card(name):
+    """The chain kernels stream their weights only from the image: the
+    launcher returns cudaErrorInvalidValue (1) without one, or with one
+    that is not 16-byte aligned, and launches nothing."""
+    import ctypes
+    dev = _card()
+    probe = anatomy.PROBES[name]
+    ops = _probe_ops(name, dev, n=129)
+    ptrs = (ctypes.c_void_p * len(ops))(*[t.data_ptr() for t in ops])
+    out = torch.zeros((129, 128), device=dev)
+    image = probe.scratch(ops)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launch = anatomy._launcher("anatomy_chain")
+    for bad in (None, image.data_ptr() + 2):
+        assert launch(probe.variant, ptrs, out.data_ptr(), 129, bad,
+                      stream) == 1
+    torch.cuda.synchronize()
+    assert not out.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [129, 70_001])
+def test_anatomy_split_agrees_with_concat_on_card(n):
+    """The two ways of the skip on the same operands: one product over the
+    copied [x[:, :128] | h], or two into one accumulator; the same products
+    summed in another order."""
+    dev = _card()
+    ops = _probe_ops("split", dev, n=n, seed=4)
+    split = anatomy.PROBES["split"](*ops)
+    concat = anatomy.PROBES["concat"](*ops)
+    torch.cuda.synchronize()
+    _assert_probe_bf16_close(split, concat)
 
 
 @pytest.mark.cuda

@@ -33,8 +33,10 @@ PORT_MODULES = {
     "nerf_fl_torch.models.embeddings", "nerf_fl_torch.models.mlp",
     "nerf_fl_torch.experiments", "nerf_fl_torch.experiments.kernel_anatomy",
     "nerf_fl_torch.experiments.kernel_anatomy2",
+    "nerf_fl_torch.experiments.chain_ablation",
     "nerf_fl_torch.experiments.fused_ablation",
     "nerf_fl_torch.experiments.probe_timing",
+    "nerf_fl_torch.experiments.sass_diff",
     "nerf_fl_torch.experiments.sin_ablation",
     "nerf_fl_torch.ops", "nerf_fl_torch.ops._build",
     "nerf_fl_torch.ops.anatomy", "nerf_fl_torch.ops.fused_mlp", "nerf_fl_torch.ops.sorting",
