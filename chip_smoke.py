@@ -39,15 +39,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      consolidated net bit for bit against the static one), time each beside
      its plain version and its bound, both per call and queued behind a
      device sleep (device time: the host out of the window), with the block
-     it runs on (the three chain and the three net probes on the Hopper
-     block, with ring depth, slab and shared bytes, registers and spills
-     from ptxas); time the fused forward kernel at the same point count, as
+     it runs on (the chain, net and PE-matmul probes on the Hopper block,
+     with ring depth or resident image, slab and shared bytes, registers
+     and spills from ptxas); time the fused forward kernel at the same
+     point count, as
      it is and without its encoders (experiments/fused_ablation.py's
      no_encoders variant, built here), and split at concat's ring depth
      (experiments/chain_ablation.py, built here; bit for bit split as it
      ships); print the split of the fused kernel's time that the net probes
-     measure and of the chain probes' times by skip; then run both anatomy
-     entry points and require every result.
+     measure, of the chain probes' times by skip and of the PE family
+     (matmul PE against multiply-add PE, the five extra passes, the product
+     over the bare stream); then run both anatomy entry points and require
+     every result.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -803,8 +806,20 @@ def phase_bwd_timing(cfg, smi_name):
 def probe_block(name) -> str:
     """Which block a probe's kernel is built from, for its [probe] line;
     the Hopper-block probes and sin with what ptxas and the build report."""
+    from nerf_fl_torch.ops import anatomy
+    if name in anatomy.PE_TERMS:
+        terms = anatomy.PE_TERMS[name]
+        info = anatomy.pe_plan(terms)
+        r = ptxas_info("anatomy_pe", f"pe_mm_hopper_kernelILi{terms}EE")
+        passes = 6 if terms == 3 else 1
+        return (f"block: hopper (wgmma from shared memory, {info['rows']} "
+                f"rows a tile, {info['threads']} threads, TERMS {terms}: "
+                f"{passes} bf16 pass{'es' if passes > 1 else ''} of K = 128, "
+                f"P's image resident ({info['image_bytes']} B in "
+                f"{info['slabs']} slabs, one bulk copy a block), "
+                f"{info['smem']} B shared memory, {r[0]} registers, spill "
+                f"{r[1]} / {r[2]} B)")
     if name in ("chain8", "concat", "split", "static", "full", "consol"):
-        from nerf_fl_torch.ops import anatomy
         if name in anatomy.CHAIN_PROBES:
             skip = anatomy.PROBES[name].variant
             info, src = anatomy.chain_plan(skip), "anatomy_chain"
@@ -824,25 +839,25 @@ def probe_block(name) -> str:
         return (f"block: a tile of 256 float4s a block, one block a tile "
                 f"({r[0]} registers, spill {r[1]} / {r[2]} B, {r[3]} B stack "
                 f"frame)")
-    if name in ("pe_mm", "pe_mm_bf16"):
-        return "block: first (gemm / load_slab, 64 rows)"
     return "block: elementwise, one column a thread"
 
 
 def probe_work(name, ops, n):
     """(operations, their type, bytes) one launch of a probe needs: each
     input read once, the (n, 128) f32 output written once.  MACs per point
-    follow the padded layer shapes of the probes' files."""
+    follow the padded layer shapes of the probes' files.  pe_mm's f32
+    product is counted as this card does it, six bf16 passes on the tensor
+    cores (its [probe] line notes the bound of the same product as f32
+    FMAs on the CUDA cores)."""
     trunk = 128 * 256 + 6 * 256 * 256 + 384 * 256
     static = trunk + 256 * 384 + 384 * 128 + 128 * 128
     skip = 7 * 256 * 256 + 384 * 256
     macs = {"static": static, "consol": static,
             "full": static + 384 * 128 + 4 * 128 * 128,
             "chain8": 8 * 256 * 256, "concat": skip, "split": skip,
-            "pe_mm": 128 * 128, "pe_mm_bf16": 128 * 128}
+            "pe_mm": 6 * 128 * 128, "pe_mm_bf16": 128 * 128}
     if name in macs:
-        flops = 2.0 * macs[name] * n
-        kind = "f32" if name == "pe_mm" else "bf16"
+        flops, kind = 2.0 * macs[name] * n, "bf16"
     else:
         # per output element: pe_vpu 3 mul + 2 add, + phase, sin, * scale;
         # pe_only two such encoders with a 12-step sin_cw each and two adds
@@ -930,6 +945,10 @@ def phase_anatomy(dev, cfg, smi_name):
                 f", torch.sin {lib_ms:.3f} ms per call, {lib_d_ms:.4f} "
                 f"queued (kernel / torch.sin queued "
                 f"{d_ms / lib_d_ms:.3f})")
+            if name == "pe_mm":
+                fma_ms = 2.0 * 128 * 128 * n / peak["f32"] * 1e3
+                lib += (f"; as f32 FMAs on the CUDA cores the product's "
+                        f"bound would be {fma_ms:.3f} ms")
             print(f"[probe] {name:10s} max_abs_err {err:.2e} mean {mean:.2e} "
                   f"(gate {gate}); {k_ms:.3f} ms per call (runs "
                   f"{[round(x, 3) for x in k_all]}), {d_ms:.4f} ms queued "
@@ -1017,7 +1036,15 @@ def phase_anatomy(dev, cfg, smi_name):
           f"(the copy alone), split - chain8 = "
           f"{r['split'] - r['chain8']:.4f} (the skip's 128 extra K rows) | "
           f"chain8 {chain8_tf:.0f} TFLOP/s queued beside the fused forward "
-          f"without its encoders {nope_tf:.0f}")
+          f"without its encoders {nope_tf:.0f} | the PE family: pe_mm "
+          f"{r['pe_mm']:.4f}, pe_mm_bf16 {r['pe_mm_bf16']:.4f}, pe_vpu "
+          f"{r['pe_vpu']:.4f}, sin {r['sin']:.4f}, pe_only "
+          f"{r['pe_only']:.4f} | pe_mm - pe_vpu = "
+          f"{r['pe_mm'] - r['pe_vpu']:.4f} (matmul PE against multiply-add "
+          f"PE), pe_mm - pe_mm_bf16 = {r['pe_mm'] - r['pe_mm_bf16']:.4f} (the "
+          f"five extra passes), pe_mm_bf16 - sin = "
+          f"{r['pe_mm_bf16'] - r['sin']:.4f} (the product over the bare "
+          f"stream)")
 
     # the entry points themselves: counts at 0 just before, read just after
     for probe in anatomy.PROBES.values():

@@ -20,13 +20,38 @@
 //                             pe + dt + tt.
 //
 // What bounds them: bytes.  Each reads at most 512 and writes 512 bytes a
-// point; only pe_mm does real arithmetic (16,384 f32 MACs a point on the
-// CUDA cores, which puts it just on the operations side).  The encoder
-// kernels give a thread one output column and a stride of rows, so a warp
-// writes 128 consecutive bytes and the per-column constants sit in
-// registers; pe_vpu reads only the three input columns it needs.  The two
-// products reuse the fused kernels' gemm on a 64-point tile: the f32
-// instance is plain FMAs (no TF32), the bf16 instance WMMA.
+// point.  The encoder kernels give a thread one output column and a stride
+// of rows, so a warp writes 128 consecutive bytes and the per-column
+// constants sit in registers; pe_vpu reads only the three input columns it
+// needs.
+//
+// The two products run on the Hopper block of fused_mlp_common.cuh as one
+// template over the bf16 terms of each operand, pe_mm_hopper_kernel<TERMS>:
+// persistent blocks of 128 points as two warpgroups of 64 rows, P's image
+// (ops/anatomy.py:pe_image: each term as two 64-K slabs of the B operand's
+// swizzled shared-memory image) resident in shared memory after one bulk
+// copy a block, wgmma m64n64k16 from shared memory.  TERMS = 1 is
+// pe_mm_bf16: inp and P rounded to bf16 to nearest even, one pass of K =
+// 128.  TERMS = 3 is pe_mm, the f32 product as six bf16 passes (what JAX
+// calls BF16_BF16_F32_X6): each operand split by truncation into hi + mid +
+// lo, three bf16 values that share x's sign and hi's exponent and sum back
+// to x exactly (for |x| over ~2^-103, where lo is still normal), and the six
+// cross products whose term indices sum to at most 2, smallest first, into
+// one f32 accumulator (48 k16 steps).  At the probe's P (one power of two a
+// column, so P's mid and lo are zero) every output sums at most three
+// exact, disjoint products: E is x @ P bit for bit.  For a dense P the
+// result is an f32-accurate product, not a bit-exact one.  On the tensor
+// cores six passes of 17.2 GFLOP are ~0.10 ms at 524,288 points, under the
+// 0.16 ms of the bytes, so bytes bound both.
+//
+// What the measurements on an H100 chose (experiments/pe_ablation.py and
+// probe_timing.py): each warpgroup's product runs as two of 64 output
+// columns, so the epilogue on the first one's fragments overlaps the
+// second's passes; the next tile's rows load into registers while the
+// products run (into L2 instead, at two blocks an SM, is no faster); and
+// the epilogue skips sinf by a warp-uniform branch where none of a warp's
+// columns is a trig column (the compiler otherwise evaluates sinf for every
+// column and selects), which took 15-18% off the two probes.
 //
 // sin is a pure stream (0.537 GB a launch at 524,288 points): one tile of
 // SIN_UNROLL x SIN_THREADS float4s a block, as many blocks as tiles, so the
@@ -41,8 +66,9 @@
 //
 // Numerics: sin is sinf (build without --use_fast_math, or it becomes
 // __sinf); multiply-adds that the Pallas kernels keep apart are __fmul_rn /
-// __fadd_rn so that none is contracted.  Each column of P has one non-zero
-// entry, a power of two, so E is exact in any order of summation.
+// __fadd_rn so that none is contracted.  Each column of the probes' P has
+// one non-zero entry, a power of two, so E is exact in any order of
+// summation.
 #include "fused_mlp_common.cuh"
 
 namespace {
@@ -149,59 +175,282 @@ pe_only_kernel(EncRows e, const float* __restrict__ inp,
   }
 }
 
-__global__ void cast_bf16_kernel(const float* __restrict__ src,
-                                 bf16* __restrict__ dst, int count) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < count) dst[i] = __float2bfloat16_rn(src[i]);
+// ---- pe_mm and pe_mm_bf16 on the Hopper block ----
+namespace pm {
+
+using namespace hop;
+
+constexpr int PM_THREADS = CONSUMERS * 128;     // two warpgroups, no producer
+constexpr int P_SLAB_BYTES = LANES * 128;       // 128 image rows x 64 K-values
+constexpr int K_TILES = LANES / 64;             // operand tiles (slabs) a term
+constexpr int TERM_BYTES = K_TILES * P_SLAB_BYTES;   // one bf16 term of P
+constexpr int EPI_FLOATS = 3 * LANES;           // ph | trg | s
+constexpr int ROWS_A_WARP = WG_ROWS / 4;        // input rows a warp loads
+constexpr int N_HALF = LANES / 2;               // output columns a product
+// Where a warpgroup puts the next tile's rows while it works on this one:
+// registers (true; they are live across the epilogue, ~160 registers and
+// so one block of 256 threads an SM) or L2 (false: next_rows, the rows load
+// at the top of their tile, and the launch asks for two blocks an SM).
+// Registers measured faster for both probes (experiments/pe_ablation.py).
+constexpr bool NEXT_IN_REGS = true;
+
+// The passes of the product as (A term, B term) hex digit pairs, the first
+// pass leftmost; terms 0 hi, 1 mid, 2 lo.  Smallest first: lo.hi, mid.mid,
+// hi.lo, mid.hi, hi.mid, hi.hi.  TERMS = 1 runs the last alone.
+constexpr unsigned long long PASSES = 0x201102100100ull;
+constexpr int N_PASS_ALL = 6;
+__host__ __device__ constexpr int n_passes(int terms) {
+  return terms == 1 ? 1 : N_PASS_ALL;
+}
+__host__ __device__ constexpr int pass_term(int pass, int operand) {
+  return (int)(PASSES >> (8 * (N_PASS_ALL - 1 - pass) + 4 * (1 - operand))) &
+         0xf;
 }
 
-struct PeEpi {
-  float* out;                   // the tile's first row
-  const float *ph, *trg, *s;
-  int rows;
-  __device__ void operator()(int r, int c, float v) const {
-    if (r < rows) out[(size_t)r * LANES + c] = pe_out(v, ph[c], trg[c], s[c]);
+// a block: the 1024-byte alignment slack, each warpgroup's operand tiles
+// (TERMS terms x 2 tiles of 8 KB), P's image (TERMS x 32 KB), ph / trg / s
+// and the image's barrier
+__host__ __device__ constexpr int smem_bytes(int terms) {
+  return 1024 + CONSUMERS * terms * K_TILES * TILE_BYTES + terms * TERM_BYTES +
+         EPI_FLOATS * 4 + 8;
+}
+static_assert(smem_bytes(3) <= 232448, "over the 227 KB a block can have");
+
+// P's image: each term's 128 K rows cut into slabs of 64 K-values x 128
+// image rows (ops/anatomy.py:pe_image_plan is the same walk).  Returns the
+// image's size in bytes.
+inline int make_pe_plan(Plan& p, int terms) {
+  p = Plan{};
+  int at = 0;
+  for (int j = 0; j < terms; ++j) plan_seg(p, at, LANES, LANES);
+  return at;
+}
+
+// This warp's 16 rows of the warpgroup's 64 at row0 into registers: row
+// 16 warp + m, columns 4 lane .. 4 lane + 3 (a warp reads one 512-byte row
+// an instruction); rows past n are zero.
+__device__ __forceinline__ void load_rows(float4 (&v)[ROWS_A_WARP],
+                                          const float* __restrict__ inp,
+                                          size_t row0, int n, int warp,
+                                          int lane) {
+#pragma unroll
+  for (int m = 0; m < ROWS_A_WARP; ++m) {
+    const size_t row = row0 + ROWS_A_WARP * warp + m;
+    v[m] = row < (size_t)n
+               ? __ldg(reinterpret_cast<const float4*>(inp + row * LANES) + lane)
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-};
-
-template <typename T> constexpr size_t mm_smem() {
-  return sizeof(T) * ((size_t)TILE_M * (LANES + Cfg<T>::PAD) +
-                      2 * Cfg<T>::KS * (LANES + Cfg<T>::PAD));
 }
 
-// E = inp @ P on a 64-point tile: T = float, exact FMAs; T = bf16, inp
-// rounded on the way into shared memory and P given already rounded
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-pe_mm_kernel(const T* __restrict__ P, const float* __restrict__ ph,
-             const float* __restrict__ trg, const float* __restrict__ s,
-             const float* __restrict__ inp, float* __restrict__ out, int n) {
-  constexpr int ALD = LANES + Cfg<T>::PAD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* a = reinterpret_cast<T*>(smem);
-  T* slab = a + TILE_M * ALD;
-  const size_t row0 = (size_t)blockIdx.x * TILE_M;
-  const int rows = (size_t)n - row0 < TILE_M ? (int)(n - row0) : TILE_M;
-  for (int e = threadIdx.x; e < TILE_M * LANES; e += THREADS) {
-    const int r = e / LANES, c = e % LANES;
-    a[r * ALD + c] = to_t<T>(r < rows ? inp[(row0 + r) * LANES + c] : 0.0f);
+// Two f32 values as bf16 bit pairs (a in the low half), truncated: their top
+// 16 bits.
+__device__ __forceinline__ uint32_t top2(uint32_t a, uint32_t b) {
+  return (a >> 16) | (b & 0xffff0000u);
+}
+
+// The rows in v as the A operand's terms: TERMS = 1, rounded to bf16 to
+// nearest even; TERMS = 3, x = hi + mid + lo by truncation (hi: x with its
+// low 16 bits cleared; mid: the same of x - hi; lo = x - hi - mid), term i
+// at tiles 2 i, 2 i + 1.  8 bytes a store; a warp writes one row of both
+// tiles of a term (two wavefronts).
+template <int TERMS>
+__device__ __forceinline__ void put_terms(unsigned char* act,
+                                          const float4 (&v)[ROWS_A_WARP],
+                                          int warp, int lane) {
+#pragma unroll
+  for (int m = 0; m < ROWS_A_WARP; ++m) {
+    const int r = ROWS_A_WARP * warp + m;
+    const float x[4] = {v[m].x, v[m].y, v[m].z, v[m].w};
+    if constexpr (TERMS == 1) {
+      *reinterpret_cast<uint2*>(act + act_off(0, r, 4 * lane)) =
+          make_uint2(pack2(x[0], x[1]), pack2(x[2], x[3]));
+    } else {
+      uint32_t t[3][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t hi = __float_as_uint(x[e]) & 0xffff0000u;
+        const float rest = __fsub_rn(x[e], __uint_as_float(hi));
+        const uint32_t mid = __float_as_uint(rest) & 0xffff0000u;
+        t[0][e] = hi;
+        t[1][e] = mid;
+        t[2][e] = __float_as_uint(__fsub_rn(rest, __uint_as_float(mid)));
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        *reinterpret_cast<uint2*>(act + act_off(K_TILES * i, r, 4 * lane)) =
+            make_uint2(top2(t[i][0], t[i][1]), top2(t[i][2], t[i][3]));
+    }
+  }
+}
+
+// The passes of one product into acc: output columns col0 .. col0 + 63,
+// 8 k16 steps a pass.
+template <int TERMS>
+__device__ __forceinline__ void run_passes(float (&acc)[N_HALF / 2],
+                                           uint32_t a0, uint32_t b0,
+                                           int col0) {
+  constexpr int FIRST = N_PASS_ALL - n_passes(TERMS);
+#pragma unroll
+  for (int p = FIRST; p < N_PASS_ALL; ++p)
+#pragma unroll
+    for (int kt = 0; kt < K_TILES; ++kt)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<N_HALF>::template run<0, 0>(
+            acc,
+            kdesc(a0 + (K_TILES * pass_term(p, 0) + kt) * TILE_BYTES +
+                  32 * kk),
+            kdesc(b0 + (K_TILES * pass_term(p, 1) + kt) * P_SLAB_BYTES +
+                  col0 * 128 + 32 * kk),
+            p > FIRST || kt > 0 || kk > 0);
+  wgmma_commit();
+}
+
+// where(trg > 0, sin(E + ph), E) * s on one product's fragments, stored as
+// f32 pairs: a quad writes 32 contiguous bytes of a row; rows past n are
+// not stored.  epi: ph | trg | s in shared memory.
+__device__ __forceinline__ void store_out(const float (&acc)[N_HALF / 2],
+                                          const float* epi,
+                                          float* __restrict__ out,
+                                          size_t row0, int n, int col0,
+                                          int fr, int fq) {
+#pragma unroll
+  for (int j = 0; j < N_HALF / 8; ++j) {
+    const int c = col0 + 8 * j + 2 * fq;
+    const float2 p2 = *reinterpret_cast<const float2*>(epi + c);
+    const float2 t2 = *reinterpret_cast<const float2*>(epi + LANES + c);
+    const float2 s2 = *reinterpret_cast<const float2*>(epi + 2 * LANES + c);
+    // warp-uniform: where none of the warp's 8 columns is a trig column,
+    // no sinf at all (the compiler evaluates sinf for every column and
+    // selects, else)
+    const bool trig = __any_sync(0xffffffffu, t2.x > 0.0f || t2.y > 0.0f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t row = row0 + fr + 8 * h;
+      float2 o;
+      if (trig)
+        o = make_float2(pe_out(acc[4 * j + 2 * h], p2.x, t2.x, s2.x),
+                        pe_out(acc[4 * j + 2 * h + 1], p2.y, t2.y, s2.y));
+      else
+        o = make_float2(__fmul_rn(acc[4 * j + 2 * h], s2.x),
+                        __fmul_rn(acc[4 * j + 2 * h + 1], s2.y));
+      if (row < (size_t)n)
+        *reinterpret_cast<float2*>(out + row * LANES + c) = o;
+    }
+  }
+}
+
+// E = inp @ P, out = where(trg > 0, sin(E + ph), E) * s, 128 points a tile.
+// Persistent blocks of two warpgroups of 64 rows; P's image (TERMS terms,
+// bf16) copied once a block by one bulk copy a slab behind one mbarrier.
+// Each warpgroup writes its rows' terms as swizzled operand tiles and runs
+// the passes as two products of 64 output columns, each into its own f32
+// accumulator; the epilogue of the first runs while the second's passes
+// do.
+template <int TERMS>
+__global__ void __launch_bounds__(PM_THREADS, NEXT_IN_REGS ? 1 : 2)
+pe_mm_hopper_kernel(const float* __restrict__ inp, float* __restrict__ out,
+                    int n, const unsigned char* __restrict__ image,
+                    const float* __restrict__ ph,
+                    const float* __restrict__ trg,
+                    const float* __restrict__ s) {
+  constexpr int A_BYTES = TERMS * K_TILES * TILE_BYTES;   // a warpgroup's
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle is a function of the address: tiles sit on 1024 bytes
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* pimg = smem + CONSUMERS * A_BYTES;
+  float* epi = reinterpret_cast<float*>(pimg + TERMS * TERM_BYTES);
+  const uint32_t bar = smem_u32(epi + EPI_FLOATS);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_async_smem();
+  }
+  if (tid < LANES) {
+    epi[tid] = ph[tid];
+    epi[LANES + tid] = trg[tid];
+    epi[2 * LANES + tid] = s[tid];
   }
   __syncthreads();
-  gemm<T, LANES / 16>(a, ALD, LANES, P, slab,
-                      PeEpi{out + row0 * LANES, ph, trg, s, rows});
+  if (tid == 0) {
+    mbar_expect_tx(bar, TERMS * TERM_BYTES);
+    for (int k = 0; k < TERMS * K_TILES; ++k)
+      bulk_g2s(smem_u32(pimg) + k * P_SLAB_BYTES, image + k * P_SLAB_BYTES,
+               P_SLAB_BYTES, bar);
+  }
+
+  const int wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int fr = 16 * warp + (lane >> 2), fq = lane & 3;
+  unsigned char* act = smem + wg * A_BYTES;
+  const uint32_t a0 = smem_u32(act), b0 = smem_u32(pimg);
+  const int n_tiles = (n + ROWS - 1) / ROWS;
+  const size_t stride = (size_t)gridDim.x * ROWS;
+
+  float4 v[ROWS_A_WARP];
+  if (NEXT_IN_REGS)
+    load_rows(v, inp, (size_t)blockIdx.x * ROWS + wg * WG_ROWS, n, warp,
+              lane);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const size_t row0 = (size_t)tile * ROWS + wg * WG_ROWS;
+    if (!NEXT_IN_REGS) {
+      load_rows(v, inp, row0, n, warp, lane);
+      next_rows(inp, row0 + stride, n, LANES * 4, t);
+    }
+    // the operand tiles are free: this warpgroup's last products completed
+    put_terms<TERMS>(act, v, warp, lane);
+    fence_async_smem();
+    wg_sync(wg);
+    mbar_wait(bar, 0);                 // P's image (passes at once later)
+
+    float acc0[N_HALF / 2], acc1[N_HALF / 2];
+    wgmma_fence();
+    run_passes<TERMS>(acc0, a0, b0, 0);
+    run_passes<TERMS>(acc1, a0, b0, N_HALF);
+    // the next tile's rows on their way while the products run
+    if (NEXT_IN_REGS) load_rows(v, inp, row0 + stride, n, warp, lane);
+    wgmma_wait<1>();
+    fence_acc(acc0);
+    store_out(acc0, epi, out, row0, n, 0, fr, fq);
+    wgmma_wait<0>();
+    fence_acc(acc1);
+    store_out(acc1, epi, out, row0, n, N_HALF, fr, fq);
+  }
 }
 
-template <typename T>
-int launch_mm(const T* P, const float* const* r, const float* inp, float* out,
-              int n, cudaStream_t stream) {
-  constexpr size_t smem = mm_smem<T>();
+template <int TERMS>
+int launch(const float* const* f, float* out, int n, const void* image,
+           cudaStream_t stream) {
+  constexpr int SMEM = smem_bytes(TERMS);
+  // cp.async.bulk takes a 16-byte aligned source, the rows load as float4
+  if (image == nullptr || (reinterpret_cast<uintptr_t>(image) & 15) ||
+      (reinterpret_cast<uintptr_t>(f[4]) & 15))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      pe_mm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      pe_mm_hopper_kernel<TERMS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
   if (err != cudaSuccess) return (int)err;
-  pe_mm_kernel<T><<<(n + TILE_M - 1) / TILE_M, THREADS, smem, stream>>>(
-      P, r[1], r[2], r[3], inp, out, n);
+  if (n == 0) return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pe_mm_hopper_kernel<TERMS>, PM_THREADS, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int n_tiles = (n + ROWS - 1) / ROWS;
+  const int grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
+  pe_mm_hopper_kernel<TERMS><<<grid, PM_THREADS, SMEM, stream>>>(
+      f[4], out, n, static_cast<const unsigned char*>(image), f[1], f[2],
+      f[3]);
   return (int)cudaGetLastError();
 }
+
+}  // namespace pm
 
 }  // namespace
 
@@ -212,34 +461,50 @@ extern "C" {
 //   pe_mm, pe_vpu, pe_mm_bf16: P (128, 128), ph, trg, s (1, 128), inp
 //   sin: x
 //   pe_only: PxR (3, 128), phx, trgx, sx, PdR, phd, trgd, sd, ma, inp
-// out: (n, 128) f32.  scratch: 128 x 128 bf16 for variant 3 (P rounded),
-// unused otherwise.  Returns 0 or the cudaError_t of the launch.
+// out: (n, 128) f32.  scratch: for variants 0 and 3, P's image
+// (ops/anatomy.py:pe_image with 3 terms or 1: the bytes of
+// nerf_anatomy_pe_plan), which the kernel reads in place of P; unused
+// otherwise.  Returns 0 or the cudaError_t of the launch.
 int nerf_anatomy_pe(int variant, const void* const* ops, float* out, int n,
                     void* scratch, void* stream) {
   if (n < 0 || variant < 0 || variant > 4) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* const* f = reinterpret_cast<const float* const*>(ops);
+  if (variant == 0) return pm::launch<3>(f, out, n, scratch, st);
+  if (variant == 3) return pm::launch<1>(f, out, n, scratch, st);
+  if (n == 0) return 0;
   const int row_blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  if (variant == 0) return launch_mm<float>(f[0], f, f[4], out, n, st);
   if (variant == 1) {
     pe_vpu_kernel<<<row_blocks, THREADS, 0, st>>>(f[0], f[1], f[2], f[3], f[4],
                                                   out, n);
   } else if (variant == 2) {
     return launch_sin(f[0], out, (size_t)n * LANES, st);
-  } else if (variant == 3) {
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    bf16* pb = static_cast<bf16*>(scratch);
-    cast_bf16_kernel<<<LANES * LANES / THREADS, THREADS, 0, st>>>(
-        f[0], pb, LANES * LANES);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    return launch_mm<bf16>(pb, f, f[4], out, n, st);
   } else {
     EncRows e = {f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
     pe_only_kernel<<<row_blocks, THREADS, 0, st>>>(e, f[9], out, n);
   }
   return (int)cudaGetLastError();
+}
+
+// The pe_mm kernel's block and P's image for `terms` 3 (pe_mm) or 1
+// (pe_mm_bf16): info[0] points a block, [1] threads, [2] shared-memory
+// bytes, [3] slabs in a weight ring (0: the image stays resident), [4]
+// slabs in the plan, [5] the image's bytes, [6] bytes a slab; off / bytes
+// (hop::MAX_SLABS each): every slab's byte offset and size.
+void nerf_anatomy_pe_plan(int terms, int* info, int* off, int* bytes) {
+  hop::Plan plan;
+  const int image_bytes = pm::make_pe_plan(plan, terms);
+  info[0] = hop::ROWS;
+  info[1] = pm::PM_THREADS;
+  info[2] = pm::smem_bytes(terms);
+  info[3] = 0;
+  info[4] = plan.n_slabs;
+  info[5] = image_bytes;
+  info[6] = pm::P_SLAB_BYTES;
+  for (int s = 0; s < plan.n_slabs && s < hop::MAX_SLABS; ++s) {
+    off[s] = plan.off[s];
+    bytes[s] = plan.bytes[s];
+  }
 }
 
 }  // extern "C"

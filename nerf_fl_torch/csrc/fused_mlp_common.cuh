@@ -3,14 +3,11 @@
 // anatomy_chain.cu, anatomy_pe.cu): compute-type traits, the Cody-Waite PE,
 // and two blocks to build a kernel from.
 //
-// The first block (TILE_M, gemm, load_slab, Hidden): 64 points a block, WMMA
-// m16n16k16 or f32 FMAs on operands that every warp loads from shared
-// memory, weights through a two-deep cp.async ring with block-wide
-// barriers.  It serves the f32 kernels, which are exact and on no main
-// path, and the probes not yet rebuilt on the Hopper block (pe_mm,
-// pe_mm_bf16).  On an H100 it reaches about 8% of the bf16
-// peak: each 64-row tile streams the whole net from L2, mma_sync is the
-// pre-Hopper path, and a K = 256 layer passes 16 block-wide barriers.
+// The first block (TILE_M, gemm, load_slab, Hidden): 64 points a block, f32
+// FMAs on operands that every warp loads from shared memory, weights
+// through a two-deep cp.async ring with block-wide barriers.  It serves only
+// the f32 fused kernels, which are exact and on no main path; no probe and
+// no bf16 kernel uses it.
 //
 // The Hopper block (namespace hop, bf16): 128 points a block as two
 // consumer warpgroups of 64 rows; wgmma with both operands in shared memory
@@ -24,7 +21,9 @@
 // (anatomy_chain.cu: chain8, concat, split) are built from it too, each
 // with the ring depth its operand tiles leave room for: the ring depth is a
 // template parameter whose default is the fused kernels'; so are the net
-// probes (anatomy_net.cu), with the fused kernels' three.
+// probes (anatomy_net.cu), with the fused kernels' three; and the two
+// PE-matmul probes (anatomy_pe.cu: pe_mm, pe_mm_bf16), whose small weight
+// stays resident and needs no ring.
 //
 // Numerics (both kernels): PE steps use __fmul_rn / __fadd_rn so that no
 // multiply-add is contracted; build without --use_fast_math.
@@ -32,15 +31,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr int TILE_M = 64;
 constexpr int THREADS = 256;
@@ -71,12 +66,6 @@ enum { L_FS = 8, L_DIR = 9, L_RGB = 10, L_T0 = 11, L_TH = 15 };
 template <typename T> struct Cfg;
 // KS / PAD: the forward product's weight slab (KS rows of W, row padding);
 // KS_T / PAD_T: the backward's transposed slab (KS_T columns of W).
-template <> struct Cfg<bf16> {
-  static constexpr int KS = 32;              // slab rows
-  static constexpr int PAD = 8;              // 16 bytes of row padding
-  static constexpr int KS_T = 32;
-  static constexpr int PAD_T = 8;
-};
 template <> struct Cfg<float> {
   static constexpr int KS = 16;
   static constexpr int PAD = 4;
@@ -85,9 +74,6 @@ template <> struct Cfg<float> {
 };
 
 template <typename T> __device__ __forceinline__ T to_t(float v);
-template <> __device__ __forceinline__ bf16 to_t<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 template <> __device__ __forceinline__ float to_t<float>(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -153,8 +139,9 @@ __device__ __forceinline__ void load_slab(T* slab, const T* W, int k0,
 // C (TILE_M x 16*NF) = A (TILE_M x K, shared, ld lda) @ W (K x 16*NF,
 // global), then epi(row, col, value) once per element.  A may be
 // overwritten by epi: every warp finishes reading A before any epi runs.
-// K is a multiple of 16.  slab holds 2 x KS x (16*NF + PAD) elements; on
-// the bf16 path it doubles as the per-warp epilogue scratch.
+// K is a multiple of 16.  slab holds 2 x KS x (16*NF + PAD) elements.  f32
+// only: full-precision FMAs on the CUDA cores, no TF32.  Thread owns rows
+// 4*rg..4*rg+3 and columns cg + 16*j.
 template <typename T, int NF, typename Epi>
 __device__ void gemm(const T* A, int lda, int K, const T* W, T* slab,
                      Epi epi) {
@@ -167,92 +154,40 @@ __device__ void gemm(const T* A, int lda, int K, const T* W, T* slab,
   load_slab<T, NOUT>(slab, W, 0, min(KS, K));
   cp_async_commit();
 
-  if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int NJ = (NF + 1) / 2;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int mi = warp & 3, nj0 = warp >> 2;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NJ];
+  const int cg = tid & 15, rg = tid >> 4;
+  float acc[4][NF];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j) acc[i][j] = 0.0f;
 
-    for (int s = 0; s < nslab; ++s) {
-      const int k0 = s * KS;
-      if (s + 1 < nslab)
-        load_slab<T, NOUT>(slab + ((s + 1) & 1) * KS * SLD, W, k0 + KS,
-                           min(KS, K - k0 - KS));
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const T* cur = slab + (s & 1) * KS * SLD;
-      const int rows = min(KS, K - k0);
-      for (int kk = 0; kk < rows; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, A + mi * 16 * lda + k0 + kk, lda);
+  for (int s = 0; s < nslab; ++s) {
+    const int k0 = s * KS;
+    if (s + 1 < nslab)
+      load_slab<T, NOUT>(slab + ((s + 1) & 1) * KS * SLD, W, k0 + KS,
+                         min(KS, K - k0 - KS));
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* cur = slab + (s & 1) * KS * SLD;
+    const int rows = min(KS, K - k0);
+    for (int kk = 0; kk < rows; ++kk) {
+      float a[4];
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int nj = nj0 + 2 * j;
-          if (nj < NF) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-                b;
-            wmma::load_matrix_sync(b, cur + kk * SLD + nj * 16, SLD);
-            wmma::mma_sync(acc[j], a, b, acc[j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-    // epilogue through a 16 x 16 f32 scratch per warp (aliases the slab,
-    // which every warp has finished reading)
-    float* scratch = reinterpret_cast<float*>(slab) + warp * 256;
+      for (int i = 0; i < 4; ++i) a[i] = A[(rg * 4 + i) * lda + k0 + kk];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int nj = nj0 + 2 * j;
-      if (nj < NF) {
-        wmma::store_matrix_sync(scratch, acc[j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32)
-          epi(mi * 16 + (e >> 4), nj * 16 + (e & 15), scratch[e]);
-        __syncwarp();
+      for (int j = 0; j < NF; ++j) {
+        const float b = cur[kk * SLD + cg + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
       }
     }
-  } else {
-    // f32: full-precision FMAs on the CUDA cores, no TF32.  Thread owns
-    // rows 4*rg..4*rg+3 and columns cg + 16*j.
-    const int cg = tid & 15, rg = tid >> 4;
-    float acc[4][NF];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NF; ++j) acc[i][j] = 0.0f;
-
-    for (int s = 0; s < nslab; ++s) {
-      const int k0 = s * KS;
-      if (s + 1 < nslab)
-        load_slab<T, NOUT>(slab + ((s + 1) & 1) * KS * SLD, W, k0 + KS,
-                           min(KS, K - k0 - KS));
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const T* cur = slab + (s & 1) * KS * SLD;
-      const int rows = min(KS, K - k0);
-      for (int kk = 0; kk < rows; ++kk) {
-        float a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = A[(rg * 4 + i) * lda + k0 + kk];
-#pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          const float b = cur[kk * SLD + cg + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NF; ++j) epi(rg * 4 + i, cg + 16 * j, acc[i][j]);
+    __syncthreads();
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j) epi(rg * 4 + i, cg + 16 * j, acc[i][j]);
   __syncthreads();
 }
 
@@ -547,6 +482,30 @@ template <> struct Wgmma<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+template <> struct Wgmma<64> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };

@@ -6,13 +6,15 @@ Counterpart of the Pallas probe kernels inside ``main()`` of
 ``experiments/kernel_anatomy.py`` and ``experiments/kernel_anatomy2.py``.
 The CUDA sources are ``csrc/anatomy_chain.cu`` (chain8, concat, split),
 ``csrc/anatomy_net.cu`` (static, full, consol) and ``csrc/anatomy_pe.cu``
-(pe_mm, pe_vpu, sin, pe_mm_bf16, pe_only); they are built from the fused
-kernels' own blocks in ``csrc/fused_mlp_common.cuh``.  The three chain
-probes and the three net probes run on the Hopper block, as the bf16 fused
-kernels do: each streams its weights laid out as the wgmma operand's
-shared-memory image (``chain8_image``, ``chain_image``, ``net_image``),
-which the wrapper builds per call; ``pe_mm`` and ``pe_mm_bf16`` still run
-on the first block (WMMA, 64-point tiles).
+(pe_mm, pe_vpu, sin, pe_mm_bf16, pe_only).  The three chain probes, the
+three net probes and the two PE-matmul probes run on the Hopper block of
+``csrc/fused_mlp_common.cuh``, as the bf16 fused kernels do: each reads its
+weights laid out as the wgmma operand's shared-memory image
+(``chain8_image``, ``chain_image``, ``net_image``, ``pe_image``), which the
+wrapper builds per call.  ``pe_mm`` runs its f32 product as six bf16 passes
+over a three-term split of each operand (``split_terms``, ``PE_PASSES``),
+``pe_mm_bf16`` as one pass over operands rounded to bf16.  No probe runs on
+the header's first block; the other encoder probes are elementwise.
 
 Every probe is a ``Probe`` in ``PROBES``.  Calling it with its operands, in
 the order the Pallas kernel takes its input refs, launches the kernel when
@@ -141,6 +143,56 @@ def chain8_image(ws: Sequence[torch.Tensor]) -> torch.Tensor:
     tensor, a permutation of ws[0..7].  One cat, one gather."""
     return gather_image(list(ws[:8]), ("chain8",),
                         lambda: _chain_index(False))
+
+
+# pe_mm / pe_mm_bf16: bf16 terms of each operand the kernel multiplies
+PE_TERMS = {"pe_mm": 3, "pe_mm_bf16": 1}
+# pe_mm's passes as (A term, B term), terms 0 hi, 1 mid, 2 lo, in the
+# kernel's order (csrc/anatomy_pe.cu:PASSES): the cross products whose term
+# indices sum to at most 2, smallest first.  pe_mm_bf16 runs the last alone.
+PE_PASSES = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def split_terms(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """f32 ``x`` as hi + mid + lo by truncation: ``hi`` is x with the low 16
+    bits of its f32 pattern cleared, ``mid`` the same of ``x - hi``, ``lo =
+    x - hi - mid``; all three f32 tensors that hold bf16 values exactly.
+    They share x's sign and lie within 24 bits below hi's leading bit, so
+    ``hi + mid + lo == x`` bit for bit while lo is normal (|x| over about
+    2^-103; below that lo's last bits fall under f32's normal range)."""
+    hi = (x.view(torch.int32) & -0x10000).view(F32)
+    rest = x - hi
+    mid = (rest.view(torch.int32) & -0x10000).view(F32)
+    return hi, mid, rest - mid
+
+
+def pe_image_plan(terms: int):
+    """The pe_mm kernel's view of P's image (``csrc/anatomy_pe.cu:
+    make_pe_plan`` walks the same list): each of ``terms`` bf16 terms of P
+    (128, 128) cut into W^T slabs of 64 input rows x 128 image rows (16
+    KB); ``Slab.layer`` is the term.  Returns the slabs and the image's
+    size in bytes (6 slabs, 98,304 B for 3 terms; 2, 32,768 B for 1)."""
+    slabs, at = [], 0
+    for term in range(terms):
+        at = _cut(slabs, at, term, False, 0, LANES, 0, LANES, LANES)
+    return slabs, at
+
+
+@functools.lru_cache(maxsize=2)
+def _pe_index(terms: int):
+    slabs, nbytes = pe_image_plan(terms)
+    return slab_index([(LANES, LANES)] * terms, slabs, nbytes)
+
+
+def pe_image(P: torch.Tensor, terms: int) -> torch.Tensor:
+    """P (128, 128) f32 as the kernel's bf16 terms (3: ``split_terms``, hi,
+    mid, lo, exact; 1: P rounded to nearest even), laid out as the pe_mm
+    kernel holds them (``pe_image_plan``): a flat bf16 tensor, a permutation
+    of the terms.  The split, one cat and one gather through an index
+    cached per device."""
+    layers = [t.to(BF) for t in split_terms(P)] if terms == 3 \
+        else [P.to(BF)]
+    return gather_image(layers, ("pe", terms), lambda: _pe_index(terms))
 
 
 def pe_mm_rows(device="cpu") -> List[torch.Tensor]:
@@ -416,6 +468,13 @@ def _check_plan(name: str, plan, slabs, nbytes) -> None:
 
 
 @functools.lru_cache(maxsize=None)
+def pe_plan(terms: int) -> Dict[str, object]:
+    """The pe_mm kernel's block and P's image (``_card_plan``) for 3 terms
+    (pe_mm) or 1 (pe_mm_bf16); ``stages`` is 0: the image stays resident."""
+    return _card_plan("anatomy_pe", "anatomy_pe_plan", terms)
+
+
+@functools.lru_cache(maxsize=None)
 def _check_chain_plan(skip: int) -> None:
     """Raise unless the chain kernel's plan for ``skip`` is
     ``chain_image_plan``'s."""
@@ -457,9 +516,21 @@ def _net_scratch(transient: bool, stacked: bool = False):
     return scratch
 
 
-def _pe_mm_bf16_scratch(ops) -> torch.Tensor:
-    """pe_mm_bf16's scratch: P rounded to bf16 by the launcher."""
-    return torch.empty((LANES, LANES), dtype=BF, device=ops[-1].device)
+@functools.lru_cache(maxsize=None)
+def _check_pe_plan(terms: int) -> None:
+    """Raise unless the pe_mm kernel's plan for ``terms`` is
+    ``pe_image_plan``'s."""
+    _check_plan(f"pe_mm ({terms} terms)", pe_plan(terms),
+                *pe_image_plan(terms))
+
+
+def _pe_scratch(terms: int):
+    """The pe_mm kernel's scratch for pe_mm (3 terms) or pe_mm_bf16 (1):
+    P's image, cut from the probe's P."""
+    def scratch(ops) -> torch.Tensor:
+        _check_pe_plan(terms)
+        return pe_image(ops[0], terms)
+    return scratch
 
 
 @functools.lru_cache(maxsize=None)
@@ -482,8 +553,7 @@ class Probe:
     count.  ``spec`` lists each operand's (shape, dtype) in the Pallas
     kernel's input order, ``None`` standing for the point count N;
     ``scratch(ops)``, where given, makes the one tensor the launcher takes
-    besides them (the Hopper-block probes' weight images, pe_mm_bf16's
-    rounded P)."""
+    besides them (the Hopper-block probes' weight images)."""
 
     def __init__(self, name: str, replaces: str, source: str, variant: int,
                  spec: Sequence[Spec], plain: Callable[..., torch.Tensor],
@@ -584,12 +654,13 @@ PROBES: Dict[str, Probe] = {p.name: p for p in (
     Probe("split", f"{_K1}:120", "anatomy_chain", 2, _CHAIN + [_W4C, _X256],
           functools.partial(_chain_reference, "split"),
           scratch=_chain_scratch(2)),
-    Probe("pe_mm", f"{_K1}:151", "anatomy_pe", 0, _PE_MM, _pe_mm_reference),
+    Probe("pe_mm", f"{_K1}:151", "anatomy_pe", 0, _PE_MM, _pe_mm_reference,
+          scratch=_pe_scratch(3)),
     Probe("pe_vpu", f"{_K1}:164", "anatomy_pe", 1, _PE_MM,
           _pe_vpu_reference),
     Probe("sin", f"{_K1}:180", "anatomy_pe", 2, [_PTS_F32], _sin_reference),
     Probe("pe_mm_bf16", f"{_K1}:188", "anatomy_pe", 3, _PE_MM,
-          _pe_mm_bf16_reference, scratch=_pe_mm_bf16_scratch),
+          _pe_mm_bf16_reference, scratch=_pe_scratch(1)),
     Probe("pe_only", f"{_K2}:177", "anatomy_pe", 4, _ENC + [_PTS_F32],
           _pe_only_reference),
 )}

@@ -471,3 +471,130 @@ def test_anatomy_sin_equals_torch_sin_on_card(n):
     torch.cuda.synchronize()
     assert anatomy.PROBES["sin"].launches == before + 1
     assert got.shape == (n, 128) and torch.equal(got, torch.sin(x))
+
+
+# the PE-matmul probes on the Hopper block: pe_mm (3 bf16 terms, six
+# passes) and pe_mm_bf16 (1 term)
+PE_MM = ["pe_mm", "pe_mm_bf16"]
+# a dense P through pe_mm against a float64 product: |E - x @ P| <= PE_DENSE
+# * 2^-24 * sum_k |x_k P_kc| (tests/test_torch_pe_image.py states why)
+PE_DENSE = 16.0
+
+
+def _pe_probe_call(name, P, x, trg=None):
+    """The probe's output for f32 x (n, 128) and P with ph 0, s 1 and trg
+    (default: the probe's rows, so the epilogue runs; zeros: out is E)."""
+    rows = anatomy.pe_mm_rows(x.device)
+    rows[0] = P
+    rows[1] = torch.zeros_like(rows[1])
+    if trg is not None:
+        rows[2] = trg
+    return anatomy.PROBES[name](*rows, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 127, 128, 129, 70_001])
+@pytest.mark.parametrize("name", PE_MM)
+def test_anatomy_pe_mm_matches_plain_at_ragged_sizes_on_card(name, n):
+    """Around the 64-row warpgroup and the 128-point tile and over many
+    tiles with a ragged end: rows past n are zero on load and never
+    written; the f32 gate of the probes (atol 1e-6)."""
+    dev = _card()
+    ops = _probe_ops(name, dev, n=n, seed=2)
+    probe = anatomy.PROBES[name]
+    before = probe.launches
+    got = probe(*ops)
+    ref = probe.plain(*ops)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert got.shape == ref.shape == (n, 128)
+    if n:
+        assert torch.isfinite(got).all()
+        assert float((got - ref).abs().max()) <= 1e-6
+
+
+def _binade_edges(dev):
+    """Powers of two, the values just under them, their negatives, and the
+    probe's input times 50, as (n, 128) f32."""
+    k = torch.arange(-60, 61, dtype=torch.float64)
+    p2 = torch.pow(2.0, k).float()
+    under = torch.nextafter(p2, torch.zeros_like(p2))
+    vals = torch.cat([p2, under, -p2, -under])
+    reps = -(-128 * 8 // vals.numel())
+    edges = vals.repeat(reps)[:128 * 8].reshape(8, 128)
+    x50 = anatomy.chain_operands(1000, 7)["x128"] * 50.0
+    return torch.cat([edges, edges.roll(1, 1), x50]).to(dev)
+
+
+@pytest.mark.cuda
+def test_anatomy_pe_mm_is_x_at_P_bit_for_bit_on_card():
+    """At the probe's P every output of E sums at most three exact,
+    disjoint products, so the six passes give x @ P exactly: with trg 0 and
+    s 1 the probe's output is E."""
+    dev = _card()
+    x = _binade_edges(dev)
+    P = anatomy.pe_mm_rows(dev)[0]
+    E = _pe_probe_call("pe_mm", P, x, torch.zeros(1, 128, device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(E, x @ P)
+    # and through the epilogue: the plain version, bit for bit
+    rows = anatomy.pe_mm_rows(dev)
+    assert torch.equal(anatomy.PROBES["pe_mm"](*rows, x),
+                       anatomy.PROBES["pe_mm"].plain(*rows, x))
+
+
+@pytest.mark.cuda
+def test_anatomy_pe_mm_dense_P_within_the_stated_bound_on_card():
+    """A dense N(0, 1) P: an f32-accurate product (the CPU model reads ~2
+    of the bound's units, a missing or doubled pass over 100)."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(0, 1, (4099, 128)).astype(np.float32))
+    P = torch.from_numpy(rng.normal(0, 1, (128, 128)).astype(np.float32))
+    E = _pe_probe_call("pe_mm", P.to(dev), x.to(dev),
+                       torch.zeros(1, 128, device=dev)).cpu().double()
+    ref = x.double() @ P.double()
+    unit = 2.0 ** -24 * (x.double().abs() @ P.double().abs())
+    assert float(((E - ref).abs() / unit).max()) <= PE_DENSE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PE_MM)
+def test_anatomy_pe_mm_is_deterministic_and_plan_agrees_on_card(name):
+    dev = _card()
+    terms = anatomy.PE_TERMS[name]
+    plan = anatomy.pe_plan(terms)
+    slabs, nbytes = anatomy.pe_image_plan(terms)
+    assert (plan["slabs"], plan["image_bytes"]) == (2 * terms, nbytes)
+    assert plan["off"] == [s.at for s in slabs]
+    assert plan["bytes"] == [16384] * (2 * terms)
+    assert (plan["rows"], plan["threads"], plan["stages"],
+            plan["stage_bytes"]) == (128, 256, 0, 16384)
+    assert plan["smem"] == 1024 + 2 * terms * 16384 + terms * 32768 \
+        + 3 * 512 + 8
+    ops = _probe_ops(name, dev, n=70_001, seed=3)
+    a = anatomy.PROBES[name](*ops)
+    b = anatomy.PROBES[name](*ops)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PE_MM)
+def test_anatomy_pe_mm_launcher_refuses_a_missing_image_on_card(name):
+    """The pe_mm kernel reads P only from its image: the launcher returns
+    cudaErrorInvalidValue (1) without one, or with one that is not 16-byte
+    aligned, and launches nothing."""
+    import ctypes
+    dev = _card()
+    probe = anatomy.PROBES[name]
+    ops = _probe_ops(name, dev, n=129)
+    ptrs = (ctypes.c_void_p * len(ops))(*[t.data_ptr() for t in ops])
+    out = torch.zeros((129, 128), device=dev)
+    image = probe.scratch(ops)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launch = anatomy._launcher("anatomy_pe")
+    for bad in (None, image.data_ptr() + 2):
+        assert launch(probe.variant, ptrs, out.data_ptr(), 129, bad,
+                      stream) == 1
+    torch.cuda.synchronize()
+    assert not out.any()

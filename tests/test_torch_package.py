@@ -35,6 +35,7 @@ PORT_MODULES = {
     "nerf_fl_torch.experiments.kernel_anatomy2",
     "nerf_fl_torch.experiments.chain_ablation",
     "nerf_fl_torch.experiments.fused_ablation",
+    "nerf_fl_torch.experiments.pe_ablation",
     "nerf_fl_torch.experiments.probe_timing",
     "nerf_fl_torch.experiments.sass_diff",
     "nerf_fl_torch.experiments.sin_ablation",
