@@ -95,6 +95,11 @@ TRAIN_STEPS = 200
 # H100 showed a difference of 0 (torch.sin on the card is the same sinf),
 # so the gate is one decade under the 1e-5 that two sin implementations get
 PROBE_F32_ATOL = 1e-6
+# pe_mm on a dense N(0, 1) P (P's mid and lo terms not zero, so all six
+# passes count): max |E - x @ P (float64)| in units of 2^-24 sum_k |x_k P_kc|,
+# the bound of tests/test_torch_pe_image.py (its plain model of the passes
+# reads ~1.7, a missing or doubled pass over 100)
+PE_DENSE_UNITS = 16.0
 # the six bf16 probes (chain and net families) against plain: |d| <=
 # PROBE_BF16_ATOL + PROBE_BF16_RTOL |ref| and mean |d| <= PROBE_BF16_MEAN,
 # the limits of tests/test_torch_anatomy.py.  Read on an H100 at 524,288
@@ -873,6 +878,28 @@ def probe_work(name, ops, n):
     return flops, kind, nbytes
 
 
+def pe_mm_dense_units(dev, n=65_536, seed=11) -> float:
+    """pe_mm's E (trg 0, ph 0, s 1: out is E) for N(0, 1) x (n, 128) and
+    P (128, 128) from a numpy seed, against the float64 product: the worst
+    error in units of 2^-24 sum_k |x_k P_kc|."""
+    import numpy as np
+    import torch
+    from nerf_fl_torch.ops import anatomy
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (n, 128)).astype(np.float32)).to(dev)
+    P = torch.from_numpy(rng.normal(0, 1, (128, 128)).astype(np.float32)
+                         ).to(dev)
+    rows = anatomy.pe_mm_rows(dev)
+    rows[0] = P
+    rows[1] = torch.zeros_like(rows[1])
+    rows[2] = torch.zeros_like(rows[2])
+    E = anatomy.PROBES["pe_mm"].cuda(*rows, x).double()
+    ref = x.double() @ P.double()
+    unit = 2.0 ** -24 * (x.double().abs() @ P.double().abs())
+    return float(((E - ref).abs() / unit).max())
+
+
 def phase_anatomy(dev, cfg, smi_name):
     """Phase 8: the eleven probes against their plain versions, timed; the
     fused forward at the same size; the measured split; the entry points."""
@@ -965,6 +992,13 @@ def phase_anatomy(dev, cfg, smi_name):
               f"{torch.equal(outs['static'], outs['consol'])}")
         split_ops, split_out = cases["split"], outs["split"]
         del outs, cases
+        units = pe_mm_dense_units(dev)
+        print(f"[probe] pe_mm on a dense N(0, 1) P: max |E - x @ P| "
+              f"{units:.2f} units of 2^-24 sum|x P| (bound "
+              f"{PE_DENSE_UNITS:g})")
+        if not units <= PE_DENSE_UNITS:
+            failures.append(f"pe_mm on a dense P: {units:.2f} units of "
+                            f"2^-24 sum|x P| (bound {PE_DENSE_UNITS:g})")
         if failures:
             fail("\n".join(failures))
 

@@ -35,20 +35,23 @@
 // 128.  TERMS = 3 is pe_mm, the f32 product as six bf16 passes (what JAX
 // calls BF16_BF16_F32_X6): each operand split by truncation into hi + mid +
 // lo, three bf16 values that share x's sign and hi's exponent and sum back
-// to x exactly (for |x| over ~2^-103, where lo is still normal), and the six
-// cross products whose term indices sum to at most 2, smallest first, into
-// one f32 accumulator (48 k16 steps).  At the probe's P (one power of two a
-// column, so P's mid and lo are zero) every output sums at most three
-// exact, disjoint products: E is x @ P bit for bit.  For a dense P the
-// result is an f32-accurate product, not a bit-exact one.  On the tensor
-// cores six passes of 17.2 GFLOP are ~0.10 ms at 524,288 points, under the
-// 0.16 ms of the bytes, so bytes bound both.
+// to x exactly (for |x| over ~2^-103, where lo is still normal; x = +-inf
+// splits into inf, NaN, NaN, so an infinite input gives NaN where x @ P
+// gives +-inf), and the six cross products whose term indices sum to at
+// most 2, smallest first, into one f32 accumulator (48 k16 steps).  At the
+// probe's P (one power of two a column, so P's mid and lo are zero) every
+// output sums at most three exact, disjoint products: E is x @ P bit for
+// bit.  For a dense P the result is an f32-accurate product, not a
+// bit-exact one.  On the tensor cores six passes of 17.2 GFLOP are ~0.10
+// ms at 524,288 points, under the 0.16 ms of the bytes, so bytes bound
+// both.
 //
 // What the measurements on an H100 chose (experiments/pe_ablation.py and
 // probe_timing.py): each warpgroup's product runs as two of 64 output
 // columns, so the epilogue on the first one's fragments overlaps the
 // second's passes; the next tile's rows load into registers while the
-// products run (into L2 instead, at two blocks an SM, is no faster); and
+// products run (~160 registers a thread, so one block an SM: loading them
+// into L2 instead, at two blocks an SM, measured slower for both); and
 // the epilogue skips sinf by a warp-uniform branch where none of a warp's
 // columns is a trig column (the compiler otherwise evaluates sinf for every
 // column and selects), which took 15-18% off the two probes.
@@ -187,12 +190,6 @@ constexpr int TERM_BYTES = K_TILES * P_SLAB_BYTES;   // one bf16 term of P
 constexpr int EPI_FLOATS = 3 * LANES;           // ph | trg | s
 constexpr int ROWS_A_WARP = WG_ROWS / 4;        // input rows a warp loads
 constexpr int N_HALF = LANES / 2;               // output columns a product
-// Where a warpgroup puts the next tile's rows while it works on this one:
-// registers (true; they are live across the epilogue, ~160 registers and
-// so one block of 256 threads an SM) or L2 (false: next_rows, the rows load
-// at the top of their tile, and the launch asks for two blocks an SM).
-// Registers measured faster for both probes (experiments/pe_ablation.py).
-constexpr bool NEXT_IN_REGS = true;
 
 // The passes of the product as (A term, B term) hex digit pairs, the first
 // pass leftmost; terms 0 hi, 1 mid, 2 lo.  Smallest first: lo.hi, mid.mid,
@@ -346,9 +343,9 @@ __device__ __forceinline__ void store_out(const float (&acc)[N_HALF / 2],
 // Each warpgroup writes its rows' terms as swizzled operand tiles and runs
 // the passes as two products of 64 output columns, each into its own f32
 // accumulator; the epilogue of the first runs while the second's passes
-// do.
+// do.  The next tile's rows are live in registers across the epilogue.
 template <int TERMS>
-__global__ void __launch_bounds__(PM_THREADS, NEXT_IN_REGS ? 1 : 2)
+__global__ void __launch_bounds__(PM_THREADS, 1)
 pe_mm_hopper_kernel(const float* __restrict__ inp, float* __restrict__ out,
                     int n, const unsigned char* __restrict__ image,
                     const float* __restrict__ ph,
@@ -390,15 +387,9 @@ pe_mm_hopper_kernel(const float* __restrict__ inp, float* __restrict__ out,
   const size_t stride = (size_t)gridDim.x * ROWS;
 
   float4 v[ROWS_A_WARP];
-  if (NEXT_IN_REGS)
-    load_rows(v, inp, (size_t)blockIdx.x * ROWS + wg * WG_ROWS, n, warp,
-              lane);
+  load_rows(v, inp, (size_t)blockIdx.x * ROWS + wg * WG_ROWS, n, warp, lane);
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const size_t row0 = (size_t)tile * ROWS + wg * WG_ROWS;
-    if (!NEXT_IN_REGS) {
-      load_rows(v, inp, row0, n, warp, lane);
-      next_rows(inp, row0 + stride, n, LANES * 4, t);
-    }
     // the operand tiles are free: this warpgroup's last products completed
     put_terms<TERMS>(act, v, warp, lane);
     fence_async_smem();
@@ -410,7 +401,7 @@ pe_mm_hopper_kernel(const float* __restrict__ inp, float* __restrict__ out,
     run_passes<TERMS>(acc0, a0, b0, 0);
     run_passes<TERMS>(acc1, a0, b0, N_HALF);
     // the next tile's rows on their way while the products run
-    if (NEXT_IN_REGS) load_rows(v, inp, row0 + stride, n, warp, lane);
+    load_rows(v, inp, row0 + stride, n, warp, lane);
     wgmma_wait<1>();
     fence_acc(acc0);
     store_out(acc0, epi, out, row0, n, 0, fr, fq);

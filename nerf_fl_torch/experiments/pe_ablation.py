@@ -1,25 +1,17 @@
-"""The PE-matmul probes with the next tile's rows in registers or in L2.
+"""The PE-matmul probes without the epilogue's sinf (time only).
 
     python -m nerf_fl_torch.experiments.pe_ablation [--n POINTS]
 
-``csrc/anatomy_pe.cu:pe_mm_hopper_kernel<TERMS>`` gets the next tile's rows
-while it works on this one in one of two ways, chosen by ``NEXT_IN_REGS``:
-into registers while the products run (~160 registers a thread, one block
-of 256 threads an SM), or into L2 (``next_rows``; the rows load at the top
-of their tile, and the launch asks for two blocks an SM, which
-``pe_mm_bf16``'s 68 KB of shared memory allow and ``pe_mm``'s 199 KB do
-not).  The variant other than the shipped one is a copy of
-``nerf_fl_torch/csrc/`` with that constant flipped (``fused_ablation.py``'s
-``patched_sources`` / ``built_from``), built into
-``nerf_fl_torch/_build/ablation/pe_<regs|l2>/`` and timed for each probe
-at the entry points' operands (seed 0, 524,288 points), per call and
-queued (``probe_timing.py``); the shipped build runs first and last.  The choice
-moves no arithmetic: every variant's output must equal the shipped build's
-bit for bit, or this raises.  One more variant is time only: ``no_sin``
-stores E * s where the probe stores where(trg > 0, sin(E + ph), E) * s,
-so its values are wrong in the trig columns; it reads what the epilogue's
-sinf costs.  Prints the card's name and power limit, a line a variant
-with its registers a thread, and last one JSON object.  Needs a CUDA card.
+``csrc/anatomy_pe.cu:pe_mm_hopper_kernel<TERMS>`` stores where(trg > 0,
+sin(E + ph), E) * s.  The variant ``no_sin`` is a copy of
+``nerf_fl_torch/csrc/`` whose epilogue stores E * s
+(``fused_ablation.py``'s ``patched_sources`` / ``built_from``), built into
+``nerf_fl_torch/_build/ablation/pe_no_sin/``: its values are wrong in the
+trig columns, and it reads what the epilogue's sinf costs.  Each probe is
+timed at the entry points' operands (seed 0, 524,288 points), per call and
+queued (``probe_timing.py``); the shipped build runs first and last.
+Prints the card's name and power limit, a line a variant with its
+registers a thread, and last one JSON object.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -41,39 +33,11 @@ NO_SIN = [("anatomy_pe.cu",
            "                        __fmul_rn(acc[4 * j + 2 * h + 1], s2.y));")]
 
 
-def shipped_regs() -> bool:
-    """Whether the kernel ships with the next rows in registers."""
-    from ..ops import _build
-    text = (_build.CSRC / "anatomy_pe.cu").read_text()
-    return re.search(r"constexpr bool NEXT_IN_REGS = (true|false);",
-                     text).group(1) == "true"
-
-
 def _clear_pe() -> None:
     """Drop the cached encoder-probe library and its plans."""
     from ..ops import anatomy
     for f in (anatomy._launcher, anatomy.pe_plan, anatomy._check_pe_plan):
         f.cache_clear()
-
-
-@contextlib.contextmanager
-def next_rows_in(regs: bool):
-    """Inside the block, the PE-matmul probes launch a build of ``csrc/`` in
-    which the kernel keeps the next tile's rows in registers (``regs``) or
-    asks L2 for them."""
-    from ..ops import _build
-    now = shipped_regs()
-    if regs == now:
-        yield
-        return
-    word = {True: "true", False: "false"}
-    variant = [("anatomy_pe.cu", f"constexpr bool NEXT_IN_REGS = {word[now]};",
-                f"constexpr bool NEXT_IN_REGS = {word[regs]};")]
-    texts = patched_sources("next", variants={"next": variant})
-    where = "regs" if regs else "l2"
-    with built_from(texts, _build.BUILD / "ablation" / f"pe_{where}",
-                    _clear_pe):
-        yield
 
 
 @contextlib.contextmanager
@@ -112,22 +76,16 @@ def main(n: int = 524_288, device=None) -> Dict:
     ops = anatomy.pe_mm_rows(dev) + [c["x128"]]
     rows: Dict[str, Dict[str, List[float]]] = {}
     with torch.no_grad():
-        ship = shipped_regs()
         for probe in PROBES:
             terms = anatomy.PE_TERMS[probe]
-            shipped = anatomy.PROBES[probe](*ops)
             runs: List[Tuple[str, object]] = [
-                ("regs" if ship else "l2", next_rows_in(ship)),
-                ("l2" if ship else "regs", next_rows_in(not ship)),
+                ("shipped", contextlib.nullcontext()),
                 ("no_sin", without_sin()),
-                ("regs" if ship else "l2", next_rows_in(ship))]
-            for where, ctx in runs:
-                key = f"{probe}@{where}"
+                ("shipped", contextlib.nullcontext())]
+            for variant, ctx in runs:
+                key = f"{probe}@{variant}"
                 with ctx:
                     fn = (lambda p=anatomy.PROBES[probe]: p(*ops))
-                    if where != "no_sin" and not torch.equal(fn(), shipped):
-                        raise RuntimeError(f"{key} differs from the shipped "
-                                           f"{probe} build")
                     fn()                                      # warm up
                     call, _ = per_call_ms(fn)
                     queued, queued_all = queued_ms(fn)
@@ -137,12 +95,10 @@ def main(n: int = 524_288, device=None) -> Dict:
                 row["per_call_ms"].append(call)
                 row["device_ms"].append(queued)
                 row["registers"].append(regs_used)
-                print(f"[next] {key:15s} per call {call:.4f} ms, queued "
+                print(f"[pe] {key:18s} per call {call:.4f} ms, queued "
                       f"{queued:.4f} ms a call (windows: "
                       f"{[round(t, 4) for t in queued_all]}), {regs_used} "
-                      f"registers"
-                      f"{' shipped' if where == ('regs' if ship else 'l2') else ''}",
-                      flush=True)
+                      f"registers", flush=True)
     out = {"device": torch.cuda.get_device_name(dev), "power": smi, "n": n,
            "ms": rows}
     print(json.dumps(out))

@@ -159,7 +159,9 @@ def split_terms(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     x - hi - mid``; all three f32 tensors that hold bf16 values exactly.
     They share x's sign and lie within 24 bits below hi's leading bit, so
     ``hi + mid + lo == x`` bit for bit while lo is normal (|x| over about
-    2^-103; below that lo's last bits fall under f32's normal range)."""
+    2^-103; below that lo's last bits fall under f32's normal range).  Not
+    for non-finite x: ±inf splits into ±inf, NaN, NaN (``x - hi`` is inf -
+    inf), so the six-pass product gives NaN where ``x @ P`` gives ±inf."""
     hi = (x.view(torch.int32) & -0x10000).view(F32)
     rest = x - hi
     mid = (rest.view(torch.int32) & -0x10000).view(F32)

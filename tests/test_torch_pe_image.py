@@ -12,7 +12,7 @@ pattern cleared, mid the same of x - hi, lo = x - hi - mid.  Truncation
 keeps the three terms on x's sign and within 24 bits below hi's leading
 bit, so they sum back to x with no carry.  The documented limit: once x's
 exponent is under -103, lo can fall under f32's normal range and stop
-being a bf16 value.
+being a bf16 value; and x = ±inf splits into ±inf, NaN, NaN.
 
 The model sums each pass's products over k16 steps, exactly, and rounds
 into an f32 accumulator once a step, passes in the kernel's order.  For a
@@ -104,6 +104,25 @@ def test_split_documented_limit_below_2_to_the_minus_103():
     hi, mid, lo = anatomy.split_terms(bad)
     assert torch.equal(_bits(hi + mid + lo), _bits(bad))
     assert 0 < float(lo) < torch.finfo(F32).tiny and not _is_bf16(lo)
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_split_of_an_infinite_input_is_nan_past_hi(sign):
+    """The other documented limit: x = ±inf splits into ±inf, NaN, NaN
+    (x - hi is inf - inf), so the six passes give NaN in a row where x @ P
+    gives ±inf, at the probe's P."""
+    inf = torch.tensor([sign * float("inf")])
+    hi, mid, lo = anatomy.split_terms(inf)
+    assert torch.equal(hi, inf) and mid.isnan().all() and lo.isnan().all()
+    P = anatomy.pe_mm_rows()[0]
+    x = torch.ones(2, 128)
+    x[0, 0] = inf
+    want = x @ P
+    got = six_pass_model(x, P)
+    hit = P[0] != 0
+    assert torch.equal(want[0, hit], (sign * P[0, hit]).sign() * inf.abs())
+    assert got[0].isnan().all()
+    assert torch.equal(got[1], want[1])
 
 
 def six_pass_model(x, P, passes=anatomy.PE_PASSES):
