@@ -26,9 +26,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   6. train the flagship (bf16, batch 1024, Adam 5e-4, perturb 1) from a
      device-resident pool of 2^20 rays: one f32 step's gradients through
      the fused kernels against the plain MLP path, the kernel launches of
-     one bf16 step, TRAIN_STEPS steps whose loss must fall, the step time
-     beside that of the same step through the plain MLP path, and one
-     step of each by kernel;
+     one bf16 step, TRAIN_STEPS steps whose loss must fall; the step as a
+     CUDA graph (steps_per_execution GRAPH_K, a call with a masked tail)
+     bit for bit the eager step from cloned state, 2 + 2 fused launches a
+     sub-step at capture; the step time of the eager step, the graph step
+     and the same step through the plain MLP path in windows of TIME_K
+     steps; one step of each by kernel, and a profiled graph call (its
+     fused kernels by name, its device busy share);
   7. hold the forward and the backward kernel (bf16) against their plain
      versions at the fine pass's 131,072 points and the coarse pass's
      65,536, time both against their bounds and the backward against its
@@ -46,7 +50,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      it is and without its encoders (experiments/fused_ablation.py's
      no_encoders variant, built here), and split at concat's ring depth
      (experiments/chain_ablation.py, built here; bit for bit split as it
-     ships); print the split of the fused kernel's time that the net probes
+     ships), and pe_vpu as the parent designed it (experiments/
+     pe_ablation.py's column_a_thread variant, built here; bit for bit
+     pe_vpu as it ships); print the split of the fused kernel's time that the net probes
      measure, of the chain probes' times by skip and of the PE family
      (matmul PE against multiply-add PE, the five extra passes, the product
      over the bare stream); then run both anatomy entry points and require
@@ -111,6 +117,8 @@ ANATOMY_REPS = 5               # timed launches per probe in the entry points
 SIN_OPS = 20                   # f32 operations counted for one sin
 POOL = 1 << 20                 # bench.py's synthetic ray pool
 BATCH = 1024
+TIME_K = 20                    # steps a timing window; the graph step's K
+GRAPH_K, GRAPH_MASKED = 8, 3   # the graph parity check's K and masked tail
 N_VOCAB = 1500
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, HBM B/s
@@ -409,7 +417,9 @@ def phase_render(dev):
 
 def profile_frame(frame, what="frame"):
     """Device time of one call by kernel (torch.profiler), and the share
-    of its wall time in which the device was busy."""
+    of its wall time in which the device was busy.  Returns (busy ms, wall
+    ms, [(ms, launches, kernel name)]), or None if the profiler saw no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -435,7 +445,7 @@ def profile_frame(frame, what="frame"):
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         print(f"[profile] {ms:9.2f} ms {100 * ms / busy_ms:5.1f}% "
               f"x{count:<4d} {key[:90]}")
-    return busy_ms, wall_ms
+    return busy_ms, wall_ms, rows
 
 
 def fused_case(dev, cfg, n, seed):
@@ -605,7 +615,9 @@ def train_pool(dev, gen):
 
 def phase_train(dev):
     """Train the flagship from the device pool.  Returns the fused forward
-    and backward launch counts of one bf16 step."""
+    and backward launch counts of one bf16 step, and the graph step's time
+    and fused launches a sub-step (at capture, and read back from a
+    profiled replay)."""
     import numpy as np
     import torch
     from dataclasses import replace
@@ -675,31 +687,50 @@ def phase_train(dev):
     if not np.isfinite(curve).all() or not tail < head:
         fail("the training loss did not fall")
 
-    # (d) step time: host clock over windows that end in a synchronize;
-    # then the same step through the plain MLP path (cuBLAS GEMMs under
-    # autograd) as the yardstick, and the fused step once more
+    # (d) steps_per_execution: the step as a CUDA graph, replayed, against
+    # the eager step from cloned state (same weights, fresh Adam, the same
+    # generator seed, the same batches)
+    graph_parity(cfg, params, pool, perm, dev)
+
+    # (e) step time: host clock over windows that end in a synchronize;
+    # the eager step, the graph step (one call of TIME_K sub-steps a
+    # window) and the same step through the plain MLP path (cuBLAS GEMMs
+    # under autograd) as the yardstick, each twice but the plain path
     i0 = TRAIN_STEPS
     plain = make_device_pool_step(replace(cfg, use_fused=False), opt,
                                   batch_size=BATCH)
+    graphed = make_device_pool_step(cfg, opt, batch_size=BATCH,
+                                    steps_per_execution=TIME_K)
+    graphed(params, pool, perm, i0, i0 + TIME_K, 5e-4, generator=gen)
+    i0 += TIME_K                                 # capture and a warm call
+
+    def window(name, i):
+        if name == "graph":
+            graphed(params, pool, perm, i, i + TIME_K, 5e-4, generator=gen)
+            return
+        fn = run if name == "fused" else plain
+        for j in range(i, i + TIME_K):
+            fn(params, pool, perm, j, 5e-4, generator=gen)
+
     results = {}
-    for name, fn in (("fused", run), ("plain MLP path", plain),
-                     ("fused", run)):
+    for name in ("fused", "graph", "plain MLP path", "graph", "fused"):
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
             s = time.perf_counter()
-            for i in range(i0, i0 + 20):
-                fn(params, pool, perm, i, 5e-4, generator=gen)
+            window(name, i0)
             torch.cuda.synchronize()
-            times.append((time.perf_counter() - s) * 1e3 / 20)
-            i0 += 20
+            times.append((time.perf_counter() - s) * 1e3 / TIME_K)
+            i0 += TIME_K
         results.setdefault(name, []).append(sorted(times)[1])
         print(f"[train] {name} step ms {sorted(times)[1]:.2f} (windows of "
-              f"20: {[round(x, 2) for x in times]}), train rays/s "
+              f"{TIME_K}: {[round(x, 2) for x in times]}), train rays/s "
               f"{BATCH / sorted(times)[1] * 1e3:.0f}")
-    step_ms = results["fused"][0]
+    step_ms, graph_ms = results["fused"][0], results["graph"][0]
+    print(f"[train] graph step / eager step = {graph_ms / step_ms:.3f} "
+          f"({results['graph']} against {results['fused']} ms)")
 
-    # (e) one step's device time by kernel, up to its last kernel's end
+    # (f) one step's device time by kernel, up to its last kernel's end
     def one_step():
         run(params, pool, perm, i0, 5e-4, generator=gen)
         torch.cuda.synchronize()
@@ -716,7 +747,97 @@ def phase_train(dev):
         torch.cuda.synchronize()
 
     profile_frame(one_plain_step, what="plain MLP path train step")
-    return launches
+
+    # (g) one graph call (TIME_K replayed sub-steps): its kernels by name,
+    # and the device busy share of a sub-step
+    def one_graph_call():
+        graphed(params, pool, perm, i0 + 2, i0 + 2 + TIME_K, 5e-4,
+                generator=gen)
+        torch.cuda.synchronize()
+
+    share = profile_frame(one_graph_call, what=f"graph call of {TIME_K} "
+                          f"sub-steps")
+    if share is None:
+        fail("the profiler saw no device time in a graph replay")
+    fwd = sum(c for _, c, key in share[2] if "fused_mlp_fwd_" in key)
+    bwd = sum(c for _, c, key in share[2] if "fused_mlp_bwd_" in key)
+    per_sub = share[0] / TIME_K
+    print(f"[train] graph replay: fused forward kernels {fwd}, backward "
+          f"kernels {bwd} in {TIME_K} sub-steps ({fwd / TIME_K:g}, "
+          f"{bwd / TIME_K:g} a sub-step; expected 2 and 2); captured "
+          f"{graphed.graph.captures} time(s), {graphed.graph.fused_launches} "
+          f"fused launches a sub-step at capture; device busy "
+          f"{per_sub:.2f} ms a sub-step of the {graph_ms:.2f} ms timed: "
+          f"{100 * per_sub / graph_ms:.1f}% busy, "
+          f"{100 * (1 - per_sub / graph_ms):.1f}% idle")
+    if (fwd, bwd) != (2 * TIME_K, 2 * TIME_K) \
+            or graphed.graph.fused_launches != (2, 2) \
+            or graphed.graph.captures != 1:
+        fail(f"graph step: {(fwd, bwd)} fused kernels in {TIME_K} replayed "
+             f"sub-steps, {graphed.graph.fused_launches} at capture, "
+             f"{graphed.graph.captures} captures; expected 2 + 2 a "
+             f"sub-step, one capture")
+    return launches, dict(ms=graph_ms, eager_ms=step_ms,
+                          launches=graphed.graph.fused_launches,
+                          replayed=(fwd // TIME_K, bwd // TIME_K))
+
+
+def graph_parity(cfg, params, pool, perm, dev):
+    """GRAPH_K sub-steps replayed from a CUDA graph, then a call whose last
+    GRAPH_MASKED sub-steps are masked, against as many eager steps, each
+    side from a copy of ``params`` with a fresh Adam and a CUDA generator
+    of seed 7: parameters, Adam state and losses bit for bit (the limit of
+    tests/test_torch_cuda.py)."""
+    import copy
+    from types import SimpleNamespace
+    import torch
+    from nerf_fl_torch.training import make_device_pool_step, optimizers
+
+    n = 2 * GRAPH_K - GRAPH_MASKED
+    sides = []
+    for k in (1, GRAPH_K):
+        p = copy.deepcopy(params)
+        opt = optimizers.build_optimizer(
+            SimpleNamespace(optimizer="adam", lr=5e-4, weight_decay=0.0),
+            optimizers.trainable_parameters(
+                p, optimizers.make_trainable_mask(p, False)))
+        run = make_device_pool_step(cfg, opt, batch_size=BATCH,
+                                    steps_per_execution=k)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        if k == 1:
+            loss = [run(p, pool, perm, i, 5e-4, generator=gen)["train/loss"]
+                    for i in range(n)]
+        else:
+            loss = []
+            for i0 in (0, GRAPH_K):
+                m = run(p, pool, perm, i0, n, 5e-4, generator=gen)
+                loss += list(m["train/loss"][:n - i0])
+                if not bool(m["train/loss"][n - i0:].isnan().all()):
+                    fail("a masked sub-step of the graph step reported a "
+                         "loss")
+        torch.cuda.synchronize()
+        state = [opt.state[q] for g in opt.param_groups for q in g["params"]]
+        sides.append((optimizers.named_leaves(p), state,
+                      torch.stack(loss), run))
+    (p1, s1, l1, _), (pk, sk, lk, run) = sides
+    worst = max(float((a - b).detach().abs().max())
+                for (_, a), (_, b) in zip(p1, pk))
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(p1, pk)) and all(
+        int(a["step"]) == int(b["step"]) == n
+        and torch.equal(a["exp_avg"], b["exp_avg"])
+        and torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+        for a, b in zip(s1, sk)) and torch.equal(l1, lk)
+    print(f"[train] graph step (K = {GRAPH_K}, perturb 1): {n} sub-steps in "
+          f"two calls, the last {GRAPH_MASKED} masked, against {n} eager "
+          f"steps: params, Adam state and losses bit for bit: {same} (max "
+          f"|d| params {worst:.3e}, losses {float((l1 - lk).abs().max()):.3e}"
+          f"); captured {run.graph.captures} time(s), "
+          f"{run.graph.fused_launches} fused launches a sub-step at capture")
+    if not same or run.graph.captures != 1:
+        fail("the graph step and the eager step disagree")
+    if run.graph.fused_launches != (2, 2):
+        fail(f"a captured sub-step made {run.graph.fused_launches} fused "
+             f"launches, expected (2, 2)")
 
 
 def phase_bwd_timing(cfg, smi_name):
@@ -909,6 +1030,7 @@ def phase_anatomy(dev, cfg, smi_name):
         shipped_depth
     from nerf_fl_torch.experiments.fused_ablation import built_from, \
         patched_sources
+    from nerf_fl_torch.experiments.pe_ablation import variant_build
     from nerf_fl_torch.experiments.probe_timing import CALLS, cases as \
         probe_cases, queued_ms
     from nerf_fl_torch.ops import _build, anatomy
@@ -991,6 +1113,7 @@ def phase_anatomy(dev, cfg, smi_name):
         print("[probe] consol == static bit for bit: "
               f"{torch.equal(outs['static'], outs['consol'])}")
         split_ops, split_out = cases["split"], outs["split"]
+        vpu_ops = cases["pe_vpu"]
         del outs, cases
         units = pe_mm_dense_units(dev)
         print(f"[probe] pe_mm on a dense N(0, 1) P: max |E - x @ P| "
@@ -1043,6 +1166,26 @@ def phase_anatomy(dev, cfg, smi_name):
             fail(f"split with a ring of {depth} slabs differs from split as "
                  f"it ships")
         del split_ops, split_out
+
+        # pe_vpu as the parent built it (pe_ablation.py's column_a_thread
+        # variant: one thread a column; bit for bit the shipped kernel)
+        vpu = anatomy.PROBES["pe_vpu"]
+        shipped_vpu = vpu.cuda(*vpu_ops)
+        t0 = time.perf_counter()
+        with variant_build("vpu_column_a_thread"):
+            same = torch.equal(vpu.cuda(*vpu_ops), shipped_vpu)
+            vpu_build_s = time.perf_counter() - t0
+            vpu_parent_q, _ = queued_ms(lambda: vpu.cuda(*vpu_ops))
+        vpu_q, _ = queued_ms(lambda: vpu.cuda(*vpu_ops))
+        if not same:
+            fail("pe_vpu's first design differs from the shipped kernel")
+        del shipped_vpu, vpu_ops
+        rows["pe_vpu"]["parent_device_ms"] = vpu_parent_q
+        print(f"[probe] pe_vpu queued {vpu_q:.4f} ms against the parent's "
+              f"design (one thread a column) {vpu_parent_q:.4f} ms (built "
+              f"in {vpu_build_s:.1f} s, bit for bit the shipped kernel): "
+              f"{vpu_parent_q / vpu_q:.2f}x; bound {rows['pe_vpu']['bound_ms']:.4f}"
+              f" ms = {100 * rows['pe_vpu']['bound_ms'] / vpu_q:.1f}% of it")
     r = {k: v["device_ms"] for k, v in rows.items()}
     ring = {k: anatomy.chain_plan(anatomy.PROBES[k].variant)["stages"]
             for k in anatomy.CHAIN_PROBES}
@@ -1148,7 +1291,7 @@ def main() -> int:
     k_ms, p_ms, bound_ms, bound_by, chunk_err = phase_timing(dev, cfg,
                                                              smi_name)
     phase_bwd_kernels(dev)
-    fwd_train, bwd_train = phase_train(dev)
+    (fwd_train, bwd_train), graph = phase_train(dev)
     on_train = {k: v - on_render[k] for k, v in probe_counts().items()}
     train = phase_bwd_timing(cfg, smi_name)
     bwd = train["fine"]
@@ -1164,6 +1307,7 @@ def main() -> int:
         "launches": launches + fwd_train,
         "launches_by_path": {"render_frame": launches,
                              "train_step": fwd_train,
+                             "train_graph_substep": graph["launches"][0],
                              "kernel_anatomy": fused_on_anatomy[0]},
         "max_abs_err": max([chunk_err] + [v["fwd_err"] for v in train.values()]),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
@@ -1174,6 +1318,7 @@ def main() -> int:
         "launches": bwd_render + bwd_train,
         "launches_by_path": {"render_frame": bwd_render,
                              "train_step": bwd_train,
+                             "train_graph_substep": graph["launches"][1],
                              "kernel_anatomy": fused_on_anatomy[1]},
         "max_abs_err": max(v["bwd_err"] for v in train.values()),
         "max_norm_rel_err": max(v["bwd_norm_rel"] for v in train.values()),
@@ -1196,7 +1341,9 @@ def main() -> int:
             "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "library_device_ms": row["library_device_ms"]})
+            "library_device_ms": row["library_device_ms"],
+            **({"parent_device_ms": row["parent_device_ms"]}
+               if "parent_device_ms" in row else {})})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

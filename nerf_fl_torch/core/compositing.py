@@ -36,11 +36,42 @@ def ray_deltas(z_vals: torch.Tensor) -> torch.Tensor:
     return torch.cat([deltas, torch.full_like(deltas[:, :1], DELTA_INF)], -1)
 
 
+class _CumProd(torch.autograd.Function):
+    """``torch.cumprod`` over the last dim, with a backward that never
+    reads a value back to the host, so a CUDA graph can capture it (torch's
+    own asks the host whether the input holds a zero).  Forward: torch's.
+    Backward, per row, for y = cumprod(x) and w = g y: where k is before the
+    row's first zero, reversed_cumsum(w)_k / x_k, torch's formula; at the
+    first zero z, y_{z-1} sum_{i>=z} g_i prod_{z<j<=i} x_j; after it, 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        zeros = torch.cumsum(x == 0, dim=-1)
+        before = zeros == 0
+        first = (x == 0) & (zeros == 1)
+        rc = (g * y).flip(-1).cumsum(-1).flip(-1)
+        y_prev = torch.cat([torch.ones_like(y[..., :1]), y[..., :-1]], -1)
+        after = torch.cumprod(torch.where(before | first, torch.ones_like(x),
+                                          x), dim=-1)
+        at_first = y_prev * torch.sum(torch.where(before, 0.0, g * after),
+                                      dim=-1, keepdim=True)
+        return torch.where(before, rc / x,
+                           torch.where(first, at_first, torch.zeros_like(x)))
+
+
 def exclusive_transmittance(alphas: torch.Tensor) -> torch.Tensor:
     """T_i = prod_{j<i} (1 - a_j)."""
     shifted = torch.cat([torch.ones_like(alphas[:, :1]),
                          1.0 - alphas[:, :-1]], dim=-1)
-    return torch.cumprod(shifted, dim=-1)
+    return _CumProd.apply(shifted)
 
 
 def composite_static(z_vals: torch.Tensor, rgbs: Optional[torch.Tensor],

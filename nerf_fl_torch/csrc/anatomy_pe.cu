@@ -20,10 +20,16 @@
 //                             pe + dt + tt.
 //
 // What bounds them: bytes.  Each reads at most 512 and writes 512 bytes a
-// point.  The encoder kernels give a thread one output column and a stride
-// of rows, so a warp writes 128 consecutive bytes and the per-column
-// constants sit in registers; pe_vpu reads only the three input columns it
-// needs.
+// point.  pe_only gives a thread one output column and a stride of rows,
+// so a warp writes 128 consecutive bytes and the per-column constants sit
+// in registers.  pe_vpu reads only the three input columns it needs and
+// writes 512 bytes a point, so its stores are the stream: a lane stores a
+// float4 of one row's quarter, a warp four whole rows' quarters an
+// instruction, with VPU_ROWS input loads of a thread in flight before its
+// first store and sinf skipped by warps whose columns hold no trig column.
+// Measured on an H100 (experiments/pe_ablation.py): the first design (one
+// thread a column, 16 rows a block, a load before each 4-byte store, sinf
+// on every column then a select) read 0.175 ms queued at 524,288 points.
 //
 // The two products run on the Hopper block of fused_mlp_common.cuh as one
 // template over the bf16 terms of each operand, pe_mm_hopper_kernel<TERMS>:
@@ -77,7 +83,7 @@
 namespace {
 
 constexpr int LANES = 128;
-constexpr int ROWS_PER_BLOCK = 16;     // encoder kernels: 2 rows a pass
+constexpr int ROWS_PER_BLOCK = 16;     // pe_only: 2 rows a pass
 constexpr int SIN_THREADS = 256;
 constexpr int SIN_UNROLL = 1;          // float4s a thread a tile
 constexpr int SIN_TILE = SIN_THREADS * SIN_UNROLL;   // float4s a tile
@@ -88,28 +94,90 @@ __device__ __forceinline__ float pe_out(float E, float ph, float trg,
   return __fmul_rn(trg > 0.0f ? sinf(__fadd_rn(E, ph)) : E, s);
 }
 
-// E = v[0] r0 + v[1] r1 + v[2] r2, left to right
-__device__ __forceinline__ float accum3(const float* v, float r0, float r1,
-                                        float r2) {
-  float E = __fmul_rn(v[0], r0);
-  E = __fadd_rn(E, __fmul_rn(v[1], r1));
-  return __fadd_rn(E, __fmul_rn(v[2], r2));
+// E = x0 r0 + x1 r1 + x2 r2, left to right
+__device__ __forceinline__ float mad3(float x0, float x1, float x2, float r0,
+                                      float r1, float r2) {
+  float E = __fmul_rn(x0, r0);
+  E = __fadd_rn(E, __fmul_rn(x1, r1));
+  return __fadd_rn(E, __fmul_rn(x2, r2));
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ float accum3(const float* v, float r0, float r1,
+                                        float r2) {
+  return mad3(v[0], v[1], v[2], r0, r1, r2);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// pe_vpu: a warp owns one quarter of the columns (QUARTER = 32, 128 bytes
+// of a row) and writes 4 rows of it an instruction, a float4 a lane, so
+// every store fills four whole 128-byte segments.  A block of 8 warps
+// covers VPU_TILE rows: warps w and w + 4 take quarter w & 3 of alternate
+// groups of 4 rows.  A thread loads the
+// first float4 of each of its VPU_ROWS rows (the row's three inputs; the 8
+// lanes of a row share the address) before its first store, so VPU_ROWS
+// loads are in flight.  The columns of a warp never change, so whether any
+// of them is a trig column is decided once, warp-uniform: a warp with none
+// runs no sinf at all.
+constexpr int VPU_THREADS = 256;
+constexpr int QUARTER = LANES / 4;
+constexpr int VPU_ROWS = 8;                       // rows a thread stores
+constexpr int VPU_TILE = 2 * 4 * VPU_ROWS;        // rows a block
+
+__global__ void __launch_bounds__(VPU_THREADS)
 pe_vpu_kernel(const float* __restrict__ P, const float* __restrict__ ph,
               const float* __restrict__ trg, const float* __restrict__ s,
               const float* __restrict__ inp, float* __restrict__ out, int n) {
-  const int c = threadIdx.x & (LANES - 1);
-  const float p0 = P[c], p1 = P[LANES + c], p2 = P[2 * LANES + c];
-  const float phc = ph[c], trgc = trg[c], sc = s[c];
-  const size_t r0 = (size_t)blockIdx.x * ROWS_PER_BLOCK;
-  for (int i = threadIdx.x >> 7; i < ROWS_PER_BLOCK; i += THREADS / LANES) {
-    const size_t r = r0 + i;
-    if (r >= (size_t)n) break;
-    out[r * LANES + c] =
-        pe_out(accum3(inp + r * LANES, p0, p1, p2), phc, trgc, sc);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = (warp & 3) * QUARTER + 4 * (lane & 7);   // 4 columns from c
+  const float4 p0 = ld4(P + c), p1 = ld4(P + LANES + c),
+               p2 = ld4(P + 2 * LANES + c);
+  const float4 phc = ld4(ph + c), tc = ld4(trg + c), sc = ld4(s + c);
+  const bool trig = __any_sync(
+      0xffffffffu, tc.x > 0.0f || tc.y > 0.0f || tc.z > 0.0f || tc.w > 0.0f);
+  // row of step u: r0 + 8 u
+  const size_t r0 = (size_t)blockIdx.x * VPU_TILE + 4 * (warp >> 2) +
+                    (lane >> 3);
+  float4 x[VPU_ROWS];
+#pragma unroll
+  for (int u = 0; u < VPU_ROWS; ++u) {
+    const size_t r = r0 + 8 * u;
+    x[u] = r < (size_t)n ? ld4(inp + r * LANES)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
+#pragma unroll
+  for (int u = 0; u < VPU_ROWS; ++u) {
+    const size_t r = r0 + 8 * u;
+    if (r >= (size_t)n) break;
+    const float4 v = x[u];
+    float4 E = make_float4(mad3(v.x, v.y, v.z, p0.x, p1.x, p2.x),
+                           mad3(v.x, v.y, v.z, p0.y, p1.y, p2.y),
+                           mad3(v.x, v.y, v.z, p0.z, p1.z, p2.z),
+                           mad3(v.x, v.y, v.z, p0.w, p1.w, p2.w));
+    float4 o;
+    if (trig)
+      o = make_float4(pe_out(E.x, phc.x, tc.x, sc.x),
+                      pe_out(E.y, phc.y, tc.y, sc.y),
+                      pe_out(E.z, phc.z, tc.z, sc.z),
+                      pe_out(E.w, phc.w, tc.w, sc.w));
+    else
+      o = make_float4(__fmul_rn(E.x, sc.x), __fmul_rn(E.y, sc.y),
+                      __fmul_rn(E.z, sc.z), __fmul_rn(E.w, sc.w));
+    *reinterpret_cast<float4*>(out + r * LANES + c) = o;
+  }
+}
+
+int launch_pe_vpu(const float* const* f, float* out, int n,
+                  cudaStream_t stream) {
+  uintptr_t any = reinterpret_cast<uintptr_t>(out);
+  for (int i = 0; i < 5; ++i) any |= reinterpret_cast<uintptr_t>(f[i]);
+  if (any & 15) return (int)cudaErrorInvalidValue;   // float4 loads, stores
+  const int blocks = (n + VPU_TILE - 1) / VPU_TILE;   // one tile a block
+  pe_vpu_kernel<<<blocks, VPU_THREADS, 0, stream>>>(f[0], f[1], f[2], f[3],
+                                                    f[4], out, n);
+  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ float4 sin4(float4 v) {
@@ -464,16 +532,11 @@ int nerf_anatomy_pe(int variant, const void* const* ops, float* out, int n,
   if (variant == 0) return pm::launch<3>(f, out, n, scratch, st);
   if (variant == 3) return pm::launch<1>(f, out, n, scratch, st);
   if (n == 0) return 0;
+  if (variant == 1) return launch_pe_vpu(f, out, n, st);
+  if (variant == 2) return launch_sin(f[0], out, (size_t)n * LANES, st);
   const int row_blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  if (variant == 1) {
-    pe_vpu_kernel<<<row_blocks, THREADS, 0, st>>>(f[0], f[1], f[2], f[3], f[4],
-                                                  out, n);
-  } else if (variant == 2) {
-    return launch_sin(f[0], out, (size_t)n * LANES, st);
-  } else {
-    EncRows e = {f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
-    pe_only_kernel<<<row_blocks, THREADS, 0, st>>>(e, f[9], out, n);
-  }
+  EncRows e = {f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8]};
+  pe_only_kernel<<<row_blocks, THREADS, 0, st>>>(e, f[9], out, n);
   return (int)cudaGetLastError();
 }
 

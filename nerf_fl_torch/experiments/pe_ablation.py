@@ -1,15 +1,27 @@
-"""The PE-matmul probes without the epilogue's sinf (time only).
+"""The PE probes' kernels with one part changed at a time: what their time
+depends on.
 
-    python -m nerf_fl_torch.experiments.pe_ablation [--n POINTS]
+    python -m nerf_fl_torch.experiments.pe_ablation [--n POINTS] [PROBE ...]
 
-``csrc/anatomy_pe.cu:pe_mm_hopper_kernel<TERMS>`` stores where(trg > 0,
-sin(E + ph), E) * s.  The variant ``no_sin`` is a copy of
-``nerf_fl_torch/csrc/`` whose epilogue stores E * s
-(``fused_ablation.py``'s ``patched_sources`` / ``built_from``), built into
-``nerf_fl_torch/_build/ablation/pe_no_sin/``: its values are wrong in the
-trig columns, and it reads what the epilogue's sinf costs.  Each probe is
-timed at the entry points' operands (seed 0, 524,288 points), per call and
-queued (``probe_timing.py``); the shipped build runs first and last.
+Each variant is a copy of ``nerf_fl_torch/csrc/`` with ``anatomy_pe.cu``
+changed by a text substitution (``fused_ablation.py``'s
+``patched_sources`` / ``built_from``), built into
+``nerf_fl_torch/_build/ablation/pe_<variant>/``:
+
+  * ``pe_mm`` / ``pe_mm_bf16`` (``pe_mm_hopper_kernel<TERMS>``):
+    ``no_sin`` stores E * s in the epilogue (wrong values in the trig
+    columns, time only): what the epilogue's sinf costs;
+  * ``pe_vpu`` (``pe_vpu_kernel``): ``all_sin`` drops the warp-uniform skip,
+    so every column evaluates sinf and selects (exact); ``column_a_thread``
+    is the kernel's first design (one thread a column, 16 rows a block, a
+    dependent load before each 4-byte store, sinf on every column: exact);
+    ``rows4`` / ``rows16`` hold 4 or 16 rows a thread in flight in place of
+    8 (exact); ``no_sin`` stores E * s (time only); beside them torch's
+    ``fill_`` of a tensor of the output's shape (the written bytes alone).
+
+Each probe is timed at the entry points' operands (seed 0, 524,288
+points), per call and queued (``probe_timing.py``), the shipped build first
+and last; an exact variant must equal the shipped build bit for bit.
 Prints the card's name and power limit, a line a variant with its
 registers a thread, and last one JSON object.  Needs a CUDA card.
 """
@@ -24,13 +36,113 @@ from typing import Dict, List, Tuple
 
 from .fused_ablation import built_from, patched_sources
 
-PROBES = ("pe_mm", "pe_mm_bf16")
-NO_SIN = [("anatomy_pe.cu",
-           "make_float2(pe_out(acc[4 * j + 2 * h], p2.x, t2.x, s2.x),\n"
-           "                        pe_out(acc[4 * j + 2 * h + 1], p2.y, t2.y, "
-           "s2.y));",
-           "make_float2(__fmul_rn(acc[4 * j + 2 * h], s2.x),\n"
-           "                        __fmul_rn(acc[4 * j + 2 * h + 1], s2.y));")]
+_SRC = "anatomy_pe.cu"
+_MM_NO_SIN = [(_SRC,
+               "make_float2(pe_out(acc[4 * j + 2 * h], p2.x, t2.x, s2.x),\n"
+               "                        pe_out(acc[4 * j + 2 * h + 1], p2.y, "
+               "t2.y, s2.y));",
+               "make_float2(__fmul_rn(acc[4 * j + 2 * h], s2.x),\n"
+               "                        __fmul_rn(acc[4 * j + 2 * h + 1], "
+               "s2.y));")]
+_VPU_TRIG = ("  const bool trig = __any_sync(\n"
+             "      0xffffffffu, tc.x > 0.0f || tc.y > 0.0f || tc.z > 0.0f "
+             "|| tc.w > 0.0f);\n")
+_VPU_ROWS = "constexpr int VPU_ROWS = 8;"
+_VPU_BOUNDS = "__launch_bounds__(VPU_THREADS)\npe_vpu_kernel"
+
+
+_STCS = (_SRC, "    *reinterpret_cast<float4*>(out + r * LANES + c) = o;",
+         "    __stcs(reinterpret_cast<float4*>(out + r * LANES + c), o);")
+
+
+def _occ(blocks):
+    """pe_vpu held to ``blocks`` resident blocks an SM (a register cap)."""
+    return (_SRC, _VPU_BOUNDS,
+            f"__launch_bounds__(VPU_THREADS, {blocks})\npe_vpu_kernel")
+
+
+# the parent's pe_vpu kernel, launched in place of the shipped one
+_COLUMN_KERNEL = """__global__ void __launch_bounds__(THREADS)
+pe_vpu_column_kernel(const float* __restrict__ P, const float* __restrict__ ph,
+                     const float* __restrict__ trg,
+                     const float* __restrict__ s,
+                     const float* __restrict__ inp, float* __restrict__ out,
+                     int n) {
+  const int c = threadIdx.x & (LANES - 1);
+  const float p0 = P[c], p1 = P[LANES + c], p2 = P[2 * LANES + c];
+  const float phc = ph[c], trgc = trg[c], sc = s[c];
+  const size_t r0 = (size_t)blockIdx.x * ROWS_PER_BLOCK;
+  for (int i = threadIdx.x >> 7; i < ROWS_PER_BLOCK; i += THREADS / LANES) {
+    const size_t r = r0 + i;
+    if (r >= (size_t)n) break;
+    out[r * LANES + c] =
+        pe_out(accum3(inp + r * LANES, p0, p1, p2), phc, trgc, sc);
+  }
+}
+
+int launch_pe_vpu("""
+VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
+    "no_sin": _MM_NO_SIN,
+    "vpu_all_sin": [(_SRC, _VPU_TRIG, "  const bool trig = true;\n")],
+    "vpu_column_a_thread": [
+        (_SRC, "int launch_pe_vpu(", _COLUMN_KERNEL),
+        (_SRC, "  pe_vpu_kernel<<<blocks, VPU_THREADS, 0, stream>>>(",
+         "  pe_vpu_column_kernel<<<(n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,"
+         " THREADS, 0, stream>>>(")],
+    "vpu_rows4": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 4;")],
+    "vpu_rows16": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 16;")],
+    "vpu_no_sin": [
+        (_SRC, _VPU_TRIG, "  const bool trig = false;\n")],
+    "vpu_occ6": [_occ(6)],
+    "vpu_rows4_occ6": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 4;"),
+                       _occ(6)],
+    "vpu_rows4_occ8": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 4;"),
+                       _occ(8)],
+    "vpu_rows2_occ8": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 2;"),
+                       _occ(8)],
+    "vpu_stcs": [_STCS],
+    "vpu_stcs_rows4": [_STCS, (_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 4;")],
+    "vpu_stcs_no_sin": [_STCS, (_SRC, _VPU_TRIG, "  const bool trig = false;\n")],
+    "vpu_stcs_no_load": [_STCS, (
+        _SRC, "    x[u] = r < (size_t)n ? ld4(inp + r * LANES)\n",
+        "    x[u] = r < (size_t)n ? make_float4(0.125f * (r & 7), 0.5f, "
+        "0.25f, 0.0f)\n")],
+    "vpu_stcs_half_row": [_STCS, (
+        _SRC, "  const int c = (warp & 3) * QUARTER + 4 * (lane & 7);",
+        "  const int c = (warp & 1) * 2 * QUARTER + 4 * (lane & 15);"), (
+        _SRC, "4 * (warp >> 2) +\n                    (lane >> 3);",
+        "2 * (warp >> 1) +\n                    (lane >> 4);")],
+    "vpu_stcs_row_a_warp": [_STCS, (
+        _SRC, "  const int c = (warp & 3) * QUARTER + 4 * (lane & 7);",
+        "  const int c = 4 * lane;"), (
+        _SRC, "4 * (warp >> 2) +\n                    (lane >> 3);",
+        "warp;"), (
+        _SRC, _VPU_TRIG, "  const bool trig = tc.x > 0.0f || tc.y > 0.0f || "
+        "tc.z > 0.0f || tc.w > 0.0f;\n")],
+    "vpu_rows4_no_sin": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 4;"),
+                         (_SRC, _VPU_TRIG, "  const bool trig = false;\n")],
+    "vpu_rows2_occ8_no_sin": [
+        (_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 2;"),
+        _occ(8),
+        (_SRC, _VPU_TRIG, "  const bool trig = false;\n")],
+}
+# probe -> (variant, its name in VARIANTS or None for the shipped build,
+# exact: whether it must equal the shipped build bit for bit)
+RUNS = {
+    "pe_mm": [("no_sin", "no_sin", False)],
+    "pe_mm_bf16": [("no_sin", "no_sin", False)],
+    "pe_vpu": [("all_sin", "vpu_all_sin", True),
+               ("column_a_thread", "vpu_column_a_thread", True),
+               ("rows4", "vpu_rows4", True),
+               ("rows16", "vpu_rows16", True),
+               ("no_sin", "vpu_no_sin", False),
+               ("stcs", "vpu_stcs", True),
+               ("stcs_rows4", "vpu_stcs_rows4", True),
+               ("stcs_no_sin", "vpu_stcs_no_sin", False),
+               ("stcs_no_load", "vpu_stcs_no_load", False),
+               ("stcs_half_row", "vpu_stcs_half_row", True),
+               ("stcs_row_a_warp", "vpu_stcs_row_a_warp", True)],
+}
 
 
 def _clear_pe() -> None:
@@ -41,26 +153,33 @@ def _clear_pe() -> None:
 
 
 @contextlib.contextmanager
-def without_sin():
-    """Inside the block, the PE-matmul probes launch a build of ``csrc/``
-    whose epilogue stores E * s (time only)."""
+def variant_build(variant: str):
+    """Inside the block, the PE probes launch a build of ``csrc/`` with
+    ``VARIANTS[variant]`` applied."""
     from ..ops import _build
-    texts = patched_sources("no_sin", variants={"no_sin": NO_SIN})
-    with built_from(texts, _build.BUILD / "ablation" / "pe_no_sin",
+    texts = patched_sources(variant, variants=VARIANTS)
+    with built_from(texts, _build.BUILD / "ablation" / f"pe_{variant}",
                     _clear_pe):
         yield
 
 
-def _registers(terms: int) -> int:
-    """Registers a thread of the current build's pe_mm kernel for
-    ``terms``, from ptxas."""
-    from ..ops import _build
+def _registers(probe: str, variant: str) -> str:
+    """Registers a thread and spill bytes (stores / loads) of the current
+    build's kernel for ``probe``, from ptxas."""
+    from ..ops import _build, anatomy
     log = _build.build_log("anatomy_pe")
-    at = log.index(f"pe_mm_hopper_kernelILi{terms}EE")
-    return int(re.search(r"Used (\d+) registers", log[at:]).group(1))
+    if probe == "pe_vpu":
+        at = log.index("pe_vpu_column_kernel" if variant == "column_a_thread"
+                       else "pe_vpu_kernel")
+    else:
+        at = log.index(f"pe_mm_hopper_kernelILi{anatomy.PE_TERMS[probe]}EE")
+    regs = re.search(r"Used (\d+) registers", log[at:]).group(1)
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      log[at:])
+    return f"{regs} registers, spill {spill.group(1)} / {spill.group(2)} B"
 
 
-def main(n: int = 524_288, device=None) -> Dict:
+def main(n: int = 524_288, device=None, probes=tuple(RUNS)) -> Dict:
     import torch
     from ..ops import anatomy
     from .probe_timing import per_call_ms, queued_ms
@@ -76,29 +195,45 @@ def main(n: int = 524_288, device=None) -> Dict:
     ops = anatomy.pe_mm_rows(dev) + [c["x128"]]
     rows: Dict[str, Dict[str, List[float]]] = {}
     with torch.no_grad():
-        for probe in PROBES:
-            terms = anatomy.PE_TERMS[probe]
-            runs: List[Tuple[str, object]] = [
-                ("shipped", contextlib.nullcontext()),
-                ("no_sin", without_sin()),
-                ("shipped", contextlib.nullcontext())]
-            for variant, ctx in runs:
+        for probe in probes:
+            variants = RUNS[probe]
+            shipped = anatomy.PROBES[probe](*ops)
+            runs = [("shipped", None, True)] + variants + \
+                [("shipped", None, True)]
+            for variant, patch, exact in runs:
                 key = f"{probe}@{variant}"
+                ctx = contextlib.nullcontext() if patch is None \
+                    else variant_build(patch)
                 with ctx:
                     fn = (lambda p=anatomy.PROBES[probe]: p(*ops))
-                    fn()                                      # warm up
+                    got = fn()                                # warm up
+                    if exact and not torch.equal(got, shipped):
+                        raise RuntimeError(f"{key} differs from the shipped "
+                                           f"build")
+                    del got
                     call, _ = per_call_ms(fn)
                     queued, queued_all = queued_ms(fn)
-                    regs_used = _registers(terms)
+                    regs_used = _registers(probe, variant)
                 row = rows.setdefault(key, {"per_call_ms": [],
                                             "device_ms": [], "registers": []})
                 row["per_call_ms"].append(call)
                 row["device_ms"].append(queued)
                 row["registers"].append(regs_used)
-                print(f"[pe] {key:18s} per call {call:.4f} ms, queued "
+                print(f"[pe] {key:26s} per call {call:.4f} ms, queued "
                       f"{queued:.4f} ms a call (windows: "
-                      f"{[round(t, 4) for t in queued_all]}), {regs_used} "
-                      f"registers", flush=True)
+                      f"{[round(t, 4) for t in queued_all]}), {regs_used}"
+                      f"{'' if exact else ' (time only)'}",
+                      flush=True)
+            if probe == "pe_vpu":
+                # the output's bytes alone: torch's fill of an (n, 128) f32
+                # tensor, the same 268 MB written and nothing read
+                dst = torch.empty_like(shipped)
+                fill, _ = queued_ms(lambda: dst.fill_(1.0))
+                rows["torch_fill"] = {"device_ms": [fill]}
+                print(f"[pe] {'torch fill_ of the output':26s} queued "
+                      f"{fill:.4f} ms a call", flush=True)
+                del dst
+            del shipped
     out = {"device": torch.cuda.get_device_name(dev), "power": smi, "n": n,
            "ms": rows}
     print(json.dumps(out))
@@ -108,4 +243,7 @@ def main(n: int = 524_288, device=None) -> Dict:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=524_288)
-    main(n=ap.parse_args().n)
+    ap.add_argument("probes", nargs="*", default=list(RUNS),
+                    help=f"of {list(RUNS)}")
+    a = ap.parse_args()
+    main(n=a.n, probes=a.probes)

@@ -10,6 +10,12 @@ Counterpart of ``nerf_fl_tpu/training/optimizers.py`` for sgd and adam:
     torch's momentum with dampening 0.  The scheduled lr is written into
     ``param_groups`` before each step (``set_lr``).  radam and ranger are
     not ported yet.
+
+On the card Adam is built ``capturable``, with its lr a device tensor, so
+that a CUDA graph of the train step (``system.make_train_step`` with
+``steps_per_execution`` > 1) replays it: ``set_lr`` fills that tensor, and
+the step count and bias corrections stay on the card.  On the CPU both
+optimizers take a Python float lr, as torch builds them by default.
 """
 from __future__ import annotations
 
@@ -46,7 +52,8 @@ def lr_for_epoch(hparams, epoch: int) -> float:
 
 def build_optimizer(hparams, params: Iterable[torch.Tensor]
                     ) -> torch.optim.Optimizer:
-    """sgd or adam over ``params`` at ``hparams.lr``."""
+    """sgd or adam over ``params`` at ``hparams.lr``; adam is capturable
+    (lr a device tensor) when the parameters lie on the card."""
     eps = 1e-8
     wd = getattr(hparams, "weight_decay", 0.0)
     name = hparams.optimizer
@@ -56,6 +63,10 @@ def build_optimizer(hparams, params: Iterable[torch.Tensor]
                                momentum=getattr(hparams, "momentum", 0.0),
                                dampening=0.0, weight_decay=wd)
     if name == "adam":
+        if params and params[0].is_cuda:
+            return torch.optim.Adam(
+                params, lr=torch.tensor(hparams.lr, device=params[0].device),
+                eps=eps, weight_decay=wd, capturable=True)
         return torch.optim.Adam(params, lr=hparams.lr, eps=eps,
                                 weight_decay=wd)
     if name in ("radam", "ranger"):
@@ -64,8 +75,14 @@ def build_optimizer(hparams, params: Iterable[torch.Tensor]
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Write ``lr`` into every param group: into the device tensor of a
+    capturable optimizer (a fill on the card, which a captured step reads),
+    else as the group's float."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def named_leaves(params: Dict[str, Any]) -> List[Tuple[str, torch.Tensor]]:

@@ -17,7 +17,8 @@ Anatomy probes: the bf16 ones 4e-3 + 1e-2 |ref| with mean 5e-5 (the limits
 of tests/test_torch_anatomy.py and chip_smoke.py; on an H100 at 524,288
 points they read max 9.8e-4 to 3.9e-3, mean at most 6.7e-6), the f32
 encoder probes 1e-6 (exact arguments on both sides and the same sinf: they
-differed by 0 on an H100), sin equal to torch.sin bit for bit, pe_only
+differed by 0 on an H100), sin equal to torch.sin and pe_vpu to its plain
+version bit for bit, pe_only
 2e-4, the consolidated net equal to the static one bit for bit.
 """
 import numpy as np
@@ -473,6 +474,61 @@ def test_anatomy_sin_equals_torch_sin_on_card(n):
     assert got.shape == (n, 128) and torch.equal(got, torch.sin(x))
 
 
+def _vpu_rows(kind, dev):
+    """P, ph, trg, s: the probe's (trig columns 3-62, so two of a row's four
+    32-column warp shares hold none), or a dense P's first three rows and
+    phases with trig columns in every share."""
+    rows = anatomy.pe_mm_rows(dev)
+    if kind == "every_share":
+        rng = np.random.default_rng(8)
+        P = np.zeros((128, 128), np.float32)
+        P[:3] = rng.normal(0, 4, (3, 128))
+        trg = np.zeros((1, 128), np.float32)
+        trg[0, 5::11] = 1.0
+        rows[:3] = [torch.from_numpy(a).to(dev) for a in (
+            P, rng.normal(0, 1, (1, 128)).astype(np.float32), trg)]
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["probe", "every_share"])
+@pytest.mark.parametrize("n", [0, 1, 17, 524_289])
+def test_anatomy_pe_vpu_equals_plain_bit_for_bit_on_card(n, rows):
+    """The float4 layout with its warp-uniform skip of sinf: around the
+    64-row tile and over many tiles with a ragged end, bit for bit the
+    plain version, whichever shares hold trig columns."""
+    dev = _card()
+    ops = _vpu_rows(rows, dev) + [_probe_ops("pe_vpu", dev, n=n,
+                                                 seed=5)[-1]]
+    probe = anatomy.PROBES["pe_vpu"]
+    before = probe.launches
+    got = probe(*ops)
+    ref = probe.plain(*ops)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert got.shape == (n, 128) and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_anatomy_pe_vpu_launcher_refuses_unaligned_operands_on_card():
+    """pe_vpu loads and stores float4s: the launcher returns
+    cudaErrorInvalidValue (1) for an operand or an output that is not
+    16-byte aligned, and launches nothing."""
+    import ctypes
+    dev = _card()
+    ops = _probe_ops("pe_vpu", dev, n=129)
+    out = torch.zeros((129 * 128 + 4,), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launch = anatomy._launcher("anatomy_pe")
+    for bad in range(len(ops) + 1):
+        ptrs = [t.data_ptr() for t in ops] + [out.data_ptr()]
+        ptrs[bad] += 4
+        assert launch(1, (ctypes.c_void_p * len(ops))(*ptrs[:-1]), ptrs[-1],
+                      129, None, stream) == 1
+    torch.cuda.synchronize()
+    assert not out.any()
+
+
 # the PE-matmul probes on the Hopper block: pe_mm (3 bf16 terms, six
 # passes) and pe_mm_bf16 (1 term)
 PE_MM = ["pe_mm", "pe_mm_bf16"]
@@ -598,3 +654,164 @@ def test_anatomy_pe_mm_launcher_refuses_a_missing_image_on_card(name):
                       stream) == 1
     torch.cuda.synchronize()
     assert not out.any()
+
+
+# ``steps_per_execution`` on the card: the train step captured as a CUDA
+# graph and replayed, against the eager step, from the same weights,
+# generator seed and batches (the flagship's widths at 16 + 16 samples and
+# 256 rays a batch, perturb 1, so every sub-step draws from the generator)
+GRAPH_K, GRAPH_B = 4, 256
+
+
+def _graph_case(dtype, steps, pool, loss_name="nerfw"):
+    from types import SimpleNamespace
+    from nerf_fl_torch.render import RenderConfig
+    from nerf_fl_torch.training import optimizers, system
+    dev = _card()
+    cfg = RenderConfig(N_samples=16, N_importance=16, encode_a=True,
+                       encode_t=True, white_back=True, perturb=1.0,
+                       noise_std=0.0, compute_dtype=dtype)
+    params = system.build_params(cfg, 8, device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+    opt = optimizers.build_optimizer(
+        SimpleNamespace(optimizer="adam", lr=5e-4, weight_decay=0.0),
+        optimizers.trainable_parameters(
+            params, optimizers.make_trainable_mask(params, False)))
+    kw = dict(loss_name=loss_name, steps_per_execution=steps)
+    step = system.make_device_pool_step(cfg, opt, batch_size=GRAPH_B, **kw) \
+        if pool else system.make_train_step(cfg, opt, **kw)
+    rng = np.random.default_rng(3)
+    n = 2 * GRAPH_K * GRAPH_B
+    d = rng.normal(0, 1, (n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.concatenate([rng.normal(0, 1, (n, 3)), d, np.full((n, 1), 2.0),
+                           np.full((n, 1), 6.0)], 1)
+    data = {"rays": torch.tensor(rays, dtype=torch.float32, device=dev),
+            "ts": torch.tensor(rng.integers(0, 8, n), device=dev),
+            "rgbs": torch.tensor(0.5 + 0.4 * d, dtype=torch.float32,
+                                 device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    return params, opt, step, data, gen
+
+
+def _run_graph_case(dtype, steps, pool, n_steps):
+    """n_steps steps, K = 1 one by one or K at a time with the last call's
+    tail masked; returns params, Adam state, the loss of each step and the
+    step function."""
+    from nerf_fl_torch.training import optimizers, system
+    params, opt, step, data, gen = _graph_case(dtype, steps, pool)
+    B = GRAPH_B
+    perm = torch.arange(data["rays"].shape[0], dtype=torch.int32,
+                        device=data["rays"].device).flip(0)
+    losses = []
+    for i0 in range(0, n_steps, steps):
+        if steps == 1 and pool:
+            losses.append(step(params, data, perm, i0, 5e-4,
+                               generator=gen)["train/loss"])
+        elif steps == 1:
+            idx = perm[i0 * B:(i0 + 1) * B].long()
+            losses.append(step(params, {k: v.index_select(0, idx)
+                                        for k, v in data.items()}, 5e-4,
+                               generator=gen)["train/loss"])
+        elif pool:
+            m = step(params, data, perm, i0, n_steps, 5e-4, generator=gen)
+            losses += list(m["train/loss"][:n_steps - i0])
+        else:
+            group = []
+            for i in range(i0, min(i0 + steps, n_steps)):
+                idx = perm[i * B:(i + 1) * B].long()
+                group.append({k: v.index_select(0, idx)
+                              for k, v in data.items()})
+            stacked, valid = system.stack_batches(group, steps)
+            m = step(params, stacked, 5e-4, generator=gen, valid=valid)
+            assert bool(m["train/loss"][len(group):].isnan().all())
+            losses += list(m["train/loss"][:len(group)])
+    torch.cuda.synchronize()
+    state = [opt.state[p] for g in opt.param_groups for p in g["params"]]
+    return ([p.detach().clone() for _, p in optimizers.named_leaves(params)],
+            state, torch.stack(losses), step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [False, True], ids=["host_fed", "pool"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_k_step_equals_eager_steps_on_card(dtype, pool):
+    """Seven steps as two K = 4 calls (the second's last sub-step masked)
+    replayed from a CUDA graph, against seven eager steps: parameters,
+    Adam state and losses bit for bit (the same kernels in the same order,
+    the generator's Philox offset advanced alike), and the masked sub-step
+    took no step."""
+    n = 2 * GRAPH_K - 1
+    p1, s1, l1, _ = _run_graph_case(dtype, 1, pool, n)
+    pk, sk, lk, step = _run_graph_case(dtype, GRAPH_K, pool, n)
+    assert step.graph.captures == 1
+    assert torch.equal(l1, lk)
+    for a, b in zip(p1, pk):
+        assert torch.equal(a, b)
+    for a, b in zip(s1, sk):
+        assert int(a["step"]) == int(b["step"]) == n
+        assert torch.equal(a["exp_avg"], b["exp_avg"])
+        assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+
+
+@pytest.mark.cuda
+def test_graph_is_captured_once_a_key_and_launches_the_fused_kernels():
+    """The graph is captured at the first call, replayed after, captured
+    again for another batch shape; at capture one sub-step launches the
+    fused forward and backward twice each (coarse and fine)."""
+    from nerf_fl_torch.training import system
+    params, _, step, data, gen = _graph_case("bfloat16", GRAPH_K, False)
+
+    def stacked(b):
+        return system.stack_batches([{k: v[i * b:(i + 1) * b]
+                                      for k, v in data.items()}
+                                     for i in range(GRAPH_K)])[0]
+
+    assert step.graph.captures == 0
+    for _ in range(2):
+        step(params, stacked(GRAPH_B), 5e-4, generator=gen)
+    assert step.graph.captures == 1
+    assert step.graph.fused_launches == (2, 2)
+    m = step(params, stacked(GRAPH_B // 2), 5e-4, generator=gen)
+    assert step.graph.captures == 2
+    assert bool(torch.isfinite(m["train/loss"]).all())
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises_on_card(monkeypatch):
+    """A sub-step that syncs with the host cannot be captured: the call
+    raises, and no graph is kept (no eager fallback)."""
+    from nerf_fl_torch.training import losses, system
+
+    def syncing_loss(results, targets):
+        d = losses.nerfw_loss(results, targets)
+        float(d["c_l"])            # a host read: illegal under capture
+        return d
+
+    monkeypatch.setitem(losses.loss_dict, "syncing", syncing_loss)
+    dev = _card()
+    params, _, step, data, gen = _graph_case("bfloat16", GRAPH_K, False,
+                                             loss_name="syncing")
+    st, _ = system.stack_batches([{k: v[i * GRAPH_B:(i + 1) * GRAPH_B]
+                                   for k, v in data.items()}
+                                  for i in range(GRAPH_K)])
+    with pytest.raises(RuntimeError):
+        step(params, st, 5e-4, generator=gen)
+    torch.cuda.synchronize(dev)
+    assert step.graph.captures == 0 and step.graph.graph is None
+
+
+@pytest.mark.cuda
+def test_graph_step_refuses_sgd_on_card():
+    from types import SimpleNamespace
+    from nerf_fl_torch.render import RenderConfig
+    from nerf_fl_torch.training import optimizers, system
+    dev = _card()
+    cfg = RenderConfig(N_samples=16, N_importance=16)
+    params = system.build_params(cfg, 8, device=dev)
+    opt = optimizers.build_optimizer(
+        SimpleNamespace(optimizer="sgd", lr=5e-4),
+        optimizers.trainable_parameters(
+            params, optimizers.make_trainable_mask(params, False)))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        system.make_train_step(cfg, opt, steps_per_execution=GRAPH_K)
