@@ -46,17 +46,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      it runs on (the chain, net and PE-matmul probes on the Hopper block,
      with ring depth or resident image, slab and shared bytes, registers
      and spills from ptxas); time the fused forward kernel at the same
-     point count, as
-     it is and without its encoders (experiments/fused_ablation.py's
-     no_encoders variant, built here), and split at concat's ring depth
-     (experiments/chain_ablation.py, built here; bit for bit split as it
-     ships), and pe_vpu as the parent designed it (experiments/
-     pe_ablation.py's column_a_thread variant, built here; bit for bit
-     pe_vpu as it ships); print the split of the fused kernel's time that the net probes
-     measure, of the chain probes' times by skip and of the PE family
-     (matmul PE against multiply-add PE, the five extra passes, the product
-     over the bare stream); then run both anatomy entry points and require
-     every result.
+     point count, as it is and without its encoders (experiments/
+     fused_ablation.py's no_encoders variant, built here), split at
+     concat's ring depth (experiments/chain_ablation.py, built here; bit
+     for bit split as it ships), and pe_vpu as the parent designed it
+     (experiments/pe_ablation.py's column_a_thread variant, built here; bit
+     for bit pe_vpu as it ships); print the split of the fused kernel's
+     time that the net probes measure, of the chain probes' times by skip
+     and of the PE family (matmul PE against multiply-add PE, the five
+     extra passes, the product over the bare stream); then run both
+     anatomy entry points and require every result.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -429,10 +428,13 @@ def profile_frame(frame, what="frame"):
         s = time.perf_counter()
         frame()
         wall_ms = (time.perf_counter() - s) * 1e3
-    # device-side events only: an aten op also carries its kernels' time
+    # device-side events only: an aten op also carries its kernels' time,
+    # and a user annotation's device range (Optimizer.step#Adam.step)
+    # spans kernels that are counted on their own
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0]
     busy_ms = sum(r[0] for r in rows)
     if not rows:
@@ -965,6 +967,12 @@ def probe_block(name) -> str:
         return (f"block: a tile of 256 float4s a block, one block a tile "
                 f"({r[0]} registers, spill {r[1]} / {r[2]} B, {r[3]} B stack "
                 f"frame)")
+    if name == "pe_vpu":
+        r = ptxas_info("anatomy_pe", "pe_vpu_kernel")
+        return (f"block: a float4 of a row's 32-column quarter a lane, four "
+                f"rows a warp instruction, 8 rows a thread, one 64-row tile "
+                f"a block, streaming stores, sinf skipped warp-uniformly "
+                f"({r[0]} registers, spill {r[1]} / {r[2]} B)")
     return "block: elementwise, one column a thread"
 
 
@@ -1181,11 +1189,12 @@ def phase_anatomy(dev, cfg, smi_name):
             fail("pe_vpu's first design differs from the shipped kernel")
         del shipped_vpu, vpu_ops
         rows["pe_vpu"]["parent_device_ms"] = vpu_parent_q
+        bound = rows["pe_vpu"]["bound_ms"]
         print(f"[probe] pe_vpu queued {vpu_q:.4f} ms against the parent's "
               f"design (one thread a column) {vpu_parent_q:.4f} ms (built "
               f"in {vpu_build_s:.1f} s, bit for bit the shipped kernel): "
-              f"{vpu_parent_q / vpu_q:.2f}x; bound {rows['pe_vpu']['bound_ms']:.4f}"
-              f" ms = {100 * rows['pe_vpu']['bound_ms'] / vpu_q:.1f}% of it")
+              f"{vpu_parent_q / vpu_q:.2f}x; bound {bound:.4f} ms = "
+              f"{100 * bound / vpu_q:.1f}% of it")
     r = {k: v["device_ms"] for k, v in rows.items()}
     ring = {k: anatomy.chain_plan(anatomy.PROBES[k].variant)["stages"]
             for k in anatomy.CHAIN_PROBES}

@@ -27,9 +27,16 @@
 // float4 of one row's quarter, a warp four whole rows' quarters an
 // instruction, with VPU_ROWS input loads of a thread in flight before its
 // first store and sinf skipped by warps whose columns hold no trig column.
-// Measured on an H100 (experiments/pe_ablation.py): the first design (one
-// thread a column, 16 rows a block, a load before each 4-byte store, sinf
-// on every column then a select) read 0.175 ms queued at 524,288 points.
+// Measured on an H100 at 524,288 points, queued (experiments/
+// pe_ablation.py): 0.116 ms against 0.175 for the first design (one thread
+// a column, 16 rows a block, a load before each 4-byte store, sinf on every
+// column then a select); plain stores in place of streaming ones 0.122;
+// 4 or 16 rows a thread 0.120 / 0.163 (16 halves the blocks an SM); a
+// register cap for 6 or 8 blocks an SM spills sinf's frame and runs
+// 0.19-0.33; a warp a whole row (sinf in every warp) 0.135.  Of the 0.116:
+// the output's bytes 0.087 (torch's fill_ of the same tensor 0.084), the
+// input rows 0.025 (a 16-byte read a 512-byte row brings whole sectors),
+// sinf 0.003.
 //
 // The two products run on the Hopper block of fused_mlp_common.cuh as one
 // template over the bf16 terms of each operand, pe_mm_hopper_kernel<TERMS>:
@@ -113,9 +120,10 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 
 // pe_vpu: a warp owns one quarter of the columns (QUARTER = 32, 128 bytes
 // of a row) and writes 4 rows of it an instruction, a float4 a lane, so
-// every store fills four whole 128-byte segments.  A block of 8 warps
-// covers VPU_TILE rows: warps w and w + 4 take quarter w & 3 of alternate
-// groups of 4 rows.  A thread loads the
+// every store fills four whole 128-byte segments; the stores are
+// streaming (__stcs: evict first, nothing reads them back).  A block of 8
+// warps covers VPU_TILE rows, as many blocks as tiles: warps w and w + 4
+// take quarter w & 3 of alternate groups of 4 rows.  A thread loads the
 // first float4 of each of its VPU_ROWS rows (the row's three inputs; the 8
 // lanes of a row share the address) before its first store, so VPU_ROWS
 // loads are in flight.  The columns of a warp never change, so whether any
@@ -165,7 +173,7 @@ pe_vpu_kernel(const float* __restrict__ P, const float* __restrict__ ph,
     else
       o = make_float4(__fmul_rn(E.x, sc.x), __fmul_rn(E.y, sc.y),
                       __fmul_rn(E.z, sc.z), __fmul_rn(E.w, sc.w));
-    *reinterpret_cast<float4*>(out + r * LANES + c) = o;
+    __stcs(reinterpret_cast<float4*>(out + r * LANES + c), o);
   }
 }
 

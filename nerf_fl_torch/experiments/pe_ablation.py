@@ -15,8 +15,8 @@ changed by a text substitution (``fused_ablation.py``'s
     so every column evaluates sinf and selects (exact); ``column_a_thread``
     is the kernel's first design (one thread a column, 16 rows a block, a
     dependent load before each 4-byte store, sinf on every column: exact);
-    ``rows4`` / ``rows16`` hold 4 or 16 rows a thread in flight in place of
-    8 (exact); ``no_sin`` stores E * s (time only); beside them torch's
+    ``no_sin`` stores E * s and ``no_load`` reads no input (time only: the
+    output's bytes with and without the input rows); beside them torch's
     ``fill_`` of a tensor of the output's shape (the written bytes alone).
 
 Each probe is timed at the entry points' operands (seed 0, 524,288
@@ -47,20 +47,6 @@ _MM_NO_SIN = [(_SRC,
 _VPU_TRIG = ("  const bool trig = __any_sync(\n"
              "      0xffffffffu, tc.x > 0.0f || tc.y > 0.0f || tc.z > 0.0f "
              "|| tc.w > 0.0f);\n")
-_VPU_ROWS = "constexpr int VPU_ROWS = 8;"
-_VPU_BOUNDS = "__launch_bounds__(VPU_THREADS)\npe_vpu_kernel"
-
-
-_STCS = (_SRC, "    *reinterpret_cast<float4*>(out + r * LANES + c) = o;",
-         "    __stcs(reinterpret_cast<float4*>(out + r * LANES + c), o);")
-
-
-def _occ(blocks):
-    """pe_vpu held to ``blocks`` resident blocks an SM (a register cap)."""
-    return (_SRC, _VPU_BOUNDS,
-            f"__launch_bounds__(VPU_THREADS, {blocks})\npe_vpu_kernel")
-
-
 # the parent's pe_vpu kernel, launched in place of the shipped one
 _COLUMN_KERNEL = """__global__ void __launch_bounds__(THREADS)
 pe_vpu_column_kernel(const float* __restrict__ P, const float* __restrict__ ph,
@@ -89,59 +75,21 @@ VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
         (_SRC, "  pe_vpu_kernel<<<blocks, VPU_THREADS, 0, stream>>>(",
          "  pe_vpu_column_kernel<<<(n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,"
          " THREADS, 0, stream>>>(")],
-    "vpu_rows4": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 4;")],
-    "vpu_rows16": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 16;")],
-    "vpu_no_sin": [
-        (_SRC, _VPU_TRIG, "  const bool trig = false;\n")],
-    "vpu_occ6": [_occ(6)],
-    "vpu_rows4_occ6": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 4;"),
-                       _occ(6)],
-    "vpu_rows4_occ8": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 4;"),
-                       _occ(8)],
-    "vpu_rows2_occ8": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 2;"),
-                       _occ(8)],
-    "vpu_stcs": [_STCS],
-    "vpu_stcs_rows4": [_STCS, (_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 4;")],
-    "vpu_stcs_no_sin": [_STCS, (_SRC, _VPU_TRIG, "  const bool trig = false;\n")],
-    "vpu_stcs_no_load": [_STCS, (
+    "vpu_no_sin": [(_SRC, _VPU_TRIG, "  const bool trig = false;\n")],
+    "vpu_no_load": [(
         _SRC, "    x[u] = r < (size_t)n ? ld4(inp + r * LANES)\n",
         "    x[u] = r < (size_t)n ? make_float4(0.125f * (r & 7), 0.5f, "
         "0.25f, 0.0f)\n")],
-    "vpu_stcs_half_row": [_STCS, (
-        _SRC, "  const int c = (warp & 3) * QUARTER + 4 * (lane & 7);",
-        "  const int c = (warp & 1) * 2 * QUARTER + 4 * (lane & 15);"), (
-        _SRC, "4 * (warp >> 2) +\n                    (lane >> 3);",
-        "2 * (warp >> 1) +\n                    (lane >> 4);")],
-    "vpu_stcs_row_a_warp": [_STCS, (
-        _SRC, "  const int c = (warp & 3) * QUARTER + 4 * (lane & 7);",
-        "  const int c = 4 * lane;"), (
-        _SRC, "4 * (warp >> 2) +\n                    (lane >> 3);",
-        "warp;"), (
-        _SRC, _VPU_TRIG, "  const bool trig = tc.x > 0.0f || tc.y > 0.0f || "
-        "tc.z > 0.0f || tc.w > 0.0f;\n")],
-    "vpu_rows4_no_sin": [(_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 4;"),
-                         (_SRC, _VPU_TRIG, "  const bool trig = false;\n")],
-    "vpu_rows2_occ8_no_sin": [
-        (_SRC, _VPU_ROWS, "constexpr int VPU_ROWS = 2;"),
-        _occ(8),
-        (_SRC, _VPU_TRIG, "  const bool trig = false;\n")],
 }
-# probe -> (variant, its name in VARIANTS or None for the shipped build,
-# exact: whether it must equal the shipped build bit for bit)
+# probe -> (variant, its name in VARIANTS, exact: whether it must equal the
+# shipped build bit for bit)
 RUNS = {
     "pe_mm": [("no_sin", "no_sin", False)],
     "pe_mm_bf16": [("no_sin", "no_sin", False)],
     "pe_vpu": [("all_sin", "vpu_all_sin", True),
                ("column_a_thread", "vpu_column_a_thread", True),
-               ("rows4", "vpu_rows4", True),
-               ("rows16", "vpu_rows16", True),
                ("no_sin", "vpu_no_sin", False),
-               ("stcs", "vpu_stcs", True),
-               ("stcs_rows4", "vpu_stcs_rows4", True),
-               ("stcs_no_sin", "vpu_stcs_no_sin", False),
-               ("stcs_no_load", "vpu_stcs_no_load", False),
-               ("stcs_half_row", "vpu_stcs_half_row", True),
-               ("stcs_row_a_warp", "vpu_stcs_row_a_warp", True)],
+               ("no_load", "vpu_no_load", False)],
 }
 
 

@@ -23,6 +23,7 @@ device's default one (None), may drive the draws.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import defaultdict, deque
 from typing import Any, Callable, Dict, Optional
 
@@ -92,9 +93,48 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
     metrics.  On the card the sub-steps replay a CUDA graph (``_StepGraph``;
     ``multi.graph`` counts its captures) or the call raises: it never runs
     them eagerly instead.  The optimizer must then be capturable
-    (``optimizers.build_optimizer``'s adam on the card); sgd, and BARF
-    (``cfg.refine_pose``), raise as not ported yet.
+    (``optimizers.build_optimizer``'s adam on the card): sgd on the card
+    raises as not ported yet, as BARF (``cfg.refine_pose``) does anywhere.
     """
+    body = _train_body(cfg, optimizer, loss_name, microbatch)
+
+    def step(params, batch, lr, epoch=0.0, generator=None):
+        set_lr(optimizer, lr)
+        return body(params, batch, epoch, generator)
+
+    K = steps_per_execution
+    if K <= 1:
+        return step
+    graph = _StepGraph(body, optimizer, cfg, K)
+
+    def feed(statics, batches, fresh):
+        if fresh:
+            statics["stage"] = {k: torch.empty_like(v, device=graph.device)
+                                for k, v in batches.items()}
+        for k, v in batches.items():
+            statics["stage"][k].copy_(v)
+
+    def load(statics, k):
+        return {name: v.index_select(0, k)[0]
+                for name, v in statics["stage"].items()}
+
+    def multi(params, batches, lr, epoch=0.0, generator=None, valid=None):
+        shapes = tuple((k, tuple(v.shape), v.dtype)
+                       for k, v in sorted(batches.items()))
+        if any(shape[0] != K for _, shape, _ in shapes):
+            raise ValueError(f"batches must be stacked {K} deep: {shapes}")
+        return graph.run(params, lr, epoch, generator, _valid_count(valid, K),
+                         shapes, lambda st, fresh: feed(st, batches, fresh),
+                         load)
+
+    multi.graph = graph
+    return multi
+
+
+def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
+                loss_name: str, microbatch: int) -> Callable:
+    """``body(params, batch, epoch, generator)``: one train step at the lr
+    the optimizer holds (``make_train_step``'s step, ``set_lr`` aside)."""
     loss_fn = loss_dict[loss_name]
     typ = "fine" if cfg.N_importance > 0 else "coarse"
     params_held = [p for group in optimizer.param_groups
@@ -135,37 +175,7 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
             metrics[f"train/{k}"] = v
         return metrics
 
-    def step(params, batch, lr, epoch=0.0, generator=None):
-        set_lr(optimizer, lr)
-        return body(params, batch, epoch, generator)
-
-    K = steps_per_execution
-    if K <= 1:
-        return step
-    graph = _StepGraph(body, optimizer, cfg, K)
-
-    def feed(statics, batches, fresh):
-        if fresh:
-            statics["stage"] = {k: torch.empty_like(v, device=graph.device)
-                                for k, v in batches.items()}
-        for k, v in batches.items():
-            statics["stage"][k].copy_(v)
-
-    def load(statics, k):
-        return {name: v.index_select(0, k)[0]
-                for name, v in statics["stage"].items()}
-
-    def multi(params, batches, lr, epoch=0.0, generator=None, valid=None):
-        shapes = tuple((k, tuple(v.shape), v.dtype)
-                       for k, v in sorted(batches.items()))
-        if any(shape[0] != K for _, shape, _ in shapes):
-            raise ValueError(f"batches must be stacked {K} deep: {shapes}")
-        return graph.run(params, lr, epoch, generator, _valid_count(valid, K),
-                         shapes, lambda st, fresh: feed(st, batches, fresh),
-                         load)
-
-    multi.graph = graph
-    return multi
+    return body
 
 
 def stack_batches(batches, k: Optional[int] = None):
@@ -199,6 +209,43 @@ def _valid_count(valid, k: int) -> int:
     return n
 
 
+@contextlib.contextmanager
+def _fresh_leaves(params: Dict[str, Any], held):
+    """Inside the block, a copy of ``params`` whose trainable tensors
+    (``held``) are new leaves on the same storage, swapped into their
+    modules and restored after; each hands its grad to its parameter as
+    the grad arrives.  A leaf's grad accumulator keeps the stream it was
+    made on for as long as any live autograd graph holds it, and one made
+    on the default stream cannot take part in a capture; new leaves get
+    theirs on the capture stream, whatever graph of the caller's still
+    holds the parameters'."""
+    held = {id(p) for p in held}
+    swapped = []
+
+    def fresh(p):
+        q = torch.nn.Parameter(p.detach())
+        q.register_post_accumulate_grad_hook(
+            lambda q, p=p: setattr(p, "grad", q.grad))
+        return q
+
+    out = {}
+    try:
+        for key, v in params.items():
+            if isinstance(v, torch.nn.Module):
+                for mod in v.modules():
+                    for name, p in list(mod._parameters.items()):
+                        if p is not None and id(p) in held:
+                            swapped.append((mod, name, p))
+                            mod._parameters[name] = fresh(p)
+                out[key] = v
+            else:
+                out[key] = fresh(v) if id(v) in held else v
+        yield out
+    finally:
+        for mod, name, p in swapped:
+            mod._parameters[name] = p
+
+
 class _StepGraph:
     """K sub-steps of a train step a call: on the card one sub-step
     captured as a CUDA graph and replayed, on the CPU run eagerly.
@@ -211,10 +258,11 @@ class _StepGraph:
     inputs are copied into static buffers (``feed``), the parameters and
     the optimizer state are updated in place, the lr is the optimizer's
     device tensor (``set_lr``, outside the graph), and the grads live in
-    the graph's memory pool from its capture on (nothing may reset
-    ``.grad`` between replays).  The graph is captured again only when the
-    call's key changes: the batch shapes, the generator, the addresses of
-    the parameters and of whatever ``feed`` does not copy.
+    the graph's memory pool from its capture on, where each replay's
+    backward writes them and its optimizer step reads them.  The graph is
+    captured again only when the call's key changes: the batch shapes, the
+    generator, the addresses of the parameters and of whatever ``feed``
+    does not copy.
 
     Capture follows PyTorch's recipe: one eager sub-step on a side stream
     first (it initializes Adam's state, caches and libraries), then the
@@ -228,12 +276,12 @@ class _StepGraph:
     def __init__(self, body, optimizer: torch.optim.Optimizer,
                  cfg: RenderConfig, k: int):
         self.body, self.optimizer, self.K = body, optimizer, k
-        held = [p for g in optimizer.param_groups for p in g["params"]]
-        self.device = held[0].device
+        self.held = [p for g in optimizer.param_groups for p in g["params"]]
+        self.device = self.held[0].device
+        if cfg.refine_pose:         # BARF reads the epoch, which a graph bakes
+            raise NotImplementedError("steps_per_execution > 1 with "
+                                      "refine_pose is not ported yet")
         if self.device.type == "cuda":
-            if cfg.refine_pose:
-                raise NotImplementedError("steps_per_execution > 1 with "
-                                          "refine_pose is not ported yet")
             if not all(g.get("capturable") and torch.is_tensor(g["lr"])
                        for g in optimizer.param_groups):
                 raise NotImplementedError(
@@ -248,7 +296,9 @@ class _StepGraph:
         self.fused_launches = None
 
     def sub_step(self, params, epoch, generator, load):
-        m = self.body(params, load(self.statics, self.k), epoch, generator)
+        with _fresh_leaves(params, self.held) as fresh:
+            m = self.body(fresh, load(self.statics, self.k), epoch,
+                          generator)
         if self.out is None:
             self.names = list(m)
             self.out = torch.full((self.K, len(m)), float("nan"),
@@ -360,10 +410,9 @@ def make_device_pool_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
 
         return run
 
-    multi = make_train_step(cfg, optimizer, loss_name=loss_name,
-                            microbatch=microbatch,
-                            steps_per_execution=steps_per_execution)
-    graph, K, B = multi.graph, steps_per_execution, batch_size
+    K, B = steps_per_execution, batch_size
+    graph = _StepGraph(_train_body(cfg, optimizer, loss_name, microbatch),
+                       optimizer, cfg, K)
 
     def feed(statics, pool, perm, i0, fresh):
         if fresh:

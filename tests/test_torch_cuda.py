@@ -663,14 +663,18 @@ def test_anatomy_pe_mm_launcher_refuses_a_missing_image_on_card(name):
 GRAPH_K, GRAPH_B = 4, 256
 
 
+def _graph_case_cfg(dtype="bfloat16"):
+    from nerf_fl_torch.render import RenderConfig
+    return RenderConfig(N_samples=16, N_importance=16, encode_a=True,
+                        encode_t=True, white_back=True, perturb=1.0,
+                        noise_std=0.0, compute_dtype=dtype)
+
+
 def _graph_case(dtype, steps, pool, loss_name="nerfw"):
     from types import SimpleNamespace
-    from nerf_fl_torch.render import RenderConfig
     from nerf_fl_torch.training import optimizers, system
     dev = _card()
-    cfg = RenderConfig(N_samples=16, N_importance=16, encode_a=True,
-                       encode_t=True, white_back=True, perturb=1.0,
-                       noise_std=0.0, compute_dtype=dtype)
+    cfg = _graph_case_cfg(dtype)
     params = system.build_params(cfg, 8, device=dev,
                                  generator=torch.Generator().manual_seed(0))
     opt = optimizers.build_optimizer(
@@ -775,6 +779,37 @@ def test_graph_is_captured_once_a_key_and_launches_the_fused_kernels():
     m = step(params, stacked(GRAPH_B // 2), 5e-4, generator=gen)
     assert step.graph.captures == 2
     assert bool(torch.isfinite(m["train/loss"]).all())
+
+
+@pytest.mark.cuda
+def test_graph_captures_beside_a_live_graph_of_the_callers_on_card():
+    """A live autograd graph that the caller made on the default stream
+    holds the parameters' grad accumulators, which keep that stream; the
+    graph step still captures (its sub-step trains new leaves on the
+    parameters' storage) and equals the eager step bit for bit."""
+    from nerf_fl_torch.render import render_rays
+    from nerf_fl_torch.training import losses, optimizers, system
+    runs = []
+    for steps in (1, GRAPH_K):
+        params, opt, step, data, gen = _graph_case("bfloat16", steps, False)
+        b = {k: v[:GRAPH_B] for k, v in data.items()}
+        res = render_rays(params, b["rays"], b["ts"], _graph_case_cfg())
+        sum(losses.nerfw_loss(res, b["rgbs"]).values()).backward()
+        batches = [{k: v[i * GRAPH_B:(i + 1) * GRAPH_B]
+                    for k, v in data.items()} for i in range(GRAPH_K)]
+        if steps == 1:
+            for bt in batches:
+                step(params, bt, 5e-4, generator=gen)
+        else:
+            step(params, system.stack_batches(batches)[0], 5e-4,
+                 generator=gen)
+            assert step.graph.captures == 1
+        torch.cuda.synchronize()
+        runs.append([p.detach().clone()
+                     for _, p in optimizers.named_leaves(params)])
+        del res
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -260,3 +260,21 @@ def test_transmittance_gradient_matches_jax(zeros):
     compositing.exclusive_transmittance(t).backward(torch.from_numpy(g))
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("pool", [False, True], ids=["host_fed", "pool"])
+def test_k_step_refuses_barf(pool):
+    """BARF reads the epoch, which a captured step would bake in; it is not
+    ported, so K > 1 with refine_pose raises on every device."""
+    cfg = RenderConfig(refine_pose=True, **KW)
+    params = system.build_params(cfg, 8, device="cpu")
+    opt = optimizers.build_optimizer(
+        types.SimpleNamespace(optimizer="adam", lr=LR),
+        optimizers.trainable_parameters(
+            params, optimizers.make_trainable_mask(params, True)))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        if pool:
+            system.make_device_pool_step(cfg, opt, batch_size=B,
+                                         steps_per_execution=K)
+        else:
+            system.make_train_step(cfg, opt, steps_per_execution=K)
