@@ -28,11 +28,12 @@
 // instruction, with VPU_ROWS input loads of a thread in flight before its
 // first store and sinf skipped by warps whose columns hold no trig column.
 // Measured on an H100 at 524,288 points, queued (experiments/
-// pe_ablation.py): 0.116 ms against 0.175 for the first design (one thread
-// a column, 16 rows a block, a load before each 4-byte store, sinf on every
-// column then a select); plain stores in place of streaming ones 0.122;
-// 4 or 16 rows a thread 0.120 / 0.163 (16 halves the blocks an SM); a
-// register cap for 6 or 8 blocks an SM spills sinf's frame and runs
+// pe_ablation.py, its tuning variants as of commit 789a8fa, which was
+// measured with plain stores): 0.116 ms against 0.175 for the first design
+// (one thread a column, 16 rows a block, a load before each 4-byte store,
+// sinf on every column then a select); plain stores in place of streaming
+// ones 0.122; 4 or 16 rows a thread 0.120 / 0.163 (16 halves the blocks an
+// SM); a register cap for 6 or 8 blocks an SM spills sinf's frame and runs
 // 0.19-0.33; a warp a whole row (sinf in every warp) 0.135.  Of the 0.116:
 // the output's bytes 0.087 (torch's fill_ of the same tensor 0.084), the
 // input rows 0.025 (a 16-byte read a 512-byte row brings whole sectors),
