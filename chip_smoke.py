@@ -38,7 +38,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      65,536, time both against their bounds and the backward against its
      plain version, with a [fused] line each (the backward's also counts
      the operand tiles it saves and its wgrad reads);
-  8. hold each of the eleven kernel-anatomy probes against its plain version
+  8. the entry points: write a Blender scene (8 train, 1 val, 2 test
+     views of 800 x 800 PNGs, nerf_fl_torch.data.synthetic), train it
+     through nerf_fl_torch.train.main (400 x 400, color + occ perturbed,
+     the flagship at bf16, Adam, 2 epochs from the device pool as a CUDA
+     graph of 20 sub-steps a call, a --profile_dir window), then score
+     the test split through nerf_fl_torch.eval.main for the trained and an
+     untrained checkpoint: 2 + 2 fused launches a sub-step over fit and no
+     plain MLP call, one fused forward launch a chunk in eval, the last
+     checkpoint reloaded bit for bit, the logged loss falling, the trained
+     PSNR above the untrained; print each epoch's seconds and rays/s beside
+     phase 6's graph step, the window's device busy share and eval's frame
+     times;
+  9. hold each of the eleven kernel-anatomy probes against its plain version
      at the probes' own 524,288 points (operands from seed 0; the
      consolidated net bit for bit against the static one), time each beside
      its plain version and its bound, both per call and queued behind a
@@ -931,6 +943,217 @@ def phase_bwd_timing(cfg, smi_name):
     return out
 
 
+# the entry-points phase: a Blender scene at the file size of the real
+# dataset, trained and evaluated through python -m nerf_fl_torch.train /
+# .eval's main functions
+ENTRY_SCENE = dict(n_train=8, n_val=1, n_test=2, size=800, texture=True)
+ENTRY_MODEL = ["--img_wh", "400", "400", "--encode_a", "--encode_t",
+               "--N_vocab", "1500", "--N_samples", "64", "--N_importance",
+               "64", "--compute_dtype", "bfloat16"]
+ENTRY_TRAIN = ["--dataset_name", "blender", "--data_perturb", "color", "occ",
+               "--batch_size", "1024", "--optimizer", "adam", "--lr", "5e-4",
+               "--lr_scheduler", "cosine", "--num_epochs", "2",
+               "--steps_per_execution", "20", "--device_pool", "on",
+               "--refresh_every", "500"]
+
+
+def _trace_busy(window):
+    """(kernel seconds, fused forward kernels, fused backward kernels) in
+    the Chrome trace of fit's --profile_dir window."""
+    with open(window["trace"]) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e6
+    fwd = sum("fused_mlp_fwd_" in e.get("name", "") for e in kernels)
+    bwd = sum("fused_mlp_bwd_" in e.get("name", "") for e in kernels)
+    return busy, fwd, bwd
+
+
+def phase_entry_points(graph_ms):
+    """Train and evaluate a Blender scene through the port's entry points
+    (``nerf_fl_torch.train.main``, ``nerf_fl_torch.eval.main``) in a
+    temporary directory: the fused kernels' launches over fit (2 + 2 a
+    sub-step, the validation renders' forward launches beside them) and
+    eval (one forward launch a chunk), the plain MLP path never called in
+    fit, the last checkpoint reloaded bit for bit, the logged loss falling,
+    and the trained checkpoint's test PSNR above the untrained one's.
+    Returns the launches of each kernel on both paths."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import nerf_fl_torch.render.renderer as renderer
+    from nerf_fl_torch import eval as ev
+    from nerf_fl_torch import opt, train
+    from nerf_fl_torch.data.synthetic import make_blender_scene
+    from nerf_fl_torch.ops import fused_mlp as fm
+    from nerf_fl_torch.training import build_params, checkpoints
+    from nerf_fl_torch.training.optimizers import named_leaves
+    from nerf_fl_torch.training.system import config_from_hparams, \
+        val_chunk_cap
+
+    plain = {"calls": 0}
+    apply_nerf = renderer.apply_nerf
+
+    def counted(*a, **k):
+        plain["calls"] += 1
+        return apply_nerf(*a, **k)
+
+    here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    renderer.apply_nerf = counted
+    try:
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        make_blender_scene("scene", **ENTRY_SCENE)
+        print(f"[entry] scene of {ENTRY_SCENE} written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        hp = opt.get_opts(["--root_dir", "scene", *ENTRY_MODEL, *ENTRY_TRAIN,
+                           "--exp_name", "smoke", "--save_path", "ckpts",
+                           "--profile_dir", "prof"])
+
+        # the main path: counts at 0 just before fit, read just after
+        fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+        t0 = time.perf_counter()
+        system = train.main(hp)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fwd, bwd = (fm.fused_mlp_fwd_cuda.launches,
+                    fm.fused_mlp_bwd_cuda.launches)
+        calls = plain["calls"]
+        steps = system.global_step
+        chunk = val_chunk_cap(hp.chunk, hp.N_samples, hp.N_importance)
+        val_chunks = (1 + hp.num_epochs) * -(-400 * 400 // chunk)
+        graph = system.train_step.graph
+        print(f"[entry] fit: {steps} sub-steps in {fit_s:.1f} s (setup, "
+              f"configure, sanity val, 2 epochs, vals, checkpoints); fused "
+              f"forward launches {fwd} = 2 x {steps} sub-steps + 2 x "
+              f"{val_chunks} validation chunks: {fwd - 2 * val_chunks} in "
+              f"the steps ({(fwd - 2 * val_chunks) / steps:g} a sub-step); "
+              f"backward {bwd} ({bwd / steps:g} a sub-step); plain MLP path "
+              f"calls {calls}; graph captured {graph.captures} time(s)")
+        if (fwd, bwd) != (2 * steps + 2 * val_chunks, 2 * steps) \
+                or calls != 0 or graph.captures != 1 or steps != 2500:
+            fail(f"fit: {steps} sub-steps, fused launches {(fwd, bwd)}, "
+                 f"plain MLP path calls {calls}, {graph.captures} captures; "
+                 f"expected 2500, 2 + 2 a sub-step (+ 2 a validation "
+                 f"chunk), 0 and 1")
+        train_launches = (fwd, bwd)
+        for st in system.epoch_stats:
+            print(f"[entry] fit epoch {st['epoch']}: {st['steps']} steps "
+                  f"in {st['seconds']:.2f} s, {st['rays_per_sec']:.0f} "
+                  f"rays/s ({1e3 * st['seconds'] / st['steps']:.2f} ms a "
+                  f"step; the bare graph step of phase 6 {graph_ms:.2f} ms, "
+                  f"{BATCH / graph_ms * 1e3:.0f} rays/s); val PSNR "
+                  f"{st['val_psnr']:.2f}; val + checkpoint "
+                  f"{st['val_and_ckpt_seconds']:.2f} s")
+        rows = [json.loads(line) for line in
+                open(os.path.join("logs", "smoke", "metrics.jsonl"))]
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        rps = [r["train/rays_per_sec"] for r in rows
+               if "train/rays_per_sec" in r]
+        print(f"[entry] logged train/loss: first {losses[0]:.4f}, last "
+              f"{losses[-1]:.4f} ({len(losses)} rows); last logged "
+              f"train/rays_per_sec {rps[-1]:.0f}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail("the logged training loss did not fall")
+        win = system.profile_window
+        if win is None:
+            fail("fit wrote no --profile_dir trace")
+        busy, kf, kb = _trace_busy(win)
+        ms = win["seconds"] * 1e3
+        print(f"[entry] --profile_dir window: {win['steps']} sub-steps in "
+              f"{ms:.1f} ms ({ms / win['steps']:.2f} ms a sub-step, "
+              f"profiled); device kernels {busy * 1e3:.1f} ms: "
+              f"busy {100 * busy / win['seconds']:.1f}%, idle "
+              f"{100 * (1 - busy / win['seconds']):.1f}%; fused forward / "
+              f"backward kernels by name {kf} / {kb} "
+              f"({kf / win['steps']:g} / {kb / win['steps']:g} a sub-step)")
+        # the launch counts above are exact; a trace is not (one run of
+        # this phase lost one of the window's 80 backward kernel records),
+        # so here the fused kernels must show, and no more than 2 + 2 a
+        # sub-step
+        if not (0 < kf <= 2 * win["steps"] and 0 < kb <= 2 * win["steps"]):
+            fail(f"the profiled window of fit shows {kf} / {kb} fused "
+                 f"kernels in {win['steps']} sub-steps")
+
+        # the last checkpoint reloads bit for bit
+        path = os.path.join("ckpts", "smoke", "epoch=1.ckpt")
+        ck = checkpoints.load_checkpoint(path)
+        cfg = config_from_hparams(hp, True)
+        fresh = build_params(cfg, hp.N_vocab, device=torch.device("cuda"))
+        checkpoints.load_into(fresh, ck)
+        same = all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(named_leaves(system.params), named_leaves(fresh)))
+        print(f"[entry] {path}: epoch {ck['epoch']}, step "
+              f"{ck['global_step']}, reloads bit for bit: {same}")
+        if not same or ck["global_step"] != steps:
+            fail("the checkpoint does not reload into the trained params")
+        untrained = os.path.join("ckpts", "untrained.ckpt")
+        checkpoints.save_checkpoint(untrained, build_params(
+            cfg, hp.N_vocab, generator=torch.Generator().manual_seed(0),
+            device=torch.device("cuda")))
+        del system, fresh
+
+        # eval: the untrained checkpoint, then the main path (the trained
+        # one) with counts at 0 just before and read just after
+        results = {}
+        for name, ckpt in (("untrained", untrained), ("trained", path)):
+            args = ev.get_opts(["--root_dir", "scene", *ENTRY_MODEL,
+                                "--split", "test", "--compute_ssim",
+                                "--video_format", "gif", "--ckpt_path", ckpt,
+                                "--scene_name", name])
+            fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+            plain["calls"] = 0
+            stats = {}
+            psnr = ev.main(args, stats=stats)
+            results[name] = (psnr, float(np.mean(stats["ssim"])), stats,
+                             fm.fused_mlp_fwd_cuda.launches,
+                             fm.fused_mlp_bwd_cuda.launches, plain["calls"])
+        psnr, ssim, stats, efwd, ebwd, ecalls = results["trained"]
+        n_chunks = ENTRY_SCENE["n_test"] * -(-400 * 400 // val_chunk_cap(
+            args.chunk, args.N_samples, args.N_importance))
+        margin = psnr - results["untrained"][0]
+        print(f"[entry] eval, test split: trained PSNR {psnr:.3f} SSIM "
+              f"{ssim:.4f}; untrained PSNR {results['untrained'][0]:.3f} "
+              f"SSIM {results['untrained'][1]:.4f}; margin {margin:+.3f} dB")
+        n_frames = len(stats["frame_s"])
+        print(f"[entry] eval: {n_frames} frames in "
+              f"{1e3 * stats['total_s']:.1f} ms, "
+              f"{1e3 * stats['total_s'] / n_frames:.1f} ms a frame (the "
+              f"first frame's kernels used first here: the untrained "
+              f"checkpoint's eval ran before)")
+        for i, (p_s, d_s, h_s) in enumerate(zip(
+                stats["dispatch_s"], stats["drain_s"], stats["host_s"])):
+            print(f"[entry] eval frame {i + 1}: dispatch {1e3 * p_s:.1f} ms "
+                  f"(queues the chunks, reads back all but the last 4), "
+                  f"drain {1e3 * d_s:.1f} ms, host {1e3 * h_s:.1f} ms")
+        print(f"[entry] eval: fused forward launches {efwd} for {n_chunks} "
+              f"chunks, backward {ebwd}; the sigma-only coarse pass's plain "
+              f"MLP calls {ecalls}")
+        # the same checkpoint on its own training views (frame 0 as trained,
+        # the others unperturbed but with their own embeddings): how much
+        # of the test split's gap is the held-out views
+        seen = ev.main(ev.get_opts([
+            "--root_dir", "scene", *ENTRY_MODEL, "--split", "test_train",
+            "--ckpt_path", path, "--scene_name", "test_train"]), stats={})
+        print(f"[entry] eval, test_train split (the {ENTRY_SCENE['n_train']} "
+              f"training views): "
+              f"trained PSNR {seen:.3f}")
+        if not margin > 0:
+            fail("the trained checkpoint does not beat the untrained one")
+        if (efwd, ebwd) != (n_chunks, 0) or \
+                not os.path.exists(os.path.join(
+                    "results", "blender", "trained", "trained.gif")):
+            fail(f"eval: fused launches {(efwd, ebwd)}, expected "
+                 f"({n_chunks}, 0), or no gif")
+        return {"train_cli": train_launches, "eval_cli": (efwd, ebwd)}
+    finally:
+        renderer.apply_nerf = apply_nerf
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def probe_block(name) -> str:
     """Which block a probe's kernel is built from, for its [probe] line;
     the Hopper-block probes and sin with what ptxas and the build report."""
@@ -1304,6 +1527,9 @@ def main() -> int:
     on_train = {k: v - on_render[k] for k, v in probe_counts().items()}
     train = phase_bwd_timing(cfg, smi_name)
     bwd = train["fine"]
+    before_cli = probe_counts()
+    cli = phase_entry_points(graph["ms"])
+    on_cli = {k: v - before_cli[k] for k, v in probe_counts().items()}
     probes, fused_on_anatomy = phase_anatomy(dev, cfg, smi_name)
 
     # launches: each main path's run (the render frame, one train step);
@@ -1313,10 +1539,12 @@ def main() -> int:
         "name": "fused_mlp_fwd", "route": "cuda",
         "source": "nerf_fl_torch/csrc/fused_mlp_fwd.cu",
         "replaces": "nerf_fl_tpu/ops/fused_mlp.py:319",
-        "launches": launches + fwd_train,
+        "launches": launches + fwd_train + sum(v[0] for v in cli.values()),
         "launches_by_path": {"render_frame": launches,
                              "train_step": fwd_train,
                              "train_graph_substep": graph["launches"][0],
+                             "train_cli": cli["train_cli"][0],
+                             "eval_cli": cli["eval_cli"][0],
                              "kernel_anatomy": fused_on_anatomy[0]},
         "max_abs_err": max([chunk_err] + [v["fwd_err"] for v in train.values()]),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
@@ -1324,10 +1552,12 @@ def main() -> int:
         "name": "fused_mlp_bwd", "route": "cuda",
         "source": "nerf_fl_torch/csrc/fused_mlp_bwd.cu",
         "replaces": "nerf_fl_tpu/ops/fused_mlp.py:359",
-        "launches": bwd_render + bwd_train,
+        "launches": bwd_render + bwd_train + sum(v[1] for v in cli.values()),
         "launches_by_path": {"render_frame": bwd_render,
                              "train_step": bwd_train,
                              "train_graph_substep": graph["launches"][1],
+                             "train_cli": cli["train_cli"][1],
+                             "eval_cli": cli["eval_cli"][1],
                              "kernel_anatomy": fused_on_anatomy[1]},
         "max_abs_err": max(v["bwd_err"] for v in train.values()),
         "max_norm_rel_err": max(v["bwd_norm_rel"] for v in train.values()),
@@ -1345,6 +1575,7 @@ def main() -> int:
             "replaces": probe.replaces, "launches": row["launches"],
             "launches_by_path": {"render_frame": on_render[name],
                                  "train_step": on_train[name],
+                                 "train_and_eval_cli": on_cli[name],
                                  "kernel_anatomy": row["launches"]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "device_ms": row["device_ms"],

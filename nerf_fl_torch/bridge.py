@@ -20,27 +20,6 @@ from .render import RenderConfig
 _KEYS = ("nerf_coarse", "nerf_fine", "embedding_a", "embedding_t")
 
 
-def _linears(model: NeRF):
-    """(path in the JAX tree, nn.Linear) pairs of one field MLP."""
-    out = [(("xyz", i), lin) for i, lin in enumerate(model.xyz)]
-    out += [(("xyz_final",), model.xyz_final), (("dir",), model.dir),
-            (("static_sigma",), model.static_sigma),
-            (("static_rgb",), model.static_rgb)]
-    if model.transient is not None:
-        tp = model.transient
-        out += [(("transient", "layers", j), lin)
-                for j, lin in enumerate(tp.layers)]
-        out += [(("transient", name), getattr(tp, name))
-                for name in ("sigma", "rgb", "beta")]
-    return out
-
-
-def _get(tree, path):
-    for p in path:
-        tree = tree[p]
-    return tree
-
-
 def _leaf(t: torch.Tensor, grad: bool) -> np.ndarray:
     if grad:
         t = torch.zeros_like(t) if t.grad is None else t.grad
@@ -51,35 +30,70 @@ def _dense(lin: nn.Linear, grad: bool = False) -> Dict[str, np.ndarray]:
     return {"w": _leaf(lin.weight, grad).T.copy(), "b": _leaf(lin.bias, grad)}
 
 
-def from_jax_params(tree: Dict[str, Any], cfg: RenderConfig, *,
-                    device="cpu") -> Dict[str, Any]:
-    """JAX param pytree (numpy leaves, (in, out) weights) -> the port's
-    params: NeRF modules for the fields, (N_vocab, dim) f32 ``nn.Parameter``
-    tables for the embeddings.  Shapes are checked against ``cfg``."""
+def _seq(node):
+    """A list of the JAX tree, or the {"0": ..., "1": ...} dict that flax's
+    serialization makes of one."""
+    if isinstance(node, dict):
+        return [node[str(i)] for i in range(len(node))]
+    return list(node)
+
+
+def _jax_layers(sub):
+    """(module path in the port, {"w", "b"}) for each dense layer of one
+    field MLP's JAX tree."""
+    out = [(f"xyz.{i}", layer) for i, layer in enumerate(_seq(sub["xyz"]))]
+    out += [(name, sub[name]) for name in ("xyz_final", "dir",
+                                           "static_sigma", "static_rgb")]
+    if "transient" in sub:
+        tp = sub["transient"]
+        out += [(f"transient.layers.{j}", layer)
+                for j, layer in enumerate(_seq(tp["layers"]))]
+        out += [(f"transient.{name}", tp[name])
+                for name in ("sigma", "rgb", "beta")]
+    return out
+
+
+def state_dict_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """JAX param pytree (numpy leaves; lists or flax's str-keyed dicts) ->
+    {field: {port parameter name: (out, in) f32 array}, table: f32 array},
+    the layout of the port's checkpoints.  No config is needed."""
     unknown = set(tree) - set(_KEYS)
     if unknown:
         raise ValueError(f"not ported yet: {sorted(unknown)}")
     out: Dict[str, Any] = {}
     for key in ("nerf_coarse", "nerf_fine"):
-        if key not in tree:
+        if key in tree:
+            sd = {}
+            for path, layer in _jax_layers(tree[key]):
+                sd[f"{path}.weight"] = np.asarray(layer["w"], np.float32).T
+                sd[f"{path}.bias"] = np.asarray(layer["b"], np.float32)
+            out[key] = sd
+    for key in ("embedding_a", "embedding_t"):
+        if key in tree:
+            out[key] = np.asarray(tree[key], np.float32)
+    return out
+
+
+def from_jax_params(tree: Dict[str, Any], cfg: RenderConfig, *,
+                    device="cpu") -> Dict[str, Any]:
+    """JAX param pytree (numpy leaves, (in, out) weights) -> the port's
+    params: NeRF modules for the fields, (N_vocab, dim) f32 ``nn.Parameter``
+    tables for the embeddings.  Shapes are checked against ``cfg``."""
+    sds = state_dict_from_jax(tree)
+    out: Dict[str, Any] = {}
+    for key, sd in sds.items():
+        if not isinstance(sd, dict):
+            out[key] = nn.Parameter(torch.tensor(sd, device=device))
             continue
         model = init_nerf(cfg.nerf_config(key.split("_")[1]))
         with torch.no_grad():
-            for path, lin in _linears(model):
-                layer = _get(tree[key], path)
-                w = torch.tensor(np.asarray(layer["w"], np.float32).T)
-                b = torch.tensor(np.asarray(layer["b"], np.float32))
-                if w.shape != lin.weight.shape or b.shape != lin.bias.shape:
-                    raise ValueError(
-                        f"{key}.{path}: shape {tuple(w.shape)} does not "
-                        f"match {tuple(lin.weight.shape)}")
-                lin.weight.copy_(w)
-                lin.bias.copy_(b)
+            for name, p in model.named_parameters():
+                v = torch.tensor(np.asarray(sd[name]))
+                if v.shape != p.shape:
+                    raise ValueError(f"{key}.{name}: shape {tuple(v.shape)} "
+                                     f"does not match {tuple(p.shape)}")
+                p.copy_(v)
         out[key] = model.to(device)
-    for key in ("embedding_a", "embedding_t"):
-        if key in tree:
-            out[key] = nn.Parameter(torch.tensor(
-                np.asarray(tree[key], np.float32), device=device))
     return out
 
 

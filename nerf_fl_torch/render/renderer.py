@@ -15,6 +15,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..core import compositing, encoding, sampling
 from ..models.embeddings import embedding_lookup
@@ -33,6 +34,11 @@ class RenderConfig:
     kernel whenever the tensors are on CUDA and ``_fused_ok`` holds, True
     runs it (its plain version on CPU tensors) wherever ``_fused_ok`` holds,
     False never runs it.
+
+    ``remat_mlp`` recomputes the plain path's field MLP in the backward
+    (``torch.utils.checkpoint``) instead of keeping its activations.  It
+    changes nothing on the fused path, whose backward kernel already
+    recomputes its forward from the inputs alone.
     """
     N_samples: int = 64
     N_importance: int = 0
@@ -54,6 +60,7 @@ class RenderConfig:
     compute_dtype: str = "float32"
     use_fused: Optional[bool] = None
     fast_trig: Optional[bool] = None
+    remat_mlp: bool = False
     mlp_depth: int = 8
     mlp_width: int = 256
 
@@ -139,11 +146,17 @@ def _run_mlp(model, mcfg: NeRFConfig, cfg: RenderConfig, xyz, dirs=None,
             if a_emb is not None:
                 parts.append(a_emb)
             dir_a = torch.cat(parts, dim=-1)
-        out = apply_nerf(model, xyz_emb, dir_a,
-                         t_emb if output_transient else None,
-                         sigma_only=sigma_only,
-                         output_transient=output_transient,
-                         compute_dtype=cfg.dtype, samples_per_ray=S)
+        def run(xe, da, te):
+            return apply_nerf(model, xe, da, te, sigma_only=sigma_only,
+                              output_transient=output_transient,
+                              compute_dtype=cfg.dtype, samples_per_ray=S)
+
+        args = (xyz_emb, dir_a, t_emb if output_transient else None)
+        if cfg.remat_mlp and torch.is_grad_enabled():
+            out = torch.utils.checkpoint.checkpoint(run, *args,
+                                                    use_reentrant=False)
+        else:
+            out = run(*args)
     return {k: v.reshape((N, S) + v.shape[1:]) for k, v in out.items()}
 
 

@@ -1,21 +1,25 @@
 """Optimizers and the per-epoch learning-rate schedule.
 
-Counterpart of ``nerf_fl_tpu/training/optimizers.py`` for sgd and adam:
+Counterpart of ``nerf_fl_tpu/training/optimizers.py``:
   * ``lr_for_epoch``: steplr (MultiStepLR), cosine (CosineAnnealingLR,
     eta_min 1e-8) and poly, each optionally behind a linear warmup over
     ``warmup_epochs`` (skipped for radam/ranger), stepped per epoch;
   * ``build_optimizer``: ``torch.optim.SGD`` / ``torch.optim.Adam`` with
-    eps 1e-8.  They make the same update as the JAX package's optax chains:
-    weight decay is L2 added to the gradient, and optax's ``trace`` is
-    torch's momentum with dampening 0.  The scheduled lr is written into
-    ``param_groups`` before each step (``set_lr``).  radam and ranger are
-    not ported yet.
+    eps 1e-8, which make the same update as the JAX package's optax chains
+    (weight decay is L2 added to the gradient, and optax's ``trace`` is
+    torch's momentum with dampening 0), and ``RAdam`` / ``Ranger``, the
+    JAX package's ``scale_by_radam_torch`` chains written out here
+    (torch_optimizer's and pytorch_ranger's arithmetic).  The scheduled lr
+    is written into ``param_groups`` before each step (``set_lr``).
 
 On the card Adam is built ``capturable``, with its lr a device tensor, so
 that a CUDA graph of the train step (``system.make_train_step`` with
 ``steps_per_execution`` > 1) replays it: ``set_lr`` fills that tensor, and
-the step count and bias corrections stay on the card.  On the CPU both
-optimizers take a Python float lr, as torch builds them by default.
+the step count and bias corrections stay on the card.  RAdam and Ranger
+are capturable everywhere: their step count lives in a tensor beside the
+parameter, the rectification branch and the lookahead sync are a
+``torch.where`` on it, and nothing is read back to the host.  On the CPU
+sgd and adam take a Python float lr, as torch builds them by default.
 """
 from __future__ import annotations
 
@@ -50,10 +54,135 @@ def lr_for_epoch(hparams, epoch: int) -> float:
     raise ValueError(f"scheduler not recognized: {hparams.lr_scheduler}")
 
 
+class RAdam(torch.optim.Optimizer):
+    """Rectified Adam in torch_optimizer's arithmetic: the update of the
+    JAX package's ``scale_by_radam_torch`` (then decoupled weight decay,
+    then ``-lr``), in float32 and in the same order of operations.
+
+    torch divides by ``sqrt(v) + eps`` and folds the ``sqrt(1 - b2^t)``
+    bias correction into the step size, unlike optax's ``scale_by_radam``.
+    A step is rectified when ``rho_t >= threshold`` (``rho_t > threshold``
+    with ``strict``, pytorch_ranger's test); below it the update is
+    bias-corrected momentum.  ``Ranger`` adds gradient centralisation and
+    lookahead.  A ``None`` grad counts as zeros, as every leaf of the JAX
+    tree gets a gradient.
+    """
+
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=0.0, threshold=5.0, strict=False):
+        super().__init__(params, dict(
+            lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
+            threshold=threshold, strict=strict, capturable=True))
+
+    def _init_state(self, p):
+        st = self.state[p]
+        if not st:
+            st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+            st["exp_avg"] = torch.zeros_like(p)
+            st["exp_avg_sq"] = torch.zeros_like(p)
+        return st
+
+    @staticmethod
+    def _factors(t, b1, b2, threshold, strict):
+        """(rectified, r / (1 - b1^t), 1 - b1^t) as f32 tensors of step t."""
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        b2t, b1t = torch.pow(b2, t), torch.pow(b1, t)
+        ro = ro_inf - 2.0 * t * b2t / (1.0 - b2t)
+        rect = ro > threshold if strict else ro >= threshold
+        r = torch.sqrt(torch.clamp(
+            (1.0 - b2t) * (ro - 4.0) * (ro - 2.0) * ro_inf
+            / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro), min=0.0))
+        return rect, r / (1.0 - b1t), 1.0 - b1t
+
+    def _direction(self, p, g, group):
+        """The pre-lr update of ``p`` for grad ``g`` (the state advanced)."""
+        b1, b2 = group["betas"]
+        st = self._init_state(p)
+        m, v = st["exp_avg"], st["exp_avg_sq"]
+        m.mul_(b1).add_(g * (1 - b1))
+        v.mul_(b2).add_((1 - b2) * g * g)
+        st["step"].add_(1.0)
+        rect, scale, bc1 = self._factors(st["step"], b1, b2,
+                                         group["threshold"], group["strict"])
+        u = torch.where(rect, scale * m / (torch.sqrt(v) + group["eps"]),
+                        m / bc1)
+        if group["weight_decay"] > 0:
+            u = u + group["weight_decay"] * p
+        return u
+
+    def _grad(self, p):
+        return torch.zeros_like(p) if p.grad is None else p.grad
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                u = self._direction(p, self._grad(p), group)
+                p.add_(-group["lr"] * u)
+        return loss
+
+
+class Ranger(RAdam):
+    """pytorch_ranger's Ranger as the JAX package builds it: gradient
+    centralisation, RAdam (betas (0.95, 0.999), the strict ``rho > 5``
+    test), decoupled weight decay, then lookahead (``k`` = 6, ``alpha`` =
+    0.5) on the final post-lr deltas.
+
+    Centralisation subtracts the mean over every dim but the first of each
+    >= 2-D grad: the fan-in of an ``nn.Linear`` weight (out, in), which is
+    the JAX kernel's (in, out) axis 0, and the width of an embedding table.
+    Lookahead counts with the RAdam step; at every k-th step the slow
+    weights take ``alpha`` of the fast weights' excursion and the fast
+    weights are set to them (the JAX ``lookahead``'s ``p + (slow - p)``).
+    """
+
+    def __init__(self, params, lr=1e-3, betas=(0.95, 0.999), eps=1e-8,
+                 weight_decay=0.0, k=6, alpha=0.5):
+        super().__init__(params, lr=lr, betas=betas, eps=eps,
+                         weight_decay=weight_decay, threshold=5.0,
+                         strict=True)
+        for group in self.param_groups:
+            group.setdefault("k", k)
+            group.setdefault("alpha", alpha)
+
+    def _init_state(self, p):
+        st = self.state[p]
+        if not st:
+            super()._init_state(p)
+            st["slow_buffer"] = p.detach().clone()
+        return st
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                g = self._grad(p)
+                if g.dim() >= 2:
+                    g = g - g.mean(dim=tuple(range(1, g.dim())), keepdim=True)
+                d = -group["lr"] * self._direction(p, g, group)
+                st = self.state[p]
+                sync = torch.remainder(st["step"], group["k"]) == 0
+                slow = st["slow_buffer"]
+                new_slow = torch.where(sync, slow + group["alpha"]
+                                       * ((p + d) - slow), slow)
+                p.add_(torch.where(sync, new_slow - p, d))
+                slow.copy_(new_slow)
+        return loss
+
+
 def build_optimizer(hparams, params: Iterable[torch.Tensor]
                     ) -> torch.optim.Optimizer:
-    """sgd or adam over ``params`` at ``hparams.lr``; adam is capturable
-    (lr a device tensor) when the parameters lie on the card."""
+    """sgd, adam, radam or ranger over ``params`` at ``hparams.lr``; adam is
+    capturable (lr a device tensor) when the parameters lie on the card,
+    radam and ranger take a device lr there."""
     eps = 1e-8
     wd = getattr(hparams, "weight_decay", 0.0)
     name = hparams.optimizer
@@ -70,7 +199,11 @@ def build_optimizer(hparams, params: Iterable[torch.Tensor]
         return torch.optim.Adam(params, lr=hparams.lr, eps=eps,
                                 weight_decay=wd)
     if name in ("radam", "ranger"):
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet")
+        lr = hparams.lr
+        if params and params[0].is_cuda:
+            lr = torch.tensor(lr, device=params[0].device)
+        cls = RAdam if name == "radam" else Ranger
+        return cls(params, lr=lr, eps=eps, weight_decay=wd)
     raise ValueError(f"optimizer not recognized: {name}")
 
 

@@ -1,12 +1,14 @@
-"""Model assembly, the train step and chunked rendering.
+"""Model assembly, the train step, chunked rendering and the train loop.
 
 Counterpart of ``nerf_fl_tpu/training/system.py``: ``build_params``,
 the train step on world-space rays (``make_train_step``, with
 ``microbatch`` and ``steps_per_execution``, and ``stack_batches``), the
 device-resident ray pool (``epoch_perm``, ``make_device_pool_step``),
-``val_chunk_cap``, ``render_chunked`` and ``render_chunked_async``.  Single
-device; the mesh and multihost branches and camera-frame rays belong to
-later slices.
+``val_chunk_cap``, ``render_chunked`` and ``render_chunked_async``, and
+the training system (``config_from_hparams``, ``DevicePrefetcher``,
+``NeRFSystem``, ``gauge_val_psnr``) that ``nerf_fl_torch.train`` drives.
+Single device; the mesh and multihost branches and camera-frame rays
+belong to later slices.
 
 ``steps_per_execution`` K > 1 is JAX's ``lax.scan`` of K steps in one
 dispatch.  On the card its counterpart is a CUDA graph of one sub-step
@@ -24,8 +26,14 @@ device's default one (None), may drive the draws.
 from __future__ import annotations
 
 import contextlib
+import functools
+import os
+import queue
+import sys
+import threading
+import time
 from collections import defaultdict, deque
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -270,7 +278,9 @@ class _StepGraph:
     so no step is taken that the caller did not ask for; if the capture
     then fails, the call raises after that first sub-step.  ``captures``
     counts the captures; ``fused_launches`` holds the fused forward and
-    backward launches that one sub-step made while it was captured.
+    backward launches that one sub-step made while it was captured.  The
+    wrappers' launch counts rise by those at each replay, where the kernels
+    run, and not at the capture, which runs none.
     """
 
     def __init__(self, body, optimizer: torch.optim.Optimizer,
@@ -324,11 +334,17 @@ class _StepGraph:
             for _ in range(n_valid):
                 self.sub_step(params, epoch, generator, load)
         else:
+            from ..ops import fused_mlp as fm
             if fresh:
                 self._capture(params, epoch, generator, load)
                 first = 1
             for _ in range(first, n_valid):
                 self.graph.replay()
+            # a replay launches the kernels its capture recorded
+            fm.fused_mlp_fwd_cuda.launches += \
+                self.fused_launches[0] * (n_valid - first)
+            fm.fused_mlp_bwd_cuda.launches += \
+                self.fused_launches[1] * (n_valid - first)
         self.key = key
         res = self.out.clone()
         return {n: res[:, j] for j, n in enumerate(self.names)}
@@ -358,6 +374,10 @@ class _StepGraph:
                 graph.capture_end()
         self.fused_launches = (fm.fused_mlp_fwd_cuda.launches - before[0],
                                fm.fused_mlp_bwd_cuda.launches - before[1])
+        # a capture records the launches and runs none: they are counted
+        # at each replay
+        fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches = \
+            before
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.graph = graph
         self.captures += 1
@@ -537,3 +557,556 @@ def render_chunked_async(params, rays, ts, cfg: RenderConfig, *,
         return {k: np.concatenate(v, 0) for k, v in outs.items()}
 
     return finish
+
+
+# ----------------------------------------------------------------------
+# the training system
+# ----------------------------------------------------------------------
+
+def config_from_hparams(hparams, white_back: bool) -> RenderConfig:
+    """The render config of a train run's flags (``--use_pallas`` is
+    ``use_fused``: auto None, on True, off False)."""
+    g = functools.partial(getattr, hparams)
+    return RenderConfig(
+        N_samples=hparams.N_samples, N_importance=hparams.N_importance,
+        use_disp=hparams.use_disp, perturb=hparams.perturb,
+        noise_std=hparams.noise_std, white_back=white_back,
+        N_emb_xyz=hparams.N_emb_xyz, N_emb_dir=hparams.N_emb_dir,
+        encode_a=hparams.encode_a, N_a=hparams.N_a,
+        encode_t=hparams.encode_t, N_tau=hparams.N_tau,
+        beta_min=hparams.beta_min,
+        refine_pose=g("refine_pose", False),
+        barf_schedule=g("barf_schedule", "fork"),
+        barf_epoch_start=g("barf_epochs", [4, 8])[0],
+        barf_epoch_end=g("barf_epochs", [4, 8])[1],
+        compute_dtype=g("compute_dtype", "float32"),
+        use_fused=_TRISTATE[g("use_pallas", "auto")],
+        fast_trig=_TRISTATE[g("fast_trig", "auto")],
+        remat_mlp=g("remat_mlp", False),
+        mlp_depth=g("mlp_depth", 8), mlp_width=g("mlp_width", 256))
+
+
+_TRISTATE = {"auto": None, "on": True, "off": False}
+
+
+def refuse_unported(hparams, *, eval_mode: bool = False) -> None:
+    """Raise on flags whose feature is not ported yet, naming its ROADMAP
+    item; flags absent from ``hparams`` count as their defaults."""
+    g = functools.partial(getattr, hparams)
+    checks = [
+        (g("dataset_name", "blender") != "blender",
+         f"--dataset_name {g('dataset_name', '')}", "A.6"),
+        (g("refine_pose", False), "--refine_pose", "A.7"),
+        (any(g("pose_noise", (0, 0))), "--pose_noise", "A.7"),
+        (g("pose_lr_mult", 1.0) != 1.0, "--pose_lr_mult", "A.7"),
+        (g("pose_warmup_epochs", 0.0) != 0.0, "--pose_warmup_epochs", "A.7"),
+        (g("num_gpus", 1) > 1, "--num_gpus > 1", "A.8"),
+        (g("model_parallel", 1) > 1, "--model_parallel > 1", "A.8"),
+        (g("num_hosts", 1) > 1, "--num_hosts > 1", "A.8"),
+    ]
+    if eval_mode:
+        checks += [
+            (g("optimize_appearance", False), "--optimize_appearance", "A.7"),
+            (g("save_depth", False), "--save_depth (PFM, with LLFF)", "A.6"),
+            (g("video_format", "gif") == "mp4", "--video_format mp4",
+             "A.6: mp4 output"),
+        ]
+    for bad, what, item in checks:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet "
+                                      f"(ROADMAP {item})")
+
+
+class _Moved(NamedTuple):
+    item: Any
+    event: Any
+
+
+def _map_batch(x, fn, in_dict=False):
+    """Apply ``fn`` to the array leaves inside dicts of ``x`` (a batch, or
+    a tuple holding one); other members pass through."""
+    if isinstance(x, dict):
+        return {k: _map_batch(v, fn, True) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map_batch(v, fn, in_dict) for v in x)
+    if in_dict and isinstance(x, (np.ndarray, torch.Tensor)):
+        return fn(x)
+    return x
+
+
+class DevicePrefetcher:
+    """Host -> device feed on a worker thread.
+
+    A daemon thread applies ``put`` (host work: a gather, a stack) to the
+    items of ``it`` up to ``depth`` ahead of the consumer and, with a
+    ``device``, moves the arrays inside the item's dicts there.  On the
+    card it copies from pinned host memory on a side stream and records an
+    event; the consumer's stream waits on that event and each tensor is
+    recorded on the consuming stream, so the copy overlaps the step before
+    and its memory is not reused early.  ``close()`` stops the worker,
+    drops what is queued and joins the thread.
+    """
+
+    _END = object()
+
+    def __init__(self, it, put=None, depth: int = 2, device=None):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._err: Optional[BaseException] = None
+        self._stop = False
+        self._dev = None if device is None else torch.device(device)
+        cuda = self._dev is not None and self._dev.type == "cuda"
+        self._side = torch.cuda.Stream(self._dev) if cuda else None
+
+        def to_device(x):
+            t = torch.as_tensor(x)
+            if self._side is None:
+                return t.to(self._dev)
+            return t.pin_memory().to(self._dev, non_blocking=True)
+
+        def move(item):
+            if self._dev is None:
+                return item
+            if self._side is None:
+                return _map_batch(item, to_device)
+            with torch.cuda.stream(self._side):
+                out = _map_batch(item, to_device)
+                event = torch.cuda.Event()
+                event.record(self._side)
+            return _Moved(out, event)
+
+        def blocking_put(item):
+            # gives up once the consumer has closed the feed, so a worker
+            # never stays parked on a full queue holding device memory
+            while not self._stop:
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def work():
+            try:
+                for b in it:
+                    if self._stop or not blocking_put(
+                            move(put(b) if put is not None else b)):
+                        return
+            except BaseException as e:  # raised on the consumer's side
+                self._err = e
+            finally:
+                blocking_put(self._END)
+
+        self._t = threading.Thread(target=work, daemon=True)
+        self._t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        b = self._q.get()
+        if b is self._END:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        if isinstance(b, _Moved):
+            stream = torch.cuda.current_stream(self._dev)
+            stream.wait_event(b.event)
+            _map_batch(b.item, lambda t: t.record_stream(stream))
+            return b.item
+        return b
+
+    def close(self):
+        """Stop the worker, drop queued items and join the thread;
+        idempotent."""
+        self._stop = True
+        while self._t.is_alive():
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._t.join(timeout=0.05)
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                return
+
+
+class NeRFSystem:
+    """End-to-end training: the counterpart of the JAX package's
+    ``NeRFSystem`` (``setup``, ``configure``, ``restore``,
+    ``run_validation``, ``fit``) on one device, ``device`` (None: CUDA).
+
+    ``fit`` runs the feed that ``configure`` chose: the device-resident
+    pool (``make_device_pool_step``; one permutation buffer on the device,
+    refilled each epoch, so a graph step is captured once for the run),
+    host-fed groups of ``steps_per_execution`` K > 1 batches (stacked on
+    the worker thread of a ``DevicePrefetcher``), or host-fed single steps.
+    Metrics reach the host only at log steps.  The per-epoch lr reaches a
+    captured step through ``set_lr``'s device tensor.  Each epoch ends in a
+    validation pass and a checkpoint; ``epoch_stats`` keeps each epoch's
+    seconds and rays/s, ``profile_window`` the ``--profile_dir`` window.
+    """
+
+    def __init__(self, hparams, logger=None, device=None):
+        self.hparams = hparams
+        self.logger = logger
+        self.device = resolve_device(device)
+        self.loss_name = "nerfw"
+        self.global_step = 0
+        self.start_epoch = 0
+        self.epoch_stats = []
+        self.profile_window = None
+
+    # -- datasets ------------------------------------------------------
+    def setup(self):
+        from ..data import RayBatcher, dataset_dict
+        from ..models import validate_vocab
+        h = self.hparams
+        refuse_unported(h)
+        kwargs = {"root_dir": h.root_dir, "img_wh": tuple(h.img_wh),
+                  "perturbation": h.data_perturb}
+        self.train_dataset = dataset_dict[h.dataset_name](split="train",
+                                                          **kwargs)
+        self.val_dataset = dataset_dict[h.dataset_name](split="val", **kwargs)
+        self.cfg = config_from_hparams(h, self.train_dataset.white_back)
+        if self.cfg.encode_a or self.cfg.encode_t:
+            validate_vocab(h.N_vocab, int(np.max(self.train_dataset.all_ts)))
+        self.batcher = RayBatcher(
+            self.train_dataset.all_rays, self.train_dataset.all_ts,
+            self.train_dataset.all_rgbs, h.batch_size,
+            seed=getattr(h, "seed", 0))
+
+    # -- state ---------------------------------------------------------
+    def configure(self):
+        from .checkpoints import latest_checkpoint
+        from .optimizers import (build_optimizer, make_trainable_mask,
+                                 trainable_parameters)
+        h, dev = self.hparams, self.device
+        refuse_unported(h)
+        seed = getattr(h, "seed", 0)
+        self.params = build_params(
+            self.cfg, h.N_vocab, generator=torch.Generator().manual_seed(seed),
+            device=dev)
+        self.mask = make_trainable_mask(self.params, False)
+        self.optimizer = build_optimizer(
+            h, trainable_parameters(self.params, self.mask))
+
+        ckpt_path = getattr(h, "ckpt_path", None)
+        if ckpt_path == "auto":
+            ckpt_path = latest_checkpoint(os.path.join(h.save_path,
+                                                       h.exp_name))
+            print(f"[ckpt] auto-resume from {ckpt_path}" if ckpt_path else
+                  "[ckpt] auto-resume: no checkpoint found, starting fresh")
+        if ckpt_path:
+            self.restore(ckpt_path)
+
+        self.spe = max(1, getattr(h, "steps_per_execution", 1))
+        mb = max(1, getattr(h, "microbatch", 1))
+        if mb > 1 and h.batch_size % mb:
+            raise ValueError(f"batch_size {h.batch_size} not divisible by "
+                             f"--microbatch {mb}")
+        b = self.batcher
+        pool_bytes = b.rays.nbytes + b.ts.nbytes + b.rgbs.nbytes
+        dp_mode = getattr(h, "device_pool", "auto")
+        self.device_pool = None
+        if dp_mode == "on" or (dp_mode == "auto" and pool_bytes <= (2 << 30)):
+            pool = {"rays": torch.from_numpy(np.asarray(b.rays, np.float32)),
+                    "ts": torch.from_numpy(np.asarray(b.ts, np.int32)),
+                    "rgbs": torch.from_numpy(np.asarray(b.rgbs, np.float32))}
+            self.device_pool = ({k: v.to(dev) for k, v in pool.items()}, b.n)
+            n_groups = max(1, -(-b.steps_per_epoch() // self.spe))
+            self._perm = torch.empty(n_groups * self.spe * h.batch_size,
+                                     dtype=torch.int32, device=dev)
+            self.train_step = make_device_pool_step(
+                self.cfg, self.optimizer, batch_size=h.batch_size,
+                loss_name=self.loss_name, microbatch=mb,
+                steps_per_execution=self.spe)
+            print(f"[data] device-resident ray pool: {pool_bytes / 1e6:.0f} "
+                  f"MB uploaded once; batches are drawn on the device")
+        else:
+            self.train_step = make_train_step(
+                self.cfg, self.optimizer, loss_name=self.loss_name,
+                microbatch=mb, steps_per_execution=self.spe)
+        self.generator = torch.Generator(dev).manual_seed(seed + 1234)
+
+    def restore(self, path: str):
+        """A full checkpoint (with ``opt_state``; either format) resumes
+        weights, optimizer state, epoch and step; a weights-only one loads
+        non-strictly, honouring ``--prefixes_to_ignore``."""
+        from . import checkpoints
+        ckpt = checkpoints.load_checkpoint(path)
+        leaves = dict(named_leaves(self.params))
+        if "opt_state" in ckpt:
+            sd = ckpt["state_dict"]
+            have = {f"{k}.{n}" if isinstance(v, dict) else k
+                    for k, v in sd.items()
+                    for n in (v if isinstance(v, dict) else [None])}
+            missing = sorted(set(leaves) - have)
+            if missing:
+                raise ValueError(f"{path} lacks {missing} for a full resume")
+            checkpoints.load_into(self.params, ckpt)
+            if ckpt["format"] == "torch":
+                lrs = [g["lr"] for g in self.optimizer.param_groups]
+                self.optimizer.load_state_dict(ckpt["opt_state"])
+                for g, lr in zip(self.optimizer.param_groups, lrs):
+                    g["lr"] = lr          # keep the device lr of a capture
+            else:
+                checkpoints.adam_state_from_jax(ckpt["opt_state"],
+                                                self.optimizer, leaves)
+            self.start_epoch = int(ckpt.get("epoch", -1)) + 1
+            self.global_step = int(ckpt.get("global_step", 0))
+            print(f"[ckpt] restored {path} (resume at epoch "
+                  f"{self.start_epoch})")
+        else:
+            prefixes = tuple(getattr(self.hparams, "prefixes_to_ignore",
+                                     ("loss",)) or ())
+            checkpoints.load_into(self.params, ckpt, prefixes)
+            loaded = sorted(n for n in set(self.params) & set(
+                ckpt["state_dict"]) if not any(n.startswith(p)
+                                               for p in prefixes))
+            print(f"[ckpt] loaded weights (non-strict) from {path}: "
+                  f"{', '.join(loaded)}")
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(self.device).manual_seed(seed)
+
+    # -- validation ----------------------------------------------------
+    def run_validation(self, epoch: int, max_images: Optional[int] = None):
+        """(mean loss, mean psnr, GT | pred | depth of the first image)
+        over the val split, rendered with the training config (the
+        parameters' storage, which a graph step trains in place)."""
+        from ..utils.visualization import visualize_depth
+        h = self.hparams
+        n = len(self.val_dataset)
+        if max_images is not None:
+            n = min(n, max_images)
+        losses, psnrs = [], []
+        first_viz = None
+        for i in range(n):
+            sample = self.val_dataset[i]
+            rgbs = sample["rgbs"]
+            res = render_chunked(
+                self.params, sample["rays"], sample["ts"], self.cfg,
+                chunk=val_chunk_cap(h.chunk, self.cfg.N_samples,
+                                    self.cfg.N_importance),
+                test_time=False, epoch=float(epoch),
+                generator=self._generator(1000 + i),
+                keys=("rgb_coarse", "rgb_fine", "depth_coarse", "depth_fine",
+                      "beta", "transient_sigmas"), device=self.device)
+            typ = "fine" if "rgb_fine" in res else "coarse"
+            loss_d = loss_dict[self.loss_name](
+                {k: torch.from_numpy(v) for k, v in res.items()},
+                torch.from_numpy(rgbs))
+            losses.append(float(sum(v for v in loss_d.values())))
+            mse = np.mean((res[f"rgb_{typ}"] - rgbs) ** 2)
+            psnrs.append(-10.0 * np.log10(mse))
+            if i == 0:
+                W, H = h.img_wh
+                img = res[f"rgb_{typ}"].reshape(H, W, 3).transpose(2, 0, 1)
+                gt = rgbs.reshape(H, W, 3).transpose(2, 0, 1)
+                depth = visualize_depth(res[f"depth_{typ}"].reshape(H, W))
+                first_viz = np.stack([gt, np.clip(img, 0, 1), depth])
+        return float(np.mean(losses)), float(np.mean(psnrs)), first_viz
+
+    # -- the loop ------------------------------------------------------
+    def _profiler(self):
+        """(before(), after(n_real)) around each step call: a torch.profiler
+        window over steps +100 to +120 of this run, written as a Chrome
+        trace into --profile_dir."""
+        prof_dir = getattr(self.hparams, "profile_dir", None)
+        start, stop = self.global_step + 100, self.global_step + 120
+        st = {"prof": None, "done": not prof_dir}
+        cuda = self.device.type == "cuda"
+
+        def before():
+            if st["done"] or st["prof"] is not None \
+                    or self.global_step < start:
+                return
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if cuda:
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+                torch.cuda.synchronize(self.device)
+            st["prof"] = torch.profiler.profile(activities=acts)
+            st["prof"].__enter__()
+            st["t0"], st["step0"] = time.perf_counter(), self.global_step
+
+        def after(n_real):
+            if st["prof"] is None or self.global_step < stop:
+                return
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            seconds = time.perf_counter() - st["t0"]
+            st["prof"].__exit__(None, None, None)
+            os.makedirs(prof_dir, exist_ok=True)
+            path = os.path.join(prof_dir, "trace.json")
+            st["prof"].export_chrome_trace(path)
+            self.profile_window = {
+                "trace": path, "seconds": seconds,
+                "steps": self.global_step + n_real - st["step0"]}
+            st["prof"], st["done"] = None, True
+            print(f"[profiler] trace of {self.profile_window['steps']} steps "
+                  f"written to {path}")
+
+        return before, after
+
+    def _steps(self, epoch: int, lr: float, feed_box):
+        """Yield (metrics, sub-steps run) for each step call of an epoch."""
+        h = self.hparams
+        spe, B = self.spe, h.batch_size
+        gen = self.generator
+        ep = float(epoch)
+        if self.device_pool is not None:
+            pool, n_pool = self.device_pool
+            n_steps = self.batcher.steps_per_epoch()
+            self._perm.copy_(torch.from_numpy(epoch_perm(
+                getattr(h, "seed", 0), epoch, n_pool, self._perm.numel())))
+            for i in range(0, n_steps, spe):
+                if spe > 1:
+                    yield (lambda i=i: self.train_step(
+                        self.params, pool, self._perm, i, n_steps, lr, ep,
+                        gen)), min(spe, n_steps - i)
+                else:
+                    yield (lambda i=i: self.train_step(
+                        self.params, pool, self._perm, i, lr, ep, gen)), 1
+            return
+        if spe > 1:
+            def grouped(it=self.batcher.epoch(epoch)):
+                buf = []
+                for b in it:
+                    buf.append({k: torch.from_numpy(v) for k, v in b.items()})
+                    if len(buf) == spe:
+                        yield buf
+                        buf = []
+                if buf:
+                    yield buf
+
+            def put(bs):
+                stacked, valid = stack_batches(bs, spe)
+                return stacked, valid, len(bs)
+
+            feed_box.append(DevicePrefetcher(grouped(), put,
+                                             device=self.device))
+            for stacked, valid, n_real in feed_box[-1]:
+                yield (lambda s=stacked, v=valid: self.train_step(
+                    self.params, s, lr, ep, gen, v)), n_real
+            return
+        feed_box.append(DevicePrefetcher(self.batcher.epoch(epoch),
+                                         device=self.device))
+        for batch in feed_box[-1]:
+            yield (lambda b=batch: self.train_step(self.params, b, lr, ep,
+                                                   gen)), 1
+
+    def fit(self):
+        from . import checkpoints
+        from .logging import ExperimentLogger
+        from .optimizers import lr_for_epoch
+        h = self.hparams
+        if self.logger is None:
+            self.logger = ExperimentLogger("logs", h.exp_name)
+        ckpt_dir = os.path.join(h.save_path, h.exp_name)
+        if getattr(h, "num_sanity_val_steps", 1) > 0:
+            self.run_validation(self.start_epoch, max_images=1)
+        prof_before, prof_after = self._profiler()
+        log_every = getattr(h, "log_every", 50)
+        refresh = getattr(h, "refresh_every", 0) or 0
+        last = (None, {})
+        for epoch in range(self.start_epoch, h.num_epochs):
+            lr = lr_for_epoch(h, epoch)
+            t0, n_rays, steps0 = time.time(), 0, self.global_step
+            feeds = []
+            try:
+                for call, n_real in self._steps(epoch, lr, feeds):
+                    prof_before()
+                    metrics = call()
+                    prof_after(n_real)
+                    n_rays += h.batch_size * n_real
+                    # with K sub-steps a call, log when the window
+                    # [global_step, global_step + n_real) holds a multiple
+                    g = self.global_step
+                    if (g % log_every == 0
+                            or g % log_every + n_real > log_every):
+                        m = {k: float(v.reshape(-1)[n_real - 1])
+                             for k, v in metrics.items()}
+                        m["lr"] = lr
+                        dt = time.time() - t0
+                        if dt > 0:
+                            m["train/rays_per_sec"] = n_rays / dt
+                        self.logger.scalars(m, g + n_real - 1)
+                        last = (g + n_real - 1, m)
+                    if refresh > 0 and (g % refresh == 0
+                                        or g % refresh + n_real > refresh):
+                        dt = time.time() - t0
+                        tail = ""
+                        if last[0] is not None:
+                            m = last[1]
+                            tail = (f" loss={m['train/loss']:.4f} "
+                                    f"psnr={m['train/psnr']:.2f} "
+                                    f"(step {last[0]})")
+                        print(f"epoch {epoch} step {g} "
+                              f"{n_rays / dt if dt > 0 else 0.0:,.0f} "
+                              f"rays/s{tail}",
+                              end="\r" if sys.stdout.isatty() else "\n",
+                              flush=True)
+                    self.global_step += n_real
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            finally:
+                for feed in feeds:
+                    feed.close()
+            seconds = time.time() - t0
+            t1 = time.time()
+            val_loss, val_psnr, viz = self.run_validation(epoch)
+            self.logger.scalars({"val/loss": val_loss, "val/psnr": val_psnr},
+                                self.global_step)
+            if viz is not None:
+                self.logger.images("val/GT_pred_depth", viz, self.global_step)
+            print(f"epoch {epoch}: lr={lr:.3e} val/loss={val_loss:.4f} "
+                  f"val/psnr={val_psnr:.2f}")
+            checkpoints.save_checkpoint(
+                os.path.join(ckpt_dir, f"epoch={epoch}.ckpt"), self.params,
+                self.optimizer, epoch=epoch, global_step=self.global_step)
+            self.epoch_stats.append({
+                "epoch": epoch, "steps": self.global_step - steps0,
+                "seconds": seconds, "rays_per_sec": n_rays / seconds,
+                "val_psnr": val_psnr, "val_and_ckpt_seconds":
+                    time.time() - t1})
+        self.logger.close()
+
+
+def gauge_val_psnr(system: NeRFSystem, epoch: int, max_images: int = 2,
+                   gauge=None):
+    """Val PSNR with a global SE(3) gauge ``T`` (refined frame -> true
+    frame) removed before rendering: each val camera becomes ``inv(T) @
+    c2w``.  Returns (mean val PSNR, T).  Estimating ``T`` from learned
+    poses (``gauge=None``) needs pose refinement, not ported yet."""
+    from ..data.rays_np import get_rays
+    if gauge is None:
+        raise NotImplementedError("gauge_val_psnr without a given gauge "
+                                  "needs learned poses: not ported yet "
+                                  "(ROADMAP A.7)")
+    T = np.asarray(gauge, np.float64)
+    Tinv = np.linalg.inv(T)
+    ds, h = system.val_dataset, system.hparams
+    psnrs = []
+    for i in range(min(len(ds), max_images)):
+        sample = ds[i]
+        c2w = np.eye(4)
+        c2w[:3, :4] = np.asarray(sample["c2w"], np.float64)
+        cc = (Tinv @ c2w)[:3, :4].astype(np.float32)
+        rays_o, rays_d = get_rays(ds.directions, cc)
+        n_px = len(rays_o)
+        rays = np.concatenate([
+            rays_o, rays_d, np.full((n_px, 1), ds.near, np.float32),
+            np.full((n_px, 1), ds.far, np.float32)], 1)
+        res = render_chunked(
+            system.params, rays, sample["ts"], system.cfg,
+            chunk=val_chunk_cap(h.chunk, system.cfg.N_samples,
+                                system.cfg.N_importance),
+            test_time=False, epoch=float(epoch),
+            generator=system._generator(1000 + i),
+            keys=("rgb_coarse", "rgb_fine"), device=system.device)
+        typ = "fine" if "rgb_fine" in res else "coarse"
+        mse = np.mean((res[f"rgb_{typ}"] - sample["rgbs"]) ** 2)
+        psnrs.append(-10.0 * np.log10(mse))
+    return float(np.mean(psnrs)), T

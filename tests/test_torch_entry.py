@@ -1,0 +1,174 @@
+"""The port's train and eval entry points against the JAX CLIs, on the CPU.
+
+  * the port's train and eval parsers agree with the root ``opt.get_opts``
+    and ``eval.get_opts`` on every flag: its option strings, type, default,
+    choices, nargs, requiredness and action;
+  * ``python -m nerf_fl_torch.train`` and ``python -m nerf_fl_torch.eval``
+    run with NERF_FL_TORCH_DEVICE=cpu on a tiny scene, train starting from
+    an untrained JAX checkpoint (weights only, loaded non-strictly);
+  * eval of that JAX checkpoint: the port's Mean PSNR and Mean SSIM equal
+    the JAX eval.py's within 1e-3, and its PNGs differ by at most 1 level;
+  * without the device request and without a card both entry points raise,
+    and eval's unported options raise with their ROADMAP item.
+"""
+import argparse
+import os
+import re
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import eval as jeval
+import opt as jopt_cli
+from nerf_fl_tpu.data.synthetic import make_blender_scene
+from nerf_fl_tpu.render import RenderConfig as JRenderConfig
+from nerf_fl_tpu.training import checkpoints as jckpt
+from nerf_fl_tpu.training import system as jsys
+from nerf_fl_torch import eval as teval
+from nerf_fl_torch import opt as topt
+from nerf_fl_torch import train as ttrain
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODEL = ["--N_samples", "8", "--N_importance", "8", "--mlp_depth", "2",
+         "--mlp_width", "32", "--encode_a", "--encode_t", "--N_vocab", "8",
+         "--img_wh", "40", "40"]
+
+
+def _flags(parser):
+    out = {}
+    for a in parser._actions:
+        if isinstance(a, argparse._HelpAction):
+            continue
+        out[a.dest] = (tuple(a.option_strings), a.type, a.default,
+                       tuple(a.choices) if a.choices else None, a.nargs,
+                       a.required, type(a).__name__, a.const)
+    return out
+
+
+def _eval_parser(module, monkeypatch):
+    seen = {}
+    orig = argparse.ArgumentParser.parse_args
+
+    def capture(self, args=None, namespace=None):
+        seen["parser"] = self
+        return orig(self, args, namespace)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    module.get_opts(["--root_dir", "r", "--ckpt_path", "c"])
+    monkeypatch.undo()
+    return seen["parser"]
+
+
+def test_train_parser_matches_jax():
+    want, got = _flags(jopt_cli.get_parser()), _flags(topt.get_parser())
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k] == want[k], k
+
+
+def test_eval_parser_matches_jax(monkeypatch):
+    want = _flags(_eval_parser(jeval, monkeypatch))
+    got = _flags(_eval_parser(teval, monkeypatch))
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k] == want[k], k
+
+
+@pytest.fixture(scope="module")
+def scene_and_jax_ckpt(tmp_path_factory):
+    root = tmp_path_factory.mktemp("entry")
+    scene = str(root / "scene")
+    make_blender_scene(scene, n_train=3, n_val=1, n_test=2, size=40)
+    cfg = JRenderConfig(N_samples=8, N_importance=8, encode_a=True,
+                        encode_t=True, mlp_depth=2, mlp_width=32)
+    ckpt = str(root / "jax.ckpt")
+    jckpt.save_checkpoint(ckpt, jsys.build_params(jax.random.PRNGKey(3),
+                                                  cfg, 8))
+    return scene, ckpt
+
+
+def _run(module, argv, cwd, env=None):
+    env = {**os.environ, "PYTHONPATH": ROOT, **(env or {})}
+    return subprocess.run([sys.executable, "-m", module] + argv, cwd=cwd,
+                          capture_output=True, text=True, timeout=600,
+                          env=env)
+
+
+def test_cli_train_and_eval_run_on_the_cpu(scene_and_jax_ckpt, tmp_path):
+    scene, jax_ckpt = scene_and_jax_ckpt
+    env = {"NERF_FL_TORCH_DEVICE": "cpu"}
+    out = _run("nerf_fl_torch.train", [
+        "--root_dir", scene, *MODEL, "--batch_size", "256", "--num_epochs",
+        "1", "--exp_name", "cli", "--save_path", "ckpts", "--ckpt_path",
+        jax_ckpt, "--refresh_every", "0", "--steps_per_execution", "2"],
+        tmp_path, env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "loaded weights (non-strict)" in out.stdout
+    assert "val/psnr=" in out.stdout
+    ckpt = tmp_path / "ckpts" / "cli" / "epoch=0.ckpt"
+    assert ckpt.exists()
+    assert (tmp_path / "logs" / "cli" / "metrics.jsonl").exists()
+    out = _run("nerf_fl_torch.eval", [
+        "--root_dir", scene, *MODEL, "--split", "test", "--ckpt_path",
+        str(ckpt), "--scene_name", "cli", "--compute_ssim"], tmp_path, env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert re.search(r"Mean PSNR : \d+\.\d\d", out.stdout)
+    assert re.search(r"Mean SSIM : \d\.\d{4}", out.stdout)
+    res = tmp_path / "results" / "blender" / "cli"
+    assert sorted(os.listdir(res)) == ["000.png", "001.png", "cli.gif"]
+
+
+def test_eval_of_a_jax_checkpoint_matches_jax_eval(scene_and_jax_ckpt,
+                                                   tmp_path, monkeypatch,
+                                                   capsys):
+    scene, jax_ckpt = scene_and_jax_ckpt
+    argv = ["--root_dir", scene, *MODEL, "--split", "test", "--ckpt_path",
+            jax_ckpt, "--scene_name", "s", "--compute_ssim"]
+    os.makedirs(tmp_path / "j", exist_ok=True)
+    os.makedirs(tmp_path / "t", exist_ok=True)
+    monkeypatch.chdir(tmp_path / "j")
+    want_psnr = jeval.main(jeval.get_opts(argv))
+    want_ssim = float(re.search(r"Mean SSIM : (\S+)",
+                                capsys.readouterr().out).group(1))
+    monkeypatch.chdir(tmp_path / "t")
+    stats = {}
+    got_psnr = teval.main(teval.get_opts(argv), device="cpu", stats=stats)
+    assert abs(got_psnr - want_psnr) <= 1e-3, (got_psnr, want_psnr)
+    assert abs(np.mean(stats["ssim"]) - want_ssim) <= 1e-3
+    for name in ("000.png", "001.png"):
+        a = np.asarray(Image.open(tmp_path / "j/results/blender/s" / name))
+        b = np.asarray(Image.open(tmp_path / "t/results/blender/s" / name))
+        assert a.shape == b.shape == (40, 40, 3)
+        assert np.abs(a.astype(int) - b).max() <= 1
+
+
+def test_entry_points_raise_without_a_card_or_a_request(scene_and_jax_ckpt,
+                                                        tmp_path,
+                                                        monkeypatch):
+    scene, jax_ckpt = scene_and_jax_ckpt
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("NERF_FL_TORCH_DEVICE", raising=False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(topt.get_opts(["--root_dir", scene, *MODEL]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        teval.main(teval.get_opts(["--root_dir", scene, *MODEL,
+                                   "--ckpt_path", jax_ckpt]))
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--optimize_appearance"], "A.7"), (["--refine_pose"], "A.7"),
+    (["--video_format", "mp4"], "A.6"), (["--save_depth"], "A.6"),
+    (["--num_gpus", "2"], "A.8"), (["--dataset_name", "phototourism"],
+                                   "A.6")])
+def test_eval_refuses_unported_options(scene_and_jax_ckpt, flag, item):
+    scene, jax_ckpt = scene_and_jax_ckpt
+    args = teval.get_opts(["--root_dir", scene, *MODEL, "--ckpt_path",
+                           jax_ckpt] + flag)
+    with pytest.raises(NotImplementedError, match=f"not ported yet.*{item}"):
+        teval.main(args, device="cpu")

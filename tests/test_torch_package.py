@@ -29,11 +29,17 @@ PORT_MODULES = {
     "nerf_fl_torch.core", "nerf_fl_torch.core.compositing",
     "nerf_fl_torch.core.encoding", "nerf_fl_torch.core.rays",
     "nerf_fl_torch.core.sampling", "nerf_fl_torch.data",
-    "nerf_fl_torch.data.sampler", "nerf_fl_torch.models",
+    "nerf_fl_torch.data.sampler", "nerf_fl_torch.data.blender",
+    "nerf_fl_torch.data.image_io", "nerf_fl_torch.data.perturbations",
+    "nerf_fl_torch.data.rays_np", "nerf_fl_torch.data.synthetic",
+    "nerf_fl_torch.eval", "nerf_fl_torch.opt", "nerf_fl_torch.train",
+    "nerf_fl_torch.utils", "nerf_fl_torch.utils.cli",
+    "nerf_fl_torch.utils.visualization", "nerf_fl_torch.models",
     "nerf_fl_torch.models.embeddings", "nerf_fl_torch.models.mlp",
     "nerf_fl_torch.experiments", "nerf_fl_torch.experiments.kernel_anatomy",
     "nerf_fl_torch.experiments.kernel_anatomy2",
     "nerf_fl_torch.experiments.chain_ablation",
+    "nerf_fl_torch.experiments.entry_views",
     "nerf_fl_torch.experiments.fused_ablation",
     "nerf_fl_torch.experiments.pe_ablation",
     "nerf_fl_torch.experiments.probe_timing",
@@ -44,7 +50,8 @@ PORT_MODULES = {
     "nerf_fl_torch.render", "nerf_fl_torch.render.renderer",
     "nerf_fl_torch.training", "nerf_fl_torch.training.losses",
     "nerf_fl_torch.training.metrics", "nerf_fl_torch.training.optimizers",
-    "nerf_fl_torch.training.system",
+    "nerf_fl_torch.training.system", "nerf_fl_torch.training.checkpoints",
+    "nerf_fl_torch.training.logging",
 }
 
 
@@ -107,3 +114,44 @@ def test_chip_smoke_refuses_without_the_package(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# the libraries the port does without, and the JAX side
+_BLOCKED = ("PIL", "pandas", "imageio", "cv2", "flax", "msgpack",
+            "tensorboard", "jax", "jaxlib", "optax", "nerf_fl_tpu")
+
+_TRAIN_EVAL_BLOCKED = r"""
+import os, sys
+for name in BLOCKED:
+    sys.modules[name] = None
+from nerf_fl_torch.data.synthetic import make_blender_scene
+from nerf_fl_torch import eval as ev, opt, train
+make_blender_scene("scene", n_train=2, n_val=1, n_test=1, size=24)
+model = ["--root_dir", "scene", "--img_wh", "24", "24", "--N_samples", "4",
+         "--N_importance", "4", "--mlp_depth", "2", "--mlp_width", "16",
+         "--encode_a", "--encode_t", "--N_vocab", "4"]
+train.main(opt.get_opts(model + ["--batch_size", "128", "--num_epochs", "1",
+                                 "--save_path", "ckpts", "--exp_name", "b",
+                                 "--refresh_every", "0"]), device="cpu")
+psnr = ev.main(ev.get_opts(model + ["--ckpt_path", "ckpts/b/epoch=0.ckpt",
+                                    "--split", "test", "--compute_ssim"]),
+               device="cpu")
+bad = sorted(m for m in sys.modules if sys.modules[m] is not None
+             and m.split(".")[0] in BLOCKED)
+print("PSNR", psnr, "BAD", bad)
+"""
+
+
+def test_train_and_eval_need_none_of_the_missing_libraries(tmp_path):
+    """Train and eval on the CPU in a process where PIL, pandas, imageio,
+    cv2, flax, msgpack, tensorboard, jax and the JAX package cannot be
+    imported: train and eval need only torch, numpy and the standard
+    library."""
+    code = f"BLOCKED = {_BLOCKED!r}\n" + _TRAIN_EVAL_BLOCKED
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BAD []" in out.stdout, out.stdout[-2000:]
+    assert "JSONL only" in out.stdout
+    assert (tmp_path / "results" / "blender" / "test" / "test.gif").exists()
