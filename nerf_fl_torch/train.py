@@ -11,11 +11,10 @@ it raises.
 """
 from .device import entry_device
 from .opt import get_opts
-from .training.system import NeRFSystem, refuse_unported
+from .training.system import NeRFSystem
 
 
 def main(hparams, device=None) -> NeRFSystem:
-    refuse_unported(hparams)
     system = NeRFSystem(hparams, device=entry_device(device))
     system.setup()
     system.configure()

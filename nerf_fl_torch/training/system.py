@@ -783,7 +783,6 @@ class NeRFSystem:
         from .optimizers import (build_optimizer, make_trainable_mask,
                                  trainable_parameters)
         h, dev = self.hparams, self.device
-        refuse_unported(h)
         seed = getattr(h, "seed", 0)
         self.params = build_params(
             self.cfg, h.N_vocab, generator=torch.Generator().manual_seed(seed),
@@ -839,9 +838,10 @@ class NeRFSystem:
         leaves = dict(named_leaves(self.params))
         if "opt_state" in ckpt:
             sd = ckpt["state_dict"]
-            have = {f"{k}.{n}" if isinstance(v, dict) else k
-                    for k, v in sd.items()
-                    for n in (v if isinstance(v, dict) else [None])}
+            have = set()
+            for k, v in sd.items():
+                have |= {f"{k}.{n}" for n in v} if isinstance(v, dict) \
+                    else {k}
             missing = sorted(set(leaves) - have)
             if missing:
                 raise ValueError(f"{path} lacks {missing} for a full resume")
