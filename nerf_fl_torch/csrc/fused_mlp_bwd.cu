@@ -361,7 +361,8 @@ fused_mlp_bwd_kernel(const float* __restrict__ inp,
                      const float* __restrict__ sd, int nfx, int nfd,
                      int a_dim, int t_dim, int k0, int kd, int kt,
                      int has_transient, T* scratch_all, float* partial_all,
-                     Layout L) {
+                     Layout L, unsigned long long* runs) {
+  count_run(runs);
   constexpr int ALD = Ld<T>::P0;
   constexpr int BLD = Ld<T>::P1;
   constexpr int GLD = Ld<T>::GH;
@@ -615,7 +616,9 @@ fused_mlp_bwd_bf16_kernel(const float* __restrict__ inp,
                           int a_dim, int t_dim, int k0, int kd, int kt,
                           int has_transient, unsigned char* scratch,
                           const __grid_constant__ TileMap tm,
-                          uint32_t* masks, float* dbpart, int db_stride) {
+                          uint32_t* masks, float* dbpart, int db_stride,
+                          unsigned long long* runs) {
+  count_run(runs);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* stages = smem + CONSUMERS * B_ACT_BYTES;
@@ -1214,7 +1217,7 @@ int launch_f32(const float* inp, const float* g, float* d_inp, int n,
                const void* const* w, const float* const* b, const float* sx,
                const float* sd, int nfx, int nfd, int a_dim, int t_dim,
                int has_transient, void* scratch, float* partial, float* grads,
-               cudaStream_t stream) {
+               unsigned long long* runs, cudaStream_t stream) {
   using T = float;
   Dims d;
   if (!dims(n, nfx, nfd, a_dim, t_dim, has_transient, &d))
@@ -1233,7 +1236,7 @@ int launch_f32(const float* inp, const float* g, float* d_inp, int n,
   if (d.n_part > 0) {
     fused_mlp_bwd_kernel<T><<<d.n_part, THREADS, smem, stream>>>(
         inp, g, d_inp, n, net, sx, sd, nfx, nfd, a_dim, t_dim, d.k0, d.kd,
-        d.kt, has_transient, static_cast<T*>(scratch), partial, L);
+        d.kt, has_transient, static_cast<T*>(scratch), partial, L, runs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -1323,7 +1326,7 @@ int launch_bf16(const float* inp, const float* g, float* d_inp, int n,
                 const float* const* b, const float* sx, const float* sd,
                 int nfx, int nfd, int a_dim, int t_dim, int has_transient,
                 void* scratch, float* partial, float* grads,
-                cudaStream_t stream) {
+                unsigned long long* runs, cudaStream_t stream) {
   Dims d;
   if (!dims(n, nfx, nfd, a_dim, t_dim, has_transient, &d))
     return (int)cudaErrorInvalidValue;
@@ -1365,7 +1368,7 @@ int launch_bf16(const float* inp, const float* g, float* d_inp, int n,
     hb::fused_mlp_bwd_bf16_kernel<<<grid, hop::H_THREADS, hb::B_SMEM, stream>>>(
         inp, g, d_inp, n, static_cast<const unsigned char*>(image), plan,
         bias, sx, sd, nfx, nfd, a_dim, t_dim, d.k0, d.kd, d.kt, has_transient,
-        tiles, tm, masks, db_part, w.db_stride);
+        tiles, tm, masks, db_part, w.db_stride, runs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     hb::wgrad_kernel<<<dim3(wp.n_units, w.splits), hop::H_THREADS, hb::W_SMEM,
@@ -1421,23 +1424,26 @@ int nerf_fused_mlp_bwd_sizes(int dtype, int n, int grid, int nfx, int nfd,
 // from `image` (fused_mlp.py:weight_image with backward=True) and runs
 // `grid` persistent blocks; float32 ignores the three.  scratch / partial
 // are workspaces of the sizes above; grads receives the summed f32 grads.
-// bfloat16 writes only d_inp's live columns: the caller zeroes it.
-// Returns 0 or the cudaError_t of the first failed launch.
+// bfloat16 writes only d_inp's live columns: the caller zeroes it.  The
+// fused kernel (not the wgrad or the reductions) adds one to *runs each
+// time it runs, a CUDA graph's replays included.  Returns 0 or the
+// cudaError_t of the first failed launch.
 int nerf_fused_mlp_bwd(int dtype, const float* inp, const float* g,
                        float* d_inp, int n, const void* const* w,
                        const float* const* b, const void* image,
                        long long image_bytes, int grid, const float* sx,
                        const float* sd, int nfx, int nfd, int a_dim,
                        int t_dim, int has_transient, void* scratch,
-                       float* partial, float* grads, void* stream) {
+                       float* partial, float* grads, unsigned long long* runs,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch_bf16(inp, g, d_inp, n, image, image_bytes, grid, b, sx, sd,
                        nfx, nfd, a_dim, t_dim, has_transient, scratch, partial,
-                       grads, s);
+                       grads, runs, s);
   if (dtype == 0)
     return launch_f32(inp, g, d_inp, n, w, b, sx, sd, nfx, nfd, a_dim, t_dim,
-                      has_transient, scratch, partial, grads, s);
+                      has_transient, scratch, partial, grads, runs, s);
   return (int)cudaErrorInvalidValue;
 }
 

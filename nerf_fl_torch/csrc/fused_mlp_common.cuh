@@ -78,6 +78,15 @@ template <> __device__ __forceinline__ float to_t<float>(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
 
+// One added to *runs by the first thread of the grid each time a kernel
+// runs: the fused kernels' count on the device, which sees a CUDA graph's
+// replays as well as direct launches.
+__device__ __forceinline__ void count_run(unsigned long long* runs) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 &&
+      threadIdx.y == 0)
+    atomicAdd(runs, 1ULL);
+}
+
 // sin(x + 2 pi q) by Cody-Waite reduction and an odd polynomial in turns.
 __device__ __forceinline__ float sin_cw(float x, float q) {
   float n = rintf(__fmul_rn(x, INV_2PI));

@@ -119,8 +119,9 @@ fused_mlp_fwd_f32_kernel(const float* __restrict__ inp, float* __restrict__ out,
                      int n, Net net, const float* __restrict__ sx,
                      const float* __restrict__ sd, int nfx, int nfd,
                      int a_dim, int t_dim, int k0, int kd, int kt,
-                     int has_transient) {
+                     int has_transient, unsigned long long* runs) {
   using T = float;
+  count_run(runs);
   constexpr int PAD = Cfg<T>::PAD;
   constexpr int ALD = ACT_W + PAD;
   constexpr int HLD = W_HALF + PAD;
@@ -215,8 +216,9 @@ fused_mlp_fwd_bf16_kernel(const float* __restrict__ inp,
                           const float* __restrict__ sx,
                           const float* __restrict__ sd, int nfx, int nfd,
                           int a_dim, int t_dim, int k0, int kd, int kt,
-                          int has_transient) {
+                          int has_transient, unsigned long long* runs) {
   using namespace hop;
+  count_run(runs);
   extern __shared__ unsigned char smem_raw[];
   // the swizzle is a function of the address: tiles sit on 1024 bytes
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -438,7 +440,7 @@ bool dims(int n, int nfx, int nfd, int a_dim, int t_dim, Dims* d) {
 int launch_f32(const float* inp, float* out, int n, const void* const* w,
                const float* const* b, const float* sx, const float* sd,
                int nfx, int nfd, int a_dim, int t_dim, int has_transient,
-               cudaStream_t stream) {
+               unsigned long long* runs, cudaStream_t stream) {
   Dims d;
   if (!dims(n, nfx, nfd, a_dim, t_dim, &d)) return (int)cudaErrorInvalidValue;
   const int n_w = has_transient ? N_LAYERS : L_T0;
@@ -456,14 +458,15 @@ int launch_f32(const float* inp, float* out, int n, const void* const* w,
   const int grid = (n + TILE_M - 1) / TILE_M;
   fused_mlp_fwd_f32_kernel<<<grid, THREADS, smem, stream>>>(
       inp, out, n, net, sx, sd, nfx, nfd, a_dim, t_dim, d.k0, d.kd, d.kt,
-      has_transient);
+      has_transient, runs);
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const float* inp, float* out, int n, const void* image,
                 long long image_bytes, int grid, const float* const* b,
                 const float* sx, const float* sd, int nfx, int nfd, int a_dim,
-                int t_dim, int has_transient, cudaStream_t stream) {
+                int t_dim, int has_transient, unsigned long long* runs,
+                cudaStream_t stream) {
   Dims d;
   if (!dims(n, nfx, nfd, a_dim, t_dim, &d)) return (int)cudaErrorInvalidValue;
   if (!has_transient) d.kt = 0;
@@ -484,7 +487,7 @@ int launch_bf16(const float* inp, float* out, int n, const void* image,
   if (n == 0) return 0;
   fused_mlp_fwd_bf16_kernel<<<grid, hop::H_THREADS, hop::SMEM_BYTES, stream>>>(
       inp, out, n, static_cast<const unsigned char*>(image), plan, bias, sx,
-      sd, nfx, nfd, a_dim, t_dim, d.k0, d.kd, d.kt, has_transient);
+      sd, nfx, nfd, a_dim, t_dim, d.k0, d.kd, d.kt, has_transient, runs);
   return (int)cudaGetLastError();
 }
 
@@ -496,19 +499,22 @@ extern "C" {
 // pointers, in the layer order of nerf_fl_torch/ops/fused_mlp.py:pack_weights.
 // bfloat16 reads its weights from `image` (image_bytes long; fused_mlp.py:
 // weight_image) and runs `grid` persistent blocks (fused_mlp.py:fwd_grid);
-// float32 ignores the three.  Returns 0 or the cudaError_t of the launch.
+// float32 ignores the three.  The kernel adds one to *runs each time it
+// runs (a CUDA graph's replays included).  Returns 0 or the cudaError_t of
+// the launch.
 int nerf_fused_mlp_fwd(int dtype, const float* inp, float* out, int n,
                        const void* const* w, const float* const* b,
                        const void* image, long long image_bytes, int grid,
                        const float* sx, const float* sd, int nfx, int nfd,
-                       int a_dim, int t_dim, int has_transient, void* stream) {
+                       int a_dim, int t_dim, int has_transient,
+                       unsigned long long* runs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch_bf16(inp, out, n, image, image_bytes, grid, b, sx, sd, nfx,
-                       nfd, a_dim, t_dim, has_transient, s);
+                       nfd, a_dim, t_dim, has_transient, runs, s);
   if (dtype == 0)
     return launch_f32(inp, out, n, w, b, sx, sd, nfx, nfd, a_dim, t_dim,
-                      has_transient, s);
+                      has_transient, runs, s);
   return (int)cudaErrorInvalidValue;
 }
 

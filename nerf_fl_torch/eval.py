@@ -56,26 +56,17 @@ def max_split_ts(dataset, split: str) -> int:
     return 0
 
 
-def build_eval_state(args, device):
-    """Config and params rebuilt from the flags, each submodule loaded by
-    name from ``--ckpt_path``."""
+def build_eval_state(args, device, white_back: bool):
+    """Config (the train flags' config at test time: perturb 0, noise 0)
+    and params rebuilt from the flags, each submodule loaded by name from
+    ``--ckpt_path``."""
+    from dataclasses import replace
+
     import torch
-    from .render import RenderConfig
     from .training import checkpoints
-    from .training.system import _TRISTATE, build_params
-    cfg = RenderConfig(
-        N_samples=args.N_samples, N_importance=args.N_importance,
-        use_disp=args.use_disp, perturb=0.0, noise_std=0.0,
-        N_emb_xyz=args.N_emb_xyz, N_emb_dir=args.N_emb_dir,
-        encode_a=args.encode_a, N_a=args.N_a,
-        encode_t=args.encode_t, N_tau=args.N_tau,
-        beta_min=args.beta_min, compute_dtype=args.compute_dtype,
-        barf_schedule=args.barf_schedule,
-        barf_epoch_start=args.barf_epochs[0],
-        barf_epoch_end=args.barf_epochs[1],
-        use_fused=_TRISTATE[args.use_pallas],
-        fast_trig=_TRISTATE[args.fast_trig],
-        mlp_depth=args.mlp_depth, mlp_width=args.mlp_width)
+    from .training.system import build_params, config_from_hparams
+    cfg = replace(config_from_hparams(args, white_back), perturb=0.0,
+                  noise_std=0.0)
     params = build_params(cfg, args.N_vocab,
                           generator=torch.Generator().manual_seed(0),
                           device=device)
@@ -89,7 +80,6 @@ def main(args, device=None, stats=None):
     truth).  ``stats``, a dict, receives the per-frame PSNR / SSIM and the
     frame, dispatch, drain and host seconds."""
     from concurrent.futures import ThreadPoolExecutor
-    from dataclasses import replace
 
     import torch
     from .data import dataset_dict
@@ -105,8 +95,7 @@ def main(args, device=None, stats=None):
     dev = entry_device(device)
     dataset = dataset_dict[args.dataset_name](
         root_dir=args.root_dir, split=args.split, img_wh=tuple(args.img_wh))
-    cfg, params = build_eval_state(args, dev)
-    cfg = replace(cfg, white_back=dataset.white_back)
+    cfg, params = build_eval_state(args, dev, dataset.white_back)
     if cfg.encode_a or cfg.encode_t:
         validate_vocab(args.N_vocab, max_split_ts(dataset, args.split))
 

@@ -662,7 +662,7 @@ def _lib() -> ctypes.CDLL:
          ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
          ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p]
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p])
     lib.nerf_fused_mlp_fwd.restype = ctypes.c_int
     lib.nerf_fused_mlp_fwd_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.nerf_fused_mlp_fwd_info.restype = None
@@ -681,8 +681,7 @@ def _lib_bwd() -> ctypes.CDLL:
          ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_longlong,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         + [ctypes.c_int] * 5
-        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-           ctypes.c_void_p])
+        + [ctypes.c_void_p] * 5)
     lib.nerf_fused_mlp_bwd.restype = ctypes.c_int
     lib.nerf_fused_mlp_bwd_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.nerf_fused_mlp_bwd_info.restype = None
@@ -737,6 +736,42 @@ def _ptrs(ts):
     return (ctypes.c_void_p * N_LAYERS)(*[t.data_ptr() for t in ts])
 
 
+_RUNS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _runs(dev: torch.device) -> torch.Tensor:
+    """The card's (2,) int64 counter of fused forward / backward kernel
+    runs, to which each kernel adds one from its first thread.  A CUDA
+    graph bakes its address in, so it lives as long as the process; it is
+    made outside any capture (a capture would record, and each replay
+    repeat, its zeroing)."""
+    runs = _RUNS.get(dev)
+    if runs is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the fused kernels' run counter must exist "
+                               "before a CUDA graph captures them: launch "
+                               "once outside the capture first")
+        runs = _RUNS[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return runs
+
+
+def kernel_runs(device=None):
+    """(forward, backward): the fused kernels that have run on ``device``
+    (None: the current CUDA device) in this process, counted on the card
+    by the kernels themselves.  Unlike the wrappers' ``launches``, which
+    count the host calls that launch (or, under a capture, record) a
+    kernel, it counts each run of a CUDA graph's replay.  Synchronizes the
+    device."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _RUNS:
+        return 0, 0
+    torch.cuda.synchronize(dev)
+    fwd, bwd = _RUNS[dev].tolist()
+    return fwd, bwd
+
+
 def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
                        sd: torch.Tensor, *, n_freq_xyz: int, n_freq_dir: int,
                        a_dim: int, t_dim: int, has_transient: bool,
@@ -745,10 +780,12 @@ def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
     f32 input -> (N, 16) f32 pre-activations.  bf16 runs the wgmma kernel
     on ``weight_image(net)`` with ``fwd_grid`` persistent blocks, f32 the
     exact CUDA-core kernel on ``net.ws``.  Counts its launches in
-    ``fused_mlp_fwd_cuda.launches``."""
+    ``fused_mlp_fwd_cuda.launches``; the kernel counts its runs on the card
+    (``kernel_runs``)."""
     _check_operands("fused_mlp_fwd_cuda", inp, net, sx, sd, has_transient,
                     dtype)
     dev, n = inp.device, inp.shape[0]
+    runs = _runs(dev)
     out = torch.empty((n, OUT_W), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     image, image_ptr, image_bytes, grid = None, None, 0, 0
@@ -763,7 +800,8 @@ def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
             _DTYPE_CODE[dtype], inp.data_ptr(), out.data_ptr(), n,
             _ptrs(net.ws), _ptrs(net.bs), image_ptr, image_bytes, grid,
             sx.data_ptr(), sd.data_ptr(),
-            n_freq_xyz, n_freq_dir, a_dim, t_dim, int(has_transient), stream)
+            n_freq_xyz, n_freq_dir, a_dim, t_dim, int(has_transient),
+            runs.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -786,10 +824,12 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
     grads.  Same operands as ``fused_mlp_bwd_reference`` plus the (N, 16)
     f32 cotangent ``g``; returns (dws, dbs, d_inp) as it does.
     Deterministic: two launches on the same inputs give bitwise-equal
-    results.  Counts its launches in ``fused_mlp_bwd_cuda.launches``."""
+    results.  Counts its launches in ``fused_mlp_bwd_cuda.launches``; the
+    fused kernel counts its runs on the card (``kernel_runs``)."""
     shapes = _check_operands("fused_mlp_bwd_cuda", inp, net, sx, sd,
                              has_transient, dtype)
     dev, n = inp.device, inp.shape[0]
+    runs = _runs(dev)
     if g.dtype != torch.float32 or tuple(g.shape) != (n, OUT_W) \
             or g.device != dev or not g.is_contiguous():
         raise ValueError("g must be a contiguous (N, 16) float32 tensor on "
@@ -827,7 +867,8 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
             d_inp.data_ptr(), n, _ptrs(net.ws), _ptrs(net.bs), image_ptr,
             image_bytes, grid, sx.data_ptr(), sd.data_ptr(), n_freq_xyz,
             n_freq_dir, a_dim, t_dim, int(has_transient), scratch.data_ptr(),
-            partial.data_ptr(), grads.data_ptr(), stream)
+            partial.data_ptr(), grads.data_ptr(), runs.data_ptr() + 8,
+            stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_bwd kernel launch failed: CUDA error "
                            f"{err}")

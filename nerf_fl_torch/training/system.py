@@ -277,10 +277,12 @@ class _StepGraph:
     capture on that stream.  The eager sub-step is the call's first one,
     so no step is taken that the caller did not ask for; if the capture
     then fails, the call raises after that first sub-step.  ``captures``
-    counts the captures; ``fused_launches`` holds the fused forward and
-    backward launches that one sub-step made while it was captured.  The
-    wrappers' launch counts rise by those at each replay, where the kernels
-    run, and not at the capture, which runs none.
+    counts the captures and ``replays`` the replays; ``fused_launches``
+    holds the fused forward and backward launches that the captured
+    sub-step recorded.  The wrappers' ``launches`` count those calls (the
+    eager sub-step's and the capture's) and nothing at a replay, which makes
+    no host call; the kernels' own count on the card
+    (``fused_mlp.kernel_runs``) sees every run.
     """
 
     def __init__(self, body, optimizer: torch.optim.Optimizer,
@@ -302,7 +304,7 @@ class _StepGraph:
         self.names = self.out = None
         self.statics: Dict[str, Any] = {}
         self.k = torch.zeros(1, dtype=torch.int64, device=self.device)
-        self.captures = 0
+        self.captures = self.replays = 0
         self.fused_launches = None
 
     def sub_step(self, params, epoch, generator, load):
@@ -329,22 +331,17 @@ class _StepGraph:
         self.k.zero_()
         if self.out is not None:
             self.out.fill_(float("nan"))
-        first = 0
         if self.device.type != "cuda":
             for _ in range(n_valid):
                 self.sub_step(params, epoch, generator, load)
         else:
-            from ..ops import fused_mlp as fm
+            first = 0
             if fresh:
                 self._capture(params, epoch, generator, load)
                 first = 1
             for _ in range(first, n_valid):
                 self.graph.replay()
-            # a replay launches the kernels its capture recorded
-            fm.fused_mlp_fwd_cuda.launches += \
-                self.fused_launches[0] * (n_valid - first)
-            fm.fused_mlp_bwd_cuda.launches += \
-                self.fused_launches[1] * (n_valid - first)
+            self.replays += n_valid - first
         self.key = key
         res = self.out.clone()
         return {n: res[:, j] for j, n in enumerate(self.names)}
@@ -374,10 +371,6 @@ class _StepGraph:
                 graph.capture_end()
         self.fused_launches = (fm.fused_mlp_fwd_cuda.launches - before[0],
                                fm.fused_mlp_bwd_cuda.launches - before[1])
-        # a capture records the launches and runs none: they are counted
-        # at each replay
-        fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches = \
-            before
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.graph = graph
         self.captures += 1
@@ -565,12 +558,14 @@ def render_chunked_async(params, rays, ts, cfg: RenderConfig, *,
 
 def config_from_hparams(hparams, white_back: bool) -> RenderConfig:
     """The render config of a train run's flags (``--use_pallas`` is
-    ``use_fused``: auto None, on True, off False)."""
+    ``use_fused``: auto None, on True, off False); flags absent from
+    ``hparams`` (eval's have no --perturb / --noise_std) count as the train
+    parser's defaults."""
     g = functools.partial(getattr, hparams)
     return RenderConfig(
         N_samples=hparams.N_samples, N_importance=hparams.N_importance,
-        use_disp=hparams.use_disp, perturb=hparams.perturb,
-        noise_std=hparams.noise_std, white_back=white_back,
+        use_disp=hparams.use_disp, perturb=g("perturb", 1.0),
+        noise_std=g("noise_std", 1.0), white_back=white_back,
         N_emb_xyz=hparams.N_emb_xyz, N_emb_dir=hparams.N_emb_dir,
         encode_a=hparams.encode_a, N_a=hparams.N_a,
         encode_t=hparams.encode_t, N_tau=hparams.N_tau,
@@ -730,6 +725,16 @@ class DevicePrefetcher:
                 self._q.get_nowait()
             except queue.Empty:
                 return
+
+
+# Kineto keeps a device record only if its timestamp, moved onto the host
+# clock, lies between the profiler's start and stop.  On an H100 (torch
+# 2.11, CUDA 12.8) the moved clock read up to ~1 ms early or late, at times
+# ~14 ms, so windows that began and ended in a synchronize lost their first
+# or last kernels' records; with this much quiet inside the profiler on
+# each side no window lost a fused kernel's record
+# (experiments/trace_records.py)
+PROFILE_MARGIN_S = 0.1
 
 
 class NeRFSystem:
@@ -913,7 +918,13 @@ class NeRFSystem:
     def _profiler(self):
         """(before(), after(n_real)) around each step call: a torch.profiler
         window over steps +100 to +120 of this run, written as a Chrome
-        trace into --profile_dir."""
+        trace into --profile_dir.  On the card the window also keeps the
+        fused kernels' runs in it as the kernels count them
+        (``fused_mlp.kernel_runs``), beside which the trace's count of them
+        can be held.  The profiler keeps a quiet margin of
+        ``PROFILE_MARGIN_S`` on each side of the window's work, outside its
+        timed seconds."""
+        from ..ops import fused_mlp as fm
         prof_dir = getattr(self.hparams, "profile_dir", None)
         start, stop = self.global_step + 100, self.global_step + 120
         st = {"prof": None, "done": not prof_dir}
@@ -926,9 +937,10 @@ class NeRFSystem:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if cuda:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
-                torch.cuda.synchronize(self.device)
+                st["runs"] = fm.kernel_runs(self.device)   # synchronizes
             st["prof"] = torch.profiler.profile(activities=acts)
             st["prof"].__enter__()
+            time.sleep(PROFILE_MARGIN_S)
             st["t0"], st["step0"] = time.perf_counter(), self.global_step
 
         def after(n_real):
@@ -937,6 +949,7 @@ class NeRFSystem:
             if cuda:
                 torch.cuda.synchronize(self.device)
             seconds = time.perf_counter() - st["t0"]
+            time.sleep(PROFILE_MARGIN_S)
             st["prof"].__exit__(None, None, None)
             os.makedirs(prof_dir, exist_ok=True)
             path = os.path.join(prof_dir, "trace.json")
@@ -944,6 +957,10 @@ class NeRFSystem:
             self.profile_window = {
                 "trace": path, "seconds": seconds,
                 "steps": self.global_step + n_real - st["step0"]}
+            if cuda:
+                self.profile_window["fused_runs"] = tuple(
+                    b - a for a, b in zip(st["runs"],
+                                          fm.kernel_runs(self.device)))
             st["prof"], st["done"] = None, True
             print(f"[profiler] trace of {self.profile_window['steps']} steps "
                   f"written to {path}")

@@ -74,10 +74,12 @@ def test_kernel_matches_plain_on_card(dtype, a_dim, transient):
     kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
               t_dim=16 if transient else 0, has_transient=transient, dtype=dt)
     before = fm.fused_mlp_fwd_cuda.launches
+    runs = fm.kernel_runs(dev)
     got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
     ref = fm.fused_mlp_reference(inp, net, sx, sd, **kw)
     torch.cuda.synchronize()
     assert fm.fused_mlp_fwd_cuda.launches == before + 1
+    assert fm.kernel_runs(dev) == (runs[0] + 1, runs[1])
     torch.testing.assert_close(got, ref, rtol=0,
                                atol=2e-4 if dtype == "float32" else 3e-2)
 
@@ -234,12 +236,14 @@ def test_backward_through_wrapper_fills_grads(transient):
     xyz.requires_grad_(True)
     a.requires_grad_(True)
     before = (fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches)
+    runs = fm.kernel_runs(dev)
     out = fm.fused_apply_nerf(model, xyz, dirs, a, t if transient else None,
                               output_transient=transient)
     sum(v.sum() for v in out.values()).backward()
     torch.cuda.synchronize()
     assert (fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches) \
         == (before[0] + 1, before[1] + 1)
+    assert fm.kernel_runs(dev) == (runs[0] + 1, runs[1] + 1)
     lins = fm.field_linears(model, transient)
     for lin in lins:
         for p in (lin.weight, lin.bias):
@@ -762,7 +766,9 @@ def test_graph_k_step_equals_eager_steps_on_card(dtype, pool):
 def test_graph_is_captured_once_a_key_and_launches_the_fused_kernels():
     """The graph is captured at the first call, replayed after, captured
     again for another batch shape; at capture one sub-step launches the
-    fused forward and backward twice each (coarse and fine)."""
+    fused forward and backward twice each (coarse and fine).  The wrappers
+    count the eager first sub-step's launches and the capture's, the graph
+    its replays, and the kernels on the card every run: 2 + 2 a sub-step."""
     from nerf_fl_torch.training import system
     params, _, step, data, gen = _graph_case("bfloat16", GRAPH_K, False)
 
@@ -772,10 +778,18 @@ def test_graph_is_captured_once_a_key_and_launches_the_fused_kernels():
                                      for i in range(GRAPH_K)])[0]
 
     assert step.graph.captures == 0
+    before = (fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches)
+    runs = fm.kernel_runs()
     for _ in range(2):
         step(params, stacked(GRAPH_B), 5e-4, generator=gen)
+    after = fm.kernel_runs()
     assert step.graph.captures == 1
     assert step.graph.fused_launches == (2, 2)
+    assert (fm.fused_mlp_fwd_cuda.launches - before[0],
+            fm.fused_mlp_bwd_cuda.launches - before[1]) == (4, 4)
+    assert step.graph.replays == 2 * GRAPH_K - 1
+    assert (after[0] - runs[0], after[1] - runs[1]) == (4 * GRAPH_K,
+                                                        4 * GRAPH_K)
     m = step(params, stacked(GRAPH_B // 2), 5e-4, generator=gen)
     assert step.graph.captures == 2
     assert bool(torch.isfinite(m["train/loss"]).all())
@@ -867,10 +881,9 @@ def _fit_on_card(root, save, spe, pool, optimizer="adam"):
     s = system.NeRFSystem(hp, logger=NullLogger(), device="cuda")
     s.setup()
     s.configure()
-    before = (fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches)
+    before = fm.kernel_runs()
     s.fit()
-    torch.cuda.synchronize()
-    bwd = fm.fused_mlp_bwd_cuda.launches - before[1]
+    bwd = fm.kernel_runs()[1] - before[1]
     return s, bwd
 
 
@@ -881,8 +894,8 @@ def test_fit_feeds_agree_on_card(tmp_path, optimizer):
     steps an epoch), bf16: host-fed single steps, host-fed groups of 4 (a
     CUDA graph fed through the DevicePrefetcher's pinned side-stream
     copies) and the device pool with 4 train the same batches in the same
-    order, so their parameters agree bit for bit; each sub-step launches
-    the fused backward twice."""
+    order, so their parameters agree bit for bit; the fused backward
+    kernel runs twice a sub-step, as it counts its runs on the card."""
     _card()
     from nerf_fl_torch.data.synthetic import make_blender_scene
     from nerf_fl_torch.training.optimizers import named_leaves

@@ -39,12 +39,12 @@ PORT_MODULES = {
     "nerf_fl_torch.experiments", "nerf_fl_torch.experiments.kernel_anatomy",
     "nerf_fl_torch.experiments.kernel_anatomy2",
     "nerf_fl_torch.experiments.chain_ablation",
-    "nerf_fl_torch.experiments.entry_views",
     "nerf_fl_torch.experiments.fused_ablation",
     "nerf_fl_torch.experiments.pe_ablation",
     "nerf_fl_torch.experiments.probe_timing",
     "nerf_fl_torch.experiments.sass_diff",
     "nerf_fl_torch.experiments.sin_ablation",
+    "nerf_fl_torch.experiments.trace_records",
     "nerf_fl_torch.ops", "nerf_fl_torch.ops._build",
     "nerf_fl_torch.ops.anatomy", "nerf_fl_torch.ops.fused_mlp", "nerf_fl_torch.ops.sorting",
     "nerf_fl_torch.render", "nerf_fl_torch.render.renderer",
