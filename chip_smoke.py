@@ -71,7 +71,28 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      time that the net probes measure, of the chain probes' times by skip
      and of the PE family (matmul PE against multiply-add PE, the five
      extra passes, the product over the bare stream); then run both
-     anatomy entry points and require every result.
+     anatomy entry points and require every result;
+ 10. the in-the-wild entry points: write a Phototourism scene (40 JPEGs
+     of 384 / 320 / 256 px from the port's encoder, three COLMAP cameras,
+     sparse ids, 2,000 points), decode every image, build the ray cache
+     at img_downscale 2 (nerf_fl_torch.prepare_phototourism.main) and
+     hold a dataset built from it to one built from the images bit for
+     bit, train 2 epochs from the cache through nerf_fl_torch.train.main
+     (camera-frame rays posed on the card from the frozen pose table, the
+     flagship at bf16, the device pool as a graph of 20 sub-steps), and
+     evaluate val and test_train with --save_depth and --video_format mp4
+     for the trained and an untrained checkpoint; then write an LLFF
+     capture (8 PNGs at 504 x 378), train it 1 epoch in NDC, and evaluate
+     val and the spiral test path (at 168 x 126): over each fit 2 + 2
+     fused kernel runs a sub-step as the kernels count them, one capture,
+     no plain MLP call; the pose table after fit bit for bit as it
+     began; the last checkpoint reloaded bit for bit, the pose table
+     included; the loss falling; in eval one fused forward launch and one
+     plain (coarse) MLP call a chunk, each PFM read back equal to the
+     depth eval rendered, the mp4 fallback line and the GIF where the JAX
+     CLI writes a video (LLFF) and nowhere else; trained above untrained
+     on the training views by TOUR_SEEN_MARGIN; print each epoch's rays/s
+     beside phase 6's graph step and the data layer's host seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -974,6 +995,24 @@ ENTRY_TRAIN = ["--dataset_name", "blender", "--data_perturb", "color", "occ",
                "--refresh_every", "500"]
 
 
+def _count_plain():
+    """Wrap the renderer's plain MLP path in a call counter; returns
+    (counter dict, restore())."""
+    import nerf_fl_torch.render.renderer as renderer
+    plain = {"calls": 0}
+    apply_nerf = renderer.apply_nerf
+
+    def counted(*a, **k):
+        plain["calls"] += 1
+        return apply_nerf(*a, **k)
+
+    renderer.apply_nerf = counted
+
+    def restore():
+        renderer.apply_nerf = apply_nerf
+    return plain, restore
+
+
 def _trace_busy(window):
     """(kernel seconds, fused forward kernels, fused backward kernels) in
     the Chrome trace of fit's --profile_dir window."""
@@ -1005,7 +1044,6 @@ def phase_entry_points(graph_ms):
     import tempfile
     import numpy as np
     import torch
-    import nerf_fl_torch.render.renderer as renderer
     from nerf_fl_torch import eval as ev
     from nerf_fl_torch import opt, train
     from nerf_fl_torch.data.synthetic import make_blender_scene
@@ -1015,15 +1053,8 @@ def phase_entry_points(graph_ms):
     from nerf_fl_torch.training.system import config_from_hparams, \
         val_chunk_cap
 
-    plain = {"calls": 0}
-    apply_nerf = renderer.apply_nerf
-
-    def counted(*a, **k):
-        plain["calls"] += 1
-        return apply_nerf(*a, **k)
-
+    plain, restore = _count_plain()
     here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_entry_")
-    renderer.apply_nerf = counted
     try:
         os.chdir(tmp)
         t0 = time.perf_counter()
@@ -1200,7 +1231,327 @@ def phase_entry_points(graph_ms):
         return {"train_cli": train_launches, "eval_cli": (efwd, ebwd),
                 "train_graph": train_graph}
     finally:
-        renderer.apply_nerf = apply_nerf
+        restore()
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the in-the-wild entry-points phase: a Phototourism photo collection
+# (three COLMAP cameras, sparse brandenburg-style ids, JPEG images) from
+# its ray cache, and an LLFF capture at fern's 504 x 378, each trained and
+# evaluated through the entry points at the flagship width
+TOUR_SCENE = dict(n_images=40, sizes=[384, 320, 256], n_points=2000)
+TOUR_DOWNSCALE = 2
+LLFF_SCENE = dict(n_images=8, width=504, height=378,
+                  focal=407.5)       # fern's focal (3260 px at 4032) at 504
+WILD_MODEL = ENTRY_MODEL[3:]         # the flagship flags without --img_wh
+WILD_TRAIN = ["--batch_size", "1024", "--optimizer", "adam", "--lr", "5e-4",
+              "--lr_scheduler", "cosine", "--steps_per_execution", "20",
+              "--device_pool", "on", "--refresh_every", "500"]
+# LLFF's spiral test path: 120 frames, rendered at a third of the training
+# size (the same NDC scene: the focal scales with img_wh) to keep the
+# phase inside its time
+LLFF_TEST_WH = ["168", "126"]
+# on its own training views the trained checkpoint must beat the untrained
+# one by this many dB: 2 epochs fit the 39 views of a plain ball on black
+# (phase 8 saw +12.6 dB on its 8 textured views), where the untrained net
+# renders a grey haze
+TOUR_SEEN_MARGIN = 5.0
+WILD_PATHS = ("tour_train_cli", "tour_eval_cli", "llff_train_cli",
+              "llff_eval_cli")
+
+
+def _wild_fit(hp, plain, val_rays, label, graph_ms):
+    """Train through ``nerf_fl_torch.train.main`` with the counts at 0 just
+    before and read just after, and hold fit to its gates: 2 + 2 fused
+    kernel runs a sub-step on the card (+ 2 forward runs a validation
+    chunk), the wrappers' launches of the eager first sub-step and the
+    capture, one capture replayed for every later sub-step, no plain MLP
+    call, a falling logged loss.  Returns (system, wrapper launches, graph
+    counts, fit seconds)."""
+    import numpy as np
+    import torch
+    from nerf_fl_torch import train
+    from nerf_fl_torch.ops import fused_mlp as fm
+    from nerf_fl_torch.training.system import val_chunk_cap
+
+    fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+    plain["calls"] = 0
+    runs0 = fm.kernel_runs()
+    t0 = time.perf_counter()
+    system = train.main(hp)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fwd, bwd = fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches
+    rf, rb = (b - a for a, b in zip(runs0, fm.kernel_runs()))
+    calls = plain["calls"]
+    steps = system.global_step
+    want_steps = system.batcher.steps_per_epoch() * hp.num_epochs
+    chunk = val_chunk_cap(hp.chunk, hp.N_samples, hp.N_importance)
+    val_chunks = (1 + hp.num_epochs) * -(-val_rays // chunk)
+    graph = system.train_step.graph
+    print(f"[{label}] fit: {steps} sub-steps in {fit_s:.1f} s (setup, "
+          f"configure, sanity val, {hp.num_epochs} epoch(s), vals, "
+          f"checkpoints); fused kernels run on the card (their own count): "
+          f"forward {rf} = 2 x {steps} sub-steps + 2 x {val_chunks} "
+          f"validation chunks, backward {rb} ({rb / steps:g} a sub-step); "
+          f"the wrappers' launches {fwd} / {bwd}; graph captured "
+          f"{graph.captures} time(s), {graph.fused_launches} fused launches "
+          f"recorded, replayed {graph.replays} times; plain MLP path calls "
+          f"{calls}")
+    if (rf, rb) != (2 * steps + 2 * val_chunks, 2 * steps) \
+            or (fwd, bwd) != (4 + 2 * val_chunks, 4) \
+            or graph.fused_launches != (2, 2) or graph.captures != 1 \
+            or graph.replays != steps - 1 or calls != 0 \
+            or steps != want_steps:
+        fail(f"{label} fit: {steps} sub-steps (expected {want_steps}), "
+             f"fused kernel runs {(rf, rb)}, wrapper launches {(fwd, bwd)}, "
+             f"{graph.captures} captures recording {graph.fused_launches}, "
+             f"{graph.replays} replays, plain MLP path calls {calls}")
+    for st in system.epoch_stats:
+        print(f"[{label}] fit epoch {st['epoch']}: {st['steps']} steps in "
+              f"{st['seconds']:.2f} s, {st['rays_per_sec']:.0f} rays/s "
+              f"({1e3 * st['seconds'] / st['steps']:.2f} ms a step; the bare "
+              f"graph step of phase 6 {graph_ms:.2f} ms, "
+              f"{BATCH / graph_ms * 1e3:.0f} rays/s); val PSNR "
+              f"{st['val_psnr']:.2f}; val + checkpoint "
+              f"{st['val_and_ckpt_seconds']:.2f} s")
+    rows = [json.loads(line) for line in
+            open(os.path.join("logs", hp.exp_name, "metrics.jsonl"))]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    print(f"[{label}] logged train/loss: first {losses[0]:.4f}, last "
+          f"{losses[-1]:.4f} ({len(losses)} rows)")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"{label}: the logged training loss did not fall")
+    return system, (fwd, bwd), {"captures": graph.captures,
+                                "captured_launches": graph.fused_launches,
+                                "replays": graph.replays,
+                                "runs": (rf, rb)}, fit_s
+
+
+def _wild_reload(system, hp, path, label, init_poses=None):
+    """The last checkpoint reloads bit for bit, the pose table (its
+    buffer too) included; returns the loaded checkpoint."""
+    import torch
+    from nerf_fl_torch.training import build_params, checkpoints
+    from nerf_fl_torch.training.optimizers import named_leaves
+    from nerf_fl_torch.training.system import config_from_hparams
+    ck = checkpoints.load_checkpoint(path)
+    cfg = config_from_hparams(hp, system.train_dataset.white_back)
+    blank = None if init_poses is None else 0 * init_poses
+    fresh = build_params(cfg, hp.N_vocab, device=torch.device("cuda"),
+                         init_poses=blank)
+    checkpoints.load_into(fresh, ck)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(named_leaves(system.params), named_leaves(fresh)))
+    if init_poses is not None:
+        same = same and torch.equal(system.params["learn_poses"].init_c2w,
+                                    fresh["learn_poses"].init_c2w)
+    print(f"[{label}] {path}: epoch {ck['epoch']}, step {ck['global_step']}, "
+          f"reloads bit for bit (pose table included): {same}")
+    if not same or ck["global_step"] != system.global_step:
+        fail(f"{label}: the checkpoint does not reload into the trained "
+             f"params")
+    return cfg
+
+
+def _wild_eval(argv, plain, frame_rays, label, video):
+    """One eval through ``nerf_fl_torch.eval.main`` with --save_depth and
+    --video_format mp4, counts at 0 just before and read just after: one
+    fused forward launch and one plain (coarse, sigma-only) MLP call a
+    chunk (``frame_rays``: each frame's rays), every PFM reading back to
+    the depth eval rendered, and the mp4 fallback line and the GIF exactly
+    where the JAX CLI writes a video.  Returns (PSNR, stats, fused
+    launches)."""
+    import contextlib
+    import io
+    import numpy as np
+    from nerf_fl_torch import eval as ev
+    from nerf_fl_torch.data.pfm import read_pfm
+    from nerf_fl_torch.ops import fused_mlp as fm
+    from nerf_fl_torch.training.system import val_chunk_cap
+
+    args = ev.get_opts(argv + ["--save_depth", "--video_format", "mp4"])
+    chunk = val_chunk_cap(args.chunk, args.N_samples, args.N_importance)
+    n_chunks = sum(-(-r // chunk) for r in frame_rays)
+    fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+    plain["calls"] = 0
+    stats, out = {}, io.StringIO()
+    with contextlib.redirect_stdout(out):
+        psnr = ev.main(args, stats=stats)
+    text = out.getvalue()
+    efwd, ebwd = fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches
+    calls = plain["calls"]
+    res = os.path.join("results", args.dataset_name, args.scene_name)
+    n_frames = len(stats["frame_s"])
+    pfm_ok = len(stats["depth"]) == n_frames and all(
+        np.array_equal(read_pfm(os.path.join(res, f"depth_{i:03d}.pfm"))[0],
+                       d) for i, d in enumerate(stats["depth"]))
+    line = "[eval] mp4 writer unavailable" in text
+    gif = os.path.exists(os.path.join(res, f"{args.scene_name}.gif"))
+    print(f"[{label}] eval {args.split} ({args.scene_name}): {n_frames} "
+          f"frames in {1e3 * stats['total_s']:.1f} ms, "
+          f"{1e3 * stats['total_s'] / n_frames:.1f} ms a frame; PSNR "
+          f"{psnr if psnr is None else round(float(psnr), 3)}; fused forward "
+          f"launches {efwd} for {n_chunks} chunks, backward {ebwd}, plain "
+          f"MLP calls {calls}; PFM depth read back equal: {pfm_ok}; mp4 "
+          f"fallback line {line}, GIF {gif} (a video expected: {video})")
+    if (efwd, ebwd, calls) != (n_chunks, 0, n_chunks) or not pfm_ok \
+            or line != video or gif != video:
+        fail(f"{label} eval {args.split}: fused launches {(efwd, ebwd)}, "
+             f"plain MLP calls {calls}, expected ({n_chunks}, 0) and "
+             f"{n_chunks}; PFM equal {pfm_ok}; fallback line {line} and GIF "
+             f"{gif}, expected {video}")
+    return psnr, stats, efwd
+
+
+def phase_wild_entry_points(graph_ms):
+    """Phototourism and LLFF through the port's entry points, in a
+    temporary directory.  Phototourism: write TOUR_SCENE with the port's
+    generator (JPEGs from its encoder), decode every image, build the ray
+    cache with ``nerf_fl_torch.prepare_phototourism.main``, hold a dataset
+    built from the cache to the one built from the images bit for bit,
+    train 2 epochs from the cache (camera-frame rays posed on the card from
+    the frozen pose table), and evaluate val and test_train for the
+    trained and an untrained checkpoint.  LLFF: write LLFF_SCENE, train 1
+    epoch in NDC and evaluate val and the spiral test path.  Gates: those
+    of ``_wild_fit``, ``_wild_reload`` and ``_wild_eval``, the pose table
+    after fit bit for bit its initial values, and the trained checkpoint
+    above the untrained one on the training views by TOUR_SEEN_MARGIN.
+    Prints the data layer's host seconds.  Returns the wrappers' launches
+    of each kernel on the four paths and fit's graph counts."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from nerf_fl_torch import opt
+    from nerf_fl_torch import prepare_phototourism as prep
+    from nerf_fl_torch.data.jpeg import read_jpeg
+    from nerf_fl_torch.data.phototourism import PhototourismDataset
+    from nerf_fl_torch.data.synthetic import (make_llff_scene,
+                                              make_phototourism_scene)
+    from nerf_fl_torch.training import build_params, checkpoints
+
+    plain, restore = _count_plain()
+    here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_wild_")
+    out = {}
+    try:
+        os.chdir(tmp)
+        # ---- the data layer's host seconds
+        host = {}
+        t0 = time.perf_counter()
+        make_phototourism_scene("tour", **TOUR_SCENE)
+        host["scene write"] = time.perf_counter() - t0
+        names = sorted(os.listdir(os.path.join("tour", "dense", "images")))
+        t0 = time.perf_counter()
+        for n in names:
+            read_jpeg(os.path.join("tour", "dense", "images", n))
+        host["JPEG decode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        images = prep.main(prep.get_opts(["--root_dir", "tour",
+                                          "--img_downscale",
+                                          str(TOUR_DOWNSCALE)]))
+        host["prepare_phototourism"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cached = PhototourismDataset("tour", "train", TOUR_DOWNSCALE,
+                                     use_cache=True)
+        host["dataset from the cache"] = time.perf_counter() - t0
+        same = all(np.array_equal(np.asarray(getattr(cached, k)),
+                                  getattr(images, k))
+                   for k in ("all_rays", "all_ts", "all_rgbs"))
+        print(f"[tour] data layer, host seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in host.items()) + f" ({len(names)} "
+            f"JPEGs of {TOUR_SCENE['sizes']} px, {len(images.all_rays):,} "
+            f"train rays at img_downscale {TOUR_DOWNSCALE}); the dataset "
+            f"from the cache equals the one from the images: {same}")
+        if not same:
+            fail("a dataset built from the ray cache differs from one "
+                 "built from the images")
+        del images, cached
+
+        # ---- Phototourism: train from the cache, then eval
+        tour = ["--dataset_name", "phototourism", "--root_dir", "tour",
+                "--img_downscale", str(TOUR_DOWNSCALE), "--use_cache"]
+        hp = opt.get_opts(tour + WILD_MODEL + WILD_TRAIN + [
+            "--num_epochs", "2", "--exp_name", "tour", "--save_path",
+            "ckpts"])
+        val_side = TOUR_SCENE["sizes"][0] // TOUR_DOWNSCALE
+        system, train_l, graph, _ = _wild_fit(hp, plain, val_side ** 2,
+                                              "tour", graph_ms)
+        poses = system.params["learn_poses"]
+        frozen = (not poses.r.requires_grad and not poses.t.requires_grad
+                  and float(poses.r.abs().max()) == 0.0
+                  and float(poses.t.abs().max()) == 0.0
+                  and torch.equal(poses.init_c2w.cpu(),
+                                  torch.from_numpy(system.init_poses)))
+        print(f"[tour] pose table of {len(system.init_poses)} cameras (ids "
+              f"mapped by id_to_cam of {len(system.id_to_cam)} rows) after "
+              f"fit bit for bit its initial values: {frozen}")
+        if not frozen:
+            fail("the frozen pose table moved during fit")
+        path = os.path.join("ckpts", "tour", "epoch=1.ckpt")
+        cfg = _wild_reload(system, hp, path, "tour", system.init_poses)
+        untrained = os.path.join("ckpts", "tour_untrained.ckpt")
+        checkpoints.save_checkpoint(untrained, build_params(
+            cfg, hp.N_vocab, generator=torch.Generator().manual_seed(0),
+            device=torch.device("cuda")))
+        del system
+        sides = [TOUR_SCENE["sizes"][n % 3] // TOUR_DOWNSCALE
+                 for n in range(TOUR_SCENE["n_images"] - 1)]
+        seen, launches = {}, 0
+        for name, ckpt in (("untrained", untrained), ("trained", path)):
+            argv = tour + WILD_MODEL + ["--ckpt_path", ckpt]
+            _, _, f1 = _wild_eval(argv + ["--split", "val", "--scene_name",
+                                          f"val_{name}"], plain,
+                                  [val_side ** 2], "tour", False)
+            seen[name], stats, f2 = _wild_eval(
+                argv + ["--split", "test_train", "--scene_name",
+                        f"seen_{name}"], plain, [s * s for s in sides],
+                "tour", False)
+            launches = f1 + f2
+        margin = seen["trained"] - seen["untrained"]
+        print(f"[tour] eval, test_train split (the "
+              f"{TOUR_SCENE['n_images'] - 1} training views): trained PSNR "
+              f"{seen['trained']:.3f}, untrained {seen['untrained']:.3f}; "
+              f"margin {margin:+.3f} dB (gate {TOUR_SEEN_MARGIN:g})")
+        if not margin >= TOUR_SEEN_MARGIN:
+            fail(f"on its training views the trained checkpoint beats the "
+                 f"untrained one by {margin:.3f} dB, under "
+                 f"{TOUR_SEEN_MARGIN:g}")
+        out["tour_train_cli"], out["tour_graph"] = train_l, graph
+        out["tour_eval_cli"] = (launches, 0)
+
+        # ---- LLFF: 1 epoch in NDC, then val and the spiral
+        t0 = time.perf_counter()
+        make_llff_scene("llff", **LLFF_SCENE)
+        print(f"[llff] scene of {LLFF_SCENE} written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        wh = [str(LLFF_SCENE["width"]), str(LLFF_SCENE["height"])]
+        llff = ["--dataset_name", "llff", "--root_dir", "llff"]
+        hp = opt.get_opts(llff + ["--img_wh", *wh] + WILD_MODEL + WILD_TRAIN
+                          + ["--num_epochs", "1", "--exp_name", "llff",
+                             "--save_path", "ckpts"])
+        n_px = LLFF_SCENE["width"] * LLFF_SCENE["height"]
+        system, train_l, graph, _ = _wild_fit(hp, plain, n_px, "llff",
+                                              graph_ms)
+        path = os.path.join("ckpts", "llff", "epoch=0.ckpt")
+        _wild_reload(system, hp, path, "llff")
+        del system
+        argv = llff + WILD_MODEL + ["--ckpt_path", path]
+        psnr, _, f1 = _wild_eval(argv + ["--img_wh", *wh, "--split", "val",
+                                         "--scene_name", "val"], plain,
+                                 [n_px], "llff", True)
+        test_px = int(LLFF_TEST_WH[0]) * int(LLFF_TEST_WH[1])
+        _, stats, f2 = _wild_eval(argv + ["--img_wh", *LLFF_TEST_WH,
+                                          "--split", "test", "--scene_name",
+                                          "spiral"], plain,
+                                  [test_px] * 120, "llff", True)
+        print(f"[llff] val PSNR {psnr:.3f} (a held-out view after 1 epoch)")
+        out["llff_train_cli"], out["llff_graph"] = train_l, graph
+        out["llff_eval_cli"] = (f1 + f2, 0)
+        return out
+    finally:
+        restore()
         os.chdir(here)
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1581,6 +1932,9 @@ def main() -> int:
     before_cli = probe_counts()
     cli = phase_entry_points(graph["ms"])
     on_cli = {k: v - before_cli[k] for k, v in probe_counts().items()}
+    before_wild = probe_counts()
+    wild = phase_wild_entry_points(graph["ms"])
+    on_wild = {k: v - before_wild[k] for k, v in probe_counts().items()}
     probes, fused_on_anatomy = phase_anatomy(dev, cfg, smi_name)
 
     def graph_line(g, i):
@@ -1599,14 +1953,17 @@ def main() -> int:
         "source": "nerf_fl_torch/csrc/fused_mlp_fwd.cu",
         "replaces": "nerf_fl_tpu/ops/fused_mlp.py:319",
         "launches": launches + fwd_train + cli["train_cli"][0]
-        + cli["eval_cli"][0],
+        + cli["eval_cli"][0] + sum(wild[k][0] for k in WILD_PATHS),
         "launches_by_path": {"render_frame": launches,
                              "train_step": fwd_train,
                              "train_graph_substep": graph["launches"][0],
                              "train_cli": cli["train_cli"][0],
                              "eval_cli": cli["eval_cli"][0],
+                             **{k: wild[k][0] for k in WILD_PATHS},
                              "kernel_anatomy": fused_on_anatomy[0]},
         "train_cli_graph": graph_line(cli["train_graph"], 0),
+        "tour_train_cli_graph": graph_line(wild["tour_graph"], 0),
+        "llff_train_cli_graph": graph_line(wild["llff_graph"], 0),
         "max_abs_err": max([chunk_err] + [v["fwd_err"] for v in train.values()]),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -1614,14 +1971,17 @@ def main() -> int:
         "source": "nerf_fl_torch/csrc/fused_mlp_bwd.cu",
         "replaces": "nerf_fl_tpu/ops/fused_mlp.py:359",
         "launches": bwd_render + bwd_train + cli["train_cli"][1]
-        + cli["eval_cli"][1],
+        + cli["eval_cli"][1] + sum(wild[k][1] for k in WILD_PATHS),
         "launches_by_path": {"render_frame": bwd_render,
                              "train_step": bwd_train,
                              "train_graph_substep": graph["launches"][1],
                              "train_cli": cli["train_cli"][1],
                              "eval_cli": cli["eval_cli"][1],
+                             **{k: wild[k][1] for k in WILD_PATHS},
                              "kernel_anatomy": fused_on_anatomy[1]},
         "train_cli_graph": graph_line(cli["train_graph"], 1),
+        "tour_train_cli_graph": graph_line(wild["tour_graph"], 1),
+        "llff_train_cli_graph": graph_line(wild["llff_graph"], 1),
         "max_abs_err": max(v["bwd_err"] for v in train.values()),
         "max_norm_rel_err": max(v["bwd_norm_rel"] for v in train.values()),
         "norm_rel_limit": BWD_BF16_NORM,
@@ -1639,6 +1999,7 @@ def main() -> int:
             "launches_by_path": {"render_frame": on_render[name],
                                  "train_step": on_train[name],
                                  "train_and_eval_cli": on_cli[name],
+                                 "wild_train_and_eval_cli": on_wild[name],
                                  "kernel_anatomy": row["launches"]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "device_ms": row["device_ms"],

@@ -2,8 +2,9 @@
 
 The JAX tree stores every dense layer as ``{"w": (in, out), "b": (out,)}``;
 ``nn.Linear`` stores ``weight`` as (out, in), so every weight is transposed
-on the way in and out.  Both functions take and give numpy arrays, so this
-module imports nothing of JAX.
+on the way in and out.  The learned-pose table (``learn_poses``: ``r``,
+``t`` and ``init_c2w``) crosses as it is.  Both functions take and give
+numpy arrays, so this module imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -13,11 +14,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models import init_nerf
+from .models import init_learn_pose, init_nerf
 from .models.mlp import NeRF
+from .models.poses import LearnPose
 from .render import RenderConfig
 
-_KEYS = ("nerf_coarse", "nerf_fine", "embedding_a", "embedding_t")
+_KEYS = ("nerf_coarse", "nerf_fine", "embedding_a", "embedding_t",
+         "learn_poses")
 
 
 def _leaf(t: torch.Tensor, grad: bool) -> np.ndarray:
@@ -71,6 +74,9 @@ def state_dict_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     for key in ("embedding_a", "embedding_t"):
         if key in tree:
             out[key] = np.asarray(tree[key], np.float32)
+    if "learn_poses" in tree:
+        out["learn_poses"] = {k: np.asarray(v, np.float32)
+                              for k, v in tree["learn_poses"].items()}
     return out
 
 
@@ -78,12 +84,21 @@ def from_jax_params(tree: Dict[str, Any], cfg: RenderConfig, *,
                     device="cpu") -> Dict[str, Any]:
     """JAX param pytree (numpy leaves, (in, out) weights) -> the port's
     params: NeRF modules for the fields, (N_vocab, dim) f32 ``nn.Parameter``
-    tables for the embeddings.  Shapes are checked against ``cfg``."""
+    tables for the embeddings, a ``LearnPose`` for the pose table.  Shapes
+    are checked against ``cfg``."""
     sds = state_dict_from_jax(tree)
     out: Dict[str, Any] = {}
     for key, sd in sds.items():
         if not isinstance(sd, dict):
             out[key] = nn.Parameter(torch.tensor(sd, device=device))
+            continue
+        if key == "learn_poses":
+            table = init_learn_pose(len(sd["r"]), sd.get("init_c2w"),
+                                    device=device)
+            with torch.no_grad():
+                table.r.copy_(torch.from_numpy(sd["r"]))
+                table.t.copy_(torch.from_numpy(sd["t"]))
+            out[key] = table
             continue
         model = init_nerf(cfg.nerf_config(key.split("_")[1]))
         with torch.no_grad():
@@ -122,6 +137,11 @@ def _numpy_tree(params: Dict[str, Any], grads: bool) -> Dict[str, Any]:
                     **{n: _dense(getattr(tp, n), grads)
                        for n in ("sigma", "rgb", "beta")}}
             out[key] = sub
+        elif isinstance(v, LearnPose):
+            out[key] = {"r": _leaf(v.r, grads), "t": _leaf(v.t, grads)}
+            if v.init_c2w is not None:     # a buffer: never a gradient
+                c2w = v.init_c2w.detach().cpu().numpy().copy()
+                out[key]["init_c2w"] = np.zeros_like(c2w) if grads else c2w
         else:
             out[key] = _leaf(v, grads)
     return out

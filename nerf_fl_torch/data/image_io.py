@@ -9,6 +9,9 @@ to numpy and the standard library, so this module does what they need:
     ``convert("RGBA")`` of what was read.  Anything else raises with the
     reason.
   * ``write_png``: 8-bit RGB or RGBA, filter 0 on every row.
+  * ``read_rgb``: a PNG or a JPEG (``data/jpeg.py``), told apart by the
+    file's first bytes as PIL tells them apart, as PIL's
+    ``open(...).convert("RGB")``.
   * ``resize_lanczos``: ``PIL.Image.resize(size, Image.LANCZOS)`` on an
     8-bit image, reproduced step for step (``libImaging/Resample.c``): a
     horizontal then a vertical pass of a filter of support 3 x scale whose
@@ -27,6 +30,8 @@ import zlib
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .jpeg import decode_jpeg
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> (mode, channels)
@@ -202,6 +207,18 @@ def read_rgba(path: str) -> np.ndarray:
     """A PNG file as (H, W, 4) uint8 RGBA (PIL's ``open(...).convert(
     "RGBA")``)."""
     return to_rgba(read_png(path))
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """A PNG or JPEG file as (H, W, 3) uint8 RGB (PIL's ``open(path)
+    .convert("RGB")``), by its magic bytes, whatever its extension."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == _SIGNATURE:
+        return to_rgba(decode_png(data))[..., :3].copy()
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg(data, path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
 def encode_png(img: np.ndarray, level: int = 6) -> bytes:

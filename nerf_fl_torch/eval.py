@@ -4,16 +4,23 @@
         --img_wh 400 400 --N_importance 64 --split test \
         --ckpt_path ckpts/exp/epoch=19.ckpt --scene_name lego
 
-Renders a split frame by frame through ``render_chunked_async`` (test
-time: perturb 0, noise 0), each submodule loaded by name from a checkpoint
-of either format (the port's or the JAX package's), writes the frames as
-PNGs and a GIF (``data/image_io.py``) under ``results/<dataset>/<scene>``,
-and prints ``Mean PSNR`` (and ``Mean SSIM`` with --compute_ssim) as the
-JAX CLI does, with each frame's dispatch, drain and host times.  It runs
-on the card; ``NERF_FL_TORCH_DEVICE=cpu`` or ``main(args, device="cpu")``
-asks for the CPU.  Blender only; --optimize_appearance and --refine_pose
-(ROADMAP A.7), --save_depth and mp4 (A.6) and more than one device (A.8)
-raise.
+Renders a split of a Blender, LLFF or Phototourism scene frame by frame
+through ``render_chunked_async`` (test time: perturb 0, noise 0), each
+submodule loaded by name from a checkpoint of either format (the port's or
+the JAX package's), writes the frames as PNGs under
+``results/<dataset>/<scene>`` (and, with --save_depth, each frame's depth
+as ``depth_NNN.pfm``, ``data/pfm.py``), and prints ``Mean PSNR`` (and
+``Mean SSIM`` with --compute_ssim) as the JAX CLI does, with each frame's
+dispatch, drain and host times.  Phototourism's ``--split test`` renders
+the JAX CLI's dolly path for ``brandenburg_gate`` (appearance of image
+1123, no transient field) at --img_wh.  Where the JAX CLI writes a video
+(Blender, LLFF, Phototourism's test split) it writes a GIF
+(``data/image_io.py``); the port has no mp4 encoder, so --video_format mp4
+prints the JAX CLI's fallback line and writes the GIF, as the JAX CLI does
+where imageio has no ffmpeg.  It runs on the card;
+``NERF_FL_TORCH_DEVICE=cpu`` or ``main(args, device="cpu")`` asks for the
+CPU.  --optimize_appearance and --refine_pose (ROADMAP A.7) and more than
+one device (A.8) raise.
 """
 import os
 import time
@@ -33,7 +40,7 @@ def get_opts(argv=None):
     parser.add_argument('--video_format', type=str, default='gif',
                         choices=['gif', 'mp4'])
     parser.add_argument('--save_depth', default=False, action="store_true",
-                        help='also save depth maps as PFM (not ported yet)')
+                        help='also save depth maps as PFM')
     parser.add_argument('--compute_ssim', default=False, action="store_true",
                         help='also report mean SSIM')
     parser.add_argument('--optimize_appearance', default=False,
@@ -49,11 +56,51 @@ def get_opts(argv=None):
 
 
 def max_split_ts(dataset, split: str) -> int:
-    """Largest embedding id a blender split emits (val/test render with
-    t = 0, test_train with the frame index), without loading images."""
-    if split == 'test_train':
+    """Largest embedding id a split emits, without loading images:
+    Phototourism's sparse COLMAP ids (val's image, the training images,
+    the test path's appearance image); Blender's frame index on
+    test_train, else 0; LLFF's 0."""
+    if hasattr(dataset, 'img_ids'):
+        if split == 'val':
+            return int(dataset.val_id)
+        if split == 'test_train':
+            return int(max(dataset.img_ids_train))
+        return int(dataset.test_appearance_idx)
+    if split == 'test_train' and hasattr(dataset, 'meta'):
         return len(dataset.meta['frames']) - 1
     return 0
+
+
+# the no-mp4 line's reason: the port writes no mp4 (the card's machine has
+# no ffmpeg), so it falls back as the JAX CLI does without imageio-ffmpeg
+MP4_UNAVAILABLE = 'nerf_fl_torch has no mp4 encoder'
+
+
+def set_test_path(dataset, args, scene: str) -> dict:
+    """Phototourism's --split test: the camera at --img_wh with a 60 degree
+    field of view and the JAX CLI's dolly path, defined for
+    brandenburg_gate only; returns the render's extra arguments."""
+    dataset.test_img_w, dataset.test_img_h = args.img_wh
+    dataset.test_focal = dataset.test_img_w / 2 / np.tan(np.pi / 6)
+    dataset.test_K = np.array(
+        [[dataset.test_focal, 0, dataset.test_img_w / 2],
+         [0, dataset.test_focal, dataset.test_img_h / 2],
+         [0, 0, 1]])
+    if scene != 'brandenburg_gate':
+        raise NotImplementedError(
+            'test-path poses are hard-coded per scene; only '
+            'brandenburg_gate is defined')
+    dataset.test_appearance_idx = 1123  # 85572957_6053497857.jpg
+    n_frames = 30 * 4
+    dx = np.linspace(0, 0.03, n_frames)
+    dy = np.linspace(0, -0.1, n_frames)
+    dz = np.linspace(0, 0.5, n_frames)
+    poses_test = np.tile(dataset.poses_dict[1123], (n_frames, 1, 1))
+    poses_test[:, 0, 3] += dx
+    poses_test[:, 1, 3] += dy
+    poses_test[:, 2, 3] += dz
+    dataset.poses_test = poses_test
+    return {'output_transient': False}
 
 
 def build_eval_state(args, device, white_back: bool):
@@ -84,6 +131,7 @@ def main(args, device=None, stats=None):
     import torch
     from .data import dataset_dict
     from .data.image_io import write_gif, write_png
+    from .data.pfm import save_pfm
     from .device import entry_device
     from .models import validate_vocab
     from .training.metrics import psnr as psnr_fn
@@ -93,9 +141,21 @@ def main(args, device=None, stats=None):
 
     refuse_unported(args, eval_mode=True)
     dev = entry_device(device)
-    dataset = dataset_dict[args.dataset_name](
-        root_dir=args.root_dir, split=args.split, img_wh=tuple(args.img_wh))
+    kwargs = {'root_dir': args.root_dir, 'split': args.split}
+    if args.dataset_name == 'blender':
+        kwargs['img_wh'] = tuple(args.img_wh)
+    elif args.dataset_name == 'llff':
+        kwargs['img_wh'] = tuple(args.img_wh)
+        kwargs['spheric_poses'] = args.spheric_poses
+    else:
+        kwargs['img_downscale'] = args.img_downscale
+        kwargs['use_cache'] = args.use_cache
+    dataset = dataset_dict[args.dataset_name](**kwargs)
+    scene = os.path.basename(args.root_dir.strip('/'))
     cfg, params = build_eval_state(args, dev, dataset.white_back)
+    render_kwargs = {}
+    if args.dataset_name == 'phototourism' and args.split == 'test':
+        render_kwargs = set_test_path(dataset, args, scene)
     if cfg.encode_a or cfg.encode_t:
         validate_vocab(args.N_vocab, max_split_ts(dataset, args.split))
 
@@ -103,6 +163,8 @@ def main(args, device=None, stats=None):
     dir_name = f'results/{args.dataset_name}/{args.scene_name}'
     os.makedirs(dir_name, exist_ok=True)
     typ = 'fine' if args.N_importance > 0 else 'coarse'
+    wanted = [f'rgb_{typ}'] + ([f'depth_{typ}'] if args.save_depth else [])
+    depths = []
     chunk = val_chunk_cap(args.chunk, args.N_samples, args.N_importance)
     if chunk < args.chunk:
         print(f'[eval] clamping chunk {args.chunk} -> {chunk}')
@@ -119,7 +181,10 @@ def main(args, device=None, stats=None):
         """Drain a frame's render, then its host work; runs after the next
         frame's chunks are queued, so it overlaps that render."""
         i, sample, finish = item
-        w, h = args.img_wh
+        if args.dataset_name == 'blender':
+            w, h = args.img_wh
+        else:
+            w, h = (int(x) for x in sample['img_wh'])
         t_p = time.perf_counter()
         results = finish()
         phase_s["drain"].append(time.perf_counter() - t_p)
@@ -129,6 +194,13 @@ def main(args, device=None, stats=None):
         imgs.append(img_pred_)
         writes.append(writer.submit(
             write_png, os.path.join(dir_name, f'{i:03d}.png'), img_pred_))
+        if args.save_depth:
+            depth = results[f'depth_{typ}'].reshape(h, w).astype(np.float32)
+            writes.append(writer.submit(
+                save_pfm, os.path.join(dir_name, f'depth_{i:03d}.pfm'),
+                depth))
+            if stats is not None:
+                depths.append(depth)
         if 'rgbs' in sample:
             img_gt = sample['rgbs'].reshape(h, w, 3)
             psnrs.append(float(psnr_fn(torch.from_numpy(img_gt),
@@ -151,7 +223,7 @@ def main(args, device=None, stats=None):
             t_p = time.perf_counter()
             finish = render_chunked_async(
                 params, sample['rays'], sample['ts'], cfg, chunk=chunk,
-                test_time=True, keys=[f'rgb_{typ}'], device=dev)
+                test_time=True, keys=wanted, device=dev, **render_kwargs)
             phase_s["dispatch"].append(time.perf_counter() - t_p)
             if prev is not None:
                 process(prev)
@@ -186,9 +258,15 @@ def main(args, device=None, stats=None):
             stats.update(frame_s=list(deltas), total_s=total,
                          **{f"{k}_s": v for k, v in phase_s.items()})
 
-    write_gif(os.path.join(dir_name, f'{args.scene_name}.gif'), imgs, fps=30)
+    if args.dataset_name in ('blender', 'llff') or \
+            (args.dataset_name == 'phototourism' and args.split == 'test'):
+        gif = os.path.join(dir_name, f'{args.scene_name}.gif')
+        if args.video_format != 'gif':
+            print(f'[eval] {args.video_format} writer unavailable '
+                  f'({MP4_UNAVAILABLE}); writing {gif}')
+        write_gif(gif, imgs, fps=30)
     if stats is not None:
-        stats.update(psnr=psnrs, ssim=ssims)
+        stats.update(psnr=psnrs, ssim=ssims, depth=depths)
     if ssims:
         print(f'Mean SSIM : {np.mean(ssims):.4f}')
     if psnrs:

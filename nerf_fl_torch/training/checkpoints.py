@@ -3,8 +3,8 @@
 The port writes ``torch.save`` of ``{"state_dict": {submodule: tensors},
 "opt_state": optimizer.state_dict(), "epoch", "global_step"}`` atomically
 (a temp file, then ``os.replace``) as ``epoch=N.ckpt``.  A submodule is a
-field MLP's ``state_dict()`` (``xyz.0.weight``, ...) or an embedding
-table's tensor.
+field MLP's ``state_dict()`` (``xyz.0.weight``, ...), the pose table's
+(``r``, ``t``, ``init_c2w``) or an embedding table's tensor.
 
 ``load_checkpoint`` also reads the JAX package's checkpoints (flax's
 ``msgpack_serialize`` of the same dict), telling the two apart by their
@@ -254,10 +254,14 @@ def extract_model_state_dict(ckpt_path: str, model_name: str = "model",
 
 
 def _replace(sub, wanted: Dict[str, torch.Tensor], model_name: str):
-    """Copy ``wanted``'s tensors into ``sub``'s parameters of the same name,
-    in place; absent names keep their values (non-strict)."""
-    named = dict(sub.named_parameters()) if isinstance(sub, nn.Module) \
-        else {"": sub}
+    """Copy ``wanted``'s tensors into ``sub``'s parameters and buffers (the
+    pose table's ``init_c2w``) of the same name, in place; absent names
+    keep their values (non-strict)."""
+    if isinstance(sub, nn.Module):
+        named = dict(sub.named_parameters())
+        named.update(sub.named_buffers())
+    else:
+        named = {"": sub}
     with torch.no_grad():
         for name, p in named.items():
             if name in wanted:

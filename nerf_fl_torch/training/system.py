@@ -7,8 +7,10 @@ device-resident ray pool (``epoch_perm``, ``make_device_pool_step``),
 ``val_chunk_cap``, ``render_chunked`` and ``render_chunked_async``, and
 the training system (``config_from_hparams``, ``DevicePrefetcher``,
 ``NeRFSystem``, ``gauge_val_psnr``) that ``nerf_fl_torch.train`` drives.
-Single device; the mesh and multihost branches and camera-frame rays
-belong to later slices.
+Rays come world-space (8 columns) or, for Phototourism, as camera-frame
+directions (5 columns, ``ray_format="camdir"``) that ``assemble_world_rays``
+poses inside the step from the learned-pose table.  Single device; the
+mesh and multihost branches belong to a later slice.
 
 ``steps_per_execution`` K > 1 is JAX's ``lax.scan`` of K steps in one
 dispatch.  On the card its counterpart is a CUDA graph of one sub-step
@@ -38,8 +40,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core.rays import get_rays
 from ..device import resolve_device
-from ..models import init_embedding, init_nerf
+from ..models import init_embedding, init_learn_pose, init_nerf, pose_for
 from ..render import RenderConfig, render_rays
 from .losses import loss_dict
 from .optimizers import named_leaves, set_lr
@@ -47,14 +50,18 @@ from .optimizers import named_leaves, set_lr
 
 def build_params(cfg: RenderConfig, n_vocab: int, *,
                  generator: Optional[torch.Generator] = None,
-                 device=None) -> Dict[str, Any]:
-    """{'nerf_coarse', ['nerf_fine'], ['embedding_a'], ['embedding_t']}.
+                 device=None,
+                 init_poses: Optional[np.ndarray] = None) -> Dict[str, Any]:
+    """{'nerf_coarse', ['nerf_fine'], ['embedding_a'], ['embedding_t'],
+    ['learn_poses']}.
 
     Everything is drawn on ``generator``'s device (the CPU with torch's
     default generator if None) and then moved to ``device``; a CPU
     generator gives the same weights on every device.  ``device`` None
     means CUDA, and raises where there is none.  The embedding tables are
-    ``nn.Parameter``s, trained with the fields.
+    ``nn.Parameter``s, trained with the fields.  ``init_poses`` (N, 4, 4)
+    adds the learned-pose table (``models.poses.LearnPose``: zero deltas
+    on those poses).
     """
     dev = resolve_device(device)
     draw = generator.device if generator is not None else None
@@ -69,13 +76,38 @@ def build_params(cfg: RenderConfig, n_vocab: int, *,
         if on:
             params[key] = init_embedding(n_vocab, dim, generator=generator,
                                          device=draw)
+    if init_poses is not None:
+        params["learn_poses"] = init_learn_pose(len(init_poses), init_poses)
     return {k: v.to(dev) if isinstance(v, torch.nn.Module)
             else torch.nn.Parameter(v.to(dev)) for k, v in params.items()}
 
 
+def assemble_world_rays(params, rays: torch.Tensor, ts: torch.Tensor, *,
+                        ray_format: str,
+                        id_to_cam: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """A batch of stored rays as world-space 8-column rays.
+
+    'world':  rays are already [o, d, near, far] and are returned as they
+              are.
+    'camdir': rays are [camera-frame dir, near, far]; each ray's pose is
+              gathered from the learned-pose table (``all_poses``, every
+              camera's pose computed anew) at its image's row, ``ts``
+              mapped through ``id_to_cam`` where image ids are sparse, and
+              the direction rotated into the world.
+    """
+    if ray_format == "world":
+        return rays
+    ids = ts if id_to_cam is None else id_to_cam.index_select(0, ts.long())
+    c2ws = pose_for(params["learn_poses"], ids)[:, :3, :]
+    rays_o, rays_d = get_rays(rays[:, :3], c2ws)
+    return torch.cat([rays_o, rays_d, rays[:, 3:5]], dim=-1)
+
+
 def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
                     loss_name: str = "nerfw", microbatch: int = 1,
-                    steps_per_execution: int = 1) -> Callable:
+                    steps_per_execution: int = 1, ray_format: str = "world",
+                    id_to_cam: Optional[np.ndarray] = None) -> Callable:
     """The train step: render -> loss -> backward -> optimizer step ->
     metrics.  Returns ``step(params, batch, lr, epoch=0.0,
     generator=None)``, which updates the parameters that ``optimizer``
@@ -85,26 +117,31 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
     model) and one ``train/<term>`` per loss term.
 
     ``batch`` is {'rays' (B, 8), 'ts' (B,), 'rgbs' (B, 3)} on the params'
-    device.  With ``microbatch`` M > 1 the gradient is the mean of the
-    gradients of M equal slices, each with its own loss (so NeRF-W's
-    log(mean beta) term is per slice), and one optimizer step is taken, as
-    the JAX package's step does.  ``generator`` drives the stochastic draws
-    (perturb, noise_std); on the card it is a CUDA generator.
+    device; with ``ray_format`` 'camdir' the rays are (B, 5) camera-frame
+    directions that ``assemble_world_rays`` poses from the params'
+    ``learn_poses`` (``id_to_cam`` maps sparse image ids to its rows). With
+    ``microbatch`` M > 1 the gradient is the mean of the gradients of M
+    equal slices, each with its own loss (so NeRF-W's log(mean beta) term
+    is per slice), and one optimizer step is taken, as the JAX package's
+    step does.  ``generator`` drives the stochastic draws (perturb,
+    noise_std); on the card it is a CUDA generator.
 
     With ``steps_per_execution`` K > 1 it returns ``multi(params, batches,
-    lr, epoch=0.0, generator=None, valid=None)`` instead, which runs K steps
-    of ``stack_batches``'s stacked ``batches`` ({'rays' (K, B, 8), ...}) at
-    one lr and returns the metrics with a leading K axis, as device tensors
-    and without a host sync.  ``valid`` (a numpy bool (K,), None for all)
-    must be a prefix: the sub-steps it marks False are not run, leave the
-    parameters and the optimizer state untouched, and read NaN in the
-    metrics.  On the card the sub-steps replay a CUDA graph (``_StepGraph``;
-    ``multi.graph`` counts its captures) or the call raises: it never runs
-    them eagerly instead.  The optimizer must then be capturable
-    (``optimizers.build_optimizer``'s adam on the card): sgd on the card
-    raises as not ported yet, as BARF (``cfg.refine_pose``) does anywhere.
+    lr, epoch=0.0, generator=None, valid=None)`` instead, which runs K
+    steps of ``stack_batches``'s stacked ``batches`` ({'rays' (K, B, 8),
+    ...}) at one lr and returns the metrics with a leading K axis, as
+    device tensors and without a host sync.  ``valid`` (a numpy bool (K,),
+    None for all) must be a prefix: the sub-steps it marks False are not
+    run, leave the parameters and the optimizer state untouched, and read
+    NaN in the metrics.  On the card the sub-steps replay a CUDA graph
+    (``_StepGraph``; ``multi.graph`` counts its captures) or the call
+    raises: it never runs them eagerly instead.  The optimizer must then be
+    capturable (``optimizers.build_optimizer``'s adam on the card): sgd on
+    the card raises as not ported yet, as BARF (``cfg.refine_pose``) does
+    anywhere.
     """
-    body = _train_body(cfg, optimizer, loss_name, microbatch)
+    body = _train_body(cfg, optimizer, loss_name, microbatch, ray_format,
+                       id_to_cam)
 
     def step(params, batch, lr, epoch=0.0, generator=None):
         set_lr(optimizer, lr)
@@ -140,16 +177,24 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
 
 
 def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
-                loss_name: str, microbatch: int) -> Callable:
+                loss_name: str, microbatch: int, ray_format: str = "world",
+                id_to_cam: Optional[np.ndarray] = None) -> Callable:
     """``body(params, batch, epoch, generator)``: one train step at the lr
-    the optimizer holds (``make_train_step``'s step, ``set_lr`` aside)."""
+    the optimizer holds (``make_train_step``'s step, ``set_lr`` aside).
+    ``id_to_cam`` goes to the device once, here, so a captured step reads
+    it where it lies."""
     loss_fn = loss_dict[loss_name]
     typ = "fine" if cfg.N_importance > 0 else "coarse"
     params_held = [p for group in optimizer.param_groups
                    for p in group["params"]]
+    idmap = None if id_to_cam is None else torch.as_tensor(
+        np.asarray(id_to_cam), dtype=torch.int64,
+        device=params_held[0].device)
 
     def loss_of(params, b, epoch, generator):
-        results = render_rays(params, b["rays"], b["ts"], cfg,
+        rays = assemble_world_rays(params, b["rays"], b["ts"],
+                                   ray_format=ray_format, id_to_cam=idmap)
+        results = render_rays(params, rays, b["ts"], cfg,
                               generator=generator, epoch=epoch)
         loss_d = loss_fn(results, b["rgbs"])
         mse = torch.mean((results[f"rgb_{typ}"] - b["rgbs"]) ** 2)
@@ -188,7 +233,7 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
 
 def stack_batches(batches, k: Optional[int] = None):
     """Stack a list of batch dicts of tensors leaf-wise into one
-    {'rays' (K, B, 8), ...} dict on the batches' device, for a
+    {'rays' (K, B, 8 or 5), ...} dict on the batches' device, for a
     ``steps_per_execution`` train step (one copy in a call).
 
     If ``k`` exceeds ``len(batches)`` the last batch is repeated to pad the
@@ -392,7 +437,10 @@ def epoch_perm(seed: int, epoch: int, n_pool: int,
 def make_device_pool_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
                           *, batch_size: int, loss_name: str = "nerfw",
                           microbatch: int = 1,
-                          steps_per_execution: int = 1) -> Callable:
+                          steps_per_execution: int = 1,
+                          ray_format: str = "world",
+                          id_to_cam: Optional[np.ndarray] = None
+                          ) -> Callable:
     """Train step that draws its batch from a device-resident pool.
 
     Returns ``run(params, pool, perm, i, lr, epoch=0.0, generator=None)``:
@@ -409,11 +457,13 @@ def make_device_pool_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
     that the sub-step advances itself, so on the card a replay of the
     step's graph needs no host write (``make_train_step``).  The graph
     reads ``pool`` and ``perm`` where they lie: a new tensor for either (a
-    new epoch's ``perm``) captures the step again.
+    new epoch's ``perm``) captures the step again.  ``ray_format`` and
+    ``id_to_cam`` are ``make_train_step``'s.
     """
     if steps_per_execution <= 1:
         step = make_train_step(cfg, optimizer, loss_name=loss_name,
-                               microbatch=microbatch)
+                               microbatch=microbatch, ray_format=ray_format,
+                               id_to_cam=id_to_cam)
         B = batch_size
 
         def run(params, pool, perm, i, lr, epoch=0.0, generator=None):
@@ -424,7 +474,8 @@ def make_device_pool_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
         return run
 
     K, B = steps_per_execution, batch_size
-    graph = _StepGraph(_train_body(cfg, optimizer, loss_name, microbatch),
+    graph = _StepGraph(_train_body(cfg, optimizer, loss_name, microbatch,
+                                   ray_format, id_to_cam),
                        optimizer, cfg, K)
 
     def feed(statics, pool, perm, i0, fresh):
@@ -589,8 +640,6 @@ def refuse_unported(hparams, *, eval_mode: bool = False) -> None:
     item; flags absent from ``hparams`` count as their defaults."""
     g = functools.partial(getattr, hparams)
     checks = [
-        (g("dataset_name", "blender") != "blender",
-         f"--dataset_name {g('dataset_name', '')}", "A.6"),
         (g("refine_pose", False), "--refine_pose", "A.7"),
         (any(g("pose_noise", (0, 0))), "--pose_noise", "A.7"),
         (g("pose_lr_mult", 1.0) != 1.0, "--pose_lr_mult", "A.7"),
@@ -600,12 +649,8 @@ def refuse_unported(hparams, *, eval_mode: bool = False) -> None:
         (g("num_hosts", 1) > 1, "--num_hosts > 1", "A.8"),
     ]
     if eval_mode:
-        checks += [
-            (g("optimize_appearance", False), "--optimize_appearance", "A.7"),
-            (g("save_depth", False), "--save_depth (PFM, with LLFF)", "A.6"),
-            (g("video_format", "gif") == "mp4", "--video_format mp4",
-             "A.6: mp4 output"),
-        ]
+        checks.append((g("optimize_appearance", False),
+                       "--optimize_appearance", "A.7"))
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet "
@@ -737,6 +782,13 @@ class DevicePrefetcher:
 PROFILE_MARGIN_S = 0.1
 
 
+def _host_tensor(a: np.ndarray, dtype) -> torch.Tensor:
+    """``a`` as a CPU tensor of ``dtype``, copied where numpy cannot lend
+    a writable array (a memory-mapped cache)."""
+    a = np.asarray(a, dtype)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
 class NeRFSystem:
     """End-to-end training: the counterpart of the JAX package's
     ``NeRFSystem`` (``setup``, ``configure``, ``restore``,
@@ -769,14 +821,39 @@ class NeRFSystem:
         from ..models import validate_vocab
         h = self.hparams
         refuse_unported(h)
-        kwargs = {"root_dir": h.root_dir, "img_wh": tuple(h.img_wh),
-                  "perturbation": h.data_perturb}
+        kwargs = {"root_dir": h.root_dir}
+        if h.dataset_name == "phototourism":
+            kwargs.update(img_downscale=h.img_downscale,
+                          val_num=getattr(h, "num_gpus", 1),
+                          use_cache=h.use_cache)
+        elif h.dataset_name == "blender":
+            kwargs.update(img_wh=tuple(h.img_wh), perturbation=h.data_perturb)
+        elif h.dataset_name == "llff":
+            kwargs.update(img_wh=tuple(h.img_wh),
+                          spheric_poses=h.spheric_poses,
+                          val_num=getattr(h, "num_gpus", 1))
         self.train_dataset = dataset_dict[h.dataset_name](split="train",
                                                           **kwargs)
         self.val_dataset = dataset_dict[h.dataset_name](split="val", **kwargs)
         self.cfg = config_from_hparams(h, self.train_dataset.white_back)
+        self.ray_format = getattr(self.train_dataset, "ray_format", "world")
+        max_id = int(np.max(self.train_dataset.all_ts))
         if self.cfg.encode_a or self.cfg.encode_t:
-            validate_vocab(h.N_vocab, int(np.max(self.train_dataset.all_ts)))
+            validate_vocab(h.N_vocab, max_id)
+
+        # the learned-pose table's initial poses, in image order, and the
+        # map from sparse image ids to its rows (the JAX package's)
+        poses = np.asarray(self.train_dataset.poses, np.float32)
+        self.init_poses = np.concatenate(
+            [poses, np.tile(np.array([[[0, 0, 0, 1]]], np.float32),
+                            (len(poses), 1, 1))], axis=1)
+        ids = getattr(self.train_dataset, "img_ids", list(range(len(poses))))
+        self.id_to_cam = None
+        if list(ids) != list(range(len(poses))):
+            idmap = np.zeros(max(max(ids), max_id) + 1, np.int32)
+            for i, id_ in enumerate(ids):
+                idmap[id_] = i
+            self.id_to_cam = idmap
         self.batcher = RayBatcher(
             self.train_dataset.all_rays, self.train_dataset.all_ts,
             self.train_dataset.all_rgbs, h.batch_size,
@@ -789,10 +866,15 @@ class NeRFSystem:
                                  trainable_parameters)
         h, dev = self.hparams, self.device
         seed = getattr(h, "seed", 0)
+        needs_poses = self.ray_format == "camdir"
         self.params = build_params(
             self.cfg, h.N_vocab, generator=torch.Generator().manual_seed(seed),
-            device=dev)
+            device=dev, init_poses=self.init_poses if needs_poses else None)
+        # without pose refinement the pose table is frozen: no gradient,
+        # not in the optimizer
         self.mask = make_trainable_mask(self.params, False)
+        for name, p in named_leaves(self.params):
+            p.requires_grad_(self.mask[name])
         self.optimizer = build_optimizer(
             h, trainable_parameters(self.params, self.mask))
 
@@ -815,9 +897,9 @@ class NeRFSystem:
         dp_mode = getattr(h, "device_pool", "auto")
         self.device_pool = None
         if dp_mode == "on" or (dp_mode == "auto" and pool_bytes <= (2 << 30)):
-            pool = {"rays": torch.from_numpy(np.asarray(b.rays, np.float32)),
-                    "ts": torch.from_numpy(np.asarray(b.ts, np.int32)),
-                    "rgbs": torch.from_numpy(np.asarray(b.rgbs, np.float32))}
+            pool = {"rays": _host_tensor(b.rays, np.float32),
+                    "ts": _host_tensor(b.ts, np.int32),
+                    "rgbs": _host_tensor(b.rgbs, np.float32)}
             self.device_pool = ({k: v.to(dev) for k, v in pool.items()}, b.n)
             n_groups = max(1, -(-b.steps_per_epoch() // self.spe))
             self._perm = torch.empty(n_groups * self.spe * h.batch_size,
@@ -825,13 +907,15 @@ class NeRFSystem:
             self.train_step = make_device_pool_step(
                 self.cfg, self.optimizer, batch_size=h.batch_size,
                 loss_name=self.loss_name, microbatch=mb,
-                steps_per_execution=self.spe)
+                steps_per_execution=self.spe, ray_format=self.ray_format,
+                id_to_cam=self.id_to_cam)
             print(f"[data] device-resident ray pool: {pool_bytes / 1e6:.0f} "
                   f"MB uploaded once; batches are drawn on the device")
         else:
             self.train_step = make_train_step(
                 self.cfg, self.optimizer, loss_name=self.loss_name,
-                microbatch=mb, steps_per_execution=self.spe)
+                microbatch=mb, steps_per_execution=self.spe,
+                ray_format=self.ray_format, id_to_cam=self.id_to_cam)
         self.generator = torch.Generator(dev).manual_seed(seed + 1234)
 
     def restore(self, path: str):
@@ -907,7 +991,8 @@ class NeRFSystem:
             mse = np.mean((res[f"rgb_{typ}"] - rgbs) ** 2)
             psnrs.append(-10.0 * np.log10(mse))
             if i == 0:
-                W, H = h.img_wh
+                W, H = (int(x) for x in sample["img_wh"]) \
+                    if "img_wh" in sample else h.img_wh
                 img = res[f"rgb_{typ}"].reshape(H, W, 3).transpose(2, 0, 1)
                 gt = rgbs.reshape(H, W, 3).transpose(2, 0, 1)
                 depth = visualize_depth(res[f"depth_{typ}"].reshape(H, W))

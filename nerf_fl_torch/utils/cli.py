@@ -19,8 +19,7 @@ _SHARED = [
                         help="dataset root folder"), {}),
     ("--dataset_name", dict(type=str, default="blender",
                             choices=["blender", "phototourism", "llff"],
-                            help="dataset family (only blender is ported; "
-                                 "the others raise, ROADMAP A.6)"), {}),
+                            help="dataset family"), {}),
     ("--img_wh", dict(nargs="+", type=int, default=[800, 800],
                       help="image resolution as WIDTH HEIGHT"), {}),
     ("--img_downscale", dict(type=int, default=1,

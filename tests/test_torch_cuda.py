@@ -674,40 +674,63 @@ def _graph_case_cfg(dtype="bfloat16"):
                         noise_std=0.0, compute_dtype=dtype)
 
 
-def _graph_case(dtype, steps, pool, loss_name="nerfw"):
+# camera-frame rays: four cameras with sparse image ids, their poses in the
+# (frozen) learned-pose table
+CAMDIR_IDS = [1, 2, 5, 7]
+
+
+def _graph_case(dtype, steps, pool, loss_name="nerfw", camdir=False):
     from types import SimpleNamespace
     from nerf_fl_torch.training import optimizers, system
     dev = _card()
     cfg = _graph_case_cfg(dtype)
+    rng = np.random.default_rng(3)
+    init = idmap = None
+    if camdir:
+        init = np.tile(np.eye(4, dtype=np.float32), (len(CAMDIR_IDS), 1, 1))
+        init[:, :3, :3] = np.linalg.qr(rng.normal(
+            0, 1, (len(CAMDIR_IDS), 3, 3)))[0]
+        init[:, :3, 3] = rng.normal(0, 0.5, (len(CAMDIR_IDS), 3))
+        idmap = np.zeros(8, np.int32)
+        idmap[CAMDIR_IDS] = np.arange(len(CAMDIR_IDS))
     params = system.build_params(cfg, 8, device=dev,
-                                 generator=torch.Generator().manual_seed(0))
+                                 generator=torch.Generator().manual_seed(0),
+                                 init_poses=init)
+    mask = optimizers.make_trainable_mask(params, False)
+    for name, p in optimizers.named_leaves(params):
+        p.requires_grad_(mask[name])
     opt = optimizers.build_optimizer(
         SimpleNamespace(optimizer="adam", lr=5e-4, weight_decay=0.0),
-        optimizers.trainable_parameters(
-            params, optimizers.make_trainable_mask(params, False)))
+        optimizers.trainable_parameters(params, mask))
     kw = dict(loss_name=loss_name, steps_per_execution=steps)
+    if camdir:
+        kw.update(ray_format="camdir", id_to_cam=idmap)
     step = system.make_device_pool_step(cfg, opt, batch_size=GRAPH_B, **kw) \
         if pool else system.make_train_step(cfg, opt, **kw)
-    rng = np.random.default_rng(3)
     n = 2 * GRAPH_K * GRAPH_B
     d = rng.normal(0, 1, (n, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     rays = np.concatenate([rng.normal(0, 1, (n, 3)), d, np.full((n, 1), 2.0),
                            np.full((n, 1), 6.0)], 1)
+    ts = rng.integers(0, 8, n)
+    if camdir:
+        rays = rays[:, 3:]
+        ts = rng.choice(CAMDIR_IDS, n)
     data = {"rays": torch.tensor(rays, dtype=torch.float32, device=dev),
-            "ts": torch.tensor(rng.integers(0, 8, n), device=dev),
+            "ts": torch.tensor(ts, device=dev),
             "rgbs": torch.tensor(0.5 + 0.4 * d, dtype=torch.float32,
                                  device=dev)}
     gen = torch.Generator(device=dev).manual_seed(1)
     return params, opt, step, data, gen
 
 
-def _run_graph_case(dtype, steps, pool, n_steps):
+def _run_graph_case(dtype, steps, pool, n_steps, camdir=False):
     """n_steps steps, K = 1 one by one or K at a time with the last call's
     tail masked; returns params, Adam state, the loss of each step and the
     step function."""
     from nerf_fl_torch.training import optimizers, system
-    params, opt, step, data, gen = _graph_case(dtype, steps, pool)
+    params, opt, step, data, gen = _graph_case(dtype, steps, pool,
+                                               camdir=camdir)
     B = GRAPH_B
     perm = torch.arange(data["rays"].shape[0], dtype=torch.int32,
                         device=data["rays"].device).flip(0)
@@ -760,6 +783,26 @@ def test_graph_k_step_equals_eager_steps_on_card(dtype, pool):
         assert int(a["step"]) == int(b["step"]) == n
         assert torch.equal(a["exp_avg"], b["exp_avg"])
         assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [False, True], ids=["host_fed", "pool"])
+def test_camdir_graph_k_step_equals_eager_steps_on_card(pool):
+    """Camera-frame rays (5 columns, sparse image ids) posed inside the
+    step from the frozen pose table: seven steps as two K = 4 graph calls
+    against seven eager steps, bit for bit, one capture; the pose table
+    (in the leaves, its buffer apart) never moves."""
+    n = 2 * GRAPH_K - 1
+    p1, s1, l1, _ = _run_graph_case("bfloat16", 1, pool, n, camdir=True)
+    pk, sk, lk, step = _run_graph_case("bfloat16", GRAPH_K, pool, n,
+                                       camdir=True)
+    assert step.graph.captures == 1
+    assert torch.equal(l1, lk) and bool(torch.isfinite(lk).all())
+    for a, b in zip(p1, pk):
+        assert torch.equal(a, b)
+    # the leaves end with learn_poses.r / .t: still zero
+    assert not any(bool(t.abs().max() > 0) for t in pk[-2:])
+    assert len(s1) == len(sk) == len(p1) - 2
 
 
 @pytest.mark.cuda

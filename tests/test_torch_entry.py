@@ -9,7 +9,16 @@
   * eval of that JAX checkpoint: the port's Mean PSNR and Mean SSIM equal
     the JAX eval.py's within 1e-3, and its PNGs differ by at most 1 level;
   * without the device request and without a card both entry points raise,
-    and eval's unported options raise with their ROADMAP item.
+    and eval's unported options raise with their ROADMAP item, while the
+    ones ROADMAP A.6 ported (mp4, --save_depth, Phototourism) run;
+  * train and eval on tiny Phototourism (its ray cache from
+    ``prepare_phototourism``, host-fed groups of 2 sub-steps) and LLFF
+    (the device pool) scenes, with --save_depth and --video_format mp4:
+    the pose table stays as it began, the PFM depth
+    reads back to what eval rendered, the mp4 fallback line and the GIF
+    appear only where the JAX CLI writes a video, and eval of a JAX
+    checkpoint on the LLFF scene gives the JAX eval.py's PSNR within 1e-3
+    and its depth within 1e-3.
 """
 import argparse
 import os
@@ -25,13 +34,16 @@ from PIL import Image
 
 import eval as jeval
 import opt as jopt_cli
-from nerf_fl_tpu.data.synthetic import make_blender_scene
+from nerf_fl_tpu.data.synthetic import (make_blender_scene, make_llff_scene,
+                                        make_phototourism_scene)
 from nerf_fl_tpu.render import RenderConfig as JRenderConfig
 from nerf_fl_tpu.training import checkpoints as jckpt
 from nerf_fl_tpu.training import system as jsys
 from nerf_fl_torch import eval as teval
 from nerf_fl_torch import opt as topt
+from nerf_fl_torch import prepare_phototourism as tprep
 from nerf_fl_torch import train as ttrain
+from nerf_fl_torch.data import pfm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = ["--N_samples", "8", "--N_importance", "8", "--mlp_depth", "2",
@@ -161,14 +173,133 @@ def test_entry_points_raise_without_a_card_or_a_request(scene_and_jax_ckpt,
                                    "--ckpt_path", jax_ckpt]))
 
 
+@pytest.fixture(scope="module")
+def tour_scene(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("tour") / "tour")
+    make_phototourism_scene(root, n_images=3, size=16, n_points=100)
+    return root
+
+
 @pytest.mark.parametrize("flag,item", [
     (["--optimize_appearance"], "A.7"), (["--refine_pose"], "A.7"),
     (["--video_format", "mp4"], "A.6"), (["--save_depth"], "A.6"),
     (["--num_gpus", "2"], "A.8"), (["--dataset_name", "phototourism"],
                                    "A.6")])
-def test_eval_refuses_unported_options(scene_and_jax_ckpt, flag, item):
+def test_eval_refuses_unported_options(scene_and_jax_ckpt, tour_scene,
+                                       tmp_path, monkeypatch, capsys, flag,
+                                       item):
+    """The options of A.7 and A.8 raise with their item; those of A.6 are
+    ported and run: mp4 falls back to the GIF with the JAX CLI's line,
+    --save_depth writes a PFM a frame, Phototourism evaluates."""
     scene, jax_ckpt = scene_and_jax_ckpt
-    args = teval.get_opts(["--root_dir", scene, *MODEL, "--ckpt_path",
-                           jax_ckpt] + flag)
-    with pytest.raises(NotImplementedError, match=f"not ported yet.*{item}"):
-        teval.main(args, device="cpu")
+    root = tour_scene if "phototourism" in flag else scene
+    args = teval.get_opts(["--root_dir", root, *MODEL, "--ckpt_path",
+                           jax_ckpt, "--scene_name", "s", "--chunk", "4096"]
+                          + flag)
+    if item != "A.6":
+        with pytest.raises(NotImplementedError,
+                           match=f"not ported yet.*{item}"):
+            teval.main(args, device="cpu")
+        return
+    monkeypatch.chdir(tmp_path)
+    assert np.isfinite(teval.main(args, device="cpu"))
+    out = capsys.readouterr().out
+    res = tmp_path / "results" / args.dataset_name / "s"
+    files = sorted(os.listdir(res))
+    if "mp4" in flag:
+        assert f"[eval] mp4 writer unavailable ({teval.MP4_UNAVAILABLE}); " \
+            f"writing results/blender/s/s.gif" in out
+        assert files == ["000.png", "s.gif"]
+    elif "--save_depth" in flag:
+        assert files == ["000.png", "depth_000.pfm", "s.gif"]
+    else:
+        assert files == ["000.png"]        # no video for a val split
+        assert "writer unavailable" not in out
+
+
+def _tiny_model(vocab):
+    return ["--N_samples", "8", "--N_importance", "8", "--mlp_depth", "2",
+            "--mlp_width", "32", "--encode_a", "--encode_t", "--N_vocab",
+            str(vocab), "--chunk", "4096"]
+
+
+def test_phototourism_and_llff_train_and_eval_on_the_cpu(tmp_path,
+                                                         monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    from nerf_fl_torch.data.synthetic import \
+        make_llff_scene as t_make_llff
+    from nerf_fl_torch.data.synthetic import \
+        make_phototourism_scene as t_make_tour
+    t_make_tour("tour", n_images=4, sizes=[24, 16], n_points=100)
+    tprep.main(tprep.get_opts(["--root_dir", "tour", "--img_downscale",
+                               "2"]))
+    t_make_llff("llff", n_images=4)
+    common = ["--batch_size", "128", "--num_epochs", "1", "--save_path",
+              "ckpts", "--refresh_every", "0", "--steps_per_execution", "2"]
+    runs = {
+        "phototourism": ["--dataset_name", "phototourism", "--root_dir",
+                         "tour", "--img_downscale", "2", "--use_cache"],
+        "llff": ["--dataset_name", "llff", "--root_dir", "llff",
+                 "--img_wh", "40", "30"]}
+    # Phototourism's 5-column rays through the host-fed groups of 2
+    # (stack_batches, DevicePrefetcher), LLFF's through the device pool
+    pools = {"phototourism": "off", "llff": "on"}
+    for name, data in runs.items():
+        system = ttrain.main(topt.get_opts(data + _tiny_model(8) + common
+                                           + ["--exp_name", name,
+                                              "--device_pool", pools[name]]),
+                             device="cpu")
+        assert system.global_step > 0
+        assert (system.device_pool is None) == (pools[name] == "off")
+        assert (system.ray_format == "camdir") == (name == "phototourism")
+        if name == "phototourism":
+            poses = system.params["learn_poses"]
+            assert not poses.r.requires_grad
+            np.testing.assert_array_equal(
+                poses.init_c2w.numpy(), system.init_poses)
+            assert float(poses.r.abs().max()) == 0.0
+        splits = ["val", "test_train"]
+        for split in splits:
+            scene = f"{name}_{split}"
+            stats = {}
+            teval.main(teval.get_opts(
+                data + _tiny_model(8) + ["--split", split, "--ckpt_path",
+                                             f"ckpts/{name}/epoch=0.ckpt",
+                                             "--scene_name", scene,
+                                             "--save_depth", "--video_format",
+                                             "mp4"]), device="cpu",
+                stats=stats)
+            out = capsys.readouterr().out
+            res = f"results/{name}/{scene}"
+            video = name == "llff"
+            assert ("mp4 writer unavailable" in out) == video
+            assert os.path.exists(f"{res}/{scene}.gif") == video
+            assert len(stats["depth"]) == len(stats["frame_s"]) > 0
+            for i, depth in enumerate(stats["depth"]):
+                back, scale = pfm.read_pfm(f"{res}/depth_{i:03d}.pfm")
+                assert scale == 1.0
+                np.testing.assert_array_equal(back, depth)
+
+
+def test_llff_eval_of_a_jax_checkpoint_matches_jax_eval(tmp_path,
+                                                        monkeypatch):
+    make_llff_scene(str(tmp_path / "llff"), n_images=4)
+    cfg = JRenderConfig(N_samples=8, N_importance=8, encode_a=True,
+                        encode_t=True, mlp_depth=2, mlp_width=32)
+    ckpt = str(tmp_path / "jax.ckpt")
+    jckpt.save_checkpoint(ckpt, jsys.build_params(jax.random.PRNGKey(4),
+                                                  cfg, 8))
+    argv = ["--dataset_name", "llff", "--root_dir", str(tmp_path / "llff"),
+            "--img_wh", "40", "30", *_tiny_model(8), "--split", "val",
+            "--ckpt_path", ckpt, "--scene_name", "s", "--save_depth"]
+    for d in ("j", "t"):
+        os.makedirs(tmp_path / d)
+    monkeypatch.chdir(tmp_path / "j")
+    want = jeval.main(jeval.get_opts(argv))
+    monkeypatch.chdir(tmp_path / "t")
+    got = teval.main(teval.get_opts(argv), device="cpu")
+    assert abs(got - want) <= 1e-3, (got, want)
+    a, _ = pfm.read_pfm(str(tmp_path / "j/results/llff/s/depth_000.pfm"))
+    b, _ = pfm.read_pfm(str(tmp_path / "t/results/llff/s/depth_000.pfm"))
+    assert a.shape == b.shape == (30, 40)
+    np.testing.assert_allclose(b, a, atol=1e-3)

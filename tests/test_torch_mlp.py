@@ -126,8 +126,16 @@ def test_bridge_round_trip_and_transpose():
     assert len(flat_a) == len(flat_b)
     for path, leaf in flat_a:
         np.testing.assert_array_equal(flat_b[path], leaf)
+    # the learned-pose table crosses as it is, both ways; a key the port
+    # does not know still raises
+    poses = {"r": np.full((2, 3), 0.1, np.float32),
+             "t": np.full((2, 3), -0.2, np.float32),
+             "init_c2w": np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))}
+    back = to_numpy_tree(from_jax_params({**jp, "learn_poses": poses}, trc))
+    for k, v in poses.items():
+        np.testing.assert_array_equal(back["learn_poses"][k], v)
     with pytest.raises(ValueError, match="not ported"):
-        from_jax_params({**jp, "learn_poses": np.zeros((2, 6))}, trc)
+        from_jax_params({**jp, "pose_scale": np.zeros((2, 6))}, trc)
     bad = {**jp, "nerf_coarse": jp["nerf_fine"]}
     with pytest.raises(ValueError, match="shape"):
         from_jax_params(bad, trc)

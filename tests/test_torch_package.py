@@ -32,6 +32,10 @@ PORT_MODULES = {
     "nerf_fl_torch.data.sampler", "nerf_fl_torch.data.blender",
     "nerf_fl_torch.data.image_io", "nerf_fl_torch.data.perturbations",
     "nerf_fl_torch.data.rays_np", "nerf_fl_torch.data.synthetic",
+    "nerf_fl_torch.data.jpeg", "nerf_fl_torch.data.pfm",
+    "nerf_fl_torch.data.llff", "nerf_fl_torch.data.colmap",
+    "nerf_fl_torch.data.phototourism", "nerf_fl_torch.prepare_phototourism",
+    "nerf_fl_torch.core.lie", "nerf_fl_torch.models.poses",
     "nerf_fl_torch.eval", "nerf_fl_torch.opt", "nerf_fl_torch.train",
     "nerf_fl_torch.utils", "nerf_fl_torch.utils.cli",
     "nerf_fl_torch.utils.visualization", "nerf_fl_torch.models",
@@ -136,6 +140,24 @@ train.main(opt.get_opts(model + ["--batch_size", "128", "--num_epochs", "1",
 psnr = ev.main(ev.get_opts(model + ["--ckpt_path", "ckpts/b/epoch=0.ckpt",
                                     "--split", "test", "--compute_ssim"]),
                device="cpu")
+from nerf_fl_torch import prepare_phototourism as prep
+from nerf_fl_torch.data.synthetic import (make_llff_scene,
+                                          make_phototourism_scene)
+make_phototourism_scene("tour", n_images=3, sizes=[20, 16], n_points=60)
+prep.main(prep.get_opts(["--root_dir", "tour", "--img_downscale", "2"]))
+make_llff_scene("llff", n_images=3)
+small = model[5:] + ["--chunk", "2048"]
+for name, data in (("phototourism", ["--root_dir", "tour",
+                                     "--img_downscale", "2", "--use_cache"]),
+                   ("llff", ["--root_dir", "llff", "--img_wh", "40", "30"])):
+    data = ["--dataset_name", name] + data
+    train.main(opt.get_opts(data + small + [
+        "--batch_size", "128", "--num_epochs", "1", "--save_path", "ckpts",
+        "--exp_name", name, "--refresh_every", "0"]), device="cpu")
+    ev.main(ev.get_opts(data + small + [
+        "--ckpt_path", f"ckpts/{name}/epoch=0.ckpt", "--split", "val",
+        "--save_depth", "--video_format", "mp4", "--scene_name", name]),
+        device="cpu")
 bad = sorted(m for m in sys.modules if sys.modules[m] is not None
              and m.split(".")[0] in BLOCKED)
 print("PSNR", psnr, "BAD", bad)
@@ -143,10 +165,11 @@ print("PSNR", psnr, "BAD", bad)
 
 
 def test_train_and_eval_need_none_of_the_missing_libraries(tmp_path):
-    """Train and eval on the CPU in a process where PIL, pandas, imageio,
-    cv2, flax, msgpack, tensorboard, jax and the JAX package cannot be
-    imported: train and eval need only torch, numpy and the standard
-    library."""
+    """Train and eval (Blender, then Phototourism from the ray cache that
+    prepare_phototourism writes, then LLFF, with --save_depth and mp4) on
+    the CPU in a process where PIL, pandas, imageio, cv2, flax, msgpack,
+    tensorboard, jax and the JAX package cannot be imported: they need
+    only torch, numpy and the standard library."""
     code = f"BLOCKED = {_BLOCKED!r}\n" + _TRAIN_EVAL_BLOCKED
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          capture_output=True, text=True, timeout=300,
@@ -155,3 +178,8 @@ def test_train_and_eval_need_none_of_the_missing_libraries(tmp_path):
     assert "BAD []" in out.stdout, out.stdout[-2000:]
     assert "JSONL only" in out.stdout
     assert (tmp_path / "results" / "blender" / "test" / "test.gif").exists()
+    assert (tmp_path / "tour" / "cache" / "rays2.npy").exists()
+    for name in ("phototourism", "llff"):
+        assert (tmp_path / "results" / name / name / "depth_000.pfm") \
+            .exists()
+    assert (tmp_path / "results" / "llff" / "llff" / "llff.gif").exists()

@@ -143,14 +143,28 @@ def test_resume_from_a_jax_checkpoint_matches_jax(scene, tmp_path):
 
 
 def test_unported_flags_raise(scene, tmp_path):
+    """Pose refinement (A.7) and more than one device (A.8) raise; the
+    LLFF dataset (A.6) is ported: its system sets up as JAX's does."""
     for extra, item in ((["--refine_pose"], "A.7"),
                         (["--pose_noise", "1", "0"], "A.7"),
-                        (["--num_gpus", "2"], "A.8"),
-                        (["--dataset_name", "llff"], "A.6")):
+                        (["--num_gpus", "2"], "A.8")):
         s = system.NeRFSystem(get_opts(_argv(scene, str(tmp_path), 1, "off")
                                        + extra), device="cpu")
         with pytest.raises(NotImplementedError, match=item):
             s.setup()
+    from nerf_fl_tpu.data.synthetic import make_llff_scene
+    llff = str(tmp_path / "llff")
+    make_llff_scene(llff, n_images=4)
+    argv = _argv(scene, str(tmp_path), 1, "off") + [
+        "--dataset_name", "llff", "--root_dir", llff, "--img_wh", "40", "30"]
+    js, _ = _jax_system(argv)
+    ts, _ = _port_system(argv)
+    assert ts.ray_format == js.ray_format == "world"
+    assert ts.id_to_cam is None and js.id_to_cam is None
+    for k in ("rays", "ts", "rgbs"):
+        np.testing.assert_array_equal(getattr(ts.batcher, k),
+                                      getattr(js.batcher, k))
+    assert "learn_poses" not in ts.params
 
 
 def test_gauge_val_psnr_matches_jax(scene, tmp_path):
