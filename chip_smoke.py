@@ -92,7 +92,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      depth eval rendered, the mp4 fallback line and the GIF where the JAX
      CLI writes a video (LLFF) and nowhere else; trained above untrained
      on the training views by TOUR_SEEN_MARGIN; print each epoch's rays/s
-     beside phase 6's graph step and the data layer's host seconds.
+     beside phase 6's graph step and the data layer's host seconds;
+ 11. BARF pose refinement and test-time appearance optimization through
+     the entry points: write a textured Blender scene (8 train views of
+     800 x 800 PNGs; an untextured ball leaves the poses unobservable),
+     hold the gradients of the pose deltas and of the appearance table
+     through the fused pair (bf16 and f32) against the plain f32 MLP path
+     on one flagship batch of camera-frame rays with BARF's scale rows at
+     epoch 1 of 0-2, train it 2 epochs at 400 x 400 from noisy poses (2
+     deg, 2%) with --refine_pose, BARF's paper schedule, a pose warmup of
+     1 epoch and a pose lr x 0.25, the device pool as a graph of 20
+     sub-steps: the gates of phase 10's fits, every call's BARF weights
+     (computed inside the replayed graph from the call's epoch tensor)
+     equal to barf_weights of that epoch, the deltas exactly 0 through the
+     warmup and moved after it, the aligned pose errors under 1.35 x the
+     injected ones (the JAX package's contract); a frozen control arm
+     (noise, no refinement, 1 epoch) whose deltas stay exactly 0; eval
+     with --refine_pose on the training views and with
+     --optimize_appearance on the test views (each frame's fit loss
+     falling, the right half's PSNR finite, 2 fused forward and 1 fused
+     backward launches and runs an Adam step beside one forward a render
+     chunk); and a Phototourism collection (12 JPEGs) trained 1 epoch with
+     --refine_pose; print the rays/s beside phase 6's graph step and the
+     seconds an appearance fit takes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -1556,6 +1578,349 @@ def phase_wild_entry_points(graph_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the BARF and appearance entry-points phase: pose refinement on a textured
+# Blender scene with seeded pose noise (an untextured ball leaves the
+# poses unobservable), a frozen control arm, eval with --refine_pose and
+# with --optimize_appearance, and a short Phototourism fit with
+# --refine_pose, all at the flagship width
+BARF_SCENE = dict(n_train=8, n_val=1, n_test=2, size=800, texture=True)
+BARF_NOISE = ["--pose_noise", "2", "0.02"]      # 2 deg RMS, 2% of distance
+BARF_SCHEDULE = ["--barf_schedule", "paper", "--barf_epochs", "0", "2"]
+BARF_REFINE = ["--refine_pose", *BARF_SCHEDULE, "--pose_warmup_epochs", "1",
+               "--pose_lr_mult", "0.25"]
+BARF_TRAIN = ["--dataset_name", "blender", "--batch_size", "1024",
+              "--optimizer", "adam", "--lr", "5e-4", "--lr_scheduler",
+              "cosine", "--steps_per_execution", "20", "--device_pool", "on",
+              "--refresh_every", "500"]
+# the JAX package's contract for joint refinement at test scale
+# (tests/test_barf_recovery.py:275-276): the aligned errors after fit
+# under this multiple of the injected ones
+BARF_BOUND = 1.35
+# pose and appearance gradients through the fused pair against the plain
+# f32 path, norm-relative per tensor: f32 kernels sum the same products in
+# another order (the coarse net's ill-conditioning leaves 2e-3 between two
+# f32 implementations, ROADMAP C); bf16 rounds every activation and
+# cotangent, the limit of tests/test_torch_lockstep.py's bf16 gradients
+POSE_GRAD_F32_NORM = 2e-3
+POSE_GRAD_BF16_NORM = 0.1
+TOUR_BARF_SCENE = dict(n_images=12, sizes=[192, 160, 128], n_points=500)
+BARF_PATHS = ("barf_train_cli", "control_train_cli", "barf_eval_cli",
+              "opt_a_eval_cli", "tour_barf_train_cli")
+
+
+class _BarfProbe:
+    """Records, for every call of a captured train step, the epoch tensor
+    the call filled and the BARF weights (xyz band) that the call's last
+    replay computed from it: a copy into a fixed buffer is captured into
+    the graph beside each fused forward (nothing is copied in an eager
+    call).  Both reads are device copies, so the step is never synced."""
+
+    def __init__(self, n_freqs):
+        import torch
+        import nerf_fl_torch.render.renderer as renderer
+        from nerf_fl_torch.training import system as tsys
+        self.buf = torch.full((n_freqs,), float("nan"), device="cuda")
+        self.calls = []
+        self._renderer, self._fused = renderer, renderer.fused_apply_nerf
+        self._cls, self._run = tsys._StepGraph, tsys._StepGraph.run
+        probe = self
+
+        def fused(*a, **k):
+            w = k.get("barf_w_xyz")
+            if w is not None and torch.cuda.is_current_stream_capturing():
+                probe.buf.copy_(w)
+            return probe._fused(*a, **k)
+
+        def run(graph, *a, **k):
+            out = probe._run(graph, *a, **k)
+            probe.calls.append((graph.epoch.clone(), probe.buf.clone()))
+            return out
+
+        renderer.fused_apply_nerf = fused
+        tsys._StepGraph.run = run
+
+    def restore(self):
+        self._renderer.fused_apply_nerf = self._fused
+        self._cls.run = self._run
+
+
+def _grad_parity(dev, scene, wh):
+    """One flagship batch of camera-frame rays, BARF at epoch 1 of 0-2
+    (half the bands on): the gradients of the pose deltas and of the
+    appearance table through the fused pair (bf16 and f32) against the
+    plain f32 MLP path, norm-relative per tensor."""
+    import numpy as np
+    import torch
+    from nerf_fl_torch.data.blender import BlenderDataset
+    from nerf_fl_torch.models.poses import perturb_poses
+    from nerf_fl_torch.render import RenderConfig, render_rays
+    from nerf_fl_torch.training import build_params
+    from nerf_fl_torch.training.losses import nerfw_loss
+    from nerf_fl_torch.training.system import assemble_world_rays
+
+    ds = BlenderDataset(scene, "train", img_wh=(wh, wh), refine_pose=True)
+    init = np.concatenate([ds.poses, np.tile(np.array(
+        [[[0, 0, 0, 1]]], np.float32), (len(ds.poses), 1, 1))], 1)
+    noisy = perturb_poses(init, 2.0, 0.02, seed=0)
+    idx = np.random.default_rng(0).choice(len(ds.all_rays), BATCH,
+                                          replace=False)
+    rays, ts, rgbs = (torch.from_numpy(np.ascontiguousarray(x[idx])).to(dev)
+                      for x in (ds.all_rays, ds.all_ts, ds.all_rgbs))
+    barf = dict(refine_pose=True, barf_schedule="paper", barf_epoch_start=0,
+                barf_epoch_end=2)
+    grads = {}
+    for name, over in (("plain_f32", dict(compute_dtype="float32",
+                                          use_fused=False)),
+                       ("fused_f32", dict(compute_dtype="float32")),
+                       ("fused_bf16", {})):
+        cfg = RenderConfig(**{**FLAGSHIP, **barf, **over})
+        params = build_params(cfg, N_VOCAB,
+                              generator=torch.Generator().manual_seed(0),
+                              device=dev, init_poses=noisy)
+        table = params["learn_poses"]
+        world = assemble_world_rays(params, rays, ts, ray_format="camdir")
+        res = render_rays(params, world, ts, cfg,
+                          epoch=torch.tensor(1.0, device=dev))
+        loss = sum(nerfw_loss(res, rgbs).values())
+        g = torch.autograd.grad(loss, [table.r, table.t,
+                                       params["embedding_a"]])
+        grads[name] = [x.detach().double() for x in g]
+    ref = grads["plain_f32"]
+    out = {}
+    for name, limit in (("fused_f32", POSE_GRAD_F32_NORM),
+                        ("fused_bf16", POSE_GRAD_BF16_NORM)):
+        errs = [float((a - b).norm() / b.norm())
+                for a, b in zip(grads[name], ref)]
+        out[name] = errs
+        print(f"[barf] gradients through the fused pair ({name}) against "
+              f"the plain f32 path, {BATCH} camera-frame rays x (64 + 64) "
+              f"samples, BARF at epoch 1 of 0-2: norm-relative error "
+              f"learn_poses.r {errs[0]:.3e}, learn_poses.t {errs[1]:.3e}, "
+              f"embedding_a {errs[2]:.3e} (limit {limit:g}); |grad r| "
+              f"{float(ref[0].norm()):.3e}, |grad t| "
+              f"{float(ref[1].norm()):.3e}")
+        if not all(np.isfinite(e) and e <= limit for e in errs) \
+                or not all(float(b.norm()) > 0 for b in ref):
+            fail(f"pose / appearance gradients through the fused pair "
+                 f"({name}) off the plain f32 path: {errs}, limit {limit}")
+    return out
+
+
+def phase_barf_entry_points(graph_ms):
+    """BARF pose refinement and NeRF-W's test-time appearance fit through
+    the port's entry points, in a temporary directory: write BARF_SCENE,
+    hold the pose and appearance gradients through the fused pair to the
+    plain f32 path, train 2 epochs with BARF_NOISE and BARF_REFINE from
+    the device pool as a graph of 20 sub-steps (the gates of ``_wild_fit``;
+    every call's BARF weights, computed inside the replayed graph from its
+    epoch tensor, equal ``barf_weights`` of that call's epoch; the deltas
+    exactly 0 in the checkpoint of the warmup epoch and moved after it; the
+    aligned pose errors under BARF_BOUND times the injected ones), train a
+    frozen control arm (noise, no refinement) 1 epoch whose deltas stay
+    exactly 0, evaluate the BARF checkpoint with --refine_pose on
+    test_train and with --optimize_appearance on test (each frame's fit
+    loss falling, the right half's PSNR finite, 2 fused forward and 1
+    fused backward launches an Adam step beside one forward a render
+    chunk), and train a Phototourism collection 1 epoch with
+    --refine_pose.  Returns the wrappers' launches of each kernel on each
+    path and the BARF fit's graph counts."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from nerf_fl_torch import eval as ev
+    from nerf_fl_torch import opt
+    from nerf_fl_torch.core.encoding import barf_weights
+    from nerf_fl_torch.data.synthetic import (make_blender_scene,
+                                              make_phototourism_scene)
+    from nerf_fl_torch.models.poses import all_poses, pose_errors
+    from nerf_fl_torch.ops import fused_mlp as fm
+    from nerf_fl_torch.training import checkpoints
+    from nerf_fl_torch.training.system import val_chunk_cap
+
+    plain, restore = _count_plain()
+    here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_barf_")
+    out = {}
+    probe = None
+    try:
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        make_blender_scene("scene", **BARF_SCENE)
+        print(f"[barf] scene of {BARF_SCENE} written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        _grad_parity(torch.device("cuda"), "scene", IMG)
+
+        # ---- BARF fit: counts at 0 just before, read just after
+        model = ["--root_dir", "scene", *ENTRY_MODEL]
+        hp = opt.get_opts(model + BARF_TRAIN + BARF_NOISE + BARF_REFINE + [
+            "--num_epochs", "2", "--exp_name", "barf", "--save_path",
+            "ckpts"])
+        probe = _BarfProbe(hp.N_emb_xyz)
+        system, train_l, graph, _ = _wild_fit(hp, plain, IMG * IMG, "barf",
+                                              graph_ms)
+        probe.restore()
+        epochs = [float(e) for e, _ in probe.calls]
+        read = all(torch.equal(w, barf_weights(
+            e, hp.N_emb_xyz, 0, 2, schedule="paper", device=e.device))
+            for e, w in probe.calls)
+        print(f"[barf] the replayed graph's BARF weights after each of "
+              f"{len(probe.calls)} calls equal barf_weights of the call's "
+              f"epoch tensor: {read} (epochs {epochs[0]:.4f} .. "
+              f"{epochs[-1]:.4f}, {len(set(epochs))} distinct; xyz band "
+              f"weights after the last call "
+              f"{[round(float(x), 4) for x in probe.calls[-1][1]]})")
+        if not read or len(set(epochs)) != len(probe.calls) \
+                or len(probe.calls) < 2:
+            fail("the captured BARF step does not read its epoch tensor at "
+                 "each call")
+        warm = checkpoints.load_checkpoint(
+            os.path.join("ckpts", "barf", "epoch=0.ckpt"))
+        held = all(not np.asarray(warm["state_dict"]["learn_poses"][k]).any()
+                   for k in ("r", "t"))
+        table = system.params["learn_poses"]
+        moved = [float(getattr(table, k).detach().abs().max())
+                 for k in ("r", "t")]
+        r_inj, t_inj = pose_errors(system.init_poses, system.true_poses)
+        with torch.no_grad():
+            refined = all_poses(table).cpu().numpy()
+        r_ref, t_ref = pose_errors(refined, system.true_poses)
+        last = system.epoch_stats[-1]
+        print(f"[barf] pose deltas after the warmup epoch (epoch=0.ckpt) "
+              f"exactly 0: {held}; after fit max |r| {moved[0]:.3e}, max "
+              f"|t| {moved[1]:.3e}; aligned pose errors of "
+              f"{len(refined)} cameras: rotation {r_inj:.4f} -> "
+              f"{r_ref:.4f} deg, translation {t_inj:.5f} -> {t_ref:.5f} "
+              f"(gate < {BARF_BOUND:g} x injected); last epoch "
+              f"{last['rays_per_sec']:.0f} rays/s = "
+              f"{last['rays_per_sec'] / (BATCH / graph_ms * 1e3):.3f} of "
+              f"phase 6's bare graph step")
+        if not held or min(moved) <= 0.0:
+            fail("the pose deltas moved during the warmup or not after it")
+        if not (r_ref < BARF_BOUND * r_inj and t_ref < BARF_BOUND * t_inj):
+            fail(f"refinement let the poses walk: rotation {r_ref:.4f} / "
+                 f"{r_inj:.4f}, translation {t_ref:.5f} / {t_inj:.5f}")
+        out["barf_train_cli"], out["barf_graph"] = train_l, graph
+        path = os.path.join("ckpts", "barf", "epoch=1.ckpt")
+        _wild_reload(system, hp, path, "barf", system.init_poses)
+        del system
+
+        # ---- the frozen control arm: noise, no refinement
+        hp = opt.get_opts(model + BARF_TRAIN + BARF_NOISE + [
+            "--num_epochs", "1", "--exp_name", "control", "--save_path",
+            "ckpts"])
+        system, ctrl_l, _, _ = _wild_fit(hp, plain, IMG * IMG, "control",
+                                         graph_ms)
+        table = system.params["learn_poses"]
+        still = (not table.r.requires_grad and not table.t.requires_grad
+                 and float(table.r.abs().max()) == 0.0
+                 and float(table.t.abs().max()) == 0.0)
+        print(f"[control] noisy poses without refinement: deltas exactly 0 "
+              f"after fit: {still}")
+        if not still:
+            fail("the frozen control arm moved its pose deltas")
+        out["control_train_cli"] = ctrl_l
+        del system
+
+        # ---- eval with --refine_pose on the training views
+        barf_eval = model + BARF_SCHEDULE + ["--refine_pose", "--ckpt_path",
+                                             path]
+        args = ev.get_opts(barf_eval + ["--split", "test_train",
+                                        "--scene_name", "barf_seen"])
+        chunk = val_chunk_cap(args.chunk, args.N_samples, args.N_importance)
+        n_chunks = BARF_SCENE["n_train"] * -(-IMG * IMG // chunk)
+        fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+        plain["calls"] = 0
+        stats = {}
+        psnr = ev.main(args, stats=stats)
+        efwd, ebwd = fm.fused_mlp_fwd_cuda.launches, \
+            fm.fused_mlp_bwd_cuda.launches
+        print(f"[barf] eval --refine_pose test_train (the refined training "
+              f"poses, at the checkpoint's epoch): PSNR {psnr:.3f}; "
+              f"{len(stats['frame_s'])} frames, "
+              f"{1e3 * stats['total_s'] / len(stats['frame_s']):.1f} ms a "
+              f"frame; fused forward launches {efwd} for {n_chunks} chunks, "
+              f"backward {ebwd}, plain MLP calls {plain['calls']}")
+        if not np.isfinite(psnr) or (efwd, ebwd, plain["calls"]) != \
+                (n_chunks, 0, n_chunks):
+            fail(f"eval --refine_pose: PSNR {psnr}, launches {(efwd, ebwd)}"
+                 f", plain calls {plain['calls']}")
+        out["barf_eval_cli"] = (efwd, ebwd)
+
+        # ---- eval with --optimize_appearance: counts at 0 just before
+        args = ev.get_opts(barf_eval + ["--split", "test",
+                                        "--optimize_appearance",
+                                        "--scene_name", "opt_a"])
+        n_frames, steps = BARF_SCENE["n_test"], args.opt_a_steps
+        n_chunks = n_frames * -(-IMG * IMG // chunk)
+        fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+        plain["calls"] = 0
+        runs0 = fm.kernel_runs()
+        stats, text = {}, io.StringIO()
+        with contextlib.redirect_stdout(text):
+            psnr = ev.main(args, stats=stats)
+        torch.cuda.synchronize()
+        efwd, ebwd = fm.fused_mlp_fwd_cuda.launches, \
+            fm.fused_mlp_bwd_cuda.launches
+        rf, rb = (b - a for a, b in zip(runs0, fm.kernel_runs()))
+        lines = [x for x in text.getvalue().splitlines()
+                 if x.startswith("[opt_a]")]
+        for x in lines:
+            print(x)
+        curves = stats["opt_a_losses"]
+        falling = len(curves) == n_frames and all(
+            np.isfinite(c).all() and c[-1] < c[0] for c in curves)
+        want = (n_frames * 2 * steps + n_chunks, n_frames * steps)
+        print(f"[opt_a] eval --optimize_appearance test ({n_frames} "
+              f"frames, {steps} Adam steps on {args.opt_a_rays} left-half "
+              f"rays each): right-half PSNR {psnr:.3f}; fit seconds a frame "
+              f"{[round(s, 3) for s in stats['opt_a_s']]}; fit MSE falling "
+              f"in every frame: {falling}; fused launches {(efwd, ebwd)}, "
+              f"runs on the card {(rf, rb)}, expected {want} (2 forward + 1 "
+              f"backward an Adam step, 1 forward a render chunk); plain MLP "
+              f"calls {plain['calls']} (the render's sigma-only coarse "
+              f"pass)")
+        if not (falling and np.isfinite(psnr)) or (efwd, ebwd) != want \
+                or (rf, rb) != want or plain["calls"] != n_chunks:
+            fail(f"eval --optimize_appearance: falling {falling}, PSNR "
+                 f"{psnr}, launches {(efwd, ebwd)} and runs {(rf, rb)}, "
+                 f"expected {want}, plain calls {plain['calls']}")
+        out["opt_a_eval_cli"] = (efwd, ebwd)
+        out["opt_a_s"] = stats["opt_a_s"]
+
+        # ---- Phototourism with --refine_pose
+        make_phototourism_scene("tour", **TOUR_BARF_SCENE)
+        hp = opt.get_opts(["--dataset_name", "phototourism", "--root_dir",
+                           "tour", "--img_downscale", "2", "--refine_pose"]
+                          + WILD_MODEL + WILD_TRAIN + [
+                              "--num_epochs", "1", "--exp_name", "tour",
+                              "--save_path", "ckpts"])
+        side = TOUR_BARF_SCENE["sizes"][0] // 2
+        system, tour_l, _, _ = _wild_fit(hp, plain, side * side,
+                                         "tour_barf", graph_ms)
+        table = system.params["learn_poses"]
+        moved = [float(getattr(table, k).detach().abs().max())
+                 for k in ("r", "t")]
+        with torch.no_grad():
+            refined = all_poses(table).cpu().numpy()
+        drift = pose_errors(refined, system.true_poses)
+        print(f"[tour_barf] {len(refined)} cameras: deltas max |r| "
+              f"{moved[0]:.3e}, max |t| {moved[1]:.3e}; aligned drift from "
+              f"the COLMAP poses rotation {drift[0]:.4f} deg, translation "
+              f"{drift[1]:.5f}")
+        if not (min(moved) > 0 and np.isfinite(drift).all()):
+            fail("Phototourism refinement left its deltas still")
+        out["tour_barf_train_cli"] = tour_l
+        return out
+    finally:
+        if probe is not None:
+            probe.restore()
+        restore()
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def probe_block(name) -> str:
     """Which block a probe's kernel is built from, for its [probe] line;
     the Hopper-block probes and sin with what ptxas and the build report."""
@@ -1897,6 +2262,7 @@ def main() -> int:
     from nerf_fl_torch.ops import _build
     from nerf_fl_torch.ops import fused_mlp as fm
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     print(smi)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1935,6 +2301,11 @@ def main() -> int:
     before_wild = probe_counts()
     wild = phase_wild_entry_points(graph["ms"])
     on_wild = {k: v - before_wild[k] for k, v in probe_counts().items()}
+    before_barf = probe_counts()
+    t0 = time.perf_counter()
+    barf = phase_barf_entry_points(graph["ms"])
+    barf_s = time.perf_counter() - t0
+    on_barf = {k: v - before_barf[k] for k, v in probe_counts().items()}
     probes, fused_on_anatomy = phase_anatomy(dev, cfg, smi_name)
 
     def graph_line(g, i):
@@ -1953,17 +2324,20 @@ def main() -> int:
         "source": "nerf_fl_torch/csrc/fused_mlp_fwd.cu",
         "replaces": "nerf_fl_tpu/ops/fused_mlp.py:319",
         "launches": launches + fwd_train + cli["train_cli"][0]
-        + cli["eval_cli"][0] + sum(wild[k][0] for k in WILD_PATHS),
+        + cli["eval_cli"][0] + sum(wild[k][0] for k in WILD_PATHS)
+        + sum(barf[k][0] for k in BARF_PATHS),
         "launches_by_path": {"render_frame": launches,
                              "train_step": fwd_train,
                              "train_graph_substep": graph["launches"][0],
                              "train_cli": cli["train_cli"][0],
                              "eval_cli": cli["eval_cli"][0],
                              **{k: wild[k][0] for k in WILD_PATHS},
+                             **{k: barf[k][0] for k in BARF_PATHS},
                              "kernel_anatomy": fused_on_anatomy[0]},
         "train_cli_graph": graph_line(cli["train_graph"], 0),
         "tour_train_cli_graph": graph_line(wild["tour_graph"], 0),
         "llff_train_cli_graph": graph_line(wild["llff_graph"], 0),
+        "barf_train_cli_graph": graph_line(barf["barf_graph"], 0),
         "max_abs_err": max([chunk_err] + [v["fwd_err"] for v in train.values()]),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -1971,17 +2345,20 @@ def main() -> int:
         "source": "nerf_fl_torch/csrc/fused_mlp_bwd.cu",
         "replaces": "nerf_fl_tpu/ops/fused_mlp.py:359",
         "launches": bwd_render + bwd_train + cli["train_cli"][1]
-        + cli["eval_cli"][1] + sum(wild[k][1] for k in WILD_PATHS),
+        + cli["eval_cli"][1] + sum(wild[k][1] for k in WILD_PATHS)
+        + sum(barf[k][1] for k in BARF_PATHS),
         "launches_by_path": {"render_frame": bwd_render,
                              "train_step": bwd_train,
                              "train_graph_substep": graph["launches"][1],
                              "train_cli": cli["train_cli"][1],
                              "eval_cli": cli["eval_cli"][1],
                              **{k: wild[k][1] for k in WILD_PATHS},
+                             **{k: barf[k][1] for k in BARF_PATHS},
                              "kernel_anatomy": fused_on_anatomy[1]},
         "train_cli_graph": graph_line(cli["train_graph"], 1),
         "tour_train_cli_graph": graph_line(wild["tour_graph"], 1),
         "llff_train_cli_graph": graph_line(wild["llff_graph"], 1),
+        "barf_train_cli_graph": graph_line(barf["barf_graph"], 1),
         "max_abs_err": max(v["bwd_err"] for v in train.values()),
         "max_norm_rel_err": max(v["bwd_norm_rel"] for v in train.values()),
         "norm_rel_limit": BWD_BF16_NORM,
@@ -2000,6 +2377,7 @@ def main() -> int:
                                  "train_step": on_train[name],
                                  "train_and_eval_cli": on_cli[name],
                                  "wild_train_and_eval_cli": on_wild[name],
+                                 "barf_train_and_eval_cli": on_barf[name],
                                  "kernel_anatomy": row["launches"]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "device_ms": row["device_ms"],
@@ -2008,6 +2386,8 @@ def main() -> int:
             "library_device_ms": row["library_device_ms"],
             **({"parent_device_ms": row["parent_device_ms"]}
                if "parent_device_ms" in row else {})})
+    print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all, "
+          f"phase 11 {barf_s:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

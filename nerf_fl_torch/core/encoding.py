@@ -6,7 +6,7 @@ spanning the C input channels.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -55,6 +55,23 @@ def posenc_freqs(max_logscale: int, N_freqs: int,
     return np.linspace(1, 2.0 ** max_logscale, N_freqs, dtype=np.float64)
 
 
+_FREQS: Dict[tuple, torch.Tensor] = {}
+
+
+def freqs_on(max_logscale: int, N_freqs: int, logscale: bool,
+             dtype: torch.dtype, device) -> torch.Tensor:
+    """``posenc_freqs`` as a tensor on ``device``, made once per setting: a
+    CUDA graph captured later reads it where it lies, since a host-to-card
+    copy cannot be captured (BARF's "fork" weights in a captured step)."""
+    device = torch.device(device if device is not None else "cpu")
+    key = (max_logscale, N_freqs, logscale, dtype, device)
+    if key not in _FREQS:
+        _FREQS[key] = torch.as_tensor(
+            posenc_freqs(max_logscale, N_freqs, logscale), dtype=dtype,
+            device=device)
+    return _FREQS[key]
+
+
 def posenc(x: torch.Tensor, N_freqs: int, *, max_logscale: Optional[int] = None,
            logscale: bool = True, weights: Optional[torch.Tensor] = None,
            fast: bool = False) -> torch.Tensor:
@@ -62,8 +79,7 @@ def posenc(x: torch.Tensor, N_freqs: int, *, max_logscale: Optional[int] = None,
     (N_freqs,) scales each frequency's sin/cos block (BARF)."""
     if max_logscale is None:
         max_logscale = N_freqs - 1
-    freqs = torch.as_tensor(posenc_freqs(max_logscale, N_freqs, logscale),
-                            dtype=x.dtype, device=x.device)
+    freqs = freqs_on(max_logscale, N_freqs, logscale, x.dtype, x.device)
     xb = x[..., None, :] * freqs[:, None]            # (..., F, C)
     if fast:
         sin, cos = fast_sin(xb), fast_cos(xb)
@@ -101,8 +117,8 @@ def barf_weights(epoch, N_freqs: int, epoch_start: int, epoch_end: int, *,
     if schedule == "paper":
         freqs = torch.arange(N_freqs, dtype=torch.float32, device=device)
     else:
-        freqs = torch.as_tensor(posenc_freqs(max_logscale, N_freqs, logscale),
-                                dtype=torch.float32, device=device)
+        freqs = freqs_on(max_logscale, N_freqs, logscale, torch.float32,
+                         device)
     alpha = barf_alpha(epoch, N_freqs, epoch_start, epoch_end, schedule,
                        device=device)
     d = alpha - freqs

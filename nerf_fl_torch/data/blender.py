@@ -7,8 +7,11 @@ bytes), resized by ``image_io.resize_lanczos`` (PIL's LANCZOS) and blended
 to white.  transforms_{split}.json, the focal from camera_angle_x at the
 800 px native width, near/far 2/6, every training frame but index 0
 perturbed, and the train split's pre-baked flat ray buffer are the JAX
-package's.  Rays are world-space ('world' format); the camera-frame format
-of pose refinement is not ported yet (ROADMAP A.7).
+package's.  Rays are world-space ('world' format), except on the train
+split under pose refinement: there each ray is its camera-frame direction
+with near and far ('camdir', 5 columns), posed inside the train step from
+the learned-pose table.  ``apply_refined_poses`` puts learned poses in
+place of the frames' own for eval.
 """
 from __future__ import annotations
 
@@ -37,16 +40,14 @@ class BlenderDataset:
         assert img_wh[0] == img_wh[1], "image width must equal image height!"
         assert set(perturbation).issubset({"color", "occ"}), \
             'Only "color" and "occ" perturbations are supported!'
-        if refine_pose:
-            raise NotImplementedError(
-                "BlenderDataset(refine_pose=True) is not ported yet "
-                "(ROADMAP A.7)")
         self.root_dir = root_dir
         self.split = split
         self.img_wh = tuple(img_wh)
         self.perturbation = list(perturbation)
         self.refine_pose = refine_pose
-        self.ray_format = "world"
+        self._refined = False           # apply_refined_poses sets it
+        self.ray_format = "camdir" if (refine_pose and split == "train") \
+            else "world"
         self.white_back = True
         self.read_meta()
 
@@ -94,16 +95,26 @@ class BlenderDataset:
                 img = add_perturbation(img, self.perturbation, t)
             img = resize_lanczos(img, self.img_wh)
             rgbs_list.append(blend_alpha_to_white(_to_rgba_floats(img)))
-            rays_o, rays_d = get_rays(flat_dirs, self.poses[t])
-            rays_list.append(np.concatenate([
-                rays_o, rays_d,
-                np.full((n_px, 1), self.near, np.float32),
-                np.full((n_px, 1), self.far, np.float32)], 1))
+            bounds = [np.full((n_px, 1), self.near, np.float32),
+                      np.full((n_px, 1), self.far, np.float32)]
+            if self.ray_format == "world":
+                rays_list.append(np.concatenate(
+                    list(get_rays(flat_dirs, self.poses[t])) + bounds, 1))
+            else:       # the pose is applied in the train step
+                rays_list.append(np.concatenate([flat_dirs] + bounds, 1))
 
         self.all_rays = np.concatenate(rays_list, 0).astype(np.float32)
         self.all_rgbs = np.concatenate(rgbs_list, 0).astype(np.float32)
         self.all_ts = np.repeat(
             np.arange(self.n_images, dtype=np.int32), n_px)
+
+    def apply_refined_poses(self, poses_3x4: np.ndarray) -> None:
+        """Put learned poses (N, >=3, 4) in place of the frames' own:
+        frame ``idx`` then renders from ``poses[idx]`` (eval's
+        --refine_pose on test_train)."""
+        self.poses = np.asarray(poses_3x4, np.float32)[:, :3, :4]
+        self.poses_dict = {t: self.poses[t] for t in range(len(self.poses))}
+        self._refined = True
 
     def __len__(self):
         if self.split == "train":
@@ -118,7 +129,10 @@ class BlenderDataset:
                     "rgbs": self.all_rgbs[idx]}
 
         frame = self.meta["frames"][idx]
-        c2w = np.asarray(frame["transform_matrix"], np.float32)[:3, :4]
+        if self._refined and idx < len(self.poses):
+            c2w = self.poses[idx]
+        else:
+            c2w = np.asarray(frame["transform_matrix"], np.float32)[:3, :4]
         t = 0  # no perturbation at val/test
 
         img = self._frame(frame)

@@ -17,10 +17,14 @@ the JAX CLI's dolly path for ``brandenburg_gate`` (appearance of image
 (Blender, LLFF, Phototourism's test split) it writes a GIF
 (``data/image_io.py``); the port has no mp4 encoder, so --video_format mp4
 prints the JAX CLI's fallback line and writes the GIF, as the JAX CLI does
-where imageio has no ffmpeg.  It runs on the card;
-``NERF_FL_TORCH_DEVICE=cpu`` or ``main(args, device="cpu")`` asks for the
-CPU.  --optimize_appearance and --refine_pose (ROADMAP A.7) and more than
-one device (A.8) raise.
+where imageio has no ffmpeg.  --refine_pose renders at the checkpoint's
+epoch (BARF's annealing state) and, on Phototourism and on --split
+test_train, from the checkpoint's learned poses.  --optimize_appearance is
+the NeRF-W paper's protocol: each frame's appearance vector is fit to
+--opt_a_rays rays of its left half (``render.appearance``, Adam with the
+weights frozen) and the PSNR is taken over its right half.  It runs on the
+card; ``NERF_FL_TORCH_DEVICE=cpu`` or ``main(args, device="cpu")`` asks
+for the CPU.  More than one device (ROADMAP A.8) raises.
 """
 import os
 import time
@@ -45,7 +49,10 @@ def get_opts(argv=None):
                         help='also report mean SSIM')
     parser.add_argument('--optimize_appearance', default=False,
                         action="store_true",
-                        help='NeRF-W paper eval protocol (not ported yet)')
+                        help='NeRF-W paper eval protocol: fit each held-out '
+                             'image\'s appearance embedding on its LEFT '
+                             'half (weights frozen), report PSNR on the '
+                             'RIGHT half (needs --encode_a and GT images)')
     parser.add_argument('--opt_a_steps', type=int, default=100,
                         help='Adam steps for --optimize_appearance')
     parser.add_argument('--opt_a_lr', type=float, default=0.1,
@@ -122,10 +129,57 @@ def build_eval_state(args, device, white_back: bool):
     return cfg, params
 
 
+def apply_refine_pose(args, dataset) -> dict:
+    """--refine_pose: the render's epoch from the checkpoint (either
+    format), and the checkpoint's learned poses in the dataset where they
+    apply (Phototourism: every split; Blender and LLFF: test_train, whose
+    frames are the training frames); returns the render's extra
+    arguments."""
+    from .models.poses import learned_poses
+    from .training import checkpoints
+    ckpt = checkpoints.load_checkpoint(args.ckpt_path)
+    # a BARF model renders at its checkpoint's annealing state, whether or
+    # not the learned poses apply to this split
+    out = {'epoch': float(ckpt.get('epoch', 0))}
+    if args.dataset_name in ('blender', 'llff') \
+            and args.split != 'test_train':
+        print(f'[eval] --refine_pose on {args.dataset_name} applies '
+              'only to --split test_train (learned poses are '
+              'per-train-frame); ignoring the pose deltas (PE still '
+              'anneals at the checkpoint epoch)')
+    elif 'learn_poses' in ckpt.get('state_dict', {}):
+        dataset.apply_refined_poses(
+            learned_poses(ckpt['state_dict']['learn_poses'])[:, :3])
+    return out
+
+
+def fit_appearance(args, params, cfg, sample, i, w, h, dev):
+    """--optimize_appearance on frame ``i``: fit its appearance vector to
+    --opt_a_rays rays drawn from its left half (``default_rng(1000 +
+    i)``); returns (the vector, the right half's mask, the fit's losses).
+    The rays must be in raster order."""
+    from .render.appearance import optimize_appearance
+    assert len(sample['rays']) == w * h, \
+        f"raster-order assumption broken: {len(sample['rays'])} " \
+        f"rays != {w}x{h}"
+    cols = np.arange(len(sample['rays'])) % w
+    left = np.flatnonzero(cols < w // 2)
+    sel = np.random.default_rng(1000 + i).choice(
+        left, size=min(args.opt_a_rays, len(left)), replace=False)
+    a, losses = optimize_appearance(
+        params, sample['rays'][sel], sample['ts'][sel], sample['rgbs'][sel],
+        cfg, steps=args.opt_a_steps, lr=args.opt_a_lr, device=dev)
+    losses = losses.cpu().numpy()
+    print(f'[opt_a] frame {i}: fit mse {float(losses[0]):.4f} -> '
+          f'{float(losses[-1]):.4f}', flush=True)
+    return a, cols >= w // 2, losses
+
+
 def main(args, device=None, stats=None):
     """Render the split; returns the mean PSNR (None without ground
-    truth).  ``stats``, a dict, receives the per-frame PSNR / SSIM and the
-    frame, dispatch, drain and host seconds."""
+    truth).  ``stats``, a dict, receives the per-frame PSNR / SSIM, the
+    frame, dispatch, drain and host seconds, and with
+    --optimize_appearance each frame's fit seconds and loss curve."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -139,7 +193,7 @@ def main(args, device=None, stats=None):
     from .training.system import (DevicePrefetcher, refuse_unported,
                                   render_chunked_async, val_chunk_cap)
 
-    refuse_unported(args, eval_mode=True)
+    refuse_unported(args)
     dev = entry_device(device)
     kwargs = {'root_dir': args.root_dir, 'split': args.split}
     if args.dataset_name == 'blender':
@@ -154,8 +208,10 @@ def main(args, device=None, stats=None):
     scene = os.path.basename(args.root_dir.strip('/'))
     cfg, params = build_eval_state(args, dev, dataset.white_back)
     render_kwargs = {}
+    if args.refine_pose:
+        render_kwargs.update(apply_refine_pose(args, dataset))
     if args.dataset_name == 'phototourism' and args.split == 'test':
-        render_kwargs = set_test_path(dataset, args, scene)
+        render_kwargs.update(set_test_path(dataset, args, scene))
     if cfg.encode_a or cfg.encode_t:
         validate_vocab(args.N_vocab, max_split_ts(dataset, args.split))
 
@@ -175,16 +231,13 @@ def main(args, device=None, stats=None):
     frames = DevicePrefetcher(iter(range(len(dataset))),
                               lambda i: dataset[i], depth=2)
     phase_s = {"dispatch": [], "drain": [], "host": []}
+    fits = {"opt_a_s": [], "opt_a_losses": []}
     frame_marks = [time.perf_counter()]
 
     def process(item):
         """Drain a frame's render, then its host work; runs after the next
         frame's chunks are queued, so it overlaps that render."""
-        i, sample, finish = item
-        if args.dataset_name == 'blender':
-            w, h = args.img_wh
-        else:
-            w, h = (int(x) for x in sample['img_wh'])
+        i, sample, w, h, finish, right_mask = item
         t_p = time.perf_counter()
         results = finish()
         phase_s["drain"].append(time.perf_counter() - t_p)
@@ -203,8 +256,14 @@ def main(args, device=None, stats=None):
                 depths.append(depth)
         if 'rgbs' in sample:
             img_gt = sample['rgbs'].reshape(h, w, 3)
-            psnrs.append(float(psnr_fn(torch.from_numpy(img_gt),
-                                       torch.from_numpy(img_pred))))
+            if right_mask is not None:
+                # the protocol scores the half the fit never saw
+                m = right_mask.reshape(h, w)
+                psnrs.append(float(psnr_fn(torch.from_numpy(img_gt[m]),
+                                           torch.from_numpy(img_pred[m]))))
+            else:
+                psnrs.append(float(psnr_fn(torch.from_numpy(img_gt),
+                                           torch.from_numpy(img_pred))))
             if args.compute_ssim:
                 ssims.append(float(ssim_fn(
                     torch.from_numpy(img_pred.transpose(2, 0, 1)[None]
@@ -218,16 +277,29 @@ def main(args, device=None, stats=None):
     prev = None
     try:
         for i, sample in enumerate(frames):
+            if args.dataset_name == 'blender':
+                w, h = args.img_wh
+            else:
+                w, h = (int(x) for x in sample['img_wh'])
+            a_override = right_mask = None
+            if args.optimize_appearance and args.encode_a \
+                    and 'rgbs' in sample:
+                t_p = time.perf_counter()
+                a_override, right_mask, losses = fit_appearance(
+                    args, params, cfg, sample, i, w, h, dev)
+                fits["opt_a_s"].append(time.perf_counter() - t_p)
+                fits["opt_a_losses"].append(losses)
             # queues the frame's chunks; it reads back all but the last
             # ``inflight`` of them on the way, so it waits on the card too
             t_p = time.perf_counter()
             finish = render_chunked_async(
                 params, sample['rays'], sample['ts'], cfg, chunk=chunk,
-                test_time=True, keys=wanted, device=dev, **render_kwargs)
+                test_time=True, keys=wanted, device=dev,
+                a_override=a_override, **render_kwargs)
             phase_s["dispatch"].append(time.perf_counter() - t_p)
             if prev is not None:
                 process(prev)
-            prev = (i, sample, finish)
+            prev = (i, sample, w, h, finish, right_mask)
         if prev is not None:
             process(prev)
         for f in writes:
@@ -266,7 +338,7 @@ def main(args, device=None, stats=None):
                   f'({MP4_UNAVAILABLE}); writing {gif}')
         write_gif(gif, imgs, fps=30)
     if stats is not None:
-        stats.update(psnr=psnrs, ssim=ssims, depth=depths)
+        stats.update(psnr=psnrs, ssim=ssims, depth=depths, **fits)
     if ssims:
         print(f'Mean SSIM : {np.mean(ssims):.4f}')
     if psnrs:

@@ -3,9 +3,8 @@
 The port's copy of the root ``opt.py``: every flag with the JAX CLI's type,
 default and choices, so a JAX command line parses here; the flags shared
 with eval are declared once in ``utils/cli.py``.  Flags of features not
-ported yet parse, and ``NeRFSystem.setup`` / ``configure`` raise on them
-(pose refinement and its noise, ROADMAP A.7; more than one device or host,
-A.8; datasets other than blender, A.6).
+ported yet parse, and ``NeRFSystem.setup`` raises on them (more than one
+device or host, ROADMAP A.8).
 """
 import argparse
 

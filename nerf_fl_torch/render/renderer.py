@@ -11,7 +11,7 @@ architecture run the plain ``models.mlp.apply_nerf``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional
 
 import torch
@@ -91,6 +91,11 @@ class RenderConfig:
     @property
     def dtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
+
+    def eval_variant(self) -> "RenderConfig":
+        """Deterministic sampling for validation and eval: perturb 0,
+        noise 0."""
+        return replace(self, perturb=0.0, noise_std=0.0)
 
 
 def _embed(cfg: RenderConfig, x, n_freqs, epoch):

@@ -20,6 +20,8 @@ are capturable everywhere: their step count lives in a tensor beside the
 parameter, the rectification branch and the lookahead sync are a
 ``torch.where`` on it, and nothing is read back to the host.  On the CPU
 sgd and adam take a Python float lr, as torch builds them by default.
+``param_groups`` puts the learned pose deltas in a group of their own, the
+one whose updates the train step scales (``--pose_lr_mult``, the warmup).
 """
 from __future__ import annotations
 
@@ -178,30 +180,33 @@ class Ranger(RAdam):
         return loss
 
 
-def build_optimizer(hparams, params: Iterable[torch.Tensor]
-                    ) -> torch.optim.Optimizer:
-    """sgd, adam, radam or ranger over ``params`` at ``hparams.lr``; adam is
-    capturable (lr a device tensor) when the parameters lie on the card,
-    radam and ranger take a device lr there."""
+def build_optimizer(hparams, params: Iterable) -> torch.optim.Optimizer:
+    """sgd, adam, radam or ranger over ``params`` (tensors, or param groups
+    as ``param_groups`` makes them) at ``hparams.lr``; adam is capturable
+    (lr a device tensor) when the parameters lie on the card, radam and
+    ranger take a device lr there."""
     eps = 1e-8
     wd = getattr(hparams, "weight_decay", 0.0)
     name = hparams.optimizer
     params = list(params)
+    tensors = [p for g in params for p in g["params"]] \
+        if params and isinstance(params[0], dict) else params
+    cuda = bool(tensors) and tensors[0].is_cuda
     if name == "sgd":
         return torch.optim.SGD(params, lr=hparams.lr,
                                momentum=getattr(hparams, "momentum", 0.0),
                                dampening=0.0, weight_decay=wd)
     if name == "adam":
-        if params and params[0].is_cuda:
+        if cuda:
             return torch.optim.Adam(
-                params, lr=torch.tensor(hparams.lr, device=params[0].device),
+                params, lr=torch.tensor(hparams.lr, device=tensors[0].device),
                 eps=eps, weight_decay=wd, capturable=True)
         return torch.optim.Adam(params, lr=hparams.lr, eps=eps,
                                 weight_decay=wd)
     if name in ("radam", "ranger"):
         lr = hparams.lr
-        if params and params[0].is_cuda:
-            lr = torch.tensor(lr, device=params[0].device)
+        if cuda:
+            lr = torch.tensor(lr, device=tensors[0].device)
         cls = RAdam if name == "radam" else Ranger
         return cls(params, lr=lr, eps=eps, weight_decay=wd)
     raise ValueError(f"optimizer not recognized: {name}")
@@ -244,3 +249,18 @@ def make_trainable_mask(params: Dict[str, Any],
 def trainable_parameters(params: Dict[str, Any],
                          mask: Dict[str, bool]) -> List[torch.Tensor]:
     return [p for name, p in named_leaves(params) if mask[name]]
+
+
+def param_groups(params: Dict[str, Any],
+                 mask: Dict[str, bool]) -> List[Dict[str, Any]]:
+    """The trainable tensors as optimizer param groups: the learned pose
+    deltas (``learn_poses.r`` / ``.t``), when trainable, in a group of
+    their own marked ``"pose": True``, whose updates the train step scales
+    by ``--pose_lr_mult`` and the warmup (``system._train_body``); the rest
+    in one group."""
+    rest, poses = [], []
+    for name, p in named_leaves(params):
+        if mask[name]:
+            (poses if name.split(".")[0] == "learn_poses" else rest).append(p)
+    return [{"params": rest}] + ([{"params": poses, "pose": True}]
+                                 if poses else [])

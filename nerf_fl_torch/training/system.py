@@ -9,15 +9,21 @@ the training system (``config_from_hparams``, ``DevicePrefetcher``,
 ``NeRFSystem``, ``gauge_val_psnr``) that ``nerf_fl_torch.train`` drives.
 Rays come world-space (8 columns) or, for Phototourism, as camera-frame
 directions (5 columns, ``ray_format="camdir"``) that ``assemble_world_rays``
-poses inside the step from the learned-pose table.  Single device; the
-mesh and multihost branches belong to a later slice.
+poses inside the step from the learned-pose table, which pose refinement
+(BARF) trains: the pose deltas' updates are scaled by ``pose_lr_mult`` and
+held at zero until ``pose_warmup_epochs``, and the positional encoding is
+annealed by the epoch.  Single device; the mesh and multihost branches
+belong to a later slice.
 
 ``steps_per_execution`` K > 1 is JAX's ``lax.scan`` of K steps in one
 dispatch.  On the card its counterpart is a CUDA graph of one sub-step
 (batch in, render, loss, backward, Adam, metrics out), captured once and
 replayed for each sub-step, so a replay costs about its device time and no
-host dispatch (``_StepGraph``).  On the CPU the same sub-step runs eagerly
-K times: the plain version the graph is held to.  JAX's ``fold_in_range``
+host dispatch (``_StepGraph``).  The lr and the epoch reach the graph as
+device tensors filled before each call, so BARF's annealing and the pose
+warmup follow the epoch in a replay; the K sub-steps of a call share one
+epoch, as JAX's scan does.  On the CPU the same sub-step runs eagerly K
+times: the plain version the graph is held to.  JAX's ``fold_in_range``
 (one stacked PRNG key a sub-step) has no counterpart: the port draws from
 a ``torch.Generator``, whose Philox offset advances with each sub-step in
 a replay exactly as in an eager step, so K sub-steps draw what K eager
@@ -107,7 +113,9 @@ def assemble_world_rays(params, rays: torch.Tensor, ts: torch.Tensor, *,
 def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
                     loss_name: str = "nerfw", microbatch: int = 1,
                     steps_per_execution: int = 1, ray_format: str = "world",
-                    id_to_cam: Optional[np.ndarray] = None) -> Callable:
+                    id_to_cam: Optional[np.ndarray] = None,
+                    pose_lr_mult: float = 1.0,
+                    pose_warmup_epochs: float = 0.0) -> Callable:
     """The train step: render -> loss -> backward -> optimizer step ->
     metrics.  Returns ``step(params, batch, lr, epoch=0.0,
     generator=None)``, which updates the parameters that ``optimizer``
@@ -124,7 +132,12 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
     equal slices, each with its own loss (so NeRF-W's log(mean beta) term
     is per slice), and one optimizer step is taken, as the JAX package's
     step does.  ``generator`` drives the stochastic draws (perturb,
-    noise_std); on the card it is a CUDA generator.
+    noise_std); on the card it is a CUDA generator.  ``epoch`` (a float or
+    an f32 device scalar) anneals BARF's encoding under
+    ``cfg.refine_pose``; the pose deltas (the optimizer's ``"pose"`` group,
+    ``optimizers.param_groups``) move by ``pose_lr_mult * (epoch >=
+    pose_warmup_epochs)`` times the optimizer's update, their moments
+    accumulating all the same, as the JAX package scales its updates.
 
     With ``steps_per_execution`` K > 1 it returns ``multi(params, batches,
     lr, epoch=0.0, generator=None, valid=None)`` instead, which runs K
@@ -136,12 +149,11 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
     NaN in the metrics.  On the card the sub-steps replay a CUDA graph
     (``_StepGraph``; ``multi.graph`` counts its captures) or the call
     raises: it never runs them eagerly instead.  The optimizer must then be
-    capturable (``optimizers.build_optimizer``'s adam on the card): sgd on
-    the card raises as not ported yet, as BARF (``cfg.refine_pose``) does
-    anywhere.
+    capturable (``optimizers.build_optimizer``'s adam, radam and ranger on
+    the card): sgd on the card raises as not ported yet.
     """
     body = _train_body(cfg, optimizer, loss_name, microbatch, ray_format,
-                       id_to_cam)
+                       id_to_cam, pose_lr_mult, pose_warmup_epochs)
 
     def step(params, batch, lr, epoch=0.0, generator=None):
         set_lr(optimizer, lr)
@@ -150,7 +162,7 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
     K = steps_per_execution
     if K <= 1:
         return step
-    graph = _StepGraph(body, optimizer, cfg, K)
+    graph = _StepGraph(body, optimizer, K)
 
     def feed(statics, batches, fresh):
         if fresh:
@@ -178,18 +190,39 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
 
 def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
                 loss_name: str, microbatch: int, ray_format: str = "world",
-                id_to_cam: Optional[np.ndarray] = None) -> Callable:
+                id_to_cam: Optional[np.ndarray] = None,
+                pose_lr_mult: float = 1.0,
+                pose_warmup_epochs: float = 0.0) -> Callable:
     """``body(params, batch, epoch, generator)``: one train step at the lr
     the optimizer holds (``make_train_step``'s step, ``set_lr`` aside).
     ``id_to_cam`` goes to the device once, here, so a captured step reads
-    it where it lies."""
+    it where it lies.
+
+    The pose deltas' update is scaled after the optimizer's step, on the
+    device: ``torch.lerp(before, after, s)`` with ``s = pose_lr_mult *
+    (epoch >= pose_warmup_epochs)`` computed from the epoch tensor, so no
+    host value of the epoch enters a captured step.  A scaled lr would not
+    do: Ranger's lookahead syncs to the unscaled fast weights (as JAX's
+    does, its updates scaled after), and capturable Adam at lr 0 divides 0
+    by 0 where a camera's second moment is still 0.  ``lerp`` gives
+    ``before`` exactly at s = 0 and ``after`` exactly at s = 1."""
     loss_fn = loss_dict[loss_name]
     typ = "fine" if cfg.N_importance > 0 else "coarse"
     params_held = [p for group in optimizer.param_groups
                    for p in group["params"]]
+    dev = params_held[0].device
     idmap = None if id_to_cam is None else torch.as_tensor(
-        np.asarray(id_to_cam), dtype=torch.int64,
-        device=params_held[0].device)
+        np.asarray(id_to_cam), dtype=torch.int64, device=dev)
+    poses = [p for group in optimizer.param_groups if group.get("pose")
+             for p in group["params"]]
+    scale_poses = bool(poses) and (pose_lr_mult != 1.0
+                                   or pose_warmup_epochs > 0.0)
+    epoch_as_tensor = cfg.refine_pose or scale_poses
+
+    def as_tensor(epoch):
+        if torch.is_tensor(epoch):
+            return epoch
+        return torch.full((), float(epoch), dtype=torch.float32, device=dev)
 
     def loss_of(params, b, epoch, generator):
         rays = assemble_world_rays(params, b["rays"], b["ts"],
@@ -202,6 +235,8 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
 
     def body(params, batch, epoch, generator):
         optimizer.zero_grad(set_to_none=True)
+        if epoch_as_tensor:
+            epoch = as_tensor(epoch)
         M = max(1, microbatch)
         n = batch["rays"].shape[0]
         if n % M:
@@ -222,7 +257,14 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
                     p.grad.div_(M)
             loss, mse = loss / M, mse / M
             loss_d = {k: v / M for k, v in loss_d.items()}
+        if scale_poses:
+            before = [p.detach().clone() for p in poses]
         optimizer.step()
+        if scale_poses:
+            s = pose_lr_mult * (epoch >= pose_warmup_epochs).float()
+            with torch.no_grad():
+                for p, b in zip(poses, before):
+                    p.copy_(torch.lerp(b, p, s))
         metrics = {"train/loss": loss, "train/psnr": -10.0 * torch.log10(mse)}
         for k, v in loss_d.items():
             metrics[f"train/{k}"] = v
@@ -310,7 +352,9 @@ class _StepGraph:
     needs no host write.  The graph reads fixed addresses: the call's
     inputs are copied into static buffers (``feed``), the parameters and
     the optimizer state are updated in place, the lr is the optimizer's
-    device tensor (``set_lr``, outside the graph), and the grads live in
+    device tensor (``set_lr``, outside the graph), the epoch is the f32
+    device scalar ``epoch``, filled before each call (every sub-step of a
+    call reads the call's epoch), and the grads live in
     the graph's memory pool from its capture on, where each replay's
     backward writes them and its optimizer step reads them.  The graph is
     captured again only when the call's key changes: the batch shapes, the
@@ -330,14 +374,10 @@ class _StepGraph:
     (``fused_mlp.kernel_runs``) sees every run.
     """
 
-    def __init__(self, body, optimizer: torch.optim.Optimizer,
-                 cfg: RenderConfig, k: int):
+    def __init__(self, body, optimizer: torch.optim.Optimizer, k: int):
         self.body, self.optimizer, self.K = body, optimizer, k
         self.held = [p for g in optimizer.param_groups for p in g["params"]]
         self.device = self.held[0].device
-        if cfg.refine_pose:         # BARF reads the epoch, which a graph bakes
-            raise NotImplementedError("steps_per_execution > 1 with "
-                                      "refine_pose is not ported yet")
         if self.device.type == "cuda":
             if not all(g.get("capturable") and torch.is_tensor(g["lr"])
                        for g in optimizer.param_groups):
@@ -349,12 +389,13 @@ class _StepGraph:
         self.names = self.out = None
         self.statics: Dict[str, Any] = {}
         self.k = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.epoch = torch.zeros((), dtype=torch.float32, device=self.device)
         self.captures = self.replays = 0
         self.fused_launches = None
 
-    def sub_step(self, params, epoch, generator, load):
+    def sub_step(self, params, generator, load):
         with _fresh_leaves(params, self.held) as fresh:
-            m = self.body(fresh, load(self.statics, self.k), epoch,
+            m = self.body(fresh, load(self.statics, self.k), self.epoch,
                           generator)
         if self.out is None:
             self.names = list(m)
@@ -372,17 +413,18 @@ class _StepGraph:
         if fresh:
             self.key = self.graph = None       # frees the old graph's pool
         set_lr(self.optimizer, lr)
+        self.epoch.fill_(float(epoch))
         feed(self.statics, fresh)
         self.k.zero_()
         if self.out is not None:
             self.out.fill_(float("nan"))
         if self.device.type != "cuda":
             for _ in range(n_valid):
-                self.sub_step(params, epoch, generator, load)
+                self.sub_step(params, generator, load)
         else:
             first = 0
             if fresh:
-                self._capture(params, epoch, generator, load)
+                self._capture(params, generator, load)
                 first = 1
             for _ in range(first, n_valid):
                 self.graph.replay()
@@ -391,12 +433,12 @@ class _StepGraph:
         res = self.out.clone()
         return {n: res[:, j] for j, n in enumerate(self.names)}
 
-    def _capture(self, params, epoch, generator, load):
+    def _capture(self, params, generator, load):
         from ..ops import fused_mlp as fm
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self.sub_step(params, epoch, generator, load)
+            self.sub_step(params, generator, load)
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
@@ -411,7 +453,7 @@ class _StepGraph:
         with torch.cuda.stream(side):
             graph.capture_begin()
             try:
-                self.sub_step(params, epoch, generator, load)
+                self.sub_step(params, generator, load)
             finally:
                 graph.capture_end()
         self.fused_launches = (fm.fused_mlp_fwd_cuda.launches - before[0],
@@ -439,8 +481,9 @@ def make_device_pool_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
                           microbatch: int = 1,
                           steps_per_execution: int = 1,
                           ray_format: str = "world",
-                          id_to_cam: Optional[np.ndarray] = None
-                          ) -> Callable:
+                          id_to_cam: Optional[np.ndarray] = None,
+                          pose_lr_mult: float = 1.0,
+                          pose_warmup_epochs: float = 0.0) -> Callable:
     """Train step that draws its batch from a device-resident pool.
 
     Returns ``run(params, pool, perm, i, lr, epoch=0.0, generator=None)``:
@@ -457,13 +500,15 @@ def make_device_pool_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
     that the sub-step advances itself, so on the card a replay of the
     step's graph needs no host write (``make_train_step``).  The graph
     reads ``pool`` and ``perm`` where they lie: a new tensor for either (a
-    new epoch's ``perm``) captures the step again.  ``ray_format`` and
-    ``id_to_cam`` are ``make_train_step``'s.
+    new epoch's ``perm``) captures the step again.  ``ray_format``,
+    ``id_to_cam``, ``pose_lr_mult`` and ``pose_warmup_epochs`` are
+    ``make_train_step``'s.
     """
     if steps_per_execution <= 1:
         step = make_train_step(cfg, optimizer, loss_name=loss_name,
                                microbatch=microbatch, ray_format=ray_format,
-                               id_to_cam=id_to_cam)
+                               id_to_cam=id_to_cam, pose_lr_mult=pose_lr_mult,
+                               pose_warmup_epochs=pose_warmup_epochs)
         B = batch_size
 
         def run(params, pool, perm, i, lr, epoch=0.0, generator=None):
@@ -475,8 +520,9 @@ def make_device_pool_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
 
     K, B = steps_per_execution, batch_size
     graph = _StepGraph(_train_body(cfg, optimizer, loss_name, microbatch,
-                                   ray_format, id_to_cam),
-                       optimizer, cfg, K)
+                                   ray_format, id_to_cam, pose_lr_mult,
+                                   pose_warmup_epochs),
+                       optimizer, K)
 
     def feed(statics, pool, perm, i0, fresh):
         if fresh:
@@ -635,22 +681,16 @@ def config_from_hparams(hparams, white_back: bool) -> RenderConfig:
 _TRISTATE = {"auto": None, "on": True, "off": False}
 
 
-def refuse_unported(hparams, *, eval_mode: bool = False) -> None:
-    """Raise on flags whose feature is not ported yet, naming its ROADMAP
-    item; flags absent from ``hparams`` count as their defaults."""
+def refuse_unported(hparams) -> None:
+    """Raise on flags whose feature is not ported yet (more than one
+    device or host), naming its ROADMAP item; flags absent from
+    ``hparams`` count as their defaults."""
     g = functools.partial(getattr, hparams)
     checks = [
-        (g("refine_pose", False), "--refine_pose", "A.7"),
-        (any(g("pose_noise", (0, 0))), "--pose_noise", "A.7"),
-        (g("pose_lr_mult", 1.0) != 1.0, "--pose_lr_mult", "A.7"),
-        (g("pose_warmup_epochs", 0.0) != 0.0, "--pose_warmup_epochs", "A.7"),
         (g("num_gpus", 1) > 1, "--num_gpus > 1", "A.8"),
         (g("model_parallel", 1) > 1, "--model_parallel > 1", "A.8"),
         (g("num_hosts", 1) > 1, "--num_hosts > 1", "A.8"),
     ]
-    if eval_mode:
-        checks.append((g("optimize_appearance", False),
-                       "--optimize_appearance", "A.7"))
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet "
@@ -800,9 +840,16 @@ class NeRFSystem:
     host-fed groups of ``steps_per_execution`` K > 1 batches (stacked on
     the worker thread of a ``DevicePrefetcher``), or host-fed single steps.
     Metrics reach the host only at log steps.  The per-epoch lr reaches a
-    captured step through ``set_lr``'s device tensor.  Each epoch ends in a
+    captured step through ``set_lr``'s device tensor, the epoch through the
+    step's epoch tensor; under ``--refine_pose --barf_schedule paper`` the
+    epoch is continuous, ``epoch + i / steps_per_epoch`` for a call whose
+    first step is step i of the epoch, and the epoch's validation renders
+    at ``epoch + 1``, as the JAX package's fit does.  Each epoch ends in a
     validation pass and a checkpoint; ``epoch_stats`` keeps each epoch's
     seconds and rays/s, ``profile_window`` the ``--profile_dir`` window.
+    ``setup`` keeps the clean initial poses in ``true_poses`` and, under
+    ``--pose_noise``, trains from ``perturb_poses`` of them
+    (``init_poses``).
     """
 
     def __init__(self, hparams, logger=None, device=None):
@@ -821,13 +868,18 @@ class NeRFSystem:
         from ..models import validate_vocab
         h = self.hparams
         refuse_unported(h)
+        # --pose_noise needs the learned-pose (camdir) rays even without
+        # refinement: the noisy control arm trains with frozen deltas
+        refine = getattr(h, "refine_pose", False) or \
+            any(getattr(h, "pose_noise", (0.0, 0.0)))
         kwargs = {"root_dir": h.root_dir}
         if h.dataset_name == "phototourism":
             kwargs.update(img_downscale=h.img_downscale,
                           val_num=getattr(h, "num_gpus", 1),
-                          use_cache=h.use_cache)
+                          use_cache=h.use_cache, refine_pose=refine)
         elif h.dataset_name == "blender":
-            kwargs.update(img_wh=tuple(h.img_wh), perturbation=h.data_perturb)
+            kwargs.update(img_wh=tuple(h.img_wh), perturbation=h.data_perturb,
+                          refine_pose=refine)
         elif h.dataset_name == "llff":
             kwargs.update(img_wh=tuple(h.img_wh),
                           spheric_poses=h.spheric_poses,
@@ -844,9 +896,26 @@ class NeRFSystem:
         # the learned-pose table's initial poses, in image order, and the
         # map from sparse image ids to its rows (the JAX package's)
         poses = np.asarray(self.train_dataset.poses, np.float32)
-        self.init_poses = np.concatenate(
+        self.true_poses = self.init_poses = np.concatenate(
             [poses, np.tile(np.array([[[0, 0, 0, 1]]], np.float32),
                             (len(poses), 1, 1))], axis=1)
+        rot_deg, trans_frac = getattr(h, "pose_noise", (0.0, 0.0))
+        if rot_deg or trans_frac:
+            # seeded SE(3) noise on the initial poses, which the deltas can
+            # represent exactly; the clean ones stay in true_poses
+            if self.ray_format != "camdir":
+                raise ValueError(
+                    "--pose_noise requires the learned-pose ray path "
+                    "(camdir); this dataset baked world-space rays that "
+                    "would silently ignore the noisy poses")
+            from ..models.poses import perturb_poses, pose_errors
+            self.init_poses = perturb_poses(
+                self.true_poses, rot_deg, trans_frac,
+                seed=getattr(h, "pose_noise_seed", 0))
+            r0, t0 = pose_errors(self.init_poses, self.true_poses)
+            print(f"[pose_noise] injected rot {r0:.3f} deg / "
+                  f"trans {t0:.4f} (aligned means over "
+                  f"{len(self.init_poses)} cams)", flush=True)
         ids = getattr(self.train_dataset, "img_ids", list(range(len(poses))))
         self.id_to_cam = None
         if list(ids) != list(range(len(poses))):
@@ -863,20 +932,24 @@ class NeRFSystem:
     def configure(self):
         from .checkpoints import latest_checkpoint
         from .optimizers import (build_optimizer, make_trainable_mask,
-                                 trainable_parameters)
+                                 param_groups)
         h, dev = self.hparams, self.device
         seed = getattr(h, "seed", 0)
-        needs_poses = self.ray_format == "camdir"
+        refine = getattr(h, "refine_pose", False)
+        needs_poses = self.ray_format == "camdir" or refine
         self.params = build_params(
             self.cfg, h.N_vocab, generator=torch.Generator().manual_seed(seed),
             device=dev, init_poses=self.init_poses if needs_poses else None)
         # without pose refinement the pose table is frozen: no gradient,
-        # not in the optimizer
-        self.mask = make_trainable_mask(self.params, False)
+        # not in the optimizer; with it the deltas form their own group
+        self.mask = make_trainable_mask(self.params, refine)
         for name, p in named_leaves(self.params):
             p.requires_grad_(self.mask[name])
-        self.optimizer = build_optimizer(
-            h, trainable_parameters(self.params, self.mask))
+        self.optimizer = build_optimizer(h, param_groups(self.params,
+                                                         self.mask))
+        pose_lr = dict(pose_lr_mult=getattr(h, "pose_lr_mult", 1.0),
+                       pose_warmup_epochs=getattr(h, "pose_warmup_epochs",
+                                                  0.0))
 
         ckpt_path = getattr(h, "ckpt_path", None)
         if ckpt_path == "auto":
@@ -908,14 +981,15 @@ class NeRFSystem:
                 self.cfg, self.optimizer, batch_size=h.batch_size,
                 loss_name=self.loss_name, microbatch=mb,
                 steps_per_execution=self.spe, ray_format=self.ray_format,
-                id_to_cam=self.id_to_cam)
+                id_to_cam=self.id_to_cam, **pose_lr)
             print(f"[data] device-resident ray pool: {pool_bytes / 1e6:.0f} "
                   f"MB uploaded once; batches are drawn on the device")
         else:
             self.train_step = make_train_step(
                 self.cfg, self.optimizer, loss_name=self.loss_name,
                 microbatch=mb, steps_per_execution=self.spe,
-                ray_format=self.ray_format, id_to_cam=self.id_to_cam)
+                ray_format=self.ray_format, id_to_cam=self.id_to_cam,
+                **pose_lr)
         self.generator = torch.Generator(dev).manual_seed(seed + 1234)
 
     def restore(self, path: str):
@@ -1052,12 +1126,23 @@ class NeRFSystem:
 
         return before, after
 
+    def _frac_anneal(self) -> bool:
+        return self.cfg.refine_pose and self.cfg.barf_schedule == "paper"
+
     def _steps(self, epoch: int, lr: float, feed_box):
-        """Yield (metrics, sub-steps run) for each step call of an epoch."""
+        """Yield (a call of the step, sub-steps it runs) for each step call
+        of an epoch; a call whose first step is step i of the epoch trains
+        at epoch ``epoch + i / steps_per_epoch`` under BARF's paper
+        schedule, else at ``epoch``."""
         h = self.hparams
         spe, B = self.spe, h.batch_size
         gen = self.generator
-        ep = float(epoch)
+        n_epoch = max(1, self.batcher.steps_per_epoch())
+        frac = self._frac_anneal()
+
+        def ep(i):
+            return epoch + i / n_epoch if frac else float(epoch)
+
         if self.device_pool is not None:
             pool, n_pool = self.device_pool
             n_steps = self.batcher.steps_per_epoch()
@@ -1066,11 +1151,11 @@ class NeRFSystem:
             for i in range(0, n_steps, spe):
                 if spe > 1:
                     yield (lambda i=i: self.train_step(
-                        self.params, pool, self._perm, i, n_steps, lr, ep,
+                        self.params, pool, self._perm, i, n_steps, lr, ep(i),
                         gen)), min(spe, n_steps - i)
                 else:
                     yield (lambda i=i: self.train_step(
-                        self.params, pool, self._perm, i, lr, ep, gen)), 1
+                        self.params, pool, self._perm, i, lr, ep(i), gen)), 1
             return
         if spe > 1:
             def grouped(it=self.batcher.epoch(epoch)):
@@ -1089,15 +1174,15 @@ class NeRFSystem:
 
             feed_box.append(DevicePrefetcher(grouped(), put,
                                              device=self.device))
-            for stacked, valid, n_real in feed_box[-1]:
-                yield (lambda s=stacked, v=valid: self.train_step(
-                    self.params, s, lr, ep, gen, v)), n_real
+            for j, (stacked, valid, n_real) in enumerate(feed_box[-1]):
+                yield (lambda s=stacked, v=valid, e=ep(j * spe):
+                       self.train_step(self.params, s, lr, e, gen, v)), n_real
             return
         feed_box.append(DevicePrefetcher(self.batcher.epoch(epoch),
                                          device=self.device))
-        for batch in feed_box[-1]:
-            yield (lambda b=batch: self.train_step(self.params, b, lr, ep,
-                                                   gen)), 1
+        for j, batch in enumerate(feed_box[-1]):
+            yield (lambda b=batch, e=ep(j): self.train_step(
+                self.params, b, lr, e, gen)), 1
 
     def fit(self):
         from . import checkpoints
@@ -1158,7 +1243,10 @@ class NeRFSystem:
                     feed.close()
             seconds = time.time() - t0
             t1 = time.time()
-            val_loss, val_psnr, viz = self.run_validation(epoch)
+            # the epoch's annealing state at its end: the continuous paper
+            # ramp has reached epoch + 1, the fork rule holds epoch
+            val_loss, val_psnr, viz = self.run_validation(
+                epoch + 1 if self._frac_anneal() else epoch)
             self.logger.scalars({"val/loss": val_loss, "val/psnr": val_psnr},
                                 self.global_step)
             if viz is not None:
@@ -1180,14 +1268,20 @@ def gauge_val_psnr(system: NeRFSystem, epoch: int, max_images: int = 2,
                    gauge=None):
     """Val PSNR with a global SE(3) gauge ``T`` (refined frame -> true
     frame) removed before rendering: each val camera becomes ``inv(T) @
-    c2w``.  Returns (mean val PSNR, T).  Estimating ``T`` from learned
-    poses (``gauge=None``) needs pose refinement, not ported yet."""
+    c2w``.  Returns (mean val PSNR, T).  ``gauge`` None estimates ``T``
+    from the learned poses against ``system.true_poses``
+    (``gauge_transform``, Procrustes over the camera centers).  Where
+    refinement left per-camera noise rather than a coherent drift, that
+    fit moves the val cameras away from the scene and the score falls
+    below the raw one: read it as a drift diagnostic."""
     from ..data.rays_np import get_rays
+    from ..models.poses import all_poses, gauge_transform
     if gauge is None:
-        raise NotImplementedError("gauge_val_psnr without a given gauge "
-                                  "needs learned poses: not ported yet "
-                                  "(ROADMAP A.7)")
-    T = np.asarray(gauge, np.float64)
+        with torch.no_grad():
+            refined = all_poses(system.params["learn_poses"]).cpu().numpy()
+        T = gauge_transform(refined, system.true_poses)
+    else:
+        T = np.asarray(gauge, np.float64)
     Tinv = np.linalg.inv(T)
     ds, h = system.val_dataset, system.hparams
     psnrs = []

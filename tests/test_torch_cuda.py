@@ -679,11 +679,19 @@ def _graph_case_cfg(dtype="bfloat16"):
 CAMDIR_IDS = [1, 2, 5, 7]
 
 
-def _graph_case(dtype, steps, pool, loss_name="nerfw", camdir=False):
+def _graph_case(dtype, steps, pool, loss_name="nerfw", camdir=False,
+                barf=None):
+    """``barf``: None, or BARF's schedule ("fork" / "paper"), which trains
+    the pose deltas (camdir rays) at lr x 0.5 after a warmup of 1 epoch."""
+    from dataclasses import replace
     from types import SimpleNamespace
     from nerf_fl_torch.training import optimizers, system
     dev = _card()
     cfg = _graph_case_cfg(dtype)
+    if barf:
+        camdir = True
+        cfg = replace(cfg, refine_pose=True, barf_schedule=barf,
+                      barf_epoch_start=0, barf_epoch_end=2)
     rng = np.random.default_rng(3)
     init = idmap = None
     if camdir:
@@ -696,15 +704,17 @@ def _graph_case(dtype, steps, pool, loss_name="nerfw", camdir=False):
     params = system.build_params(cfg, 8, device=dev,
                                  generator=torch.Generator().manual_seed(0),
                                  init_poses=init)
-    mask = optimizers.make_trainable_mask(params, False)
+    mask = optimizers.make_trainable_mask(params, bool(barf))
     for name, p in optimizers.named_leaves(params):
         p.requires_grad_(mask[name])
     opt = optimizers.build_optimizer(
         SimpleNamespace(optimizer="adam", lr=5e-4, weight_decay=0.0),
-        optimizers.trainable_parameters(params, mask))
+        optimizers.param_groups(params, mask))
     kw = dict(loss_name=loss_name, steps_per_execution=steps)
     if camdir:
         kw.update(ray_format="camdir", id_to_cam=idmap)
+    if barf:
+        kw.update(pose_lr_mult=0.5, pose_warmup_epochs=1.0)
     step = system.make_device_pool_step(cfg, opt, batch_size=GRAPH_B, **kw) \
         if pool else system.make_train_step(cfg, opt, **kw)
     n = 2 * GRAPH_K * GRAPH_B
@@ -724,28 +734,31 @@ def _graph_case(dtype, steps, pool, loss_name="nerfw", camdir=False):
     return params, opt, step, data, gen
 
 
-def _run_graph_case(dtype, steps, pool, n_steps, camdir=False):
+def _run_graph_case(dtype, steps, pool, n_steps, camdir=False, barf=None):
     """n_steps steps, K = 1 one by one or K at a time with the last call's
     tail masked; returns params, Adam state, the loss of each step and the
-    step function."""
+    step function.  The steps of the first GRAPH_K train at epoch 0.75, the
+    rest at 1.25 (with ``barf``, on either side of the pose warmup)."""
     from nerf_fl_torch.training import optimizers, system
     params, opt, step, data, gen = _graph_case(dtype, steps, pool,
-                                               camdir=camdir)
+                                               camdir=camdir, barf=barf)
     B = GRAPH_B
     perm = torch.arange(data["rays"].shape[0], dtype=torch.int32,
                         device=data["rays"].device).flip(0)
     losses = []
     for i0 in range(0, n_steps, steps):
+        ep = 0.75 if i0 < GRAPH_K else 1.25
         if steps == 1 and pool:
-            losses.append(step(params, data, perm, i0, 5e-4,
+            losses.append(step(params, data, perm, i0, 5e-4, ep,
                                generator=gen)["train/loss"])
         elif steps == 1:
             idx = perm[i0 * B:(i0 + 1) * B].long()
             losses.append(step(params, {k: v.index_select(0, idx)
-                                        for k, v in data.items()}, 5e-4,
+                                        for k, v in data.items()}, 5e-4, ep,
                                generator=gen)["train/loss"])
         elif pool:
-            m = step(params, data, perm, i0, n_steps, 5e-4, generator=gen)
+            m = step(params, data, perm, i0, n_steps, 5e-4, ep,
+                     generator=gen)
             losses += list(m["train/loss"][:n_steps - i0])
         else:
             group = []
@@ -754,7 +767,7 @@ def _run_graph_case(dtype, steps, pool, n_steps, camdir=False):
                 group.append({k: v.index_select(0, idx)
                               for k, v in data.items()})
             stacked, valid = system.stack_batches(group, steps)
-            m = step(params, stacked, 5e-4, generator=gen, valid=valid)
+            m = step(params, stacked, 5e-4, ep, generator=gen, valid=valid)
             assert bool(m["train/loss"][len(group):].isnan().all())
             losses += list(m["train/loss"][:len(group)])
     torch.cuda.synchronize()
@@ -803,6 +816,30 @@ def test_camdir_graph_k_step_equals_eager_steps_on_card(pool):
     # the leaves end with learn_poses.r / .t: still zero
     assert not any(bool(t.abs().max() > 0) for t in pk[-2:])
     assert len(s1) == len(sk) == len(p1) - 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [False, True], ids=["host_fed", "pool"])
+@pytest.mark.parametrize("schedule", ["fork", "paper"])
+def test_barf_graph_k_step_equals_eager_steps_on_card(schedule, pool):
+    """BARF with trained pose deltas: BARF's weights and the pose warmup
+    read the epoch tensor that each call fills, so two K = 4 graph calls
+    at epochs 0.75 and 1.25 equal seven eager steps at those epochs bit
+    for bit, with one capture, and the deltas move once the warmup ends.
+    The fork schedule's frequencies reach the graph
+    as a tensor made before the capture (a host copy cannot be captured)."""
+    n = 2 * GRAPH_K - 1
+    p1, s1, l1, _ = _run_graph_case("bfloat16", 1, pool, n, barf=schedule)
+    pk, sk, lk, step = _run_graph_case("bfloat16", GRAPH_K, pool, n,
+                                       barf=schedule)
+    assert step.graph.captures == 1
+    assert torch.equal(l1, lk) and bool(torch.isfinite(lk).all())
+    for a, b in zip(p1, pk):
+        assert torch.equal(a, b)
+    for a, b in zip(s1, sk):
+        assert torch.equal(a["exp_avg"], b["exp_avg"])
+    # the leaves end with learn_poses.r / .t: moved after the warmup
+    assert all(bool(t.abs().max() > 0) for t in pk[-2:])
 
 
 @pytest.mark.cuda

@@ -15,6 +15,8 @@
     package's ``make_blender_scene`` writes (PIL's PNG filters), at the
     native 400 and at half size, with and without color + occ: all_rays /
     all_ts exact, all_rgbs within 1/255, val / test / test_train items alike;
+    under pose refinement the train split's camera-frame rays and its poses
+    exact, and test_train's items alike after ``apply_refined_poses``;
   * the port's ``make_blender_scene`` gives the JAX one's pixels and JSON;
   * the GIF encoder read back by PIL, and ``visualize_depth`` against cv2's.
 """
@@ -216,10 +218,31 @@ def test_blender_dataset_matches_jax(jax_scene, wh, pert):
                     assert np.array_equal(sa[k], sb[k]), (split, k)
 
 
-def test_blender_dataset_refuses_pose_refinement(jax_scene):
-    with pytest.raises(NotImplementedError, match="A.7"):
-        blender.BlenderDataset(jax_scene, "train", img_wh=(40, 40),
-                               refine_pose=True)
+def test_blender_dataset_camdir_rays_and_refined_poses_match_jax(jax_scene):
+    """Pose refinement: the train split's camera-frame rays (dir, near,
+    far) and its poses equal JAX's bit for bit, the other splits stay
+    world-space; ``apply_refined_poses`` puts given poses in place of the
+    frames' own in both packages alike (eval's --refine_pose)."""
+    kw = dict(img_wh=(40, 40), refine_pose=True)
+    a = blender.BlenderDataset(jax_scene, "train", **kw)
+    b = jblender.BlenderDataset(jax_scene, "train", **kw)
+    assert a.ray_format == b.ray_format == "camdir"
+    assert a.all_rays.shape == b.all_rays.shape == (3 * 40 * 40, 5)
+    for k in ("all_rays", "all_ts", "poses"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
+    assert np.abs(a.all_rgbs - b.all_rgbs).max() <= 1 / 255 + 1e-7
+    refined = b.poses + np.random.default_rng(0).normal(
+        0, 0.05, b.poses.shape).astype(np.float32)
+    a = blender.BlenderDataset(jax_scene, "test_train", **kw)
+    b = jblender.BlenderDataset(jax_scene, "test_train", **kw)
+    assert a.ray_format == b.ray_format == "world"
+    for ds in (a, b):
+        ds.apply_refined_poses(refined)
+    for i in range(len(b)):
+        sa, sb = a[i], b[i]
+        assert np.array_equal(sa["c2w"], refined[i])
+        for k in ("rays", "c2w", "ts"):
+            assert np.array_equal(sa[k], sb[k]), (i, k)
 
 
 def test_make_blender_scene_matches_jax(tmp_path):

@@ -9,8 +9,10 @@
   * eval of that JAX checkpoint: the port's Mean PSNR and Mean SSIM equal
     the JAX eval.py's within 1e-3, and its PNGs differ by at most 1 level;
   * without the device request and without a card both entry points raise,
-    and eval's unported options raise with their ROADMAP item, while the
-    ones ROADMAP A.6 ported (mp4, --save_depth, Phototourism) run;
+    and eval's unported options (more than one device) raise with their
+    ROADMAP item, while the ones ROADMAP A.6 ported (mp4, --save_depth,
+    Phototourism) run, and those A.7 ported (--optimize_appearance,
+    --refine_pose) give the JAX eval.py's PSNR within 1e-3;
   * train and eval on tiny Phototourism (its ray cache from
     ``prepare_phototourism``, host-fed groups of 2 sub-steps) and LLFF
     (the device pool) scenes, with --save_depth and --video_format mp4:
@@ -180,26 +182,77 @@ def tour_scene(tmp_path_factory):
     return root
 
 
+@pytest.fixture(scope="module")
+def refined_jax_ckpt(scene_and_jax_ckpt, tmp_path_factory):
+    """A JAX checkpoint of a BARF model at epoch 5: learned deltas on the
+    scene's 3 training poses."""
+    from nerf_fl_tpu.data.blender import BlenderDataset as JBlender
+    scene, _ = scene_and_jax_ckpt
+    poses = JBlender(scene, "train", img_wh=(40, 40)).poses
+    init = np.concatenate([poses, np.tile([[[0, 0, 0, 1]]], (3, 1, 1))],
+                          1).astype(np.float32)
+    cfg = JRenderConfig(N_samples=8, N_importance=8, encode_a=True,
+                        encode_t=True, mlp_depth=2, mlp_width=32,
+                        refine_pose=True)
+    params = jsys.build_params(jax.random.PRNGKey(3), cfg, 8,
+                               init_poses=init)
+    rng = np.random.default_rng(0)
+    params["learn_poses"] = {**params["learn_poses"], **{
+        k: jax.numpy.asarray(rng.normal(0, 0.02, (3, 3)), np.float32)
+        for k in ("r", "t")}}
+    ckpt = str(tmp_path_factory.mktemp("refined") / "barf.ckpt")
+    jckpt.save_checkpoint(ckpt, params, epoch=5, global_step=100)
+    return ckpt
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--optimize_appearance"], "A.7"), (["--refine_pose"], "A.7"),
+    (["--optimize_appearance", "--opt_a_steps", "5"], "A.7"),
+    (["--refine_pose", "--split", "test_train"], "A.7"),
     (["--video_format", "mp4"], "A.6"), (["--save_depth"], "A.6"),
     (["--num_gpus", "2"], "A.8"), (["--dataset_name", "phototourism"],
                                    "A.6")])
 def test_eval_refuses_unported_options(scene_and_jax_ckpt, tour_scene,
-                                       tmp_path, monkeypatch, capsys, flag,
-                                       item):
-    """The options of A.7 and A.8 raise with their item; those of A.6 are
-    ported and run: mp4 falls back to the GIF with the JAX CLI's line,
-    --save_depth writes a PFM a frame, Phototourism evaluates."""
+                                       refined_jax_ckpt, tmp_path,
+                                       monkeypatch, capsys, flag, item):
+    """The options of A.8 raise with their item; those of A.6 are ported
+    and run: mp4 falls back to the GIF with the JAX CLI's line,
+    --save_depth writes a PFM a frame, Phototourism evaluates.  Those of
+    A.7 are ported and give the JAX eval.py's PSNR within 1e-3:
+    --optimize_appearance (each frame's [opt_a] line as JAX prints it, the
+    PSNR of the right halves) and --refine_pose on test_train from a
+    checkpoint with learned poses at epoch 5."""
     scene, jax_ckpt = scene_and_jax_ckpt
     root = tour_scene if "phototourism" in flag else scene
+    ckpt = refined_jax_ckpt if "--refine_pose" in flag else jax_ckpt
     args = teval.get_opts(["--root_dir", root, *MODEL, "--ckpt_path",
-                           jax_ckpt, "--scene_name", "s", "--chunk", "4096"]
+                           ckpt, "--scene_name", "s", "--chunk", "4096"]
                           + flag)
-    if item != "A.6":
+    if item == "A.8":
         with pytest.raises(NotImplementedError,
                            match=f"not ported yet.*{item}"):
             teval.main(args, device="cpu")
+        return
+    if item == "A.7":
+        os.makedirs(tmp_path / "j")
+        os.makedirs(tmp_path / "t")
+        monkeypatch.chdir(tmp_path / "j")
+        want = jeval.main(jeval.get_opts(
+            ["--root_dir", root, *MODEL, "--ckpt_path", ckpt,
+             "--scene_name", "s", "--chunk", "4096"] + flag))
+        jout = capsys.readouterr().out
+        monkeypatch.chdir(tmp_path / "t")
+        stats = {}
+        got = teval.main(args, device="cpu", stats=stats)
+        tout = capsys.readouterr().out
+        assert np.isfinite(got) and abs(got - want) <= 1e-3, (got, want)
+        fits = [x for x in jout.splitlines() if x.startswith("[opt_a]")]
+        assert fits == [x for x in tout.splitlines()
+                        if x.startswith("[opt_a]")]
+        if "--optimize_appearance" in flag:
+            assert len(fits) == len(stats["psnr"]) \
+                == len(stats["opt_a_losses"]) >= 1
+            assert all(len(c) == 5 and c[-1] < c[0]
+                       for c in stats["opt_a_losses"])
         return
     monkeypatch.chdir(tmp_path)
     assert np.isfinite(teval.main(args, device="cpu"))

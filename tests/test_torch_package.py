@@ -49,9 +49,11 @@ PORT_MODULES = {
     "nerf_fl_torch.experiments.sass_diff",
     "nerf_fl_torch.experiments.sin_ablation",
     "nerf_fl_torch.experiments.trace_records",
+    "nerf_fl_torch.experiments.barf_step",
     "nerf_fl_torch.ops", "nerf_fl_torch.ops._build",
     "nerf_fl_torch.ops.anatomy", "nerf_fl_torch.ops.fused_mlp", "nerf_fl_torch.ops.sorting",
     "nerf_fl_torch.render", "nerf_fl_torch.render.renderer",
+    "nerf_fl_torch.render.appearance",
     "nerf_fl_torch.training", "nerf_fl_torch.training.losses",
     "nerf_fl_torch.training.metrics", "nerf_fl_torch.training.optimizers",
     "nerf_fl_torch.training.system", "nerf_fl_torch.training.checkpoints",
@@ -140,6 +142,18 @@ train.main(opt.get_opts(model + ["--batch_size", "128", "--num_epochs", "1",
 psnr = ev.main(ev.get_opts(model + ["--ckpt_path", "ckpts/b/epoch=0.ckpt",
                                     "--split", "test", "--compute_ssim"]),
                device="cpu")
+barf = ["--refine_pose", "--barf_schedule", "paper"]
+train.main(opt.get_opts(model + barf + [
+    "--batch_size", "128", "--num_epochs", "1", "--save_path", "ckpts",
+    "--exp_name", "barf", "--refresh_every", "0", "--pose_noise", "1", "0.01",
+    "--pose_lr_mult", "2", "--pose_warmup_epochs", "0.5",
+    "--steps_per_execution", "2"]), device="cpu")
+for extra in (barf + ["--split", "test_train"],
+              ["--optimize_appearance", "--opt_a_steps", "2",
+               "--opt_a_rays", "64", "--split", "test"]):
+    ev.main(ev.get_opts(model + extra + [
+        "--ckpt_path", "ckpts/barf/epoch=0.ckpt", "--scene_name", "barf"]),
+        device="cpu")
 from nerf_fl_torch import prepare_phototourism as prep
 from nerf_fl_torch.data.synthetic import (make_llff_scene,
                                           make_phototourism_scene)
@@ -165,8 +179,10 @@ print("PSNR", psnr, "BAD", bad)
 
 
 def test_train_and_eval_need_none_of_the_missing_libraries(tmp_path):
-    """Train and eval (Blender, then Phototourism from the ray cache that
-    prepare_phototourism writes, then LLFF, with --save_depth and mp4) on
+    """Train and eval (Blender, Blender with BARF pose refinement on noisy
+    poses and its eval with --refine_pose and with --optimize_appearance,
+    then Phototourism from the ray cache that prepare_phototourism writes,
+    then LLFF, with --save_depth and mp4) on
     the CPU in a process where PIL, pandas, imageio, cv2, flax, msgpack,
     tensorboard, jax and the JAX package cannot be imported: they need
     only torch, numpy and the standard library."""
@@ -177,6 +193,8 @@ def test_train_and_eval_need_none_of_the_missing_libraries(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout[-2000:]
     assert "JSONL only" in out.stdout
+    assert "[pose_noise] injected rot" in out.stdout
+    assert "[opt_a] frame 0: fit mse" in out.stdout
     assert (tmp_path / "results" / "blender" / "test" / "test.gif").exists()
     assert (tmp_path / "tour" / "cache" / "rays2.npy").exists()
     for name in ("phototourism", "llff"):

@@ -12,6 +12,10 @@ same weights in both packages (``bridge.from_jax_params``):
     the limits of the lockstep test;
   * the port's K-step against K of its own K = 1 calls: bit for bit,
     parameters and Adam state, so the masked tail touched nothing;
+  * the same with BARF and trained pose deltas on camera-frame rays: the
+    epoch reaches the K-step as a tensor filled before each call, so two
+    calls at epochs 0.75 and 1.25 equal 7 single steps at those epochs bit
+    for bit, the deltas held through the pose warmup;
   * the transmittance's cumprod, whose backward the port writes so that a
     CUDA graph can capture it: bit for bit torch.cumprod's values and
     gradients, and JAX's gradient within rtol 1e-5, with and without
@@ -262,19 +266,99 @@ def test_transmittance_gradient_matches_jax(zeros):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("pool", [False, True], ids=["host_fed", "pool"])
-def test_k_step_refuses_barf(pool):
-    """BARF reads the epoch, which a captured step would bake in; it is not
-    ported, so K > 1 with refine_pose raises on every device."""
-    cfg = RenderConfig(refine_pose=True, **KW)
-    params = system.build_params(cfg, 8, device="cpu")
+def _barf_port(steps, pool):
+    """The narrow NeRF-W with BARF (paper schedule over epochs 0-2) on
+    camera-frame rays of 4 cameras, the pose deltas trained in their own
+    group at lr x 0.5 after a warmup of 1 epoch."""
+    from nerf_fl_torch.models.poses import perturb_poses
+    cfg = RenderConfig(refine_pose=True, barf_schedule="paper",
+                       barf_epoch_start=0, barf_epoch_end=2, **KW)
+    init = np.tile(np.eye(4, dtype=np.float32), (4, 1, 1))
+    init[:, :3, 3] = [[4, 0, 1], [0, 4, 1], [-4, 0, 1], [0, -4, 1]]
+    params = system.build_params(
+        cfg, 8, generator=torch.Generator().manual_seed(0), device="cpu",
+        init_poses=perturb_poses(init, 3.0, 0.02, seed=2))
+    mask = optimizers.make_trainable_mask(params, True)
+    for name, p in optimizers.named_leaves(params):
+        p.requires_grad_(mask[name])
     opt = optimizers.build_optimizer(
         types.SimpleNamespace(optimizer="adam", lr=LR),
-        optimizers.trainable_parameters(
-            params, optimizers.make_trainable_mask(params, True)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+        optimizers.param_groups(params, mask))
+    kw = dict(steps_per_execution=steps, ray_format="camdir",
+              pose_lr_mult=0.5, pose_warmup_epochs=1.0)
+    if pool:
+        step = system.make_device_pool_step(cfg, opt, batch_size=B, **kw)
+    else:
+        step = system.make_train_step(cfg, opt, **kw)
+    return params, opt, step
+
+
+def _camdir(n, seed):
+    rng = np.random.default_rng(seed)
+    d = np.concatenate([rng.uniform(-0.4, 0.4, (n, 2)), -np.ones((n, 1))],
+                       1).astype(np.float32)
+    return {"rays": np.concatenate([d, np.full((n, 1), 2, np.float32),
+                                    np.full((n, 1), 6, np.float32)], 1),
+            "ts": rng.integers(0, 4, n).astype(np.int32),
+            "rgbs": rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("pool", [False, True], ids=["host_fed", "pool"])
+def test_k_step_barf_equals_k_single_steps_bit_for_bit(pool):
+    """BARF and the pose warmup read the epoch, which reaches the K-step as
+    a tensor filled before each call (the one a CUDA graph reads; every
+    sub-step of a call shares it).  Two K = 4 calls at epochs 0.75 and
+    1.25 (the second with its last sub-step masked) against 7 single steps
+    at those epochs: parameters, Adam state and metrics bit for bit; the
+    pose deltas still through the first call and moved by the second."""
+    runs = []
+    for steps in (1, K):
+        params, opt, step = _barf_port(steps, pool)
+        data = _camdir(2 * K * B, 6)
+        epochs = [0.75] * K + [1.25] * (K - 1)
+        deltas, metrics = [], []
         if pool:
-            system.make_device_pool_step(cfg, opt, batch_size=B,
-                                         steps_per_execution=K)
+            perm = torch.from_numpy(system.epoch_perm(1, 0, 2 * K * B,
+                                                      2 * K * B))
+            pool_t = _torch(data)
+            if steps == 1:
+                for i in range(2 * K - 1):
+                    metrics.append(step(params, pool_t, perm, i, LR,
+                                        epochs[i]))
+                    deltas.append(params["learn_poses"].r.detach().clone())
+            else:
+                for i0 in (0, K):
+                    m = step(params, pool_t, perm, i0, 2 * K - 1, LR,
+                             epochs[i0])
+                    metrics += [{k: v[j] for k, v in m.items()}
+                                for j in range(min(K, 2 * K - 1 - i0))]
+                    deltas.append(params["learn_poses"].r.detach().clone())
         else:
-            system.make_train_step(cfg, opt, steps_per_execution=K)
+            batches = [_torch({k: v[i * B:(i + 1) * B]
+                               for k, v in data.items()})
+                       for i in range(2 * K - 1)]
+            if steps == 1:
+                for b, e in zip(batches, epochs):
+                    metrics.append(step(params, b, LR, e))
+                    deltas.append(params["learn_poses"].r.detach().clone())
+            else:
+                for i0, group in ((0, batches[:K]), (K, batches[K:])):
+                    st, valid = system.stack_batches(group, K)
+                    m = step(params, st, LR, epochs[i0], valid=valid)
+                    metrics += [{k: v[j] for k, v in m.items()}
+                                for j in range(len(group))]
+                    deltas.append(params["learn_poses"].r.detach().clone())
+        runs.append((to_numpy_tree(params), _adam_state(opt),
+                     [{k: float(v) for k, v in m.items()} for m in metrics],
+                     deltas))
+    (p1, s1, m1, d1), (pk, sk, mk, dk) = runs
+    jax.tree_util.tree_map(np.testing.assert_array_equal, p1, pk)
+    assert len(s1) == len(sk)
+    for a, b in zip(s1, sk):
+        assert set(a) == set(b)
+        for name in a:
+            assert torch.equal(torch.as_tensor(a[name]),
+                               torch.as_tensor(b[name])), name
+    assert m1 == mk
+    assert not d1[K - 1].any() and not dk[0].any()
+    assert torch.equal(d1[-1], dk[-1]) and dk[-1].abs().max() > 0
