@@ -114,7 +114,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      backward launches and runs an Adam step beside one forward a render
      chunk); and a Phototourism collection (12 JPEGs) trained 1 epoch with
      --refine_pose; print the rays/s beside phase 6's graph step and the
-     seconds an appearance fit takes.
+     seconds an appearance fit takes;
+ 12. the tools through the entry points in child processes:
+     nerf_fl_torch.tools.quality_gate --preset card (the 7-arm matrix at
+     the flagship width, bf16, 10 views at 100 x 100 for 2 epochs, 4 arms
+     at a time on the card; 7 arms trained and 8 evaluations, every test
+     PSNR finite and above 5 dB, each arm's fused kernels 2 + 2 runs a
+     sub-step as its train log counts them, a second run that trains and
+     evaluates nothing), profile_trace over the co_nerfw arm's
+     --profile_dir window (2 + 2 fused kernels a sub-step, no GEMM kernel,
+     its busy share agreeing with experiments/trace_records' reading),
+     save_weights_only on that arm's checkpoint (eval of the slim file
+     gives the full one's Mean PSNR bit for bit), gen_nerf_tsv on phase
+     10's Phototourism scene (its tsv byte for byte), and beside the gate
+     scale_stress --preset card (24 JPEGs of 4 sizes, the ray cache, 1
+     epoch at bf16, the val PSNR finite): print each stage's seconds, the
+     peak RSS and the train rays/s beside phase 6's graph step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -1921,6 +1936,237 @@ def phase_barf_entry_points(graph_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the tools phase: the quality gate's card preset and the scale stress's,
+# through the entry points in child processes, and the offline tools
+TOOLS_JOBS = 4             # quality-gate arms at a time on the card
+# every arm's test PSNR must be finite and above this floor, the JAX
+# package's smoke test's (tests/test_quality_gate.py:93)
+TOOLS_PSNR_FLOOR = 5.0
+# the share of the profiled window the kernels keep busy: the union of
+# their intervals (profile_trace) against the sum of their durations
+# (experiments/trace_records.read_trace), which agree where no two kernels
+# overlap
+TOOLS_BUSY_AGREE = 1e-3
+# GEMM kernels (cuBLAS's, nvjet on Hopper, or CUTLASS's) in a train step's
+# trace mean that the plain MLP path ran: the fused step has none
+GEMM_MARKS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
+# the paths of phase 12 in the kernels line: the gate's and the scale
+# stress's train and eval children, as their logs count them, and this
+# process's evals of the stripped and the full checkpoint
+TOOLS_PATHS = ("quality_gate_cli", "scale_stress_cli", "tools_eval_cli")
+
+
+def _child(args, log, timeout):
+    """Run ``python -m <args>`` from the checkout into ``log``; fails with
+    its tail unless it exits 0.  Returns its seconds."""
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = subprocess.run([sys.executable, "-m", *args], cwd=HERE,
+                            stdout=f, stderr=subprocess.STDOUT,
+                            timeout=timeout).returncode
+    if rc != 0:
+        fail(f"python -m {' '.join(args)} exited {rc}:\n"
+             f"{open(log).read()[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def _arm_runs(name, k, steps_per_epoch, epochs, val_chunks):
+    """Fail unless a training child's kernel count is the graph step's: 2 +
+    2 runs a sub-step on the card (+ 2 forward a validation chunk), the
+    wrappers' launches those of the eager first sub-step and the capture."""
+    steps = steps_per_epoch * epochs
+    want = {"steps": steps, "runs": [2 * steps + 2 * val_chunks, 2 * steps],
+            "launches": [4 + 2 * val_chunks, 4]}
+    got = {key: k[key] for key in want} if k else None
+    if got != want:
+        fail(f"{name}: the fused kernels' count of the run {got}, expected "
+             f"{want}")
+
+
+def phase_tools(graph_ms):
+    """The port's tools on the card: ``nerf_fl_torch.tools.quality_gate
+    --preset card`` (7 arms trained and 8 evaluations through ``python -m
+    nerf_fl_torch.train`` / ``.eval``, TOOLS_JOBS at a time; each arm's
+    fused kernel runs 2 + 2 a sub-step as its log counts them), a second
+    run that trains and evaluates nothing, every PSNR finite and above
+    TOOLS_PSNR_FLOOR, the artifacts in the workdir; ``profile_trace`` over
+    the co_nerfw arm's --profile_dir window (2 + 2 fused kernels a sub-step,
+    no GEMM, the busy share agreeing with trace_records'); ``save_weights_
+    only`` on that arm's checkpoint, whose eval gives the full one's Mean
+    PSNR bit for bit; ``gen_nerf_tsv`` on phase 10's Phototourism scene,
+    its tsv byte for byte; and ``scale_stress --preset card`` beside the
+    gate (the cache built, the eval PSNR finite, each stage's seconds, the
+    peak RSS and the train rays/s).  Returns the children's and this
+    process's fused launches by path."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from nerf_fl_torch import eval as ev
+    from nerf_fl_torch.data import RayBatcher
+    from nerf_fl_torch.data.synthetic import make_phototourism_scene
+    from nerf_fl_torch.experiments.trace_records import read_trace
+    from nerf_fl_torch.ops import fused_mlp as fm
+    from nerf_fl_torch.tools import (gen_nerf_tsv, profile_trace,
+                                     quality_gate as qg, save_weights_only)
+    from nerf_fl_torch.training.system import val_chunk_cap
+
+    here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    stress = None
+    try:
+        os.chdir(tmp)
+        t_phase = time.perf_counter()
+        # the scale stress runs beside the gate, in a child of its own
+        ss_ws = os.path.join(tmp, "stress")
+        ss_log = open(os.path.join(tmp, "stress.log"), "w")
+        stress = subprocess.Popen(
+            [sys.executable, "-m", "nerf_fl_torch.tools.scale_stress",
+             "--preset", "card", "--workdir", ss_ws], cwd=HERE,
+            stdout=ss_log, stderr=subprocess.STDOUT)
+
+        ws = os.path.join(tmp, "qg")
+        gate = ["nerf_fl_torch.tools.quality_gate", "--preset", "card",
+                "--workdir", ws, "--jobs", str(TOOLS_JOBS)]
+        gate_s = _child(gate + ["--arm_timeout", "400"],
+                        os.path.join(tmp, "gate.log"), 600)
+        res = json.load(open(os.path.join(ws, "QUALITY_GATE.json")))
+        p = qg.PRESETS["card"]
+        psnr = res["psnr"]
+        print(f"[tools] quality_gate --preset card: {res['arms_trained']} "
+              f"arms trained, {res['evals_run']} evaluations in "
+              f"{gate_s:.1f} s ({TOOLS_JOBS} at a time); test PSNR "
+              + ", ".join(f"{k} {v:.2f}" for k, v in psnr.items()))
+        if (res["arms_trained"], res["evals_run"]) != (7, 8) \
+                or not res["pass"] or len(psnr) != 8 \
+                or not all(np.isfinite(v) and v > TOOLS_PSNR_FLOOR
+                           for v in psnr.values()) \
+                or not os.path.exists(os.path.join(ws, "QUALITY_GATE.md")):
+            fail(f"quality gate: {res['arms_trained']} arms trained, "
+                 f"{res['evals_run']} evaluations, pass {res['pass']}, PSNR "
+                 f"{psnr}; expected 7, 8, a pass, 8 finite PSNRs above "
+                 f"{TOOLS_PSNR_FLOOR:g} and the markdown table")
+        n_rays = p["n_train"] * p["img_wh"] ** 2
+        per_epoch = RayBatcher(np.zeros((n_rays, 8), np.float32),
+                               np.zeros(n_rays, np.int32),
+                               np.zeros((n_rays, 3), np.float32),
+                               p["batch"]).steps_per_epoch()
+        val_chunks = (1 + p["epochs"]) * p["n_val"] * -(-p["img_wh"] ** 2 // (
+            val_chunk_cap(32 * 1024, *p["samples"])))
+        launches = [0, 0]
+        for name, k in res["kernels"].items():
+            _arm_runs(name, k, per_epoch, p["epochs"], val_chunks)
+            launches = [a + b for a, b in zip(launches, k["launches"])]
+        print(f"[tools] every arm: {per_epoch * p['epochs']} sub-steps, "
+              f"fused runs on the card 2 + 2 a sub-step (+ 2 forward a "
+              f"validation chunk, {val_chunks} chunks), as each train "
+              f"log's [kernels] line counts them; the children's wrapper "
+              f"launches {launches[0]} / {launches[1]}")
+        again_s = _child(gate, os.path.join(tmp, "gate2.log"), 120)
+        res2 = json.load(open(os.path.join(ws, "QUALITY_GATE.json")))
+        print(f"[tools] the gate again: {res2['arms_trained']} arms trained, "
+              f"{res2['evals_run']} evaluations in {again_s:.1f} s")
+        if (res2["arms_trained"], res2["evals_run"]) != (0, 0) \
+                or res2["psnr"] != psnr:
+            fail("the second quality-gate run trained or evaluated again")
+
+        # the profiled arm's window: its trace through profile_trace
+        win = res["kernels"][p["profile"]]["profile"]
+        summary = profile_trace.main(["--trace_dir", win["trace"],
+                                      "--steps", str(win["steps"]),
+                                      "--top", "12"])
+        kernels, _ = read_trace(win["trace"])
+        span = max(e["ts"] + e.get("dur", 0) for e in kernels) - \
+            min(e["ts"] for e in kernels)
+        busy_tr = sum(e.get("dur", 0) for e in kernels) / span
+        gemms = sorted({n for n in summary["by_name"]
+                        if any(m in n.lower() for m in GEMM_MARKS)})
+        print(f"[tools] co_nerfw's --profile_dir window: {win['steps']} "
+              f"sub-steps in {1e3 * win['seconds']:.1f} ms (host); fused "
+              f"kernels {summary['fused_fwd']} / {summary['fused_bwd']}; "
+              f"busy {100 * summary['busy_share']:.2f}% of the kernels' span "
+              f"(profile_trace's union), {100 * busy_tr:.2f}% (trace_records' "
+              f"sum), {100 * summary['busy_us'] / 1e6 / win['seconds']:.1f}% "
+              f"of the host-timed window; GEMM kernels {gemms}")
+        if (summary["fused_fwd"], summary["fused_bwd"]) != (
+                2 * win["steps"], 2 * win["steps"]) or gemms \
+                or abs(summary["busy_share"] - busy_tr) > TOOLS_BUSY_AGREE:
+            fail("the profiled arm's window does not hold 2 + 2 fused "
+                 "kernels a sub-step and no GEMM, or the busy shares differ")
+
+        # save_weights_only: eval of the slim file, bit for bit the full one's
+        arm = [a for a in qg.ARMS if a[0] == p["profile"]][0]
+        full = qg.final_ckpt(ws, p, arm[0])
+        slim = save_weights_only.main(["--ckpt_path", full])
+        fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+        got = {}
+        for label, path in (("full", full), ("slim", slim)):
+            argv = qg.eval_argv(ws, qg.ensure_fixture(ws, p), p, arm[0],
+                                arm[2], eval_name=f"tools_{label}")
+            argv[argv.index("--ckpt_path") + 1] = path
+            got[label] = ev.main(ev.get_opts(argv))
+        eval_launches = (fm.fused_mlp_fwd_cuda.launches,
+                         fm.fused_mlp_bwd_cuda.launches)
+        print(f"[tools] save_weights_only: {os.path.getsize(slim)} bytes of "
+              f"{os.path.getsize(full)}; eval Mean PSNR full {got['full']!r}, "
+              f"slim {got['slim']!r}, the gate's {psnr[arm[0]]}; fused "
+              f"launches {eval_launches}")
+        if not (got["full"] == got["slim"]
+                and round(float(got["full"]), 2) == psnr[arm[0]]) \
+                or eval_launches[0] == 0:
+            fail("eval of the stripped checkpoint differs from the full one")
+
+        # gen_nerf_tsv on phase 10's scene: that scene's own tsv
+        t0 = time.perf_counter()
+        make_phototourism_scene("tour", **TOUR_SCENE)
+        tsv = gen_nerf_tsv.main(["--root_dir", "tour", "--out", "gen.tsv",
+                                 "--n_test", "1", "--dataset_name",
+                                 "minitour"])
+        same = open(tsv, "rb").read() == open(os.path.join(
+            "tour", "minitour.tsv"), "rb").read()
+        print(f"[tools] gen_nerf_tsv on phase 10's scene "
+              f"({TOUR_SCENE['n_images']} images, written in "
+              f"{time.perf_counter() - t0:.1f} s): byte for byte its tsv: "
+              f"{same}")
+        if not same:
+            fail("gen_nerf_tsv does not give the scene's tsv")
+
+        # the scale stress
+        rc = stress.wait(timeout=400)
+        ss_log.close()
+        if rc != 0:
+            fail(f"scale_stress --preset card exited {rc}:\n"
+                 f"{open(ss_log.name).read()[-3000:]}")
+        ss = json.load(open(os.path.join(ss_ws, "SCALE_STRESS.json")))
+        sk = ss.get("train_kernels")
+        print(f"[tools] scale_stress --preset card ({ss['n_images']} images "
+              f"of {ss['sizes']} px): scene {ss.get('scene_gen_s')} s, cache "
+              f"{ss.get('cache_build_s')} s, COLMAP reader "
+              f"{ss['colmap_read_s']} s, JPEG decoder "
+              f"{ss['jpeg_decode_s_per_image']} s an image, train "
+              f"{ss['train_wall_s']} s (peak RSS {ss['train_peak_rss_mb']} "
+              f"MB, {ss['train_rays_per_sec']} rays/s at its last progress "
+              f"line; phase 6's graph step {BATCH / graph_ms * 1e3:.0f} "
+              f"rays/s), eval {ss['eval_wall_s']} s, val PSNR "
+              f"{ss['eval_psnr']}; fused kernels {sk}")
+        if not (os.path.exists(os.path.join(ss_ws, "scene", "cache",
+                                            "rays2.npy"))
+                and ss["eval_psnr"] is not None
+                and np.isfinite(ss["eval_psnr"]) and sk
+                and sk["runs"][1] == 2 * sk["steps"] > 0
+                and sk["runs"][0] >= 2 * sk["steps"]):
+            fail("scale stress: no cache, no finite val PSNR, or fused "
+                 "kernels off the graph step's 2 + 2 a sub-step")
+        print(f"[tools] phase 12 in {time.perf_counter() - t_phase:.1f} s")
+        return {"quality_gate_cli": tuple(launches),
+                "scale_stress_cli": tuple(sk["launches"]),
+                "tools_eval_cli": eval_launches}
+    finally:
+        if stress is not None and stress.poll() is None:
+            stress.kill()
+            stress.wait()
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def probe_block(name) -> str:
     """Which block a probe's kernel is built from, for its [probe] line;
     the Hopper-block probes and sin with what ptxas and the build report."""
@@ -2306,6 +2552,11 @@ def main() -> int:
     barf = phase_barf_entry_points(graph["ms"])
     barf_s = time.perf_counter() - t0
     on_barf = {k: v - before_barf[k] for k, v in probe_counts().items()}
+    before_tools = probe_counts()
+    t0 = time.perf_counter()
+    tools = phase_tools(graph["ms"])
+    tools_s = time.perf_counter() - t0
+    on_tools = {k: v - before_tools[k] for k, v in probe_counts().items()}
     probes, fused_on_anatomy = phase_anatomy(dev, cfg, smi_name)
 
     def graph_line(g, i):
@@ -2325,7 +2576,8 @@ def main() -> int:
         "replaces": "nerf_fl_tpu/ops/fused_mlp.py:319",
         "launches": launches + fwd_train + cli["train_cli"][0]
         + cli["eval_cli"][0] + sum(wild[k][0] for k in WILD_PATHS)
-        + sum(barf[k][0] for k in BARF_PATHS),
+        + sum(barf[k][0] for k in BARF_PATHS)
+        + sum(tools[k][0] for k in TOOLS_PATHS),
         "launches_by_path": {"render_frame": launches,
                              "train_step": fwd_train,
                              "train_graph_substep": graph["launches"][0],
@@ -2333,6 +2585,7 @@ def main() -> int:
                              "eval_cli": cli["eval_cli"][0],
                              **{k: wild[k][0] for k in WILD_PATHS},
                              **{k: barf[k][0] for k in BARF_PATHS},
+                             **{k: tools[k][0] for k in TOOLS_PATHS},
                              "kernel_anatomy": fused_on_anatomy[0]},
         "train_cli_graph": graph_line(cli["train_graph"], 0),
         "tour_train_cli_graph": graph_line(wild["tour_graph"], 0),
@@ -2346,7 +2599,8 @@ def main() -> int:
         "replaces": "nerf_fl_tpu/ops/fused_mlp.py:359",
         "launches": bwd_render + bwd_train + cli["train_cli"][1]
         + cli["eval_cli"][1] + sum(wild[k][1] for k in WILD_PATHS)
-        + sum(barf[k][1] for k in BARF_PATHS),
+        + sum(barf[k][1] for k in BARF_PATHS)
+        + sum(tools[k][1] for k in TOOLS_PATHS),
         "launches_by_path": {"render_frame": bwd_render,
                              "train_step": bwd_train,
                              "train_graph_substep": graph["launches"][1],
@@ -2354,6 +2608,7 @@ def main() -> int:
                              "eval_cli": cli["eval_cli"][1],
                              **{k: wild[k][1] for k in WILD_PATHS},
                              **{k: barf[k][1] for k in BARF_PATHS},
+                             **{k: tools[k][1] for k in TOOLS_PATHS},
                              "kernel_anatomy": fused_on_anatomy[1]},
         "train_cli_graph": graph_line(cli["train_graph"], 1),
         "tour_train_cli_graph": graph_line(wild["tour_graph"], 1),
@@ -2378,6 +2633,7 @@ def main() -> int:
                                  "train_and_eval_cli": on_cli[name],
                                  "wild_train_and_eval_cli": on_wild[name],
                                  "barf_train_and_eval_cli": on_barf[name],
+                                 "tools_cli": on_tools[name],
                                  "kernel_anatomy": row["launches"]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "device_ms": row["device_ms"],
@@ -2387,7 +2643,7 @@ def main() -> int:
             **({"parent_device_ms": row["parent_device_ms"]}
                if "parent_device_ms" in row else {})})
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all, "
-          f"phase 11 {barf_s:.1f} s")
+          f"phase 11 {barf_s:.1f} s, phase 12 {tools_s:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@ of its own: nil, bool, int, float, str, bin, array, map, and flax's ext
 types 1 (ndarray: a msgpack of shape, dtype name and C-order bytes) and 3
 (numpy scalar).  flax's chunked big-array leaves raise.  The JAX params
 come out in the port's layout (``bridge.state_dict_from_jax``); a JAX
-``opt_state`` is kept as read, and ``adam_state_from_jax`` turns optax's
-Adam moments into torch's.
+``opt_state`` is kept as read, and ``opt_state_from_jax`` turns the
+state of its optax chain (sgd, adam, radam, ranger) into the port
+optimizer's.
 
 The other functions are the counterparts of the JAX package's
 (``nerf_fl_tpu/training/checkpoints.py``): ``latest_checkpoint``,
@@ -306,44 +307,89 @@ def load_into(params: Dict[str, Any], ckpt: Dict,
     return params
 
 
-def _find_adam(tree):
-    """optax's ScaleByAdamState in a JAX opt_state: the dict holding
-    count, mu and nu."""
+def _find_state(tree, fields):
+    """The first dict of a JAX opt_state (depth first) that holds every key
+    of ``fields``: optax's ScaleByAdamState (count, mu, nu), which
+    ``scale_by_radam_torch`` also keeps, TraceState (trace) or Ranger's
+    LookaheadState (slow, count)."""
     if isinstance(tree, dict):
-        if {"count", "mu", "nu"} <= set(tree):
+        if set(fields) <= set(tree):
             return tree
         for v in tree.values():
-            found = _find_adam(v)
+            found = _find_state(v, fields)
             if found is not None:
                 return found
     return None
 
 
-def adam_state_from_jax(opt_state, optimizer: torch.optim.Optimizer,
-                        named: Dict[str, torch.Tensor]) -> None:
-    """Set ``optimizer`` (``torch.optim.Adam``) to optax's Adam state:
-    ``mu`` / ``nu`` / ``count`` as ``exp_avg`` / ``exp_avg_sq`` / ``step``
-    for every parameter it holds; ``named`` maps the port's names
-    (``named_leaves``) to those parameters."""
-    if not isinstance(optimizer, torch.optim.Adam):
+def opt_state_from_jax(opt_state, optimizer: torch.optim.Optimizer,
+                       named: Dict[str, torch.Tensor]) -> None:
+    """Set ``optimizer`` to the state of the JAX package's optax chain for
+    every parameter it holds; ``named`` maps the port's names
+    (``named_leaves``) to those parameters.
+
+      * ``torch.optim.Adam``: ``mu`` / ``nu`` / ``count`` of
+        ``scale_by_adam`` as ``exp_avg`` / ``exp_avg_sq`` / ``step``;
+      * ``RAdam``: the same three of ``scale_by_radam_torch``; ``Ranger``
+        also the lookahead's slow weights as ``slow_buffer``.  The port's
+        Ranger syncs on its RAdam step, so the lookahead's count must stand
+        at the same place in its sync period (both count every step);
+      * ``SGD``: ``trace``'s buffer as ``momentum_buffer`` (no state
+        without momentum).
+    """
+    from .optimizers import SGD, RAdam, Ranger
+    held = [p for g in optimizer.param_groups for p in g["params"]]
+    ids = {id(p) for p in held}
+    mine = {name: p for name, p in named.items() if id(p) in ids}
+
+    def trees(state, keys):
+        return [_named(state_dict_from_jax(state[k])) for k in keys]
+
+    if isinstance(optimizer, SGD):
+        if optimizer.param_groups[0]["momentum"] <= 0:
+            return
+        trace = _find_state(opt_state, ("trace",))
+        if trace is None:
+            raise ValueError("the JAX opt_state holds no momentum trace")
+        (buf,) = trees(trace, ("trace",))
+        for name, p in mine.items():
+            optimizer.state[p] = {"momentum_buffer": _on(buf[name], p)}
+        return
+    if not (type(optimizer) is torch.optim.Adam
+            or isinstance(optimizer, RAdam)):
         raise NotImplementedError(
             f"resuming {type(optimizer).__name__} from a JAX opt_state is "
-            f"not ported yet")
-    adam = _find_adam(opt_state)
+            f"not ported")
+    adam = _find_state(opt_state, ("count", "mu", "nu"))
     if adam is None:
-        raise ValueError("the JAX opt_state holds no Adam state")
-    mu, nu = (_named(state_dict_from_jax(adam[k])) for k in ("mu", "nu"))
+        raise ValueError("the JAX opt_state holds no Adam / RAdam state")
+    mu, nu = trees(adam, ("mu", "nu"))
     count = float(np.asarray(adam["count"]))
-    held = {id(p) for g in optimizer.param_groups for p in g["params"]}
-    capturable = optimizer.param_groups[0].get("capturable", False)
-    for name, p in named.items():
-        if id(p) not in held:
-            continue
-        optimizer.state[p] = {
-            "step": torch.tensor(count, dtype=torch.float32,
-                                 device=p.device if capturable else "cpu"),
-            "exp_avg": torch.from_numpy(mu[name]).to(p.device, p.dtype),
-            "exp_avg_sq": torch.from_numpy(nu[name]).to(p.device, p.dtype)}
+    slow = None
+    if isinstance(optimizer, Ranger):
+        look = _find_state(opt_state, ("slow", "count"))
+        if look is None:
+            raise ValueError("the JAX opt_state holds no lookahead state")
+        k = optimizer.param_groups[0]["k"]
+        if int(np.asarray(look["count"])) % k != int(count) % k:
+            raise ValueError(
+                f"the lookahead count {int(np.asarray(look['count']))} and "
+                f"the RAdam count {int(count)} stand at different places "
+                f"of the sync period {k}")
+        (slow,) = trees(look, ("slow",))
+    on_card = isinstance(optimizer, RAdam) or \
+        optimizer.param_groups[0].get("capturable", False)
+    for name, p in mine.items():
+        st = {"step": torch.tensor(count, dtype=torch.float32,
+                                   device=p.device if on_card else "cpu"),
+              "exp_avg": _on(mu[name], p), "exp_avg_sq": _on(nu[name], p)}
+        if slow is not None:
+            st["slow_buffer"] = _on(slow[name], p)
+        optimizer.state[p] = st
+
+
+def _on(a: np.ndarray, p: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(a).to(p.device, p.dtype)
 
 
 def _named(sd) -> Dict[str, np.ndarray]:

@@ -4,22 +4,24 @@ Counterpart of ``nerf_fl_tpu/training/optimizers.py``:
   * ``lr_for_epoch``: steplr (MultiStepLR), cosine (CosineAnnealingLR,
     eta_min 1e-8) and poly, each optionally behind a linear warmup over
     ``warmup_epochs`` (skipped for radam/ranger), stepped per epoch;
-  * ``build_optimizer``: ``torch.optim.SGD`` / ``torch.optim.Adam`` with
-    eps 1e-8, which make the same update as the JAX package's optax chains
-    (weight decay is L2 added to the gradient, and optax's ``trace`` is
-    torch's momentum with dampening 0), and ``RAdam`` / ``Ranger``, the
-    JAX package's ``scale_by_radam_torch`` chains written out here
+  * ``build_optimizer``: ``SGD`` (the JAX package's sgd chain written out
+    here: weight decay added to the gradient, then optax's ``trace``,
+    heavy-ball momentum with dampening 0), ``torch.optim.Adam`` with eps
+    1e-8, which makes the same update as the JAX package's optax chain
+    (weight decay is L2 added to the gradient), and ``RAdam`` / ``Ranger``,
+    the JAX package's ``scale_by_radam_torch`` chains written out here
     (torch_optimizer's and pytorch_ranger's arithmetic).  The scheduled lr
     is written into ``param_groups`` before each step (``set_lr``).
 
 On the card Adam is built ``capturable``, with its lr a device tensor, so
 that a CUDA graph of the train step (``system.make_train_step`` with
 ``steps_per_execution`` > 1) replays it: ``set_lr`` fills that tensor, and
-the step count and bias corrections stay on the card.  RAdam and Ranger
-are capturable everywhere: their step count lives in a tensor beside the
-parameter, the rectification branch and the lookahead sync are a
+the step count and bias corrections stay on the card.  SGD, RAdam and
+Ranger are capturable everywhere and take a device lr on the card: their
+state (the momentum buffer; the step count beside the parameter) lives on
+the device, the rectification branch and the lookahead sync are a
 ``torch.where`` on it, and nothing is read back to the host.  On the CPU
-sgd and adam take a Python float lr, as torch builds them by default.
+every optimizer takes a Python float lr.
 ``param_groups`` puts the learned pose deltas in a group of their own, the
 one whose updates the train step scales (``--pose_lr_mult``, the warmup).
 """
@@ -54,6 +56,46 @@ def lr_for_epoch(hparams, epoch: int) -> float:
     if hparams.lr_scheduler == "poly":
         return base * (1 - e / hparams.num_epochs) ** hparams.poly_exp
     raise ValueError(f"scheduler not recognized: {hparams.lr_scheduler}")
+
+
+def _grad(p: torch.Tensor) -> torch.Tensor:
+    """``p``'s gradient; a ``None`` grad counts as zeros, as every leaf of
+    the JAX tree gets a gradient."""
+    return torch.zeros_like(p) if p.grad is None else p.grad
+
+
+class SGD(torch.optim.Optimizer):
+    """The JAX package's sgd: ``add_decayed_weights(wd)`` (the decay added
+    to the gradient before any momentum), then ``optax.trace(momentum)``
+    (``t = g + momentum * t``, from ``t = 0``: heavy-ball momentum with
+    dampening 0, no Nesterov), then ``-lr * t``; without momentum the
+    update is ``-lr * g``.  Capturable: the lr may be a device tensor and
+    the buffer is updated in place."""
+
+    def __init__(self, params, lr=1e-3, momentum=0.0, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay,
+                                      capturable=True))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            wd, mom = group["weight_decay"], group["momentum"]
+            for p in group["params"]:
+                g = _grad(p)
+                if wd > 0:
+                    g = g + wd * p
+                if mom > 0:
+                    st = self.state[p]
+                    if not st:
+                        st["momentum_buffer"] = torch.zeros_like(p)
+                    g = st["momentum_buffer"].mul_(mom).add_(g)
+                p.add_(-group["lr"] * g)
+        return loss
 
 
 class RAdam(torch.optim.Optimizer):
@@ -112,9 +154,6 @@ class RAdam(torch.optim.Optimizer):
             u = u + group["weight_decay"] * p
         return u
 
-    def _grad(self, p):
-        return torch.zeros_like(p) if p.grad is None else p.grad
-
     @torch.no_grad()
     def step(self, closure=None):
         loss = None
@@ -123,7 +162,7 @@ class RAdam(torch.optim.Optimizer):
                 loss = closure()
         for group in self.param_groups:
             for p in group["params"]:
-                u = self._direction(p, self._grad(p), group)
+                u = self._direction(p, _grad(p), group)
                 p.add_(-group["lr"] * u)
         return loss
 
@@ -166,7 +205,7 @@ class Ranger(RAdam):
                 loss = closure()
         for group in self.param_groups:
             for p in group["params"]:
-                g = self._grad(p)
+                g = _grad(p)
                 if g.dim() >= 2:
                     g = g - g.mean(dim=tuple(range(1, g.dim())), keepdim=True)
                 d = -group["lr"] * self._direction(p, g, group)
@@ -183,8 +222,8 @@ class Ranger(RAdam):
 def build_optimizer(hparams, params: Iterable) -> torch.optim.Optimizer:
     """sgd, adam, radam or ranger over ``params`` (tensors, or param groups
     as ``param_groups`` makes them) at ``hparams.lr``; adam is capturable
-    (lr a device tensor) when the parameters lie on the card, radam and
-    ranger take a device lr there."""
+    (lr a device tensor) when the parameters lie on the card, sgd, radam
+    and ranger take a device lr there."""
     eps = 1e-8
     wd = getattr(hparams, "weight_decay", 0.0)
     name = hparams.optimizer
@@ -192,21 +231,15 @@ def build_optimizer(hparams, params: Iterable) -> torch.optim.Optimizer:
     tensors = [p for g in params for p in g["params"]] \
         if params and isinstance(params[0], dict) else params
     cuda = bool(tensors) and tensors[0].is_cuda
+    lr = torch.tensor(hparams.lr, device=tensors[0].device) if cuda \
+        else hparams.lr
     if name == "sgd":
-        return torch.optim.SGD(params, lr=hparams.lr,
-                               momentum=getattr(hparams, "momentum", 0.0),
-                               dampening=0.0, weight_decay=wd)
+        return SGD(params, lr=lr, momentum=getattr(hparams, "momentum", 0.0),
+                   weight_decay=wd)
     if name == "adam":
-        if cuda:
-            return torch.optim.Adam(
-                params, lr=torch.tensor(hparams.lr, device=tensors[0].device),
-                eps=eps, weight_decay=wd, capturable=True)
-        return torch.optim.Adam(params, lr=hparams.lr, eps=eps,
-                                weight_decay=wd)
+        return torch.optim.Adam(params, lr=lr, eps=eps, weight_decay=wd,
+                                capturable=cuda)
     if name in ("radam", "ranger"):
-        lr = hparams.lr
-        if cuda:
-            lr = torch.tensor(lr, device=tensors[0].device)
         cls = RAdam if name == "radam" else Ranger
         return cls(params, lr=lr, eps=eps, weight_decay=wd)
     raise ValueError(f"optimizer not recognized: {name}")

@@ -149,8 +149,9 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
     NaN in the metrics.  On the card the sub-steps replay a CUDA graph
     (``_StepGraph``; ``multi.graph`` counts its captures) or the call
     raises: it never runs them eagerly instead.  The optimizer must then be
-    capturable (``optimizers.build_optimizer``'s adam, radam and ranger on
-    the card): sgd on the card raises as not ported yet.
+    capturable with a device lr, as every optimizer that
+    ``optimizers.build_optimizer`` makes on the card is; another one (torch's
+    own SGD) raises.
     """
     body = _train_body(cfg, optimizer, loss_name, microbatch, ray_format,
                        id_to_cam, pose_lr_mult, pose_warmup_epochs)
@@ -578,7 +579,9 @@ def render_chunked(params, rays, ts, cfg: RenderConfig, *,
                    device=None) -> Dict[str, np.ndarray]:
     """Render arbitrarily many rays in fixed-size chunks; returns numpy
     arrays.  The tail chunk is padded by repeating its last ray and trimmed
-    after, so every chunk has the same shape.  ``keys`` restricts the
+    after, so every chunk has the same shape; fewer rays than a chunk are
+    rendered as one chunk of their own size (padding them to ``chunk``
+    would only add work).  ``keys`` restricts the
     returned (and copied back) outputs.  ``device`` None means CUDA; the
     params must live on the device."""
     return render_chunked_async(
@@ -610,6 +613,7 @@ def render_chunked_async(params, rays, ts, cfg: RenderConfig, *,
                                      device=dev)
     keys = None if keys is None else frozenset(keys)
     n = len(rays)
+    chunk = max(1, min(chunk, n))
     outs = defaultdict(list)
     pending: deque = deque()
 
@@ -1015,8 +1019,8 @@ class NeRFSystem:
                 for g, lr in zip(self.optimizer.param_groups, lrs):
                     g["lr"] = lr          # keep the device lr of a capture
             else:
-                checkpoints.adam_state_from_jax(ckpt["opt_state"],
-                                                self.optimizer, leaves)
+                checkpoints.opt_state_from_jax(ckpt["opt_state"],
+                                               self.optimizer, leaves)
             self.start_epoch = int(ckpt.get("epoch", -1)) + 1
             self.global_step = int(ckpt.get("global_step", 0))
             print(f"[ckpt] restored {path} (resume at epoch "
@@ -1122,7 +1126,7 @@ class NeRFSystem:
                                           fm.kernel_runs(self.device)))
             st["prof"], st["done"] = None, True
             print(f"[profiler] trace of {self.profile_window['steps']} steps "
-                  f"written to {path}")
+                  f"({seconds:.4f} s) written to {path}")
 
         return before, after
 

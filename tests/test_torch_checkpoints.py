@@ -10,12 +10,15 @@
     layout (the bridge's), and a torch round trip gives back the tensors
     and the optimizer state;
   * ``latest_checkpoint`` and ``load_into`` with ``prefixes_to_ignore``
-    against the JAX package's.
+    against the JAX package's;
+  * a resume from a JAX ``opt_state`` (RAdam, Ranger with its lookahead,
+    SGD with momentum, Adam): the port's next steps match JAX's.
 """
 import os
 import types
 
 import jax
+import optax
 import msgpack
 import numpy as np
 import pytest
@@ -199,3 +202,82 @@ def test_load_into_refuses_a_shape_mismatch(tmp_path):
                         device="cpu")
     with pytest.raises(ValueError, match="shape mismatch"):
         checkpoints.load_into(wide, checkpoints.load_checkpoint(path))
+
+
+RESUME_AT, RESUME_MORE = 8, 6
+
+
+@pytest.mark.parametrize("name,wd", [("radam", 0.0), ("radam", 1e-2),
+                                     ("ranger", 0.0), ("ranger", 1e-2),
+                                     ("sgd", 1e-4), ("adam", 0.0)])
+def test_resume_from_a_jax_opt_state_matches_jax(tmp_path, name, wd):
+    """The JAX package trains 8 steps (RAdam's first rectified step is the
+    6th, Ranger's lookahead syncs at the 6th) and saves; the port reads the
+    checkpoint, rebuilds its optimizer from the JAX ``opt_state``
+    (``opt_state_from_jax``) and takes the next 6 steps on the same
+    gradients as JAX (across Ranger's sync at the 12th, which reads the
+    restored slow weights): every leaf within f32 max |x - y| <= 1e-6
+    (1 + |y|) after each step."""
+    h = types.SimpleNamespace(optimizer=name, lr=1e-2, weight_decay=wd,
+                              momentum=0.9)
+    tx = jopt.build_optimizer(h)
+    jp = _jparams()
+    state = tx.init(jp)
+    rng = np.random.default_rng(0)
+
+    def grads():
+        return jax.tree_util.tree_map(
+            lambda x: rng.normal(0, 1, x.shape).astype(np.float32), jp)
+
+    def jstep(jp, state):
+        deltas, state = tx.update(grads_t, state, jp, np.float32(h.lr))
+        return jax.tree_util.tree_map(np.asarray,
+                                      optax.apply_updates(jp, deltas)), state
+
+    for _ in range(RESUME_AT):
+        grads_t = grads()
+        jp, state = jstep(jp, state)
+    path = str(tmp_path / "epoch=0.ckpt")
+    jckpt.save_checkpoint(path, jp, state, epoch=0, global_step=RESUME_AT)
+
+    cfg = RenderConfig(**KW)
+    ck = checkpoints.load_checkpoint(path)
+    tp = build_params(cfg, 6, device="cpu")
+    checkpoints.load_into(tp, ck)
+    leaves = dict(optimizers.named_leaves(tp))
+    opt = optimizers.build_optimizer(h, optimizers.trainable_parameters(
+        tp, optimizers.make_trainable_mask(tp, False)))
+    checkpoints.opt_state_from_jax(ck["opt_state"], opt, leaves)
+    for t in range(RESUME_MORE):
+        grads_t = grads()
+        jp, state = jstep(jp, state)
+        mods = from_jax_params(grads_t, cfg)
+        for (_, p), (_, g) in zip(optimizers.named_leaves(tp),
+                                  optimizers.named_leaves(mods)):
+            p.grad = g.detach().clone()
+        opt.step()
+        for x, y in zip(jax.tree_util.tree_leaves(to_numpy_tree(tp)),
+                        jax.tree_util.tree_leaves(jp)):
+            err = np.abs(x - y) / (1 + np.abs(y))
+            assert err.max() <= 1e-6, (t, float(err.max()))
+    if name != "sgd":
+        st = next(iter(opt.state.values()))
+        assert float(st["step"]) == RESUME_AT + RESUME_MORE
+
+
+def test_resume_refuses_a_lookahead_out_of_step(tmp_path):
+    """Ranger's sync reads the RAdam step: a JAX state whose lookahead
+    count stands elsewhere in the sync period is refused."""
+    h = types.SimpleNamespace(optimizer="ranger", lr=1e-2, weight_decay=0.0)
+    jp = _jparams()
+    inner, look = jopt.build_optimizer(h).init(jp)
+    path = str(tmp_path / "epoch=0.ckpt")
+    jckpt.save_checkpoint(path, jp, (inner, look._replace(
+        count=np.int32(2))))
+    tp = build_params(RenderConfig(**KW), 6, device="cpu")
+    opt = optimizers.build_optimizer(h, [p for _, p in
+                                         optimizers.named_leaves(tp)])
+    with pytest.raises(ValueError, match="sync period"):
+        checkpoints.opt_state_from_jax(
+            checkpoints.load_checkpoint(path)["opt_state"], opt,
+            dict(optimizers.named_leaves(tp)))

@@ -680,9 +680,10 @@ CAMDIR_IDS = [1, 2, 5, 7]
 
 
 def _graph_case(dtype, steps, pool, loss_name="nerfw", camdir=False,
-                barf=None):
+                barf=None, optimizer=("adam", 0.0, 0.0)):
     """``barf``: None, or BARF's schedule ("fork" / "paper"), which trains
-    the pose deltas (camdir rays) at lr x 0.5 after a warmup of 1 epoch."""
+    the pose deltas (camdir rays) at lr x 0.5 after a warmup of 1 epoch;
+    ``optimizer``: (name, weight decay, momentum)."""
     from dataclasses import replace
     from types import SimpleNamespace
     from nerf_fl_torch.training import optimizers, system
@@ -707,8 +708,10 @@ def _graph_case(dtype, steps, pool, loss_name="nerfw", camdir=False,
     mask = optimizers.make_trainable_mask(params, bool(barf))
     for name, p in optimizers.named_leaves(params):
         p.requires_grad_(mask[name])
+    name, wd, momentum = optimizer
     opt = optimizers.build_optimizer(
-        SimpleNamespace(optimizer="adam", lr=5e-4, weight_decay=0.0),
+        SimpleNamespace(optimizer=name, lr=5e-4, weight_decay=wd,
+                        momentum=momentum),
         optimizers.param_groups(params, mask))
     kw = dict(loss_name=loss_name, steps_per_execution=steps)
     if camdir:
@@ -734,14 +737,17 @@ def _graph_case(dtype, steps, pool, loss_name="nerfw", camdir=False,
     return params, opt, step, data, gen
 
 
-def _run_graph_case(dtype, steps, pool, n_steps, camdir=False, barf=None):
+def _run_graph_case(dtype, steps, pool, n_steps, camdir=False, barf=None,
+                    optimizer=("adam", 0.0, 0.0)):
     """n_steps steps, K = 1 one by one or K at a time with the last call's
-    tail masked; returns params, Adam state, the loss of each step and the
-    step function.  The steps of the first GRAPH_K train at epoch 0.75, the
-    rest at 1.25 (with ``barf``, on either side of the pose warmup)."""
+    tail masked; returns params, the optimizer's state, the loss of each
+    step and the step function.  The steps of the first GRAPH_K train at
+    epoch 0.75, the rest at 1.25 (with ``barf``, on either side of the pose
+    warmup)."""
     from nerf_fl_torch.training import optimizers, system
     params, opt, step, data, gen = _graph_case(dtype, steps, pool,
-                                               camdir=camdir, barf=barf)
+                                               camdir=camdir, barf=barf,
+                                               optimizer=optimizer)
     B = GRAPH_B
     perm = torch.arange(data["rays"].shape[0], dtype=torch.int32,
                         device=data["rays"].device).flip(0)
@@ -931,17 +937,41 @@ def test_graph_capture_failure_raises_on_card(monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pool", [False, True], ids=["host_fed", "pool"])
+@pytest.mark.parametrize("wd,momentum", [(0.0, 0.0), (1e-4, 0.9)])
+def test_sgd_graph_k_step_equals_eager_steps_on_card(wd, momentum, pool):
+    """The port's capturable SGD (a device lr, the momentum buffer updated
+    in place): seven steps as two K = 4 graph calls against seven eager
+    steps, parameters, momentum buffers and losses bit for bit, one
+    capture."""
+    n = 2 * GRAPH_K - 1
+    sgd = ("sgd", wd, momentum)
+    p1, s1, l1, _ = _run_graph_case("bfloat16", 1, pool, n, optimizer=sgd)
+    pk, sk, lk, step = _run_graph_case("bfloat16", GRAPH_K, pool, n,
+                                       optimizer=sgd)
+    assert step.graph.captures == 1
+    assert torch.equal(l1, lk) and bool(torch.isfinite(lk).all())
+    for a, b in zip(p1, pk):
+        assert torch.equal(a, b)
+    assert len(s1) == len(sk)
+    for a, b in zip(s1, sk):
+        assert set(a) == set(b) == ({"momentum_buffer"} if momentum
+                                    else set())
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
 def test_graph_step_refuses_sgd_on_card():
-    from types import SimpleNamespace
+    """torch's own SGD keeps its lr as a Python number: the graph step
+    refuses it (the port's SGD, which build_optimizer makes, is
+    capturable)."""
     from nerf_fl_torch.render import RenderConfig
     from nerf_fl_torch.training import optimizers, system
     dev = _card()
     cfg = RenderConfig(N_samples=16, N_importance=16)
     params = system.build_params(cfg, 8, device=dev)
-    opt = optimizers.build_optimizer(
-        SimpleNamespace(optimizer="sgd", lr=5e-4),
-        optimizers.trainable_parameters(
-            params, optimizers.make_trainable_mask(params, False)))
+    opt = torch.optim.SGD(optimizers.trainable_parameters(
+        params, optimizers.make_trainable_mask(params, False)), lr=5e-4)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         system.make_train_step(cfg, opt, steps_per_execution=GRAPH_K)
 

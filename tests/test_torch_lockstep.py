@@ -6,7 +6,9 @@ Both packages start from the same weights and train on the same batches
   (b) full width through the fused path, 16 rays x (8 + 8) samples: JAX's
       Pallas kernel in interpret mode, the port's autograd Function with
       its plain forward and backward, 5 steps;
-  (c) microbatch 2, 3 steps.
+  (c) microbatch 2, 3 steps;
+  (d) the NeRF-A arm of the quality gate (appearance without the
+      transient head) as (a).
 Metrics per step (loss, psnr, every loss term): rtol 2e-3, atol 2e-5, as
 tests/test_training_parity.py.  Parameters after the last step: max 2e-3
 (four steps of lr 5e-4) and mean 1e-4 per leaf.  Adam divides each update
@@ -53,8 +55,8 @@ def _data(n_pool=2048, seed=0):
     return rays, ts, (0.5 + 0.4 * d).astype(np.float32)
 
 
-def _configs(narrow, dtype="float32"):
-    kw = dict(N_samples=8, N_importance=8, encode_a=True, encode_t=True,
+def _configs(narrow, dtype="float32", encode_t=True):
+    kw = dict(N_samples=8, N_importance=8, encode_a=True, encode_t=encode_t,
               white_back=True, perturb=0.0, noise_std=0.0, beta_min=0.1,
               compute_dtype=dtype)
     if narrow:
@@ -63,8 +65,8 @@ def _configs(narrow, dtype="float32"):
             RenderConfig(use_fused=not narrow, **kw))
 
 
-def _lockstep(narrow, steps, batch, microbatch=1):
-    jcfg, tcfg = _configs(narrow)
+def _lockstep(narrow, steps, batch, microbatch=1, encode_t=True):
+    jcfg, tcfg = _configs(narrow, encode_t=encode_t)
     jp = jsys.build_params(jax.random.PRNGKey(0), jcfg, 8)
     tp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp), tcfg)
     h = types.SimpleNamespace(optimizer="adam", lr=LR, weight_decay=0.0)
@@ -111,6 +113,12 @@ def test_lockstep_full_width_fused():
 
 def test_lockstep_microbatch():
     _lockstep(True, 3, 128, microbatch=2)
+
+
+def test_lockstep_nerfa_arm():
+    """The quality gate's NeRF-A arm (appearance, no transient head),
+    narrow, 20 steps."""
+    _lockstep(True, 20, 128, encode_t=False)
 
 
 def test_bf16_full_width_gradients():

@@ -50,6 +50,7 @@ PORT_MODULES = {
     "nerf_fl_torch.experiments.sin_ablation",
     "nerf_fl_torch.experiments.trace_records",
     "nerf_fl_torch.experiments.barf_step",
+    "nerf_fl_torch.experiments.quality_seeds",
     "nerf_fl_torch.ops", "nerf_fl_torch.ops._build",
     "nerf_fl_torch.ops.anatomy", "nerf_fl_torch.ops.fused_mlp", "nerf_fl_torch.ops.sorting",
     "nerf_fl_torch.render", "nerf_fl_torch.render.renderer",
@@ -58,6 +59,17 @@ PORT_MODULES = {
     "nerf_fl_torch.training.metrics", "nerf_fl_torch.training.optimizers",
     "nerf_fl_torch.training.system", "nerf_fl_torch.training.checkpoints",
     "nerf_fl_torch.training.logging",
+    "nerf_fl_torch.tools", "nerf_fl_torch.tools.quality_gate",
+    "nerf_fl_torch.tools.make_fixture", "nerf_fl_torch.tools.save_weights_only",
+    "nerf_fl_torch.tools.gen_nerf_tsv", "nerf_fl_torch.tools.profile_trace",
+    "nerf_fl_torch.tools.scale_stress", "nerf_fl_torch.notebooks",
+    "nerf_fl_torch.notebooks.psnr_regression",
+    "nerf_fl_torch.notebooks.test_nerfa_color",
+    "nerf_fl_torch.notebooks.test_nerfu_occ",
+    "nerf_fl_torch.notebooks.test_nerfw_all",
+    "nerf_fl_torch.notebooks.test_phototourism",
+    "nerf_fl_torch.notebooks.render_decomposition",
+    "nerf_fl_torch.notebooks.appearance_interpolation",
 }
 
 
@@ -172,9 +184,48 @@ for name, data in (("phototourism", ["--root_dir", "tour",
         "--ckpt_path", f"ckpts/{name}/epoch=0.ckpt", "--split", "val",
         "--save_depth", "--video_format", "mp4", "--scene_name", name]),
         device="cpu")
+from nerf_fl_torch.notebooks import test_phototourism as nb_tour
+from nerf_fl_torch.tools import gen_nerf_tsv, quality_gate as qg
+from nerf_fl_torch.tools import save_weights_only
+gen_nerf_tsv.main(["--root_dir", "tour", "--out", "tour.tsv",
+                   "--n_test", "1", "--dataset_name", "minitour"])
+slim = save_weights_only.main(["--ckpt_path",
+                               "ckpts/phototourism/epoch=0.ckpt"])
+# the notebooks build the flagship width: a weights-only checkpoint of it
+from nerf_fl_torch.render import RenderConfig
+from nerf_fl_torch.training import build_params, checkpoints
+checkpoints.save_checkpoint("wide.ckpt", build_params(RenderConfig(
+    N_samples=4, N_importance=4, encode_a=True, encode_t=True), 100,
+    device="cpu"))
+nb_tour.main(["--root_dir", "tour", "--img_downscale", "2", "--N_samples",
+              "4", "--N_importance", "4", "--chunk", "512", "--ckpt_path",
+              "wide.ckpt", "--out", "nb"], device="cpu")
 bad = sorted(m for m in sys.modules if sys.modules[m] is not None
              and m.split(".")[0] in BLOCKED)
 print("PSNR", psnr, "BAD", bad)
+"""
+
+# the quality gate's smoke preset: each arm's train and eval commands, as
+# the gate's children run them
+_GATE_ARMS_BLOCKED = r"""
+import sys
+for name in BLOCKED:
+    sys.modules[name] = None
+from nerf_fl_torch import eval as ev, opt, train
+from nerf_fl_torch.tools import quality_gate as qg
+p = qg.PRESETS["smoke"]
+scene = qg.ensure_fixture("qg", p)
+for name, perturb, flags in qg.ARMS:
+    train.main(opt.get_opts(qg.train_argv("qg", scene, p, name, perturb,
+                                          flags)), device="cpu")
+    extras = [((), name)] + ([(qg.OPTA[2], qg.OPTA[1])]
+                             if name == qg.OPTA[0] else [])
+    for extra, ev_name in extras:
+        ev.main(ev.get_opts(qg.eval_argv("qg", scene, p, name, flags, extra,
+                                         ev_name)), device="cpu")
+bad = sorted(m for m in sys.modules if sys.modules[m] is not None
+             and m.split(".")[0] in BLOCKED)
+print("BAD", bad)
 """
 
 
@@ -182,10 +233,11 @@ def test_train_and_eval_need_none_of_the_missing_libraries(tmp_path):
     """Train and eval (Blender, Blender with BARF pose refinement on noisy
     poses and its eval with --refine_pose and with --optimize_appearance,
     then Phototourism from the ray cache that prepare_phototourism writes,
-    then LLFF, with --save_depth and mp4) on
-    the CPU in a process where PIL, pandas, imageio, cv2, flax, msgpack,
-    tensorboard, jax and the JAX package cannot be imported: they need
-    only torch, numpy and the standard library."""
+    then LLFF, with --save_depth and mp4), the tools gen_nerf_tsv and
+    save_weights_only, and a notebook (the Phototourism PSNR regression)
+    on the CPU in a process where PIL, pandas, imageio, cv2, flax,
+    msgpack, tensorboard, jax and the JAX package cannot be imported: they
+    need only torch, numpy and the standard library."""
     code = f"BLOCKED = {_BLOCKED!r}\n" + _TRAIN_EVAL_BLOCKED
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          capture_output=True, text=True, timeout=300,
@@ -201,3 +253,29 @@ def test_train_and_eval_need_none_of_the_missing_libraries(tmp_path):
         assert (tmp_path / "results" / name / name / "depth_000.pfm") \
             .exists()
     assert (tmp_path / "results" / "llff" / "llff" / "llff.gif").exists()
+    assert (tmp_path / "tour.tsv").read_bytes() == \
+        (tmp_path / "tour" / "minitour.tsv").read_bytes()
+    assert (tmp_path / "ckpts" / "phototourism" /
+            "epoch=0_weights.ckpt").exists()
+    assert "val[0] PSNR between GT and pred" in out.stdout
+
+
+QG_ARMS = ("clean", "color_nerf", "color_nerfa", "occ_nerf", "occ_nerfu",
+           "co_nerf", "co_nerfw")
+
+
+def test_quality_gate_arms_need_none_of_the_missing_libraries(tmp_path):
+    """Every arm's train and eval commands of the quality gate's smoke
+    preset (the port's CLIs, as the gate's children run them) in a process
+    where those libraries cannot be imported; one thread (the test runs
+    beside the suite's other workers)."""
+    code = f"BLOCKED = {_BLOCKED!r}\n" + _GATE_ARMS_BLOCKED
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": ROOT,
+                              "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BAD []" in out.stdout, out.stdout[-2000:]
+    for name in QG_ARMS:
+        assert (tmp_path / "qg" / "ckpts" / name / "epoch=0.ckpt").exists()
+    assert (tmp_path / "results" / "blender" / "co_nerfw_opta").is_dir()

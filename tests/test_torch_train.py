@@ -94,18 +94,20 @@ def test_optimizer_updates_match_jax(name):
 
 
 def test_unported_optimizers_raise():
-    """radam and ranger are ported (tests/test_torch_optimizers.py holds
-    them to optax); what stays unported of them is resuming their state
-    from a JAX checkpoint's opt_state."""
+    """sgd, radam and ranger are ported (tests/test_torch_optimizers.py
+    holds them to optax, tests/test_torch_checkpoints.py their resume from
+    a JAX opt_state); an optimizer that the port does not build (torch's
+    own SGD, AdamW) cannot take a JAX opt_state."""
     from nerf_fl_torch.training import checkpoints
     p = torch.nn.Parameter(torch.zeros(2))
-    for name, cls in (("radam", optimizers.RAdam),
+    for name, cls in (("sgd", optimizers.SGD), ("radam", optimizers.RAdam),
                       ("ranger", optimizers.Ranger)):
         opt = optimizers.build_optimizer(
             types.SimpleNamespace(optimizer=name, lr=1.0), [p])
         assert isinstance(opt, cls)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            checkpoints.adam_state_from_jax({}, opt, {"p": p})
+    for opt in (torch.optim.SGD([p], lr=1.0), torch.optim.AdamW([p])):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            checkpoints.opt_state_from_jax({}, opt, {"p": p})
 
 
 def test_batch_order_matches_jax():
