@@ -129,7 +129,23 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      10's Phototourism scene (its tsv byte for byte), and beside the gate
      scale_stress --preset card (24 JPEGs of 4 sizes, the ray cache, 1
      epoch at bf16, the val PSNR finite): print each stage's seconds, the
-     peak RSS and the train rays/s beside phase 6's graph step.
+     peak RSS and the train rays/s beside phase 6's graph step;
+ 13. data parallelism (nerf_fl_torch/parallel/): (a) a one-rank NCCL
+     mesh: the flagship graph step (bf16, perturb 1) over TIME_K sub-steps,
+     each captured as two graphs around its all-reduce, bit for bit the
+     meshless graph step from the same weights, pool and generator
+     (params, Adam state, losses), the fused kernels 2 + 2 runs a sub-step
+     by their own count, and both steps timed in alternating windows; (b)
+     two ranks sharing the card over gloo (make_mesh(devices=[cuda:0] *
+     2), spawned by parallel.launch): DP_K f32 sub-steps of the flagship
+     DP step (each rank its half of every batch, drawing at the global
+     shape) against one rank's graph step over the same global batches:
+     each sub-step's loss within DP_LOSS_RTOL, the reduced gradient of an
+     eager step from the same weights within DP_GRAD_REL, the parameters
+     after the graph step within DP_ATOL, each rank's fused
+     kernels 2 + 2 runs a sub-step, and the two-rank step timed; (c) python -m
+     nerf_fl_torch.train --num_gpus <cards + 1> exits non-zero with
+     make_mesh's message.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -193,6 +209,20 @@ BATCH = 1024
 TIME_K = 20                    # steps a timing window; the graph step's K
 GRAPH_K, GRAPH_MASKED = 8, 3   # the graph parity check's K and masked tail
 N_VOCAB = 1500
+# phase 13 (b): f32 sub-steps of the two-rank step against one rank's over
+# the same global batches.  The DP gradient is the same sum in another
+# order: each sub-step's loss within DP_LOSS_RTOL, the reduced gradient of
+# an eager step from the same weights within DP_GRAD_REL of each leaf's
+# largest (after 8 sub-steps the weights differ, and with them the
+# gradients: 4.4e-4 of a leaf's largest in the first reading).  Adam divides
+# each update by |g|, so a weight whose gradient sits near Adam's eps moves
+# by far more than the sum order's 1e-7 relative: the parameters are held
+# to DP_ATOL, the limit tests/test_train_system.py sets for a change of
+# layout alone (tensor parallel against one device) and the CPU tests
+# (tests/test_torch_parallel.py) set for data 2 against one rank.  The
+# first reading against 1e-5, on an H100 80GB HBM3, was 1.040e-05 after
+# 8 sub-steps.
+DP_K, DP_ATOL, DP_LOSS_RTOL, DP_GRAD_REL = 8, 2e-5, 1e-5, 1e-4
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, HBM B/s
 PEAKS = {"H100 SXM": (989e12, 3.35e12), "H100 PCIe": (756e12, 2.0e12),
@@ -2167,6 +2197,272 @@ def phase_tools(graph_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _adam(params):
+    from types import SimpleNamespace
+    from nerf_fl_torch.training import optimizers
+    return optimizers.build_optimizer(
+        SimpleNamespace(optimizer="adam", lr=5e-4, weight_decay=0.0),
+        optimizers.trainable_parameters(
+            params, optimizers.make_trainable_mask(params, False)))
+
+
+def _dp_grads(params):
+    """Each leaf's ``.grad``, copied to the host."""
+    from nerf_fl_torch.training import optimizers
+    return [p.grad.detach().cpu().clone()
+            for _, p in optimizers.named_leaves(params) if p.grad is not None]
+
+
+def _dp_state(params, opt):
+    """Params and Adam state, copied to the host."""
+    from nerf_fl_torch.training import optimizers
+    leaves = [p.detach().cpu().clone()
+              for _, p in optimizers.named_leaves(params)]
+    state = [{k: v.detach().cpu().clone() for k, v in opt.state[q].items()}
+             for g in opt.param_groups for q in g["params"]]
+    return leaves, state
+
+
+def _dp_rank(device, k):
+    """Phase 13 (b), one rank of two sharing the card over gloo: the f32
+    flagship DP step (K = k) from seed-0 weights and pool; returns the
+    params after k sub-steps, the wrappers' launches and the kernels' runs
+    of that call, and the ms a sub-step of a second call; rank 0 also
+    returns one rank's meshless graph step over the same global batches
+    (the same weights, pool and generator) and its ms."""
+    import copy
+    import torch
+    from nerf_fl_torch.ops import fused_mlp as fm
+    from nerf_fl_torch.parallel import make_mesh, multihost, place_params
+    from nerf_fl_torch.render import RenderConfig
+    from nerf_fl_torch.training import (build_params, epoch_perm,
+                                        make_device_pool_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(devices=multihost.job_devices(device))
+    cfg = RenderConfig(**{**FLAGSHIP, "perturb": 1.0,
+                          "compute_dtype": "float32"})
+
+    def start():
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = build_params(cfg, N_VOCAB, generator=gen, device=device)
+        return params, train_pool(device, gen)
+
+    def call(run, params, pool, perm, i0, gen):
+        return run(params, pool, perm, i0, i0 + k, 5e-4,
+                   generator=gen)["train/loss"].cpu()
+
+    def timed(run, params, pool, perm, gen):
+        # the same generator and tensors: a replay of the captured graphs
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        call(run, params, pool, perm, k, gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / k
+
+    def first_grads(params, pool, m):
+        """The gradient of one eager step from a copy of ``params`` (the
+        reduced one under a mesh)."""
+        p = copy.deepcopy(params)
+        step = make_device_pool_step(cfg, _adam(p), batch_size=BATCH,
+                                     mesh=m)
+        step(p, pool, perm, 0, 5e-4,
+             generator=torch.Generator(device=device).manual_seed(7))
+        return _dp_grads(p)
+
+    params, pool = start()
+    perm = torch.from_numpy(epoch_perm(0, 0, POOL, POOL)).to(device)
+    place_params(mesh, params)
+    grads = first_grads(params, pool, mesh)
+    opt = _adam(params)
+    run = make_device_pool_step(cfg, opt, batch_size=BATCH,
+                                steps_per_execution=k, mesh=mesh)
+    fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+    runs0 = fm.kernel_runs(device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    loss = call(run, params, pool, perm, 0, gen)
+    torch.cuda.synchronize()
+    out = {"rank": mesh.rank, "backend": mesh.backend, "loss": loss,
+           "grads": grads,
+           "launches": (fm.fused_mlp_fwd_cuda.launches,
+                        fm.fused_mlp_bwd_cuda.launches),
+           "runs": tuple(b - a for a, b in zip(runs0,
+                                               fm.kernel_runs(device))),
+           "captures": run.graph.captures,
+           "state": _dp_state(params, opt)[0]}
+    out["ms"] = timed(run, params, pool, perm, gen)
+    if mesh.rank == 0:
+        ref, pool = start()
+        out["one_rank_grads"] = first_grads(ref, pool, None)
+        ref_opt = _adam(ref)
+        one = make_device_pool_step(cfg, ref_opt, batch_size=BATCH,
+                                    steps_per_execution=k)
+        gen = torch.Generator(device=device).manual_seed(7)
+        out["one_rank_loss"] = call(one, ref, pool, perm, 0, gen)
+        out["one_rank"] = _dp_state(ref, ref_opt)[0]
+        out["one_rank_ms"] = timed(one, ref, pool, perm, gen)
+    return out
+
+
+def phase_parallel(dev):
+    """Phase 13 (see the module docstring).  Returns the fused launches
+    of (a)'s mesh call and (b)'s two ranks, and the times."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from nerf_fl_torch.ops import fused_mlp as fm
+    from nerf_fl_torch.parallel import (launch, make_mesh, multihost,
+                                        place_params)
+    from nerf_fl_torch.render import RenderConfig
+    from nerf_fl_torch.training import (build_params, epoch_perm,
+                                        make_device_pool_step)
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) a one-rank NCCL mesh against the meshless graph step
+    cfg = RenderConfig(**{**FLAGSHIP, "perturb": 1.0})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build_params(cfg, N_VOCAB, generator=gen, device=dev)
+    pool = train_pool(dev, gen)
+    perm = torch.from_numpy(epoch_perm(0, 0, POOL, POOL)).to(dev)
+    multihost.initialize_distributed(f"localhost:{launch.free_port()}", 1,
+                                     0, backend="nccl", device=dev)
+    try:
+        mesh = make_mesh(1, 1, devices=[dev])
+        sides = {}
+        for name, m in (("meshless", None), ("mesh", mesh)):
+            p = copy.deepcopy(params)
+            if m is not None:
+                place_params(m, p)
+            opt = _adam(p)
+            run = make_device_pool_step(cfg, opt, batch_size=BATCH,
+                                        steps_per_execution=TIME_K, mesh=m)
+            fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches \
+                = 0
+            runs0 = fm.kernel_runs(dev)
+            g = torch.Generator(device=dev).manual_seed(7)
+            loss = run(p, pool, perm, 0, TIME_K, 5e-4,
+                       generator=g)["train/loss"]
+            torch.cuda.synchronize()
+            sides[name] = dict(
+                state=_dp_state(p, opt), loss=loss.cpu(), run=run, params=p,
+                gen=g,
+                launches=(fm.fused_mlp_fwd_cuda.launches,
+                          fm.fused_mlp_bwd_cuda.launches),
+                runs=tuple(b - a for a, b in zip(runs0,
+                                                 fm.kernel_runs(dev))))
+        (pa, sa), (pb, sb) = sides["meshless"]["state"], \
+            sides["mesh"]["state"]
+        same = all(torch.equal(a, b) for a, b in zip(pa, pb)) and all(
+            a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+            for a, b in zip(sa, sb)) and torch.equal(
+            sides["meshless"]["loss"], sides["mesh"]["loss"])
+        mr = sides["mesh"]
+        print(f"[parallel] (a) one-rank NCCL mesh (backend "
+              f"{mesh.backend}): {TIME_K} graph sub-steps, two graphs each "
+              f"around the all-reduce, against the meshless graph step: "
+              f"params, Adam state and losses bit for bit: {same}; fused "
+              f"runs {mr['runs']} ({mr['runs'][0] / TIME_K:g} + "
+              f"{mr['runs'][1] / TIME_K:g} a sub-step), host launches "
+              f"{mr['launches']}, {mr['run'].graph.captures} capture(s)")
+        if not same:
+            fail("the one-rank mesh graph step differs from the meshless one")
+        if mr["runs"] != (2 * TIME_K, 2 * TIME_K) \
+                or mr["run"].graph.captures != 1 \
+                or mr["run"].graph.graph_b is None:
+            fail(f"mesh graph step: {mr['runs']} fused runs in {TIME_K} "
+                 f"sub-steps, expected 2 + 2 a sub-step in one capture of "
+                 f"two graphs")
+        out["mesh_launches"] = mr["launches"]
+        out["mesh_runs"] = mr["runs"]
+        times = {"meshless": [], "mesh": []}
+        i0 = TIME_K
+        for name in ("meshless", "mesh", "mesh", "meshless"):
+            side = sides[name]
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                side["run"](side["params"], pool, perm, i0, i0 + TIME_K,
+                            5e-4, generator=side["gen"])
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e3 / TIME_K)
+                i0 += TIME_K
+        out["mesh_ms"] = sorted(times["mesh"])[len(times["mesh"]) // 2]
+        out["meshless_ms"] = sorted(times["meshless"])[
+            len(times["meshless"]) // 2]
+        print(f"[parallel] (a) graph step ms a sub-step: one-rank NCCL mesh "
+              f"{out['mesh_ms']:.3f} (windows "
+              f"{[round(x, 3) for x in times['mesh']]}), meshless "
+              f"{out['meshless_ms']:.3f} (windows "
+              f"{[round(x, 3) for x in times['meshless']]}): the split "
+              f"around the all-reduce costs "
+              f"{out['mesh_ms'] - out['meshless_ms']:+.3f} ms a sub-step")
+        del sides
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) two ranks sharing the card over gloo
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_dp_rank, (DP_K,), devices=[dev, dev], timeout=600)
+    r0 = ranks[0]
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(r0["state"], r0["one_rank"]))
+    over = sum(int(((a - b).abs() > 1e-6).sum())
+               for a, b in zip(r0["state"], r0["one_rank"]))
+    total = sum(a.numel() for a in r0["state"])
+    agree = max(float((a - b).abs().max())
+                for a, b in zip(r0["state"], ranks[1]["state"]))
+    loss_rel = float(((r0["loss"] - r0["one_rank_loss"]).abs()
+                      / r0["one_rank_loss"].abs()).max())
+    grad_rel = max(float((a - b).abs().max() / (b.abs().max() + 1e-30))
+                   for a, b in zip(r0["grads"], r0["one_rank_grads"]))
+    print(f"[parallel] (b) two ranks on one card over "
+          f"{r0['backend']}: {DP_K} f32 sub-steps of the flagship DP step "
+          f"against one rank's over the same global batches: losses max "
+          f"rel {loss_rel:.3e} (limit {DP_LOSS_RTOL:g}), one eager step's "
+          f"reduced gradient max |d| / leaf max {grad_rel:.3e} (limit "
+          f"{DP_GRAD_REL:g}), params max |d| {worst:.3e} (limit "
+          f"{DP_ATOL:g}; {over} of {total} over 1e-6), rank 1 against "
+          f"rank 0 {agree:.3e}; fused runs by rank "
+          f"{[r['runs'] for r in ranks]} "
+          f"({DP_K} sub-steps), host launches "
+          f"{[r['launches'] for r in ranks]}; the two-rank step "
+          f"{max(r['ms'] for r in ranks):.2f} ms a sub-step, one rank's "
+          f"{r0['one_rank_ms']:.2f} (f32, one card); "
+          f"{time.perf_counter() - t0:.1f} s with the spawn")
+    if worst > DP_ATOL or agree != 0.0 or r0["backend"] != "gloo" \
+            or loss_rel > DP_LOSS_RTOL or grad_rel > DP_GRAD_REL \
+            or len(r0["grads"]) != len(r0["one_rank_grads"]):
+        fail("the two-rank DP step disagrees with one rank's")
+    if any(r["runs"] != (2 * DP_K, 2 * DP_K) or r["captures"] != 1
+           for r in ranks):
+        fail("a rank of the DP step ran other than 2 + 2 fused kernels a "
+             "sub-step in one capture")
+    out["two_rank_launches"] = tuple(sum(r["launches"][i] for r in ranks)
+                                     for i in (0, 1))
+    out["two_rank_runs"] = tuple(sum(r["runs"][i] for r in ranks)
+                                 for i in (0, 1))
+    out["two_rank_ms"] = max(r["ms"] for r in ranks)
+    out["one_rank_f32_ms"] = r0["one_rank_ms"]
+
+    # (c) more ranks than cards: the CLI refuses before any rank starts
+    n = torch.cuda.device_count() + 1
+    res = subprocess.run(
+        [sys.executable, "-m", "nerf_fl_torch.train", "--root_dir",
+         os.path.join(HERE, "no_scene"), "--num_gpus", str(n)],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    want = f"requested mesh data={n} x model=1 = {n} devices but only " \
+        f"{n - 1} cuda device(s) available"
+    print(f"[parallel] (c) train --num_gpus {n} on {n - 1} card(s): exit "
+          f"code {res.returncode}, make_mesh's message "
+          f"{'present' if want in res.stderr else 'MISSING'}")
+    if res.returncode == 0 or want not in res.stderr:
+        fail(f"train --num_gpus {n} did not refuse with make_mesh's "
+             f"message:\n{res.stderr[-2000:]}")
+    print(f"[parallel] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def probe_block(name) -> str:
     """Which block a probe's kernel is built from, for its [probe] line;
     the Hopper-block probes and sin with what ptxas and the build report."""
@@ -2557,6 +2853,11 @@ def main() -> int:
     tools = phase_tools(graph["ms"])
     tools_s = time.perf_counter() - t0
     on_tools = {k: v - before_tools[k] for k, v in probe_counts().items()}
+    before_par = probe_counts()
+    t0 = time.perf_counter()
+    par = phase_parallel(dev)
+    par_s = time.perf_counter() - t0
+    on_par = {k: v - before_par[k] for k, v in probe_counts().items()}
     probes, fused_on_anatomy = phase_anatomy(dev, cfg, smi_name)
 
     def graph_line(g, i):
@@ -2577,7 +2878,8 @@ def main() -> int:
         "launches": launches + fwd_train + cli["train_cli"][0]
         + cli["eval_cli"][0] + sum(wild[k][0] for k in WILD_PATHS)
         + sum(barf[k][0] for k in BARF_PATHS)
-        + sum(tools[k][0] for k in TOOLS_PATHS),
+        + sum(tools[k][0] for k in TOOLS_PATHS)
+        + par["mesh_launches"][0] + par["two_rank_launches"][0],
         "launches_by_path": {"render_frame": launches,
                              "train_step": fwd_train,
                              "train_graph_substep": graph["launches"][0],
@@ -2586,7 +2888,11 @@ def main() -> int:
                              **{k: wild[k][0] for k in WILD_PATHS},
                              **{k: barf[k][0] for k in BARF_PATHS},
                              **{k: tools[k][0] for k in TOOLS_PATHS},
+                             "dp_one_rank_nccl_graph": par["mesh_launches"][0],
+                             "dp_two_ranks_gloo": par["two_rank_launches"][0],
                              "kernel_anatomy": fused_on_anatomy[0]},
+        "dp_runs_on_card": {"one_rank_nccl_graph": par["mesh_runs"][0],
+                            "two_ranks_gloo": par["two_rank_runs"][0]},
         "train_cli_graph": graph_line(cli["train_graph"], 0),
         "tour_train_cli_graph": graph_line(wild["tour_graph"], 0),
         "llff_train_cli_graph": graph_line(wild["llff_graph"], 0),
@@ -2600,7 +2906,8 @@ def main() -> int:
         "launches": bwd_render + bwd_train + cli["train_cli"][1]
         + cli["eval_cli"][1] + sum(wild[k][1] for k in WILD_PATHS)
         + sum(barf[k][1] for k in BARF_PATHS)
-        + sum(tools[k][1] for k in TOOLS_PATHS),
+        + sum(tools[k][1] for k in TOOLS_PATHS)
+        + par["mesh_launches"][1] + par["two_rank_launches"][1],
         "launches_by_path": {"render_frame": bwd_render,
                              "train_step": bwd_train,
                              "train_graph_substep": graph["launches"][1],
@@ -2609,7 +2916,11 @@ def main() -> int:
                              **{k: wild[k][1] for k in WILD_PATHS},
                              **{k: barf[k][1] for k in BARF_PATHS},
                              **{k: tools[k][1] for k in TOOLS_PATHS},
+                             "dp_one_rank_nccl_graph": par["mesh_launches"][1],
+                             "dp_two_ranks_gloo": par["two_rank_launches"][1],
                              "kernel_anatomy": fused_on_anatomy[1]},
+        "dp_runs_on_card": {"one_rank_nccl_graph": par["mesh_runs"][1],
+                            "two_ranks_gloo": par["two_rank_runs"][1]},
         "train_cli_graph": graph_line(cli["train_graph"], 1),
         "tour_train_cli_graph": graph_line(wild["tour_graph"], 1),
         "llff_train_cli_graph": graph_line(wild["llff_graph"], 1),
@@ -2634,6 +2945,7 @@ def main() -> int:
                                  "wild_train_and_eval_cli": on_wild[name],
                                  "barf_train_and_eval_cli": on_barf[name],
                                  "tools_cli": on_tools[name],
+                                 "parallel": on_par[name],
                                  "kernel_anatomy": row["launches"]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "device_ms": row["device_ms"],
@@ -2643,7 +2955,8 @@ def main() -> int:
             **({"parent_device_ms": row["parent_device_ms"]}
                if "parent_device_ms" in row else {})})
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all, "
-          f"phase 11 {barf_s:.1f} s, phase 12 {tools_s:.1f} s")
+          f"phase 11 {barf_s:.1f} s, phase 12 {tools_s:.1f} s, phase 13 "
+          f"{par_s:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,11 @@ static decomposition map taken from the COMBINED opacity.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from .sampling import draw_rows
 
 DELTA_INF = 1e2
 
@@ -78,14 +80,18 @@ def composite_static(z_vals: torch.Tensor, rgbs: Optional[torch.Tensor],
                      sigmas: torch.Tensor, *, noise_std: float = 0.0,
                      generator: Optional[torch.Generator] = None,
                      white_back: bool = False,
-                     weights_only: bool = False) -> StaticComposite:
+                     weights_only: bool = False,
+                     shard: Optional[Tuple[int, int]] = None
+                     ) -> StaticComposite:
     """Static-only compositing; ``weights_only`` is the test-time coarse
-    pass (rgbs may be None)."""
+    pass (rgbs may be None); ``shard`` draws the noise as
+    ``sampling.draw_rows`` does."""
     deltas = ray_deltas(z_vals)
     sig = sigmas
     if noise_std > 0:
-        sig = sig + torch.randn(sig.shape, generator=generator,
-                                dtype=sig.dtype, device=sig.device) * noise_std
+        sig = sig + draw_rows(lambda s: torch.randn(
+            s, generator=generator, dtype=sig.dtype, device=sig.device),
+            sig.shape, shard) * noise_std
     alphas = 1.0 - torch.exp(-deltas * torch.relu(sig))
     weights = alphas * exclusive_transmittance(alphas)
     opacity = torch.sum(weights, dim=-1)

@@ -24,7 +24,11 @@ the NeRF-W paper's protocol: each frame's appearance vector is fit to
 --opt_a_rays rays of its left half (``render.appearance``, Adam with the
 weights frozen) and the PSNR is taken over its right half.  It runs on the
 card; ``NERF_FL_TORCH_DEVICE=cpu`` or ``main(args, device="cpu")`` asks
-for the CPU.  More than one device (ROADMAP A.8) raises.
+for the CPU.  ``--num_gpus N`` renders data-parallel, as the JAX CLI's
+mesh does: N ranks (``parallel.launch``; one a card, or all on the CPU
+over gloo) each render their rows of every chunk and gather the pixels;
+rank 0 prints and writes the outputs.  Too few cards raise
+``parallel.make_mesh``'s error.
 """
 import os
 import time
@@ -179,22 +183,49 @@ def main(args, device=None, stats=None):
     """Render the split; returns the mean PSNR (None without ground
     truth).  ``stats``, a dict, receives the per-frame PSNR / SSIM, the
     frame, dispatch, drain and host seconds, and with
-    --optimize_appearance each frame's fit seconds and loss curve."""
+    --optimize_appearance each frame's fit seconds and loss curve (rank
+    0's, with --num_gpus > 1)."""
+    from .device import entry_device
+    from .parallel import launch
+    dev = entry_device(device)
+    n = max(1, getattr(args, 'num_gpus', 1))
+    if n == 1:
+        return evaluate(dev, args, stats)
+    psnr, rank_stats = launch.spawn_cli(_rank, args, dev, n)[0]
+    if stats is not None:
+        stats.update(rank_stats)
+    return psnr
+
+
+def _rank(device, args):
+    """One rank of ``--num_gpus``: (mean PSNR, stats); only rank 0
+    prints."""
+    import contextlib
+    import sys
+    from .parallel import make_mesh, multihost
+    mesh = make_mesh(args.num_gpus, devices=multihost.job_devices(device))
+    stats = {}
+    with open(os.devnull, 'w') as quiet, contextlib.redirect_stdout(
+            sys.stdout if mesh.is_main else quiet):
+        return evaluate(device, args, stats, mesh), stats
+
+
+def evaluate(dev, args, stats=None, mesh=None):
+    """``main`` on one device, or as one rank of ``mesh``'s data axis
+    (every rank renders; rank 0 writes the frames, depths and video)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
     from .data import dataset_dict
     from .data.image_io import write_gif, write_png
     from .data.pfm import save_pfm
-    from .device import entry_device
     from .models import validate_vocab
     from .training.metrics import psnr as psnr_fn
     from .training.metrics import ssim as ssim_fn
-    from .training.system import (DevicePrefetcher, refuse_unported,
-                                  render_chunked_async, val_chunk_cap)
+    from .training.system import (DevicePrefetcher, render_chunked_async,
+                                  val_chunk_cap)
 
-    refuse_unported(args)
-    dev = entry_device(device)
+    writes_out = mesh is None or mesh.is_main
     kwargs = {'root_dir': args.root_dir, 'split': args.split}
     if args.dataset_name == 'blender':
         kwargs['img_wh'] = tuple(args.img_wh)
@@ -217,7 +248,8 @@ def main(args, device=None, stats=None):
 
     imgs, psnrs, ssims = [], [], []
     dir_name = f'results/{args.dataset_name}/{args.scene_name}'
-    os.makedirs(dir_name, exist_ok=True)
+    if writes_out:
+        os.makedirs(dir_name, exist_ok=True)
     typ = 'fine' if args.N_importance > 0 else 'coarse'
     wanted = [f'rgb_{typ}'] + ([f'depth_{typ}'] if args.save_depth else [])
     depths = []
@@ -245,13 +277,15 @@ def main(args, device=None, stats=None):
         img_pred = np.clip(results[f'rgb_{typ}'].reshape(h, w, 3), 0, 1)
         img_pred_ = (img_pred * 255).astype(np.uint8)
         imgs.append(img_pred_)
-        writes.append(writer.submit(
-            write_png, os.path.join(dir_name, f'{i:03d}.png'), img_pred_))
+        if writes_out:
+            writes.append(writer.submit(
+                write_png, os.path.join(dir_name, f'{i:03d}.png'), img_pred_))
         if args.save_depth:
             depth = results[f'depth_{typ}'].reshape(h, w).astype(np.float32)
-            writes.append(writer.submit(
-                save_pfm, os.path.join(dir_name, f'depth_{i:03d}.pfm'),
-                depth))
+            if writes_out:
+                writes.append(writer.submit(
+                    save_pfm, os.path.join(dir_name, f'depth_{i:03d}.pfm'),
+                    depth))
             if stats is not None:
                 depths.append(depth)
         if 'rgbs' in sample:
@@ -295,7 +329,7 @@ def main(args, device=None, stats=None):
             finish = render_chunked_async(
                 params, sample['rays'], sample['ts'], cfg, chunk=chunk,
                 test_time=True, keys=wanted, device=dev,
-                a_override=a_override, **render_kwargs)
+                a_override=a_override, mesh=mesh, **render_kwargs)
             phase_s["dispatch"].append(time.perf_counter() - t_p)
             if prev is not None:
                 process(prev)
@@ -330,8 +364,8 @@ def main(args, device=None, stats=None):
             stats.update(frame_s=list(deltas), total_s=total,
                          **{f"{k}_s": v for k, v in phase_s.items()})
 
-    if args.dataset_name in ('blender', 'llff') or \
-            (args.dataset_name == 'phototourism' and args.split == 'test'):
+    if writes_out and (args.dataset_name in ('blender', 'llff') or (
+            args.dataset_name == 'phototourism' and args.split == 'test')):
         gif = os.path.join(dir_name, f'{args.scene_name}.gif')
         if args.video_format != 'gif':
             print(f'[eval] {args.video_format} writer unavailable '

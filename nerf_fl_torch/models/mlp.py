@@ -13,6 +13,16 @@ dtype (``_dense_cat``), per-ray conditioning is contracted per ray and
 broadcast-added (``_dense_ray_cond``), and the heads emit f32.  It serves
 the test-time coarse ``sigma_only`` pass and every architecture the fused
 kernel does not take.
+
+Under tensor parallelism (``parallel.mesh.place_params``) a layer holds a
+shard of its weight and carries a ``tp`` attribute: a column-parallel
+layer's ``tp.enter`` copies its input to the model ranks (its backward
+sums their input gradients) and its output is a shard of the features; a
+row-parallel layer contracts that shard and ``tp.leave`` sums the partial
+products over the model ranks before its bias.  The trunk alternates the
+two from layer 0 (the skip at 4 is column-parallel), and a sharded output
+is gathered (``tp.gather``) before the heads.  Without ``tp`` the
+functions below are the plain ones.
 """
 from __future__ import annotations
 
@@ -125,18 +135,30 @@ def _mm(x, w_t, out_dtype):
     return (x.float() @ w_t.float()).to(out_dtype)
 
 
+def _tp_kind(layer: nn.Linear):
+    """'col' or 'row' for a tensor-parallel layer, else None."""
+    tp = getattr(layer, "tp", None)
+    return None if tp is None else tp.kind
+
+
 def _dense(x, layer: nn.Linear, dt, out_dtype=None):
     od = out_dtype or dt
     w = layer.weight.to(dt).t()
-    return _mm(x.to(dt), w, od) + layer.bias.to(od)
+    tp = getattr(layer, "tp", None)
+    if tp is None:
+        return _mm(x.to(dt), w, od) + layer.bias.to(od)
+    return tp.leave(_mm(tp.enter(x).to(dt), w, od)) + layer.bias.to(od)
 
 
 def _dense_cat(parts, layer: nn.Linear, dt, out_dtype=None):
     od = out_dtype or dt
     w = layer.weight.to(dt).t()
+    tp = getattr(layer, "tp", None)
     acc, lo = None, 0
     for p in parts:
         hi = lo + p.shape[-1]
+        if tp is not None:
+            p = tp.enter(p)
         y = _mm(p.to(dt), w[lo:hi], od)
         acc = y if acc is None else acc + y
         lo = hi
@@ -145,12 +167,21 @@ def _dense_cat(parts, layer: nn.Linear, dt, out_dtype=None):
 
 def _dense_ray_cond(x_sample, x_ray, samples_per_ray, layer: nn.Linear, dt):
     w = layer.weight.to(dt).t()
+    tp = getattr(layer, "tp", None)
+    if tp is not None:
+        x_sample, x_ray = tp.enter(x_sample), tp.enter(x_ray)
     cs = x_sample.shape[-1]
     y_s = _mm(x_sample.to(dt), w[:cs], dt)
     y_r = _mm(x_ray.to(dt), w[cs:], dt) + layer.bias.to(dt)
     n = x_ray.shape[0]
     out = y_s.reshape(n, samples_per_ray, -1) + y_r[:, None, :]
     return out.reshape(n * samples_per_ray, -1)
+
+
+def _gathered(y, layer: nn.Linear):
+    """The whole features of ``layer``'s output: a column-parallel layer's
+    shard gathered from the model ranks, else ``y``."""
+    return layer.tp.gather(y) if _tp_kind(layer) == "col" else y
 
 
 def apply_nerf(model: NeRF, xyz_emb: torch.Tensor,
@@ -172,18 +203,20 @@ def apply_nerf(model: NeRF, xyz_emb: torch.Tensor,
         else:
             h = _dense(h, layer, dt)
         h = torch.relu(h)
+    h = _gathered(h, model.xyz[-1])    # an odd depth ends column-parallel
 
     out = {"static_sigma": softplus(
         _dense(h, model.static_sigma, dt, out_dtype=f32))[..., 0]}
     if sigma_only:
         return out
 
-    xyz_final = _dense(h, model.xyz_final, dt)
+    xyz_final = _gathered(_dense(h, model.xyz_final, dt), model.xyz_final)
     if samples_per_ray is None:
         dir_h = torch.relu(_dense_cat([xyz_final, dir_a_emb], model.dir, dt))
     else:
         dir_h = torch.relu(_dense_ray_cond(
             xyz_final, dir_a_emb, samples_per_ray, model.dir, dt))
+    dir_h = _gathered(dir_h, model.dir)
     out["static_rgb"] = torch.sigmoid(
         _dense(dir_h, model.static_rgb, dt, out_dtype=f32))
     if not output_transient:

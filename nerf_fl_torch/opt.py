@@ -2,9 +2,7 @@
 
 The port's copy of the root ``opt.py``: every flag with the JAX CLI's type,
 default and choices, so a JAX command line parses here; the flags shared
-with eval are declared once in ``utils/cli.py``.  Flags of features not
-ported yet parse, and ``NeRFSystem.setup`` raises on them (more than one
-device or host, ROADMAP A.8).
+with eval are declared once in ``utils/cli.py``.
 """
 import argparse
 
@@ -100,11 +98,11 @@ def get_parser():
 
     # ---- extras of this project, not meaningful at eval ----
     parser.add_argument('--model_parallel', type=int, default=1,
-                        help='tensor-parallel degree (> 1 not ported yet, '
-                             'ROADMAP A.8)')
+                        help='tensor-parallel degree (the model axis of '
+                             'the mesh; ranks = num_gpus x model_parallel)')
     parser.add_argument('--num_hosts', type=int, default=1,
-                        help='processes in a multi-host job (> 1 not '
-                             'ported yet, ROADMAP A.8)')
+                        help='hosts of a multi-host job (each starts '
+                             'num_gpus x model_parallel / num_hosts ranks)')
     parser.add_argument('--host_index', type=int, default=0,
                         help='this process\'s index in [0, num_hosts)')
     parser.add_argument('--coordinator_address', type=str,

@@ -12,7 +12,7 @@ architecture run the plain ``models.mlp.apply_nerf``.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -127,6 +127,15 @@ def _run_mlp(model, mcfg: NeRFConfig, cfg: RenderConfig, xyz, dirs=None,
         return flat(x[:, None, :].expand(N, S, x.shape[-1]))
 
     use_fused = cfg.use_fused if cfg.use_fused is not None else xyz.is_cuda
+    if getattr(model.xyz[0], "tp", None) is not None:
+        # a tensor-parallel model holds a shard of each layer, and the
+        # fused kernel needs the whole weights: the plain path, as the JAX
+        # package's default under a model axis
+        if cfg.use_fused:
+            raise ValueError("use_fused=True cannot run a tensor-parallel "
+                             "(--model_parallel > 1) model: the fused "
+                             "kernel needs whole weights")
+        use_fused = False
     if use_fused and not sigma_only and _fused_ok(mcfg):
         bw_x = bw_d = None
         if cfg.refine_pose:
@@ -170,7 +179,8 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
                 epoch=0.0, test_time: bool = False,
                 output_transient: bool = True,
                 a_embedded: Optional[torch.Tensor] = None,
-                t_embedded: Optional[torch.Tensor] = None
+                t_embedded: Optional[torch.Tensor] = None,
+                shard: Optional[Tuple[int, int]] = None
                 ) -> Dict[str, torch.Tensor]:
     """Render a batch of rays.
 
@@ -180,14 +190,18 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
     draws (perturb > 0, noise_std > 0).  test_time runs the coarse pass
     sigma-only and adds the static/transient decomposition maps;
     output_transient=False disables the transient field; a_embedded /
-    t_embedded override the embedding lookups.
+    t_embedded override the embedding lookups.  ``shard`` = (index, count)
+    marks the rays as rows [index * N, (index + 1) * N) of a batch of
+    count * N rays that ranks render in parts: every stochastic draw is
+    made at that batch's shape and these rows kept
+    (``sampling.draw_rows``), so the draws do not depend on the layout.
     """
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
 
     z_vals = sampling.stratified_z_vals(
         near, far, cfg.N_samples, use_disp=cfg.use_disp, perturb=cfg.perturb,
-        generator=generator)
+        generator=generator, shard=shard)
     xyz_coarse = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
 
     results: Dict[str, torch.Tensor] = {}
@@ -207,7 +221,7 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
         comp = compositing.composite_static(
             z_vals, out["static_rgb"], out["static_sigma"],
             noise_std=cfg.noise_std, generator=generator,
-            white_back=cfg.white_back)
+            white_back=cfg.white_back, shard=shard)
         results["weights_coarse"] = comp.weights
         results["opacity_coarse"] = comp.opacity
         results["rgb_coarse"] = comp.rgb
@@ -219,7 +233,8 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
     z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
     inner_weights = results["weights_coarse"][:, 1:-1].detach()
     z_fine = sampling.sample_pdf(z_mid, inner_weights, cfg.N_importance,
-                                 det=(cfg.perturb == 0), generator=generator)
+                                 det=(cfg.perturb == 0), generator=generator,
+                                 shard=shard)
     z_vals = rank_merge_sorted(z_vals, z_fine)
     xyz_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
 
@@ -267,7 +282,7 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
         comp = compositing.composite_static(
             z_vals, out["static_rgb"], out["static_sigma"],
             noise_std=cfg.noise_std, generator=generator,
-            white_back=cfg.white_back)
+            white_back=cfg.white_back, shard=shard)
         results["weights_fine"] = comp.weights
         results["opacity_fine"] = comp.opacity
         results["rgb_fine"] = comp.rgb

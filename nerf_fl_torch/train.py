@@ -11,14 +11,25 @@ it raises.  On the card its last line counts the fused kernels of the
 run: ``[kernels] N sub-steps; fused forward / backward: L / L host
 launches, R / R runs on the card`` (the wrappers' launches and the
 kernels' own count of their runs, CUDA graph replays included).
+
+``--num_gpus D --model_parallel M`` (D x M > 1) trains data- and
+tensor-parallel: this process starts its ``D x M / --num_hosts`` ranks
+(``parallel.launch``: one process a card, or all on the CPU over gloo)
+and waits for them; each rank runs ``NeRFSystem`` on its mesh and prints
+its own ``[kernels]`` line.  A multi-host job runs this CLI on every host
+with ``--num_hosts``, ``--host_index`` and ``--coordinator_address``
+(host:port of host 0), as the JAX CLI does.  Too few cards raise
+``parallel.make_mesh``'s error before any rank starts.
 """
 from .device import entry_device
 from .opt import get_opts
 from .training.system import NeRFSystem
 
 
-def main(hparams, device=None) -> NeRFSystem:
-    system = NeRFSystem(hparams, device=entry_device(device))
+def train(device, hparams) -> NeRFSystem:
+    """Set up, configure and fit one process's ``NeRFSystem`` (one rank of
+    a job, or the whole run without one)."""
+    system = NeRFSystem(hparams, device=device)
     system.setup()
     system.configure()
     system.fit()
@@ -30,6 +41,29 @@ def main(hparams, device=None) -> NeRFSystem:
               f"{fm.fused_mlp_bwd_cuda.launches} host launches, {runs[0]} / "
               f"{runs[1]} runs on the card", flush=True)
     return system
+
+
+def _rank(device, hparams) -> None:
+    train(device, hparams)
+
+
+def main(hparams, device=None):
+    """Train; returns the ``NeRFSystem``, or None for a job of several
+    ranks (which live in their own processes)."""
+    from .parallel import launch
+    dev = entry_device(device)
+    def g(name, default):
+        return getattr(hparams, name, default)
+
+    num_data, num_model = max(1, g("num_gpus", 1)), \
+        max(1, g("model_parallel", 1))
+    num_hosts = max(1, g("num_hosts", 1))
+    if num_data * num_model == 1 and num_hosts == 1:
+        return train(dev, hparams)
+    launch.spawn_cli(_rank, hparams, dev, num_data, num_model,
+                     num_hosts=num_hosts, host_index=g("host_index", 0),
+                     coordinator=g("coordinator_address", None))
+    return None
 
 
 if __name__ == "__main__":

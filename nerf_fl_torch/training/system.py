@@ -12,8 +12,10 @@ directions (5 columns, ``ray_format="camdir"``) that ``assemble_world_rays``
 poses inside the step from the learned-pose table, which pose refinement
 (BARF) trains: the pose deltas' updates are scaled by ``pose_lr_mult`` and
 held at zero until ``pose_warmup_epochs``, and the positional encoding is
-annealed by the epoch.  Single device; the mesh and multihost branches
-belong to a later slice.
+annealed by the epoch.  With a ``parallel.make_mesh`` mesh the step,
+the pool step and the chunked render are data-parallel (and the field
+tensor-parallel under a model axis); ``NeRFSystem`` builds the mesh of a
+``torch.distributed`` job.
 
 ``steps_per_execution`` K > 1 is JAX's ``lax.scan`` of K steps in one
 dispatch.  On the card its counterpart is a CUDA graph of one sub-step
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from ..core.rays import get_rays
+from ..data.sampler import host_rows
 from ..device import resolve_device
 from ..models import init_embedding, init_learn_pose, init_nerf, pose_for
 from ..render import RenderConfig, render_rays
@@ -115,7 +118,7 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
                     steps_per_execution: int = 1, ray_format: str = "world",
                     id_to_cam: Optional[np.ndarray] = None,
                     pose_lr_mult: float = 1.0,
-                    pose_warmup_epochs: float = 0.0) -> Callable:
+                    pose_warmup_epochs: float = 0.0, mesh=None) -> Callable:
     """The train step: render -> loss -> backward -> optimizer step ->
     metrics.  Returns ``step(params, batch, lr, epoch=0.0,
     generator=None)``, which updates the parameters that ``optimizer``
@@ -152,9 +155,15 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
     capturable with a device lr, as every optimizer that
     ``optimizers.build_optimizer`` makes on the card is; another one (torch's
     own SGD) raises.
+
+    With ``mesh`` (``parallel.make_mesh``) the step is data-parallel:
+    ``batch`` holds this rank's rows of the global batch (``shard_batch``;
+    ``data.sampler.host_rows`` with ``microbatch``), the gradients and the
+    metrics are reduced over the data group (``_train_body``), and every
+    rank returns the global step's metrics.
     """
     body = _train_body(cfg, optimizer, loss_name, microbatch, ray_format,
-                       id_to_cam, pose_lr_mult, pose_warmup_epochs)
+                       id_to_cam, pose_lr_mult, pose_warmup_epochs, mesh)
 
     def step(params, batch, lr, epoch=0.0, generator=None):
         set_lr(optimizer, lr)
@@ -193,11 +202,21 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
                 loss_name: str, microbatch: int, ray_format: str = "world",
                 id_to_cam: Optional[np.ndarray] = None,
                 pose_lr_mult: float = 1.0,
-                pose_warmup_epochs: float = 0.0) -> Callable:
+                pose_warmup_epochs: float = 0.0, mesh=None) -> Callable:
     """``body(params, batch, epoch, generator)``: one train step at the lr
     the optimizer holds (``make_train_step``'s step, ``set_lr`` aside).
     ``id_to_cam`` goes to the device once, here, so a captured step reads
     it where it lies.
+
+    The body is two halves, ``body.grads`` (render, loss, backward: the
+    gradients in ``.grad``, the loss terms and the mse as device scalars)
+    and ``body.update`` (the optimizer step and the metrics), which a data
+    mesh joins with ``body.sync`` (``_GradSync``): the gradients and those
+    scalars all-reduced over the data group and divided by its size, which
+    is the global batch's gradient because every NeRF-W loss term is a mean
+    over rays.  The psnr comes from the reduced mse.  Under the mesh each
+    rank renders its rows of the global batch and draws at the global
+    shape (``render_rays``' ``shard``), as the JAX package's step does.
 
     The pose deltas' update is scaled after the optimizer's step, on the
     device: ``torch.lerp(before, after, s)`` with ``s = pose_lr_mult *
@@ -219,6 +238,8 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
     scale_poses = bool(poses) and (pose_lr_mult != 1.0
                                    or pose_warmup_epochs > 0.0)
     epoch_as_tensor = cfg.refine_pose or scale_poses
+    shard = None if mesh is None or mesh.num_data == 1 else \
+        (mesh.data_index, mesh.num_data)
 
     def as_tensor(epoch):
         if torch.is_tensor(epoch):
@@ -229,15 +250,14 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
         rays = assemble_world_rays(params, b["rays"], b["ts"],
                                    ray_format=ray_format, id_to_cam=idmap)
         results = render_rays(params, rays, b["ts"], cfg,
-                              generator=generator, epoch=epoch)
+                              generator=generator, epoch=epoch, shard=shard)
         loss_d = loss_fn(results, b["rgbs"])
         mse = torch.mean((results[f"rgb_{typ}"] - b["rgbs"]) ** 2)
         return sum(loss_d.values()), loss_d, mse
 
-    def body(params, batch, epoch, generator):
+    def grads(params, batch, epoch, generator):
+        """{'loss', each term, 'mse'}; the gradients in ``.grad``."""
         optimizer.zero_grad(set_to_none=True)
-        if epoch_as_tensor:
-            epoch = as_tensor(epoch)
         M = max(1, microbatch)
         n = batch["rays"].shape[0]
         if n % M:
@@ -258,6 +278,11 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
                     p.grad.div_(M)
             loss, mse = loss / M, mse / M
             loss_d = {k: v / M for k, v in loss_d.items()}
+        return {"loss": loss, **loss_d, "mse": mse}
+
+    def update(raw, epoch):
+        """The optimizer step on the gradients in ``.grad``; the metrics
+        of ``raw`` (``grads``' values, reduced under a mesh)."""
         if scale_poses:
             before = [p.detach().clone() for p in poses]
         optimizer.step()
@@ -266,12 +291,61 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
             with torch.no_grad():
                 for p, b in zip(poses, before):
                     p.copy_(torch.lerp(b, p, s))
-        metrics = {"train/loss": loss, "train/psnr": -10.0 * torch.log10(mse)}
-        for k, v in loss_d.items():
-            metrics[f"train/{k}"] = v
+        metrics = {"train/loss": raw["loss"],
+                   "train/psnr": -10.0 * torch.log10(raw["mse"])}
+        for k, v in raw.items():
+            if k not in ("loss", "mse"):
+                metrics[f"train/{k}"] = v
         return metrics
 
+    sync = None if mesh is None else _GradSync(mesh, params_held)
+
+    def body(params, batch, epoch, generator):
+        if epoch_as_tensor:
+            epoch = as_tensor(epoch)
+        raw = grads(params, batch, epoch, generator)
+        if sync is not None:
+            flat = sync.pack(raw)
+            sync.reduce(flat)
+            raw = sync.unpack(flat)
+        return update(raw, epoch)
+
+    body.grads, body.update, body.sync = grads, update, sync
     return body
+
+
+class _GradSync:
+    """A data mesh's reduction of one step: ``pack`` flattens the held
+    parameters' gradients and the step's metric values into one buffer,
+    ``reduce`` sums it over the data group in place (one collective a
+    sub-step), ``unpack`` divides by the group's size and writes the
+    gradients back into ``.grad``, returning the metric values."""
+
+    def __init__(self, mesh, held):
+        self.mesh, self.held = mesh, held
+        self.names = None
+
+    def pack(self, raw: Dict[str, torch.Tensor]) -> torch.Tensor:
+        self.names = list(raw)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.held]
+        return torch.cat([g.reshape(-1) for g in grads]
+                         + [torch.stack([raw[n] for n in self.names])])
+
+    def reduce(self, flat: torch.Tensor) -> None:
+        self.mesh.data.all_reduce(flat)
+
+    def unpack(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        mean = flat / self.mesh.num_data
+        at = 0
+        for p in self.held:
+            g = mean[at:at + p.numel()].view_as(p)
+            if p.grad is None:
+                p.grad = g.clone()
+            else:
+                p.grad.copy_(g)
+            at += p.numel()
+        return {n: mean[at + j] for j, n in enumerate(self.names)}
 
 
 def stack_batches(batches, k: Optional[int] = None):
@@ -362,6 +436,17 @@ class _StepGraph:
     generator, the addresses of the parameters and of whatever ``feed``
     does not copy.
 
+    Under a data mesh (``body.sync``) a sub-step is captured as two graphs
+    around its collective: the first loads the batch, renders, takes the
+    loss and the backward and packs the gradients and metric values into
+    one buffer; the all-reduce of that buffer runs between the replays,
+    uncaptured (``_GradSync.reduce``); the second unpacks it, steps the
+    optimizer and writes the metric row.  It shares the first's memory
+    pool, where the buffer and the gradients live.  The one design serves
+    NCCL and gloo (ranks sharing a card) alike.  A tensor-parallel model
+    has collectives inside its forward and backward, so its K-step on the
+    card raises.
+
     Capture follows PyTorch's recipe: one eager sub-step on a side stream
     first (it initializes Adam's state, caches and libraries), then the
     capture on that stream.  The eager sub-step is the call's first one,
@@ -377,6 +462,7 @@ class _StepGraph:
 
     def __init__(self, body, optimizer: torch.optim.Optimizer, k: int):
         self.body, self.optimizer, self.K = body, optimizer, k
+        self.sync = getattr(body, "sync", None)
         self.held = [p for g in optimizer.param_groups for p in g["params"]]
         self.device = self.held[0].device
         if self.device.type == "cuda":
@@ -386,7 +472,13 @@ class _StepGraph:
                     f"steps_per_execution > 1 on the card with "
                     f"{type(optimizer).__name__} (not capturable with a "
                     f"device lr) is not ported yet")
-        self.key = self.graph = None
+            if self.sync is not None and self.sync.mesh.num_model > 1:
+                raise NotImplementedError(
+                    "steps_per_execution > 1 on the card under "
+                    "--model_parallel > 1: the tensor-parallel collectives "
+                    "sit inside the forward and backward, which a graph "
+                    "step would capture (ROADMAP B.6)")
+        self.key = self.graph = self.graph_b = self.flat = None
         self.names = self.out = None
         self.statics: Dict[str, Any] = {}
         self.k = torch.zeros(1, dtype=torch.int64, device=self.device)
@@ -395,9 +487,17 @@ class _StepGraph:
         self.fused_launches = None
 
     def sub_step(self, params, generator, load):
+        if self.sync is not None:
+            self.grads_half(params, generator, load)
+            self.sync.reduce(self.flat)
+            self.update_half()
+            return
         with _fresh_leaves(params, self.held) as fresh:
             m = self.body(fresh, load(self.statics, self.k), self.epoch,
                           generator)
+        self.write_row(m)
+
+    def write_row(self, m):
         if self.out is None:
             self.names = list(m)
             self.out = torch.full((self.K, len(m)), float("nan"),
@@ -406,13 +506,26 @@ class _StepGraph:
                              torch.stack([m[n] for n in self.names])[None])
         self.k.add_(1)
 
+    def grads_half(self, params, generator, load):
+        """A mesh sub-step up to its collective: the packed buffer."""
+        with _fresh_leaves(params, self.held) as fresh:
+            raw = self.body.grads(fresh, load(self.statics, self.k),
+                                  self.epoch, generator)
+        self.flat = self.sync.pack(raw)
+
+    def update_half(self):
+        """A mesh sub-step after its collective."""
+        self.write_row(self.body.update(self.sync.unpack(self.flat),
+                                        self.epoch))
+
     def run(self, params, lr, epoch, generator, n_valid: int, key, feed,
             load) -> Dict[str, torch.Tensor]:
         key = (key, generator,
                tuple(p.data_ptr() for _, p in named_leaves(params)))
         fresh = key != self.key
         if fresh:
-            self.key = self.graph = None       # frees the old graph's pool
+            # frees the old graphs' pool
+            self.key = self.graph = self.graph_b = self.flat = None
         set_lr(self.optimizer, lr)
         self.epoch.fill_(float(epoch))
         feed(self.statics, fresh)
@@ -429,6 +542,9 @@ class _StepGraph:
                 first = 1
             for _ in range(first, n_valid):
                 self.graph.replay()
+                if self.graph_b is not None:
+                    self.sync.reduce(self.flat)
+                    self.graph_b.replay()
             self.replays += n_valid - first
         self.key = key
         res = self.out.clone()
@@ -451,16 +567,27 @@ class _StepGraph:
         # capture makes capture_end raise
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
+        graph_b = None
         with torch.cuda.stream(side):
             graph.capture_begin()
             try:
-                self.sub_step(params, generator, load)
+                if self.sync is None:
+                    self.sub_step(params, generator, load)
+                else:
+                    self.grads_half(params, generator, load)
             finally:
                 graph.capture_end()
+            if self.sync is not None:
+                graph_b = torch.cuda.CUDAGraph()
+                graph_b.capture_begin(pool=graph.pool())
+                try:
+                    self.update_half()
+                finally:
+                    graph_b.capture_end()
         self.fused_launches = (fm.fused_mlp_fwd_cuda.launches - before[0],
                                fm.fused_mlp_bwd_cuda.launches - before[1])
         torch.cuda.current_stream(self.device).wait_stream(side)
-        self.graph = graph
+        self.graph, self.graph_b = graph, graph_b
         self.captures += 1
 
 
@@ -484,7 +611,8 @@ def make_device_pool_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
                           ray_format: str = "world",
                           id_to_cam: Optional[np.ndarray] = None,
                           pose_lr_mult: float = 1.0,
-                          pose_warmup_epochs: float = 0.0) -> Callable:
+                          pose_warmup_epochs: float = 0.0,
+                          mesh=None) -> Callable:
     """Train step that draws its batch from a device-resident pool.
 
     Returns ``run(params, pool, perm, i, lr, epoch=0.0, generator=None)``:
@@ -502,34 +630,47 @@ def make_device_pool_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
     step's graph needs no host write (``make_train_step``).  The graph
     reads ``pool`` and ``perm`` where they lie: a new tensor for either (a
     new epoch's ``perm``) captures the step again.  ``ray_format``,
-    ``id_to_cam``, ``pose_lr_mult`` and ``pose_warmup_epochs`` are
-    ``make_train_step``'s.
+    ``id_to_cam``, ``pose_lr_mult``, ``pose_warmup_epochs`` and ``mesh``
+    are ``make_train_step``'s.  Under a data mesh every rank holds the
+    whole pool and the epoch's ``perm``, as the JAX package replicates them,
+    and gathers its rows of each step's B indices (``host_rows``: its
+    contiguous B / data of each of the ``microbatch`` slices).
     """
+    B = batch_size
+    rows = None
+    if mesh is not None:
+        rows = host_rows(B, mesh.data_index, mesh.num_data, microbatch)
     if steps_per_execution <= 1:
         step = make_train_step(cfg, optimizer, loss_name=loss_name,
                                microbatch=microbatch, ray_format=ray_format,
                                id_to_cam=id_to_cam, pose_lr_mult=pose_lr_mult,
-                               pose_warmup_epochs=pose_warmup_epochs)
-        B = batch_size
+                               pose_warmup_epochs=pose_warmup_epochs,
+                               mesh=mesh)
 
         def run(params, pool, perm, i, lr, epoch=0.0, generator=None):
-            idx = perm[i * B:(i + 1) * B].long()
+            idx = perm[i * B:(i + 1) * B]
+            if rows is not None:
+                idx = idx.index_select(0, torch.as_tensor(rows,
+                                                          device=perm.device))
+            idx = idx.long()
             batch = {k: v.index_select(0, idx) for k, v in pool.items()}
             return step(params, batch, lr, epoch, generator)
 
         return run
 
-    K, B = steps_per_execution, batch_size
+    K = steps_per_execution
     graph = _StepGraph(_train_body(cfg, optimizer, loss_name, microbatch,
                                    ray_format, id_to_cam, pose_lr_mult,
-                                   pose_warmup_epochs),
+                                   pose_warmup_epochs, mesh),
                        optimizer, K)
 
     def feed(statics, pool, perm, i0, fresh):
         if fresh:
             statics["i0"] = torch.zeros(1, dtype=torch.int64,
                                         device=graph.device)
-            statics["rows"] = torch.arange(B, device=graph.device)
+            statics["rows"] = torch.arange(B, device=graph.device) \
+                if rows is None else torch.as_tensor(rows,
+                                                     device=graph.device)
         statics["i0"].fill_(i0)
         statics["pool"], statics["perm"] = pool, perm
 
@@ -576,18 +717,26 @@ def render_chunked(params, rays, ts, cfg: RenderConfig, *,
                    output_transient: bool = True, epoch: float = 0.0,
                    generator: Optional[torch.Generator] = None, keys=None,
                    inflight: int = 4, a_override=None,
-                   device=None) -> Dict[str, np.ndarray]:
+                   device=None, mesh=None) -> Dict[str, np.ndarray]:
     """Render arbitrarily many rays in fixed-size chunks; returns numpy
     arrays.  The tail chunk is padded by repeating its last ray and trimmed
     after, so every chunk has the same shape; fewer rays than a chunk are
     rendered as one chunk of their own size (padding them to ``chunk``
     would only add work).  ``keys`` restricts the
     returned (and copied back) outputs.  ``device`` None means CUDA; the
-    params must live on the device."""
+    params must live on the device.
+
+    With ``mesh`` (a data axis of more than one rank) the render is
+    data-parallel, as the JAX package's: the chunk is rounded up to a
+    multiple of the data size, each rank renders its contiguous rows of
+    every chunk (drawing at the chunk's shape, ``render_rays``' ``shard``)
+    and the pixel outputs are all-gathered, so every rank returns the
+    whole frame.  Every rank of the job must call it."""
     return render_chunked_async(
         params, rays, ts, cfg, chunk=chunk, test_time=test_time,
         output_transient=output_transient, epoch=epoch, generator=generator,
-        keys=keys, inflight=inflight, a_override=a_override, device=device)()
+        keys=keys, inflight=inflight, a_override=a_override, device=device,
+        mesh=mesh)()
 
 
 def render_chunked_async(params, rays, ts, cfg: RenderConfig, *,
@@ -595,12 +744,13 @@ def render_chunked_async(params, rays, ts, cfg: RenderConfig, *,
                          output_transient: bool = True, epoch: float = 0.0,
                          generator: Optional[torch.Generator] = None,
                          keys=None, inflight: int = 4, a_override=None,
-                         device=None):
+                         device=None, mesh=None):
     """Dispatch a full render and defer the final readback.
 
     Every chunk is enqueued before return; at most ``inflight`` chunks'
-    results wait on the device before the oldest is copied back.  Returns a
-    ``finish()`` callable producing render_chunked's result dict.
+    results wait on the device before the oldest is copied back (and,
+    under ``mesh``, gathered: ``render_chunked``).  Returns a ``finish()``
+    callable producing render_chunked's result dict.
     """
     want, dev = resolve_device(device), params_device(params)
     if dev.type != want.type or (want.index is not None and dev != want):
@@ -614,13 +764,24 @@ def render_chunked_async(params, rays, ts, cfg: RenderConfig, *,
     keys = None if keys is None else frozenset(keys)
     n = len(rays)
     chunk = max(1, min(chunk, n))
+    parts = 1 if mesh is None else mesh.num_data
+    if chunk % parts:
+        # every rank renders the same number of rows of every chunk
+        chunk = -(-chunk // parts) * parts
+        print(f"[render] rounding chunk up to {chunk} "
+              f"(multiple of data={parts})")
+    shard = None if parts == 1 else (mesh.data_index, parts)
+    per = chunk // parts
     outs = defaultdict(list)
     pending: deque = deque()
 
     def drain_one():
         res, keep = pending.popleft()
         for k, v in res.items():
-            outs[k].append(v[:keep].float().cpu().numpy())
+            v = v.float()
+            if shard is not None:
+                v = mesh.data.all_gather(v)
+            outs[k].append(v[:keep].cpu().numpy())
 
     with torch.no_grad():
         for i in range(0, n, chunk):
@@ -631,14 +792,17 @@ def render_chunked_async(params, rays, ts, cfg: RenderConfig, *,
             if pad > 0:
                 r = torch.cat([r, r[-1:].expand(pad, -1)], 0)
                 t = torch.cat([t, t[-1:].expand(pad)], 0)
+            if shard is not None:
+                r = r[shard[0] * per:(shard[0] + 1) * per]
+                t = t[shard[0] * per:(shard[0] + 1) * per]
             r = r.to(dev, non_blocking=True)
             t = t.to(dev, non_blocking=True)
             a_emb = None if a_override is None else \
-                a_override.expand(chunk, a_override.shape[-1])
+                a_override.expand(per, a_override.shape[-1])
             res = render_rays(params, r, t, cfg, generator=generator,
                               epoch=epoch, test_time=test_time,
                               output_transient=output_transient,
-                              a_embedded=a_emb)
+                              a_embedded=a_emb, shard=shard)
             if keys is not None:
                 res = {k: v for k, v in res.items() if k in keys}
             pending.append((res, keep))
@@ -683,22 +847,6 @@ def config_from_hparams(hparams, white_back: bool) -> RenderConfig:
 
 
 _TRISTATE = {"auto": None, "on": True, "off": False}
-
-
-def refuse_unported(hparams) -> None:
-    """Raise on flags whose feature is not ported yet (more than one
-    device or host), naming its ROADMAP item; flags absent from
-    ``hparams`` count as their defaults."""
-    g = functools.partial(getattr, hparams)
-    checks = [
-        (g("num_gpus", 1) > 1, "--num_gpus > 1", "A.8"),
-        (g("model_parallel", 1) > 1, "--model_parallel > 1", "A.8"),
-        (g("num_hosts", 1) > 1, "--num_hosts > 1", "A.8"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet "
-                                      f"(ROADMAP {item})")
 
 
 class _Moved(NamedTuple):
@@ -836,7 +984,20 @@ def _host_tensor(a: np.ndarray, dtype) -> torch.Tensor:
 class NeRFSystem:
     """End-to-end training: the counterpart of the JAX package's
     ``NeRFSystem`` (``setup``, ``configure``, ``restore``,
-    ``run_validation``, ``fit``) on one device, ``device`` (None: CUDA).
+    ``run_validation``, ``fit``) on ``device`` (None: CUDA).
+
+    With ``--num_gpus`` x ``--model_parallel`` > 1 (or ``--num_hosts`` >
+    1) it is one rank of a ``torch.distributed`` job (``parallel.launch``
+    starts the ranks; the train CLI does): ``setup`` builds the (data,
+    model) mesh (``parallel.make_mesh``) and keeps this rank's rows of
+    every batch, ``configure`` fails every rank if they would resume from
+    different states, broadcasts the parameters from rank 0 and shards
+    them under ``--model_parallel`` (``place_params``), the steps reduce
+    their gradients over the data group, validation renders through the
+    mesh, and only global rank 0 logs and writes checkpoints (whole ones:
+    a tensor-parallel model is gathered first).  A multi-host job feeds
+    host-sharded batches (no device pool).  Without those flags no process
+    group exists and ``mesh`` is None.
 
     ``fit`` runs the feed that ``configure`` chose: the device-resident
     pool (``make_device_pool_step``; one permutation buffer on the device,
@@ -865,13 +1026,37 @@ class NeRFSystem:
         self.start_epoch = 0
         self.epoch_stats = []
         self.profile_window = None
+        self.mesh = None
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes the logs and checkpoints."""
+        return self.mesh is None or self.mesh.is_main
+
+    def _make_mesh(self):
+        """The job's mesh, None for one device and one host."""
+        import torch.distributed as dist
+        from ..parallel import make_mesh, multihost
+        g = functools.partial(getattr, self.hparams)
+        num_data, num_model = max(1, g("num_gpus", 1)), \
+            max(1, g("model_parallel", 1))
+        if num_data * num_model == 1 and g("num_hosts", 1) == 1:
+            return None
+        if not dist.is_initialized():
+            raise ValueError(
+                f"--num_gpus {num_data} x --model_parallel {num_model} over "
+                f"--num_hosts {g('num_hosts', 1)} needs one process a rank "
+                "in a torch.distributed job: run it through python -m "
+                "nerf_fl_torch.train (or nerf_fl_torch.parallel.launch)")
+        return make_mesh(num_data, num_model,
+                         devices=multihost.job_devices(self.device))
 
     # -- datasets ------------------------------------------------------
     def setup(self):
         from ..data import RayBatcher, dataset_dict
         from ..models import validate_vocab
         h = self.hparams
-        refuse_unported(h)
+        self.mesh = self._make_mesh()
         # --pose_noise needs the learned-pose (camdir) rays even without
         # refinement: the noisy control arm trains with frozen deltas
         refine = getattr(h, "refine_pose", False) or \
@@ -927,10 +1112,13 @@ class NeRFSystem:
             for i, id_ in enumerate(ids):
                 idmap[id_] = i
             self.id_to_cam = idmap
+        shard = {} if self.mesh is None else dict(
+            host_index=self.mesh.data_index, host_count=self.mesh.num_data,
+            microbatch=max(1, getattr(h, "microbatch", 1)))
         self.batcher = RayBatcher(
             self.train_dataset.all_rays, self.train_dataset.all_ts,
             self.train_dataset.all_rgbs, h.batch_size,
-            seed=getattr(h, "seed", 0))
+            seed=getattr(h, "seed", 0), **shard)
 
     # -- state ---------------------------------------------------------
     def configure(self):
@@ -963,6 +1151,22 @@ class NeRFSystem:
                   "[ckpt] auto-resume: no checkpoint found, starting fresh")
         if ckpt_path:
             self.restore(ckpt_path)
+        mesh = self.mesh
+        if mesh is not None:
+            # every rank resolves --ckpt_path on its own (auto-resume scans
+            # its save_path); ranks that disagree would mix parameter
+            # states, so every rank fails instead
+            here = torch.tensor([self.start_epoch, self.global_step],
+                                dtype=torch.int64, device=dev)
+            every = mesh.world.all_gather(here[None])
+            if not bool((every == every[:1]).all()):
+                raise RuntimeError(
+                    "checkpoint resume state differs across hosts — use a "
+                    "shared save_path or pass an explicit --ckpt_path "
+                    f"(epoch, step by rank: {every.tolist()})")
+            from ..parallel import place_params
+            place_params(mesh, self.params, self._model_parallel(),
+                         self.optimizer)
 
         self.spe = max(1, getattr(h, "steps_per_execution", 1))
         mb = max(1, getattr(h, "microbatch", 1))
@@ -973,7 +1177,15 @@ class NeRFSystem:
         pool_bytes = b.rays.nbytes + b.ts.nbytes + b.rgbs.nbytes
         dp_mode = getattr(h, "device_pool", "auto")
         self.device_pool = None
-        if dp_mode == "on" or (dp_mode == "auto" and pool_bytes <= (2 << 30)):
+        use_pool = dp_mode == "on" or (dp_mode == "auto"
+                                       and pool_bytes <= (2 << 30))
+        from ..parallel import multihost
+        if use_pool and multihost.is_multihost():
+            if dp_mode == "on":
+                print("[data] --device_pool on ignored: multihost feeds "
+                      "host-sharded batches")
+            use_pool = False
+        if use_pool:
             pool = {"rays": _host_tensor(b.rays, np.float32),
                     "ts": _host_tensor(b.ts, np.int32),
                     "rgbs": _host_tensor(b.rgbs, np.float32)}
@@ -985,7 +1197,7 @@ class NeRFSystem:
                 self.cfg, self.optimizer, batch_size=h.batch_size,
                 loss_name=self.loss_name, microbatch=mb,
                 steps_per_execution=self.spe, ray_format=self.ray_format,
-                id_to_cam=self.id_to_cam, **pose_lr)
+                id_to_cam=self.id_to_cam, mesh=mesh, **pose_lr)
             print(f"[data] device-resident ray pool: {pool_bytes / 1e6:.0f} "
                   f"MB uploaded once; batches are drawn on the device")
         else:
@@ -993,8 +1205,13 @@ class NeRFSystem:
                 self.cfg, self.optimizer, loss_name=self.loss_name,
                 microbatch=mb, steps_per_execution=self.spe,
                 ray_format=self.ray_format, id_to_cam=self.id_to_cam,
-                **pose_lr)
+                mesh=mesh, **pose_lr)
+        # the same generator state on every rank: each draws at the global
+        # batch's shape and keeps its rows
         self.generator = torch.Generator(dev).manual_seed(seed + 1234)
+
+    def _model_parallel(self) -> bool:
+        return self.mesh is not None and self.mesh.num_model > 1
 
     def restore(self, path: str):
         """A full checkpoint (with ``opt_state``; either format) resumes
@@ -1060,7 +1277,8 @@ class NeRFSystem:
                 test_time=False, epoch=float(epoch),
                 generator=self._generator(1000 + i),
                 keys=("rgb_coarse", "rgb_fine", "depth_coarse", "depth_fine",
-                      "beta", "transient_sigmas"), device=self.device)
+                      "beta", "transient_sigmas"), device=self.device,
+                mesh=self.mesh)
             typ = "fine" if "rgb_fine" in res else "coarse"
             loss_d = loss_dict[self.loss_name](
                 {k: torch.from_numpy(v) for k, v in res.items()},
@@ -1088,7 +1306,8 @@ class NeRFSystem:
         ``PROFILE_MARGIN_S`` on each side of the window's work, outside its
         timed seconds."""
         from ..ops import fused_mlp as fm
-        prof_dir = getattr(self.hparams, "profile_dir", None)
+        prof_dir = getattr(self.hparams, "profile_dir", None) \
+            if self.is_main else None
         start, stop = self.global_step + 100, self.global_step + 120
         st = {"prof": None, "done": not prof_dir}
         cuda = self.device.type == "cuda"
@@ -1192,9 +1411,12 @@ class NeRFSystem:
         from . import checkpoints
         from .logging import ExperimentLogger
         from .optimizers import lr_for_epoch
+        from ..parallel import whole_params
+        from .logging import NullLogger
         h = self.hparams
         if self.logger is None:
-            self.logger = ExperimentLogger("logs", h.exp_name)
+            self.logger = ExperimentLogger("logs", h.exp_name) \
+                if self.is_main else NullLogger()
         ckpt_dir = os.path.join(h.save_path, h.exp_name)
         if getattr(h, "num_sanity_val_steps", 1) > 0:
             self.run_validation(self.start_epoch, max_images=1)
@@ -1257,9 +1479,13 @@ class NeRFSystem:
                 self.logger.images("val/GT_pred_depth", viz, self.global_step)
             print(f"epoch {epoch}: lr={lr:.3e} val/loss={val_loss:.4f} "
                   f"val/psnr={val_psnr:.2f}")
-            checkpoints.save_checkpoint(
-                os.path.join(ckpt_dir, f"epoch={epoch}.ckpt"), self.params,
-                self.optimizer, epoch=epoch, global_step=self.global_step)
+            with whole_params(self.mesh, self.params, self.optimizer,
+                              self._model_parallel()):
+                if self.is_main:
+                    checkpoints.save_checkpoint(
+                        os.path.join(ckpt_dir, f"epoch={epoch}.ckpt"),
+                        self.params, self.optimizer, epoch=epoch,
+                        global_step=self.global_step)
             self.epoch_stats.append({
                 "epoch": epoch, "steps": self.global_step - steps0,
                 "seconds": seconds, "rays_per_sec": n_rays / seconds,
@@ -1305,7 +1531,8 @@ def gauge_val_psnr(system: NeRFSystem, epoch: int, max_images: int = 2,
                                 system.cfg.N_importance),
             test_time=False, epoch=float(epoch),
             generator=system._generator(1000 + i),
-            keys=("rgb_coarse", "rgb_fine"), device=system.device)
+            keys=("rgb_coarse", "rgb_fine"), device=system.device,
+            mesh=system.mesh)
         typ = "fine" if "rgb_fine" in res else "coarse"
         mse = np.mean((res[f"rgb_{typ}"] - sample["rgbs"]) ** 2)
         psnrs.append(-10.0 * np.log10(mse))

@@ -7,8 +7,7 @@ here too (``tests/test_torch_entry.py`` holds the parsers to each other).
 Per-mode differences are explicit overrides: --chunk's default, whether
 --ckpt_path is required, and the help of --refine_pose / --num_gpus.
 ``--use_pallas`` selects the fused CUDA kernels (``RenderConfig.use_fused``:
-auto None, on True, off False).  Flags of features not ported yet parse,
-and ``training/system.py`` / ``eval.py`` raise on them.
+auto None, on True, off False).
 """
 from __future__ import annotations
 
@@ -96,10 +95,10 @@ _SHARED = [
                    help="rays per fixed-shape render program")}),
 
     ("--num_gpus", dict(type=int, default=1),
-     {"train": dict(help="data-parallel device count (> 1 is not ported "
-                         "yet, ROADMAP A.8)"),
-      "eval": dict(help="devices a render chunk is sharded over (> 1 is "
-                        "not ported yet, ROADMAP A.8)")}),
+     {"train": dict(help="data-parallel device count (ranks, one a "
+                         "device; the mesh's data axis)"),
+      "eval": dict(help="devices a render chunk is sharded over (ranks, "
+                        "one a device)")}),
 
     ("--ckpt_path", dict(type=str),
      {"train": dict(default=None,

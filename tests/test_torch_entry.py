@@ -8,11 +8,15 @@
     an untrained JAX checkpoint (weights only, loaded non-strictly);
   * eval of that JAX checkpoint: the port's Mean PSNR and Mean SSIM equal
     the JAX eval.py's within 1e-3, and its PNGs differ by at most 1 level;
-  * without the device request and without a card both entry points raise,
-    and eval's unported options (more than one device) raise with their
-    ROADMAP item, while the ones ROADMAP A.6 ported (mp4, --save_depth,
-    Phototourism) run, and those A.7 ported (--optimize_appearance,
-    --refine_pose) give the JAX eval.py's PSNR within 1e-3;
+  * without the device request and without a card both entry points raise;
+    eval's options that ROADMAP A.6 ported (mp4, --save_depth,
+    Phototourism) run, and those A.7 and A.8 ported (--optimize_appearance,
+    --refine_pose, --num_gpus 2: two ranks over gloo) give the JAX
+    eval.py's PSNR within 1e-3 (the JAX one over a mesh of 2 devices);
+  * the train CLI with --num_gpus 2 --steps_per_execution 3 (two ranks,
+    each a K-step of 3 sub-steps around its all-reduce) against one
+    process: the same steps, the weights within 5e-4, as
+    tests/test_end_to_end.py::test_multichip_cli_train runs the JAX one;
   * train and eval on tiny Phototourism (its ray cache from
     ``prepare_phototourism``, host-fed groups of 2 sub-steps) and LLFF
     (the device pool) scenes, with --save_depth and --video_format mp4:
@@ -137,6 +141,40 @@ def test_cli_train_and_eval_run_on_the_cpu(scene_and_jax_ckpt, tmp_path):
     assert sorted(os.listdir(res)) == ["000.png", "001.png", "cli.gif"]
 
 
+def test_train_cli_num_gpus_2_steps_per_execution_3(scene_and_jax_ckpt,
+                                                     tmp_path, monkeypatch):
+    """``python -m nerf_fl_torch.train --num_gpus 2 --steps_per_execution
+    3`` on the CPU: two ranks over gloo train the device pool in K-steps
+    of 3 (each sub-step's all-reduce between its two halves), as the JAX
+    CLI's mesh of 2 does (tests/test_end_to_end.py::test_multichip_cli_
+    train); its checkpoint, written by rank 0 alone, holds a whole epoch of
+    steps and the weights of one process's run within 5e-4, the limit of
+    tests/test_multihost.py."""
+    from nerf_fl_torch.training import checkpoints
+    scene, _ = scene_and_jax_ckpt
+    argv = ["--root_dir", scene, *MODEL, "--batch_size", "256",
+            "--num_epochs", "1", "--noise_std", "0", "--refresh_every", "0",
+            "--steps_per_execution", "3", "--save_path", "ckpts"]
+    out = _run("nerf_fl_torch.train", argv + [
+        "--num_gpus", "2", "--exp_name", "dp2"], tmp_path,
+        {"NERF_FL_TORCH_DEVICE": "cpu", "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("val/psnr=") == 2          # one line a rank
+    monkeypatch.chdir(tmp_path)
+    torch.set_num_threads(1)
+    one = ttrain.main(topt.get_opts(argv + ["--exp_name", "one"]),
+                      device="cpu")
+    dp = checkpoints.load_checkpoint(str(tmp_path / "ckpts" / "dp2"
+                                         / "epoch=0.ckpt"))
+    assert dp["global_step"] == one.global_step \
+        == one.batcher.steps_per_epoch() == 18
+    for key in ("nerf_coarse", "nerf_fine"):
+        for name, p in one.params[key].named_parameters():
+            np.testing.assert_allclose(dp["state_dict"][key][name].numpy(),
+                                       p.detach().numpy(), atol=5e-4,
+                                       err_msg=f"{key}.{name}")
+
+
 def test_eval_of_a_jax_checkpoint_matches_jax_eval(scene_and_jax_ckpt,
                                                    tmp_path, monkeypatch,
                                                    capsys):
@@ -214,25 +252,21 @@ def refined_jax_ckpt(scene_and_jax_ckpt, tmp_path_factory):
 def test_eval_refuses_unported_options(scene_and_jax_ckpt, tour_scene,
                                        refined_jax_ckpt, tmp_path,
                                        monkeypatch, capsys, flag, item):
-    """The options of A.8 raise with their item; those of A.6 are ported
-    and run: mp4 falls back to the GIF with the JAX CLI's line,
-    --save_depth writes a PFM a frame, Phototourism evaluates.  Those of
-    A.7 are ported and give the JAX eval.py's PSNR within 1e-3:
-    --optimize_appearance (each frame's [opt_a] line as JAX prints it, the
-    PSNR of the right halves) and --refine_pose on test_train from a
-    checkpoint with learned poses at epoch 5."""
+    """The options of A.6 are ported and run: mp4 falls back to the GIF
+    with the JAX CLI's line, --save_depth writes a PFM a frame,
+    Phototourism evaluates.  Those of A.7 and A.8 are ported and give the
+    JAX eval.py's PSNR within 1e-3: --optimize_appearance (each frame's
+    [opt_a] line as JAX prints it, the PSNR of the right halves),
+    --refine_pose on test_train from a checkpoint with learned poses at
+    epoch 5, and --num_gpus 2 (two ranks, each rendering its half of every
+    chunk; JAX's mesh of 2 devices), whose rank 0 alone writes."""
     scene, jax_ckpt = scene_and_jax_ckpt
     root = tour_scene if "phototourism" in flag else scene
     ckpt = refined_jax_ckpt if "--refine_pose" in flag else jax_ckpt
     args = teval.get_opts(["--root_dir", root, *MODEL, "--ckpt_path",
                            ckpt, "--scene_name", "s", "--chunk", "4096"]
                           + flag)
-    if item == "A.8":
-        with pytest.raises(NotImplementedError,
-                           match=f"not ported yet.*{item}"):
-            teval.main(args, device="cpu")
-        return
-    if item == "A.7":
+    if item in ("A.7", "A.8"):
         os.makedirs(tmp_path / "j")
         os.makedirs(tmp_path / "t")
         monkeypatch.chdir(tmp_path / "j")
@@ -248,6 +282,10 @@ def test_eval_refuses_unported_options(scene_and_jax_ckpt, tour_scene,
         fits = [x for x in jout.splitlines() if x.startswith("[opt_a]")]
         assert fits == [x for x in tout.splitlines()
                         if x.startswith("[opt_a]")]
+        if item == "A.8":
+            # the ranks' own prints go to the job's file descriptors
+            assert sorted(os.listdir(tmp_path / "t" / "results" / "blender"
+                                     / "s")) == ["000.png", "s.gif"]
         if "--optimize_appearance" in flag:
             assert len(fits) == len(stats["psnr"]) \
                 == len(stats["opt_a_losses"]) >= 1

@@ -70,6 +70,8 @@ PORT_MODULES = {
     "nerf_fl_torch.notebooks.test_phototourism",
     "nerf_fl_torch.notebooks.render_decomposition",
     "nerf_fl_torch.notebooks.appearance_interpolation",
+    "nerf_fl_torch.parallel", "nerf_fl_torch.parallel.mesh",
+    "nerf_fl_torch.parallel.multihost", "nerf_fl_torch.parallel.launch",
 }
 
 
@@ -279,3 +281,39 @@ def test_quality_gate_arms_need_none_of_the_missing_libraries(tmp_path):
     for name in QG_ARMS:
         assert (tmp_path / "qg" / "ckpts" / name / "epoch=0.ckpt").exists()
     assert (tmp_path / "results" / "blender" / "co_nerfw_opta").is_dir()
+
+
+def test_parallel_ranks_need_none_of_the_missing_libraries(tmp_path):
+    """``--num_gpus 2`` train and eval on the CPU, whose two ranks are
+    spawned processes of their own: the blocked libraries are stand-in
+    packages on PYTHONPATH that raise on import, so the ranks inherit the
+    block (a parent's ``sys.modules`` does not reach a spawned child)."""
+    stubs = tmp_path / "stubs"
+    for name in _BLOCKED:
+        (stubs / name).mkdir(parents=True)
+        (stubs / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked')\n")
+    code = r"""
+from nerf_fl_torch.data.synthetic import make_blender_scene
+from nerf_fl_torch import eval as ev, opt, train
+make_blender_scene("scene", n_train=2, n_val=1, n_test=1, size=24)
+model = ["--root_dir", "scene", "--img_wh", "24", "24", "--N_samples", "4",
+         "--N_importance", "4", "--mlp_depth", "2", "--mlp_width", "16",
+         "--encode_a", "--encode_t", "--N_vocab", "4", "--num_gpus", "2"]
+train.main(opt.get_opts(model + ["--batch_size", "128", "--num_epochs", "1",
+                                 "--save_path", "ckpts", "--exp_name", "b",
+                                 "--refresh_every", "0",
+                                 "--steps_per_execution", "2"]),
+           device="cpu")
+psnr = ev.main(ev.get_opts(model + ["--ckpt_path", "ckpts/b/epoch=0.ckpt",
+                                    "--split", "test"]), device="cpu")
+print("PSNR", psnr)
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": f"{stubs}:{ROOT}",
+             "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "PSNR" in out.stdout and "JSONL only" in out.stdout
+    assert (tmp_path / "ckpts" / "b" / "epoch=0.ckpt").exists()

@@ -148,14 +148,17 @@ def test_resume_from_a_jax_checkpoint_matches_jax(scene, tmp_path):
 
 
 def test_unported_flags_raise(scene, tmp_path):
-    """More than one device (A.8) raises; the LLFF dataset (A.6) is
-    ported: its system sets up as JAX's does."""
-    for extra, item in ((["--num_gpus", "2"], "A.8"),
-                        (["--model_parallel", "2"], "A.8"),
-                        (["--num_hosts", "2"], "A.8")):
+    """More than one device or host (A.8, ported) needs a job of one
+    process a rank: a ``NeRFSystem`` made outside one raises and names the
+    way to start it (the train CLI starts the ranks itself,
+    tests/test_torch_entry.py and test_torch_multihost.py).  The LLFF
+    dataset (A.6) is ported: its system sets up as JAX's does."""
+    for extra in (["--num_gpus", "2"], ["--model_parallel", "2"],
+                  ["--num_hosts", "2"]):
         s = system.NeRFSystem(get_opts(_argv(scene, str(tmp_path), 1, "off")
                                        + extra), device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match="one process a rank in a "
+                           "torch.distributed job.*nerf_fl_torch.train"):
             s.setup()
     from nerf_fl_tpu.data.synthetic import make_llff_scene
     llff = str(tmp_path / "llff")
