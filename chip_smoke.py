@@ -145,7 +145,14 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      after the graph step within DP_ATOL, each rank's fused
      kernels 2 + 2 runs a sub-step, and the two-rank step timed; (c) python -m
      nerf_fl_torch.train --num_gpus <cards + 1> exits non-zero with
-     make_mesh's message.
+     make_mesh's message;
+ 14. the native COLMAP points decoder (nerf_fl_torch/csrc/colmap_fast.c,
+     host C, built with the C compiler): phase 10's scene with a
+     points3D.bin of 1,000,000 points, each with a track of 8 images,
+     decoded natively and by the pure-Python reader (every array bit for
+     bit the same, both times printed), and PhototourismDataset(
+     use_cache=False) over it (the points read natively, no fallback
+     line; the near / far stage's seconds printed).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -2463,6 +2470,101 @@ def phase_parallel(dev):
     return out
 
 
+POINTS_N = 1_000_000       # a real reconstruction's points3D.bin
+POINTS_TRACK = 8           # images that see each point
+
+
+def phase_colmap_native():
+    """The native COLMAP points decoder (``csrc/colmap_fast.c``, host C)
+    at a real reconstruction's size, in a temporary directory: build it
+    with the C compiler (no fallback to the pure-Python reader), write
+    TOUR_SCENE with a points3D.bin of POINTS_N points with tracks of
+    POINTS_TRACK images, decode it with the native and the pure-Python
+    reader (every array bit for bit the same), then build
+    ``PhototourismDataset(use_cache=False)`` over it (no fallback line;
+    every image's near plane finite and below its far).  Prints the
+    seconds of the build, the writer, both readers and the dataset's
+    stages; returns them."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    from nerf_fl_torch.data import colmap, colmap_native
+    from nerf_fl_torch.data.phototourism import PhototourismDataset
+    from nerf_fl_torch.data.synthetic import (make_phototourism_scene,
+                                              write_point_cloud)
+
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    lib = colmap_native.build()
+    if not colmap_native.native_available():
+        fail(f"the native COLMAP decoder did not load: "
+             f"{colmap_native._unavailable}")
+    out["build"] = time.perf_counter() - t0
+    here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_colmap_")
+    try:
+        os.chdir(tmp)
+        make_phototourism_scene("tour", **TOUR_SCENE)
+        sparse = os.path.join("tour", "dense", "sparse")
+        ids = sorted(colmap.read_images_binary(
+            os.path.join(sparse, "images.bin")))
+        path = os.path.join(sparse, "points3D.bin")
+        t0 = time.perf_counter()
+        write_point_cloud(path, POINTS_N, ids, POINTS_TRACK)
+        out["write"] = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        if size != 8 + POINTS_N * (51 + 8 * POINTS_TRACK):
+            fail(f"points3D.bin of {size} bytes")
+        t0 = time.perf_counter()
+        native = colmap_native.read_points3d_arrays(path, with_tracks=True)
+        out["native"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pure = colmap.read_points3d_arrays(path, with_tracks=True)
+        out["pure"] = time.perf_counter() - t0
+        same = all(a.dtype == b.dtype and a.shape == b.shape
+                   and a.tobytes() == b.tobytes()
+                   for a, b in zip(native, pure))
+        print(f"[colmap] {POINTS_N:,} points with tracks of {POINTS_TRACK} "
+              f"({size / 1e6:.1f} MB, written in {out['write']:.3f} s): "
+              f"native decoder {out['native']:.4f} s (built in "
+              f"{out['build']:.2f} s: {os.path.basename(lib)}), pure-Python "
+              f"reader {out['pure']:.3f} s ({out['pure'] / out['native']:.0f}"
+              f" x); the arrays bit for bit the same: {same}")
+        if not same or len(native.ids) != POINTS_N \
+                or native.tracks.shape != (POINTS_N * POINTS_TRACK, 2):
+            fail("the native and the pure-Python COLMAP readers disagree")
+        del native, pure
+        said = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            ds = PhototourismDataset("tour", "val", TOUR_DOWNSCALE,
+                                     use_cache=False)
+        out["dataset"] = time.perf_counter() - t0
+        out.update(ds.stage_s)
+        near = np.array([ds.nears[k] for k in ds.img_ids])
+        far = np.array([ds.fars[k] for k in ds.img_ids])
+        print(f"[colmap] PhototourismDataset(use_cache=False) over "
+              f"{len(ds.img_ids)} images and the {POINTS_N:,}-point cloud in "
+              f"{out['dataset']:.3f} s: points {ds.stage_s['points']:.4f} s, "
+              f"near / far {ds.stage_s['near_far']:.3f} s "
+              f"({ds.stage_s['near_far'] / len(ds.img_ids) * 1e3:.1f} ms an "
+              f"image); nears {near.min():.4f}-{near.max():.4f}, fars "
+              f"{far.min():.4f}-{far.max():.4f}")
+        if "[colmap]" in said.getvalue():
+            fail(f"the dataset fell back: {said.getvalue().strip()}")
+        if ds.xyz_world.shape != (POINTS_N, 3) \
+                or not np.all(np.isfinite(near) & (near > 0) & (near < far)):
+            fail("the dataset's near / far planes are not finite and ordered")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase"] = time.perf_counter() - t_phase
+    print(f"[colmap] phase 14 in {out['phase']:.1f} s")
+    return out
+
+
 def probe_block(name) -> str:
     """Which block a probe's kernel is built from, for its [probe] line;
     the Hopper-block probes and sin with what ptxas and the build report."""
@@ -2858,6 +2960,7 @@ def main() -> int:
     par = phase_parallel(dev)
     par_s = time.perf_counter() - t0
     on_par = {k: v - before_par[k] for k, v in probe_counts().items()}
+    colmap_s = phase_colmap_native()
     probes, fused_on_anatomy = phase_anatomy(dev, cfg, smi_name)
 
     def graph_line(g, i):
@@ -2956,7 +3059,7 @@ def main() -> int:
                if "parent_device_ms" in row else {})})
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all, "
           f"phase 11 {barf_s:.1f} s, phase 12 {tools_s:.1f} s, phase 13 "
-          f"{par_s:.1f} s")
+          f"{par_s:.1f} s, phase 14 {colmap_s['phase']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 The port's copy of ``nerf_fl_tpu/data/colmap.py``: each file is read once
 into memory and decoded with ``struct.unpack_from`` / ``np.frombuffer``;
 ``qvec2rotmat`` / ``rotmat2qvec``; and ``read_points3d_arrays``, the
-columnar points reader that the Phototourism dataset uses (the pure-Python
-path of ``nerf_fl_tpu/data/colmap_native.py``; its native C decoder is not
-ported).
+pure-Python columnar points reader (``nerf_fl_tpu/data/colmap_native.py``'s
+``_python_fallback``), the reference of the C decoder in
+``colmap_native.py`` and its path where no C compiler is found.
 """
 from __future__ import annotations
 
@@ -204,10 +204,19 @@ class Points3DArrays(NamedTuple):
 
 def read_points3d_arrays(path: str, *, with_tracks: bool = False
                          ) -> Points3DArrays:
-    """Columnar points3D.bin decode: ids, xyz, rgb, error, track lengths
-    and (with ``with_tracks``) the (image id, point2D index) pairs."""
+    """Columnar points3D.bin decode in Python: ids, xyz, rgb, error, track
+    lengths and (with ``with_tracks``) the (image id, point2D index)
+    pairs."""
     with open(path, "rb") as f:
-        buf = f.read()
+        return points3d_from_bytes(f.read(), with_tracks, path)
+
+
+def points3d_from_bytes(buf: bytes, with_tracks: bool = False,
+                        path: str = "<bytes>") -> Points3DArrays:
+    """``read_points3d_arrays`` of a file's bytes.  A truncated stream
+    raises ``ValueError``, as the C decoder's reader does."""
+    if len(buf) < 8:
+        raise ValueError(f"corrupt points3D file: {path}")
     (n,) = struct.unpack_from("<Q", buf, 0)
     off = 8
     ids = np.empty(n, np.int64)
@@ -218,6 +227,8 @@ def read_points3d_arrays(path: str, *, with_tracks: bool = False
     track_chunks = []
     head = struct.Struct("<QdddBBBd")
     for i in range(n):
+        if off + 51 > len(buf):
+            raise ValueError(f"corrupt points3D file: {path}")
         pid, x, y, z, r, g, b, err = head.unpack_from(buf, off)
         ids[i] = pid
         xyz[i] = (x, y, z)
@@ -226,6 +237,8 @@ def read_points3d_arrays(path: str, *, with_tracks: bool = False
         (tl,) = struct.unpack_from("<Q", buf, off + 43)
         track_len[i] = tl
         off += 51
+        if off + 8 * tl > len(buf):
+            raise ValueError(f"corrupt points3D file: {path}")
         if with_tracks:
             track_chunks.append(np.frombuffer(buf, "<i4", 2 * tl, off))
         off += 8 * tl

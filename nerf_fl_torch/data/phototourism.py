@@ -11,7 +11,11 @@ PIL or pandas:
   * w2c -> c2w in one batched inverse, with the "right down front" ->
     "right up back" flip;
   * per-image near / far from the 0.1 / 99.9 percentiles of the points in
-    front of the camera, rescaled so that the largest far plane is 5;
+    front of the camera, rescaled so that the largest far plane is 5; the
+    points are read by the native decoder (``colmap_native``, the pure-Python
+    reader where no C compiler is found), and ``stage_s`` keeps the host
+    seconds of that read (``points``) and of the near / far loop
+    (``near_far``);
   * train rays stored as camera-frame directions + [near, far] (``ray_format
     "camdir"``), posed on the device from the learned-pose table, with the
     image ids in an int32 ``all_ts``;
@@ -30,12 +34,13 @@ import csv
 import glob
 import os
 import pickle
+import time
 from typing import Dict, List
 
 import numpy as np
 
-from .colmap import read_cameras_binary, read_images_binary, \
-    read_points3d_arrays
+from .colmap import read_cameras_binary, read_images_binary
+from .colmap_native import read_points3d_arrays
 from .image_io import read_rgb, resize_lanczos
 from .rays_np import get_ray_directions, get_rays
 
@@ -71,6 +76,7 @@ class PhototourismDataset:
         self.val_num = max(1, val_num)
         self.use_cache = use_cache
         self.ray_format = "camdir"  # pose composed on the device
+        self.stage_s: Dict[str, float] = {}
         self.read_meta()
         self.white_back = False
 
@@ -145,9 +151,11 @@ class PhototourismDataset:
             self.nears = self._load("nears.pkl")
             self.fars = self._load("fars.pkl")
         else:
+            t0 = time.perf_counter()
             self.xyz_world = read_points3d_arrays(
                 os.path.join(self.root_dir,
                              "dense/sparse/points3D.bin")).xyz
+            t1 = time.perf_counter()
             xyz_h = np.concatenate(
                 [self.xyz_world, np.ones((len(self.xyz_world), 1))], -1)
             self.nears, self.fars = {}, {}
@@ -164,6 +172,8 @@ class PhototourismDataset:
             for k in self.fars:
                 self.fars[k] /= scale
             self.xyz_world /= scale
+            self.stage_s = {"points": t1 - t0,
+                            "near_far": time.perf_counter() - t1}
 
         self.poses_dict = {id_: self.poses[i]
                            for i, id_ in enumerate(self.img_ids)}

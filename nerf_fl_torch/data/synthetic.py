@@ -160,6 +160,56 @@ def write_points3d_binary(points: dict, path: str) -> None:
                 f.write(struct.pack("<ii", im, p2))
 
 
+_POINT_HEAD = np.dtype([("id", "<u8"), ("xyz", "<f8", (3,)),
+                        ("rgb", "u1", (3,)), ("error", "<f8"),
+                        ("track_len", "<u8")])      # packed: 51 bytes
+
+
+def write_points3d_arrays(path: str, xyz: np.ndarray, rgb: np.ndarray,
+                          error: np.ndarray, track_len: np.ndarray,
+                          tracks: np.ndarray, ids=None) -> None:
+    """points3D.bin from columns, the bytes ``write_points3d_binary``
+    writes for the same points: ``xyz`` (n, 3), ``rgb`` (n, 3), ``error``
+    (n,), ``track_len`` (n,), ``tracks`` (sum(track_len), 2) (image id,
+    point2D index) pairs in point order, ``ids`` (n,) (default 1..n).  Each
+    record is 43 + 8 + 8 * track_len bytes, laid out with numpy, so a
+    million points take well under a second."""
+    track_len = np.asarray(track_len, np.int64)
+    n = len(track_len)
+    head = np.empty(n, _POINT_HEAD)
+    head["id"] = np.arange(1, n + 1) if ids is None else ids
+    head["xyz"], head["rgb"] = xyz, rgb
+    head["error"], head["track_len"] = error, track_len
+    body = np.ascontiguousarray(tracks, "<i4").view(np.uint8)
+    if body.size != 8 * int(track_len.sum()):
+        raise ValueError("tracks must hold sum(track_len) pairs")
+    # each record: its 51 header bytes, then its 8 * track_len track bytes
+    runs = np.stack([np.full(n, _POINT_HEAD.itemsize), 8 * track_len], 1)
+    is_head = np.repeat(np.tile([True, False], n), runs.ravel())
+    out = np.empty(is_head.size, np.uint8)
+    out[is_head] = head.view(np.uint8)
+    out[~is_head] = body.ravel()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", n))
+        out.tofile(f)
+
+
+def write_point_cloud(path: str, n: int, image_ids, track_len: int = 8,
+                      seed: int = 0) -> None:
+    """A reconstruction-sized points3D.bin: ``n`` points around the origin
+    (``make_phototourism_scene``'s N(0, 0.5) cloud), each seen in
+    ``track_len`` of ``image_ids`` at random point2D indices."""
+    rng = np.random.default_rng(seed)
+    image_ids = np.asarray(image_ids, np.int32)
+    tracks = np.stack([
+        image_ids[rng.integers(0, len(image_ids), n * track_len)],
+        rng.integers(0, 10_000, n * track_len, dtype=np.int32)], 1)
+    write_points3d_arrays(path, rng.normal(0, 0.5, (n, 3)),
+                          rng.integers(0, 256, (n, 3)),
+                          rng.random(n) * 2.0, np.full(n, track_len),
+                          tracks)
+
+
 def make_phototourism_scene(root: str, n_images: int = 5, size: int = 32,
                             n_points: int = 200, seed: int = 0,
                             sizes=None) -> None:

@@ -3,7 +3,8 @@ plain control, move with the seed and with the initial weights.
 
     python -m nerf_fl_torch.experiments.quality_seeds --preset full \\
         --arms color_nerf color_nerfa --seeds 1 2 [--init_dir DIR] \\
-        [--compute_dtype float32] [--round_grads] --workdir DIR [--jobs 2]
+        [--compute_dtype float32] [--round_grads] \\
+        [--train_flag "--use_pallas off"] --workdir DIR [--jobs 2]
 
 Each (seed, arm) trains through ``python -m nerf_fl_torch.train`` with the
 gate's recipe (``tools/quality_gate.py``'s ``train_argv``) and ``--seed
@@ -23,8 +24,11 @@ bf16 (all but the f32 heads), and each ray's appearance and transient
 embedding cotangents before they are summed into the tables.  It is an
 experiment only: the children run ``train_rounded``, which patches the
 fused path in their own process and then runs ``nerf_fl_torch.train``.
-Runs resume as the gate's do.  The last line is one JSON object: the test
-PSNR by run and arm, and each run's margins of ``color_nerfa`` over
+``--train_flag "FLAGS"`` (repeatable) appends FLAGS to every arm's
+training command line, and only to it: ``--use_pallas off`` trains on the
+plain MLP path while eval scores with the gate's own flags.  Runs resume
+as the gate's do.  The last line is one JSON object: the test PSNR by run
+and arm, and each run's margins of ``color_nerfa`` over
 ``color_nerf`` and ``occ_nerfu`` over ``occ_nerf`` where both arms ran.
 """
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shlex
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -91,18 +96,20 @@ def train_rounded(argv) -> None:
     train.main(get_opts(argv))
 
 
-def run_arm(ws, scene, p, arm, seed, init, timeout, round_grads=False):
+def run_arm(ws, scene, p, arm, seed, init, timeout, round_grads=False,
+            train_flags=()):
     """Train (unless done) and score one arm; its test PSNR."""
     name, perturb, flags = arm
     logs = os.path.join(ws, "logs")
     os.makedirs(logs, exist_ok=True)
     if not os.path.exists(qg.final_ckpt(ws, p, name)):
         argv = qg.train_argv(ws, scene, p, name, perturb, flags) + [
-            "--seed", str(seed)]
+            "--seed", str(seed)] + list(train_flags)
         if init:
             argv += ["--ckpt_path", os.path.join(init, f"{name}.ckpt")]
         qg.log(f"train {name} (seed {seed}{', init ' + init if init else ''}"
-               f"{', rounded grads' if round_grads else ''})")
+               f"{', rounded grads' if round_grads else ''}"
+               f"{', ' + ' '.join(train_flags) if train_flags else ''})")
         module = ["nerf_fl_torch.experiments.quality_seeds",
                   "--train_rounded"] if round_grads else \
             ["nerf_fl_torch.train"]
@@ -125,6 +132,9 @@ def main(argv=None):
     ap.add_argument("--compute_dtype", default=None,
                     choices=["float32", "bfloat16"])
     ap.add_argument("--round_grads", action="store_true")
+    ap.add_argument("--train_flag", action="append", default=[],
+                    help='flags appended to each training command, e.g. '
+                         '"--use_pallas off"')
     ap.add_argument("--workdir", required=True)
     ap.add_argument("--jobs", type=int, default=1)
     ap.add_argument("--arm_timeout", type=float, default=7200)
@@ -137,9 +147,11 @@ def main(argv=None):
     root = os.path.abspath(args.workdir)
     scene = qg.ensure_fixture(root, p)
     init = os.path.abspath(args.init_dir) if args.init_dir else None
+    train_flags = [t for f in args.train_flag for t in shlex.split(f)]
+    tag = "".join("_" + t.lstrip("-") for t in train_flags)
     runs = {f"seed{s}" + ("_init" if init else "")
             + (f"_{args.compute_dtype}" if args.compute_dtype else "")
-            + ("_rounded" if args.round_grads else ""): s
+            + ("_rounded" if args.round_grads else "") + tag: s
             for s in args.seeds}
     jobs = [(run, s, name) for run, s in runs.items() for name in args.arms]
 
@@ -147,7 +159,7 @@ def main(argv=None):
         run, seed, name = job
         return run, name, run_arm(os.path.join(root, run), scene, p,
                                   arms[name], seed, init, args.arm_timeout,
-                                  args.round_grads)
+                                  args.round_grads, train_flags)
 
     psnr = {run: {} for run in runs}
     with ThreadPoolExecutor(max_workers=max(1, args.jobs)) as pool:
@@ -163,7 +175,7 @@ def main(argv=None):
                                  margins[run].items()))
     out = {"preset": args.preset, "dtype": p["dtype"], "psnr": psnr,
            "margins": margins, "init_dir": init,
-           "round_grads": args.round_grads}
+           "round_grads": args.round_grads, "train_flags": train_flags}
     print(json.dumps(out))
     return out
 

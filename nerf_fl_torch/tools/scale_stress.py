@@ -14,8 +14,8 @@ pushes it through the user's pipeline:
 
 and records each stage's seconds, the peak host RSS of the train process,
 the steady train rays/s of its last progress line, the val PSNR, the
-seconds the port's pure-Python COLMAP reader takes for the scene's three
-binaries and the seconds its JPEG decoder takes an image (a sample of
+seconds the port's COLMAP readers take for the scene's three binaries
+(points3D.bin through the native decoder, ``data/colmap_native.py``) and the seconds its JPEG decoder takes an image (a sample of
 ``DECODE_SAMPLE`` images) into SCALE_STRESS.json in the workdir.
 
 Presets:
@@ -96,10 +96,11 @@ def host_reads(root):
     """(seconds of the COLMAP reader over the scene's three binaries,
     seconds of the JPEG decoder an image, images decoded): the first
     DECODE_SAMPLE images by name."""
-    from ..data.colmap import (read_cameras_binary, read_images_binary,
-                               read_points3d_arrays)
+    from ..data.colmap import read_cameras_binary, read_images_binary
+    from ..data.colmap_native import native_available, read_points3d_arrays
     from ..data.jpeg import read_jpeg
     sparse = os.path.join(root, "dense", "sparse")
+    native_available()      # a first use builds the decoder: not timed
     t0 = time.perf_counter()
     read_cameras_binary(os.path.join(sparse, "cameras.bin"))
     images = read_images_binary(os.path.join(sparse, "images.bin"))

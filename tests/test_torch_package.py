@@ -35,6 +35,8 @@ PORT_MODULES = {
     "nerf_fl_torch.data.jpeg", "nerf_fl_torch.data.pfm",
     "nerf_fl_torch.data.llff", "nerf_fl_torch.data.colmap",
     "nerf_fl_torch.data.phototourism", "nerf_fl_torch.prepare_phototourism",
+    "nerf_fl_torch.data.colmap_native", "nerf_fl_torch.tools.build_native",
+    "nerf_fl_torch.experiments.appearance_codes",
     "nerf_fl_torch.core.lie", "nerf_fl_torch.models.poses",
     "nerf_fl_torch.eval", "nerf_fl_torch.opt", "nerf_fl_torch.train",
     "nerf_fl_torch.utils", "nerf_fl_torch.utils.cli",
@@ -169,8 +171,12 @@ for extra in (barf + ["--split", "test_train"],
         "--ckpt_path", "ckpts/barf/epoch=0.ckpt", "--scene_name", "barf"]),
         device="cpu")
 from nerf_fl_torch import prepare_phototourism as prep
+from nerf_fl_torch.data import colmap_native
 from nerf_fl_torch.data.synthetic import (make_llff_scene,
                                           make_phototourism_scene)
+from nerf_fl_torch.tools import build_native
+build_native.main([])
+assert colmap_native.native_available()
 make_phototourism_scene("tour", n_images=3, sizes=[20, 16], n_points=60)
 prep.main(prep.get_opts(["--root_dir", "tour", "--img_downscale", "2"]))
 make_llff_scene("llff", n_images=3)
@@ -235,9 +241,10 @@ def test_train_and_eval_need_none_of_the_missing_libraries(tmp_path):
     """Train and eval (Blender, Blender with BARF pose refinement on noisy
     poses and its eval with --refine_pose and with --optimize_appearance,
     then Phototourism from the ray cache that prepare_phototourism writes,
-    then LLFF, with --save_depth and mp4), the tools gen_nerf_tsv and
-    save_weights_only, and a notebook (the Phototourism PSNR regression)
-    on the CPU in a process where PIL, pandas, imageio, cv2, flax,
+    then LLFF, with --save_depth and mp4), the tools build_native (the
+    COLMAP decoder that the Phototourism dataset then reads through),
+    gen_nerf_tsv and save_weights_only, and a notebook (the Phototourism
+    PSNR regression) on the CPU in a process where PIL, pandas, imageio, cv2, flax,
     msgpack, tensorboard, jax and the JAX package cannot be imported: they
     need only torch, numpy and the standard library."""
     code = f"BLOCKED = {_BLOCKED!r}\n" + _TRAIN_EVAL_BLOCKED
@@ -249,6 +256,7 @@ def test_train_and_eval_need_none_of_the_missing_libraries(tmp_path):
     assert "JSONL only" in out.stdout
     assert "[pose_noise] injected rot" in out.stdout
     assert "[opt_a] frame 0: fit mse" in out.stdout
+    assert "built " in out.stdout and "[colmap]" not in out.stdout
     assert (tmp_path / "results" / "blender" / "test" / "test.gif").exists()
     assert (tmp_path / "tour" / "cache" / "rays2.npy").exists()
     for name in ("phototourism", "llff"):
