@@ -145,7 +145,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      after the graph step within DP_ATOL, each rank's fused
      kernels 2 + 2 runs a sub-step, and the two-rank step timed; (c) python -m
      nerf_fl_torch.train --num_gpus <cards + 1> exits non-zero with
-     make_mesh's message;
+     make_mesh's message; (d) tensor parallelism: two ranks sharing the
+     card over gloo on a data 1 x model 2 mesh, the flagship (perturb 1)
+     on the plain MLP path (a sharded field runs no fused kernel: 0 runs),
+     TP_STEPS sub-steps from the device pool: at f32 with Adam the graph
+     K-step (K = TP_K, a second call with its tail masked; each sub-step
+     cut at its collectives, one graph a piece) bit for bit the same
+     ranks' eager single steps (params, Adam state, metrics), one capture
+     and TP_K - 1 replays in the first call, the cut count equal across
+     ranks; against one rank's plain-path steps each sub-step's loss
+     within DP_LOSS_RTOL, one eager step's gradient within TP_GRAD_NORM
+     and the parameters within the TP_BF16_* limits; with SGD TP_SGD_K
+     graph sub-steps within DP_ATOL of one rank's; rank 1 bit for bit rank
+     0; at bf16 the graph K-step within the TP_BF16_* limits of one
+     rank's; a TP_TILE x TP_TILE tile of phase 3's frame rendered under
+     model 2 within TP_RENDER_TOL of one rank's render; the eager and
+     graph sub-steps timed;
  14. the native COLMAP points decoder (nerf_fl_torch/csrc/colmap_fast.c,
      host C, built with the C compiler): phase 10's scene with a
      points3D.bin of 1,000,000 points, each with a track of 8 images,
@@ -230,6 +245,38 @@ N_VOCAB = 1500
 # first reading against 1e-5, on an H100 80GB HBM3, was 1.040e-05 after
 # 8 sub-steps.
 DP_K, DP_ATOL, DP_LOSS_RTOL, DP_GRAD_REL = 8, 2e-5, 1e-5, 1e-4
+# phase 13 (d): the tensor-parallel K-step, K = TP_K over TP_STEPS sub-steps
+# (two calls, the second's last three sub-steps masked).  Each TP sub-step
+# stages its 24 collectives (up to 134 MB each at batch 1024) through host
+# memory over gloo, 2.4-5 s a sub-step, so K and the sub-steps are cut to
+# keep the phase under 2 minutes (7 sub-steps took 102-122 s).  Against one rank (the same weights, batches and draws on the
+# plain MLP path): each f32 Adam sub-step's loss within DP_LOSS_RTOL, and
+# the parameters after TP_SGD_K graph sub-steps of SGD (lr TP_LR, no
+# momentum), whose update is linear in the gradient, within DP_ATOL, (b)'s
+# limits for a change of layout.  A row-parallel layer rounds its partial
+# sums apart from one rank's whole sum, so every activation moves by f32
+# rounding, which the coarse field's first layers, ill-conditioned in this
+# step (ROADMAP: JAX's f32 gradients of nerf_coarse.xyz.0-2 sit 2-3e-3
+# norm-relative off a float64 run), carry into their gradients: one eager
+# step's gradient is held to TP_GRAD_NORM of each leaf's norm, not to (b)'s
+# DP_GRAD_REL (first reading on an H100: 2.6e-4 norm-relative and 7.1e-4
+# of a leaf's largest, at nerf_coarse.xyz.0 and .5; one rank with its batch
+# rows reversed, which keeps each ray's forward, 3.4e-7).  Adam divides each
+# update by |g| + 1e-8, so a weight whose gradient sits near 1e-8 moves by
+# a fraction of lr that this rounding sets: Adam's parameters are held to
+# the bf16 limits below, not DP_ATOL (first reading: 1.1e-5 after one step,
+# 9.0e-5 after seven, the largest at a weight whose first gradient was
+# -2.1e-8).  bf16 against one rank: the limits of tests/test_torch_tp_graph.py
+# (the losses rel 1e-4; each leaf within TP_STEPS lr at most and lr / 2 on
+# average: Adam moves a weight whose gradient sits near its eps by up to lr
+# a step either way where a rounding flips the gradient's sign).  The tile
+# against one rank's render: the limit of that file's render test (f32, the
+# row-parallel sums in another order)
+TP_GRAD_NORM = 1e-3
+TP_K, TP_STEPS, TP_SGD_K, TP_LR = 4, 5, 4, 5e-4
+TP_BF16_LOSS_RTOL, TP_BF16_MEAN, TP_BF16_MAX = 1e-4, TP_LR / 2, \
+    TP_STEPS * TP_LR
+TP_TILE, TP_RENDER_TOL = 32, 1e-5
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, HBM B/s
 PEAKS = {"H100 SXM": (989e12, 3.35e12), "H100 PCIe": (756e12, 2.0e12),
@@ -2310,6 +2357,265 @@ def _dp_rank(device, k):
     return out
 
 
+def _sgd(params):
+    from types import SimpleNamespace
+    from nerf_fl_torch.training import optimizers
+    return optimizers.build_optimizer(
+        SimpleNamespace(optimizer="sgd", lr=TP_LR, weight_decay=0.0,
+                        momentum=0.0),
+        optimizers.trainable_parameters(
+            params, optimizers.make_trainable_mask(params, False)))
+
+
+def _tp_rank(device):
+    """Phase 13 (d), one rank of two sharing the card over gloo on a data 1
+    x model 2 mesh: with Adam the f32 eager steps and graph K-step and the
+    bf16 graph K-step, with SGD an f32 graph K-step, and a tile's render
+    (see the module docstring); rank 0 also runs one rank's plain-path
+    steps and render from the same weights."""
+    import copy
+    import dataclasses
+    import torch
+    from nerf_fl_torch.ops import fused_mlp as fm
+    from nerf_fl_torch.parallel import make_mesh, multihost, place_params
+    from nerf_fl_torch.parallel.mesh import (_shard_dim, param_shardings,
+                                             whole_params)
+    from nerf_fl_torch.render import RenderConfig
+    from nerf_fl_torch.training import (build_params, epoch_perm,
+                                        make_device_pool_step, optimizers,
+                                        render_chunked)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, 2, devices=multihost.job_devices(device))
+    perm = torch.from_numpy(epoch_perm(0, 0, POOL, POOL)).to(device)
+    out = {"rank": mesh.rank, "backend": mesh.backend}
+
+    def rows(m, n):
+        return torch.stack([m[k][:n] for k in sorted(m)], 1).cpu()
+
+    def whole_grads(p, m):
+        """Each leaf's gradient after a step, gathered whole under ``m``."""
+        specs = {} if m is None else param_shardings(m, p, True)
+        got = []
+        for name, q in optimizers.named_leaves(p):
+            g = torch.zeros_like(q) if q.grad is None else q.grad.detach()
+            dim = _shard_dim(specs.get(name, ()))
+            got.append((g if dim is None else m.model.all_gather(g, dim))
+                       .cpu())
+        return got
+
+    def train(cfg, params, steps, m, n_steps=TP_STEPS, make_opt=_adam):
+        """n_steps sub-steps, one a call (steps 1) or K a call; the params
+        and optimizer state (whole), the metric rows, the ms a sub-step,
+        the graph's counts, and after a first single step its gradient."""
+        p = copy.deepcopy(params)
+        opt = make_opt(p)
+        if m is not None:
+            place_params(m, p, True, opt)
+        run = make_device_pool_step(cfg, opt, batch_size=BATCH,
+                                    steps_per_execution=steps, mesh=m)
+        gen = torch.Generator(device=device).manual_seed(7)
+        res = {"rows": [], "ms": [], "replays": []}
+        for i0 in range(0, n_steps, steps):
+            n = min(steps, n_steps - i0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if steps == 1:
+                got = {k: v[None] for k, v in run(
+                    p, pool, perm, i0, TP_LR, generator=gen).items()}
+            else:
+                got = run(p, pool, perm, i0, n_steps, TP_LR, generator=gen)
+            torch.cuda.synchronize()
+            res["ms"].append((time.perf_counter() - t) * 1e3 / n)
+            res["rows"].append(rows(got, n))
+            res["names"] = sorted(got)
+            if steps == 1 and i0 == 0:
+                res["grads"] = whole_grads(p, m)
+            if steps > 1:
+                res["replays"].append(run.graph.replays)
+                if any(bool(v[n:].isfinite().any()) for v in got.values()):
+                    fail("a masked TP sub-step wrote a metric row")
+        res["rows"] = torch.cat(res["rows"])
+        with whole_params(m, p, opt, m is not None):
+            res["state"] = _dp_state(p, opt)
+        if steps > 1:
+            res["captures"] = run.graph.captures
+            pieces = run.graph.pieces
+            if m is not None:
+                res["cuts"] = len(pieces.plan)
+                res["digest"] = pieces.digest()
+        return res
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = RenderConfig(**{**FLAGSHIP, "perturb": 1.0,
+                              "compute_dtype": dtype})
+        plain = dataclasses.replace(cfg, use_fused=False)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = build_params(cfg, N_VOCAB, generator=gen, device=device)
+        pool = train_pool(device, gen)
+        runs0 = fm.kernel_runs(device)
+        graph = train(cfg, params, TP_K, mesh)
+        graph["runs"] = tuple(b - a for a, b in
+                              zip(runs0, fm.kernel_runs(device)))
+        out[dtype] = {"graph": graph}
+        if mesh.rank == 0:
+            out[dtype]["one_rank"] = train(plain, params, TP_K, None)
+        if dtype == "bfloat16":
+            del params, pool
+            torch.cuda.empty_cache()
+            continue
+        out[dtype]["eager"] = train(cfg, params, 1, mesh)
+        out[dtype]["sgd"] = train(cfg, params, TP_SGD_K, mesh,
+                                  TP_SGD_K, _sgd)
+        if mesh.rank == 0:
+            out[dtype]["one_rank_step"] = train(plain, params, 1, None, 1)
+            out[dtype]["one_rank_sgd"] = train(plain, params, TP_SGD_K,
+                                               None, TP_SGD_K, _sgd)
+        # the tile: TP_TILE x TP_TILE rays at the middle of phase 3's
+        # frame, at test time, from the seed-0 weights
+        rays, ts = frame_rays(device)
+        at = torch.arange(TP_TILE, device=device)
+        lo = (IMG - TP_TILE) // 2
+        idx = ((lo + at)[:, None] * IMG + lo + at[None, :]).reshape(-1)
+        rays, ts = rays[idx], ts[idx]
+        tp = copy.deepcopy(params)
+        place_params(mesh, tp, True)
+        t = time.perf_counter()
+        out["render"] = render_chunked(
+            tp, rays, ts, cfg, mesh=mesh,
+            generator=torch.Generator(device=device).manual_seed(5))
+        out["render_s"] = time.perf_counter() - t
+        if mesh.rank == 0:
+            out["render_one"] = render_chunked(
+                params, rays, ts, plain,
+                generator=torch.Generator(device=device).manual_seed(5))
+        del params, pool, tp
+        torch.cuda.empty_cache()
+    return out
+
+
+def _state_diff(a, b) -> float:
+    """Max |a - b| over two ``_dp_state`` results (params and Adam
+    state)."""
+    (pa, sa), (pb, sb) = a, b
+    if len(pa) != len(pb) or len(sa) != len(sb):
+        fail("TP states of different shapes")
+    worst = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
+    for x, y in zip(sa, sb):
+        if x.keys() != y.keys():
+            fail("TP Adam states with other keys")
+        worst = max([worst] + [float((x[k].float() - y[k].float()).abs()
+                                     .max()) for k in x])
+    return worst
+
+
+def phase_tp(dev):
+    """Phase 13 (d): the tensor-parallel K-step and render on one card
+    (see the module docstring).  Returns the times and the cut count."""
+    import numpy as np
+    from nerf_fl_torch.parallel import launch
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_tp_rank, (), devices=[dev, dev], timeout=900)
+    r0, r1 = ranks
+    f32, bf16 = r0["float32"], r0["bfloat16"]
+    g = f32["graph"]
+    loss_col = g["names"].index("train/loss")
+
+    def params_d(a, b, mean=False):
+        """The largest per-leaf max (or mean) |a - b| over the params."""
+        return max(float((x - y).abs().mean() if mean else
+                         (x - y).abs().max())
+                   for x, y in zip(a["state"][0], b["state"][0]))
+
+    def loss_rel(a, b):
+        x, y = a["rows"][:, loss_col], b["rows"][:, loss_col]
+        return float(((x - y).abs() / y.abs()).max())
+
+    graph_eager = max(_state_diff(g["state"], f32["eager"]["state"]),
+                      float((g["rows"] - f32["eager"]["rows"]).abs().max()))
+    one_loss = loss_rel(g, f32["one_rank"])
+    grad_norm = max(float((a - b).norm() / (b.norm() + 1e-30))
+                    for a, b in zip(f32["eager"]["grads"],
+                                    f32["one_rank_step"]["grads"]))
+    one = params_d(g, f32["one_rank"])
+    one_mean = params_d(g, f32["one_rank"], mean=True)
+    sgd = params_d(f32["sgd"], f32["one_rank_sgd"])
+    ranks_d = max(_state_diff(r0[d][k]["state"], r1[d][k]["state"])
+                  for d, k in (("float32", "graph"), ("float32", "sgd"),
+                               ("bfloat16", "graph")))
+    graphs = [r[d][k] for r in ranks for d, k in (
+        ("float32", "graph"), ("float32", "sgd"), ("bfloat16", "graph"))]
+    cuts = [x["cuts"] for x in graphs]
+    digests = {x["digest"] for x in graphs}
+    captures = [x["captures"] for x in graphs]
+    replays = [r[d]["graph"]["replays"] for r in ranks
+               for d in ("float32", "bfloat16")]
+    runs = [r[d]["graph"]["runs"] for r in ranks
+            for d in ("float32", "bfloat16")]
+    bg, bo = bf16["graph"], bf16["one_rank"]
+    bf_loss = loss_rel(bg, bo)
+    bf_max = params_d(bg, bo)
+    bf_mean = params_d(bg, bo, mean=True)
+    render = max(float(np.abs(r0["render"][k] - r0["render_one"][k]).max())
+                 for k in r0["render_one"])
+    render_ranks = max(float(np.abs(r0["render"][k] - r1["render"][k]).max())
+                       for k in r0["render"])
+    want_replays = [TP_K - 1, TP_K - 1 + TP_STEPS - TP_K]
+    eager_ms = f32["eager"]["ms"]
+    print(f"[parallel] (d) tensor parallel, data 1 x model 2 over "
+          f"{r0['backend']} on one card, flagship plain MLP path, {TP_STEPS} "
+          f"sub-steps (K {TP_K}, the second call's tail masked): cuts a "
+          f"sub-step by rank and run {cuts} (plan checksums "
+          f"{sorted(digests)}), captures {captures}, replays after each "
+          f"call {replays} (want {want_replays}), fused runs {runs}")
+    print(f"[parallel] (d) f32 Adam: graph K-step against the same ranks' "
+          f"eager steps max |d| {graph_eager:.3e} (params, Adam state, "
+          f"metrics; limit 0); against one rank's plain-path steps: losses "
+          f"max rel {one_loss:.3e} (limit {DP_LOSS_RTOL:g}), one eager "
+          f"step's gradient ||d|| / ||g|| by leaf at most {grad_norm:.3e} "
+          f"(limit {TP_GRAD_NORM:g}), params after {TP_STEPS} sub-steps "
+          f"max |d| "
+          f"{one:.3e}, largest leaf mean {one_mean:.3e} (limits "
+          f"{TP_BF16_MAX:g} / {TP_BF16_MEAN:g}); f32 SGD: {TP_SGD_K} graph "
+          f"sub-steps against one rank's, params max |d| {sgd:.3e} (limit "
+          f"{DP_ATOL:g}); rank 1 against rank 0 {ranks_d:.3e} (limit 0)")
+    print(f"[parallel] (d) bf16 Adam: graph K-step against one rank's: "
+          f"losses max rel {bf_loss:.3e} (limit {TP_BF16_LOSS_RTOL:g}), "
+          f"params max |d| {bf_max:.3e} (limit {TP_BF16_MAX:g}), largest "
+          f"leaf mean |d| {bf_mean:.3e} (limit {TP_BF16_MEAN:g})")
+    print(f"[parallel] (d) {TP_TILE} x {TP_TILE} tile under model 2 against "
+          f"one rank's render: max |d| {render:.3e} (limit "
+          f"{TP_RENDER_TOL:g}), rank 1 against rank 0 {render_ranks:.3e}; "
+          f"{r0['render_s']:.2f} s")
+    print(f"[parallel] (d) ms a sub-step (f32 Adam): eager "
+          f"{[round(x, 1) for x in eager_ms]}, graph by call "
+          f"{[round(x, 1) for x in g['ms']]}; bf16 graph by call "
+          f"{[round(x, 1) for x in bg['ms']]}; one rank's plain-path graph "
+          f"by call {[round(x, 2) for x in f32['one_rank']['ms']]} (f32), "
+          f"{[round(x, 2) for x in bo['ms']]} (bf16); "
+          f"{time.perf_counter() - t0:.1f} s with the spawn")
+    if graph_eager != 0.0 or ranks_d != 0.0 or render_ranks != 0.0:
+        fail("the TP graph K-step differs from the eager steps, or the "
+             "ranks differ")
+    if one_loss > DP_LOSS_RTOL or grad_norm > TP_GRAD_NORM \
+            or one > TP_BF16_MAX or one_mean > TP_BF16_MEAN \
+            or sgd > DP_ATOL:
+        fail("the f32 TP steps disagree with one rank's")
+    if len(set(cuts)) != 1 or len(digests) != 1 or cuts[0] < 2:
+        fail(f"the ranks cut the TP sub-step differently: {cuts}")
+    if any(c != 1 for c in captures) \
+            or any(r != want_replays for r in replays):
+        fail(f"TP graph K-step: captures {captures}, replays {replays}")
+    if any(r != (0, 0) for r in runs):
+        fail(f"a sharded field ran fused kernels: {runs}")
+    if bf_loss > TP_BF16_LOSS_RTOL or bf_max > TP_BF16_MAX \
+            or bf_mean > TP_BF16_MEAN:
+        fail("the bf16 TP graph K-step is out of its limits against one "
+             "rank's")
+    if render > TP_RENDER_TOL:
+        fail(f"the tile under model 2 is {render:.3e} from one rank's")
+    return {"tp_eager_ms": float(np.median(eager_ms[1:])),
+            "tp_graph_ms": g["ms"][-1], "tp_cuts": cuts[0]}
+
 def phase_parallel(dev):
     """Phase 13 (see the module docstring).  Returns the fused launches
     of (a)'s mesh call and (b)'s two ranks, and the times."""
@@ -2375,7 +2681,7 @@ def phase_parallel(dev):
             fail("the one-rank mesh graph step differs from the meshless one")
         if mr["runs"] != (2 * TIME_K, 2 * TIME_K) \
                 or mr["run"].graph.captures != 1 \
-                or mr["run"].graph.graph_b is None:
+                or len(mr["run"].graph.pieces.graphs) != 2:
             fail(f"mesh graph step: {mr['runs']} fused runs in {TIME_K} "
                  f"sub-steps, expected 2 + 2 a sub-step in one capture of "
                  f"two graphs")
@@ -2466,6 +2772,7 @@ def phase_parallel(dev):
     if res.returncode == 0 or want not in res.stderr:
         fail(f"train --num_gpus {n} did not refuse with make_mesh's "
              f"message:\n{res.stderr[-2000:]}")
+    out.update(phase_tp(dev))
     print(f"[parallel] phase 13 in {time.perf_counter() - t_phase:.1f} s")
     return out
 

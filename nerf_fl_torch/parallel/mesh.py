@@ -28,6 +28,8 @@ on a shared card every collective is staged through host memory.
 from __future__ import annotations
 
 import contextlib
+import functools
+import zlib
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -59,28 +61,55 @@ class Comm:
     where every collective is the identity.  ``staged``: the backend
     cannot take this device's tensors (gloo with CUDA), so each collective
     copies through host memory.  Sums run in f32 (a bf16 activation is
-    summed in f32 and rounded back)."""
+    summed in f32 and rounded back).  ``name`` ('data', 'model' or
+    'world') names the group in a ``Pieces`` plan.
+
+    ``all_reduce`` and ``all_gather`` write their result into a tensor
+    that exists before the collective runs (the input, or a new output
+    made first), so a step cut at its collectives can run them between the
+    captured pieces of a CUDA graph: while ``pieces`` is set
+    (``recording``), each goes to it instead of running."""
 
     def __init__(self, group, size: int, index: int, staged: bool,
-                 solo: bool = False):
+                 solo: bool = False, name: str = "world"):
         self.group, self.size, self.index, self.staged = \
             group, size, index, staged
-        self.solo = solo
+        self.solo, self.name = solo, name
+        self.pieces: Optional["Pieces"] = None
+
+    def _collective(self, name: str, run) -> None:
+        """Run a collective now (``run(None)``), or hand it to the
+        recording ``Pieces``.  A capture that no ``Pieces`` records would
+        keep the collective out of its replays: that raises."""
+        if self.pieces is not None:
+            self.pieces.cut(f"{self.name}.{name}", run)
+            return
+        if torch.cuda.is_available() \
+                and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{self.name}.{name} inside a CUDA graph capture that no "
+                f"parallel.mesh.Pieces records (recording(pieces, mesh) "
+                f"with the mesh whose groups the model's layers use)")
+        run(None)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the group, in place; returns ``t``."""
         if self.solo:
             return t
+        self._collective(f"all_reduce{tuple(t.shape)}",
+                         lambda keep: self._all_reduce(t, keep))
+        return t
+
+    def _all_reduce(self, t, keep):
         work = t.float() if t.dtype != torch.float32 else t
         if self.staged and work.is_cuda:
-            host = work.cpu()
+            host = _to_host(work, keep)
             dist.all_reduce(host, group=self.group)
             work.copy_(host)
         else:
             dist.all_reduce(work, group=self.group)
         if work is not t:
             t.copy_(work)
-        return t
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The group's tensors concatenated along ``dim`` in rank order, on
@@ -88,11 +117,19 @@ class Comm:
         if self.solo:
             return t
         src = t.detach().contiguous()
+        shape = list(src.shape)
+        shape[dim] *= self.size
+        out = torch.empty(shape, dtype=src.dtype, device=src.device)
+        self._collective(f"all_gather{tuple(src.shape)}@{dim}",
+                         lambda keep: self._all_gather(src, out, dim, keep))
+        return out
+
+    def _all_gather(self, src, out, dim, keep):
         if self.staged and src.is_cuda:
-            src = src.cpu()
+            src = _to_host(src, keep)
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
-        return torch.cat(parts, dim).to(t.device)
+        out.copy_(torch.cat(parts, dim))
 
     def broadcast(self, t: torch.Tensor, src: int) -> None:
         """``t`` from global rank ``src``, in place."""
@@ -104,6 +141,108 @@ class Comm:
             t.data.copy_(host)
         else:
             dist.broadcast(t.data, src, group=self.group)
+
+
+def _to_host(t: torch.Tensor, keep: Optional[list]) -> torch.Tensor:
+    """A host copy of ``t`` for a staged collective: a new one, or with
+    ``keep`` (a replayed cut's list) one pinned buffer, made at the cut's
+    first replay and written again at every later one."""
+    if keep is None:
+        return t.cpu()
+    if not keep:
+        keep.append(torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
+    keep[0].copy_(t)
+    return keep[0]
+
+
+# ----------------------------------------------------------------------
+# a step cut at its collectives
+# ----------------------------------------------------------------------
+
+class Pieces:
+    """One train sub-step cut at its collectives.
+
+    ``plan`` names the collectives that the sub-step ran under
+    ``recording``, in order.  On the CPU (``capture`` False) each
+    collective runs where it is called, as without the record.  On the
+    card the sub-step is captured as CUDA graphs, one a piece between two
+    collectives: ``begin`` starts the first piece's capture, a collective
+    ends the piece and starts the next one in the first one's memory pool,
+    and ``end`` ends the last, all on the stream the first began on.  A
+    collective does not run at its cut (the captured work before it has
+    not run either); it is kept, with a pinned host buffer of its own
+    where it is staged, and ``replay`` runs each piece and then its
+    collective.  The collectives write into tensors that a piece made
+    (``Comm``), the pieces read them where they lie, and a kept collective
+    holds them, so no later capture reuses their memory.
+
+    A tensor-parallel layer's backward cuts from autograd's device thread,
+    where a capture begun on the caller's thread ends, so the captures run
+    in CUDA's relaxed mode there (``relaxed``).  Every piece registers the
+    step's generator: a draw after a cut (``sample_pdf``'s) advances the
+    Philox offset at a replay as it did in the eager sub-step."""
+
+    def __init__(self, capture: bool, generator=None, relaxed=False):
+        self.capture, self.generator = capture, generator
+        self.mode = "relaxed" if relaxed else "global"
+        self.plan: List[str] = []
+        self.graphs: List[Any] = []
+        self.runs: List[Any] = []
+        self.pool = self.stream = None
+
+    def begin(self) -> None:
+        if self.stream is None:
+            self.stream = torch.cuda.current_stream()
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool,
+                                capture_error_mode=self.mode)
+        self.graphs.append(graph)
+
+    def end(self) -> None:
+        with torch.cuda.stream(self.stream):
+            self.graphs[-1].capture_end()
+        if self.pool is None:      # known once the first capture has ended
+            self.pool = self.graphs[0].pool()
+
+    def cut(self, name: str, run) -> None:
+        self.plan.append(name)
+        if not self.capture:
+            run(None)
+            return
+        self.end()
+        self.runs.append(functools.partial(run, []))
+        self.begin()
+
+    def replay(self) -> None:
+        for i, graph in enumerate(self.graphs):
+            graph.replay()
+            if i < len(self.runs):
+                self.runs[i]()
+
+    def digest(self) -> int:
+        """A checksum of ``plan`` that every process computes alike."""
+        return zlib.crc32("\n".join(self.plan).encode())
+
+
+@contextlib.contextmanager
+def recording(pieces: Pieces, mesh: Optional["Mesh"]):
+    """Inside the block, the collectives of ``mesh``'s groups cut
+    ``pieces``, from whichever thread they are called (a tensor-parallel
+    layer's backward runs on autograd's device thread).  Without a mesh
+    there is no collective to cut."""
+    comms = () if mesh is None else (mesh.data, mesh.model, mesh.world)
+    if any(c.pieces is not None for c in comms):
+        raise RuntimeError("a sub-step is already being recorded")
+    for c in comms:
+        c.pieces = pieces
+    try:
+        yield pieces
+    finally:
+        for c in comms:
+            c.pieces = None
 
 
 @dataclass(frozen=True)
@@ -199,8 +338,10 @@ def make_mesh(num_data: Optional[int] = None, num_model: int = 1,
         if rank // num_model == d:
             model_group = g
     return Mesh(num_data, num_model, rank, device, backend,
-                data=Comm(data_group, num_data, rank // num_model, staged),
-                model=Comm(model_group, num_model, rank % num_model, staged),
+                data=Comm(data_group, num_data, rank // num_model, staged,
+                          name="data"),
+                model=Comm(model_group, num_model, rank % num_model, staged,
+                           name="model"),
                 world=Comm(None, world, rank, staged))
 
 

@@ -52,6 +52,7 @@ from ..core.rays import get_rays
 from ..data.sampler import host_rows
 from ..device import resolve_device
 from ..models import init_embedding, init_learn_pose, init_nerf, pose_for
+from ..parallel import mesh as mesh_mod
 from ..render import RenderConfig, render_rays
 from .losses import loss_dict
 from .optimizers import named_leaves, set_lr
@@ -418,7 +419,7 @@ def _fresh_leaves(params: Dict[str, Any], held):
 
 class _StepGraph:
     """K sub-steps of a train step a call: on the card one sub-step
-    captured as a CUDA graph and replayed, on the CPU run eagerly.
+    captured as CUDA graphs and replayed, on the CPU run eagerly.
 
     A sub-step loads its batch through a device counter ``k`` (the
     sub-step's index in the call), runs ``body`` (zero_grad, render, loss,
@@ -436,16 +437,21 @@ class _StepGraph:
     generator, the addresses of the parameters and of whatever ``feed``
     does not copy.
 
-    Under a data mesh (``body.sync``) a sub-step is captured as two graphs
-    around its collective: the first loads the batch, renders, takes the
-    loss and the backward and packs the gradients and metric values into
-    one buffer; the all-reduce of that buffer runs between the replays,
-    uncaptured (``_GradSync.reduce``); the second unpacks it, steps the
-    optimizer and writes the metric row.  It shares the first's memory
-    pool, where the buffer and the gradients live.  The one design serves
-    NCCL and gloo (ranks sharing a card) alike.  A tensor-parallel model
-    has collectives inside its forward and backward, so its K-step on the
-    card raises.
+    Under a mesh the sub-step is cut at its collectives
+    (``parallel.mesh.Pieces``): the data all-reduce of the gradients and
+    metric values (``_GradSync.reduce``) and, under a model axis, the
+    tensor-parallel layers' all-reduces and all-gathers, in the forward and
+    in the backward.  Each piece between two collectives is a graph of its
+    own, in one memory pool; a replay runs each piece and then its
+    collective, uncaptured, on the tensors the pieces wrote.  A data mesh
+    has one cut (two graphs); data 1 x model 2 at the flagship has 24.
+    The one design serves NCCL and gloo (ranks sharing a card) alike.
+    ``pieces.plan`` names the cuts in order; after a capture every rank of
+    the job compares a checksum of its plan with the others' and the call
+    raises where they differ, before any replay could wait on a collective
+    that another rank does not run.  On the CPU the same plan is recorded
+    on the first sub-step of a new key, the collectives running where they
+    are called.
 
     Capture follows PyTorch's recipe: one eager sub-step on a side stream
     first (it initializes Adam's state, caches and libraries), then the
@@ -462,7 +468,8 @@ class _StepGraph:
 
     def __init__(self, body, optimizer: torch.optim.Optimizer, k: int):
         self.body, self.optimizer, self.K = body, optimizer, k
-        self.sync = getattr(body, "sync", None)
+        sync = getattr(body, "sync", None)
+        self.mesh = None if sync is None else sync.mesh
         self.held = [p for g in optimizer.param_groups for p in g["params"]]
         self.device = self.held[0].device
         if self.device.type == "cuda":
@@ -472,13 +479,7 @@ class _StepGraph:
                     f"steps_per_execution > 1 on the card with "
                     f"{type(optimizer).__name__} (not capturable with a "
                     f"device lr) is not ported yet")
-            if self.sync is not None and self.sync.mesh.num_model > 1:
-                raise NotImplementedError(
-                    "steps_per_execution > 1 on the card under "
-                    "--model_parallel > 1: the tensor-parallel collectives "
-                    "sit inside the forward and backward, which a graph "
-                    "step would capture (ROADMAP B.6)")
-        self.key = self.graph = self.graph_b = self.flat = None
+        self.key = self.pieces = None
         self.names = self.out = None
         self.statics: Dict[str, Any] = {}
         self.k = torch.zeros(1, dtype=torch.int64, device=self.device)
@@ -486,12 +487,14 @@ class _StepGraph:
         self.captures = self.replays = 0
         self.fused_launches = None
 
+    @property
+    def graph(self):
+        """The first captured piece (the whole sub-step without a mesh),
+        None before a capture."""
+        return None if self.pieces is None or not self.pieces.graphs \
+            else self.pieces.graphs[0]
+
     def sub_step(self, params, generator, load):
-        if self.sync is not None:
-            self.grads_half(params, generator, load)
-            self.sync.reduce(self.flat)
-            self.update_half()
-            return
         with _fresh_leaves(params, self.held) as fresh:
             m = self.body(fresh, load(self.statics, self.k), self.epoch,
                           generator)
@@ -506,18 +509,6 @@ class _StepGraph:
                              torch.stack([m[n] for n in self.names])[None])
         self.k.add_(1)
 
-    def grads_half(self, params, generator, load):
-        """A mesh sub-step up to its collective: the packed buffer."""
-        with _fresh_leaves(params, self.held) as fresh:
-            raw = self.body.grads(fresh, load(self.statics, self.k),
-                                  self.epoch, generator)
-        self.flat = self.sync.pack(raw)
-
-    def update_half(self):
-        """A mesh sub-step after its collective."""
-        self.write_row(self.body.update(self.sync.unpack(self.flat),
-                                        self.epoch))
-
     def run(self, params, lr, epoch, generator, n_valid: int, key, feed,
             load) -> Dict[str, torch.Tensor]:
         key = (key, generator,
@@ -525,7 +516,7 @@ class _StepGraph:
         fresh = key != self.key
         if fresh:
             # frees the old graphs' pool
-            self.key = self.graph = self.graph_b = self.flat = None
+            self.key = self.pieces = None
         set_lr(self.optimizer, lr)
         self.epoch.fill_(float(epoch))
         feed(self.statics, fresh)
@@ -533,18 +524,20 @@ class _StepGraph:
         if self.out is not None:
             self.out.fill_(float("nan"))
         if self.device.type != "cuda":
-            for _ in range(n_valid):
-                self.sub_step(params, generator, load)
+            for i in range(n_valid):
+                if fresh and i == 0:
+                    self.pieces = mesh_mod.Pieces(False)
+                    with mesh_mod.recording(self.pieces, self.mesh):
+                        self.sub_step(params, generator, load)
+                else:
+                    self.sub_step(params, generator, load)
         else:
             first = 0
             if fresh:
                 self._capture(params, generator, load)
                 first = 1
             for _ in range(first, n_valid):
-                self.graph.replay()
-                if self.graph_b is not None:
-                    self.sync.reduce(self.flat)
-                    self.graph_b.replay()
+                self.pieces.replay()
             self.replays += n_valid - first
         self.key = key
         res = self.out.clone()
@@ -556,9 +549,9 @@ class _StepGraph:
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             self.sub_step(params, generator, load)
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
+        pieces = mesh_mod.Pieces(
+            True, generator,
+            relaxed=self.mesh is not None and self.mesh.num_model > 1)
         before = (fm.fused_mlp_fwd_cuda.launches,
                   fm.fused_mlp_bwd_cuda.launches)
         # torch.cuda.graph's set-up (no pending work, no cached blocks that
@@ -567,27 +560,26 @@ class _StepGraph:
         # capture makes capture_end raise
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
-        graph_b = None
         with torch.cuda.stream(side):
-            graph.capture_begin()
+            pieces.begin()
             try:
-                if self.sync is None:
+                with mesh_mod.recording(pieces, self.mesh):
                     self.sub_step(params, generator, load)
-                else:
-                    self.grads_half(params, generator, load)
             finally:
-                graph.capture_end()
-            if self.sync is not None:
-                graph_b = torch.cuda.CUDAGraph()
-                graph_b.capture_begin(pool=graph.pool())
-                try:
-                    self.update_half()
-                finally:
-                    graph_b.capture_end()
+                pieces.end()
         self.fused_launches = (fm.fused_mlp_fwd_cuda.launches - before[0],
                                fm.fused_mlp_bwd_cuda.launches - before[1])
         torch.cuda.current_stream(self.device).wait_stream(side)
-        self.graph, self.graph_b = graph, graph_b
+        if self.mesh is not None:
+            here = torch.tensor([len(pieces.plan), pieces.digest()],
+                                dtype=torch.int64, device=self.device)
+            every = self.mesh.world.all_gather(here[None]).cpu()
+            if not (every == every[:1]).all():
+                raise RuntimeError(
+                    f"the ranks cut the sub-step at other collectives "
+                    f"(cuts, plan checksum by rank: {every.tolist()}); "
+                    f"this rank's plan: {pieces.plan}")
+        self.pieces = pieces
         self.captures += 1
 
 

@@ -680,10 +680,11 @@ CAMDIR_IDS = [1, 2, 5, 7]
 
 
 def _graph_case(dtype, steps, pool, loss_name="nerfw", camdir=False,
-                barf=None, optimizer=("adam", 0.0, 0.0)):
+                barf=None, optimizer=("adam", 0.0, 0.0), mesh=None):
     """``barf``: None, or BARF's schedule ("fork" / "paper"), which trains
     the pose deltas (camdir rays) at lr x 0.5 after a warmup of 1 epoch;
-    ``optimizer``: (name, weight decay, momentum)."""
+    ``optimizer``: (name, weight decay, momentum); ``mesh``: a tensor-
+    parallel mesh (``parallel.make_mesh``) whose shards this rank trains."""
     from dataclasses import replace
     from types import SimpleNamespace
     from nerf_fl_torch.training import optimizers, system
@@ -718,6 +719,10 @@ def _graph_case(dtype, steps, pool, loss_name="nerfw", camdir=False,
         kw.update(ray_format="camdir", id_to_cam=idmap)
     if barf:
         kw.update(pose_lr_mult=0.5, pose_warmup_epochs=1.0)
+    if mesh is not None:
+        from nerf_fl_torch.parallel import place_params
+        place_params(mesh, params, True, opt)
+        kw.update(mesh=mesh)
     step = system.make_device_pool_step(cfg, opt, batch_size=GRAPH_B, **kw) \
         if pool else system.make_train_step(cfg, opt, **kw)
     n = 2 * GRAPH_K * GRAPH_B
@@ -738,7 +743,7 @@ def _graph_case(dtype, steps, pool, loss_name="nerfw", camdir=False,
 
 
 def _run_graph_case(dtype, steps, pool, n_steps, camdir=False, barf=None,
-                    optimizer=("adam", 0.0, 0.0)):
+                    optimizer=("adam", 0.0, 0.0), mesh=None):
     """n_steps steps, K = 1 one by one or K at a time with the last call's
     tail masked; returns params, the optimizer's state, the loss of each
     step and the step function.  The steps of the first GRAPH_K train at
@@ -747,7 +752,7 @@ def _run_graph_case(dtype, steps, pool, n_steps, camdir=False, barf=None,
     from nerf_fl_torch.training import optimizers, system
     params, opt, step, data, gen = _graph_case(dtype, steps, pool,
                                                camdir=camdir, barf=barf,
-                                               optimizer=optimizer)
+                                               optimizer=optimizer, mesh=mesh)
     B = GRAPH_B
     perm = torch.arange(data["rays"].shape[0], dtype=torch.int32,
                         device=data["rays"].device).flip(0)
@@ -802,6 +807,48 @@ def test_graph_k_step_equals_eager_steps_on_card(dtype, pool):
         assert int(a["step"]) == int(b["step"]) == n
         assert torch.equal(a["exp_avg"], b["exp_avg"])
         assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+
+
+def _tp_graph_rank(device, dtype):
+    """One rank of two sharing the card over gloo (data 1 x model 2): seven
+    pool steps one a call, then as two K = 4 calls; this rank's shards,
+    Adam state and losses each way, and the K-step's counts and cut plan."""
+    from nerf_fl_torch.parallel import make_mesh, multihost
+    mesh = make_mesh(1, 2, devices=multihost.job_devices(device))
+    out = []
+    for steps in (1, GRAPH_K):
+        p, s, losses, step = _run_graph_case(dtype, steps, True,
+                                             2 * GRAPH_K - 1, mesh=mesh)
+        out.append(([x.cpu() for x in p],
+                    [{k: v.cpu() for k, v in st.items()} for st in s],
+                    losses.cpu()))
+    g = step.graph
+    return out, g.captures, g.replays, g.pieces.plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tp_graph_k_step_equals_eager_steps_on_card(dtype):
+    """Tensor parallelism (two ranks sharing the card over gloo): the K-step
+    captured as one graph a piece between the sub-step's collectives and
+    replayed with the collectives between the pieces, against the same
+    ranks' eager steps: shards, Adam state and losses bit for bit; one
+    capture and K - 1 replays a call; both ranks cut at the same 24
+    collectives (tests/test_torch_tp_graph.py counts them)."""
+    _card()
+    from nerf_fl_torch.parallel import launch
+    dev = torch.device("cuda", 0)
+    ranks = launch.spawn(_tp_graph_rank, (dtype,), devices=[dev, dev],
+                         timeout=600)
+    for (one, k), captures, replays, plan in ranks:
+        assert captures == 1 and replays == 2 * (GRAPH_K - 1)
+        assert torch.equal(one[2], k[2])
+        for a, b in zip(one[0], k[0]):
+            assert torch.equal(a, b)
+        for a, b in zip(one[1], k[1]):
+            assert a.keys() == b.keys()
+            assert all(torch.equal(a[n], b[n]) for n in a)
+        assert plan == ranks[0][3] and len(plan) == 24
 
 
 @pytest.mark.cuda

@@ -53,6 +53,8 @@ PORT_MODULES = {
     "nerf_fl_torch.experiments.trace_records",
     "nerf_fl_torch.experiments.barf_step",
     "nerf_fl_torch.experiments.quality_seeds",
+    "nerf_fl_torch.experiments.arm_step",
+    "nerf_fl_torch.experiments.tp_layout",
     "nerf_fl_torch.ops", "nerf_fl_torch.ops._build",
     "nerf_fl_torch.ops.anatomy", "nerf_fl_torch.ops.fused_mlp", "nerf_fl_torch.ops.sorting",
     "nerf_fl_torch.render", "nerf_fl_torch.render.renderer",
