@@ -14,19 +14,25 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   3. render a 400 x 400 Blender-style frame of the flagship NeRF-W 64+64
      model (random weights from seed 0) through render_chunked in bf16,
      count the kernel's launches, and hold the first chunk against the
-     plain MLP path, with and without the transient field;
+     plain MLP path, with and without the transient field; then the same
+     frame at f32 (the CLIs' default dtype): the f32 kernel's launches and
+     runs on the card a chunk, and its time;
   4. time the whole frame and split one frame's device time by kernel
      (torch.profiler); hold the kernel against its plain version at the
-     render chunk's 4,194,304 points and time both against its bound; the
-     [fused] line adds what the block moves and takes (rows a tile, weight
-     bytes from L2 reckoned from the plan, registers and shared memory);
+     render chunk's 4,194,304 points and time both against its bound, bf16
+     and f32 (the f32 bound: the work as three TF32 passes, beside the same
+     work on the CUDA cores); the [fused] line adds what the block moves
+     and takes (rows a tile, weight bytes from L2 reckoned from the plan,
+     registers and shared memory);
   5. hold the fused backward kernel against its plain version in the same
-     16 variants (every unpacked weight / bias grad and d_inp), and
-     require two launches to agree bit for bit;
+     16 variants (every unpacked weight / bias grad and d_inp; f32 with
+     the kernel's side of each ReLU tie, TIE_F32), and require two
+     launches to agree bit for bit;
   6. train the flagship (bf16, batch 1024, Adam 5e-4, perturb 1) from a
      device-resident pool of 2^20 rays: one f32 step's gradients through
-     the fused kernels against the plain MLP path, the kernel launches of
-     one bf16 step, TRAIN_STEPS steps whose loss must fall; the step as a
+     the fused kernels against the plain MLP path, the kernel launches and
+     runs of one f32 device-pool step (the default dtype) and the
+     launches of one bf16 step, TRAIN_STEPS steps whose loss must fall; the step as a
      CUDA graph (steps_per_execution GRAPH_K, a call with a masked tail)
      bit for bit the eager step from cloned state, 2 + 2 fused launches a
      sub-step at capture; the step time of the eager step, the graph step
@@ -34,11 +40,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      steps; one step of each by kernel, and a profiled graph call (its
      fused kernels by name, held to their runs as the kernels count them
      on the card, and its device busy share);
-  7. hold the forward and the backward kernel (bf16) against their plain
-     versions at the fine pass's 131,072 points and the coarse pass's
-     65,536, time both against their bounds and the backward against its
-     plain version, with a [fused] line each (the backward's also counts
-     the operand tiles it saves and its wgrad reads);
+  7. hold the forward and the backward kernel (bf16, then f32) against
+     their plain versions at the fine pass's 131,072 points and the coarse
+     pass's 65,536, time both against their bounds and the backward
+     against its plain version, with a [fused] line each (the backward's
+     also counts the operand tiles it saves and its wgrad reads); then the
+     `full` quality-gate arms' graph sub-step in experiments/arm_step.py's
+     four cases (bf16 and f32, fused and plain; NeRF and NeRF-A);
   8. the entry points: write a Blender scene (8 train, 1 val, 2 test
      views of 800 x 800 PNGs, nerf_fl_torch.data.synthetic), train it
      through nerf_fl_torch.train.main (400 x 400, color + occ perturbed,
@@ -203,6 +211,27 @@ RENDER_MAX, RENDER_MEAN = 5e-2, 5e-3
 # bf16 ||d|| <= 2e-2 ||ref|| (a sum near a rounding boundary flips one bf16
 # ulp of a cotangent on one side only, and every later product carries it)
 BWD_F32_REL, BWD_BF16_NORM = 1e-4, 2e-2
+# The f32 kernels take their products as 3xTF32 on the tensor cores, the
+# plain version as f32 matrix products.  Where the plain forward has a
+# hidden pre-activation within f32 rounding of zero (a tie unit) the two can
+# decide that ReLU differently (so do the same products summed in another
+# order or in float64), and the unit's whole cotangent with it: one such
+# unit moves its point's d_inp and its share of each dW by up to 4.8e-2 of
+# the tensor's largest at 70,001 points.  So the f32 backward gates feed
+# the kernel the real cotangent and hold every tensor, over every point,
+# to BWD_F32_REL against the plain backward with each tie unit on the side
+# of its ReLU that the kernel's d_inp shows (f32_ties.matched_backward; a
+# point's tie units past its third keep the plain side).  TIE_F32: the
+# plain |pre-activation| under which a unit counts as a tie.  At 1e-6
+# every gate passed on an H100 with the farthest unit taken to the other
+# side at 8.61e-7; 2e-6 is also above the largest pre-activation
+# difference of a CPU model of the kernels' products from the plain
+# version, 1.19e-6 at 8,000 points (1.67e-6 with the f32 products
+# reversed; experiments/relu_ties.py).  Phases 5 and 7 print the farthest
+# unit taken: a unit whose side barely moves d_inp may be taken either way.
+# TIE_SHARE_MAX: the most points that may have a tie unit (5.8% of them at
+# 2e-6 on the H100), so a change that crowds pre-activations onto zero fails
+TIE_F32, TIE_SHARE_MAX = 2e-6, 0.08
 # one f32 train step, fused vs plain MLP path: max |x - y| / (|y| + 1e-3)
 # per leaf, the metric and limit of tests/test_fused_mlp.py:81-86
 GRAD_REL = 2e-3
@@ -277,6 +306,7 @@ TP_K, TP_STEPS, TP_SGD_K, TP_LR = 4, 5, 4, 5e-4
 TP_BF16_LOSS_RTOL, TP_BF16_MEAN, TP_BF16_MAX = 1e-4, TP_LR / 2, \
     TP_STEPS * TP_LR
 TP_TILE, TP_RENDER_TOL = 32, 1e-5
+ARM_WINDOWS = 3                # phase 7's arm sub-steps: timing windows
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, HBM B/s
 PEAKS = {"H100 SXM": (989e12, 3.35e12), "H100 PCIe": (756e12, 2.0e12),
@@ -284,6 +314,9 @@ PEAKS = {"H100 SXM": (989e12, 3.35e12), "H100 PCIe": (756e12, 2.0e12),
 # f32 FLOP/s outside the tensor cores, same data sheets
 F32_PEAKS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H100 NVL": 60e12,
              "H200": 67e12}
+# the f32 fused kernels' products: three TF32 passes, TF32 at half the bf16
+# rate, so their rate is the bf16 peak over 6
+F32_PASS_COST = 6
 
 
 def fail(msg: str) -> None:
@@ -301,6 +334,16 @@ def peak_for(name: str):
     if "H100" in name:
         return "H100 SXM", PEAKS["H100 SXM"]
     fail(f"no published peak for {name!r}")
+
+
+def f32_bounds(flops, n_bytes, part, peak_flops, peak_bw):
+    """The f32 fused kernels' bounds (ms): the work as three TF32 passes
+    (the larger of that and its bytes: the kernel's bound, and by which),
+    and the same work on the CUDA cores."""
+    t_ops = F32_PASS_COST * flops / peak_flops * 1e3
+    t_bytes = n_bytes / peak_bw * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops / F32_PEAKS[part] * 1e3)
 
 
 def nvidia_smi() -> str:
@@ -359,39 +402,52 @@ def ptxas_info(src: str, kernel: str):
     fail(f"no ptxas report for {kernel} in csrc/{src}.cu's build log")
 
 
-def fused_line(which, n, ms, flops, bound_ms, net, transient):
-    """The [fused] line of one bf16 kernel at one shape: rate on the
-    unpadded work, share of the bound, and what the block moves and takes.
-    Bytes are reckoned from the plans, not measured."""
+def fused_line(which, n, ms, flops, bound_ms, net, transient,
+               dtype="bfloat16"):
+    """The [fused] line of one kernel at one shape: rate on the unpadded
+    work, share of the bound, and what the block moves and takes.  Bytes
+    are reckoned from the plans, not measured."""
+    import torch
     from nerf_fl_torch.ops import fused_mlp as fm
-    info = fm.kernel_block_info()
-    tiles = fm.fwd_tiles(n)
-    plan = fm.bwd_image_plan if which == "bwd" else fm.image_plan
-    image = plan(net.k0, net.kd, net.kt, transient)[1]
-    head = (f"[fused] fused_mlp_{which} bf16 at {n} points: {ms:.3f} ms, "
+    f32 = dtype == "float32"
+    info = fm.kernel_block_info(torch.float32 if f32 else torch.bfloat16)
+    tiles = fm.fwd_tiles(n, info["rows"])
+    if f32:
+        image = fm.f32_image_plan(net.k0, net.kd, net.kt, transient,
+                                  which == "bwd")[1]
+    else:
+        plan = fm.bwd_image_plan if which == "bwd" else fm.image_plan
+        image = plan(net.k0, net.kd, net.kt, transient)[1]
+    kernel = f"fused_mlp_{which}_{'f32' if f32 else 'bf16'}_kernel"
+    head = (f"[fused] fused_mlp_{which} {dtype} at {n} points: {ms:.3f} ms, "
             f"{flops / ms / 1e9:.1f} TFLOP/s on the unpadded work, "
             f"{100 * bound_ms / ms:.1f}% of bound; {info['rows']} rows a tile,"
             f" {tiles} tiles x {image} B = {tiles * image / 1e9:.3f} GB of "
             f"weight slabs from L2 to shared memory; block {info['threads']} "
             f"threads, ")
     if which == "fwd":
-        r = ptxas_info("fused_mlp_fwd", "fused_mlp_fwd_bf16_kernel")
+        r = ptxas_info("fused_mlp_fwd", kernel)
         print(head + f"{r[0]} registers a thread at launch (spill {r[1]} / "
               f"{r[2]} B), {info['fwd_smem']} B shared memory, ring of "
               f"{info['stages']} slabs")
         return
-    r = ptxas_info("fused_mlp_bwd", "fused_mlp_bwd_bf16_kernel")
-    w = ptxas_info("fused_mlp_bwd", "wgrad_kernel")
+    r = ptxas_info("fused_mlp_bwd", kernel)
+    w = ptxas_info("fused_mlp_bwd", "wgrad_f32_kernel" if f32
+                   else "wgrad_kernel")
     saved, read = fm.bwd_tile_counts(net.k0, net.kd, net.kt, transient)
-    blocks = 2 * tiles                       # 64-point row blocks
+    blocks = -(-n // 64)                     # 64-point row blocks
+    tile_kb = 16 if f32 else 8
+    slabs = -(-blocks // info["split_rows"]) if f32 \
+        else min(info["splits"], blocks)
     grad_floats = sum(x.numel() + x.shape[1] for x in net.ws)
     print(head + f"{r[0]} registers (spill {r[1]} / {r[2]} B), "
           f"{info['bwd_smem']} B shared memory; wgrad {w[0]} registers (spill "
           f"{w[1]} / {w[2]} B), {info['wgrad_smem']} B; operand tiles "
-          f"(activations and cotangents, 8 KB each): {saved} saved per 64 "
-          f"points = {saved * blocks * 8192 / 1e9:.3f} GB written, {read} read "
-          f"by the wgrad = {read * blocks * 8192 / 1e9:.3f} GB; dW partial "
-          f"slabs {min(info['splits'], blocks)} x {grad_floats * 4} B")
+          f"(activations and cotangents, {tile_kb} KB each): {saved} saved "
+          f"per 64 points = {saved * blocks * tile_kb * 1024 / 1e9:.3f} GB "
+          f"written, {read} read by the wgrad = "
+          f"{read * blocks * tile_kb * 1024 / 1e9:.3f} GB; dW partial slabs "
+          f"{slabs} x {grad_floats * 4} B")
 
 
 def make_points(n, a_dim, t_dim, gen, dev):
@@ -569,7 +625,38 @@ def phase_render(dev):
     print(f"[render] frame ms {frame_ms:.1f} (runs {[round(t, 1) for t in times]}), "
           f"rays/s {n / frame_ms * 1e3:.0f}")
     profile_frame(frame)
-    return (launches, bwd_launches), cfg
+
+    # the frame at f32, the CLIs' default dtype: the f32 kernel a chunk
+    cfg32 = replace(cfg, compute_dtype="float32")
+
+    def frame32():
+        return render_chunked(params, rays, ts, cfg32, chunk=chunk,
+                              test_time=True, keys=keys)
+
+    fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+    runs0 = fm.kernel_runs(dev)
+    out32 = frame32()
+    launches32 = fm.fused_mlp_fwd_cuda.launches
+    runs32 = fm.kernel_runs(dev)[0] - runs0[0]
+    if launches32 != expect or runs32 != expect \
+            or fm.fused_mlp_bwd_cuda.launches != 0 \
+            or not np.isfinite(out32["rgb_fine"]).all():
+        fail(f"the f32 frame: {launches32} forward launches, {runs32} runs "
+             f"on the card, {fm.fused_mlp_bwd_cuda.launches} backward; "
+             f"expected {expect}, {expect}, 0, and a finite frame")
+    times32 = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        frame32()
+        times32.append((time.perf_counter() - s) * 1e3)
+    frame32_ms = sorted(times32)[1]
+    print(f"[render] f32 frame: {launches32} forward launches ({runs32} runs "
+          f"on the card), frame ms {frame32_ms:.1f} (runs "
+          f"{[round(t, 1) for t in times32]}), rays/s "
+          f"{n / frame32_ms * 1e3:.0f}; max |rgb f32 - bf16| "
+          f"{float(np.abs(out32['rgb_fine'] - rgb).max()):.2e}")
+    return (launches, bwd_launches, launches32), cfg
 
 
 def profile_frame(frame, what="frame"):
@@ -636,6 +723,7 @@ def fused_case(dev, cfg, n, seed):
 
 def phase_timing(dev, cfg, smi_name):
     import torch
+    from dataclasses import replace
     from nerf_fl_torch.ops import fused_mlp as fm
 
     n = 32 * 1024 * (cfg.N_samples + cfg.N_importance)     # 4,194,304
@@ -672,7 +760,38 @@ def phase_timing(dev, cfg, smi_name):
           f" {flops / k_ms / 1e9:.1f} TFLOP/s achieved = "
           f"{100 * bound_ms / k_ms:.1f}% of bound")
     fused_line("fwd", n, k_ms, flops, bound_ms, net, True)
-    return k_ms, p_ms, bound_ms, bound_by, max(errs.values())
+
+    # the f32 kernel at the same shape (the CLIs' default dtype)
+    inp, net, sx, sd, kw = fused_case(dev, replace(cfg, compute_dtype=
+                                                   "float32"), n, 2)
+    with torch.no_grad():
+        errs32, faults = fwd_errors(
+            fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw),
+            fm.fused_mlp_reference(inp, net, sx, sd, **kw), True,
+            torch.float32)
+        if faults:
+            fail(f"f32 forward kernel != plain at {n} points: "
+                 + "; ".join(faults))
+        for _ in range(2):
+            fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+        f_ms, f_all = cuda_ms(lambda: fm.fused_mlp_fwd_cuda(
+            inp, net, sx, sd, **kw), 7)
+        fp_ms, fp_all = cuda_ms(lambda: fm.fused_mlp_reference(
+            inp, net, sx, sd, **kw), 5)
+    w32 = sum(w.numel() * 4 for w in net.ws) + sum(b.numel() * 4
+                                                   for b in net.bs)
+    b32, by32, core32 = f32_bounds(flops, n_bytes - w_bytes + w32, part,
+                                   peak_flops, peak_bw)
+    print(f"[timing] fused_mlp_fwd float32 at {n} points: {f_ms:.3f} "
+          f"ms/launch (runs {[round(x, 3) for x in f_all]}); plain "
+          f"{fp_ms:.3f} ms; max_abs_err {max(errs32.values()):.2e}; bound "
+          f"{b32:.3f} ms by {by32} as three TF32 passes "
+          f"({100 * b32 / f_ms:.1f}% of it), {core32:.3f} ms on the CUDA "
+          f"cores ({peak_for(smi_name)[0]} f32 peak)")
+    fused_line("fwd", n, f_ms, flops, b32, net, True, "float32")
+    return (k_ms, p_ms, bound_ms, bound_by, max(errs.values()),
+            dict(ms=f_ms, plain_ms=fp_ms, bound_ms=b32, bound_by=by32,
+                 core_ms=core32, err=max(errs32.values())))
 
 
 def bwd_errors(got, ref, a_dim, transient):
@@ -706,9 +825,37 @@ def norm_rel(errs) -> float:
     return max(e[2] / max(e[3], 1e-30) for e in errs)
 
 
+def f32_bwd_reference(got, inp, net, sx, sd, g, kw):
+    """The f32 backward gates' reference for the kernel's output ``got``:
+    the plain backward with the kernel's side of each ReLU tie
+    (f32_ties.matched_backward, TIE_F32), its stats, a fault if more than
+    TIE_SHARE_MAX of the points have a tie unit, and a note for the line."""
+    from nerf_fl_torch.ops import f32_ties
+    ref, st = f32_ties.matched_backward(got[2], inp, net, sx, sd, g,
+                                        tol=TIE_F32, **kw)
+    faults = [f"{st['tie_points']} of {st['points']} points have a tie "
+              f"unit, over {TIE_SHARE_MAX:g} of them"] \
+        if st["tie_points"] > TIE_SHARE_MAX * st["points"] else []
+    note = (f"{st['tie_points']} tie points ({st['most_ties']} tie units "
+            f"at most, {st['past_max_ties']} past {f32_ties.MAX_TIES}), "
+            f"{st['moved_points']} "
+            f"on the kernel's other side (farthest |pre| "
+            f"{st['farthest_moved']:.2e})")
+    return ref, st, faults, note
+
+
+def worst_rel(got, ref) -> float:
+    """Worst max |d| / max |ref| over the (dws, dbs, d_inp) tensors."""
+    return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(got[0] + got[1] + [got[2]],
+                               ref[0] + ref[1] + [ref[2]]))
+
+
 def phase_bwd_kernels(dev):
     """Backward kernel vs plain version in every variant, and two launches
-    bitwise equal."""
+    bitwise equal.  f32 against the plain backward with the kernel's side
+    of each ReLU tie (f32_bwd_reference); the reading against the plain
+    sides is printed beside."""
     import torch
     from nerf_fl_torch.core.encoding import barf_weights
     from nerf_fl_torch.models import NeRFConfig, init_nerf
@@ -745,6 +892,14 @@ def phase_bwd_kernels(dev):
                     name = str(dtype).split(".")[-1]
                     tag = (f"a_dim={a_dim} barf={barf} transient={transient}"
                            f" {name}")
+                    every = ""
+                    if dtype == torch.float32:
+                        plain = ref
+                        ref, _, faults, note = f32_bwd_reference(
+                            got, inp, net, sx, sd, g, kw)
+                        failures += [f"{tag}: {f}" for f in faults]
+                        every = (f"; {note}; against the plain sides "
+                                 f"{worst_rel(got, plain):.1e} (not gated)")
                     outs = got[0] + got[1] + [got[2]]
                     if not all(torch.isfinite(x).all() for x in outs):
                         failures.append(f"non-finite backward output {tag}")
@@ -759,7 +914,7 @@ def phase_bwd_kernels(dev):
                           f"/ max |ref| per leaf "
                           + " ".join(f"{r:.1e}" for r in rel[:-1])
                           + f"; d_inp {rel[-1]:.1e}; worst norm-rel "
-                          f"{norm_rel(errs):.1e}")
+                          f"{norm_rel(errs):.1e}" + every)
     if failures:
         fail("\n".join(failures))
 
@@ -821,6 +976,34 @@ def phase_train(dev):
         fail(f"fused and plain gradients disagree: {rel}")
     for _, leaf in leaves:
         leaf.grad = None
+
+    # (a') the main path at the CLIs' default dtype: counts at 0 just
+    # before one f32 device-pool step (its own Adam, a copy of the weights),
+    # read after, and the kernels' own count of their runs on the card
+    import copy
+    p32 = copy.deepcopy(params)
+    opt32 = optimizers.build_optimizer(
+        SimpleNamespace(optimizer="adam", lr=5e-4, weight_decay=0.0),
+        optimizers.trainable_parameters(
+            p32, optimizers.make_trainable_mask(p32, False)))
+    run32 = make_device_pool_step(replace(cfg, compute_dtype="float32"),
+                                  opt32, batch_size=BATCH)
+    runs0 = fm.kernel_runs(dev)
+    fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
+    m32 = run32(p32, pool, perm, 0, 5e-4, generator=gen)
+    torch.cuda.synchronize()
+    launches32 = (fm.fused_mlp_fwd_cuda.launches,
+                  fm.fused_mlp_bwd_cuda.launches)
+    runs32 = tuple(b - a for a, b in zip(runs0, fm.kernel_runs(dev)))
+    print(f"[train] one f32 step (the default --compute_dtype): fused "
+          f"forward / backward launches {launches32}, runs on the card "
+          f"{runs32} (expected 2 and 2); loss "
+          f"{float(m32['train/loss']):.4f}")
+    if launches32 != (2, 2) or runs32 != (2, 2) \
+            or not math.isfinite(float(m32["train/loss"])):
+        fail(f"an f32 train step made {launches32} fused launches and "
+             f"{runs32} runs, expected (2, 2), and a finite loss")
+    del p32, opt32, run32
 
     # (b) the main path: counts at 0 just before one bf16 step, read after
     opt = optimizers.build_optimizer(
@@ -949,7 +1132,8 @@ def phase_train(dev):
              f"sub-step, one capture")
     return launches, dict(ms=graph_ms, eager_ms=step_ms,
                           launches=graphed.graph.fused_launches,
-                          replayed=(fwd // TIME_K, bwd // TIME_K))
+                          replayed=(fwd // TIME_K, bwd // TIME_K),
+                          f32_launches=launches32)
 
 
 def graph_parity(cfg, params, pool, perm, dev):
@@ -1022,10 +1206,14 @@ def phase_bwd_timing(cfg, smi_name):
     part, (peak_flops, peak_bw) = peak_for(smi_name)
     out = {}
     gen = torch.Generator().manual_seed(4)
-    for name, n, a_dim, transient in (
-            ("fine", BATCH * (cfg.N_samples + cfg.N_importance), cfg.N_a,
-             True),
-            ("coarse", BATCH * cfg.N_samples, 0, False)):
+    for name, n, a_dim, transient, dtype in (
+            (nm, nn, ad, tr, dt) for dt in (cfg.dtype, torch.float32)
+            for nm, nn, ad, tr in (
+                ("fine", BATCH * (cfg.N_samples + cfg.N_importance),
+                 cfg.N_a, True),
+                ("coarse", BATCH * cfg.N_samples, 0, False))):
+        f32 = dtype == torch.float32
+        dname = "float32" if f32 else cfg.compute_dtype
         model = init_nerf(NeRFConfig(typ="fine", encode_appearance=a_dim > 0,
                                      encode_transient=True),
                           generator=gen).to(dev)
@@ -1034,26 +1222,37 @@ def phase_bwd_timing(cfg, smi_name):
         g = torch.zeros(n, fm.OUT_W)
         g[:, :9] = torch.randn(n, 9, generator=gen)
         g = g.to(dev)
-        net = fm.pack_weights(model, a_dim, transient, cfg.dtype,
+        net = fm.pack_weights(model, a_dim, transient, dtype,
                               cfg.N_emb_xyz, cfg.N_emb_dir, cfg.N_tau)
         sx, sd = fm.default_scale_rows(cfg.N_emb_xyz, cfg.N_emb_dir, a_dim,
                                        device=dev)
         kw = dict(n_freq_xyz=cfg.N_emb_xyz, n_freq_dir=cfg.N_emb_dir,
                   a_dim=a_dim, t_dim=cfg.N_tau if transient else 0,
-                  has_transient=transient, dtype=cfg.dtype)
+                  has_transient=transient, dtype=dtype)
         with torch.no_grad():
             f_errs, faults = fwd_errors(
                 fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw),
                 fm.fused_mlp_reference(inp, net, sx, sd, **kw), transient,
-                cfg.dtype)
-        errs = bwd_errors(fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw),
-                          fm.fused_mlp_bwd_reference(inp, net, sx, sd, g,
-                                                     **kw), a_dim, transient)
-        faults += bwd_faults(errs, cfg.dtype)
-        print(f"[bwd timing] {name}: at {n} points, fused_mlp_fwd vs plain "
-              f"max_abs_err {max(f_errs.values()):.2e}; fused_mlp_bwd vs "
-              f"plain max_abs_err {max(e[0] for e in errs):.2e}, worst "
-              f"norm-rel {norm_rel(errs):.2e} (limit {BWD_BF16_NORM:g})")
+                dtype)
+        got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+        ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+        st, limit = None, f"limit {BWD_BF16_NORM:g} norm-rel"
+        if f32:
+            plain_rel = worst_rel(got, ref)
+            ref, st, tie_faults, note = f32_bwd_reference(got, inp, net, sx,
+                                                          sd, g, kw)
+            faults += tie_faults
+            limit = (f"limit {BWD_F32_REL:g} of each tensor's largest, "
+                     f"every point, the kernel's side of each ReLU tie: "
+                     f"{note}; against the plain sides {plain_rel:.1e}")
+        errs = bwd_errors(got, ref, a_dim, transient)
+        faults += bwd_faults(errs, dtype)
+        print(f"[bwd timing] {name} {dname}: at {n} points, fused_mlp_fwd "
+              f"vs plain max_abs_err {max(f_errs.values()):.2e}; "
+              f"fused_mlp_bwd vs plain max_abs_err "
+              f"{max(e[0] for e in errs):.2e}, worst max-rel "
+              f"{max(e[0] / max(e[1], 1e-30) for e in errs):.2e}, worst "
+              f"norm-rel {norm_rel(errs):.2e} ({limit})")
         if faults:
             fail(f"kernel != plain at the {name} pass's {n} points: "
                  + "; ".join(faults))
@@ -1078,24 +1277,55 @@ def phase_bwd_timing(cfg, smi_name):
         t_ops, t_bytes = flops / peak_flops * 1e3, n_bytes / peak_bw * 1e3
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"[bwd timing] {name}: fused_mlp_bwd {cfg.compute_dtype} at {n} "
+        f_bound = flops / 3 / peak_flops * 1e3
+        core_ms = None
+        if f32:
+            bound_ms, bound_by, core_ms = f32_bounds(flops, n_bytes, part,
+                                                     peak_flops, peak_bw)
+            f_bound = F32_PASS_COST * f_bound
+        print(f"[bwd timing] {name}: fused_mlp_bwd {dname} at {n} "
               f"points: {k_ms:.3f} ms/launch (runs "
               f"{[round(x, 3) for x in k_all]}); plain {p_ms:.3f} ms (runs "
-              f"{[round(x, 3) for x in p_all]})")
-        print(f"[bwd timing] {name}: work {flops / 1e12:.3f} TFLOP, "
+              f"{[round(x, 3) for x in p_all]}); fused_mlp_fwd {f_ms:.3f} ms")
+        print(f"[bwd timing] {name} {dname}: work {flops / 1e12:.3f} TFLOP, "
               f"{n_bytes / 1e9:.3f} GB; bound {bound_ms:.3f} ms by {bound_by} "
-              f"at {part} peaks; {flops / k_ms / 1e9:.1f} TFLOP/s achieved "
-              f"= {100 * bound_ms / k_ms:.1f}% of bound")
+              f"at {part} peaks"
+              + (" as three TF32 passes" if f32 else "")
+              + f"; {flops / k_ms / 1e9:.1f} TFLOP/s achieved "
+              f"= {100 * bound_ms / k_ms:.1f}% of bound"
+              + (f"; {core_ms:.3f} ms on the CUDA cores" if f32 else ""))
         # the forward at this shape: a third of the operations; its bytes
         # are inp, out and the weights, far under its operations' time
-        fused_line("fwd", n, f_ms, flops / 3, flops / 3 / peak_flops * 1e3,
-                   net, transient)
-        fused_line("bwd", n, k_ms, flops, bound_ms, net, transient)
-        out[name] = dict(ms=k_ms, fwd_ms=f_ms, plain_ms=p_ms,
-                         bound_ms=bound_ms,
-                         bound_by=bound_by, fwd_err=max(f_errs.values()),
-                         bwd_err=max(e[0] for e in errs),
-                         bwd_norm_rel=norm_rel(errs))
+        fused_line("fwd", n, f_ms, flops / 3, f_bound, net, transient, dname)
+        fused_line("bwd", n, k_ms, flops, bound_ms, net, transient, dname)
+        key = f"{name}_f32" if f32 else name
+        out[key] = dict(ms=k_ms, fwd_ms=f_ms, plain_ms=p_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        fwd_bound_ms=f_bound, core_ms=core_ms,
+                        fwd_err=max(f_errs.values()),
+                        bwd_err=max(e[0] for e in errs),
+                        bwd_rel=max(e[0] / max(e[1], 1e-30) for e in errs),
+                        bwd_norm_rel=norm_rel(errs), ties=st)
+    return out
+
+
+def phase_arm_step():
+    """The `full` quality-gate arms' graph sub-step in the four cases of
+    nerf_fl_torch/experiments/arm_step.py (bf16 and f32, fused kernels and
+    plain MLP path; NeRF and NeRF-A), ARM_WINDOWS windows of 8 sub-steps
+    each after a capture, the median.  Timed, not gated."""
+    from nerf_fl_torch.experiments import arm_step
+    dev = __import__("torch").device("cuda", 0)
+    out = {}
+    for encode_a, arm in ((False, "color_nerf"), (True, "color_nerfa")):
+        for dtype, fused in arm_step.CASES:
+            name = f"{arm} {dtype} {'fused' if fused else 'plain'}"
+            out[name] = arm_step.sub_step_ms(dev, dtype, fused, encode_a,
+                                             ARM_WINDOWS)
+            print(f"[arm_step] {name}: {out[name]:.3f} ms a sub-step")
+    for arm in ("color_nerf", "color_nerfa"):
+        f, pl = out[f"{arm} float32 fused"], out[f"{arm} float32 plain"]
+        print(f"[arm_step] {arm}: f32 fused / f32 plain = {f / pl:.3f}")
     return out
 
 
@@ -3237,15 +3467,20 @@ def main() -> int:
         return {k: p.launches for k, p in anatomy.PROBES.items()}
 
     phase_kernels(dev)
-    (launches, bwd_render), cfg = phase_render(dev)
+    (launches, bwd_render, launches32), cfg = phase_render(dev)
     on_render = probe_counts()
-    k_ms, p_ms, bound_ms, bound_by, chunk_err = phase_timing(dev, cfg,
-                                                             smi_name)
+    k_ms, p_ms, bound_ms, bound_by, chunk_err, fwd32 = phase_timing(
+        dev, cfg, smi_name)
     phase_bwd_kernels(dev)
     (fwd_train, bwd_train), graph = phase_train(dev)
     on_train = {k: v - on_render[k] for k, v in probe_counts().items()}
     train = phase_bwd_timing(cfg, smi_name)
-    bwd = train["fine"]
+    bwd, bwd32 = train["fine"], train["fine_f32"]
+    bf16_rows = [train["fine"], train["coarse"]]
+    f32_rows = [train["fine_f32"], train["coarse_f32"]]
+    t0 = time.perf_counter()
+    arms = phase_arm_step()
+    arm_s = time.perf_counter() - t0
     before_cli = probe_counts()
     cli = phase_entry_points(graph["ms"])
     on_cli = {k: v - before_cli[k] for k, v in probe_counts().items()}
@@ -3307,7 +3542,7 @@ def main() -> int:
         "tour_train_cli_graph": graph_line(wild["tour_graph"], 0),
         "llff_train_cli_graph": graph_line(wild["llff_graph"], 0),
         "barf_train_cli_graph": graph_line(barf["barf_graph"], 0),
-        "max_abs_err": max([chunk_err] + [v["fwd_err"] for v in train.values()]),
+        "max_abs_err": max([chunk_err] + [v["fwd_err"] for v in bf16_rows]),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
         "name": "fused_mlp_bwd", "route": "cuda",
@@ -3335,11 +3570,44 @@ def main() -> int:
         "tour_train_cli_graph": graph_line(wild["tour_graph"], 1),
         "llff_train_cli_graph": graph_line(wild["llff_graph"], 1),
         "barf_train_cli_graph": graph_line(barf["barf_graph"], 1),
-        "max_abs_err": max(v["bwd_err"] for v in train.values()),
-        "max_norm_rel_err": max(v["bwd_norm_rel"] for v in train.values()),
+        "max_abs_err": max(v["bwd_err"] for v in bf16_rows),
+        "max_norm_rel_err": max(v["bwd_norm_rel"] for v in bf16_rows),
         "norm_rel_limit": BWD_BF16_NORM,
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": None}, {
+        # the f32 instances (the CLIs' default --compute_dtype): launches
+        # over the f32 frame and one f32 device-pool train step; ms at the
+        # bf16 rows' shapes; bound: three TF32 passes, beside the CUDA cores'
+        "name": "fused_mlp_fwd_f32", "route": "cuda",
+        "source": "nerf_fl_torch/csrc/fused_mlp_fwd.cu",
+        "replaces": "nerf_fl_tpu/ops/fused_mlp.py:319",
+        "launches": launches32 + graph["f32_launches"][0],
+        "launches_by_path": {"render_frame_f32": launches32,
+                             "train_step_f32": graph["f32_launches"][0]},
+        "max_abs_err": max([fwd32["err"]] + [v["fwd_err"]
+                                             for v in f32_rows]),
+        "ms": fwd32["ms"], "plain_ms": fwd32["plain_ms"],
+        "bound_ms": fwd32["bound_ms"], "bound_by": fwd32["bound_by"],
+        "bound_cuda_core_ms": fwd32["core_ms"],
+        "step_ms": {"fine": bwd32["fwd_ms"],
+                    "coarse": train["coarse_f32"]["fwd_ms"]},
+        "library_ms": None}, {
+        "name": "fused_mlp_bwd_f32", "route": "cuda",
+        "source": "nerf_fl_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "nerf_fl_tpu/ops/fused_mlp.py:359",
+        "launches": graph["f32_launches"][1],
+        "launches_by_path": {"render_frame_f32": 0,
+                             "train_step_f32": graph["f32_launches"][1]},
+        "max_abs_err": max(v["bwd_err"] for v in f32_rows),
+        "max_rel_err_ties_matched": max(v["bwd_rel"] for v in f32_rows),
+        "rel_limit": BWD_F32_REL,
+        "ties": {"fine": bwd32["ties"],
+                 "coarse": train["coarse_f32"]["ties"]},
+        "ms": bwd32["ms"], "plain_ms": bwd32["plain_ms"],
+        "bound_ms": bwd32["bound_ms"], "bound_by": bwd32["bound_by"],
+        "bound_cuda_core_ms": bwd32["core_ms"],
+        "coarse_ms": train["coarse_f32"]["ms"],
         "library_ms": None}]
     # the probes: launches from the anatomy entry points' run (their counts
     # read after the render frame and the train step are those paths')
@@ -3365,8 +3633,10 @@ def main() -> int:
             **({"parent_device_ms": row["parent_device_ms"]}
                if "parent_device_ms" in row else {})})
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s in all, "
-          f"phase 11 {barf_s:.1f} s, phase 12 {tools_s:.1f} s, phase 13 "
-          f"{par_s:.1f} s, phase 14 {colmap_s['phase']:.1f} s")
+          f"the arm sub-steps {arm_s:.1f} s, phase 11 {barf_s:.1f} s, phase "
+          f"12 {tools_s:.1f} s, phase 13 {par_s:.1f} s, phase 14 "
+          f"{colmap_s['phase']:.1f} s")
+    print("[arm_step] " + json.dumps({k: round(v, 3) for k, v in arms.items()}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

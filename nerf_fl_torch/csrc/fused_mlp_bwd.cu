@@ -23,8 +23,8 @@
 // neither its registers nor its shared memory, so the sum over points is
 // the part that has to be designed.
 //
-// The bf16 path (the train step's) is three launches built from the Hopper
-// block of fused_mlp_common.cuh:
+// The bf16 path (--compute_dtype bfloat16) is three launches built from
+// the Hopper block of fused_mlp_common.cuh:
 //   * fused_mlp_bwd_bf16_kernel: persistent blocks of 128 points (two
 //     consumer warpgroups of 64 rows, a producer thread behind a three-slab
 //     mbarrier ring, as the forward).  It recomputes the forward with the
@@ -59,17 +59,33 @@
 // Ragged N: rows past N read zero input and zero g, so they add exact
 // zeros to dW / db, and write no d_inp.
 //
-// The f32 path keeps the first design, which is exact (full-precision FMAs,
-// no TF32; every "round to the compute type" is the identity) and on no
-// main path: 64-point tiles, activations in a per-block global scratch,
-// one f32 partial slab per persistent block (N_PART), summed in block order
-// by reduce_partials.
+// The f32 path (the CLIs' default --compute_dtype) has the same three
+// launches, built from the f32 block of fused_mlp_common.cuh (fused_mlp_fwd.cu
+// says why: the products as 3xTF32, hi*hi + lo*hi + hi*lo with each operand
+// split into tf32 hi and lo parts, about 2^-21 a product; the activations
+// f32 in a thread-private layout, A from registers):
+//   * fused_mlp_bwd_f32_kernel: persistent blocks of 64 points (one
+//     consumer warpgroup, a producer thread behind a three-stage ring of
+//     the f32 backward image, hi and lo parts); the recompute runs the f32
+//     forward's functions, so activations and ReLU masks are bit for bit
+//     the forward kernel's.  Its operands are saved as 16 KB slots of 64
+//     points x 64 columns, copies of its private layout: about 97 slots x
+//     16 KB per 64 points, 3.2 GB at 131,072 points.  Shared memory 214,832
+//     bytes (96 KB activations, 4 KB heads' cotangent, 3 x 32 KB stages,
+//     13 KB biases and scale rows), 256 threads;
+//   * wgrad_f32_kernel: tf32 wgmma reads its operands K-major only, so each
+//     block's 256 threads load a step's slots (32 points, 16-byte loads a
+//     step ahead), split them and store the hi and lo K-major images of
+//     both operands themselves, two buffers of 100 KB; the products are
+//     the SS form, three passes; a block sums W_ROW_BLOCKS row blocks;
+//   * reduce_dw_tree / reduce_db_runs / reduce_db_tree: the partial slabs
+//     and the per-warp db rows summed in fixed binary trees (cascade), so
+//     that a data-parallel rank's power-of-two share of a batch sums bit
+//     for bit as one rank's whole batch does.
+// Budget and bound are the forward's: the work at 165 TFLOP/s.
 #include "fused_mlp_common.cuh"
 
 namespace {
-
-constexpr int N_PART = 132;    // partial slabs: the H100 SXM's SM count
-constexpr int BUF_W = FS_OUT;  // second buffer: fs2's cotangent is widest
 
 // Per-layer shapes of the packed weights and where their grads live in a
 // partial slab: dW (K x N) at off, db (N) at off + K * N.
@@ -100,468 +116,6 @@ Layout make_layout(int k0, int kd, int kt, int has_transient) {
   }
   L.stride = at;
   return L;
-}
-
-// Segments of a block's activation scratch, each TILE_M x width row-major
-// (ld = width).  Offsets in units of TILE_M elements.
-struct Segs {
-  int pe, h[8], xf, dtail, hd, tt, th[4], dpes, ddt, dtt, total;
-};
-
-__host__ __device__ Segs make_segs(int k0, int kd, int kt) {
-  Segs s;
-  int at = 0;
-  s.pe = at;    at += k0;
-  for (int i = 0; i < 8; ++i) { s.h[i] = at; at += W_TRUNK; }
-  s.xf = at;    at += W_TRUNK;
-  s.dtail = at; at += kd;
-  s.hd = at;    at += W_HALF;
-  s.tt = at;    at += kt;
-  for (int i = 0; i < 4; ++i) { s.th[i] = at; at += W_HALF; }
-  s.dpes = at;  at += k0;
-  s.ddt = at;   at += kd;
-  s.dtt = at;   at += kt;
-  s.total = at;
-  return s;
-}
-
-// A layer input as the wgrad reads it: columns [0, split) from p0 (ld
-// ld0), the rest from p1 (ld ld1): [pe | h3], [xyz_final | tail].
-template <typename T> struct AIn {
-  const T* p0;
-  int ld0;
-  int split;
-  const T* p1;
-  int ld1;
-};
-template <typename T> __device__ AIn<T> a_one(const T* p, int ld) {
-  return AIn<T>{p, ld, 1 << 30, p, ld};
-}
-
-// Rows [0, K) x columns [n0, n0 + cols) of the (K, N) row-major W into a
-// slab of K rows, ld KS_T + PAD_T (the slab is W^T in col-major order).
-template <typename T>
-__device__ __forceinline__ void load_slab_t(T* slab, const T* W, int N, int K,
-                                            int n0, int cols) {
-  constexpr int EPC = 16 / sizeof(T);
-  constexpr int SLD = Cfg<T>::KS_T + Cfg<T>::PAD_T;
-  const int cpr = cols / EPC;
-  const int total = K * cpr;
-  for (int c = threadIdx.x; c < total; c += THREADS) {
-    const int r = c / cpr, q = c % cpr;
-    cp_async16(slab + r * SLD + q * EPC, W + (size_t)r * N + n0 + q * EPC);
-  }
-}
-
-// dgrad: C (TILE_M x 16*nf) = G (TILE_M x N, shared, ld ldg) @ W^T with W
-// (16*nf x N) row-major in global memory, then epi(row, col, value) once
-// per element.  N is a multiple of 16, nf <= NFMAX.  slab holds
-// 2 x 16*nf x (KS_T + PAD_T) elements.  (f32 only: FMAs on the CUDA cores.)
-template <typename T, int NFMAX, typename Epi>
-__device__ void gemm_t(const T* G, int ldg, int N, const T* W, int nf,
-                       T* slab, Epi epi) {
-  constexpr int KS = Cfg<T>::KS_T;
-  constexpr int SLD = KS + Cfg<T>::PAD_T;
-  const int K = 16 * nf;
-  const int nslab = (N + KS - 1) / KS;
-  const int tid = threadIdx.x;
-
-  load_slab_t<T>(slab, W, N, K, 0, min(KS, N));
-  cp_async_commit();
-
-  // f32: thread owns rows 4*rg..4*rg+3 and columns cg + 16*j
-  const int cg = tid & 15, rg = tid >> 4;
-  float acc[4][NFMAX];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NFMAX; ++j) acc[i][j] = 0.0f;
-
-  for (int s = 0; s < nslab; ++s) {
-    const int n0 = s * KS;
-    if (s + 1 < nslab)
-      load_slab_t<T>(slab + ((s + 1) & 1) * K * SLD, W, N, K, n0 + KS,
-                     min(KS, N - n0 - KS));
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const T* cur = slab + (s & 1) * K * SLD;
-    const int cols = min(KS, N - n0);
-    for (int kk = 0; kk < cols; ++kk) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = G[(rg * 4 + i) * ldg + n0 + kk];
-#pragma unroll
-      for (int j = 0; j < NFMAX; ++j) {
-        if (j < nf) {
-          const float b = cur[(cg + 16 * j) * SLD + kk];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NFMAX; ++j)
-      if (j < nf) epi(rg * 4 + i, cg + 16 * j, acc[i][j]);
-  __syncthreads();
-}
-
-// dgrad epilogue: the value rounded to the compute type; columns below
-// split go to lo (optionally rounded again after adding the compute-type
-// value at add, as a bf16 add), the rest to hi.
-template <typename T> struct Split {
-  T* lo;
-  int ld_lo;
-  int split;
-  T* hi;
-  int ld_hi;
-  const T* add;
-  int ld_add;
-  __device__ void operator()(int r, int c, float v) const {
-    T y = to_t<T>(v);
-    if (c < split) {
-      if (add) y = to_t<T>(to_f(y) + to_f(add[r * ld_add + c]));
-      lo[r * ld_lo + c] = y;
-    } else {
-      hi[r * ld_hi + c - split] = y;
-    }
-  }
-};
-template <typename T> __device__ Split<T> store_to(T* dst, int ld) {
-  return Split<T>{dst, ld, 1 << 30, dst, ld, nullptr, 0};
-}
-
-// Mask the cotangent G (TILE_M x N) by act > 0 (f32 compare; no mask when
-// act is null) in place and add its f32 column sums to db, in row order.
-// Rows go in batches of MB whose loads are all issued before any store:
-// the compiler may not move a load of act past a store to G.
-template <typename T>
-__device__ void mask_db(T* G, int ldg, int N, const T* act, int lda,
-                        float* db) {
-  constexpr int MB = 16;
-  for (int c = threadIdx.x; c < N; c += THREADS) {
-    float s = 0.0f;
-    for (int r0 = 0; r0 < TILE_M; r0 += MB) {
-      T v[MB];
-      bool keep[MB];
-#pragma unroll
-      for (int i = 0; i < MB; ++i) {
-        v[i] = G[(r0 + i) * ldg + c];
-        keep[i] = act == nullptr || to_f(act[(r0 + i) * lda + c]) > 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < MB; ++i) {
-        if (!keep[i]) {
-          v[i] = to_t<T>(0.0f);
-          G[(r0 + i) * ldg + c] = v[i];
-        }
-        s += to_f(v[i]);
-      }
-    }
-    db[c] += s;
-  }
-  __syncthreads();
-}
-
-// wgrad: dW (K x N, ld N, f32 global) += a_in^T (K x TILE_M) @ G (TILE_M x
-// N, shared).  Each output element is owned by one thread, so the
-// read-modify-write needs no synchronisation.  (f32 only.)
-template <typename T>
-__device__ void wgrad(float* dW, int K, int N, AIn<T> a, const T* G,
-                      int ldg) {
-  for (int e = threadIdx.x; e < K * N; e += THREADS) {
-    const int k = e / N, c = e % N;
-    const T* ap = k < a.split ? a.p0 + k : a.p1 + (k - a.split);
-    const int lda = k < a.split ? a.ld0 : a.ld1;
-    float acc = dW[e];
-    for (int m = 0; m < TILE_M; ++m)
-      acc = fmaf(to_f(ap[m * lda]), to_f(G[m * ldg + c]), acc);
-    dW[e] = acc;
-  }
-}
-
-// Copy a TILE_M x width tile from shared (ld ls) to the scratch (ld width)
-// in 16-byte pieces (every row start is 16-byte aligned).
-template <typename T>
-__device__ void save(T* dst, const T* src, int ls, int width) {
-  constexpr int EPC = 16 / sizeof(T);
-  const int cpr = width / EPC;
-  for (int e = threadIdx.x; e < TILE_M * cpr; e += THREADS) {
-    const int r = e / cpr, q = e % cpr;
-    *reinterpret_cast<uint4*>(dst + r * width + q * EPC) =
-        *reinterpret_cast<const uint4*>(src + r * ls + q * EPC);
-  }
-}
-
-// fs2's first 256 columns + bias, rounded: xyz_final (the sigma block is
-// not needed here).
-template <typename T> struct XyzFinal {
-  T* dst;
-  int ld;
-  const float* bias;
-  __device__ void operator()(int r, int c, float v) const {
-    if (c < W_TRUNK) dst[r * ld + c] = to_t<T>(v + bias[c]);
-  }
-};
-
-// d_inp[c] for an input component: sum over its PE columns of
-// where(trig, cos, 1) * scale * d_pe times the column's coefficient (1 on
-// the identity column, 2^k on frequency k), in column order.
-template <typename T>
-__device__ float pe_bwd(float x, int comp, int n_freq, const float* scale,
-                        const T* d) {
-  float acc = __fmul_rn(scale[comp], to_f(d[comp]));
-  for (int k = 0; k < n_freq; ++k) {
-    const float f = (float)(1 << k);
-    const float arg = __fmul_rn(x, f);
-    const int cs = 3 + 6 * k + comp, cc = cs + 3;
-    // d sin = cos (+1/4 turn), d cos = -sin (+1/2 turn)
-    const float ds = __fmul_rn(__fmul_rn(sin_cw(arg, 0.25f), scale[cs]),
-                               to_f(d[cs]));
-    const float dc = __fmul_rn(__fmul_rn(sin_cw(arg, 0.5f), scale[cc]),
-                               to_f(d[cc]));
-    acc = __fadd_rn(acc, __fmul_rn(ds, f));
-    acc = __fadd_rn(acc, __fmul_rn(dc, f));
-  }
-  return acc;
-}
-
-// Row strides of the shared buffers: P0 (forward activations, then
-// cotangents), P1 (hidden outputs, then cotangents), GH (head cotangent).
-template <typename T> struct Ld {
-  static constexpr int P0 = ACT_W + Cfg<T>::PAD;
-  static constexpr int P1 = BUF_W + Cfg<T>::PAD;
-  static constexpr int GH = OUT_LD + Cfg<T>::PAD;
-};
-
-constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
-
-// P0, P1, GH, then the slab region: the forward's weight slab, the dgrad's
-// transposed slab or the per-warp epilogue scratch, whichever is largest.
-template <typename T>
-constexpr size_t bwd_smem_bytes() {
-  constexpr size_t fwd_slab =
-      sizeof(T) * 2 * (size_t)Cfg<T>::KS * (FS_OUT + Cfg<T>::PAD);
-  constexpr size_t t_slab = sizeof(T) * 2 * (size_t)ACT_W *
-                            (Cfg<T>::KS_T + Cfg<T>::PAD_T);
-  constexpr size_t epi = sizeof(float) * WARPS * 256;
-  return sizeof(T) * (size_t)TILE_M * (Ld<T>::P0 + Ld<T>::P1 + Ld<T>::GH) +
-         cmax(cmax(fwd_slab, t_slab), epi);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-fused_mlp_bwd_kernel(const float* __restrict__ inp,
-                     const float* __restrict__ g, float* __restrict__ d_inp,
-                     int n, Net net, const float* __restrict__ sx,
-                     const float* __restrict__ sd, int nfx, int nfd,
-                     int a_dim, int t_dim, int k0, int kd, int kt,
-                     int has_transient, T* scratch_all, float* partial_all,
-                     Layout L, unsigned long long* runs) {
-  count_run(runs);
-  constexpr int ALD = Ld<T>::P0;
-  constexpr int BLD = Ld<T>::P1;
-  constexpr int GLD = Ld<T>::GH;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* P0 = reinterpret_cast<T*>(smem);   // fwd: act; bwd: cotangents
-  T* P1 = P0 + TILE_M * ALD;            // fwd: hb;  bwd: cotangents
-  T* GH = P1 + TILE_M * BLD;            // the heads' cotangent, rounded
-  T* slab = GH + TILE_M * GLD;
-
-  const int tid = threadIdx.x;
-  const Segs S = make_segs(k0, kd, kt);
-  T* scr = scratch_all + (size_t)blockIdx.x * TILE_M * S.total;
-  float* part = partial_all + (size_t)blockIdx.x * L.stride;
-  auto seg = [&](int off) { return scr + (size_t)off * TILE_M; };
-  auto W = [&](int l) { return static_cast<const T*>(net.w[l]); };
-  auto dW = [&](int l) { return part + L.off[l]; };
-  auto db = [&](int l) { return part + L.off[l] + (long long)L.K[l] * L.N[l]; };
-
-  for (long long e = tid; e < L.stride; e += THREADS) part[e] = 0.0f;
-  __syncthreads();
-
-  const int n_tiles = (n + TILE_M - 1) / TILE_M;
-  const int dpe = 3 + 6 * nfd;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const size_t row0 = (size_t)tile * TILE_M;
-
-    // ---- forward recompute (the forward kernel's code) ----
-    T* act = P0;
-    T* hb = P1;
-    for (int e = tid; e < TILE_M * k0; e += THREADS) {
-      const int r = e / k0, c = e % k0;
-      float v = 0.0f;
-      if (row0 + r < (size_t)n) v = pe_col(inp + (row0 + r) * IN_LD, c, nfx, sx);
-      act[r * ALD + c] = to_t<T>(v);
-      seg(S.pe)[e] = to_t<T>(v);
-    }
-    __syncthreads();
-    T* h = act + k0;
-    for (int i = 0; i < 8; ++i) {
-      if (i == 0)
-        gemm<T, 16>(act, ALD, k0, W(0), slab, Hidden<T>{h, ALD, net.b[0]});
-      else if (i == 4)
-        gemm<T, 16>(act, ALD, k0 + W_TRUNK, W(i), slab,
-                    Hidden<T>{h, ALD, net.b[i]});
-      else
-        gemm<T, 16>(h, ALD, W_TRUNK, W(i), slab, Hidden<T>{h, ALD, net.b[i]});
-      save(seg(S.h[i]), h, ALD, W_TRUNK);
-    }
-    gemm<T, FS_OUT / 16>(h, ALD, W_TRUNK, W(L_FS), slab,
-                         XyzFinal<T>{act, ALD, net.b[L_FS]});
-    save(seg(S.xf), act, ALD, W_TRUNK);
-    for (int e = tid; e < TILE_M * kd; e += THREADS) {
-      const int r = e / kd, c = e % kd;
-      float v = 0.0f;
-      if (row0 + r < (size_t)n) {
-        const float* row = inp + (row0 + r) * IN_LD;
-        if (c < dpe) v = pe_col(row + 3, c, nfd, sd);
-        else if (c < dpe + a_dim) v = row[6 + c - dpe];
-      }
-      act[r * ALD + W_TRUNK + c] = to_t<T>(v);
-      seg(S.dtail)[e] = to_t<T>(v);
-    }
-    __syncthreads();
-    gemm<T, 8>(act, ALD, W_TRUNK + kd, W(L_DIR), slab,
-               Hidden<T>{hb, BLD, net.b[L_DIR]});
-    save(seg(S.hd), hb, BLD, W_HALF);
-    if (has_transient) {
-      for (int e = tid; e < TILE_M * kt; e += THREADS) {
-        const int r = e / kt, c = e % kt;
-        float v = 0.0f;
-        if (row0 + r < (size_t)n && c < t_dim)
-          v = inp[(row0 + r) * IN_LD + 6 + a_dim + c];
-        act[r * ALD + W_TRUNK + c] = to_t<T>(v);
-        seg(S.tt)[e] = to_t<T>(v);
-      }
-      __syncthreads();
-      gemm<T, 8>(act, ALD, W_TRUNK + kt, W(L_T0), slab,
-                 Hidden<T>{hb, BLD, net.b[L_T0]});
-      save(seg(S.th[0]), hb, BLD, W_HALF);
-      for (int j = 1; j < 4; ++j) {
-        gemm<T, 8>(hb, BLD, W_HALF, W(L_T0 + j), slab,
-                   Hidden<T>{hb, BLD, net.b[L_T0 + j]});
-        save(seg(S.th[j]), hb, BLD, W_HALF);
-      }
-    }
-    // the heads' cotangent, rounded to the compute type
-    for (int e = tid; e < TILE_M * OUT_LD; e += THREADS) {
-      const int r = e / OUT_LD, c = e % OUT_LD;
-      float v = 0.0f;
-      if (row0 + r < (size_t)n) v = g[(row0 + r) * OUT_LD + c];
-      GH[r * GLD + c] = to_t<T>(v);
-    }
-    __syncthreads();
-
-    // ---- backward ----
-    // transient: heads -> t3 .. t0; d_xyz_final lands in P1
-    if (has_transient) {
-      mask_db<T>(GH, GLD, OUT_LD, nullptr, 0, db(L_TH));
-      wgrad<T>(dW(L_TH), W_HALF, OUT_LD, a_one<T>(seg(S.th[3]), W_HALF), GH,
-               GLD);
-      gemm_t<T, 8>(GH, GLD, OUT_LD, W(L_TH), 8, slab, store_to<T>(P1, BLD));
-      T* cur = P1;
-      int lc = BLD;
-      for (int j = 3; j >= 1; --j) {
-        T* nxt = cur == P1 ? P0 : P1;
-        const int ln = cur == P1 ? ALD : BLD;
-        mask_db<T>(cur, lc, W_HALF, seg(S.th[j]), W_HALF, db(L_T0 + j));
-        wgrad<T>(dW(L_T0 + j), W_HALF, W_HALF,
-                 a_one<T>(seg(S.th[j - 1]), W_HALF), cur, lc);
-        gemm_t<T, 8>(cur, lc, W_HALF, W(L_T0 + j), 8, slab,
-                     store_to<T>(nxt, ln));
-        cur = nxt;
-        lc = ln;
-      }
-      // cur == P0
-      mask_db<T>(P0, ALD, W_HALF, seg(S.th[0]), W_HALF, db(L_T0));
-      wgrad<T>(dW(L_T0), W_TRUNK + kt, W_HALF,
-               AIn<T>{seg(S.xf), W_TRUNK, W_TRUNK, seg(S.tt), kt}, P0, ALD);
-      gemm_t<T, 24>(P0, ALD, W_HALF, W(L_T0), (W_TRUNK + kt) / 16, slab,
-                    Split<T>{P1, BLD, W_TRUNK, seg(S.dtt), kt, nullptr, 0});
-    }
-    // static: rgb head -> dir; d_xyz_final (merged with the transient's in
-    // one rounding) lands in P1, d_dtail in the scratch
-    mask_db<T>(GH, GLD, OUT_LD, nullptr, 0, db(L_RGB));
-    wgrad<T>(dW(L_RGB), W_HALF, OUT_LD, a_one<T>(seg(S.hd), W_HALF), GH, GLD);
-    gemm_t<T, 8>(GH, GLD, OUT_LD, W(L_RGB), 8, slab, store_to<T>(P0, ALD));
-    mask_db<T>(P0, ALD, W_HALF, seg(S.hd), W_HALF, db(L_DIR));
-    wgrad<T>(dW(L_DIR), W_TRUNK + kd, W_HALF,
-             AIn<T>{seg(S.xf), W_TRUNK, W_TRUNK, seg(S.dtail), kd}, P0, ALD);
-    gemm_t<T, 24>(P0, ALD, W_HALF, W(L_DIR), (W_TRUNK + kd) / 16, slab,
-                  Split<T>{P1, BLD, W_TRUNK, seg(S.ddt), kd,
-                           has_transient ? P1 : nullptr, BLD});
-    // fs2: cotangent [d_xyz_final | g], no ReLU
-    for (int e = tid; e < TILE_M * OUT_LD; e += THREADS) {
-      const int r = e / OUT_LD, c = e % OUT_LD;
-      P1[r * BLD + W_TRUNK + c] = GH[r * GLD + c];
-    }
-    __syncthreads();
-    mask_db<T>(P1, BLD, FS_OUT, nullptr, 0, db(L_FS));
-    wgrad<T>(dW(L_FS), W_TRUNK, FS_OUT, a_one<T>(seg(S.h[7]), W_TRUNK), P1,
-             BLD);
-    gemm_t<T, 16>(P1, BLD, FS_OUT, W(L_FS), 16, slab, store_to<T>(P0, ALD));
-    // trunk 7 .. 0, the skip split at 4; d_pe lands in P0
-    T* cur = P0;
-    int lc = ALD;
-    for (int i = 7; i >= 0; --i) {
-      T* nxt = cur == P1 ? P0 : P1;
-      const int ln = cur == P1 ? ALD : BLD;
-      mask_db<T>(cur, lc, W_TRUNK, seg(S.h[i]), W_TRUNK, db(i));
-      if (i == 0) {
-        wgrad<T>(dW(0), k0, W_TRUNK, a_one<T>(seg(S.pe), k0), cur, lc);
-        gemm_t<T, 8>(cur, lc, W_TRUNK, W(0), k0 / 16, slab,
-                     Split<T>{nxt, ln, 1 << 30, nxt, ln, seg(S.dpes), k0});
-      } else if (i == 4) {
-        wgrad<T>(dW(4), k0 + W_TRUNK, W_TRUNK,
-                 AIn<T>{seg(S.pe), k0, k0, seg(S.h[3]), W_TRUNK}, cur, lc);
-        gemm_t<T, 24>(cur, lc, W_TRUNK, W(4), (k0 + W_TRUNK) / 16, slab,
-                      Split<T>{seg(S.dpes), k0, k0, nxt, ln, nullptr, 0});
-      } else {
-        wgrad<T>(dW(i), W_TRUNK, W_TRUNK, a_one<T>(seg(S.h[i - 1]), W_TRUNK),
-                 cur, lc);
-        gemm_t<T, 16>(cur, lc, W_TRUNK, W(i), 16, slab, store_to<T>(nxt, ln));
-      }
-      cur = nxt;
-      lc = ln;
-    }
-    // ---- PE chain rule -> d_inp ----
-    const T* d_pe = cur;
-    const T* ddt = seg(S.ddt);
-    const T* dtt = seg(S.dtt);
-    for (int e = tid; e < TILE_M * IN_LD; e += THREADS) {
-      const int r = e / IN_LD, c = e % IN_LD;
-      if (row0 + r >= (size_t)n) continue;
-      const float* row = inp + (row0 + r) * IN_LD;
-      float v = 0.0f;
-      if (c < 3)
-        v = pe_bwd(row[c], c, nfx, sx, d_pe + r * lc);
-      else if (c < 6)
-        v = pe_bwd(row[c], c - 3, nfd, sd, ddt + r * kd);
-      else if (c < 6 + a_dim)
-        v = to_f(ddt[r * kd + dpe + c - 6]);
-      else if (has_transient && c < 6 + a_dim + t_dim)
-        v = to_f(dtt[r * kt + c - 6 - a_dim]);
-      d_inp[(row0 + r) * IN_LD + c] = v;
-    }
-    __syncthreads();
-  }
-}
-
-// grads[e] = sum over blocks p = 0, 1, ... of partial[p][e], in that order.
-__global__ void reduce_partials(const float* __restrict__ partial,
-                                float* __restrict__ grads, long long stride,
-                                int n_part) {
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < stride; e += (long long)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int p = 0; p < n_part; ++p) s += partial[(size_t)p * stride + e];
-    grads[e] = s;
-  }
 }
 
 // ======================================================================
@@ -1195,73 +749,643 @@ __global__ void reduce_db(const float* __restrict__ dbpart, int rows,
 
 }  // namespace hb
 
+// ======================================================================
+// The f32 kernels, built from the f32 block of fused_mlp_common.cuh.
+// ======================================================================
+namespace tb {
+
+// Recompute, dgrad, PE chain rule, as fused_mlp_bwd_bf16_kernel with one
+// consumer warpgroup of 64 points and f32 values in its private layout.
+// Saves every layer's input activations and masked cotangents as tile
+// slots of 64 points x 64 columns (16 KB, the private layout's groups) for
+// the wgrad kernel, and per-warp f32 column sums of the cotangents for db.
+__global__ void __launch_bounds__(tf::T_THREADS, 1)
+fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
+                         const float* __restrict__ g,
+                         float* __restrict__ d_inp, int n,
+                         const unsigned char* __restrict__ image,
+                         const __grid_constant__ tf::Plan plan,
+                         const __grid_constant__ hb::Biases bias,
+                         const float* __restrict__ sx,
+                         const float* __restrict__ sd, int nfx, int nfd,
+                         int a_dim, int t_dim, int k0, int kd, int kt,
+                         int has_transient, unsigned char* scratch,
+                         const __grid_constant__ hop::TileMap tm,
+                         uint32_t* masks, float* dbpart, int db_stride,
+                         unsigned long long* runs) {
+  using tf::G_G;
+  using tf::G_H;
+  using tf::G_P;
+  count_run(runs);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  float4* act = reinterpret_cast<float4*>(smem);
+  const float* act_f = reinterpret_cast<const float*>(smem);
+  unsigned char* stages = smem + tf::ACT_BYTES + tf::G_BYTES;
+  float* bias_s =
+      reinterpret_cast<float*>(stages + tf::STAGES * tf::B_STAGE_BYTES);
+  float* sx_s = bias_s + hop::BIAS_FLOATS;
+  float* sd_s = sx_s + IN_LD;
+  const uint32_t full = hop::smem_u32(bias_s + hop::CONST_FLOATS);
+  const uint32_t empty = full + 8 * tf::STAGES;
+
+  const int tid = threadIdx.x;
+  const int n_layers = has_transient ? N_LAYERS : L_T0;
+  for (int c = tid; c < IN_LD; c += tf::T_THREADS) {
+    sx_s[c] = sx[c];
+    sd_s[c] = sd[c];
+  }
+  for (int l = 0; l < n_layers; ++l)
+    for (int c = tid; c < hop::layer_n(l); c += tf::T_THREADS)
+      bias_s[hop::bias_off(l) + c] = bias.b[l][c];
+  if (tid == 0) {
+    for (int s = 0; s < tf::STAGES; ++s) {
+      hop::mbar_init(full + 8 * s, 1);
+      hop::mbar_init(empty + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    hop::fence_async_smem();
+  }
+  __syncthreads();
+
+  const int n_tiles = (n + tf::ROWS - 1) / tf::ROWS;
+  if (tid >= 128) {
+    if (tid == 128)
+      tf::produce(image, plan, full, empty,
+                                hop::smem_u32(stages), tf::B_STAGE_BYTES,
+                                n_tiles);
+    return;
+  }
+  const int t = tid, lane = tid & 31, warp = tid >> 5;
+  const int fr = 16 * warp + (lane >> 2), fq = t & 3;
+  const bool elected = t == 0;
+  const uint32_t act_s = hop::smem_u32(smem);
+  tf::Ring ring = {full, empty, hop::smem_u32(stages), tf::B_STAGE_BYTES, 0,
+                   0, -1};
+  const int dpe = 3 + 6 * nfd;
+  const size_t n_rb = (size_t)n_tiles;
+  uint32_t* my_masks = masks + (size_t)blockIdx.x * hb::MASK_WORDS * 128 + t;
+  float none[8];
+
+  // shared-memory stores -> visible to the bulk stores and other threads
+  auto sync = [&]() {
+    hop::fence_async_smem();
+    hop::wg_sync(0);
+  };
+  // after this, regions handed to save() may be overwritten
+  auto drain = [&]() {
+    if (elected) hop::bulk_wait_read();
+    hop::wg_sync(0);
+  };
+  auto val = [&](int g0, int r, int c) { return act_f[tf::at(g0, r, c)]; };
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const size_t rb = (size_t)tile;
+    const size_t row0 = rb * tf::ROWS;
+    float* dbrow = dbpart + (rb * 4 + warp) * (size_t)db_stride;
+    auto save = [&](int id, int cols, int g0) {
+      if (elected)
+        tf::save(scratch, id, cols, n_rb, rb, act_s + g0 * tf::GROUP_BYTES);
+    };
+
+    // ------------------------------------------------ forward recompute
+    drain();
+    tf::encode(act, G_P, inp, row0, n, true, 0, nfx, sx_s, 0, 0, k0, t);
+    hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
+                   4 * (6 + a_dim + t_dim), t);
+    sync();
+    save(tm.pe, k0, G_P);
+
+    float acc[W_TRUNK / 2];
+    float acc64[W_HALF / 2];
+    uint32_t m4[4], m2[2];
+    for (int i = 0; i < 8; ++i) {
+      bool fresh = true;
+      if (i == 0 || i == 4)
+        tf::mma_seg<W_TRUNK, false>(acc, none, act, G_P, k0, ring, fresh,
+                                    elected, t);
+      if (i != 0)
+        tf::mma_seg<W_TRUNK, false>(acc, none, act, G_H, W_TRUNK, ring, fresh,
+                                    elected, t);
+      drain();
+      tf::store_hidden<W_TRUNK, true>(acc, act, G_H,
+                                      bias_s + hop::bias_off(i), fq, t, m4);
+      hb::put_masks(my_masks, 4 * i, m4);
+      sync();
+      save(tm.h[i], W_TRUNK, G_H);
+    }
+    {
+      bool fresh = true;
+      tf::mma_seg<W_TRUNK, false>(acc, none, act, G_H, W_TRUNK, ring, fresh,
+                                  elected, t);
+      drain();
+      tf::store_linear<W_TRUNK>(acc, act, G_H, bias_s + hop::bias_off(L_FS),
+                                fq, t);
+    }
+    tf::encode(act, G_P, inp, row0, n, true, 3, nfd, sd_s, 6, a_dim, kd, t);
+    sync();
+    save(tm.xf, W_TRUNK, G_H);
+    save(tm.dtail, kd, G_P);
+    {
+      bool fresh = true;
+      tf::mma_seg<W_HALF, false>(acc64, none, act, G_H, W_TRUNK, ring, fresh,
+                                 elected, t);
+      tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, kd, ring, fresh,
+                                 elected, t);
+      drain();
+      tf::store_hidden<W_HALF, true>(acc64, act, G_P,
+                                     bias_s + hop::bias_off(L_DIR), fq, t, m2);
+      hb::put_masks(my_masks, hb::M_HD, m2);
+      sync();
+      save(tm.hd, W_HALF, G_P);
+    }
+    if (has_transient) {
+      drain();
+      tf::encode(act, G_P, inp, row0, n, false, 0, 0, sd_s, 6 + a_dim, t_dim,
+                 kt, t);
+      sync();
+      save(tm.ttail, kt, G_P);
+      for (int l = L_T0; l < L_TH; ++l) {
+        bool fresh = true;
+        if (l == L_T0) {
+          tf::mma_seg<W_HALF, false>(acc64, none, act, G_H, W_TRUNK, ring,
+                                     fresh, elected, t);
+          tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, kt, ring, fresh,
+                                     elected, t);
+        } else {
+          tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, W_HALF, ring,
+                                     fresh, elected, t);
+        }
+        drain();
+        tf::store_hidden<W_HALF, true>(acc64, act, G_P,
+                                       bias_s + hop::bias_off(l), fq, t, m2);
+        hb::put_masks(my_masks, hb::M_TH + 2 * (l - L_T0), m2);
+        sync();
+        save(tm.th[l - L_T0], W_HALF, G_P);
+      }
+    }
+
+    // ------------------------------------------------------- backward
+    drain();
+    // the heads' cotangent -> G: this thread's own two rows and columns
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float2 v[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t row = row0 + fr + 8 * h;
+        v[h] = row < (size_t)n ? *reinterpret_cast<const float2*>(
+                                     g + row * OUT_LD + 8 * j + 2 * fq)
+                               : make_float2(0.0f, 0.0f);
+      }
+      act[(G_G + j) * tf::GROUP + t] =
+          make_float4(v[0].x, v[0].y, v[1].x, v[1].y);
+    }
+    sync();
+    save(tm.gh, OUT_LD, G_G);
+    if (lane < OUT_LD) {
+      // db of both heads and of fs2's sigma block: G's column sums
+      float s = 0.0f;
+      for (int i = 0; i < 16; ++i) s += val(G_G, 16 * warp + i, lane);
+      dbrow[hop::bias_off(L_RGB) + lane] = s;
+      dbrow[hop::bias_off(L_FS) + W_TRUNK + lane] = s;
+      if (has_transient) dbrow[hop::bias_off(L_TH) + lane] = s;
+    }
+
+    if (has_transient) {
+      // heads -> t3 .. t0: each cotangent masked by its layer's ReLU
+      for (int l = L_TH; l > L_T0; --l) {
+        bool fresh = true;
+        if (l == L_TH)
+          tf::mma_seg<W_HALF, false>(acc64, none, act, G_G, OUT_LD, ring,
+                                     fresh, elected, t);
+        else
+          tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, W_HALF, ring,
+                                     fresh, elected, t);
+        drain();
+        hb::get_masks(my_masks, hb::M_TH + 2 * (l - 1 - L_T0), m2);
+        tf::store_cot<W_HALF, true, false, true>(
+            acc64, act, G_P, m2, dbrow + hop::bias_off(l - 1), fq, t, lane);
+        sync();
+        save(tm.g[l - 1], W_HALF, G_P);
+      }
+      // t0: d_xyz_final (transient part) -> H, d_t -> d_inp
+      bool fresh = true;
+      tf::mma_seg<W_TRUNK, false>(acc, none, act, G_P, W_HALF, ring, fresh,
+                                  elected, t);
+      tf::store_cot<W_TRUNK, false, false, false>(acc, act, G_H, nullptr,
+                                                  nullptr, fq, t, lane);
+      fresh = true;
+      tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, W_HALF, ring, fresh,
+                                 elected, t);
+#pragma unroll
+      for (int j = 0; j < W_HALF / 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 8 * j + 2 * fq + (i & 1);
+          const size_t row = row0 + fr + 8 * (i >> 1);
+          if (c < t_dim && row < (size_t)n)
+            d_inp[row * IN_LD + 6 + a_dim + c] = acc64[4 * j + i];
+        }
+      }
+    }
+    // rgb head -> hd's cotangent
+    {
+      bool fresh = true;
+      tf::mma_seg<W_HALF, false>(acc64, none, act, G_G, OUT_LD, ring, fresh,
+                                 elected, t);
+      drain();
+      hb::get_masks(my_masks, hb::M_HD, m2);
+      tf::store_cot<W_HALF, true, false, true>(
+          acc64, act, G_P, m2, dbrow + hop::bias_off(L_DIR), fq, t, lane);
+      sync();
+      save(tm.g[L_DIR], W_HALF, G_P);
+    }
+    // dir: d_xyz_final (+ the transient part) -> H is fs2's cotangent; then
+    // d_tail -> P
+    {
+      bool fresh = true;
+      tf::mma_seg<W_TRUNK, false>(acc, none, act, G_P, W_HALF, ring, fresh,
+                                  elected, t);
+      if (has_transient)
+        tf::store_cot<W_TRUNK, false, true, true>(
+            acc, act, G_H, nullptr, dbrow + hop::bias_off(L_FS), fq, t, lane);
+      else
+        tf::store_cot<W_TRUNK, false, false, true>(
+            acc, act, G_H, nullptr, dbrow + hop::bias_off(L_FS), fq, t, lane);
+      fresh = true;
+      tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, W_HALF, ring, fresh,
+                                 elected, t);
+      drain();
+      tf::store_cot<W_HALF, false, false, false>(acc64, act, G_P, nullptr,
+                                                 nullptr, fq, t, lane);
+      sync();
+      save(tm.g[L_FS], W_TRUNK, G_H);
+    }
+    // d_inp: dir through its PE, appearance directly
+    for (int e = t; e < tf::ROWS * (3 + a_dim); e += 128) {
+      const int r = e / (3 + a_dim), c = e % (3 + a_dim);
+      const size_t row = row0 + r;
+      if (row >= (size_t)n) continue;
+      if (c < 3)
+        d_inp[row * IN_LD + 3 + c] =
+            hop::pe_bwd_at(inp[row * IN_LD + 3 + c], c, nfd, sd_s,
+                           [&](int col) { return val(G_P, r, col); });
+      else
+        d_inp[row * IN_LD + 3 + c] = val(G_P, r, dpe + c - 3);
+    }
+    // fs2 ([d_xyz_final | g]) and the trunk, 7 .. 1: cotangent in place
+    for (int l = L_FS; l >= 1; --l) {
+      bool fresh = true;
+      if (l == 4) {
+        // the pe rows of layer 4 first: d_pe's skip part -> P
+        tf::mma_seg<W_HALF, false>(acc64, none, act, G_H, W_TRUNK, ring,
+                                   fresh, elected, t);
+        tf::store_cot<W_HALF, false, false, false>(acc64, act, G_P, nullptr,
+                                                   nullptr, fq, t, lane);
+        fresh = true;
+      }
+      tf::mma_seg<W_TRUNK, false>(acc, none, act, G_H, W_TRUNK, ring, fresh,
+                                  elected, t);
+      if (l == L_FS)
+        tf::mma_seg<W_TRUNK, false>(acc, none, act, G_G, OUT_LD, ring, fresh,
+                                    elected, t);
+      drain();
+      hb::get_masks(my_masks, 4 * (l - 1), m4);
+      tf::store_cot<W_TRUNK, true, false, true>(
+          acc, act, G_H, m4, dbrow + hop::bias_off(l - 1), fq, t, lane);
+      sync();
+      save(tm.g[l - 1], W_TRUNK, G_H);
+    }
+    // layer 0: d_pe = its cotangent + the skip part -> P
+    {
+      bool fresh = true;
+      tf::mma_seg<W_HALF, false>(acc64, none, act, G_H, W_TRUNK, ring, fresh,
+                                 elected, t);
+      tf::store_cot<W_HALF, false, true, false>(acc64, act, G_P, nullptr,
+                                                nullptr, fq, t, lane);
+      hop::wg_sync(0);
+    }
+    for (int e = t; e < tf::ROWS * 3; e += 128) {
+      const int r = e / 3, c = e % 3;
+      const size_t row = row0 + r;
+      if (row < (size_t)n)
+        d_inp[row * IN_LD + c] =
+            hop::pe_bwd_at(inp[row * IN_LD + c], c, nfx, sx_s,
+                           [&](int col) { return val(G_P, r, col); });
+    }
+  }
+  if (elected) hop::bulk_wait_read();
+}
+
+// ---- wgrad: dW_l = A_l^T G_l over all points, split-K, 3xTF32 ----
+// A block of two consumer warpgroups (no producer) takes a unit of
+// make_wplan (up to two 64-row chunks of a layer's input, one a warpgroup,
+// and all the layer's output columns) over a range of row blocks, 32
+// points a step.  tf32 wgmma reads both operands K-major only, and the
+// saved slots are in the fused kernel's private layout, so the threads
+// themselves load a step's slots (16-byte loads, a step ahead, into
+// registers), split them and store the hi and lo K-major images (rows:
+// the chunks' input columns, the cotangent's output columns with the
+// heads' block at row 256; 32 points a 128-byte row, swizzled); two
+// buffers, so a step's stores overlap the previous step's products.
+constexpr int W_A_ROWS = 128;                    // image rows of the chunks
+constexpr int W_G_ROWS = W_TRUNK + OUT_LD;       // image rows of the cotangent
+constexpr int W_HI = (W_A_ROWS + W_G_ROWS) * 128;   // hi images: 50 KB
+constexpr int W_BUF = 2 * W_HI;                  // hi, then lo
+constexpr int W_SMEM = 1024 + 2 * W_BUF;
+constexpr int W_THREADS = 256;
+// Row blocks (64 points each) a wgrad block sums.  A sum that stays in one
+// wgmma accumulator for thousands of points drifts from the plain
+// version's: with 4,416 points a block (16 splits of 70,001) one dW came
+// out 1.35e-4 of its largest off on the card and the others up to 4e-5,
+// against at most 1.1e-5 for the db sums, which are f32 adds
+// (chip_smoke.py phase 5).  Shorter chains, and more partial slabs for
+// reduce_dw to add in f32.
+constexpr int W_ROW_BLOCKS = 16;
+
+// Byte offset of (image row, contraction index k < 32) in a K-major
+// 128-byte-swizzled image.
+__device__ __forceinline__ uint32_t kmaj(int row, int k) {
+  return row * 128 + ((((k >> 2) ^ (row & 7)) << 4) | ((k & 3) << 2));
+}
+
+// One float4 of a saved slot (thread tp < 64 of a 32-point half, group at
+// image row row0) split into the hi and lo images at b: its points p and
+// p + 8, columns row0 + 2 (tp % 4) and + 1.
+__device__ __forceinline__ void put_split(unsigned char* b, int row0, int tp,
+                                          float4 v) {
+  const int p = 16 * (tp >> 5) + ((tp & 31) >> 2);
+  const int c = row0 + 2 * (tp & 3);
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t hi, lo;
+    tf::split(e[i], hi, lo);
+    const uint32_t o = kmaj(c + (i & 1), p + 8 * (i >> 1));
+    *reinterpret_cast<uint32_t*>(b + o) = hi;
+    *reinterpret_cast<uint32_t*>(b + W_HI + o) = lo;
+  }
+}
+
+template <int N, bool GH>
+__device__ __forceinline__ void wgrad_f32(const hb::WUnit& u,
+                                          const unsigned char* scratch,
+                                          int n_rb, int rb0, int steps,
+                                          unsigned char* smem, float* out) {
+  constexpr int NA = N > 0 ? N / 2 : 1;
+  constexpr int NG = N / 64;                     // cotangent slots
+  constexpr int NV = 4 + 2 * NG + (GH ? 1 : 0);  // float4s a thread a step
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const bool work = u.a_tile[wg] >= 0;
+  float acc[NA];
+  float sig[8];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sig[i] = 0.0f;
+  float4 v[NV];
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  // item e < 512 of slot `slot` in step s: group e / 64, thread 64 z + e % 64
+  auto src = [&](int slot, int s, int e) {
+    const size_t rb = (size_t)rb0 + (s >> 1);
+    return __ldg(reinterpret_cast<const float4*>(
+                     scratch + ((size_t)slot * n_rb + rb) * tf::SLOT_BYTES) +
+                 (e >> 6) * tf::GROUP + 64 * (s & 1) + (e & 63));
+  };
+  auto load = [&](int s) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = i * W_THREADS + tid;
+        v[2 * c + i] = u.a_tile[c] >= 0 && (e >> 6) < (u.rows[c] + 7) / 8
+                           ? src(u.a_tile[c], s, e)
+                           : zero;
+      }
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        v[4 + 2 * j + i] = src(u.g_tile + j, s, i * W_THREADS + tid);
+    if constexpr (GH) v[NV - 1] = tid < 128 ? src(u.gh_tile, s, tid) : zero;
+  };
+  auto store = [&](unsigned char* b) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = i * W_THREADS + tid;
+        put_split(b, 64 * c + 8 * (e >> 6), e & 63, v[2 * c + i]);
+      }
+    unsigned char* gb = b + W_A_ROWS * 128;
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = i * W_THREADS + tid;
+        put_split(gb, 64 * j + 8 * (e >> 6), e & 63, v[4 + 2 * j + i]);
+      }
+    if constexpr (GH)
+      if (tid < 128) put_split(gb, W_TRUNK + 8 * (tid >> 6), tid & 63,
+                               v[NV - 1]);
+  };
+
+  const uint32_t base = hop::smem_u32(smem);
+  if (steps > 0) load(0);
+  for (int s = 0; s < steps; ++s) {
+    // the products of step s - 2 have read this buffer in both warpgroups
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    store(smem + (s & 1) * W_BUF);
+    hop::fence_async_smem();
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if (s + 1 < steps) load(s + 1);
+    if (work) {
+      const uint32_t a = base + (s & 1) * W_BUF + wg * 64 * 128;
+      const uint32_t gb = base + (s & 1) * W_BUF + W_A_ROWS * 128;
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t ah = hop::kdesc(a + 32 * kk);
+        const uint64_t al = hop::kdesc(a + W_HI + 32 * kk);
+        if constexpr (N > 0) {
+          const uint64_t bh = hop::kdesc(gb + 32 * kk);
+          const uint64_t bl = hop::kdesc(gb + W_HI + 32 * kk);
+          tf::WgmmaSS<(N > 0 ? N : 16)>::run(acc, ah, bh);
+          tf::WgmmaSS<(N > 0 ? N : 16)>::run(acc, al, bh);
+          tf::WgmmaSS<(N > 0 ? N : 16)>::run(acc, ah, bl);
+        }
+        if constexpr (GH) {
+          const uint32_t o = W_TRUNK * 128 + 32 * kk;
+          tf::WgmmaSS<16>::run(sig, ah, hop::kdesc(gb + o));
+          tf::WgmmaSS<16>::run(sig, al, hop::kdesc(gb + o));
+          tf::WgmmaSS<16>::run(sig, ah, hop::kdesc(gb + W_HI + o));
+        }
+      }
+      hop::wgmma_commit();
+    }
+    hop::wgmma_wait<1>();
+  }
+  hop::wgmma_wait<0>();
+  hop::fence_acc(acc);
+  hop::fence_acc(sig);
+  if (!work) return;
+  const int r = 16 * (t >> 5) + ((t & 31) >> 2), q = t & 3;
+  float* dst = out + u.out_off[wg];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = r + 8 * h;
+    if (m < u.rows[wg]) {
+      if constexpr (N > 0) {
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+          *reinterpret_cast<float2*>(dst + (size_t)m * u.n_out + 8 * j + 2 * q) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+      if constexpr (GH) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          *reinterpret_cast<float2*>(dst + (size_t)m * u.n_out + N + 8 * j +
+                                     2 * q) =
+              make_float2(sig[4 * j + 2 * h], sig[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// grid (units, splits): block (u, s) sums unit u over the row blocks
+// [s * per, (s + 1) * per) and writes its part of partial slab s.
+__global__ void __launch_bounds__(W_THREADS, 1)
+wgrad_f32_kernel(const unsigned char* __restrict__ scratch,
+                 const __grid_constant__ hb::WPlan wp, int n_rb, int per,
+                 float* __restrict__ partial, long long stride) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const hb::WUnit& u = wp.u[blockIdx.x];
+  const int rb0 = blockIdx.y * per;
+  const int steps = 2 * max(0, min(per, n_rb - rb0));
+  float* out = partial + (size_t)blockIdx.y * stride;
+  if (u.n_g == 4 && u.gh_tile >= 0)
+    wgrad_f32<W_TRUNK, true>(u, scratch, n_rb, rb0, steps, smem, out);
+  else if (u.n_g == 4)
+    wgrad_f32<W_TRUNK, false>(u, scratch, n_rb, rb0, steps, smem, out);
+  else if (u.n_g == 2)
+    wgrad_f32<W_HALF, false>(u, scratch, n_rb, rb0, steps, smem, out);
+  else
+    wgrad_f32<0, true>(u, scratch, n_rb, rb0, steps, smem, out);
+}
+
+// Sums in a fixed tree: cascade(n, v) adds v(0), v(1), ... as a binary
+// counter adds ones, neighbours first, then neighbouring pairs, so the sum
+// over an aligned run of 2^k values is a subtree of the whole sum.  A
+// data-parallel rank whose row blocks are such a run (each rank a
+// power-of-two share of a batch) sums its share as the same subtree of one
+// rank's sum of the whole batch, where sums taken in order would part from
+// it by one rounding at each step.
+template <typename V>
+__device__ __forceinline__ float cascade(int n, V v) {
+  float stack[32];
+  int depth = 0;
+  for (int i = 0; i < n; ++i) {
+    float x = v(i);
+    for (int c = i; c & 1; c >>= 1) x = stack[--depth] + x;
+    stack[depth++] = x;
+  }
+  float s = 0.0f;
+  if (depth > 0) s = stack[--depth];
+  while (depth > 0) s = stack[--depth] + s;
+  return s;
+}
+
+// grads[e] = the cascade over the partial slabs p = 0, 1, ... of
+// partial[p][e] (the db entries are overwritten by reduce_db_tree).
+__global__ void reduce_dw_tree(const float* __restrict__ partial,
+                               float* __restrict__ grads, long long stride,
+                               int splits) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < stride; e += (long long)gridDim.x * blockDim.x)
+    grads[e] = cascade(
+        splits, [&](int p) { return partial[(size_t)p * stride + e]; });
+}
+
+// db in two levels: block (x, run) sums rows [run * DB_RUN, +DB_RUN) of
+// the per-warp db rows for its columns, then each column's runs in order.
+constexpr int DB_RUN = 256;
+
+__global__ void reduce_db_runs(const float* __restrict__ dbpart, int rows,
+                               int db_stride, float* __restrict__ runs) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= db_stride) return;
+  const int r0 = blockIdx.y * DB_RUN;
+  runs[(size_t)blockIdx.y * db_stride + col] =
+      cascade(min(DB_RUN, rows - r0), [&](int i) {
+        return dbpart[(size_t)(r0 + i) * db_stride + col];
+      });
+}
+
+__global__ void reduce_db_tree(const float* __restrict__ runs, int n_runs,
+                               int db_stride,
+                               const __grid_constant__ hb::DbMap map,
+                               float* __restrict__ grads) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= db_stride) return;
+  const float total = cascade(n_runs, [&](int i) {
+    return runs[(size_t)i * db_stride + col];
+  });
+  int l = 0;
+  while (col >= map.col0[l + 1]) ++l;
+  grads[map.dst[l] + col - map.col0[l]] = total;
+}
+
+}  // namespace tb
+
 struct Dims {
-  int k0, kd, kt, n_part;
+  int k0, kd, kt;
 };
 
-// Padded widths and the number of partial slabs, or false if the kernel
-// does not take these shapes.
+// Padded widths, or false if the kernels do not take these shapes.
 bool dims(int n, int nfx, int nfd, int a_dim, int t_dim, int has_transient,
           Dims* d) {
   d->k0 = (3 + 6 * nfx + 15) / 16 * 16;
   d->kd = (3 + 6 * nfd + a_dim + 15) / 16 * 16;
   d->kt = has_transient ? (t_dim + 15) / 16 * 16 : 0;
-  const int n_tiles = (n + TILE_M - 1) / TILE_M;
-  d->n_part = n_tiles < N_PART ? n_tiles : N_PART;
   return n >= 0 && nfx >= 0 && nfd >= 0 && a_dim >= 0 && t_dim >= 0 &&
          d->k0 <= 128 && d->kd <= 128 && d->kt <= 128 && nfx <= 20 &&
          nfd <= 20 && 6 + a_dim + (has_transient ? t_dim : 0) <= IN_LD;
 }
 
-int launch_f32(const float* inp, const float* g, float* d_inp, int n,
-               const void* const* w, const float* const* b, const float* sx,
-               const float* sd, int nfx, int nfd, int a_dim, int t_dim,
-               int has_transient, void* scratch, float* partial, float* grads,
-               unsigned long long* runs, cudaStream_t stream) {
-  using T = float;
-  Dims d;
-  if (!dims(n, nfx, nfd, a_dim, t_dim, has_transient, &d))
-    return (int)cudaErrorInvalidValue;
-  const Layout L = make_layout(d.k0, d.kd, d.kt, has_transient);
-  Net net = {};
-  for (int l = 0; l < L.n_layers; ++l) {
-    net.w[l] = w[l];
-    net.b[l] = b[l];
-  }
-  constexpr size_t smem = bwd_smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (d.n_part > 0) {
-    fused_mlp_bwd_kernel<T><<<d.n_part, THREADS, smem, stream>>>(
-        inp, g, d_inp, n, net, sx, sd, nfx, nfd, a_dim, t_dim, d.k0, d.kd,
-        d.kt, has_transient, static_cast<T*>(scratch), partial, L, runs);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  long long blocks = (L.stride + 255) / 256;
-  reduce_partials<<<(int)(blocks < 1024 ? blocks : 1024), 256, 0, stream>>>(
-      partial, grads, L.stride, d.n_part);
-  return (int)cudaGetLastError();
-}
-
-// ---- bf16: workspace arithmetic and the three launches ----
+// ---- workspace arithmetic and the three launches ----
 
 struct Work {
-  int n_tiles, n_rb, splits, per, db_stride;
+  int n_tiles, n_rb, splits, per, db_stride, db_runs;
   long long tile_bytes, mask_bytes;
 };
 
-Work work_of(int n, int grid, const hop::TileMap& tm, int has_transient) {
+// f32: 64-point tiles of one warpgroup and 16 KB slots; bf16: 128-point
+// tiles of two 64-point row blocks and 8 KB tiles.
+Work work_of(int n, int grid, const hop::TileMap& tm, int has_transient,
+             bool f32) {
   Work w;
-  w.n_tiles = (n + hop::ROWS - 1) / hop::ROWS;
-  w.n_rb = w.n_tiles * hop::CONSUMERS;
-  w.splits = w.n_rb < hb::SPLITS ? (w.n_rb > 0 ? w.n_rb : 1) : hb::SPLITS;
-  w.per = (w.n_rb + w.splits - 1) / w.splits;
+  const int rows = f32 ? tf::ROWS : hop::ROWS;
+  const int consumers = f32 ? 1 : hop::CONSUMERS;
+  w.n_tiles = (n + rows - 1) / rows;
+  w.n_rb = w.n_tiles * consumers;
+  if (f32) {
+    w.per = tb::W_ROW_BLOCKS;
+    w.splits = w.n_rb > 0 ? (w.n_rb + w.per - 1) / w.per : 1;
+  } else {
+    w.splits = w.n_rb < hb::SPLITS ? (w.n_rb > 0 ? w.n_rb : 1) : hb::SPLITS;
+    w.per = (w.n_rb + w.splits - 1) / w.splits;
+  }
   w.db_stride = hop::bias_off(has_transient ? N_LAYERS : L_T0);
-  w.tile_bytes = (long long)tm.total * w.n_rb * hop::TILE_BYTES;
-  w.mask_bytes = (long long)grid * hop::CONSUMERS * hb::MASK_WORDS * 128 * 4;
+  w.db_runs = f32 ? (w.n_rb * 4 + tb::DB_RUN - 1) / tb::DB_RUN : 0;
+  w.tile_bytes = (long long)tm.total * w.n_rb *
+                 (f32 ? tf::SLOT_BYTES : hop::TILE_BYTES);
+  w.mask_bytes =
+      (long long)grid * consumers * hb::MASK_WORDS * 128 * 4;
   return w;
 }
 
@@ -1321,23 +1445,26 @@ hb::WPlan make_wplan(const hop::TileMap& tm, const Layout& L, int k0, int kd,
   return wp;
 }
 
-int launch_bf16(const float* inp, const float* g, float* d_inp, int n,
-                const void* image, long long image_bytes, int grid,
-                const float* const* b, const float* sx, const float* sd,
-                int nfx, int nfd, int a_dim, int t_dim, int has_transient,
-                void* scratch, float* partial, float* grads,
-                unsigned long long* runs, cudaStream_t stream) {
+int launch(bool f32, const float* inp, const float* g, float* d_inp, int n,
+           const void* image, long long image_bytes, int grid,
+           const float* const* b, const float* sx, const float* sd, int nfx,
+           int nfd, int a_dim, int t_dim, int has_transient, void* scratch,
+           float* partial, float* grads, unsigned long long* runs,
+           cudaStream_t stream) {
   Dims d;
   if (!dims(n, nfx, nfd, a_dim, t_dim, has_transient, &d))
     return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(d.k0, d.kd, d.kt, has_transient);
   const hop::TileMap tm = hop::make_tile_map(d.k0, d.kd, d.kt, has_transient);
-  const Work w = work_of(n, grid, tm, has_transient);
-  hop::Plan plan;
+  const Work w = work_of(n, grid, tm, has_transient, f32);
   // the wrapper's image must be the one this walk expects
-  if (hop::make_bwd_plan(plan, d.k0, d.kd, d.kt, has_transient) !=
-          image_bytes ||
-      plan.n_slabs > hop::MAX_SLABS)
+  hop::Plan plan = {};
+  tf::Plan plan32 = {};
+  const int plan_bytes =
+      f32 ? tf::make_bwd_plan(plan32, d.k0, d.kd, d.kt, has_transient)
+          : hop::make_bwd_plan(plan, d.k0, d.kd, d.kt, has_transient);
+  if (plan_bytes != image_bytes || plan.n_slabs > hop::MAX_SLABS ||
+      plan32.n_stages > tf::MAX_PLAN)
     return (int)cudaErrorInvalidValue;
   if (grid < (w.n_tiles ? 1 : 0) || grid > w.n_tiles)
     return (int)cudaErrorInvalidValue;
@@ -1356,29 +1483,74 @@ int launch_bf16(const float* inp, const float* g, float* d_inp, int n,
   uint32_t* masks = reinterpret_cast<uint32_t*>(tiles + w.tile_bytes);
   float* dw_part = partial;
   float* db_part = partial + (long long)w.splits * L.stride;
-  cudaError_t err = cudaFuncSetAttribute(
-      hb::fused_mlp_bwd_bf16_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, hb::B_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(hb::wgrad_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             hb::W_SMEM);
+  const unsigned char* img = static_cast<const unsigned char*>(image);
+  cudaError_t err;
+  if (f32) {
+    err = cudaFuncSetAttribute(tb::fused_mlp_bwd_f32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tf::B_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(tb::wgrad_f32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tb::W_SMEM);
+  } else {
+    err = cudaFuncSetAttribute(hb::fused_mlp_bwd_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               hb::B_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(hb::wgrad_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               hb::W_SMEM);
+  }
   if (err != cudaSuccess) return (int)err;
   if (n > 0) {
-    hb::fused_mlp_bwd_bf16_kernel<<<grid, hop::H_THREADS, hb::B_SMEM, stream>>>(
-        inp, g, d_inp, n, static_cast<const unsigned char*>(image), plan,
-        bias, sx, sd, nfx, nfd, a_dim, t_dim, d.k0, d.kd, d.kt, has_transient,
-        tiles, tm, masks, db_part, w.db_stride, runs);
+    if (f32)
+      tb::fused_mlp_bwd_f32_kernel<<<grid, tf::T_THREADS, tf::B_SMEM,
+                                     stream>>>(
+          inp, g, d_inp, n, img, plan32, bias, sx, sd, nfx, nfd, a_dim, t_dim,
+          d.k0, d.kd, d.kt, has_transient, tiles, tm, masks, db_part,
+          w.db_stride, runs);
+    else
+      hb::fused_mlp_bwd_bf16_kernel<<<grid, hop::H_THREADS, hb::B_SMEM,
+                                      stream>>>(
+          inp, g, d_inp, n, img, plan, bias, sx, sd, nfx, nfd, a_dim, t_dim,
+          d.k0, d.kd, d.kt, has_transient, tiles, tm, masks, db_part,
+          w.db_stride, runs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    hb::wgrad_kernel<<<dim3(wp.n_units, w.splits), hop::H_THREADS, hb::W_SMEM,
-                       stream>>>(tiles, wp, w.n_rb, w.per, dw_part, L.stride);
+    if (f32)
+      tb::wgrad_f32_kernel<<<dim3(wp.n_units, w.splits), tb::W_THREADS,
+                             tb::W_SMEM, stream>>>(tiles, wp, w.n_rb, w.per,
+                                                   dw_part, L.stride);
+    else
+      hb::wgrad_kernel<<<dim3(wp.n_units, w.splits), hop::H_THREADS,
+                         hb::W_SMEM, stream>>>(tiles, wp, w.n_rb, w.per,
+                                               dw_part, L.stride);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   long long blocks = (L.stride + 255) / 256;
-  hb::reduce_dw<<<(int)(blocks < 1024 ? blocks : 1024), 256, 0, stream>>>(
-      dw_part, grads, L.stride, n > 0 ? w.splits : 0);
+  const int dw_grid = (int)(blocks < 1024 ? blocks : 1024);
+  if (f32) {
+    // fixed trees: a data-parallel rank's share sums as the whole does
+    float* runs = db_part + (long long)w.n_rb * 4 * w.db_stride;
+    const int db_runs = n > 0 ? w.db_runs : 0;
+    tb::reduce_dw_tree<<<dw_grid, 256, 0, stream>>>(dw_part, grads, L.stride,
+                                                     n > 0 ? w.splits : 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (db_runs > 0) {
+      tb::reduce_db_runs<<<dim3((w.db_stride + 127) / 128, db_runs), 128, 0,
+                           stream>>>(db_part, w.n_rb * 4, w.db_stride, runs);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    tb::reduce_db_tree<<<(w.db_stride + 127) / 128, 128, 0, stream>>>(
+        runs, db_runs, w.db_stride, map, grads);
+    return (int)cudaGetLastError();
+  }
+  hb::reduce_dw<<<dw_grid, 256, 0, stream>>>(dw_part, grads, L.stride,
+                                             n > 0 ? w.splits : 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   hb::reduce_db<<<(w.db_stride + 31) / 32, dim3(32, 32), 0, stream>>>(
@@ -1392,9 +1564,9 @@ extern "C" {
 
 // Workspace sizes for one launch: out[0] scratch bytes, out[1] partial
 // floats, out[2] grad floats (every layer's dW then db, in the layer order
-// of nerf_fl_torch/ops/fused_mlp.py:pack_weights).  grid: the persistent
-// blocks of the bfloat16 launch (float32 ignores it).  Returns 0, or
-// cudaErrorInvalidValue for shapes the kernel does not take.
+// of nerf_fl_torch/ops/fused_mlp.py:pack_weights).  grid: the launch's
+// persistent blocks.  Returns 0, or cudaErrorInvalidValue for shapes the
+// kernels do not take.
 int nerf_fused_mlp_bwd_sizes(int dtype, int n, int grid, int nfx, int nfd,
                              int a_dim, int t_dim, int has_transient,
                              long long* out) {
@@ -1404,58 +1576,52 @@ int nerf_fused_mlp_bwd_sizes(int dtype, int n, int grid, int nfx, int nfd,
     return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(d.k0, d.kd, d.kt, has_transient);
   out[2] = L.stride;
-  if (dtype == 1) {
-    // tiles of saved operands and ReLU bits; dW partial slabs and db rows
-    const hop::TileMap tm = hop::make_tile_map(d.k0, d.kd, d.kt, has_transient);
-    const Work w = work_of(n, grid, tm, has_transient);
-    out[0] = w.tile_bytes + w.mask_bytes;
-    out[1] = (long long)w.splits * L.stride +
-             (long long)w.n_rb * 4 * w.db_stride;
-    return 0;
-  }
-  const Segs S = make_segs(d.k0, d.kd, d.kt);
-  out[0] = (long long)d.n_part * TILE_M * S.total * 4;
-  out[1] = (long long)d.n_part * L.stride;
+  // tiles of saved operands and ReLU bits; dW partial slabs and db rows
+  const hop::TileMap tm = hop::make_tile_map(d.k0, d.kd, d.kt, has_transient);
+  const Work w = work_of(n, grid, tm, has_transient, dtype == 0);
+  out[0] = w.tile_bytes + w.mask_bytes;
+  out[1] = (long long)w.splits * L.stride +
+           ((long long)w.n_rb * 4 + w.db_runs) * w.db_stride;
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  w / b are host arrays of device
-// pointers, in the layer order of pack_weights.  bfloat16 reads its weights
-// from `image` (fused_mlp.py:weight_image with backward=True) and runs
-// `grid` persistent blocks; float32 ignores the three.  scratch / partial
-// are workspaces of the sizes above; grads receives the summed f32 grads.
-// bfloat16 writes only d_inp's live columns: the caller zeroes it.  The
-// fused kernel (not the wgrad or the reductions) adds one to *runs each
-// time it runs, a CUDA graph's replays included.  Returns 0 or the
-// cudaError_t of the first failed launch.
+// dtype: 0 = float32, 1 = bfloat16.  b is a host array of device pointers
+// to the f32 biases, in the layer order of pack_weights.  The weights come
+// from `image` (fused_mlp.py:weight_image with backward=True for bfloat16,
+// f32_weight_image with backward=True for float32), and `grid` persistent
+// blocks run.  scratch / partial are workspaces of the sizes above; grads
+// receives the summed f32 grads.  Only d_inp's live columns are written:
+// the caller zeroes it.  The fused kernel (not the wgrad or the
+// reductions) adds one to *runs each time it runs, a CUDA graph's replays
+// included.  Returns 0 or the cudaError_t of the first failed launch.
 int nerf_fused_mlp_bwd(int dtype, const float* inp, const float* g,
-                       float* d_inp, int n, const void* const* w,
-                       const float* const* b, const void* image,
-                       long long image_bytes, int grid, const float* sx,
-                       const float* sd, int nfx, int nfd, int a_dim,
-                       int t_dim, int has_transient, void* scratch,
+                       float* d_inp, int n, const float* const* b,
+                       const void* image, long long image_bytes, int grid,
+                       const float* sx, const float* sd, int nfx, int nfd,
+                       int a_dim, int t_dim, int has_transient, void* scratch,
                        float* partial, float* grads, unsigned long long* runs,
                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_bf16(inp, g, d_inp, n, image, image_bytes, grid, b, sx, sd,
-                       nfx, nfd, a_dim, t_dim, has_transient, scratch, partial,
-                       grads, runs, s);
-  if (dtype == 0)
-    return launch_f32(inp, g, d_inp, n, w, b, sx, sd, nfx, nfd, a_dim, t_dim,
-                      has_transient, scratch, partial, grads, runs, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return launch(dtype == 0, inp, g, d_inp, n, image, image_bytes, grid, b, sx,
+                sd, nfx, nfd, a_dim, t_dim, has_transient, scratch, partial,
+                grads, runs, static_cast<cudaStream_t>(stream));
 }
 
-// The bfloat16 kernels' block, for reports: out[0] points a block, out[1]
-// threads, out[2] / out[3] shared-memory bytes of the fused and the wgrad
-// kernel, out[4] the wgrad's splits of the points.
+// The kernels' blocks, for reports: out[0] points a block, out[1] threads,
+// out[2] / out[3] shared-memory bytes of the fused and the wgrad kernel,
+// out[4] the wgrad's splits of the points (bfloat16) or its 64-point row
+// blocks a split (float32); bfloat16 in out[0..4], float32 in out[5..9].
 void nerf_fused_mlp_bwd_info(int* out) {
   out[0] = hop::ROWS;
   out[1] = hop::H_THREADS;
   out[2] = hb::B_SMEM;
   out[3] = hb::W_SMEM;
   out[4] = hb::SPLITS;
+  out[5] = tf::ROWS;
+  out[6] = tf::T_THREADS;
+  out[7] = tf::B_SMEM;
+  out[8] = tb::W_SMEM;
+  out[9] = tb::W_ROW_BLOCKS;
 }
 
 }  // extern "C"

@@ -1,13 +1,7 @@
 // Shared pieces of the fused PE + NeRF-W MLP kernels (fused_mlp_fwd.cu,
 // fused_mlp_bwd.cu) and of the anatomy probes (anatomy_net.cu,
-// anatomy_chain.cu, anatomy_pe.cu): compute-type traits, the Cody-Waite PE,
-// and two blocks to build a kernel from.
-//
-// The first block (TILE_M, gemm, load_slab, Hidden): 64 points a block, f32
-// FMAs on operands that every warp loads from shared memory, weights
-// through a two-deep cp.async ring with block-wide barriers.  It serves only
-// the f32 fused kernels, which are exact and on no main path; no probe and
-// no bf16 kernel uses it.
+// anatomy_chain.cu, anatomy_pe.cu): the Cody-Waite PE and two blocks to
+// build a kernel from, one for each compute type.
 //
 // The Hopper block (namespace hop, bf16): 128 points a block as two
 // consumer warpgroups of 64 rows; wgmma with both operands in shared memory
@@ -25,7 +19,12 @@
 // PE-matmul probes (anatomy_pe.cu: pe_mm, pe_mm_bf16), whose small weight
 // stays resident and needs no ring.
 //
-// Numerics (both kernels): PE steps use __fmul_rn / __fadd_rn so that no
+// The f32 Hopper block (namespace tf): the same producer, ring and
+// mbarriers, and f32 products on the tensor cores as three TF32 passes
+// (3xTF32), A from registers.  Both f32 fused kernels are built from it;
+// fused_mlp_fwd.cu says why it is laid out as it is.
+//
+// Numerics (all kernels): PE steps use __fmul_rn / __fadd_rn so that no
 // multiply-add is contracted; build without --use_fast_math.
 #pragma once
 
@@ -37,9 +36,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TILE_M = 64;
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int IN_LD = 128;     // packed input row
 constexpr int OUT_LD = 16;     // packed output row
 constexpr int W_TRUNK = 256;
@@ -56,27 +53,9 @@ __constant__ float SIN2PI[6] = {6.2831834654095857f, -41.341480259587343f,
                                 81.597655247118169f, -76.594899673933057f,
                                 41.269796373562237f, -12.37227202917199f};
 
-struct Net {
-  const void* w[N_LAYERS];   // (K_pad, N_out) row-major, compute type
-  const float* b[N_LAYERS];  // (N_out,) f32
-};
-
 enum { L_FS = 8, L_DIR = 9, L_RGB = 10, L_T0 = 11, L_TH = 15 };
 
-template <typename T> struct Cfg;
-// KS / PAD: the forward product's weight slab (KS rows of W, row padding);
-// KS_T / PAD_T: the backward's transposed slab (KS_T columns of W).
-template <> struct Cfg<float> {
-  static constexpr int KS = 16;
-  static constexpr int PAD = 4;
-  static constexpr int KS_T = 8;
-  static constexpr int PAD_T = 0;
-};
-
-template <typename T> __device__ __forceinline__ T to_t(float v);
-template <> __device__ __forceinline__ float to_t<float>(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(float v) { return v; }
 
 // One added to *runs by the first thread of the grid each time a kernel
 // runs: the fused kernels' count on the device, which sees a CUDA graph's
@@ -101,23 +80,6 @@ __device__ __forceinline__ float sin_cw(float x, float q) {
   return __fmul_rn(p, u);
 }
 
-// Column c of the positional encoding [x, sin(f0 x), cos(f0 x), ...] of the
-// three values at v, times the per-column scale (BARF weight; 0 on padding).
-__device__ __forceinline__ float pe_col(const float* v, int c, int n_freq,
-                                        const float* scale) {
-  float e;
-  if (c < 3) {
-    e = v[c];
-  } else if (c < 3 + 6 * n_freq) {
-    int k = (c - 3) / 6, j = (c - 3) % 6;
-    float arg = __fmul_rn(v[j % 3], (float)(1 << k));   // exact: 2^k
-    e = sin_cw(arg, j >= 3 ? 0.25f : 0.0f);
-  } else {
-    e = 0.0f;
-  }
-  return __fmul_rn(e, scale[c]);
-}
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -130,88 +92,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-
-// Rows [k0, k0 + rows) of the (K, NOUT) weight W into a slab of ld NOUT+PAD.
-template <typename T, int NOUT>
-__device__ __forceinline__ void load_slab(T* slab, const T* W, int k0,
-                                          int rows) {
-  constexpr int EPC = 16 / sizeof(T);          // elements per 16-byte chunk
-  constexpr int CPR = NOUT / EPC;              // chunks per row
-  constexpr int SLD = NOUT + Cfg<T>::PAD;
-  const int total = rows * CPR;
-  for (int c = threadIdx.x; c < total; c += THREADS) {
-    int r = c / CPR, q = c % CPR;
-    cp_async16(slab + r * SLD + q * EPC, W + (size_t)(k0 + r) * NOUT + q * EPC);
-  }
-}
-
-// C (TILE_M x 16*NF) = A (TILE_M x K, shared, ld lda) @ W (K x 16*NF,
-// global), then epi(row, col, value) once per element.  A may be
-// overwritten by epi: every warp finishes reading A before any epi runs.
-// K is a multiple of 16.  slab holds 2 x KS x (16*NF + PAD) elements.  f32
-// only: full-precision FMAs on the CUDA cores, no TF32.  Thread owns rows
-// 4*rg..4*rg+3 and columns cg + 16*j.
-template <typename T, int NF, typename Epi>
-__device__ void gemm(const T* A, int lda, int K, const T* W, T* slab,
-                     Epi epi) {
-  constexpr int NOUT = 16 * NF;
-  constexpr int KS = Cfg<T>::KS;
-  constexpr int SLD = NOUT + Cfg<T>::PAD;
-  const int nslab = (K + KS - 1) / KS;
-  const int tid = threadIdx.x;
-
-  load_slab<T, NOUT>(slab, W, 0, min(KS, K));
-  cp_async_commit();
-
-  const int cg = tid & 15, rg = tid >> 4;
-  float acc[4][NF];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) acc[i][j] = 0.0f;
-
-  for (int s = 0; s < nslab; ++s) {
-    const int k0 = s * KS;
-    if (s + 1 < nslab)
-      load_slab<T, NOUT>(slab + ((s + 1) & 1) * KS * SLD, W, k0 + KS,
-                         min(KS, K - k0 - KS));
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const T* cur = slab + (s & 1) * KS * SLD;
-    const int rows = min(KS, K - k0);
-    for (int kk = 0; kk < rows; ++kk) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = A[(rg * 4 + i) * lda + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        const float b = cur[kk * SLD + cg + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) epi(rg * 4 + i, cg + 16 * j, acc[i][j]);
-  __syncthreads();
-}
-
-// hidden layer epilogue: round, add the rounded bias, ReLU
-template <typename T> struct Hidden {
-  T* dst;
-  int ld;
-  const float* bias;
-  __device__ void operator()(int r, int c, float v) const {
-    float y = to_f(to_t<T>(v));
-    float b = to_f(to_t<T>(bias[c]));
-    float h = to_f(to_t<T>(y + b));
-    dst[r * ld + c] = to_t<T>(fmaxf(h, 0.0f));
-  }
-};
 
 // ======================================================================
 // The Hopper block (bf16 only): wgmma from shared memory behind an
@@ -681,7 +561,7 @@ struct ReluRoundF {
 
 // [v | sin(2^k v), cos(2^k v) for k < n_freq | extra | 0] times the scale
 // row, for this warpgroup's 64 rows -> columns [0, width) of the tiles at
-// tile0: the values of pe_col.  Two threads share a row: each reads the
+// tile0: the values of tf::pe_at.  Two threads share a row: each reads the
 // row's three inputs once (one round trip to memory, which next_rows has
 // already brought into L2), then takes every second frequency (six
 // independent sin_cw each) and every second column past the trig columns.
@@ -915,5 +795,565 @@ __device__ __forceinline__ float pe_bwd_at(float x, int comp, int n_freq,
 }
 
 }  // namespace hop
+
+// ======================================================================
+// The f32 Hopper block: products of f32 operands as 3xTF32 wgmma behind the
+// hop ring.  The design and its budget are in fused_mlp_fwd.cu's note.
+// ======================================================================
+namespace tf {
+
+using hop::Ring;
+
+constexpr int ROWS = 64;                  // points a block: one consumer warpgroup
+constexpr int T_THREADS = 256;            // the consumers and a producer warpgroup
+constexpr int GROUP = 128;                // float4s of an 8-column group, one a consumer thread
+constexpr int GROUP_BYTES = GROUP * 16;   // 2 KB
+constexpr int SLOT_BYTES = 8 * GROUP_BYTES;   // a saved tile: 64 points x 64 columns
+constexpr int G_P = 0;                    // region P: 16 groups, 128 columns
+constexpr int G_H = 16;                   // region H: 32 groups, 256 columns
+constexpr int G_G = 48;                   // region G (backward): the heads' cotangent
+constexpr int ACT_BYTES = 48 * GROUP_BYTES;     // P and H: 96 KB
+constexpr int G_BYTES = 2 * GROUP_BYTES;        // G: 4 KB
+constexpr int KC = 32;                    // contraction values a stage: a 128-byte tf32 row
+constexpr int PIECE = W_HALF;             // output columns a stage (fs2's last: 144)
+constexpr int STAGES = 3;
+constexpr int STAGE_BYTES = 2 * (PIECE + OUT_LD) * 128;   // hi + lo of 144 rows
+constexpr int B_STAGE_BYTES = 2 * PIECE * 128;            // the backward's: 128 rows
+constexpr int MAX_PLAN = 384;
+constexpr int SMEM_BYTES = 1024 + ACT_BYTES + STAGES * STAGE_BYTES +
+                           hop::CONST_FLOATS * 4 + 2 * STAGES * 8;
+constexpr int B_SMEM = 1024 + ACT_BYTES + G_BYTES + STAGES * B_STAGE_BYTES +
+                       hop::CONST_FLOATS * 4 + 2 * STAGES * 8;
+static_assert(SMEM_BYTES <= 232448 && B_SMEM <= 232448, "shared memory");
+
+// The f32 weight image: every layer segment cut into stages of KC
+// contraction values by one output piece (pieces: 128 columns, the last up
+// to 144), each stage the hi then the lo part (split) of the B operand's
+// shared-memory image: `rows` rows of KC tf32 values (128 bytes), 16-byte
+// chunk c of row i at chunk c ^ (i % 8).  Within each 8 contraction values
+// the order is 0, 2, 4, 6, 1, 3, 5, 7, the A fragments' (mma_seg).
+// nerf_fl_torch/ops/fused_mlp.py:f32_image_plan is the same walk.
+struct Plan {
+  int n_stages;
+  unsigned short rows[MAX_PLAN];   // image rows of a part of each stage
+};
+
+inline void plan_seg(Plan& p, int& at, int k, int n) {
+  const int pieces = n <= PIECE + OUT_LD ? 1 : n / PIECE;
+  for (int c = 0; c < k; c += KC)
+    for (int h = 0; h < pieces; ++h) {
+      const int rows = h < pieces - 1 ? PIECE : n - PIECE * (pieces - 1);
+      if (p.n_stages < MAX_PLAN) p.rows[p.n_stages] = (unsigned short)rows;
+      ++p.n_stages;
+      at += 2 * rows * 128;
+    }
+}
+
+// Forward order (hop::make_plan's walk).  Returns the image's bytes.
+inline int make_plan(Plan& p, int k0, int kd, int kt, int has_transient) {
+  p = Plan{};
+  int at = 0;
+  plan_seg(p, at, k0, W_TRUNK);
+  for (int l = 1; l < 8; ++l) {
+    if (l == 4) plan_seg(p, at, k0, W_TRUNK);
+    plan_seg(p, at, W_TRUNK, W_TRUNK);
+  }
+  plan_seg(p, at, W_TRUNK, FS_OUT);
+  plan_seg(p, at, W_TRUNK, W_HALF);
+  plan_seg(p, at, kd, W_HALF);
+  plan_seg(p, at, W_HALF, OUT_LD);
+  if (has_transient) {
+    plan_seg(p, at, W_TRUNK, W_HALF);
+    plan_seg(p, at, kt, W_HALF);
+    for (int l = 0; l < 3; ++l) plan_seg(p, at, W_HALF, W_HALF);
+    plan_seg(p, at, W_HALF, OUT_LD);
+  }
+  return at;
+}
+
+// Backward order (hop::make_bwd_plan's walk): the recompute, then the
+// dgrad stages, tiles of W itself (image rows are input rows, contraction
+// over output columns).
+inline int make_bwd_plan(Plan& p, int k0, int kd, int kt, int has_transient) {
+  p = Plan{};
+  int at = 0;
+  plan_seg(p, at, k0, W_TRUNK);
+  for (int l = 1; l < 8; ++l) {
+    if (l == 4) plan_seg(p, at, k0, W_TRUNK);
+    plan_seg(p, at, W_TRUNK, W_TRUNK);
+  }
+  plan_seg(p, at, W_TRUNK, W_TRUNK);          // xyz_final
+  plan_seg(p, at, W_TRUNK, W_HALF);           // dir
+  plan_seg(p, at, kd, W_HALF);
+  if (has_transient) {
+    plan_seg(p, at, W_TRUNK, W_HALF);
+    plan_seg(p, at, kt, W_HALF);
+    for (int l = 0; l < 3; ++l) plan_seg(p, at, W_HALF, W_HALF);
+    plan_seg(p, at, OUT_LD, W_HALF);          // t heads
+    for (int l = 0; l < 3; ++l) plan_seg(p, at, W_HALF, W_HALF);   // t3..t1
+    plan_seg(p, at, W_HALF, W_TRUNK);         // t0 -> d_xyz_final
+    plan_seg(p, at, W_HALF, W_HALF);          // t0 -> d_t
+  }
+  plan_seg(p, at, OUT_LD, W_HALF);            // rgb head
+  plan_seg(p, at, W_HALF, W_TRUNK);           // dir -> d_xyz_final
+  plan_seg(p, at, W_HALF, W_HALF);            // dir -> d_tail
+  plan_seg(p, at, FS_OUT, W_TRUNK);           // fs2
+  for (int l = 7; l >= 1; --l) {
+    if (l == 4) plan_seg(p, at, W_TRUNK, W_HALF);   // layer 4 -> d_pe
+    plan_seg(p, at, W_TRUNK, W_TRUNK);
+  }
+  plan_seg(p, at, W_TRUNK, W_HALF);           // layer 0 -> d_pe
+  return at;
+}
+
+// ---- the 3xTF32 split ----
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo + e, |e| <= 2^-22 |x|: hi is x rounded to tf32 (to nearest,
+// ties away from zero), lo the rest rounded the same way
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// ---- wgmma, tf32 in, f32 accumulate ----
+// D (64 x N) += A (64 x 8) B (8 x N), A from registers, B K-major from
+// shared memory.  Thread t of the warpgroup gives A's rows 16 (t / 32) +
+// (t % 32) / 4 (a[0], a[2]) and + 8 (a[1], a[3]) at contraction index t % 4
+// (a[0], a[1]) and t % 4 + 4 (a[2], a[3]); D's fragments as hop::Wgmma's.
+template <int N> struct Wgmma32;
+template <> struct Wgmma32<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <> struct Wgmma32<16> {
+  static __device__ __forceinline__ void run(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+// D (64 x N) += A (64 x 8) B (8 x N), both K-major from shared memory (the
+// wgrad's).
+template <int N> struct WgmmaSS;
+template <> struct WgmmaSS<256> {
+  static __device__ __forceinline__ void run(float (&d)[128], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87,"
+        " %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103,"
+        " %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119,"
+        " %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct WgmmaSS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct WgmmaSS<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// ---- the private layout of activations and cotangents ----
+// Element (r, c) of a 64-row region that starts at 8-column group g0 is
+// held by the consumer thread t = 32 (r / 16) + 4 (r % 8) + (c % 8) / 2
+// that computes it in a product's fragments (hop::Wgmma): float4
+// (g0 + c / 8) * GROUP + t, component 2 ((r / 8) % 2) + c % 2.  A thread's
+// float4 of group j is so its accumulators 4 j .. 4 j + 3, and, split, its
+// A fragment of the contraction values 8 j .. 8 j + 7 in the image's order
+// (Wgmma32).  A product reads only the thread's own activations and its
+// epilogue writes only them: no barrier between layers.
+__device__ __forceinline__ int at(int g0, int r, int c) {
+  return ((g0 + (c >> 3)) * GROUP + 32 * (r >> 4) + 4 * (r & 7) +
+          ((c & 7) >> 1)) * 4 + 2 * ((r >> 3) & 1) + (c & 1);
+}
+
+// A float4 of the private layout as hi and lo A fragments.
+__device__ __forceinline__ void split_a(const float4 v, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split(v.x, hi[0], lo[0]);
+  split(v.z, hi[1], lo[1]);
+  split(v.y, hi[2], lo[2]);
+  split(v.w, hi[3], lo[3]);
+}
+
+// One segment of a layer's contraction: `cols` input columns (a multiple
+// of 16) of this thread's private region g0, KC a stage; each stage holds
+// one output piece of the layer's N columns (256: two pieces of 128, whose
+// accumulators are acc's halves).  Three passes a k8 step: hi x hi, lo x
+// hi, hi x lo.  SIG: fs2, whose last piece has 16 more rows, the sigma
+// block, multiplied into sig.  A stage's products all issue whatever its
+// real columns (the image and the A fragments are zero past them): no
+// wgmma sits behind a branch, which ptxas would answer by serializing
+// them.  The A registers are rewritten every KC columns, so the products of
+// those columns are waited for before the next.
+template <int N, bool SIG>
+__device__ __forceinline__ void mma_seg(float (&acc)[N / 2], float (&sig)[8],
+                                        const float4* act, int g0, int cols,
+                                        Ring& r, bool& fresh, bool elected,
+                                        int t) {
+  constexpr int PIECES = N == W_TRUNK ? 2 : 1;
+  constexpr int NP = N / PIECES;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int k0 = 0; k0 < cols; k0 += KC) {
+    const int steps = min(KC, cols - k0) / 8;
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      split_a(kk < steps ? act[(g0 + k0 / 8 + kk) * GROUP + t] : zero,
+              ah[kk], al[kk]);
+    const int sd = fresh ? 0 : 1;
+    hop::wgmma_fence();
+    int prev = 0;
+#pragma unroll
+    for (int h = 0; h < PIECES; ++h) {
+      float(&d)[NP / 2] =
+          *reinterpret_cast<float(*)[NP / 2]>(acc + h * (NP / 2));
+      const bool with_sig = SIG && h == PIECES - 1;
+      hop::mbar_wait(r.full + 8 * r.stage, r.phase);
+      const uint32_t hi = r.buf + r.stage * r.stride;
+      const uint32_t lo = hi + (NP + (with_sig ? OUT_LD : 0)) * 128;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        Wgmma32<NP>::run(d, ah[kk], hop::kdesc(hi + 32 * kk),
+                         kk == 0 ? sd : 1);
+        Wgmma32<NP>::run(d, al[kk], hop::kdesc(hi + 32 * kk), 1);
+        Wgmma32<NP>::run(d, ah[kk], hop::kdesc(lo + 32 * kk), 1);
+        if (with_sig) {
+          const uint32_t s = NP * 128 + 32 * kk;
+          Wgmma32<16>::run(sig, ah[kk], hop::kdesc(hi + s), kk == 0 ? sd : 1);
+          Wgmma32<16>::run(sig, al[kk], hop::kdesc(hi + s), 1);
+          Wgmma32<16>::run(sig, ah[kk], hop::kdesc(lo + s), 1);
+        }
+      }
+      hop::wgmma_commit();
+      if (h > 0) {
+        // the previous piece's products are done: its stage is free
+        hop::wgmma_wait<1>();
+        if (elected) hop::mbar_arrive(r.empty + 8 * prev);
+      }
+      prev = r.stage;
+      if (++r.stage == STAGES) {
+        r.stage = 0;
+        r.phase ^= 1;
+      }
+    }
+    fresh = false;
+    hop::wgmma_wait<0>();
+    if (elected) hop::mbar_arrive(r.empty + 8 * prev);
+  }
+  hop::fence_acc(acc);
+  if (SIG) hop::fence_acc(sig);
+}
+
+// The producer: one thread streams the plan's stages through the ring once
+// per tile of this block, running ahead of the consumers by STAGES.
+__device__ __forceinline__ void produce(const unsigned char* image,
+                                        const Plan& plan, uint32_t full,
+                                        uint32_t empty, uint32_t buf,
+                                        uint32_t stride, int n_tiles) {
+  int stage = 0;
+  uint32_t phase = 1;          // a fresh "empty" barrier lets parity 1 pass
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const unsigned char* src = image;
+    for (int s = 0; s < plan.n_stages; ++s) {
+      const uint32_t bytes = 2u * 128u * plan.rows[s];
+      hop::mbar_wait(empty + 8 * stage, phase);
+      hop::mbar_expect_tx(full + 8 * stage, bytes);
+      hop::bulk_g2s(buf + stage * stride, src, bytes, full + 8 * stage);
+      src += bytes;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// Column c < 3 + 6 n_freq of the positional encoding of (x0, x1, x2) times
+// the column's scale: the values of hop::encode_rows, in f32.
+__device__ __forceinline__ float pe_at(float x0, float x1, float x2, int c,
+                                       const float* scale) {
+  float e;
+  if (c < 3) {
+    e = c == 0 ? x0 : (c == 1 ? x1 : x2);
+  } else {
+    const int k = (c - 3) / 6, j = (c - 3) % 6, m = j % 3;
+    const float x = m == 0 ? x0 : (m == 1 ? x1 : x2);
+    e = sin_cw(__fmul_rn(x, (float)(1 << k)), j >= 3 ? 0.25f : 0.0f);
+  }
+  return __fmul_rn(e, scale[c]);
+}
+
+// Columns [0, width) of this thread's rows (16 w + g and + 8) into its
+// private region g0: with pe, the encoding of the three values at column
+// src (pe_at), then n_extra columns copied from column extra_src; without,
+// the copied columns alone; zeros past them and in rows past n.
+__device__ __forceinline__ void encode(float4* act, int g0,
+                                       const float* __restrict__ inp,
+                                       size_t row0, int n, bool pe, int src,
+                                       int n_freq, const float* scale,
+                                       int extra_src, int n_extra, int width,
+                                       int t) {
+  const int r = 16 * (t >> 5) + ((t & 31) >> 2), q = t & 3;
+  const int first = pe ? 3 + 6 * n_freq : 0;
+  float x[2][3];
+  const float* p[2];
+  bool live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t row = row0 + r + 8 * h;
+    live[h] = row < (size_t)n;
+    p[h] = inp + (live[h] ? row : 0) * IN_LD;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      x[h][k] = live[h] && pe ? p[h][src + k] : 0.0f;
+  }
+  for (int j = 0; j < width / 8; ++j) {
+    float o[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * q + e;
+        float v = 0.0f;
+        if (live[h]) {
+          if (c < first)
+            v = pe_at(x[h][0], x[h][1], x[h][2], c, scale);
+          else if (c < first + n_extra)
+            v = p[h][extra_src + c - first];
+        }
+        o[2 * h + e] = v;
+      }
+    act[(g0 + j) * GROUP + t] = make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// Hidden layer epilogue: relu(sum + bias) in f32 into region g0; with M
+// also the ReLU bits (hop::store_hidden_mask's packing: bit i of word
+// 4 j / 32, at 4 j % 32 + i, for accumulator 4 j + i, set where the stored
+// value is positive).
+template <int N, bool M>
+__device__ __forceinline__ void store_hidden(const float (&acc)[N / 2],
+                                             float4* act, int g0,
+                                             const float* bias, int q, int t,
+                                             uint32_t* m) {
+  if (M)
+#pragma unroll
+    for (int w = 0; w < N / 64; ++w) m[w] = 0;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * q);
+    const float4 o = make_float4(
+        fmaxf(acc[4 * j] + b.x, 0.0f), fmaxf(acc[4 * j + 1] + b.y, 0.0f),
+        fmaxf(acc[4 * j + 2] + b.x, 0.0f), fmaxf(acc[4 * j + 3] + b.y, 0.0f));
+    act[(g0 + j) * GROUP + t] = o;
+    if (M)
+      m[(4 * j) / 32] |= ((o.x > 0.0f ? 1u : 0u) | (o.y > 0.0f ? 2u : 0u) |
+                          (o.z > 0.0f ? 4u : 0u) | (o.w > 0.0f ? 8u : 0u))
+                         << ((4 * j) % 32);
+  }
+}
+
+// fs2's xyz_final: sum + bias in f32 into region g0
+template <int N>
+__device__ __forceinline__ void store_linear(const float (&acc)[N / 2],
+                                             float4* act, int g0,
+                                             const float* bias, int q, int t) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * q);
+    act[(g0 + j) * GROUP + t] =
+        make_float4(acc[4 * j] + b.x, acc[4 * j + 1] + b.y,
+                    acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
+  }
+}
+
+// dgrad epilogue (hop::store_cot's, in f32): ADD, plus the value already
+// there; MASK, zero where the forward activation was not positive (bits of
+// m, as store_hidden made them); DB, the column sums of the stored values
+// over this warp's 16 rows to db[column] (lanes 0..3).
+template <int N, bool MASK, bool ADD, bool DB>
+__device__ __forceinline__ void store_cot(const float (&acc)[N / 2],
+                                          float4* act, int g0,
+                                          const uint32_t* m, float* db, int q,
+                                          int t, int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float4* p = act + (g0 + j) * GROUP + t;
+    float4 v = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                           acc[4 * j + 3]);
+    if constexpr (ADD) {
+      const float4 o = *p;
+      v = make_float4(v.x + o.x, v.y + o.y, v.z + o.z, v.w + o.w);
+    }
+    if constexpr (MASK) {
+      const uint32_t bits = m[(4 * j) / 32] >> ((4 * j) % 32);
+      v = make_float4(bits & 1u ? v.x : 0.0f, bits & 2u ? v.y : 0.0f,
+                      bits & 4u ? v.z : 0.0f, bits & 8u ? v.w : 0.0f);
+    }
+    *p = v;
+    if constexpr (DB) {
+      float s0 = v.x + v.z, s1 = v.y + v.w;
+#pragma unroll
+      for (int d = 4; d < 32; d <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, d);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, d);
+      }
+      if (lane < 4)
+        *reinterpret_cast<float2*>(db + 8 * j + 2 * q) = make_float2(s0, s1);
+    }
+  }
+}
+
+// The first ceil(cols / 8) groups of the private region at src (a shared
+// address) to tile slots tile, tile + 1, ... of row block rb in the
+// scratch: slot i of rb at ((i * n_rb) + rb) * SLOT_BYTES.  One thread.
+__device__ __forceinline__ void save(unsigned char* scratch, int tile,
+                                     int cols, size_t n_rb, size_t rb,
+                                     uint32_t src) {
+  const int groups = (cols + 7) / 8;
+  for (int i = 0; 8 * i < groups; ++i)
+    hop::bulk_s2g(scratch + ((size_t)(tile + i) * n_rb + rb) * SLOT_BYTES,
+                  src + i * SLOT_BYTES,
+                  (groups - 8 * i < 8 ? groups - 8 * i : 8) * GROUP_BYTES);
+  hop::bulk_commit();
+}
+
+}  // namespace tf
 
 }  // namespace

@@ -61,10 +61,53 @@
 // after setmaxnreg), 216,880 bytes of shared memory (2 x 48 KB activations,
 // 3 x 34 KB slabs, 13 KB biases and scale rows), one block an SM.
 //
-// The f32 kernel is the exact yardstick (plain FMAs on the CUDA cores, the
-// header's gemm / load_slab, 64 points a block); it is on no main path.
+// The f32 kernel (dtype float32: the CLIs' default --compute_dtype, on the
+// train and render paths through --use_pallas auto) replaces _fwd_kernel at
+// dtype=float32.  What bounds it: the same 1.37 MFLOP a point in f32.  On
+// the CUDA cores (67 TFLOP/s) that is 15x the bf16 kernel's bound, so it
+// runs on the tensor cores as 3xTF32: each operand x is split into hi =
+// cvt.rna.tf32.f32(x) and lo = the rest, rounded the same way (x - hi - lo
+// within 2^-22 |x|), and a product is hi*hi + lo*hi + hi*lo with f32
+// accumulation (lo*lo, under 2^-22 of it, is left out): about 2^-21
+// relative a product.  Three TF32 passes at 495 TFLOP/s bound it at the
+// work's time at 165 TFLOP/s, 6x the bf16 kernel's.  A bf16x3 build (three
+// bf16 terms by truncation, six passes: f32's 2^-24 at the same rate) was
+// run on the card too: it agreed with the plain version no better, and was
+// slower (twice the wgmma instructions, pieces of 64 columns).  Against
+// the plain version, neither split decides a ReLU as the plain version
+// does where a hidden pre-activation lies within f32 rounding of zero: the
+// same products summed in float64 do not either (ops/f32_ties.py, which
+// the checks use to match the plain backward to the kernel's side of such
+// a unit).  It is built from the f32 block of
+// fused_mlp_common.cuh (namespace tf):
+//   * the hop ring and producer: one thread copies stages of 32
+//     contraction values by one output piece (128 columns; fs2's last 144),
+//     each the hi then the lo part of the B operand's 128-byte-swizzled
+//     K-major image, which the wrapper splits and lays out
+//     (fused_mlp.py:f32_weight_image), through three stages;
+//   * A from registers (the RS form of wgmma m64nNk8 .tf32): the
+//     activations stay f32 in shared memory in a private layout, where the
+//     thread that holds an element in a product's accumulator fragments is
+//     the one that gives it as A to the next layer.  A k8 step's A fragment
+//     is one float4 of the thread's own values (the image orders each 8
+//     contraction values 0, 2, 4, 6, 1, 3, 5, 7 to match), split in
+//     registers; no barrier inside a tile;
+//   * budget: a 64-row f32 tile of ACT_W = 384 columns is 96 KB, and hi +
+//     lo copies of it as tf32 would be 192 KB of the block's 227 KB, so the
+//     activations are stored once as f32 and split in registers, and a
+//     block is one consumer warpgroup of 64 points.  Shared memory 223,024
+//     bytes: 96 KB activations, 3 x 36 KB stages, 13 KB biases and scale
+//     rows, 1 KB alignment; one block an SM.  256 threads (the consumers
+//     and a producer warpgroup) may take 255 registers each at launch, so
+//     no setmaxnreg: a consumer holds 128 accumulators at N = 256 (two
+//     pieces of 64) and 32 A registers;
+//   * the products of 32 contraction values are waited for before the next
+//     32 are split into the same registers, so the tensor cores idle while
+//     the next A fragments load; each weight byte from L2 serves 64 points,
+//     half the bf16 kernel's reuse.
 //
-// Numerics follow the TPU kernel exactly:
+// Numerics follow the TPU kernel exactly (at f32 "round to the compute
+// type" is the identity; the split products are the one difference):
 //   * hidden layers: f32 accumulate, round to the compute type, add the bias
 //     rounded to the compute type, ReLU;
 //   * fs2 and the heads stay f32 with f32 bias; xyz_final is rounded from
@@ -76,128 +119,6 @@
 #include "fused_mlp_common.cuh"
 
 namespace {
-
-// fs2 = h @ [W_xyz_final | w_sigma] + b in f32: xyz_final is rounded into
-// dst, the 16-column sigma block adds into the f32 output tile.
-template <typename T> struct Fs2 {
-  T* dst;
-  int ld;
-  const float* bias;
-  float* out;
-  __device__ void operator()(int r, int c, float v) const {
-    float y = v + bias[c];
-    if (c < W_TRUNK)
-      dst[r * ld + c] = to_t<T>(y);
-    else
-      out[r * OUT_LD + (c - W_TRUNK)] += y;
-  }
-};
-
-// f32 head: adds into the output tile (heads write disjoint columns)
-struct Head {
-  const float* bias;
-  float* out;
-  __device__ void operator()(int r, int c, float v) const {
-    out[r * OUT_LD + c] += v + bias[c];
-  }
-};
-
-template <typename T>
-constexpr size_t smem_bytes() {
-  constexpr int PAD = Cfg<T>::PAD;
-  return sizeof(T) * (size_t)TILE_M * (ACT_W + PAD)          // act
-         + sizeof(T) * (size_t)TILE_M * (W_HALF + PAD)       // hb
-         + sizeof(T) * 2 * (size_t)Cfg<T>::KS * (FS_OUT + PAD)  // slab
-         + sizeof(float) * TILE_M * OUT_LD;                   // out
-}
-
-// The f32 instance: full-precision FMAs on the CUDA cores through the
-// header's gemm / load_slab, 64 points a block.  It is the exact yardstick
-// and is on no main path.
-__global__ void __launch_bounds__(THREADS, 1)
-fused_mlp_fwd_f32_kernel(const float* __restrict__ inp, float* __restrict__ out,
-                     int n, Net net, const float* __restrict__ sx,
-                     const float* __restrict__ sd, int nfx, int nfd,
-                     int a_dim, int t_dim, int k0, int kd, int kt,
-                     int has_transient, unsigned long long* runs) {
-  using T = float;
-  count_run(runs);
-  constexpr int PAD = Cfg<T>::PAD;
-  constexpr int ALD = ACT_W + PAD;
-  constexpr int HLD = W_HALF + PAD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* act = reinterpret_cast<T*>(smem);
-  T* hb = act + TILE_M * ALD;
-  T* slab = hb + TILE_M * HLD;
-  float* otile = reinterpret_cast<float*>(slab + 2 * Cfg<T>::KS * (FS_OUT + PAD));
-
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)blockIdx.x * TILE_M;
-  auto W = [&](int l) { return static_cast<const T*>(net.w[l]); };
-
-  for (int e = tid; e < TILE_M * OUT_LD; e += THREADS) otile[e] = 0.0f;
-  // PE(xyz) -> act[:, 0:k0]
-  for (int e = tid; e < TILE_M * k0; e += THREADS) {
-    const int r = e / k0, c = e % k0;
-    float v = 0.0f;
-    if (row0 + r < (size_t)n) v = pe_col(inp + (row0 + r) * IN_LD, c, nfx, sx);
-    act[r * ALD + c] = to_t<T>(v);
-  }
-  __syncthreads();
-
-  // trunk; h lives at act[:, k0:k0+256] so layer 4 reads [pe | h] whole
-  T* h = act + k0;
-  gemm<T, 16>(act, ALD, k0, W(0), slab, Hidden<T>{h, ALD, net.b[0]});
-  for (int i = 1; i < 8; ++i) {
-    if (i == 4)
-      gemm<T, 16>(act, ALD, k0 + W_TRUNK, W(i), slab,
-                  Hidden<T>{h, ALD, net.b[i]});
-    else
-      gemm<T, 16>(h, ALD, W_TRUNK, W(i), slab, Hidden<T>{h, ALD, net.b[i]});
-  }
-  // fs2: xyz_final -> act[:, 0:256], sigma -> otile
-  gemm<T, FS_OUT / 16>(h, ALD, W_TRUNK, W(L_FS), slab,
-                       Fs2<T>{act, ALD, net.b[L_FS], otile});
-
-  // dir tail [PE(dir) | a | 0] -> act[:, 256:256+kd]
-  const int dpe = 3 + 6 * nfd;
-  for (int e = tid; e < TILE_M * kd; e += THREADS) {
-    const int r = e / kd, c = e % kd;
-    float v = 0.0f;
-    if (row0 + r < (size_t)n) {
-      const float* row = inp + (row0 + r) * IN_LD;
-      if (c < dpe) v = pe_col(row + 3, c, nfd, sd);
-      else if (c < dpe + a_dim) v = row[6 + c - dpe];
-    }
-    act[r * ALD + W_TRUNK + c] = to_t<T>(v);
-  }
-  __syncthreads();
-  gemm<T, 8>(act, ALD, W_TRUNK + kd, W(L_DIR), slab,
-             Hidden<T>{hb, HLD, net.b[L_DIR]});
-  gemm<T, 1>(hb, HLD, W_HALF, W(L_RGB), slab, Head{net.b[L_RGB], otile});
-
-  if (has_transient) {
-    // [xyz_final | t | 0] for the first transient layer
-    for (int e = tid; e < TILE_M * kt; e += THREADS) {
-      const int r = e / kt, c = e % kt;
-      float v = 0.0f;
-      if (row0 + r < (size_t)n && c < t_dim)
-        v = inp[(row0 + r) * IN_LD + 6 + a_dim + c];
-      act[r * ALD + W_TRUNK + c] = to_t<T>(v);
-    }
-    __syncthreads();
-    gemm<T, 8>(act, ALD, W_TRUNK + kt, W(L_T0), slab,
-               Hidden<T>{hb, HLD, net.b[L_T0]});
-    for (int l = L_T0 + 1; l < L_TH; ++l)
-      gemm<T, 8>(hb, HLD, W_HALF, W(l), slab, Hidden<T>{hb, HLD, net.b[l]});
-    gemm<T, 1>(hb, HLD, W_HALF, W(L_TH), slab, Head{net.b[L_TH], otile});
-  }
-
-  for (int e = tid; e < TILE_M * OUT_LD; e += THREADS) {
-    const int r = e / OUT_LD;
-    if (row0 + r < (size_t)n) out[row0 * OUT_LD + e] = otile[e];
-  }
-}
 
 // ----------------------------------------------------------------------
 // The bf16 kernel.  Block = two consumer warpgroups (64 rows each) and a
@@ -425,6 +346,181 @@ fused_mlp_fwd_bf16_kernel(const float* __restrict__ inp,
   }
 }
 
+// ----------------------------------------------------------------------
+// The f32 kernel.  Block = one consumer warpgroup (64 rows) and a producer
+// warpgroup of which one thread works.
+// ----------------------------------------------------------------------
+__global__ void __launch_bounds__(tf::T_THREADS, 1)
+fused_mlp_fwd_f32_kernel(const float* __restrict__ inp,
+                         float* __restrict__ out, int n,
+                         const unsigned char* __restrict__ image,
+                         const __grid_constant__ tf::Plan plan,
+                         const __grid_constant__ Biases bias,
+                         const float* __restrict__ sx,
+                         const float* __restrict__ sd, int nfx, int nfd,
+                         int a_dim, int t_dim, int k0, int kd, int kt,
+                         int has_transient, unsigned long long* runs) {
+  count_run(runs);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  float4* act = reinterpret_cast<float4*>(smem);
+  unsigned char* stages = smem + tf::ACT_BYTES;
+  float* bias_s =
+      reinterpret_cast<float*>(stages + tf::STAGES * tf::STAGE_BYTES);
+  float* sx_s = bias_s + hop::BIAS_FLOATS;
+  float* sd_s = sx_s + IN_LD;
+  const uint32_t full = hop::smem_u32(bias_s + hop::CONST_FLOATS);
+  const uint32_t empty = full + 8 * tf::STAGES;
+
+  const int tid = threadIdx.x;
+  const int n_layers = has_transient ? N_LAYERS : L_T0;
+  for (int c = tid; c < IN_LD; c += tf::T_THREADS) {
+    sx_s[c] = sx[c];
+    sd_s[c] = sd[c];
+  }
+  for (int l = 0; l < n_layers; ++l)
+    for (int c = tid; c < hop::layer_n(l); c += tf::T_THREADS)
+      bias_s[hop::bias_off(l) + c] = bias.b[l][c];
+  if (tid == 0) {
+    for (int s = 0; s < tf::STAGES; ++s) {
+      hop::mbar_init(full + 8 * s, 1);
+      hop::mbar_init(empty + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    hop::fence_async_smem();
+  }
+  __syncthreads();
+
+  const int n_tiles = (n + tf::ROWS - 1) / tf::ROWS;
+  if (tid >= 128) {
+    if (tid == 128)
+      tf::produce(image, plan, full, empty, hop::smem_u32(stages),
+                  tf::STAGE_BYTES, n_tiles);
+    return;
+  }
+  const int t = tid;
+  const int fr = 16 * (t >> 5) + ((t & 31) >> 2), fq = t & 3;
+  const bool elected = t == 0;
+  tf::Ring ring = {full, empty, hop::smem_u32(stages), tf::STAGE_BYTES, 0,
+                   0, -1};
+  float none[8];
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const size_t row0 = (size_t)tile * tf::ROWS;
+    // PE(xyz) -> P
+    tf::encode(act, tf::G_P, inp, row0, n, true, 0, nfx, sx_s, 0, 0, k0, t);
+    hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
+                   4 * (6 + a_dim + t_dim), t);
+
+    float out8[8];
+    {
+      float acc[W_TRUNK / 2];
+      // trunk: every layer overwrites H in place once its products are done
+      for (int i = 0; i < 8; ++i) {
+        bool fresh = true;
+        if (i == 0 || i == 4)
+          tf::mma_seg<W_TRUNK, false>(acc, none, act, tf::G_P, k0, ring,
+                                      fresh, elected, t);
+        if (i != 0)
+          tf::mma_seg<W_TRUNK, false>(acc, none, act, tf::G_H, W_TRUNK, ring,
+                                      fresh, elected, t);
+        tf::store_hidden<W_TRUNK, false>(acc, act, tf::G_H,
+                                         bias_s + hop::bias_off(i), fq, t,
+                                         nullptr);
+      }
+      // fs2: xyz_final -> H, the sigma block -> out8
+      float sig[8];
+      bool fresh = true;
+      tf::mma_seg<W_TRUNK, true>(acc, sig, act, tf::G_H, W_TRUNK, ring, fresh,
+                                 elected, t);
+      const float* bfs = bias_s + hop::bias_off(L_FS);
+      tf::store_linear<W_TRUNK>(acc, act, tf::G_H, bfs, fq, t);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 b = *reinterpret_cast<const float2*>(
+            bfs + W_TRUNK + 8 * j + 2 * fq);
+        out8[4 * j + 0] = sig[4 * j + 0] + b.x;
+        out8[4 * j + 1] = sig[4 * j + 1] + b.y;
+        out8[4 * j + 2] = sig[4 * j + 2] + b.x;
+        out8[4 * j + 3] = sig[4 * j + 3] + b.y;
+      }
+    }
+    // dir tail [PE(dir) | a | 0] -> P
+    tf::encode(act, tf::G_P, inp, row0, n, true, 3, nfd, sd_s, 6, a_dim, kd,
+               t);
+
+    float acc[W_HALF / 2];
+    float head[8];
+    // dir layer [xyz_final | tail] -> hd in P; static rgb head
+    {
+      bool fresh = true;
+      tf::mma_seg<W_HALF, false>(acc, none, act, tf::G_H, W_TRUNK, ring,
+                                 fresh, elected, t);
+      tf::mma_seg<W_HALF, false>(acc, none, act, tf::G_P, kd, ring, fresh,
+                                 elected, t);
+      tf::store_hidden<W_HALF, false>(acc, act, tf::G_P,
+                                      bias_s + hop::bias_off(L_DIR), fq, t,
+                                      nullptr);
+      fresh = true;
+      tf::mma_seg<OUT_LD, false>(head, none, act, tf::G_P, W_HALF, ring,
+                                 fresh, elected, t);
+      const float* bh = bias_s + hop::bias_off(L_RGB);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 b = *reinterpret_cast<const float2*>(bh + 8 * j + 2 * fq);
+        out8[4 * j + 0] = (head[4 * j + 0] + b.x) + out8[4 * j + 0];
+        out8[4 * j + 1] = (head[4 * j + 1] + b.y) + out8[4 * j + 1];
+        out8[4 * j + 2] = (head[4 * j + 2] + b.x) + out8[4 * j + 2];
+        out8[4 * j + 3] = (head[4 * j + 3] + b.y) + out8[4 * j + 3];
+      }
+    }
+    if (has_transient) {
+      // t tail -> P (the rgb head's products have read hd)
+      tf::encode(act, tf::G_P, inp, row0, n, false, 0, 0, sd_s, 6 + a_dim,
+                 t_dim, kt, t);
+      for (int l = L_T0; l < L_TH; ++l) {
+        bool fresh = true;
+        if (l == L_T0) {
+          tf::mma_seg<W_HALF, false>(acc, none, act, tf::G_H, W_TRUNK, ring,
+                                     fresh, elected, t);
+          tf::mma_seg<W_HALF, false>(acc, none, act, tf::G_P, kt, ring,
+                                     fresh, elected, t);
+        } else {
+          tf::mma_seg<W_HALF, false>(acc, none, act, tf::G_P, W_HALF, ring,
+                                     fresh, elected, t);
+        }
+        tf::store_hidden<W_HALF, false>(acc, act, tf::G_P,
+                                        bias_s + hop::bias_off(l), fq, t,
+                                        nullptr);
+      }
+      bool fresh = true;
+      tf::mma_seg<OUT_LD, false>(head, none, act, tf::G_P, W_HALF, ring,
+                                 fresh, elected, t);
+      const float* bh = bias_s + hop::bias_off(L_TH);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 b = *reinterpret_cast<const float2*>(bh + 8 * j + 2 * fq);
+        out8[4 * j + 0] = out8[4 * j + 0] + (head[4 * j + 0] + b.x);
+        out8[4 * j + 1] = out8[4 * j + 1] + (head[4 * j + 1] + b.y);
+        out8[4 * j + 2] = out8[4 * j + 2] + (head[4 * j + 2] + b.x);
+        out8[4 * j + 3] = out8[4 * j + 3] + (head[4 * j + 3] + b.y);
+      }
+    }
+    // rows past n are not stored
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t row = row0 + fr + 8 * h;
+      if (row < (size_t)n) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          *reinterpret_cast<float2*>(out + row * OUT_LD + 8 * j + 2 * fq) =
+              make_float2(out8[4 * j + 2 * h], out8[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
 struct Dims {
   int k0, kd, kt;
 };
@@ -437,28 +533,32 @@ bool dims(int n, int nfx, int nfd, int a_dim, int t_dim, Dims* d) {
          nfx <= 20 && nfd <= 20;
 }
 
-int launch_f32(const float* inp, float* out, int n, const void* const* w,
-               const float* const* b, const float* sx, const float* sd,
-               int nfx, int nfd, int a_dim, int t_dim, int has_transient,
-               unsigned long long* runs, cudaStream_t stream) {
+int launch_f32(const float* inp, float* out, int n, const void* image,
+               long long image_bytes, int grid, const float* const* b,
+               const float* sx, const float* sd, int nfx, int nfd, int a_dim,
+               int t_dim, int has_transient, unsigned long long* runs,
+               cudaStream_t stream) {
   Dims d;
   if (!dims(n, nfx, nfd, a_dim, t_dim, &d)) return (int)cudaErrorInvalidValue;
-  const int n_w = has_transient ? N_LAYERS : L_T0;
-  Net net = {};
-  for (int l = 0; l < n_w; ++l) {
-    net.w[l] = w[l];
-    net.b[l] = b[l];
-  }
-  constexpr size_t smem = smem_bytes<float>();
+  if (!has_transient) d.kt = 0;
+  tf::Plan plan;
+  // the wrapper's image must be the one this walk expects
+  if (tf::make_plan(plan, d.k0, d.kd, d.kt, has_transient) != image_bytes ||
+      plan.n_stages > tf::MAX_PLAN)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (n + tf::ROWS - 1) / tf::ROWS;
+  if (grid < (n_tiles ? 1 : 0) || grid > n_tiles)
+    return (int)cudaErrorInvalidValue;
+  Biases bias = {};
+  for (int l = 0; l < (has_transient ? N_LAYERS : L_T0); ++l) bias.b[l] = b[l];
   cudaError_t err = cudaFuncSetAttribute(
       fused_mlp_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      tf::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
-  const int grid = (n + TILE_M - 1) / TILE_M;
-  fused_mlp_fwd_f32_kernel<<<grid, THREADS, smem, stream>>>(
-      inp, out, n, net, sx, sd, nfx, nfd, a_dim, t_dim, d.k0, d.kd, d.kt,
-      has_transient, runs);
+  fused_mlp_fwd_f32_kernel<<<grid, tf::T_THREADS, tf::SMEM_BYTES, stream>>>(
+      inp, out, n, static_cast<const unsigned char*>(image), plan, bias, sx,
+      sd, nfx, nfd, a_dim, t_dim, d.k0, d.kd, d.kt, has_transient, runs);
   return (int)cudaGetLastError();
 }
 
@@ -495,36 +595,42 @@ int launch_bf16(const float* inp, float* out, int n, const void* image,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  w / b are host arrays of device
-// pointers, in the layer order of nerf_fl_torch/ops/fused_mlp.py:pack_weights.
-// bfloat16 reads its weights from `image` (image_bytes long; fused_mlp.py:
-// weight_image) and runs `grid` persistent blocks (fused_mlp.py:fwd_grid);
-// float32 ignores the three.  The kernel adds one to *runs each time it
-// runs (a CUDA graph's replays included).  Returns 0 or the cudaError_t of
-// the launch.
+// dtype: 0 = float32, 1 = bfloat16.  b is a host array of device
+// pointers to the f32 biases, in the layer order of
+// nerf_fl_torch/ops/fused_mlp.py:pack_weights.  The weights come from
+// `image` (image_bytes long; fused_mlp.py:weight_image for bfloat16,
+// f32_weight_image for float32), and `grid` persistent blocks run
+// (fused_mlp.py:fwd_grid).  The kernel adds one to *runs each time it runs
+// (a CUDA graph's replays included).  Returns 0 or the cudaError_t of the
+// launch.
 int nerf_fused_mlp_fwd(int dtype, const float* inp, float* out, int n,
-                       const void* const* w, const float* const* b,
-                       const void* image, long long image_bytes, int grid,
-                       const float* sx, const float* sd, int nfx, int nfd,
-                       int a_dim, int t_dim, int has_transient,
-                       unsigned long long* runs, void* stream) {
+                       const float* const* b, const void* image,
+                       long long image_bytes, int grid, const float* sx,
+                       const float* sd, int nfx, int nfd, int a_dim, int t_dim,
+                       int has_transient, unsigned long long* runs,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch_bf16(inp, out, n, image, image_bytes, grid, b, sx, sd, nfx,
                        nfd, a_dim, t_dim, has_transient, runs, s);
   if (dtype == 0)
-    return launch_f32(inp, out, n, w, b, sx, sd, nfx, nfd, a_dim, t_dim,
-                      has_transient, runs, s);
+    return launch_f32(inp, out, n, image, image_bytes, grid, b, sx, sd, nfx,
+                      nfd, a_dim, t_dim, has_transient, runs, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The bfloat16 kernel's block, for reports: out[0] points a block, out[1]
-// threads, out[2] shared-memory bytes, out[3] slabs in the weight ring.
+// The kernels' blocks, for reports: out[0] points a block, out[1]
+// threads, out[2] shared-memory bytes, out[3] stages in the weight ring;
+// bfloat16 in out[0..3], float32 in out[4..7].
 void nerf_fused_mlp_fwd_info(int* out) {
   out[0] = hop::ROWS;
   out[1] = hop::H_THREADS;
   out[2] = hop::SMEM_BYTES;
   out[3] = hop::STAGES;
+  out[4] = tf::ROWS;
+  out[5] = tf::T_THREADS;
+  out[6] = tf::SMEM_BYTES;
+  out[7] = tf::STAGES;
 }
 
 }  // extern "C"

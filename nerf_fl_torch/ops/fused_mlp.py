@@ -17,9 +17,11 @@ Layouts:
     sigma, 4-6 transient rgb, 7 transient sigma, 8 beta, the rest zero;
   * weights, (K, N_out) row-major in the compute dtype, each K and N_out
     padded with zeros only to the next multiple of 16 (the tensor-core
-    granule).  Biases f32.  See ``pack_weights``.  The bf16 forward kernel
-    streams them from ``weight_image``, the same values cut into 64-row
-    slabs in the layout its tensor-core operand has in shared memory.
+    granule).  Biases f32.  See ``pack_weights``.  The bf16 kernels stream
+    them from ``weight_image``, the same values cut into 64-row slabs in the
+    layout their tensor-core operand has in shared memory; the f32 kernels
+    from ``f32_weight_image``, each weight split into tf32 hi and lo parts
+    (``tf32_split``) and cut into stages of 32 rows.
 """
 from __future__ import annotations
 
@@ -53,6 +55,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 forward kernel's block (csrc/fused_mlp_common.cuh, namespace hop)
 TILE_ROWS = 128     # points a block holds at a time
 SLAB_K = 64         # input rows of a weight slab: one 128-byte swizzle row
+# the f32 kernels' block (namespace tf)
+F32_ROWS = 64       # points a block: one consumer warpgroup
+F32_K = 32          # contraction values of a stage: one 128-byte tf32 row
+F32_PIECE = 128     # output columns of a stage (the last of fs2's 272: 144)
+# the order of each 8 contraction values in an f32 stage: the A fragment of
+# a thread holds columns 2q and 2q + 1 of its group at indices q and q + 4
+F32_K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def _round16(n: int) -> int:
@@ -305,14 +314,47 @@ def _cut(slabs, at, layer, dgrad, row0, rows, col0, cols, height):
     return at
 
 
-def _forward_slabs(slabs, at, k0, kd, kt, has_transient, heads):
+def _cut32(slabs, at, layer, dgrad, row0, rows, col0, cols, height):
+    """``_cut`` for the f32 kernels: one stage per 32 contraction values
+    and output piece (``_pieces(height)`` image rows, starting at the
+    piece's first output column, or input row for dgrad), the hi then the
+    lo part, each ``height`` rows of 32 tf32 values (128 bytes).  A stage's
+    ``rows`` / ``cols`` count the real ones of its own range."""
+    n = cols if dgrad else rows
+    for c in range(0, n, F32_K):
+        m = min(F32_K, n - c)
+        p0 = 0
+        for h in _pieces(height):
+            if dgrad:
+                slabs.append(Slab(layer, True, row0 + p0,
+                                  max(0, min(h, rows - p0)), col0 + c, m, h,
+                                  at))
+            else:
+                slabs.append(Slab(layer, False, row0 + c, m, col0 + p0,
+                                  max(0, min(h, cols - p0)), h, at))
+            at += 2 * h * F32_K * 4
+            p0 += h
+    return at
+
+
+def _pieces(n: int):
+    """The output pieces of an f32 product n wide (tf::plan_seg): 128
+    columns each, the last taking up to 144."""
+    if n <= F32_PIECE + OUT_W:
+        return [n]
+    k = n // F32_PIECE
+    return [F32_PIECE] * (k - 1) + [n - F32_PIECE * (k - 1)]
+
+
+def _forward_slabs(slabs, at, k0, kd, kt, has_transient, heads, cut=_cut):
     """The forward's slabs in consumption order.  A layer whose input is
     two sources ([pe | h], [xyz_final | tail]) is cut per source, so a slab
     never straddles them; a source's last slab may hold fewer than 64 rows
     and is zero-padded.  ``heads``: with fs2's sigma block and the two
-    heads (the backward's recompute needs neither)."""
+    heads (the backward's recompute needs neither).  ``cut``: ``_cut`` (the
+    bf16 image) or ``_cut32`` (the f32 image)."""
     def seg(layer, row0, rows, cols):
-        return _cut(slabs, at, layer, False, row0, rows, 0, cols, cols)
+        return cut(slabs, at, layer, False, row0, rows, 0, cols, cols)
 
     at = seg(0, 0, k0, W_TRUNK)
     for i in range(1, 8):
@@ -343,17 +385,19 @@ def image_plan(k0: int, kd: int, kt: int, has_transient: bool):
     return slabs, at
 
 
-def bwd_image_plan(k0: int, kd: int, kt: int, has_transient: bool):
+def bwd_image_plan(k0: int, kd: int, kt: int, has_transient: bool,
+                   cut=_cut):
     """The bf16 backward kernel's slabs (make_bwd_plan in the same header):
     the forward recompute, then for each layer from the heads down the
     tiles of W that ``g W^T`` contracts over, 64 output columns a slab.  A
     layer with two input sources runs two products: its 256 trunk rows
-    (height 256) and its other rows padded to 128 (the pe / dir / t part)."""
+    (height 256) and its other rows padded to 128 (the pe / dir / t part).
+    With ``cut=_cut32``, the f32 backward's stages (``f32_image_plan``)."""
     slabs = []
-    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, False)
+    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, False, cut)
 
     def seg(layer, row0, rows, cols, height):
-        return _cut(slabs, at, layer, True, row0, rows, 0, cols, height)
+        return cut(slabs, at, layer, True, row0, rows, 0, cols, height)
 
     if has_transient:
         at = seg(15, 0, W_HALF, OUT_W, W_HALF)
@@ -370,6 +414,19 @@ def bwd_image_plan(k0: int, kd: int, kt: int, has_transient: bool):
             at = seg(4, 0, k0, W_TRUNK, W_HALF)
         at = seg(i, k0 if i == 4 else 0, W_TRUNK, W_TRUNK, W_TRUNK)
     at = seg(0, 0, k0, W_TRUNK, W_HALF)
+    return slabs, at
+
+
+def f32_image_plan(k0: int, kd: int, kt: int, has_transient: bool,
+                   backward: bool = False):
+    """The f32 kernels' stages (csrc/fused_mlp_common.cuh: tf::make_plan /
+    tf::make_bwd_plan walk the same list) in consumption order, as ``Slab``
+    rows of 32 contraction values and one output piece, and the image's
+    size in bytes: the bf16 images' walks cut by ``_cut32``."""
+    if backward:
+        return bwd_image_plan(k0, kd, kt, has_transient, cut=_cut32)
+    slabs = []
+    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, True, _cut32)
     return slabs, at
 
 
@@ -404,6 +461,48 @@ def slab_index(shapes, slabs, nbytes: int) -> np.ndarray:
     return idx
 
 
+def f32_slab_index(shapes, slabs, nbytes: int) -> np.ndarray:
+    """For every f32 element of an f32 image of ``slabs`` (``nbytes``
+    long) cut from layers of (K, N_out) ``shapes``: its index into the
+    concatenation [hi parts of those layers, lo parts, one zero], so that
+    an image is that concatenation gathered through it.
+
+    A stage is the hi then the lo part of a wgmma B operand's K-major
+    image: one row of 32 tf32 values (128 bytes) per image row, 16-byte
+    chunk c of row i at chunk ``c ^ (i % 8)``, and position k of a row holds
+    contraction value ``8 (k // 8) + F32_K_ORDER[k % 8]`` of the stage."""
+    base = np.concatenate([[0], np.cumsum([k * m for k, m in shapes])])
+    total = int(base[-1])
+    idx = np.full(nbytes // 4, 2 * total, np.int64)
+    order = np.asarray(F32_K_ORDER)
+    k = np.arange(F32_K)[None, :]
+    kk = 8 * (k // 8) + order[k % 8]
+    for sl in slabs:
+        n_out = shapes[sl.layer][1]
+        i = np.arange(sl.height)[:, None]
+        if sl.dgrad:
+            src = base[sl.layer] + (sl.row0 + i) * n_out + sl.col0 + kk
+            real = (i < sl.rows) & (kk < sl.cols)
+        else:
+            src = base[sl.layer] + (sl.row0 + kk) * n_out + sl.col0 + i
+            real = (kk < sl.rows) & (i < sl.cols)
+        pos = i * F32_K + 4 * ((k // 4) ^ (i % 8)) + k % 4
+        for part in (0, 1):
+            dst = sl.at // 4 + part * sl.height * F32_K + pos
+            idx[dst.ravel()] = np.where(real, src + part * total,
+                                        2 * total).ravel()
+    return idx
+
+
+@functools.lru_cache(maxsize=32)
+def _f32_image_index(k0: int, kd: int, kt: int, has_transient: bool,
+                     backward: bool = False) -> np.ndarray:
+    """``f32_slab_index`` of the f32 kernels' image of ``PackedNet.ws``."""
+    slabs, nbytes = f32_image_plan(k0, kd, kt, has_transient, backward)
+    return f32_slab_index(_packed_shapes(k0, kd, kt, has_transient), slabs,
+                          nbytes)
+
+
 @functools.lru_cache(maxsize=32)
 def _image_index(k0: int, kd: int, kt: int, has_transient: bool,
                  backward: bool = False) -> np.ndarray:
@@ -418,10 +517,11 @@ _IMAGE_INDEX_ON = {}
 
 
 def gather_image(ws, key, index) -> torch.Tensor:
-    """The bf16 weights ``ws`` laid out as an image: a flat tensor on their
-    device through the numpy index ``index()`` (``slab_index``), whose
-    device copy is cached under ``key``.  Two device launches: one cat, one
-    gather."""
+    """The tensors ``ws`` (bf16 weights, or the f32 weights' tf32 hi and lo
+    parts) laid out as an image: a flat tensor on their device through the
+    numpy index ``index()`` into their concatenation (``slab_index``,
+    ``f32_slab_index``), whose device copy is cached under ``key``.  Two
+    device launches: one cat, one gather."""
     dev = ws[0].device
     idx = _IMAGE_INDEX_ON.get(key + (dev,))
     if idx is None:
@@ -439,6 +539,34 @@ def weight_image(net: PackedNet, has_transient: bool,
     (``_image_index``; the forward's image is a permutation)."""
     key = (net.k0, net.kd, net.kt, bool(has_transient), bool(backward))
     return gather_image(net.ws, key, lambda: _image_index(*key))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 (10 fraction bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds: on the bits, add half of the
+    13 dropped bits' unit to the magnitude and clear them."""
+    b = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo): hi = ``tf32_round(x)``, lo = ``tf32_round(x - hi)``, the
+    f32 kernels' split of every operand (tf::split); x - hi - lo is within
+    2^-22 |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(torch.float32) - hi)
+
+
+def f32_weight_image(net: PackedNet, has_transient: bool,
+                     backward: bool = False) -> torch.Tensor:
+    """``net.ws`` (f32) laid out as the f32 forward kernel (or, with
+    ``backward``, the backward kernel) streams them: each weight split into
+    its tf32 hi and lo parts (``tf32_split``), gathered through the cached
+    ``_f32_image_index``: a flat f32 tensor of hi and lo parts and zero
+    padding.  Device launches: one cat, the split, one cat, one gather."""
+    key = ("f32", net.k0, net.kd, net.kt, bool(has_transient), bool(backward))
+    hi, lo = tf32_split(torch.cat([w.reshape(-1) for w in net.ws]))
+    return gather_image([hi, lo], key, lambda: _f32_image_index(*key[1:]))
 
 
 def bwd_tile_counts(k0: int, kd: int, kt: int, has_transient: bool):
@@ -463,16 +591,17 @@ def bwd_tile_counts(k0: int, kd: int, kt: int, has_transient: bool):
     return saved, read
 
 
-def fwd_tiles(n: int) -> int:
-    """Tiles of TILE_ROWS points in a launch of ``n`` points; rows past
-    ``n`` in the last one are computed as zeros and not stored."""
-    return -(-n // TILE_ROWS)
+def fwd_tiles(n: int, rows: int = TILE_ROWS) -> int:
+    """Tiles of ``rows`` points (TILE_ROWS for bf16, F32_ROWS for f32) in
+    a launch of ``n`` points; rows past ``n`` in the last one are computed
+    as zeros and not stored."""
+    return -(-n // rows)
 
 
-def fwd_grid(n: int, n_sm: int) -> int:
-    """Persistent blocks of a bf16 forward or backward launch: one per SM,
+def fwd_grid(n: int, n_sm: int, rows: int = TILE_ROWS) -> int:
+    """Persistent blocks of a forward or backward launch: one per SM,
     block b takes tiles b, b + grid, ...; no more blocks than tiles."""
-    return min(fwd_tiles(n), n_sm)
+    return min(fwd_tiles(n, rows), n_sm)
 
 
 # ----------------------------------------------------------------------
@@ -501,14 +630,16 @@ def _consts(n_freq_xyz, n_freq_dir, a_dim, device):
 
 
 def _forward(inp, net: PackedNet, sx, sd, c, *, n_freq_dir, a_dim, t_dim,
-             has_transient, dtype):
+             has_transient, dtype, matmul=torch.matmul):
     """The fused forward in eager torch, keeping every activation the
-    backward needs.  Returns (out, acts)."""
+    backward needs.  Returns (out, acts).  ``matmul``: the layer product
+    (exact products, f32 sums; ``f32_ties.tf32x3_mm`` models the f32
+    kernels')."""
     f32 = torch.float32
     ws, bs = net.ws, net.bs
 
     def mm(a, i):                       # f32 accumulation of exact products
-        return a.to(f32) @ ws[i].to(f32)
+        return matmul(a.to(f32), ws[i].to(f32))
 
     def hidden(a, i):
         y = mm(a, i).to(dtype)
@@ -571,11 +702,20 @@ def fused_mlp_bwd_reference(inp: torch.Tensor, net: PackedNet,
     (dws, dbs, d_inp): padded (K, N_out) and (N_out,) f32 grads per packed
     layer, and the (N, 128) f32 cotangent of the packed input.  (Not
     autograd of ``fused_mlp_reference``: that would keep f32 cotangents.)"""
+    return _backward(inp, net, sx, sd, g, n_freq_xyz=n_freq_xyz,
+                     n_freq_dir=n_freq_dir, a_dim=a_dim, t_dim=t_dim,
+                     has_transient=has_transient, dtype=dtype)
+
+
+def _backward(inp, net: PackedNet, sx, sd, g, *, n_freq_xyz, n_freq_dir,
+              a_dim, t_dim, has_transient, dtype, matmul=torch.matmul):
+    """``fused_mlp_bwd_reference`` with its layer products (the forward's,
+    the dgrad's and the wgrad's) taken by ``matmul``."""
     f32 = torch.float32
     c = _consts(n_freq_xyz, n_freq_dir, a_dim, inp.device)
     _, acts = _forward(inp, net, sx, sd, c, n_freq_dir=n_freq_dir,
                        a_dim=a_dim, t_dim=t_dim, has_transient=has_transient,
-                       dtype=dtype)
+                       dtype=dtype, matmul=matmul)
     ws = net.ws
     dws: List[torch.Tensor] = [None] * len(ws)
     dbs: List[torch.Tensor] = [None] * len(ws)
@@ -585,9 +725,9 @@ def fused_mlp_bwd_reference(inp: torch.Tensor, net: PackedNet,
         if act_out is not None:              # ReLU mask, compared in f32
             g = torch.where(act_out.to(f32) > 0, g, torch.zeros_like(g))
         gc = g.to(dtype).to(f32)
-        dws[i] = a_in.to(f32).t() @ gc
+        dws[i] = matmul(a_in.to(f32).t(), gc)
         dbs[i] = gc.sum(0)
-        return (gc @ ws[i].to(f32).t()).to(dtype)
+        return matmul(gc, ws[i].to(f32).t()).to(dtype)
 
     def add(a, b):                           # one rounding, as a bf16 add
         return (a.to(f32) + b.to(f32)).to(dtype)
@@ -643,15 +783,19 @@ def fused_mlp_bwd_reference(inp: torch.Tensor, net: PackedNet,
 # the kernel
 # ----------------------------------------------------------------------
 
-def kernel_block_info():
-    """The bf16 kernels' blocks as their sources define them (the card's
-    build): points a block, threads, dynamic shared-memory bytes, ring
-    depth, and the wgrad's splits."""
-    f, b = (ctypes.c_int * 4)(), (ctypes.c_int * 5)()
+def kernel_block_info(dtype=torch.bfloat16):
+    """The ``dtype`` kernels' blocks as their sources define them (the
+    card's build): points a block, threads, dynamic shared-memory bytes,
+    ring depth, and the wgrad's split of the points: bf16 ``splits`` (a
+    fixed count), f32 ``split_rows`` (64-point row blocks a split)."""
+    f, b = (ctypes.c_int * 8)(), (ctypes.c_int * 10)()
     _lib().nerf_fused_mlp_fwd_info(f)
     _lib_bwd().nerf_fused_mlp_bwd_info(b)
-    return {"rows": f[0], "threads": f[1], "fwd_smem": f[2], "stages": f[3],
-            "bwd_smem": b[2], "wgrad_smem": b[3], "splits": b[4]}
+    i, j = (0, 0) if dtype == torch.bfloat16 else (4, 5)
+    return {"rows": f[i], "threads": f[i + 1], "fwd_smem": f[i + 2],
+            "stages": f[i + 3], "bwd_smem": b[j + 2],
+            "wgrad_smem": b[j + 3],
+            ("splits" if j == 0 else "split_rows"): b[j + 4]}
 
 
 @functools.lru_cache(maxsize=1)
@@ -659,7 +803,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_mlp_fwd")
     lib.nerf_fused_mlp_fwd.argtypes = (
         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+         ctypes.POINTER(ctypes.c_void_p),
          ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p]
         + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p])
@@ -677,7 +821,7 @@ def _lib_bwd() -> ctypes.CDLL:
     lib.nerf_fused_mlp_bwd_sizes.restype = ctypes.c_int
     lib.nerf_fused_mlp_bwd.argtypes = (
         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+         ctypes.c_int,
          ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_longlong,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         + [ctypes.c_int] * 5
@@ -736,6 +880,20 @@ def _ptrs(ts):
     return (ctypes.c_void_p * N_LAYERS)(*[t.data_ptr() for t in ts])
 
 
+def _image_and_grid(net: PackedNet, has_transient: bool, dtype,
+                    backward: bool, n: int, dev):
+    """(image, its bytes, persistent blocks) of one launch: the bf16
+    kernels' ``weight_image`` and 128-point tiles, the f32 kernels'
+    ``f32_weight_image`` and 64-point tiles."""
+    if dtype == torch.bfloat16:
+        image, rows = weight_image(net, has_transient, backward), TILE_ROWS
+    else:
+        image, rows = f32_weight_image(net, has_transient, backward), F32_ROWS
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return image, image.numel() * image.element_size(), \
+        fwd_grid(n, n_sm, rows)
+
+
 _RUNS: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -778,27 +936,22 @@ def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
                        dtype) -> torch.Tensor:
     """Launch csrc/fused_mlp_fwd.cu on the current stream: packed (N, 128)
     f32 input -> (N, 16) f32 pre-activations.  bf16 runs the wgmma kernel
-    on ``weight_image(net)`` with ``fwd_grid`` persistent blocks, f32 the
-    exact CUDA-core kernel on ``net.ws``.  Counts its launches in
-    ``fused_mlp_fwd_cuda.launches``; the kernel counts its runs on the card
-    (``kernel_runs``)."""
+    on ``weight_image(net)``, f32 the 3xTF32 wgmma kernel on
+    ``f32_weight_image(net)``, each with ``fwd_grid`` persistent blocks.
+    Counts its launches in ``fused_mlp_fwd_cuda.launches``; the kernel
+    counts its runs on the card (``kernel_runs``)."""
     _check_operands("fused_mlp_fwd_cuda", inp, net, sx, sd, has_transient,
                     dtype)
     dev, n = inp.device, inp.shape[0]
     runs = _runs(dev)
     out = torch.empty((n, OUT_W), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    image, image_ptr, image_bytes, grid = None, None, 0, 0
-    if dtype == torch.bfloat16:
-        image = weight_image(net, has_transient)
-        image_ptr = image.data_ptr()
-        image_bytes = image.numel() * image.element_size()
-        grid = fwd_grid(n, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
+    image, image_bytes, grid = _image_and_grid(net, has_transient, dtype,
+                                               False, n, dev)
     with torch.cuda.device(dev):
         err = _lib().nerf_fused_mlp_fwd(
             _DTYPE_CODE[dtype], inp.data_ptr(), out.data_ptr(), n,
-            _ptrs(net.ws), _ptrs(net.bs), image_ptr, image_bytes, grid,
+            _ptrs(net.bs), image.data_ptr(), image_bytes, grid,
             sx.data_ptr(), sd.data_ptr(),
             n_freq_xyz, n_freq_dir, a_dim, t_dim, int(has_transient),
             runs.data_ptr(), stream)
@@ -816,12 +969,12 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
                        sd: torch.Tensor, g: torch.Tensor, *, n_freq_xyz: int,
                        n_freq_dir: int, a_dim: int, t_dim: int,
                        has_transient: bool, dtype):
-    """Launch csrc/fused_mlp_bwd.cu on the current stream.  bf16: the fused
-    recompute + dgrad kernel on ``weight_image(net, backward=True)`` with
+    """Launch csrc/fused_mlp_bwd.cu on the current stream: the fused
+    recompute + dgrad kernel on ``weight_image(net, backward=True)`` (bf16)
+    or ``f32_weight_image(net, backward=True)`` (f32, 3xTF32) with
     ``fwd_grid`` persistent blocks, the split-K wgrad kernel over the
-    operand tiles it saved, and the fixed-order reductions of dW and db;
-    f32: the exact CUDA-core kernel and its reduction of per-block partial
-    grads.  Same operands as ``fused_mlp_bwd_reference`` plus the (N, 16)
+    operand tiles it saved, and the fixed-order reductions of dW and db.
+    Same operands as ``fused_mlp_bwd_reference`` plus the (N, 16)
     f32 cotangent ``g``; returns (dws, dbs, d_inp) as it does.
     Deterministic: two launches on the same inputs give bitwise-equal
     results.  Counts its launches in ``fused_mlp_bwd_cuda.launches``; the
@@ -835,13 +988,8 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
         raise ValueError("g must be a contiguous (N, 16) float32 tensor on "
                          "the input's device")
     lib = _lib_bwd()
-    image_ptr, image_bytes, grid = None, 0, 0
-    if dtype == torch.bfloat16:
-        image = weight_image(net, has_transient, backward=True)
-        image_ptr = image.data_ptr()
-        image_bytes = image.numel() * image.element_size()
-        grid = fwd_grid(n, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
+    image, image_bytes, grid = _image_and_grid(net, has_transient, dtype,
+                                               True, n, dev)
     sizes = (ctypes.c_longlong * 3)()
     err = lib.nerf_fused_mlp_bwd_sizes(
         _DTYPE_CODE[dtype], n, grid, n_freq_xyz, n_freq_dir, a_dim, t_dim,
@@ -852,9 +1000,8 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
     if grad_floats != sum(k * m + m for k, m in shapes):
         raise RuntimeError("fused_mlp_bwd: packed layout disagrees with the "
                            "kernel's")
-    # the bf16 kernel writes d_inp's live columns only
-    d_inp = (torch.zeros if dtype == torch.bfloat16 else torch.empty)(
-        (n, LANES), dtype=torch.float32, device=dev)
+    # the kernels write d_inp's live columns only
+    d_inp = torch.zeros((n, LANES), dtype=torch.float32, device=dev)
     grads = torch.empty(grad_floats, dtype=torch.float32, device=dev)
     scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8,
                           device=dev)
@@ -864,7 +1011,7 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.nerf_fused_mlp_bwd(
             _DTYPE_CODE[dtype], inp.data_ptr(), g.data_ptr(),
-            d_inp.data_ptr(), n, _ptrs(net.ws), _ptrs(net.bs), image_ptr,
+            d_inp.data_ptr(), n, _ptrs(net.bs), image.data_ptr(),
             image_bytes, grid, sx.data_ptr(), sd.data_ptr(), n_freq_xyz,
             n_freq_dir, a_dim, t_dim, int(has_transient), scratch.data_ptr(),
             partial.data_ptr(), grads.data_ptr(), runs.data_ptr() + 8,

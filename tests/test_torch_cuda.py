@@ -138,13 +138,24 @@ def _bwd_case(dev, dtype, transient, a_dim=48, n=N, nfx=10, nfd=4):
 @pytest.mark.parametrize("transient", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_kernel_matches_plain_on_card(dtype, transient):
+    """f32 within 1e-4 of each tensor's largest at every point, against
+    the plain backward with the kernel's side of each unit whose plain
+    pre-activation lies within f32 rounding of zero (chip_smoke.py's
+    TIE_F32 and TIE_SHARE_MAX: the kernels' 3xTF32 products and the plain
+    f32 products can decide that ReLU either way); bf16 2e-2."""
+    from nerf_fl_torch.ops import f32_ties
     dev = _card()
     inp, net, sx, sd, g, kw = _bwd_case(dev, dtype, transient)
     before = fm.fused_mlp_bwd_cuda.launches
     got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
     torch.cuda.synchronize()
     assert fm.fused_mlp_bwd_cuda.launches == before + 1
+    if dtype == "float32":
+        ref, st = f32_ties.matched_backward(got[2], inp, net, sx, sd, g,
+                                            tol=2e-6, **kw)
+        assert st["tie_points"] <= 0.08 * st["points"], st
+    else:
+        ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
     rel = 1e-4 if dtype == "float32" else 2e-2
     for x, y in zip(got[0] + got[1] + [got[2]], ref[0] + ref[1] + [ref[2]]):
         assert x.shape == y.shape

@@ -55,8 +55,11 @@ PORT_MODULES = {
     "nerf_fl_torch.experiments.quality_seeds",
     "nerf_fl_torch.experiments.arm_step",
     "nerf_fl_torch.experiments.tp_layout",
+    "nerf_fl_torch.experiments.relu_ties",
+    "nerf_fl_torch.experiments.f32_kernels",
     "nerf_fl_torch.ops", "nerf_fl_torch.ops._build",
     "nerf_fl_torch.ops.anatomy", "nerf_fl_torch.ops.fused_mlp", "nerf_fl_torch.ops.sorting",
+    "nerf_fl_torch.ops.f32_ties",
     "nerf_fl_torch.render", "nerf_fl_torch.render.renderer",
     "nerf_fl_torch.render.appearance",
     "nerf_fl_torch.training", "nerf_fl_torch.training.losses",
