@@ -1365,13 +1365,16 @@ def _count_plain():
 
 
 def _trace_busy(window):
-    """(kernel seconds, fused forward kernels, fused backward kernels) in
-    the Chrome trace of fit's --profile_dir window."""
+    """(busy seconds, fused forward kernels, fused backward kernels) in the
+    Chrome trace of fit's --profile_dir window: the union of the kernels'
+    intervals (``profile_trace.busy_union``), which no overlap of kernels
+    counts twice."""
+    from nerf_fl_torch.tools.profile_trace import busy_union
     with open(window["trace"]) as f:
         events = json.load(f)
     events = events.get("traceEvents", events)
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    busy = sum(e.get("dur", 0) for e in kernels) / 1e6
+    busy = busy_union(kernels)[0] / 1e6
     fwd = sum("fused_mlp_fwd_" in e.get("name", "") for e in kernels)
     bwd = sum("fused_mlp_bwd_" in e.get("name", "") for e in kernels)
     return busy, fwd, bwd
@@ -1488,7 +1491,7 @@ def phase_entry_points(graph_ms):
         wf, wb = win["fused_runs"]
         print(f"[entry] --profile_dir window: {win['steps']} sub-steps in "
               f"{ms:.1f} ms ({ms / win['steps']:.2f} ms a sub-step, "
-              f"profiled); device kernels {busy * 1e3:.1f} ms: "
+              f"profiled); device busy {busy * 1e3:.1f} ms: "
               f"busy {100 * busy / win['seconds']:.1f}%, idle "
               f"{100 * (1 - busy / win['seconds']):.1f}%; fused forward / "
               f"backward kernels by name in the trace {kf} / {kb}, run as "

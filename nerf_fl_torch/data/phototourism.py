@@ -15,7 +15,8 @@ PIL or pandas:
     points are read by the native decoder (``colmap_native``, the pure-Python
     reader where no C compiler is found), and ``stage_s`` keeps the host
     seconds of that read (``points``) and of the near / far loop
-    (``near_far``);
+    (``near_far``), timed by the spans ``nerf.data.points`` and
+    ``nerf.data.near_far``;
   * train rays stored as camera-frame directions + [near, far] (``ray_format
     "camdir"``), posed on the device from the learned-pose table, with the
     image ids in an int32 ``all_ts``;
@@ -34,7 +35,6 @@ import csv
 import glob
 import os
 import pickle
-import time
 from typing import Dict, List
 
 import numpy as np
@@ -43,6 +43,7 @@ from .colmap import read_cameras_binary, read_images_binary
 from .colmap_native import read_points3d_arrays
 from .image_io import read_rgb, resize_lanczos
 from .rays_np import get_ray_directions, get_rays
+from ..utils.spans import span
 
 # the strings pandas' read_csv reads as missing by default
 _NA = {"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
@@ -151,29 +152,30 @@ class PhototourismDataset:
             self.nears = self._load("nears.pkl")
             self.fars = self._load("fars.pkl")
         else:
-            t0 = time.perf_counter()
-            self.xyz_world = read_points3d_arrays(
-                os.path.join(self.root_dir,
-                             "dense/sparse/points3D.bin")).xyz
-            t1 = time.perf_counter()
-            xyz_h = np.concatenate(
-                [self.xyz_world, np.ones((len(self.xyz_world), 1))], -1)
-            self.nears, self.fars = {}, {}
-            for i, id_ in enumerate(self.img_ids):
-                xyz_cam = (xyz_h @ w2c_mats[i].T)[:, :3]
-                xyz_cam = xyz_cam[xyz_cam[:, 2] > 0]  # in front of the camera
-                self.nears[id_] = np.percentile(xyz_cam[:, 2], 0.1)
-                self.fars[id_] = np.percentile(xyz_cam[:, 2], 99.9)
-            max_far = np.fromiter(self.fars.values(), np.float32).max()
-            scale = max_far / 5
-            self.poses[..., 3] /= scale
-            for k in self.nears:
-                self.nears[k] /= scale
-            for k in self.fars:
-                self.fars[k] /= scale
-            self.xyz_world /= scale
-            self.stage_s = {"points": t1 - t0,
-                            "near_far": time.perf_counter() - t1}
+            with span("nerf.data.points") as points:
+                self.xyz_world = read_points3d_arrays(
+                    os.path.join(self.root_dir,
+                                 "dense/sparse/points3D.bin")).xyz
+            with span("nerf.data.near_far") as near_far:
+                xyz_h = np.concatenate(
+                    [self.xyz_world, np.ones((len(self.xyz_world), 1))], -1)
+                self.nears, self.fars = {}, {}
+                for i, id_ in enumerate(self.img_ids):
+                    xyz_cam = (xyz_h @ w2c_mats[i].T)[:, :3]
+                    # in front of the camera
+                    xyz_cam = xyz_cam[xyz_cam[:, 2] > 0]
+                    self.nears[id_] = np.percentile(xyz_cam[:, 2], 0.1)
+                    self.fars[id_] = np.percentile(xyz_cam[:, 2], 99.9)
+                max_far = np.fromiter(self.fars.values(), np.float32).max()
+                scale = max_far / 5
+                self.poses[..., 3] /= scale
+                for k in self.nears:
+                    self.nears[k] /= scale
+                for k in self.fars:
+                    self.fars[k] /= scale
+                self.xyz_world /= scale
+            self.stage_s = {"points": points.seconds,
+                            "near_far": near_far.seconds}
 
         self.poses_dict = {id_: self.poses[i]
                            for i, id_ in enumerate(self.img_ids)}

@@ -11,9 +11,11 @@ the JAX package's), writes the frames as PNGs under
 ``results/<dataset>/<scene>`` (and, with --save_depth, each frame's depth
 as ``depth_NNN.pfm``, ``data/pfm.py``), and prints ``Mean PSNR`` (and
 ``Mean SSIM`` with --compute_ssim) as the JAX CLI does, with each frame's
-dispatch, drain and host times.  Phototourism's ``--split test`` renders
-the JAX CLI's dolly path for ``brandenburg_gate`` (appearance of image
-1123, no transient field) at --img_wh.  Where the JAX CLI writes a video
+dispatch, drain and host times (the spans ``nerf.eval.dispatch``,
+``nerf.eval.drain`` and ``nerf.eval.host`` of ``utils/spans.py``).
+Phototourism's ``--split test`` renders the JAX CLI's dolly path for
+``brandenburg_gate`` (appearance of image 1123, no transient field) at
+--img_wh.  Where the JAX CLI writes a video
 (Blender, LLFF, Phototourism's test split) it writes a GIF
 (``data/image_io.py``); the port has no mp4 encoder, so --video_format mp4
 prints the JAX CLI's fallback line and writes the GIF, as the JAX CLI does
@@ -31,7 +33,6 @@ rank 0 prints and writes the outputs.  Too few cards raise
 ``parallel.make_mesh``'s error.
 """
 import os
-import time
 from argparse import ArgumentParser
 
 import numpy as np
@@ -224,6 +225,7 @@ def evaluate(dev, args, stats=None, mesh=None):
     from .training.metrics import ssim as ssim_fn
     from .training.system import (DevicePrefetcher, render_chunked_async,
                                   val_chunk_cap)
+    from .utils.spans import span
 
     writes_out = mesh is None or mesh.is_main
     kwargs = {'root_dir': args.root_dir, 'split': args.split}
@@ -264,16 +266,24 @@ def evaluate(dev, args, stats=None, mesh=None):
                               lambda i: dataset[i], depth=2)
     phase_s = {"dispatch": [], "drain": [], "host": []}
     fits = {"opt_a_s": [], "opt_a_losses": []}
-    frame_marks = [time.perf_counter()]
+    frame_marks = []
 
     def process(item):
         """Drain a frame's render, then its host work; runs after the next
         frame's chunks are queued, so it overlaps that render."""
         i, sample, w, h, finish, right_mask = item
-        t_p = time.perf_counter()
-        results = finish()
-        phase_s["drain"].append(time.perf_counter() - t_p)
-        t_p = time.perf_counter()
+        with span("nerf.eval.drain") as s:
+            results = finish()
+        phase_s["drain"].append(s.seconds)
+        with span("nerf.eval.host") as s:
+            host(i, sample, w, h, results, right_mask)
+        phase_s["host"].append(s.seconds)
+        frame_marks.append(s.end)
+        print(f'frame {i + 1}/{len(dataset)}', flush=True)
+
+    def host(i, sample, w, h, results, right_mask):
+        """A drained frame's host work: the image, its writes, its
+        scores."""
         img_pred = np.clip(results[f'rgb_{typ}'].reshape(h, w, 3), 0, 1)
         img_pred_ = (img_pred * 255).astype(np.uint8)
         imgs.append(img_pred_)
@@ -304,43 +314,42 @@ def evaluate(dev, args, stats=None, mesh=None):
                                      .copy()).to(dev),
                     torch.from_numpy(img_gt.transpose(2, 0, 1)[None]
                                      .copy()).to(dev))))
-        phase_s["host"].append(time.perf_counter() - t_p)
-        frame_marks.append(time.perf_counter())
-        print(f'frame {i + 1}/{len(dataset)}', flush=True)
 
-    prev = None
-    try:
-        for i, sample in enumerate(frames):
-            if args.dataset_name == 'blender':
-                w, h = args.img_wh
-            else:
-                w, h = (int(x) for x in sample['img_wh'])
-            a_override = right_mask = None
-            if args.optimize_appearance and args.encode_a \
-                    and 'rgbs' in sample:
-                t_p = time.perf_counter()
-                a_override, right_mask, losses = fit_appearance(
-                    args, params, cfg, sample, i, w, h, dev)
-                fits["opt_a_s"].append(time.perf_counter() - t_p)
-                fits["opt_a_losses"].append(losses)
-            # queues the frame's chunks; it reads back all but the last
-            # ``inflight`` of them on the way, so it waits on the card too
-            t_p = time.perf_counter()
-            finish = render_chunked_async(
-                params, sample['rays'], sample['ts'], cfg, chunk=chunk,
-                test_time=True, keys=wanted, device=dev,
-                a_override=a_override, mesh=mesh, **render_kwargs)
-            phase_s["dispatch"].append(time.perf_counter() - t_p)
+    with span("nerf.eval.frames") as loop:
+        frame_marks.append(loop.start)
+        prev = None
+        try:
+            for i, sample in enumerate(frames):
+                if args.dataset_name == 'blender':
+                    w, h = args.img_wh
+                else:
+                    w, h = (int(x) for x in sample['img_wh'])
+                a_override = right_mask = None
+                if args.optimize_appearance and args.encode_a \
+                        and 'rgbs' in sample:
+                    with span("nerf.eval.fit_appearance") as s:
+                        a_override, right_mask, losses = fit_appearance(
+                            args, params, cfg, sample, i, w, h, dev)
+                    fits["opt_a_s"].append(s.seconds)
+                    fits["opt_a_losses"].append(losses)
+                # queues the frame's chunks; it reads back all but the last
+                # ``inflight`` of them on the way, so it waits on the card too
+                with span("nerf.eval.dispatch") as s:
+                    finish = render_chunked_async(
+                        params, sample['rays'], sample['ts'], cfg,
+                        chunk=chunk, test_time=True, keys=wanted, device=dev,
+                        a_override=a_override, mesh=mesh, **render_kwargs)
+                phase_s["dispatch"].append(s.seconds)
+                if prev is not None:
+                    process(prev)
+                prev = (i, sample, w, h, finish, right_mask)
             if prev is not None:
                 process(prev)
-            prev = (i, sample, w, h, finish, right_mask)
-        if prev is not None:
-            process(prev)
-        for f in writes:
-            f.result()
-    finally:
-        frames.close()
-        writer.shutdown(wait=True, cancel_futures=True)
+            for f in writes:
+                f.result()
+        finally:
+            frames.close()
+            writer.shutdown(wait=True, cancel_futures=True)
 
     if len(frame_marks) > 1:
         deltas = np.diff(frame_marks)

@@ -22,6 +22,7 @@ from ..models.embeddings import embedding_lookup
 from ..models.mlp import NeRFConfig, apply_nerf
 from ..ops.fused_mlp import fused_apply_nerf
 from ..ops.sorting import rank_merge_sorted
+from ..utils.spans import mark
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -195,7 +196,14 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
     count * N rays that ranks render in parts: every stochastic draw is
     made at that batch's shape and these rows kept
     (``sampling.draw_rows``), so the draws do not depend on the layout.
+
+    On the card each stage starts with a device mark (``utils/spans.py``):
+    ``sample``, ``coarse_mlp``, ``coarse_composite``, ``pdf`` (the fine
+    samples and their positions), ``fine_mlp`` (with the embedding
+    lookups) and ``fine_composite`` (with the solo fields' composites).
     """
+    dev = rays.device
+    mark("sample", dev)
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
 
@@ -207,9 +215,11 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
     results: Dict[str, torch.Tensor] = {}
     ccfg = cfg.nerf_config("coarse")
     # without a fine model the coarse pass renders fully even at test time
+    mark("coarse_mlp", dev)
     if test_time and cfg.N_importance > 0:
         out = _run_mlp(params["nerf_coarse"], ccfg, cfg, xyz_coarse,
                        epoch=epoch, sigma_only=True)
+        mark("coarse_composite", dev)
         comp = compositing.composite_static(
             z_vals, None, out["static_sigma"], noise_std=0.0,
             white_back=cfg.white_back, weights_only=True)
@@ -218,6 +228,7 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
     else:
         out = _run_mlp(params["nerf_coarse"], ccfg, cfg, xyz_coarse, rays_d,
                        epoch=epoch)
+        mark("coarse_composite", dev)
         comp = compositing.composite_static(
             z_vals, out["static_rgb"], out["static_sigma"],
             noise_std=cfg.noise_std, generator=generator,
@@ -230,6 +241,7 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
     if cfg.N_importance == 0:
         return results
 
+    mark("pdf", dev)
     z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
     inner_weights = results["weights_coarse"][:, 1:-1].detach()
     z_fine = sampling.sample_pdf(z_mid, inner_weights, cfg.N_importance,
@@ -238,6 +250,7 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
     z_vals = rank_merge_sorted(z_vals, z_fine)
     xyz_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
 
+    mark("fine_mlp", dev)
     fcfg = cfg.nerf_config("fine")
     a_emb = None
     if fcfg.encode_appearance:
@@ -253,6 +266,7 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
                    a_emb=a_emb, t_emb=t_emb, output_transient=do_transient,
                    epoch=epoch)
 
+    mark("fine_composite", dev)
     if do_transient:
         comp = compositing.composite_transient(
             z_vals, out["static_rgb"], out["static_sigma"],

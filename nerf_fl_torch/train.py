@@ -7,9 +7,11 @@
 
 It runs on the card; ``NERF_FL_TORCH_DEVICE=cpu`` (or ``main(hparams,
 device="cpu")``) asks for the CPU, and without either and without a card
-it raises.  On the card its last line counts the fused kernels of the
-run: ``[kernels] N sub-steps; fused forward / backward: L / L host
-launches, R / R runs on the card`` (the wrappers' launches and the
+it raises.  After fit it prints the host spans of the run
+(``utils/spans.py``): ``[spans] nerf.fit.checkpoint N x S s; ...``, each
+span's count and host seconds.  On the card its last line counts the fused
+kernels of the run: ``[kernels] N sub-steps; fused forward / backward: L /
+L host launches, R / R runs on the card`` (the wrappers' launches and the
 kernels' own count of their runs, CUDA graph replays included).
 
 ``--num_gpus D --model_parallel M`` (D x M > 1) trains data- and
@@ -24,6 +26,7 @@ with ``--num_hosts``, ``--host_index`` and ``--coordinator_address``
 from .device import entry_device
 from .opt import get_opts
 from .training.system import NeRFSystem
+from .utils import spans
 
 
 def train(device, hparams) -> NeRFSystem:
@@ -33,6 +36,7 @@ def train(device, hparams) -> NeRFSystem:
     system.setup()
     system.configure()
     system.fit()
+    print(f"[spans] {spans.STORE.summary()}", flush=True)
     if system.device.type == "cuda":
         from .ops import fused_mlp as fm
         runs = fm.kernel_runs(system.device)

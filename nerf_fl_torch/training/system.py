@@ -54,6 +54,7 @@ from ..device import resolve_device
 from ..models import init_embedding, init_learn_pose, init_nerf, pose_for
 from ..parallel import mesh as mesh_mod
 from ..render import RenderConfig, render_rays
+from ..utils.spans import PoseMark, mark, span
 from .losses import loss_dict
 from .optimizers import named_leaves, set_lr
 
@@ -167,8 +168,9 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
                        id_to_cam, pose_lr_mult, pose_warmup_epochs, mesh)
 
     def step(params, batch, lr, epoch=0.0, generator=None):
-        set_lr(optimizer, lr)
-        return body(params, batch, epoch, generator)
+        with span("nerf.step"):
+            set_lr(optimizer, lr)
+            return body(params, batch, epoch, generator)
 
     K = steps_per_execution
     if K <= 1:
@@ -191,9 +193,11 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer, *,
                        for k, v in sorted(batches.items()))
         if any(shape[0] != K for _, shape, _ in shapes):
             raise ValueError(f"batches must be stacked {K} deep: {shapes}")
-        return graph.run(params, lr, epoch, generator, _valid_count(valid, K),
-                         shapes, lambda st, fresh: feed(st, batches, fresh),
-                         load)
+        with span("nerf.step"):
+            return graph.run(params, lr, epoch, generator,
+                             _valid_count(valid, K), shapes,
+                             lambda st, fresh: feed(st, batches, fresh),
+                             load)
 
     multi.graph = graph
     return multi
@@ -248,10 +252,17 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
         return torch.full((), float(epoch), dtype=torch.float32, device=dev)
 
     def loss_of(params, b, epoch, generator):
-        rays = assemble_world_rays(params, b["rays"], b["ts"],
-                                   ray_format=ray_format, id_to_cam=idmap)
+        rays = b["rays"]
+        if ray_format != "world":
+            mark("pose", dev)
+            rays = assemble_world_rays(params, rays, b["ts"],
+                                       ray_format=ray_format,
+                                       id_to_cam=idmap)
+            if rays.requires_grad:
+                rays = PoseMark.apply(rays)
         results = render_rays(params, rays, b["ts"], cfg,
                               generator=generator, epoch=epoch, shard=shard)
+        mark("loss", dev)
         loss_d = loss_fn(results, b["rgbs"])
         mse = torch.mean((results[f"rgb_{typ}"] - b["rgbs"]) ** 2)
         return sum(loss_d.values()), loss_d, mse
@@ -268,6 +279,7 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
         for j in range(M):
             b = {k: v[j * n // M:(j + 1) * n // M] for k, v in batch.items()}
             l_j, ld_j, mse_j = loss_of(params, b, epoch, generator)
+            mark("backward", dev)
             l_j.backward()
             loss = l_j.detach() if loss is None else loss + l_j.detach()
             mse = mse_j.detach() if mse is None else mse + mse_j.detach()
@@ -284,6 +296,7 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
     def update(raw, epoch):
         """The optimizer step on the gradients in ``.grad``; the metrics
         of ``raw`` (``grads``' values, reduced under a mesh)."""
+        mark("optimizer", dev)
         if scale_poses:
             before = [p.detach().clone() for p in poses]
         optimizer.step()
@@ -292,6 +305,7 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
             with torch.no_grad():
                 for p, b in zip(poses, before):
                     p.copy_(torch.lerp(b, p, s))
+        mark("row", dev)
         metrics = {"train/loss": raw["loss"],
                    "train/psnr": -10.0 * torch.log10(raw["mse"])}
         for k, v in raw.items():
@@ -464,6 +478,15 @@ class _StepGraph:
     eager sub-step's and the capture's) and nothing at a replay, which makes
     no host call; the kernels' own count on the card
     (``fused_mlp.kernel_runs``) sees every run.
+
+    Traced (``utils/spans.py``): on the host a call's fills and ``feed``
+    under ``nerf.step.prepare``, then ``nerf.step.capture`` and
+    ``nerf.step.replay`` (``nerf.step.eager`` on the CPU), then the metrics'
+    clone under ``nerf.step.rows``; on the device each sub-step runs from a
+    ``load`` mark to an ``end`` mark, through ``pose`` (camera-frame rays),
+    the renderer's stages, ``loss``, ``backward``, ``pose_backward`` (pose
+    refinement), ``optimizer`` and ``row``.  The marks are nodes of the
+    graph and run at every replay.
     """
 
     def __init__(self, body, optimizer: torch.optim.Optimizer, k: int):
@@ -495,10 +518,12 @@ class _StepGraph:
             else self.pieces.graphs[0]
 
     def sub_step(self, params, generator, load):
+        mark("load", self.device)
         with _fresh_leaves(params, self.held) as fresh:
             m = self.body(fresh, load(self.statics, self.k), self.epoch,
                           generator)
         self.write_row(m)
+        mark("end", self.device)
 
     def write_row(self, m):
         if self.out is None:
@@ -511,37 +536,43 @@ class _StepGraph:
 
     def run(self, params, lr, epoch, generator, n_valid: int, key, feed,
             load) -> Dict[str, torch.Tensor]:
-        key = (key, generator,
-               tuple(p.data_ptr() for _, p in named_leaves(params)))
-        fresh = key != self.key
-        if fresh:
-            # frees the old graphs' pool
-            self.key = self.pieces = None
-        set_lr(self.optimizer, lr)
-        self.epoch.fill_(float(epoch))
-        feed(self.statics, fresh)
-        self.k.zero_()
-        if self.out is not None:
-            self.out.fill_(float("nan"))
+        with span("nerf.step.prepare"):
+            key = (key, generator,
+                   tuple(p.data_ptr() for _, p in named_leaves(params)))
+            fresh = key != self.key
+            if fresh:
+                # frees the old graphs' pool
+                self.key = self.pieces = None
+            set_lr(self.optimizer, lr)
+            self.epoch.fill_(float(epoch))
+            feed(self.statics, fresh)
+            self.k.zero_()
+            if self.out is not None:
+                self.out.fill_(float("nan"))
         if self.device.type != "cuda":
-            for i in range(n_valid):
-                if fresh and i == 0:
-                    self.pieces = mesh_mod.Pieces(False)
-                    with mesh_mod.recording(self.pieces, self.mesh):
+            with span("nerf.step.eager"):
+                for i in range(n_valid):
+                    if fresh and i == 0:
+                        self.pieces = mesh_mod.Pieces(False)
+                        with mesh_mod.recording(self.pieces, self.mesh):
+                            self.sub_step(params, generator, load)
+                    else:
                         self.sub_step(params, generator, load)
-                else:
-                    self.sub_step(params, generator, load)
         else:
             first = 0
             if fresh:
-                self._capture(params, generator, load)
+                with span("nerf.step.capture"):
+                    self._capture(params, generator, load)
                 first = 1
-            for _ in range(first, n_valid):
-                self.pieces.replay()
+            if n_valid > first:
+                with span("nerf.step.replay"):
+                    for _ in range(first, n_valid):
+                        self.pieces.replay()
             self.replays += n_valid - first
         self.key = key
-        res = self.out.clone()
-        return {n: res[:, j] for j, n in enumerate(self.names)}
+        with span("nerf.step.rows"):
+            res = self.out.clone()
+            return {n: res[:, j] for j, n in enumerate(self.names)}
 
     def _capture(self, params, generator, load):
         from ..ops import fused_mlp as fm
@@ -679,12 +710,14 @@ def make_device_pool_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
         if (i0 + n_valid) * B > perm.shape[0]:
             raise ValueError(f"perm has {perm.shape[0]} rows, steps up to "
                              f"{i0 + n_valid - 1} need {(i0 + n_valid) * B}")
-        key = (B,) + tuple((k, tuple(v.shape), v.dtype, v.data_ptr())
-                           for k, v in sorted(pool.items())) \
-            + (tuple(perm.shape), perm.dtype, perm.data_ptr())
-        return graph.run(params, lr, epoch, generator, n_valid, key,
-                         lambda st, fresh: feed(st, pool, perm, i0, fresh),
-                         load)
+        with span("nerf.step"):
+            key = (B,) + tuple((k, tuple(v.shape), v.dtype, v.data_ptr())
+                               for k, v in sorted(pool.items())) \
+                + (tuple(perm.shape), perm.dtype, perm.data_ptr())
+            return graph.run(params, lr, epoch, generator, n_valid, key,
+                             lambda st, fresh: feed(st, pool, perm, i0,
+                                                    fresh),
+                             load)
 
     run.graph = graph
     return run
@@ -743,68 +776,82 @@ def render_chunked_async(params, rays, ts, cfg: RenderConfig, *,
     results wait on the device before the oldest is copied back (and,
     under ``mesh``, gathered: ``render_chunked``).  Returns a ``finish()``
     callable producing render_chunked's result dict.
+
+    Traced under ``nerf.render.frame`` (``utils/spans.py``): each chunk's
+    pad and copy to the device under ``nerf.render.upload``, its
+    ``render_rays`` under ``nerf.render.enqueue``, each read-back under
+    ``nerf.render.readback``, and ``finish()`` under
+    ``nerf.render.finish``; on the device each chunk runs from an
+    ``upload`` mark to an ``end`` mark.
     """
-    want, dev = resolve_device(device), params_device(params)
-    if dev.type != want.type or (want.index is not None and dev != want):
-        raise ValueError(f"params live on {dev}, not {want}")
-    rays = torch.as_tensor(np.asarray(rays, np.float32) if not
-                           torch.is_tensor(rays) else rays)
-    ts = torch.as_tensor(np.asarray(ts) if not torch.is_tensor(ts) else ts)
-    if a_override is not None:
-        a_override = torch.as_tensor(a_override, dtype=torch.float32,
-                                     device=dev)
-    keys = None if keys is None else frozenset(keys)
-    n = len(rays)
-    chunk = max(1, min(chunk, n))
-    parts = 1 if mesh is None else mesh.num_data
-    if chunk % parts:
-        # every rank renders the same number of rows of every chunk
-        chunk = -(-chunk // parts) * parts
-        print(f"[render] rounding chunk up to {chunk} "
-              f"(multiple of data={parts})")
-    shard = None if parts == 1 else (mesh.data_index, parts)
-    per = chunk // parts
-    outs = defaultdict(list)
-    pending: deque = deque()
+    with span("nerf.render.frame"):
+        want, dev = resolve_device(device), params_device(params)
+        if dev.type != want.type or (want.index is not None and dev != want):
+            raise ValueError(f"params live on {dev}, not {want}")
+        rays = torch.as_tensor(np.asarray(rays, np.float32) if not
+                               torch.is_tensor(rays) else rays)
+        ts = torch.as_tensor(np.asarray(ts) if not torch.is_tensor(ts) else ts)
+        if a_override is not None:
+            a_override = torch.as_tensor(a_override, dtype=torch.float32,
+                                         device=dev)
+        keys = None if keys is None else frozenset(keys)
+        n = len(rays)
+        chunk = max(1, min(chunk, n))
+        parts = 1 if mesh is None else mesh.num_data
+        if chunk % parts:
+            # every rank renders the same number of rows of every chunk
+            chunk = -(-chunk // parts) * parts
+            print(f"[render] rounding chunk up to {chunk} "
+                  f"(multiple of data={parts})")
+        shard = None if parts == 1 else (mesh.data_index, parts)
+        per = chunk // parts
+        outs = defaultdict(list)
+        pending: deque = deque()
 
-    def drain_one():
-        res, keep = pending.popleft()
-        for k, v in res.items():
-            v = v.float()
-            if shard is not None:
-                v = mesh.data.all_gather(v)
-            outs[k].append(v[:keep].cpu().numpy())
+        def drain_one():
+            with span("nerf.render.readback"):
+                res, keep = pending.popleft()
+                for k, v in res.items():
+                    v = v.float()
+                    if shard is not None:
+                        v = mesh.data.all_gather(v)
+                    outs[k].append(v[:keep].cpu().numpy())
 
-    with torch.no_grad():
-        for i in range(0, n, chunk):
-            r = rays[i:i + chunk]
-            t = ts[i:i + chunk]
-            keep = len(r)
-            pad = chunk - keep
-            if pad > 0:
-                r = torch.cat([r, r[-1:].expand(pad, -1)], 0)
-                t = torch.cat([t, t[-1:].expand(pad)], 0)
-            if shard is not None:
-                r = r[shard[0] * per:(shard[0] + 1) * per]
-                t = t[shard[0] * per:(shard[0] + 1) * per]
-            r = r.to(dev, non_blocking=True)
-            t = t.to(dev, non_blocking=True)
-            a_emb = None if a_override is None else \
-                a_override.expand(per, a_override.shape[-1])
-            res = render_rays(params, r, t, cfg, generator=generator,
-                              epoch=epoch, test_time=test_time,
-                              output_transient=output_transient,
-                              a_embedded=a_emb, shard=shard)
-            if keys is not None:
-                res = {k: v for k, v in res.items() if k in keys}
-            pending.append((res, keep))
-            if len(pending) >= max(1, inflight):
-                drain_one()
+        with torch.no_grad():
+            for i in range(0, n, chunk):
+                with span("nerf.render.upload"):
+                    mark("upload", dev)
+                    r = rays[i:i + chunk]
+                    t = ts[i:i + chunk]
+                    keep = len(r)
+                    pad = chunk - keep
+                    if pad > 0:
+                        r = torch.cat([r, r[-1:].expand(pad, -1)], 0)
+                        t = torch.cat([t, t[-1:].expand(pad)], 0)
+                    if shard is not None:
+                        r = r[shard[0] * per:(shard[0] + 1) * per]
+                        t = t[shard[0] * per:(shard[0] + 1) * per]
+                    r = r.to(dev, non_blocking=True)
+                    t = t.to(dev, non_blocking=True)
+                with span("nerf.render.enqueue"):
+                    a_emb = None if a_override is None else \
+                        a_override.expand(per, a_override.shape[-1])
+                    res = render_rays(params, r, t, cfg, generator=generator,
+                                      epoch=epoch, test_time=test_time,
+                                      output_transient=output_transient,
+                                      a_embedded=a_emb, shard=shard)
+                    if keys is not None:
+                        res = {k: v for k, v in res.items() if k in keys}
+                    mark("end", dev)
+                pending.append((res, keep))
+                if len(pending) >= max(1, inflight):
+                    drain_one()
 
     def finish():
-        while pending:
-            drain_one()
-        return {k: np.concatenate(v, 0) for k, v in outs.items()}
+        with span("nerf.render.finish"):
+            while pending:
+                drain_one()
+            return {k: np.concatenate(v, 0) for k, v in outs.items()}
 
     return finish
 
@@ -1411,7 +1458,8 @@ class NeRFSystem:
                 if self.is_main else NullLogger()
         ckpt_dir = os.path.join(h.save_path, h.exp_name)
         if getattr(h, "num_sanity_val_steps", 1) > 0:
-            self.run_validation(self.start_epoch, max_images=1)
+            with span("nerf.fit.validation"):
+                self.run_validation(self.start_epoch, max_images=1)
         prof_before, prof_after = self._profiler()
         log_every = getattr(h, "log_every", 50)
         refresh = getattr(h, "refresh_every", 0) or 0
@@ -1431,8 +1479,9 @@ class NeRFSystem:
                     g = self.global_step
                     if (g % log_every == 0
                             or g % log_every + n_real > log_every):
-                        m = {k: float(v.reshape(-1)[n_real - 1])
-                             for k, v in metrics.items()}
+                        with span("nerf.fit.log_read"):
+                            m = {k: float(v.reshape(-1)[n_real - 1])
+                                 for k, v in metrics.items()}
                         m["lr"] = lr
                         dt = time.time() - t0
                         if dt > 0:
@@ -1463,16 +1512,18 @@ class NeRFSystem:
             t1 = time.time()
             # the epoch's annealing state at its end: the continuous paper
             # ramp has reached epoch + 1, the fork rule holds epoch
-            val_loss, val_psnr, viz = self.run_validation(
-                epoch + 1 if self._frac_anneal() else epoch)
+            with span("nerf.fit.validation"):
+                val_loss, val_psnr, viz = self.run_validation(
+                    epoch + 1 if self._frac_anneal() else epoch)
             self.logger.scalars({"val/loss": val_loss, "val/psnr": val_psnr},
                                 self.global_step)
             if viz is not None:
                 self.logger.images("val/GT_pred_depth", viz, self.global_step)
             print(f"epoch {epoch}: lr={lr:.3e} val/loss={val_loss:.4f} "
                   f"val/psnr={val_psnr:.2f}")
-            with whole_params(self.mesh, self.params, self.optimizer,
-                              self._model_parallel()):
+            with span("nerf.fit.checkpoint"), whole_params(
+                    self.mesh, self.params, self.optimizer,
+                    self._model_parallel()):
                 if self.is_main:
                     checkpoints.save_checkpoint(
                         os.path.join(ckpt_dir, f"epoch={epoch}.ckpt"),

@@ -1079,3 +1079,76 @@ def test_fit_feeds_agree_on_card(tmp_path, optimizer):
     for s, _ in runs[1:]:
         for (n, a), (_, b) in zip(ref, named_leaves(s.params)):
             assert torch.equal(a, b), n
+
+
+STAGES_WORLD = ["load", "sample", "coarse_mlp", "coarse_composite", "pdf",
+                "fine_mlp", "fine_composite", "loss", "backward", "optimizer",
+                "row", "end"]
+STAGES_POSED = STAGES_WORLD[:1] + ["pose"] + STAGES_WORLD[1:9] \
+    + ["pose_backward"] + STAGES_WORLD[9:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("barf", [None, "fork"], ids=["world", "barf"])
+def test_graph_replay_runs_each_stage_mark_once_a_sub_step_on_card(
+        tmp_path, barf):
+    """A K = 4 call of the device-pool step replayed from its CUDA graph
+    under torch.profiler: the stage marks (utils/spans.py) are nodes of the
+    graph, so the trace holds each one once a sub-step, in order; under
+    BARF ``pose`` after ``load`` and ``pose_backward`` between
+    ``backward`` and ``optimizer``.  Every kernel of the call but the
+    call's fills and the metrics' clone lies between a ``load`` and an
+    ``end``."""
+    import json
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    params, _, step, data, gen = _graph_case("bfloat16", GRAPH_K, True,
+                                             barf=barf)
+    perm = torch.arange(data["rays"].shape[0], dtype=torch.int32,
+                        device=data["rays"].device)
+    step(params, data, perm, 0, 2 * GRAPH_K, 5e-4, 1.25, generator=gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, data, perm, GRAPH_K, 2 * GRAPH_K, 5e-4, 1.25,
+             generator=gen)
+        torch.cuda.synchronize()
+    assert step.graph.captures == 1 and step.graph.replays >= GRAPH_K
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)
+    kernels = sorted((e for e in events.get("traceEvents", events)
+                      if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    mark = re.compile(r"\bnerf_mark_([a-z_]+)")
+    stages = [m.group(1) for m in (mark.search(k["name"]) for k in kernels)
+              if m]
+    assert stages == (STAGES_POSED if barf else STAGES_WORLD) * GRAPH_K, \
+        stages
+    outside, open_ = [], False
+    for k in kernels:
+        m = mark.search(k["name"])
+        if m:
+            open_ = m.group(1) != "end"
+        elif not open_:
+            outside.append(k["name"])
+    # outside the sub-steps: the call's fills (the lr, the epoch, the
+    # offset, the counter, the rows), the generator's seed and offset
+    # filled before each replay, and the metrics' clone
+    assert all(re.search(r"fill|copy", n, re.IGNORECASE) for n in outside), \
+        outside
+
+
+@pytest.mark.cuda
+def test_graph_step_with_marks_equals_eager_steps_under_the_profiler_on_card():
+    """The marks touch no tensor: the f32 K-step replayed inside a profiler
+    window equals as many eager steps bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+    n = 2 * GRAPH_K - 1
+    p1, s1, l1, _ = _run_graph_case("float32", 1, True, n)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pk, sk, lk, step = _run_graph_case("float32", GRAPH_K, True, n)
+    assert step.graph.captures == 1
+    assert torch.equal(l1, lk)
+    for a, b in zip(p1, pk):
+        assert torch.equal(a, b)

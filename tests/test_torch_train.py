@@ -160,7 +160,7 @@ def test_build_hash_covers_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", src)
     before = {n: _build._target(n) for n in _build.sources()}
     assert set(before) == {"fused_mlp_fwd", "fused_mlp_bwd", "anatomy_chain",
-                           "anatomy_net", "anatomy_pe"}
+                           "anatomy_net", "anatomy_pe", "stage_marks"}
     hdr = src / "fused_mlp_common.cuh"
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     after = {n: _build._target(n) for n in _build.sources()}
