@@ -16,14 +16,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      count the kernel's launches, and hold the first chunk against the
      plain MLP path, with and without the transient field; then the same
      frame at f32 (the CLIs' default dtype): the f32 kernel's launches and
-     runs on the card a chunk, and its time;
+     runs on the card a chunk, the sigma-only kernel's a chunk (the
+     sigma-only coarse pass), and its time;
   4. time the whole frame and split one frame's device time by kernel
      (torch.profiler); hold the kernel against its plain version at the
      render chunk's 4,194,304 points and time both against its bound, bf16
      and f32 (the f32 bound: the work as three TF32 passes, beside the same
      work on the CUDA cores); the [fused] line adds what the block moves
      and takes (rows a tile, weight bytes from L2 reckoned from the plan,
-     registers and shared memory);
+     registers and shared memory); then the sigma-only kernel at the size
+     of its launches in the f32 frame (a chunk's coarse samples), bit for
+     bit the f32 kernel's sigma column, timed beside its bound, its plain
+     version and the plain MLP path it replaced, and at the same 4,194,304
+     points, bit for bit and timed;
   5. hold the fused backward kernel against its plain version in the same
      16 variants (every unpacked weight / bias grad and d_inp; f32 with
      the kernel's side of each ReLU tie, TIE_F32), and require two
@@ -556,14 +561,14 @@ def phase_render(dev):
     from nerf_fl_torch.ops import fused_mlp as fm
     from nerf_fl_torch.render import RenderConfig, render_rays
     from nerf_fl_torch.training import build_params, metrics
-    from nerf_fl_torch.training.system import render_chunked, val_chunk_cap
+    from nerf_fl_torch.training.system import render_chunked
 
     cfg = RenderConfig(**FLAGSHIP)
     params = build_params(cfg, 100, generator=torch.Generator().manual_seed(0),
                           device=dev)
     rays, ts = frame_rays(dev)
     n = rays.shape[0]
-    chunk = val_chunk_cap(32 * 1024, cfg.N_samples, cfg.N_importance)
+    chunk = render_chunk(cfg)
     keys = ["rgb_fine", "depth_fine"]
 
     def frame():
@@ -634,16 +639,20 @@ def phase_render(dev):
                               test_time=True, keys=keys)
 
     fm.fused_mlp_fwd_cuda.launches = fm.fused_mlp_bwd_cuda.launches = 0
-    runs0 = fm.kernel_runs(dev)
+    fm.fused_sigma_cuda.launches = 0
+    runs0, sig0 = fm.kernel_runs(dev), fm.sigma_runs(dev)
     out32 = frame32()
     launches32 = fm.fused_mlp_fwd_cuda.launches
     runs32 = fm.kernel_runs(dev)[0] - runs0[0]
+    sig32 = (fm.fused_sigma_cuda.launches, fm.sigma_runs(dev) - sig0)
     if launches32 != expect or runs32 != expect \
             or fm.fused_mlp_bwd_cuda.launches != 0 \
+            or sig32 != (expect, expect) \
             or not np.isfinite(out32["rgb_fine"]).all():
         fail(f"the f32 frame: {launches32} forward launches, {runs32} runs "
-             f"on the card, {fm.fused_mlp_bwd_cuda.launches} backward; "
-             f"expected {expect}, {expect}, 0, and a finite frame")
+             f"on the card, {fm.fused_mlp_bwd_cuda.launches} backward, "
+             f"sigma-only launches and runs {sig32}; expected {expect}, "
+             f"{expect}, 0, ({expect}, {expect}), and a finite frame")
     times32 = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -652,11 +661,12 @@ def phase_render(dev):
         times32.append((time.perf_counter() - s) * 1e3)
     frame32_ms = sorted(times32)[1]
     print(f"[render] f32 frame: {launches32} forward launches ({runs32} runs "
-          f"on the card), frame ms {frame32_ms:.1f} (runs "
+          f"on the card), sigma-only launches / runs {sig32[0]} / "
+          f"{sig32[1]}, frame ms {frame32_ms:.1f} (runs "
           f"{[round(t, 1) for t in times32]}), rays/s "
           f"{n / frame32_ms * 1e3:.0f}; max |rgb f32 - bf16| "
           f"{float(np.abs(out32['rgb_fine'] - rgb).max()):.2e}")
-    return (launches, bwd_launches, launches32), cfg
+    return (launches, bwd_launches, launches32, sig32[0]), cfg
 
 
 def profile_frame(frame, what="frame"):
@@ -789,9 +799,89 @@ def phase_timing(dev, cfg, smi_name):
           f"({100 * b32 / f_ms:.1f}% of it), {core32:.3f} ms on the CUDA "
           f"cores ({peak_for(smi_name)[0]} f32 peak)")
     fused_line("fwd", n, f_ms, flops, b32, net, True, "float32")
+    sigma = sigma_timing(inp, net, sx, sd, kw, cfg, part, peak_flops,
+                         peak_bw)
     return (k_ms, p_ms, bound_ms, bound_by, max(errs.values()),
             dict(ms=f_ms, plain_ms=fp_ms, bound_ms=b32, bound_by=by32,
-                 core_ms=core32, err=max(errs32.values())))
+                 core_ms=core32, err=max(errs32.values())), sigma)
+
+
+def render_chunk(cfg) -> int:
+    """The rays of a render chunk of phase 3's frames (one launch of each
+    kernel a chunk)."""
+    from nerf_fl_torch.training.system import val_chunk_cap
+    return val_chunk_cap(32 * 1024, cfg.N_samples, cfg.N_importance)
+
+
+def sigma_timing(inp, net, sx, sd, kw, cfg, part, peak_flops, peak_bw):
+    """The sigma-only kernel at the size of its launches in the f32 frame
+    (a render chunk's rays x N_samples coarse samples): its pre-activation
+    bit for bit the f32 kernel's sigma column and within F32_ATOL of its
+    plain version; its time against its bound (three TF32 passes), its
+    plain version's, and that of the plain MLP path (CUDA-core GEMMs) that
+    the coarse pass ran before it.  Then at all of the f32 kernel's points,
+    bit for bit and timed against its bound there too."""
+    import torch
+    from nerf_fl_torch.core import encoding
+    from nerf_fl_torch.models import init_nerf
+    from nerf_fl_torch.models.mlp import apply_nerf
+    from nerf_fl_torch.ops import fused_mlp as fm
+
+    n, nfx = inp.shape[0], kw["n_freq_xyz"]
+    m = render_chunk(cfg) * cfg.N_samples
+    x, W = cfg.in_channels_xyz, cfg.mlp_width
+    macs = x * W + 6 * W * W + (x + W) * W + W
+    model = init_nerf(cfg.nerf_config("coarse"),
+                      generator=torch.Generator().manual_seed(2)).to(
+                          inp.device)
+
+    def sigma(xyz):
+        return fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=nfx)
+
+    def bounds(points):
+        return f32_bounds(2.0 * macs * points, points * (3 + 1) * 4, part,
+                          peak_flops, peak_bw)
+
+    with torch.no_grad():
+        xyz_all = inp[:, :3].contiguous()
+        for k in (m, n):
+            xyz = xyz_all[:k]
+            if not torch.equal(sigma(xyz), fm.fused_mlp_fwd_cuda(
+                    inp[:k], net, sx, sd, **kw)[:, fm.COL_S_SIGMA]):
+                fail(f"sigma-only kernel at {k} points: not bit for bit the "
+                     f"f32 kernel's sigma column")
+        xyz = xyz_all[:m]
+        err = float((sigma(xyz) - fm.fused_sigma_reference(
+            xyz, net, sx, n_freq_xyz=nfx)).abs().max())
+        if not err <= F32_ATOL:
+            fail(f"sigma-only kernel at {m} points: {err:.2e} from its plain "
+                 f"version (limit {F32_ATOL})")
+        for _ in range(2):
+            sigma(xyz)
+        ms, runs = cuda_ms(lambda: sigma(xyz), 7)
+        plain_ms, _ = cuda_ms(lambda: fm.fused_sigma_reference(
+            xyz, net, sx, n_freq_xyz=nfx), 5)
+        mlp_ms, mlp_runs = cuda_ms(lambda: apply_nerf(
+            model, encoding.embed(xyz, nfx), sigma_only=True), 5)
+        ms_all, runs_all = cuda_ms(lambda: sigma(xyz_all), 5)
+    bound, by, core = bounds(m)
+    bound_all, by_all, _ = bounds(n)
+    print(f"[timing] fused_sigma float32 at {m} points (a chunk of the f32 "
+          f"frame's coarse pass; {macs} MACs a point): {ms:.3f} ms/launch "
+          f"(runs {[round(t, 3) for t in runs]}); bit for bit the f32 "
+          f"kernel's sigma column; plain version {plain_ms:.3f} ms (max |d| "
+          f"{err:.2e}); the plain MLP path it replaced (PE, cuBLAS f32 GEMMs, "
+          f"bias and ReLU kernels) {mlp_ms:.3f} ms (runs "
+          f"{[round(t, 3) for t in mlp_runs]}); bound {bound:.3f} ms by {by} "
+          f"as three TF32 passes ({100 * bound / ms:.1f}% of it), "
+          f"{core:.3f} ms on the CUDA cores")
+    print(f"[timing] fused_sigma float32 at {n} points: {ms_all:.3f} "
+          f"ms/launch (runs {[round(t, 3) for t in runs_all]}); bit for bit "
+          f"the f32 kernel's sigma column; bound {bound_all:.3f} ms by "
+          f"{by_all} ({100 * bound_all / ms_all:.1f}% of it)")
+    return dict(points=m, ms=ms, plain_ms=plain_ms, mlp_ms=mlp_ms,
+                bound_ms=bound, bound_by=by, core_ms=core, err=err,
+                all_points=dict(points=n, ms=ms_all, bound_ms=bound_all))
 
 
 def bwd_errors(got, ref, a_dim, transient):
@@ -3470,9 +3560,9 @@ def main() -> int:
         return {k: p.launches for k, p in anatomy.PROBES.items()}
 
     phase_kernels(dev)
-    (launches, bwd_render, launches32), cfg = phase_render(dev)
+    (launches, bwd_render, launches32, sigma32), cfg = phase_render(dev)
     on_render = probe_counts()
-    k_ms, p_ms, bound_ms, bound_by, chunk_err, fwd32 = phase_timing(
+    k_ms, p_ms, bound_ms, bound_by, chunk_err, fwd32, sigma = phase_timing(
         dev, cfg, smi_name)
     phase_bwd_kernels(dev)
     (fwd_train, bwd_train), graph = phase_train(dev)
@@ -3611,7 +3701,21 @@ def main() -> int:
         "bound_ms": bwd32["bound_ms"], "bound_by": bwd32["bound_by"],
         "bound_cuda_core_ms": bwd32["core_ms"],
         "coarse_ms": train["coarse_f32"]["ms"],
-        "library_ms": None}]
+        "library_ms": None}, {
+        # the render's test-time coarse pass at f32 (no TPU kernel: the JAX
+        # package runs that pass on XLA's GEMMs); ms at the size of its
+        # launches in the f32 frame, beside the plain MLP path it replaced,
+        # and at all of the f32 kernel's points
+        "name": "fused_sigma_f32", "route": "cuda",
+        "source": "nerf_fl_torch/csrc/fused_mlp_fwd.cu",
+        "replaces": None,
+        "launches": sigma32,
+        "launches_by_path": {"render_frame_f32": sigma32},
+        "max_abs_err": sigma["err"], "ms": sigma["ms"],
+        "plain_ms": sigma["plain_ms"], "bound_ms": sigma["bound_ms"],
+        "bound_by": sigma["bound_by"], "bound_cuda_core_ms": sigma["core_ms"],
+        "replaced_path_ms": sigma["mlp_ms"], "library_ms": None,
+        "points": sigma["points"], "all_points": sigma["all_points"]}]
     # the probes: launches from the anatomy entry points' run (their counts
     # read after the render frame and the train step are those paths')
     for name, row in probes.items():

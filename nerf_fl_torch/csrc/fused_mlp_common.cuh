@@ -906,6 +906,21 @@ inline int make_bwd_plan(Plan& p, int k0, int kd, int kt, int has_transient) {
   return at;
 }
 
+// The sigma-only forward's walk (fused_mlp_fwd.cu:sigma_trunk_f32_kernel):
+// make_plan's trunk, then fs2's sigma block alone as one (256, 16)
+// segment.  Returns the image's bytes.
+inline int make_sigma_plan(Plan& p, int k0) {
+  p = Plan{};
+  int at = 0;
+  plan_seg(p, at, k0, W_TRUNK);
+  for (int l = 1; l < 8; ++l) {
+    if (l == 4) plan_seg(p, at, k0, W_TRUNK);
+    plan_seg(p, at, W_TRUNK, W_TRUNK);
+  }
+  plan_seg(p, at, W_TRUNK, OUT_LD);
+  return at;
+}
+
 // ---- the 3xTF32 split ----
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -1222,7 +1237,9 @@ __device__ __forceinline__ float pe_at(float x0, float x1, float x2, int c,
 // Columns [0, width) of this thread's rows (16 w + g and + 8) into its
 // private region g0: with pe, the encoding of the three values at column
 // src (pe_at), then n_extra columns copied from column extra_src; without,
-// the copied columns alone; zeros past them and in rows past n.
+// the copied columns alone; zeros past them and in rows past n.  LD: the
+// input's row stride in floats (the packed row's, or 3 for bare positions).
+template <int LD = IN_LD>
 __device__ __forceinline__ void encode(float4* act, int g0,
                                        const float* __restrict__ inp,
                                        size_t row0, int n, bool pe, int src,
@@ -1238,7 +1255,7 @@ __device__ __forceinline__ void encode(float4* act, int g0,
   for (int h = 0; h < 2; ++h) {
     const size_t row = row0 + r + 8 * h;
     live[h] = row < (size_t)n;
-    p[h] = inp + (live[h] ? row : 0) * IN_LD;
+    p[h] = inp + (live[h] ? row : 0) * LD;
 #pragma unroll
     for (int k = 0; k < 3; ++k)
       x[h][k] = live[h] && pe ? p[h][src + k] : 0.0f;

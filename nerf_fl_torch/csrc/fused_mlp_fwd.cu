@@ -1,4 +1,6 @@
-// Fused positional encoding + NeRF-W MLP forward for Hopper (sm_90a).
+// Fused positional encoding + NeRF-W MLP forward for Hopper (sm_90a), and
+// beside it the sigma-only f32 kernel of the render's test-time coarse
+// pass (sigma_trunk_f32_kernel; its note is above it, further down).
 //
 // Replaces nerf_fl_tpu/ops/fused_mlp.py:_fwd_kernel (the Pallas TPU kernel
 // behind _fused_fwd).  A block runs, for a tile of points and without
@@ -347,8 +349,87 @@ fused_mlp_fwd_bf16_kernel(const float* __restrict__ inp,
 }
 
 // ----------------------------------------------------------------------
-// The f32 kernel.  Block = one consumer warpgroup (64 rows) and a producer
-// warpgroup of which one thread works.
+// The f32 kernels' common parts.  A block of either f32 kernel below is one
+// consumer warpgroup (64 rows) and a producer warpgroup of which one
+// thread works.
+// ----------------------------------------------------------------------
+// The block's shared memory: activations, the weight ring's stages, the
+// biases and the scale rows, then the ring's barriers.
+struct TfBlock {
+  float4* act;
+  unsigned char* stages;
+  float* bias_s;
+  float* sx_s;
+  float* sd_s;
+  uint32_t full, empty;
+
+  __device__ __forceinline__ tf::Ring ring() const {
+    return {full, empty, hop::smem_u32(stages), tf::STAGE_BYTES, 0, 0, -1};
+  }
+};
+
+// Carve the block's shared memory, load the scale rows (sd only with DIR)
+// and the biases of layers [0, n_layers), and set up the ring's barriers.
+template <bool DIR>
+__device__ __forceinline__ TfBlock tf_block(unsigned char* smem_raw,
+                                            const Biases& bias, int n_layers,
+                                            const float* __restrict__ sx,
+                                            const float* __restrict__ sd) {
+  unsigned char* smem =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  TfBlock k;
+  k.act = reinterpret_cast<float4*>(smem);
+  k.stages = smem + tf::ACT_BYTES;
+  k.bias_s =
+      reinterpret_cast<float*>(k.stages + tf::STAGES * tf::STAGE_BYTES);
+  k.sx_s = k.bias_s + hop::BIAS_FLOATS;
+  k.sd_s = k.sx_s + IN_LD;
+  k.full = hop::smem_u32(k.bias_s + hop::CONST_FLOATS);
+  k.empty = k.full + 8 * tf::STAGES;
+
+  const int tid = threadIdx.x;
+  for (int c = tid; c < IN_LD; c += tf::T_THREADS) {
+    k.sx_s[c] = sx[c];
+    if (DIR) k.sd_s[c] = sd[c];
+  }
+  for (int l = 0; l < n_layers; ++l)
+    for (int c = tid; c < hop::layer_n(l); c += tf::T_THREADS)
+      k.bias_s[hop::bias_off(l) + c] = bias.b[l][c];
+  if (tid == 0) {
+    for (int s = 0; s < tf::STAGES; ++s) {
+      hop::mbar_init(k.full + 8 * s, 1);
+      hop::mbar_init(k.empty + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    hop::fence_async_smem();
+  }
+  __syncthreads();
+  return k;
+}
+
+// The trunk over P = PE(xyz): 8 x 256, the skip at layer 4; every layer
+// overwrites H in place once its products are done.
+__device__ __forceinline__ void tf_trunk(float (&acc)[W_TRUNK / 2],
+                                         float (&none)[8], float4* act,
+                                         int k0, tf::Ring& ring,
+                                         bool elected, const float* bias_s,
+                                         int fq, int t) {
+  for (int i = 0; i < 8; ++i) {
+    bool fresh = true;
+    if (i == 0 || i == 4)
+      tf::mma_seg<W_TRUNK, false>(acc, none, act, tf::G_P, k0, ring, fresh,
+                                  elected, t);
+    if (i != 0)
+      tf::mma_seg<W_TRUNK, false>(acc, none, act, tf::G_H, W_TRUNK, ring,
+                                  fresh, elected, t);
+    tf::store_hidden<W_TRUNK, false>(acc, act, tf::G_H,
+                                     bias_s + hop::bias_off(i), fq, t,
+                                     nullptr);
+  }
+}
+
+// ----------------------------------------------------------------------
+// The f32 kernel.
 // ----------------------------------------------------------------------
 __global__ void __launch_bounds__(tf::T_THREADS, 1)
 fused_mlp_fwd_f32_kernel(const float* __restrict__ inp,
@@ -362,73 +443,39 @@ fused_mlp_fwd_f32_kernel(const float* __restrict__ inp,
                          int has_transient, unsigned long long* runs) {
   count_run(runs);
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
-  float4* act = reinterpret_cast<float4*>(smem);
-  unsigned char* stages = smem + tf::ACT_BYTES;
-  float* bias_s =
-      reinterpret_cast<float*>(stages + tf::STAGES * tf::STAGE_BYTES);
-  float* sx_s = bias_s + hop::BIAS_FLOATS;
-  float* sd_s = sx_s + IN_LD;
-  const uint32_t full = hop::smem_u32(bias_s + hop::CONST_FLOATS);
-  const uint32_t empty = full + 8 * tf::STAGES;
-
-  const int tid = threadIdx.x;
   const int n_layers = has_transient ? N_LAYERS : L_T0;
-  for (int c = tid; c < IN_LD; c += tf::T_THREADS) {
-    sx_s[c] = sx[c];
-    sd_s[c] = sd[c];
-  }
-  for (int l = 0; l < n_layers; ++l)
-    for (int c = tid; c < hop::layer_n(l); c += tf::T_THREADS)
-      bias_s[hop::bias_off(l) + c] = bias.b[l][c];
-  if (tid == 0) {
-    for (int s = 0; s < tf::STAGES; ++s) {
-      hop::mbar_init(full + 8 * s, 1);
-      hop::mbar_init(empty + 8 * s, 1);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    hop::fence_async_smem();
-  }
-  __syncthreads();
+  const TfBlock k = tf_block<true>(smem_raw, bias, n_layers, sx, sd);
+  float4* act = k.act;
+  const float* bias_s = k.bias_s;
+  const float* sd_s = k.sd_s;
 
   const int n_tiles = (n + tf::ROWS - 1) / tf::ROWS;
+  const int tid = threadIdx.x;
   if (tid >= 128) {
+    // the producer warpgroup: its first thread streams the plan's stages
     if (tid == 128)
-      tf::produce(image, plan, full, empty, hop::smem_u32(stages),
+      tf::produce(image, plan, k.full, k.empty, hop::smem_u32(k.stages),
                   tf::STAGE_BYTES, n_tiles);
     return;
   }
   const int t = tid;
   const int fr = 16 * (t >> 5) + ((t & 31) >> 2), fq = t & 3;
   const bool elected = t == 0;
-  tf::Ring ring = {full, empty, hop::smem_u32(stages), tf::STAGE_BYTES, 0,
-                   0, -1};
+  tf::Ring ring = k.ring();
   float none[8];
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const size_t row0 = (size_t)tile * tf::ROWS;
     // PE(xyz) -> P
-    tf::encode(act, tf::G_P, inp, row0, n, true, 0, nfx, sx_s, 0, 0, k0, t);
+    tf::encode(act, tf::G_P, inp, row0, n, true, 0, nfx, k.sx_s, 0, 0, k0,
+               t);
     hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
                    4 * (6 + a_dim + t_dim), t);
 
     float out8[8];
     {
       float acc[W_TRUNK / 2];
-      // trunk: every layer overwrites H in place once its products are done
-      for (int i = 0; i < 8; ++i) {
-        bool fresh = true;
-        if (i == 0 || i == 4)
-          tf::mma_seg<W_TRUNK, false>(acc, none, act, tf::G_P, k0, ring,
-                                      fresh, elected, t);
-        if (i != 0)
-          tf::mma_seg<W_TRUNK, false>(acc, none, act, tf::G_H, W_TRUNK, ring,
-                                      fresh, elected, t);
-        tf::store_hidden<W_TRUNK, false>(acc, act, tf::G_H,
-                                         bias_s + hop::bias_off(i), fq, t,
-                                         nullptr);
-      }
+      tf_trunk(acc, none, act, k0, ring, elected, bias_s, fq, t);
       // fs2: xyz_final -> H, the sigma block -> out8
       float sig[8];
       bool fresh = true;
@@ -521,6 +568,89 @@ fused_mlp_fwd_f32_kernel(const float* __restrict__ inp,
   }
 }
 
+// ----------------------------------------------------------------------
+// The sigma-only f32 kernel (sigma_trunk_f32_kernel): the render's
+// test-time coarse pass, which needs the static sigma alone.
+//
+// It replaces no TPU kernel: the JAX package runs this pass on XLA's plain
+// GEMMs (nerf_fl_tpu/render/renderer.py, sigma_only), as the port did
+// (models/mlp.py:apply_nerf: CUDA-core f32 GEMMs and a bias-add and a ReLU
+// kernel a layer over (points, 256) f32 tensors in device memory).  That
+// pass took 382 of an f32 400 x 400 frame's 910 device ms (42%) on an
+// H100.  What bounds it: PE(xyz) and the trunk, 491,264 MACs a point
+// (0.98 MFLOP), against 12 bytes in and 4 out: bound by operations, 10.06
+// TFLOP a 400 x 400 frame at 64 coarse samples, ~61 ms as three TF32
+// passes at 495 TFLOP/s.
+//
+// It is the f32 kernel cut short, from the same tf block and with the same
+// numerics, and it shares that kernel's prologue (tf_block) and trunk
+// (tf_trunk): the producer, ring and stages (the image is
+// fused_mlp.py:f32_sigma_image, the walk tf::make_sigma_plan: the trunk's
+// stages, then fs2's 16-column sigma block alone as one (256, 16)
+// segment), A from registers, 3xTF32 products with f32 accumulation,
+// hidden layers relu(sum + bias), the sigma block an N = 16
+// product plus its f32 bias.  Its sigma is column 3 of the f32 kernel's
+// output for the same points and weights, bit for bit: the same products
+// in the same order on the same accumulator.  It leaves out xyz_final's
+// 256 columns, the dir tail and layer, the rgb head and the transient
+// branch (28% of the f32 kernel's work), and it reads the positions as
+// they are, (N, 3) f32 (tf::encode<3>), not the packed 512-byte row, and
+// writes one f32 pre-activation a point.  Its runs are counted in a slot
+// of their own, so kernel_runs() still counts the fused pair alone.
+// ----------------------------------------------------------------------
+__global__ void __launch_bounds__(tf::T_THREADS, 1)
+sigma_trunk_f32_kernel(const float* __restrict__ xyz,
+                       float* __restrict__ out, int n,
+                       const unsigned char* __restrict__ image,
+                       const __grid_constant__ tf::Plan plan,
+                       const __grid_constant__ Biases bias,
+                       const float* __restrict__ sx, int nfx, int k0,
+                       unsigned long long* runs) {
+  count_run(runs);
+  extern __shared__ unsigned char smem_raw[];
+  const TfBlock k = tf_block<false>(smem_raw, bias, L_FS + 1, sx, nullptr);
+  float4* act = k.act;
+
+  const int n_tiles = (n + tf::ROWS - 1) / tf::ROWS;
+  const int tid = threadIdx.x;
+  if (tid >= 128) {
+    // the producer warpgroup: its first thread streams the plan's stages
+    if (tid == 128)
+      tf::produce(image, plan, k.full, k.empty, hop::smem_u32(k.stages),
+                  tf::STAGE_BYTES, n_tiles);
+    return;
+  }
+  const int t = tid;
+  const int fr = 16 * (t >> 5) + ((t & 31) >> 2), fq = t & 3;
+  const bool elected = t == 0;
+  tf::Ring ring = k.ring();
+  float none[8];
+  // static sigma is column 3 of the sigma block: the second value of the
+  // column pair of the threads with fq == 1, in both of their rows
+  const float b_sigma = k.bias_s[hop::bias_off(L_FS) + W_TRUNK + 3];
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const size_t row0 = (size_t)tile * tf::ROWS;
+    // PE(xyz) -> P
+    tf::encode<3>(act, tf::G_P, xyz, row0, n, true, 0, nfx, k.sx_s, 0, 0,
+                  k0, t);
+    float acc[W_TRUNK / 2];
+    tf_trunk(acc, none, act, k0, ring, elected, k.bias_s, fq, t);
+    // fs2's sigma block alone
+    float sig[8];
+    bool fresh = true;
+    tf::mma_seg<OUT_LD, false>(sig, none, act, tf::G_H, W_TRUNK, ring, fresh,
+                               elected, t);
+    if (fq == 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t row = row0 + fr + 8 * h;
+        if (row < (size_t)n) out[row] = sig[2 * h + 1] + b_sigma;
+      }
+    }
+  }
+}
+
 struct Dims {
   int k0, kd, kt;
 };
@@ -591,6 +721,33 @@ int launch_bf16(const float* inp, float* out, int n, const void* image,
   return (int)cudaGetLastError();
 }
 
+int launch_sigma(const float* xyz, float* out, int n, const void* image,
+                 long long image_bytes, int grid, const float* const* b,
+                 const float* sx, int nfx, unsigned long long* runs,
+                 cudaStream_t stream) {
+  const int k0 = (3 + 6 * nfx + 15) / 16 * 16;
+  if (n < 0 || k0 > 128 || nfx > 20) return (int)cudaErrorInvalidValue;
+  tf::Plan plan;
+  // the wrapper's image must be the one this walk expects
+  if (tf::make_sigma_plan(plan, k0) != image_bytes ||
+      plan.n_stages > tf::MAX_PLAN)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (n + tf::ROWS - 1) / tf::ROWS;
+  if (grid < (n_tiles ? 1 : 0) || grid > n_tiles)
+    return (int)cudaErrorInvalidValue;
+  Biases bias = {};
+  for (int l = 0; l <= L_FS; ++l) bias.b[l] = b[l];
+  cudaError_t err = cudaFuncSetAttribute(
+      sigma_trunk_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tf::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return 0;
+  sigma_trunk_f32_kernel<<<grid, tf::T_THREADS, tf::SMEM_BYTES, stream>>>(
+      xyz, out, n, static_cast<const unsigned char*>(image), plan, bias, sx,
+      nfx, k0, runs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -617,6 +774,20 @@ int nerf_fused_mlp_fwd(int dtype, const float* inp, float* out, int n,
     return launch_f32(inp, out, n, image, image_bytes, grid, b, sx, sd, nfx,
                       nfd, a_dim, t_dim, has_transient, runs, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The sigma-only f32 kernel: (n, 3) f32 positions `xyz` -> (n,) f32 static
+// sigma pre-activations.  b is a host array of device pointers to the f32
+// biases of the trunk's eight layers and fs2 (pack_weights order); the
+// weights come from `image` (image_bytes long; fused_mlp.py:
+// f32_sigma_image), and `grid` persistent blocks run.  The kernel adds one
+// to *runs each time it runs.  Returns 0 or the cudaError_t of the launch.
+int nerf_fused_sigma_fwd(const float* xyz, float* out, int n,
+                         const float* const* b, const void* image,
+                         long long image_bytes, int grid, const float* sx,
+                         int nfx, unsigned long long* runs, void* stream) {
+  return launch_sigma(xyz, out, n, image, image_bytes, grid, b, sx, nfx, runs,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // The kernels' blocks, for reports: out[0] points a block, out[1]

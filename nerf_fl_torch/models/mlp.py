@@ -11,8 +11,10 @@ rounded to the compute dtype before the bias (also rounded) is added,
 concatenated operands are contracted per part and summed in the compute
 dtype (``_dense_cat``), per-ray conditioning is contracted per ray and
 broadcast-added (``_dense_ray_cond``), and the heads emit f32.  It serves
-the test-time coarse ``sigma_only`` pass and every architecture the fused
-kernel does not take.
+the test-time coarse ``sigma_only`` pass where the sigma-only kernel does
+not (bf16, or under autograd), tensor-parallel models, every pass on CPU
+tensors unless the fused path is asked for, and every architecture the
+fused kernels do not take.
 
 Under tensor parallelism (``parallel.mesh.place_params``) a layer holds a
 shard of its weight and carries a ``tp`` attribute: a column-parallel

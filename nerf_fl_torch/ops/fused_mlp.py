@@ -8,6 +8,10 @@ their operands and launches them, and keeps ``fused_mlp_reference`` and
 same rounding points.  ``fused_apply_nerf`` is differentiable: it runs both
 through a ``torch.autograd.Function`` that launches the kernels for CUDA
 tensors (or raises) and runs the plain versions only for tensors on the CPU.
+``fused_sigma`` is the render's test-time coarse pass: the static sigma
+alone, in f32, through the sigma-only kernel of the same source
+(``fused_sigma_cuda``; plain version ``fused_sigma_reference``), with no
+backward.
 
 Layouts:
   * input, one packed (N, 128) f32 row per point:
@@ -49,6 +53,7 @@ COL_T_SIGMA = 7
 COL_T_BETA = 8
 
 N_LAYERS = 16   # trunk 0..7, fs2, dir, rgb head, transient 0..3, t heads
+SIGMA_LAYERS = 9    # the sigma-only kernel's: trunk 0..7, fs2
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -175,10 +180,19 @@ def pack_weights(model: NeRF, a_dim: int, has_transient: bool, dtype,
                  t_dim)
 
 
+def pack_sigma_weights(model: NeRF, n_freq_xyz: int) -> PackedNet:
+    """``pack_weights``' first ``SIGMA_LAYERS`` layers in f32 (the trunk and
+    fs2), all that the sigma-only kernel reads."""
+    params = [t.detach() for lin in field_linears(model, False)[:10]
+              for t in (lin.weight, lin.bias)]
+    return _pack(params, 0, False, torch.float32, n_freq_xyz, 0, 0)
+
+
 def _pack(params, a_dim: int, has_transient: bool, dtype, n_freq_xyz: int,
           n_freq_dir: int, t_dim: int) -> PackedNet:
     """``pack_weights`` from the flat [weight, bias, ...] list of
-    ``field_linears`` order."""
+    ``field_linears`` order (of its first ten layers alone: the trunk and
+    fs2, ``pack_sigma_weights``)."""
     f32 = torch.float32
     dev = params[0].device
     k0 = _round16(3 + 6 * n_freq_xyz)
@@ -219,12 +233,14 @@ def _pack(params, a_dim: int, has_transient: bool, dtype, n_freq_xyz: int,
                    [(0, lw[8]), (W_TRUNK + COL_S_SIGMA, lw[9])]))
     bs.append(bias_at(W_TRUNK + OUT_W,
                       [(0, lb[8]), (W_TRUNK + COL_S_SIGMA, lb[9])]))
-    # dir branch: (256 + kd, 128)
-    ws.append(torch.cat([lw[10][:W_TRUNK], pad_rows(lw[10][W_TRUNK:], kd)]))
-    bs.append(lb[10])
-    # static rgb head at output cols 0..2: (128, 16)
-    ws.append(cols(W_HALF, OUT_W, [(COL_S_RGB, lw[11])]))
-    bs.append(bias_at(OUT_W, [(COL_S_RGB, lb[11])]))
+    if len(lw) > 10:
+        # dir branch: (256 + kd, 128)
+        ws.append(torch.cat([lw[10][:W_TRUNK],
+                             pad_rows(lw[10][W_TRUNK:], kd)]))
+        bs.append(lb[10])
+        # static rgb head at output cols 0..2: (128, 16)
+        ws.append(cols(W_HALF, OUT_W, [(COL_S_RGB, lw[11])]))
+        bs.append(bias_at(OUT_W, [(COL_S_RGB, lb[11])]))
     if has_transient:
         ws.append(torch.cat([lw[12][:W_TRUNK],
                              pad_rows(lw[12][W_TRUNK:], kt)]))
@@ -346,6 +362,18 @@ def _pieces(n: int):
     return [F32_PIECE] * (k - 1) + [n - F32_PIECE * (k - 1)]
 
 
+def _trunk_slabs(slabs, at, k0, cut):
+    """The trunk's slabs (layers 0..7, layer 4 cut per source) in
+    consumption order; returns the next byte offset."""
+    at = cut(slabs, at, 0, False, 0, k0, 0, W_TRUNK, W_TRUNK)
+    for i in range(1, 8):
+        if i == 4:
+            at = cut(slabs, at, 4, False, 0, k0, 0, W_TRUNK, W_TRUNK)
+        at = cut(slabs, at, i, False, k0 if i == 4 else 0, W_TRUNK, 0,
+                 W_TRUNK, W_TRUNK)
+    return at
+
+
 def _forward_slabs(slabs, at, k0, kd, kt, has_transient, heads, cut=_cut):
     """The forward's slabs in consumption order.  A layer whose input is
     two sources ([pe | h], [xyz_final | tail]) is cut per source, so a slab
@@ -356,11 +384,7 @@ def _forward_slabs(slabs, at, k0, kd, kt, has_transient, heads, cut=_cut):
     def seg(layer, row0, rows, cols):
         return cut(slabs, at, layer, False, row0, rows, 0, cols, cols)
 
-    at = seg(0, 0, k0, W_TRUNK)
-    for i in range(1, 8):
-        if i == 4:
-            at = seg(4, 0, k0, W_TRUNK)
-        at = seg(i, k0 if i == 4 else 0, W_TRUNK, W_TRUNK)
+    at = _trunk_slabs(slabs, at, k0, cut)
     at = seg(8, 0, W_TRUNK, W_TRUNK + OUT_W if heads else W_TRUNK)
     at = seg(9, 0, W_TRUNK, W_HALF)
     at = seg(9, W_TRUNK, kd, W_HALF)
@@ -427,6 +451,16 @@ def f32_image_plan(k0: int, kd: int, kt: int, has_transient: bool,
         return bwd_image_plan(k0, kd, kt, has_transient, cut=_cut32)
     slabs = []
     at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, True, _cut32)
+    return slabs, at
+
+
+def f32_sigma_plan(k0: int):
+    """``f32_image_plan`` of the sigma-only kernel (the header's
+    tf::make_sigma_plan): the trunk's stages, then fs2's 16-column sigma
+    block alone as one (256, 16) segment."""
+    slabs = []
+    at = _trunk_slabs(slabs, 0, k0, _cut32)
+    at = _cut32(slabs, at, 8, False, 0, W_TRUNK, W_TRUNK, OUT_W, OUT_W)
     return slabs, at
 
 
@@ -503,6 +537,14 @@ def _f32_image_index(k0: int, kd: int, kt: int, has_transient: bool,
                           nbytes)
 
 
+@functools.lru_cache(maxsize=8)
+def _f32_sigma_index(k0: int) -> np.ndarray:
+    """``f32_slab_index`` of the sigma-only kernel's image of the first
+    ``SIGMA_LAYERS`` of ``PackedNet.ws``."""
+    slabs, nbytes = f32_sigma_plan(k0)
+    return f32_slab_index(_sigma_shapes(k0), slabs, nbytes)
+
+
 @functools.lru_cache(maxsize=32)
 def _image_index(k0: int, kd: int, kt: int, has_transient: bool,
                  backward: bool = False) -> np.ndarray:
@@ -569,6 +611,15 @@ def f32_weight_image(net: PackedNet, has_transient: bool,
     return gather_image([hi, lo], key, lambda: _f32_image_index(*key[1:]))
 
 
+def f32_sigma_image(net: PackedNet) -> torch.Tensor:
+    """``f32_weight_image`` of the sigma-only kernel, from the first
+    ``SIGMA_LAYERS`` of ``net.ws`` (the trunk and fs2)."""
+    key = ("f32-sigma", net.k0)
+    hi, lo = tf32_split(torch.cat([w.reshape(-1)
+                                   for w in net.ws[:SIGMA_LAYERS]]))
+    return gather_image([hi, lo], key, lambda: _f32_sigma_index(net.k0))
+
+
 def bwd_tile_counts(k0: int, kd: int, kt: int, has_transient: bool):
     """Operand tiles (64 points x 64 columns, 8 KB in bf16) the bf16
     backward moves per 64 points: (saved by the fused kernel, read by the
@@ -629,29 +680,44 @@ def _consts(n_freq_xyz, n_freq_dir, a_dim, device):
             for k, v in _encoder_consts(n_freq_xyz, n_freq_dir, a_dim).items()}
 
 
-def _forward(inp, net: PackedNet, sx, sd, c, *, n_freq_dir, a_dim, t_dim,
-             has_transient, dtype, matmul=torch.matmul):
-    """The fused forward in eager torch, keeping every activation the
-    backward needs.  Returns (out, acts).  ``matmul``: the layer product
-    (exact products, f32 sums; ``f32_ties.tf32x3_mm`` models the f32
-    kernels')."""
+def _layers(net: PackedNet, dtype, matmul):
+    """(mm, hidden) of the packed layers: ``mm(a, i)``, the f32 product
+    with layer i's weight (by ``matmul``); ``hidden(a, i)``, that product
+    rounded to ``dtype``, plus the rounded bias, ReLU."""
     f32 = torch.float32
-    ws, bs = net.ws, net.bs
 
     def mm(a, i):                       # f32 accumulation of exact products
-        return matmul(a.to(f32), ws[i].to(f32))
+        return matmul(a.to(f32), net.ws[i].to(f32))
 
     def hidden(a, i):
         y = mm(a, i).to(dtype)
-        return torch.relu(y + bs[i].to(dtype))
+        return torch.relu(y + net.bs[i].to(dtype))
+    return mm, hidden
 
-    pe = _encode(inp, c["PxR"], c["phx"], c["trgx"], sx, 0, net.k0).to(dtype)
+
+def _trunk(pe, hidden):
+    """Layers 0..7 over the encoded positions, the skip at 4: (each
+    layer's input, each layer's output)."""
     ins, outs = [], []
     h = pe
     for i in range(8):
         ins.append(torch.cat([pe, h], -1) if i == 4 else h)
         h = hidden(ins[-1], i)
         outs.append(h)
+    return ins, outs
+
+
+def _forward(inp, net: PackedNet, sx, sd, c, *, n_freq_dir, a_dim, t_dim,
+             has_transient, dtype, matmul=torch.matmul):
+    """The fused forward in eager torch, keeping every activation the
+    backward needs.  Returns (out, acts).  ``matmul``: the layer product
+    (exact products, f32 sums; ``f32_ties.tf32x3_mm`` models the f32
+    kernels')."""
+    bs = net.bs
+    mm, hidden = _layers(net, dtype, matmul)
+    pe = _encode(inp, c["PxR"], c["phx"], c["trgx"], sx, 0, net.k0).to(dtype)
+    ins, outs = _trunk(pe, hidden)
+    h = outs[-1]
     fs2 = mm(h, 8) + bs[8]
     xyz_final = fs2[:, :W_TRUNK].to(dtype)
 
@@ -687,6 +753,23 @@ def fused_mlp_reference(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
     c = _consts(n_freq_xyz, n_freq_dir, a_dim, inp.device)
     return _forward(inp, net, sx, sd, c, n_freq_dir=n_freq_dir, a_dim=a_dim,
                     t_dim=t_dim, has_transient=has_transient, dtype=dtype)[0]
+
+
+def fused_sigma_reference(xyz: torch.Tensor, net: PackedNet,
+                          sx: torch.Tensor, *,
+                          n_freq_xyz: int) -> torch.Tensor:
+    """The sigma-only kernel's function in eager torch: (N, 3) f32
+    positions -> (N,) f32 static-sigma pre-activations, through PE(xyz)
+    times the scale row ``sx``, the trunk (``fused_mlp_reference``'s at
+    f32) and fs2's 16-column sigma block plus its f32 bias: column
+    ``COL_S_SIGMA`` of ``fused_mlp_reference``'s output at f32."""
+    c = _consts(n_freq_xyz, 0, 0, xyz.device)
+    _, hidden = _layers(net, torch.float32, torch.matmul)
+    pe = _encode(xyz, c["PxR"], c["phx"], c["trgx"], sx, 0, net.k0)
+    _, outs = _trunk(pe, hidden)
+    block = slice(W_TRUNK, W_TRUNK + OUT_W)
+    return (torch.matmul(outs[-1], net.ws[8][:, block])
+            + net.bs[8][block])[:, COL_S_SIGMA]
 
 
 def fused_mlp_bwd_reference(inp: torch.Tensor, net: PackedNet,
@@ -808,6 +891,12 @@ def _lib() -> ctypes.CDLL:
          ctypes.c_void_p, ctypes.c_void_p]
         + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p])
     lib.nerf_fused_mlp_fwd.restype = ctypes.c_int
+    lib.nerf_fused_sigma_fwd.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p])
+    lib.nerf_fused_sigma_fwd.restype = ctypes.c_int
     lib.nerf_fused_mlp_fwd_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.nerf_fused_mlp_fwd_info.restype = None
     return lib
@@ -844,6 +933,12 @@ def _packed_shapes(k0: int, kd: int, kt: int, has_transient: bool):
     return shapes
 
 
+def _sigma_shapes(k0: int):
+    """The sigma-only kernel's packed (K, N_out) shapes: the trunk's and
+    fs2's."""
+    return _packed_shapes(k0, 0, 0, False)[:SIGMA_LAYERS]
+
+
 def _check_operands(name, inp, net, sx, sd, has_transient, dtype):
     """Raise unless the operands are what the kernels take; returns the
     packed layer shapes."""
@@ -858,6 +953,16 @@ def _check_operands(name, inp, net, sx, sd, has_transient, dtype):
     shapes = _packed_shapes(net.k0, net.kd, net.kt, has_transient)
     if len(net.ws) != len(shapes) or len(net.bs) != len(shapes):
         raise ValueError(f"expected {len(shapes)} packed layers")
+    _check_layers(net, shapes, dtype, dev, sx, sd)
+    if inp.shape[0] >= 2 ** 31 // LANES:
+        raise ValueError(f"too many points for one launch: {inp.shape[0]}")
+    return shapes
+
+
+def _check_layers(net, shapes, dtype, dev, *rows):
+    """Raise unless the first ``len(shapes)`` packed layers have those
+    (K, N_out) shapes in ``dtype`` (biases f32), contiguous on ``dev``, and
+    each scale row is a contiguous (1, 128) f32 row there."""
     for w, b, s in zip(net.ws, net.bs, shapes):
         if tuple(w.shape) != s or w.dtype != dtype or w.device != dev \
                 or not w.is_contiguous():
@@ -867,13 +972,10 @@ def _check_operands(name, inp, net, sx, sd, has_transient, dtype):
                 or b.device != dev or not b.is_contiguous():
             raise ValueError(f"packed bias {tuple(b.shape)} does not match "
                              f"({s[1]},) float32 on {dev}")
-    for r in (sx, sd):
+    for r in rows:
         if tuple(r.shape) != (1, LANES) or r.dtype != torch.float32 \
                 or r.device != dev or not r.is_contiguous():
             raise ValueError("scale rows must be contiguous (1, 128) float32")
-    if inp.shape[0] >= 2 ** 31 // LANES:
-        raise ValueError(f"too many points for one launch: {inp.shape[0]}")
-    return shapes
 
 
 def _ptrs(ts):
@@ -898,10 +1000,10 @@ _RUNS: Dict[torch.device, torch.Tensor] = {}
 
 
 def _runs(dev: torch.device) -> torch.Tensor:
-    """The card's (2,) int64 counter of fused forward / backward kernel
-    runs, to which each kernel adds one from its first thread.  A CUDA
-    graph bakes its address in, so it lives as long as the process; it is
-    made outside any capture (a capture would record, and each replay
+    """The card's (3,) int64 counter of fused forward / backward / sigma-only
+    kernel runs, to which each kernel adds one from its first thread.  A
+    CUDA graph bakes its address in, so it lives as long as the process; it
+    is made outside any capture (a capture would record, and each replay
     repeat, its zeroing)."""
     runs = _RUNS.get(dev)
     if runs is None:
@@ -909,8 +1011,20 @@ def _runs(dev: torch.device) -> torch.Tensor:
             raise RuntimeError("the fused kernels' run counter must exist "
                                "before a CUDA graph captures them: launch "
                                "once outside the capture first")
-        runs = _RUNS[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+        runs = _RUNS[dev] = torch.zeros(3, dtype=torch.int64, device=dev)
     return runs
+
+
+def _counted(device):
+    """The run counter of ``device`` (None: the current CUDA device) read
+    back after a synchronize, or zeros where no kernel has run."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _RUNS:
+        return [0, 0, 0]
+    torch.cuda.synchronize(dev)
+    return _RUNS[dev].tolist()
 
 
 def kernel_runs(device=None):
@@ -918,16 +1032,18 @@ def kernel_runs(device=None):
     (None: the current CUDA device) in this process, counted on the card
     by the kernels themselves.  Unlike the wrappers' ``launches``, which
     count the host calls that launch (or, under a capture, record) a
-    kernel, it counts each run of a CUDA graph's replay.  Synchronizes the
+    kernel, it counts each run of a CUDA graph's replay.  The sigma-only
+    kernel's runs are not among them (``sigma_runs``).  Synchronizes the
     device."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    if dev not in _RUNS:
-        return 0, 0
-    torch.cuda.synchronize(dev)
-    fwd, bwd = _RUNS[dev].tolist()
+    fwd, bwd, _ = _counted(device)
     return fwd, bwd
+
+
+def sigma_runs(device=None) -> int:
+    """The sigma-only kernel's runs on ``device`` in this process, counted
+    on the card by the kernel itself, as ``kernel_runs`` counts the fused
+    pair's.  Synchronizes the device."""
+    return _counted(device)[2]
 
 
 def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
@@ -963,6 +1079,48 @@ def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
 
 
 fused_mlp_fwd_cuda.launches = 0
+
+
+def fused_sigma_cuda(xyz: torch.Tensor, net: PackedNet, sx: torch.Tensor, *,
+                     n_freq_xyz: int) -> torch.Tensor:
+    """Launch csrc/fused_mlp_fwd.cu's sigma-only kernel on the current
+    stream: (N, 3) f32 positions -> (N,) f32 static-sigma pre-activations,
+    the f32 kernel's column ``COL_S_SIGMA`` for the same points and
+    weights.  ``net``: an f32 ``PackedNet`` (its trunk and fs2 are read:
+    ``pack_sigma_weights`` packs no more); the kernel streams
+    ``f32_sigma_image(net)`` with ``fwd_grid`` persistent blocks of 64
+    points.  Counts its launches in ``fused_sigma_cuda.launches``; the
+    kernel counts its runs on the card (``sigma_runs``)."""
+    dev, n = xyz.device, xyz.shape[0]
+    if dev.type != "cuda":
+        raise ValueError("fused_sigma_cuda takes CUDA tensors")
+    if xyz.dtype != torch.float32 or xyz.dim() != 2 or xyz.shape[1] != 3 \
+            or not xyz.is_contiguous():
+        raise ValueError("xyz must be a contiguous (N, 3) float32 tensor")
+    if len(net.ws) < SIGMA_LAYERS or len(net.bs) < SIGMA_LAYERS:
+        raise ValueError(f"expected at least {SIGMA_LAYERS} packed layers")
+    _check_layers(net, _sigma_shapes(net.k0), torch.float32, dev, sx)
+    if n >= 2 ** 31:
+        raise ValueError(f"too many points for one launch: {n}")
+    runs = _runs(dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    image = f32_sigma_image(net)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _lib().nerf_fused_sigma_fwd(
+            xyz.data_ptr(), out.data_ptr(), n, _ptrs(net.bs[:SIGMA_LAYERS]),
+            image.data_ptr(), image.numel() * image.element_size(),
+            fwd_grid(n, n_sm, F32_ROWS), sx.data_ptr(), n_freq_xyz,
+            runs.data_ptr() + 16, stream)
+    if err != 0:
+        raise RuntimeError(f"fused sigma kernel launch failed: CUDA error "
+                           f"{err}")
+    fused_sigma_cuda.launches += 1
+    return out
+
+
+fused_sigma_cuda.launches = 0
 
 
 def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
@@ -1119,6 +1277,40 @@ def fused_apply_nerf(model: NeRF, xyz, dirs, a_emb=None, t_emb=None, *,
     pre = _FusedField.apply(meta, inp, sx.contiguous(), sd.contiguous(),
                             *params)
     return heads(pre, output_transient)
+
+
+def grad_needed(model: NeRF, *xs: torch.Tensor) -> bool:
+    """Whether autograd would record a pass of ``model`` over ``xs`` here:
+    grad mode is on and an input or a parameter requires grad."""
+    return torch.is_grad_enabled() and (
+        any(x.requires_grad for x in xs)
+        or any(p.requires_grad for p in model.parameters()))
+
+
+def fused_sigma(model: NeRF, xyz: torch.Tensor, *, n_freq_xyz: int = 10,
+                barf_w_xyz=None) -> Dict[str, torch.Tensor]:
+    """The static sigma alone, in f32, of (N, 3) raw positions: PE(xyz)
+    (with BARF's annealing weights ``barf_w_xyz``, (n_freq_xyz,) or None),
+    the trunk and the sigma head, as ``apply_nerf(..., sigma_only=True)``
+    computes them, in the f32 fused kernel's arithmetic.  CUDA tensors
+    launch the sigma-only kernel (``fused_sigma_cuda``), CPU tensors run
+    its plain version.  It has no backward: it raises where autograd would
+    record the pass (``grad_needed``).  Returns {"static_sigma": (N,)}."""
+    if grad_needed(model, xyz):
+        raise ValueError("fused_sigma has no backward: run it under "
+                         "torch.no_grad() or on tensors that need no grad")
+    if xyz.dim() != 2 or xyz.shape[1] != 3:
+        raise ValueError("xyz must be (N, 3)")
+    dev = xyz.device
+    if model.xyz[0].weight.device != dev:
+        raise ValueError("fused_sigma: model and positions on different "
+                         "devices")
+    net = pack_sigma_weights(model, n_freq_xyz)
+    sx = default_scale_rows(n_freq_xyz, 0, 0, barf_w_xyz, device=dev)[0]
+    run = fused_sigma_cuda if xyz.is_cuda else fused_sigma_reference
+    pre = run(xyz.to(torch.float32).contiguous(), net, sx.contiguous(),
+              n_freq_xyz=n_freq_xyz)
+    return {"static_sigma": softplus(pre)}
 
 
 def heads(pre: torch.Tensor, output_transient: bool) -> Dict[str, torch.Tensor]:

@@ -3,11 +3,13 @@ pass -> compositing.
 
 Counterpart of ``nerf_fl_tpu/render/renderer.py``.  The result dict is keyed
 exactly as the JAX one for every ``test_time`` / ``output_transient``
-combination.  Every pass but the test-time coarse ``sigma_only`` one goes
-through the fused PE + MLP kernels (``ops/fused_mlp.py``; forward, and
-backward under autograd) whenever the tensors are on CUDA and the
-architecture is one the kernels take; that pass and every other
-architecture run the plain ``models.mlp.apply_nerf``.
+combination.  Every pass goes through the fused PE + MLP kernels
+(``ops/fused_mlp.py``; forward, and backward under autograd) whenever the
+tensors are on CUDA and the architecture is one the kernels take: the
+test-time coarse ``sigma_only`` pass through the sigma-only kernel when it
+runs in float32 and records no gradient, the others through the fused
+pair.  The sigma-only pass in bfloat16 or under autograd, and every other
+architecture, run the plain ``models.mlp.apply_nerf``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch.utils.checkpoint
 from ..core import compositing, encoding, sampling
 from ..models.embeddings import embedding_lookup
 from ..models.mlp import NeRFConfig, apply_nerf
-from ..ops.fused_mlp import fused_apply_nerf
+from ..ops.fused_mlp import fused_apply_nerf, fused_sigma, grad_needed
 from ..ops.sorting import rank_merge_sorted
 from ..utils.spans import mark
 
@@ -137,13 +139,19 @@ def _run_mlp(model, mcfg: NeRFConfig, cfg: RenderConfig, xyz, dirs=None,
                              "(--model_parallel > 1) model: the fused "
                              "kernel needs whole weights")
         use_fused = False
-    if use_fused and not sigma_only and _fused_ok(mcfg):
-        bw_x = bw_d = None
-        if cfg.refine_pose:
-            bw_x, bw_d = (encoding.barf_weights(
-                epoch, n, cfg.barf_epoch_start, cfg.barf_epoch_end,
-                schedule=cfg.barf_schedule, device=xyz.device)
-                for n in (cfg.N_emb_xyz, cfg.N_emb_dir))
+    fused = use_fused and _fused_ok(mcfg)
+    bw_x = bw_d = None
+    if fused and cfg.refine_pose:
+        bw_x, bw_d = (encoding.barf_weights(
+            epoch, n, cfg.barf_epoch_start, cfg.barf_epoch_end,
+            schedule=cfg.barf_schedule, device=xyz.device)
+            for n in (cfg.N_emb_xyz, cfg.N_emb_dir))
+    if fused and sigma_only and cfg.dtype == torch.float32 \
+            and not grad_needed(model, xyz):
+        # the sigma-only kernel has no backward and no bf16 mode
+        out = fused_sigma(model, flat(xyz), n_freq_xyz=cfg.N_emb_xyz,
+                          barf_w_xyz=bw_x)
+    elif fused and not sigma_only:
         out = fused_apply_nerf(
             model, flat(xyz), per_sample(dirs),
             per_sample(a_emb) if a_emb is not None else None,

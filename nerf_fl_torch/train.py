@@ -11,8 +11,11 @@ it raises.  After fit it prints the host spans of the run
 (``utils/spans.py``): ``[spans] nerf.fit.checkpoint N x S s; ...``, each
 span's count and host seconds.  On the card its last line counts the fused
 kernels of the run: ``[kernels] N sub-steps; fused forward / backward: L /
-L host launches, R / R runs on the card`` (the wrappers' launches and the
-kernels' own count of their runs, CUDA graph replays included).
+L host launches, R / R runs on the card; sigma-only forward: L host
+launches, R runs on the card`` (the wrappers' launches and the kernels' own
+count of their runs, CUDA graph replays included; the sigma-only kernel
+runs eval's f32 test-time coarse pass, so it reads 0 here: the train step
+and validation render the full coarse pass).
 
 ``--num_gpus D --model_parallel M`` (D x M > 1) trains data- and
 tensor-parallel: this process starts its ``D x M / --num_hosts`` ranks
@@ -43,7 +46,9 @@ def train(device, hparams) -> NeRFSystem:
         print(f"[kernels] {system.global_step} sub-steps; fused forward / "
               f"backward: {fm.fused_mlp_fwd_cuda.launches} / "
               f"{fm.fused_mlp_bwd_cuda.launches} host launches, {runs[0]} / "
-              f"{runs[1]} runs on the card", flush=True)
+              f"{runs[1]} runs on the card; sigma-only forward: "
+              f"{fm.fused_sigma_cuda.launches} host launches, "
+              f"{fm.sigma_runs(system.device)} runs on the card", flush=True)
     return system
 
 

@@ -264,6 +264,114 @@ def test_backward_through_wrapper_fills_grads(transient):
         assert x.grad is not None and torch.isfinite(x.grad).all()
 
 
+def _sigma_case(dev, n, nfx=10, barf=None):
+    """The f32 forward's operands (fine model, a_dim 0, transient) and the
+    sigma-only kernel's (the positions as they are, the same packed net and
+    xyz scale row)."""
+    from nerf_fl_torch.core.encoding import barf_weights
+    model, (xyz, dirs, _, t) = _inputs(dev, 0, n=n, nfx=nfx)
+    bw = None if barf is None else barf_weights(6.0, nfx, 4, 8,
+                                                schedule=barf, device=dev)
+    inp = fm.pack_inputs(xyz, dirs, None, t)
+    net = fm.pack_weights(model, 0, True, torch.float32, nfx, 4, 16)
+    sx, sd = fm.default_scale_rows(nfx, 4, 0, bw, device=dev)
+    kw = dict(n_freq_xyz=nfx, n_freq_dir=4, a_dim=0, t_dim=16,
+              has_transient=True, dtype=torch.float32)
+    return xyz.contiguous(), inp, net, sx, sd, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nfx,barf", [(100_003, 10, None),
+                                        (100_003, 5, "paper"),
+                                        (0, 10, None)])
+def test_sigma_kernel_is_the_f32_kernels_sigma_column_on_card(n, nfx, barf):
+    """The sigma-only kernel's pre-activation equals column COL_S_SIGMA of
+    the f32 fused forward's output bit for bit (the same products in the
+    same order on the same accumulator), at a ragged 100,003 points and at
+    none; and its plain version within the f32 limit, 2e-4."""
+    dev = _card()
+    xyz, inp, net, sx, sd, kw = _sigma_case(dev, n, nfx, barf)
+    got = fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=nfx)
+    full = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+    ref = fm.fused_sigma_reference(xyz, net, sx, n_freq_xyz=nfx)
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and torch.isfinite(got).all()
+    assert torch.equal(got, full[:, fm.COL_S_SIGMA])
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_sigma_kernel_counts_its_own_runs_on_card():
+    """A launch adds one to the wrapper's launches and to the kernel's own
+    run count (``sigma_runs``) and leaves the fused pair's
+    (``kernel_runs``) as it was."""
+    dev = _card()
+    xyz, _, net, sx, _, _ = _sigma_case(dev, N)
+    fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=10)       # the counter
+    before = fm.fused_sigma_cuda.launches
+    runs, sig = fm.kernel_runs(dev), fm.sigma_runs(dev)
+    fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=10)
+    assert fm.fused_sigma_cuda.launches == before + 1
+    assert fm.sigma_runs(dev) == sig + 1
+    assert fm.kernel_runs(dev) == runs
+
+
+@pytest.mark.cuda
+def test_sigma_kernel_record_escapes_the_benchmarks_patterns_on_card():
+    """Under torch.profiler the sigma-only kernel's record matches none of
+    the benchmark's fused-forward, fused-backward or GEMM patterns, so the
+    traced window's fused records still equal ``kernel_runs``."""
+    from torch.profiler import ProfilerActivity, profile
+    from benchmark import trace
+    dev = _card()
+    xyz, _, net, sx, _, _ = _sigma_case(dev, N)
+    fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=10)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if "sigma_trunk_f32_kernel" in e.key]
+    assert names, [e.key for e in prof.key_averages()]
+    for name in names:
+        for pattern in (trace.FWD, trace.BWD, trace.GEMM):
+            assert not pattern.search(name), (name, pattern.pattern)
+
+
+@pytest.mark.cuda
+def test_test_time_render_runs_the_sigma_kernel_on_card():
+    """A test-time f32 render on the card: its coarse pass one sigma-only
+    launch, its fine pass one fused forward, and the frame within 1e-4 of
+    the plain MLP path's (tests/test_torch_render.py's limit)."""
+    from dataclasses import replace
+    from nerf_fl_torch.render import RenderConfig, render_rays
+    from nerf_fl_torch.training import build_params
+    dev = _card()
+    cfg = RenderConfig(N_samples=64, N_importance=64, encode_a=True,
+                       encode_t=True, white_back=True, perturb=0.0,
+                       noise_std=0.0, beta_min=0.1)
+    params = build_params(cfg, 5, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+    rng = np.random.default_rng(6)
+    o = rng.normal(0, 0.5, (512, 3))
+    d = rng.normal(0, 1, (512, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = torch.tensor(np.concatenate(
+        [o, d, np.full((512, 1), 2.0), np.full((512, 1), 6.0)], 1),
+        dtype=torch.float32, device=dev)
+    ts = torch.zeros(512, dtype=torch.int64, device=dev)
+    before = (fm.fused_sigma_cuda.launches, fm.fused_mlp_fwd_cuda.launches)
+    with torch.no_grad():
+        got = render_rays(params, rays, ts, cfg, test_time=True)
+        ref = render_rays(params, rays, ts, replace(cfg, use_fused=False),
+                          test_time=True)
+    torch.cuda.synchronize()
+    assert (fm.fused_sigma_cuda.launches, fm.fused_mlp_fwd_cuda.launches) \
+        == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got["rgb_fine"], ref["rgb_fine"], rtol=0,
+                               atol=1e-4)
+
+
 def _probe_ops(name, dev, n=N, seed=0):
     if name in ("static", "full", "consol"):
         return anatomy.net_inputs(anatomy.net_operands(n, seed, dev), name)

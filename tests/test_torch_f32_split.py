@@ -138,10 +138,16 @@ def test_f32_image_is_the_swizzled_operand_image(backward):
     slabs, _ = fm.f32_image_plan(net.k0, net.kd, net.kt, True, backward)
     assert [s.at for s in slabs] == list(np.cumsum(
         [0] + [2 * s.height * 128 for s in slabs[:-1]]))
+    _check_stages(image, slabs, net, 12)
+
+
+def _check_stages(image, slabs, net, draws):
+    """``draws`` random elements of each stage of ``slabs`` in ``image``
+    against the tf32 split of the packed weight they come from."""
     rng = np.random.default_rng(0)
     for sl in slabs:
         whi, wlo = fm.tf32_split(net.ws[sl.layer])
-        for _ in range(12):
+        for _ in range(draws):
             i, k = int(rng.integers(sl.height)), int(rng.integers(32))
             kk = 8 * (k // 8) + fm.F32_K_ORDER[k % 8]
             at = sl.at // 4 + i * 32 + 4 * ((k // 4) ^ (i % 8)) + k % 4
@@ -156,9 +162,34 @@ def test_f32_image_is_the_swizzled_operand_image(backward):
                 assert got == (float(ref[rc]) if ok else 0.0), (sl, i, k)
 
 
+@pytest.mark.parametrize("n_freq_xyz", [10, 5])
+def test_f32_sigma_image_is_the_trunk_and_the_sigma_block(n_freq_xyz):
+    """The sigma-only kernel's image: the f32 forward image's trunk stages
+    as they are, then fs2's 16-column sigma block alone, 8 stages of 16
+    rows, laid out as every stage is."""
+    model = init_nerf(NeRFConfig(typ="coarse",
+                                 in_channels_xyz=3 + 6 * n_freq_xyz),
+                      generator=torch.Generator().manual_seed(2))
+    net = fm.pack_weights(model, 0, False, torch.float32, n_freq_xyz, 4)
+    full, _ = fm.f32_image_plan(net.k0, net.kd, 0, False)
+    slabs, nbytes = fm.f32_sigma_plan(net.k0)
+    trunk = [sl for sl in full if sl.layer < 8]
+    assert slabs[:len(trunk)] == trunk
+    tail = slabs[len(trunk):]
+    assert [(sl.layer, sl.row0, sl.rows, sl.col0, sl.cols, sl.height)
+            for sl in tail] == [(8, k, 32, 256, 16, 16)
+                                for k in range(0, 256, 32)]
+    image = fm.f32_sigma_image(net)
+    assert image.numel() * 4 == nbytes == tail[-1].at + 2 * 16 * 128
+    n = tail[0].at // 4
+    assert torch.equal(image[:n], fm.f32_weight_image(net, False)[:n])
+    _check_stages(image, tail, net, 64)
+
+
 def _header_plan_program():
-    """A host program from the header's own tf::Plan, plan_seg, make_plan
-    and make_bwd_plan that prints each walk's bytes and stage rows."""
+    """A host program from the header's own tf::Plan, plan_seg, make_plan,
+    make_bwd_plan and make_sigma_plan that prints each walk's bytes and
+    stage rows (bw: 0 forward, 1 backward, 2 the sigma-only forward)."""
     hdr = (CSRC / "fused_mlp_common.cuh").read_text()
     tf_ns = hdr[hdr.index("namespace tf {"):]
     body = tf_ns[tf_ns.index("struct Plan {"):
@@ -175,7 +206,8 @@ int main(int argc, char** argv) {
   static Plan p;
   int k0, kd, kt, tr, bw;
   while (scanf("%d %d %d %d %d", &k0, &kd, &kt, &tr, &bw) == 5) {
-    int at = bw ? make_bwd_plan(p, k0, kd, kt, tr) : make_plan(p, k0, kd, kt, tr);
+    int at = bw == 2 ? make_sigma_plan(p, k0)
+             : bw ? make_bwd_plan(p, k0, kd, kt, tr) : make_plan(p, k0, kd, kt, tr);
     printf("%d %d", at, p.n_stages);
     for (int i = 0; i < p.n_stages && i < MAX_PLAN; ++i) printf(" %d", p.rows[i]);
     printf("\n");
@@ -210,6 +242,28 @@ def test_f32_plan_is_the_kernels_walk(tmp_path):
             slabs, nbytes = fm.f32_image_plan(k0, kd, kt, bool(tr), bool(bw))
             assert nums[0] == nbytes and nums[1] == len(slabs) <= 384
             assert nums[2:] == [s.height for s in slabs]
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+def test_f32_sigma_plan_is_the_kernels_walk(tmp_path):
+    """The header's tf::make_sigma_plan, compiled for the host, gives
+    f32_sigma_plan's stage heights and bytes (the sigma
+    launcher also refuses an image of another size on the card)."""
+    src = tmp_path / "plan.cpp"
+    src.write_text(_header_plan_program())
+    exe = tmp_path / "plan"
+    subprocess.run(["g++", "-std=c++17", "-O0", "-o", str(exe), str(src)],
+                   check=True)
+    k0s = sorted({k0 for k0, *_ in CASES})
+    lines = subprocess.run([str(exe)], input="".join(
+        f"{k0} 0 0 0 2\n" for k0 in k0s), capture_output=True, text=True,
+        check=True).stdout.splitlines()
+    for k0, line in zip(k0s, lines):
+        nums = [int(v) for v in line.split()]
+        slabs, nbytes = fm.f32_sigma_plan(k0)
+        assert nums[0] == nbytes and nums[1] == len(slabs) <= 384
+        assert nums[2:] == [s.height for s in slabs]
+        assert nums[-8:] == [16] * 8
 
 
 def test_f32_shared_memory_budget():

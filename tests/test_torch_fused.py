@@ -166,3 +166,71 @@ def test_kernel_launcher_rejects_cpu_tensors():
         tf.fused_mlp_fwd_cuda(inp, net, sx, sd, n_freq_xyz=10, n_freq_dir=4,
                               a_dim=48, t_dim=16, has_transient=True,
                               dtype=torch.bfloat16)
+
+
+def _coarse(n_freq_xyz, seed=4, n=N):
+    from nerf_fl_torch.models import NeRFConfig, init_nerf
+    model = init_nerf(NeRFConfig(typ="coarse", in_channels_xyz=3 + 6 * n_freq_xyz),
+                      generator=torch.Generator().manual_seed(seed))
+    xyz = torch.from_numpy(np.random.default_rng(seed).uniform(
+        -3, 3, (n, 3)).astype(np.float32))
+    return model, xyz
+
+
+@pytest.mark.parametrize("n_freq_xyz", [10, 5])
+@pytest.mark.parametrize("barf", [None, "fork", "paper"])
+def test_plain_sigma_matches_plain_mlp_and_the_fused_column(barf, n_freq_xyz):
+    """The sigma-only kernel's plain version, at f32: its static sigma is
+    the plain MLP path's (``apply_nerf(..., sigma_only=True)`` over
+    ``encoding.embed``; another sine and other sums: 2e-4, as above), and
+    its pre-activation is column COL_S_SIGMA of the fused forward's plain
+    version on the same points (the same trunk; only the last 256-long sum
+    is taken in another shape of product)."""
+    from nerf_fl_torch.core import encoding
+    from nerf_fl_torch.models.mlp import apply_nerf
+    model, xyz = _coarse(n_freq_xyz)
+    bw = None if barf is None else encoding.barf_weights(
+        6.0, n_freq_xyz, 4, 8, schedule=barf)
+    with torch.no_grad():
+        got = tf.fused_sigma(model, xyz, n_freq_xyz=n_freq_xyz,
+                             barf_w_xyz=bw)["static_sigma"]
+        ref = apply_nerf(model, encoding.embed(
+            xyz, n_freq_xyz, barf=barf is not None, epoch=6.0,
+            schedule=barf or "fork"), sigma_only=True)["static_sigma"]
+        net = tf.pack_weights(model, 0, False, torch.float32, n_freq_xyz, 4)
+        sx, sd = tf.default_scale_rows(n_freq_xyz, 4, 0, bw)
+        dirs = torch.from_numpy(np.random.default_rng(5).normal(
+            0, 1, (N, 3)).astype(np.float32))
+        full = tf.fused_mlp_reference(
+            tf.pack_inputs(xyz, dirs), net, sx, sd, n_freq_xyz=n_freq_xyz,
+            n_freq_dir=4, a_dim=0, t_dim=0, has_transient=False,
+            dtype=torch.float32)
+        pre = tf.fused_sigma_reference(xyz, net, sx, n_freq_xyz=n_freq_xyz)
+    assert got.shape == ref.shape == (N,)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL)
+    torch.testing.assert_close(pre, full[:, tf.COL_S_SIGMA])
+    torch.testing.assert_close(got, tf.softplus(pre))
+
+
+@pytest.mark.parametrize("n_freq_xyz", [10, 5])
+def test_sigma_packing_is_the_trunk_and_fs2(n_freq_xyz):
+    """``pack_sigma_weights`` gives ``pack_weights``' first SIGMA_LAYERS
+    layers in f32, weights and biases, and no more."""
+    model, _ = _coarse(n_freq_xyz)
+    full = tf.pack_weights(model, 0, False, torch.float32, n_freq_xyz, 4)
+    net = tf.pack_sigma_weights(model, n_freq_xyz)
+    assert len(net.ws) == len(net.bs) == tf.SIGMA_LAYERS
+    assert net.k0 == full.k0
+    for got, want in zip(net.ws + net.bs, full.ws[:tf.SIGMA_LAYERS]
+                         + full.bs[:tf.SIGMA_LAYERS]):
+        assert torch.equal(got, want)
+
+
+def test_sigma_launcher_rejects_cpu_tensors_and_autograd():
+    model, xyz = _coarse(10)
+    net = tf.pack_weights(model, 0, False, torch.float32, 10, 4)
+    sx, _ = tf.default_scale_rows(10, 4, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=10)
+    with pytest.raises(ValueError, match="no backward"):
+        tf.fused_sigma(model, xyz)

@@ -117,3 +117,42 @@ def test_val_chunk_cap_matches_jax():
                  (1000, 8, 8)]:
         assert val_chunk_cap(*args) == jcap(*args)
     assert val_chunk_cap(32768, 64, 64) == 32768
+
+
+@pytest.mark.parametrize("case", ["float32", "bfloat16", "grad", "train"])
+def test_test_time_coarse_pass_takes_the_sigma_kernel(monkeypatch, case):
+    """With the fused kernels on (use_fused=True: their plain versions on
+    CPU tensors), a test-time render at f32 with no gradient sends the
+    sigma-only coarse pass through ``fused_sigma``; at bf16, under
+    autograd, and in a training render (no sigma-only pass) the sigma path
+    is not taken and a sigma-only pass, where there is one, stays on the
+    plain MLP path."""
+    import nerf_fl_torch.render.renderer as rr
+    from nerf_fl_torch.training import build_params
+    calls = {"sigma": 0, "plain_sigma": 0}
+    real_sigma, real_plain = rr.fused_sigma, rr.apply_nerf
+
+    def sigma(*a, **k):
+        calls["sigma"] += 1
+        return real_sigma(*a, **k)
+
+    def plain(*a, **k):
+        calls["plain_sigma"] += bool(k.get("sigma_only"))
+        return real_plain(*a, **k)
+    monkeypatch.setattr(rr, "fused_sigma", sigma)
+    monkeypatch.setattr(rr, "apply_nerf", plain)
+    _, tcfg = _configs(False, compute_dtype="bfloat16" if case == "bfloat16"
+                       else "float32")
+    params = build_params(tcfg, 5, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    rays, ts = _rays(4, seed=5)
+    grad = torch.enable_grad() if case in ("grad", "train") \
+        else torch.no_grad()
+    with grad:
+        out = render_rays(params, torch.from_numpy(rays),
+                          torch.from_numpy(ts), tcfg,
+                          test_time=case != "train")
+    assert np.isfinite(out["rgb_fine"].detach().numpy()).all()
+    want = {"float32": (1, 0), "bfloat16": (0, 1), "grad": (0, 1),
+            "train": (0, 0)}[case]
+    assert (calls["sigma"], calls["plain_sigma"]) == want
