@@ -180,7 +180,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      decoded natively and by the pure-Python reader (every array bit for
      bit the same, both times printed), and PhototourismDataset(
      use_cache=False) over it (the points read natively, no fallback
-     line; the near / far stage's seconds printed).
+     line; the near / far stage's seconds printed);
+ 15. mip-NeRF's field on the f32 pair's IPE instances: the forward and
+     the backward held against their plain versions at one level of the
+     mip cell's sub-step (IPE_POINTS; the backward with a zero cotangent
+     at each point that has a unit within IPE_TIE of a ReLU's tie), the
+     forward also at the render
+     chunk's 4,194,304 points, two backward launches bit for bit; both
+     timed beside their plain versions and their bounds
+     (benchmark/flops_mip.py's operations and bytes, the f32 bounds of
+     phases 4 and 7); then one eager mip-NeRF device-pool sub-step at the
+     cell's batch and intervals: 2 + 2 fused launches, all of them runs
+     of the IPE kernels on the card, and a finite loss.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Needs the nerf_fl_torch
@@ -312,6 +323,24 @@ TP_BF16_LOSS_RTOL, TP_BF16_MEAN, TP_BF16_MAX = 1e-4, TP_LR / 2, \
     TP_STEPS * TP_LR
 TP_TILE, TP_RENDER_TOL = 32, 1e-5
 ARM_WINDOWS = 3                # phase 7's arm sub-steps: timing windows
+# phase 15: one level of the mip cell's sub-step (4,096 rays x 128
+# intervals) and phase 4's render chunk; the IPE kernels' shapes (their
+# keyword arguments but the dtype, float32)
+IPE_POINTS, IPE_CHUNK = 524_288, 4_194_304
+# The IPE backward's tie band: it writes no d_inp from which to read the
+# kernel's side of a tie (f32_ties.matched_backward), so every point with
+# a hidden unit whose plain |pre-activation| is under IPE_TIE gets a zero
+# cotangent on both sides.  TIE_F32's 2e-6 holds at the 70,001 points of
+# tests/test_torch_mipnerf_cuda.py, not at 524,288: there the plain
+# forward and f32_ties.tf32x3_mm's model of the kernel's products put a
+# hidden pre-activation up to 2.86e-6 apart (2.62e-6 on a second seed;
+# 2.38e-6 at 70,001), and on an H100 every weight tensor read 2.3e-4 to
+# 9.6e-4 of its largest at 2e-6 (the units left on the other side within
+# 2.0-2.5e-6 of zero), at most 2.0e-5 at 1e-5 (8.3% of the points).
+# 8e-6: 2.8x the largest gap, about 6.6% of the points (TIE_SHARE_MAX 8%)
+IPE_TIE = 8e-6
+IPE_DIMS = dict(n_freq_xyz=16, n_freq_dir=4, a_dim=0, t_dim=0,
+                has_transient=False, ipe=True)
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, HBM B/s
 PEAKS = {"H100 SXM": (989e12, 3.35e12), "H100 PCIe": (756e12, 2.0e12),
@@ -1397,6 +1426,223 @@ def phase_bwd_timing(cfg, smi_name):
                         bwd_rel=max(e[0] / max(e[1], 1e-30) for e in errs),
                         bwd_norm_rel=norm_rel(errs), ties=st)
     return out
+
+
+def ipe_case(dev, n, seed):
+    """A mip-NeRF field (glorot weights, every parameter nudged off its
+    initial value so that no bias sits at 0) and n packed rows of Gaussians
+    along cone intervals at the Blender recipe's scale: (inp, net, sx, sd)
+    of fused_mlp_fwd_cuda / fused_mlp_reference at IPE_DIMS."""
+    import torch
+    from nerf_fl_torch.models import init_nerf
+    from nerf_fl_torch.ops import fused_mlp as fm
+    from nerf_fl_torch.render import RenderConfig
+
+    gen = torch.Generator().manual_seed(seed)
+    model = init_nerf(RenderConfig(model="mipnerf").nerf_config("mip"),
+                      generator=gen, init="glorot")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    model = model.to(dev)
+    mean = torch.rand(n, 3, generator=gen) * 3 - 1.5
+    var = 10.0 ** (torch.rand(n, 3, generator=gen) * 4 - 7)
+    d = torch.randn(n, 3, generator=gen)
+    d = d / d.norm(dim=-1, keepdim=True)
+    inp = fm.pack_ipe_inputs(mean.to(dev), d.to(dev), var.to(dev))
+    net = fm.pack_weights(model, 0, False, torch.float32, 16, 4, 0, ipe=True)
+    sx, sd = fm.default_scale_rows(0, 4, 0, device=dev)
+    return inp.contiguous(), net, sx, sd
+
+
+def phase_ipe(smi_name):
+    """Phase 15: the IPE kernels against their plain versions and timed,
+    then one mip-NeRF sub-step's launches and runs.  Returns the kernels'
+    rows of the JSON line."""
+    import torch
+    from benchmark import flops_mip
+    from nerf_fl_torch.ops import f32_ties
+    from nerf_fl_torch.ops import fused_mlp as fm
+
+    dev = torch.device("cuda", 0)
+    part, (peak_flops, peak_bw) = peak_for(smi_name)
+    with open(os.path.join(HERE, "benchmark", "configs",
+                           "mipnerf_lego.json")) as f:
+        conf = json.load(f)
+    kw = dict(IPE_DIMS, dtype=torch.float32)
+    out = {}
+    for n in (IPE_POINTS, IPE_CHUNK):
+        inp, net, sx, sd = ipe_case(dev, n, 5)
+        with torch.no_grad():
+            got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+            ref = fm.fused_mlp_reference(inp, net, sx, sd, **kw)
+            err = float((got - ref).abs().max())
+            pad = float(got[:, 4:].abs().max())
+            if not torch.isfinite(got).all() or err > F32_ATOL or pad != 0:
+                fail(f"IPE forward kernel != plain at {n} points: max |d| "
+                     f"{err:.3e} (limit {F32_ATOL:g}), padding {pad:g}")
+            del got, ref
+            for _ in range(2):                               # warm up
+                fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+            k_ms, k_all = cuda_ms(lambda: fm.fused_mlp_fwd_cuda(
+                inp, net, sx, sd, **kw), 7)
+            p_ms, _ = cuda_ms(lambda: fm.fused_mlp_reference(
+                inp, net, sx, sd, **kw), 3)
+        flops, n_bytes = flops_mip.fused_fwd(conf, n)
+        bound, by, core = f32_bounds(flops, n_bytes, part, peak_flops,
+                                     peak_bw)
+        print(f"[ipe] fused_mlp_fwd_ipe float32 at {n} points: max_abs_err "
+              f"{err:.2e}; {k_ms:.3f} ms/launch (runs "
+              f"{[round(x, 3) for x in k_all]}); plain {p_ms:.3f} ms; work "
+              f"{flops / 1e12:.3f} TFLOP, {n_bytes / 1e9:.3f} GB; bound "
+              f"{bound:.3f} ms by {by} as three TF32 passes "
+              f"({100 * bound / k_ms:.1f}% of it), {core:.3f} ms on the CUDA "
+              f"cores")
+        out[n] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+                      core_ms=core, err=err)
+        del inp
+        torch.cuda.empty_cache()
+    fwd = out[IPE_CHUNK]
+
+    # the backward at one level: each point with a tie unit (IPE_TIE)
+    # gets a zero cotangent
+    n = IPE_POINTS
+    inp, net, sx, sd = ipe_case(dev, n, 6)
+    g = torch.zeros(n, fm.OUT_W)
+    g[:, :4] = torch.randn(n, 4, generator=torch.Generator().manual_seed(7))
+    g = g.to(dev)
+    pre = f32_ties.pre_activations(inp, net, sx, sd, **IPE_DIMS)
+    model = f32_ties.pre_activations(inp, net, sx, sd, **IPE_DIMS,
+                                     matmul=f32_ties.tf32x3_mm)
+    gap = max(float((pre[i] - model[i]).abs().max()) for i in pre)
+    tied = torch.stack([p.abs().lt(IPE_TIE).any(1)
+                        for p in pre.values()]).any(0)
+    n_tied = int(tied.sum())
+    del pre, model
+    if n_tied > TIE_SHARE_MAX * n:
+        fail(f"IPE backward: {n_tied} of {n} points have a tie unit, over "
+             f"{TIE_SHARE_MAX:g} of them")
+    g[tied] = 0.0
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+    torch.cuda.synchronize()
+    rel = [float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+           for x, y in zip(got[0] + got[1], ref[0] + ref[1])]
+    faults = [f"tensor {j}: {r:.3e} of its largest" for j, r in
+              enumerate(rel) if r > BWD_F32_REL]
+    if got[2] is not None:
+        faults.append("an input cotangent came back")
+    if not all(torch.isfinite(x).all() for x in got[0] + got[1]):
+        faults.append("non-finite gradients")
+    if not all(torch.equal(x, y) for x, y in zip(got[0] + got[1],
+                                                 again[0] + again[1])):
+        faults.append("two launches differ")
+    if faults:
+        fail(f"IPE backward kernel != plain at {n} points: "
+             + "; ".join(faults))
+    del got, again, ref
+    for _ in range(2):
+        fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    b_ms, b_all = cuda_ms(lambda: fm.fused_mlp_bwd_cuda(
+        inp, net, sx, sd, g, **kw), 7)
+    bp_ms, _ = cuda_ms(lambda: fm.fused_mlp_bwd_reference(
+        inp, net, sx, sd, g, **kw), 3)
+    flops, n_bytes = flops_mip.fused_bwd(conf, n)
+    bound, by, core = f32_bounds(flops, n_bytes, part, peak_flops, peak_bw)
+    print(f"[ipe] fused_mlp_bwd_ipe float32 at {n} points: worst max-rel "
+          f"{max(rel):.2e} (limit {BWD_F32_REL:g} of each tensor's largest; "
+          f"{n_tied} points with a tie unit under {IPE_TIE:g} at a zero "
+          f"cotangent; plain and modelled products {gap:.2e} apart at "
+          f"most), "
+          f"deterministic; {b_ms:.3f} ms/launch (runs "
+          f"{[round(x, 3) for x in b_all]}); plain {bp_ms:.3f} ms; work "
+          f"{flops / 1e12:.3f} TFLOP, {n_bytes / 1e9:.3f} GB; bound "
+          f"{bound:.3f} ms by {by} as three TF32 passes "
+          f"({100 * bound / b_ms:.1f}% of it), {core:.3f} ms on the CUDA "
+          f"cores")
+    bwd = dict(ms=b_ms, plain_ms=bp_ms, bound_ms=bound, bound_by=by,
+               core_ms=core, rel=max(rel), tie_points=n_tied)
+    for src, kernel in (("fused_mlp_fwd", "fused_mlp_fwd_ipe_f32_kernel"),
+                        ("fused_mlp_bwd", "fused_mlp_bwd_ipe_f32_kernel")):
+        r = ptxas_info(src, kernel)
+        print(f"[ipe] {kernel}: {r[0]} registers (spill {r[1]} / {r[2]} B, "
+              f"stack frame {r[3]} B)")
+    del inp, g
+    torch.cuda.empty_cache()
+    launches, runs = mip_sub_step(dev, conf)
+    return [{
+        "name": "fused_mlp_fwd_ipe_f32", "route": "cuda",
+        "source": "nerf_fl_torch/csrc/fused_mlp_fwd.cu", "replaces": None,
+        "launches": launches[0],
+        "launches_by_path": {"mip_train_step_f32": launches[0]},
+        "runs_on_card": runs[0], "max_abs_err": max(
+            v["err"] for v in out.values()),
+        "points": IPE_CHUNK, "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "bound_cuda_core_ms": fwd["core_ms"],
+        "level": {"points": IPE_POINTS, **out[IPE_POINTS]},
+        "library_ms": None}, {
+        "name": "fused_mlp_bwd_ipe_f32", "route": "cuda",
+        "source": "nerf_fl_torch/csrc/fused_mlp_bwd.cu", "replaces": None,
+        "launches": launches[1],
+        "launches_by_path": {"mip_train_step_f32": launches[1]},
+        "runs_on_card": runs[1], "max_rel_err": bwd["rel"],
+        "rel_limit": BWD_F32_REL, "tie_points": bwd["tie_points"],
+        "tie_band": IPE_TIE,
+        "points": IPE_POINTS, "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "bound_cuda_core_ms": bwd["core_ms"], "library_ms": None}]
+
+
+def mip_sub_step(dev, conf):
+    """One eager mip-NeRF device-pool sub-step at the configuration's batch
+    and intervals (f32, Adam) over random cone rays: its fused launches
+    (forward, backward) as the wrappers count them, and the IPE kernels'
+    runs on the card; fails unless both are 2 + 2 and the loss is finite."""
+    import torch
+    from nerf_fl_torch.ops import fused_mlp as fm
+    from nerf_fl_torch.render import RenderConfig
+    from nerf_fl_torch.training import build_params, make_device_pool_step
+    from nerf_fl_torch.training import optimizers as opt
+
+    r, t = conf["render"], conf["train"]
+    cfg = RenderConfig(model="mipnerf", N_samples=r["N_samples"],
+                       perturb=r["perturb"], white_back=r["white_back"],
+                       compute_dtype="float32")
+    B = t["batch_size"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n = 4 * B
+    o = torch.randn(n, 3, device=dev, generator=gen)
+    o = 4 * o / o.norm(dim=-1, keepdim=True)
+    d = -o / 4 + 0.1 * torch.randn(n, 3, device=dev, generator=gen)
+    rays = torch.cat([o, d, torch.full((n, 1), 5.2e-4, device=dev),
+                      torch.full((n, 1), conf["scene"]["near"], device=dev),
+                      torch.full((n, 1), conf["scene"]["far"], device=dev)],
+                     -1)
+    pool = {"rays": rays, "rgbs": torch.rand(n, 3, device=dev,
+                                             generator=gen)}
+    perm = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+    params = build_params(cfg, 1, generator=gen, device=dev)
+    hp = type("H", (), {"optimizer": "adam", "lr": t["lr_init"],
+                        "weight_decay": 0.0})
+    optim = opt.build_optimizer(hp, opt.param_groups(
+        params, opt.make_trainable_mask(params, False)))
+    step = make_device_pool_step(cfg, optim, batch_size=B, loss_name="mip")
+    fwd, bwd = fm.fused_mlp_fwd_cuda, fm.fused_mlp_bwd_cuda
+    l0, runs0 = (fwd.launches, bwd.launches), fm.ipe_runs(dev)
+    loss = float(step(params, pool, perm, 0, t["lr_init"], 0.0, gen)
+                 ["train/loss"])
+    runs1 = fm.ipe_runs(dev)
+    launches = (fwd.launches - l0[0], bwd.launches - l0[1])
+    runs = tuple(b - a for a, b in zip(runs0, runs1))
+    print(f"[ipe] one mip-NeRF sub-step ({B} rays x {r['N_samples']} + "
+          f"{r['N_samples']} intervals): fused launches {launches}, IPE runs "
+          f"on the card {runs}, loss {loss:.4f}")
+    if launches != (2, 2) or runs != (2, 2) or not math.isfinite(loss):
+        fail(f"mip-NeRF sub-step: fused launches {launches}, IPE runs "
+             f"{runs} (2 + 2 each), loss {loss}")
+    return launches, runs
 
 
 def phase_arm_step():
@@ -3568,6 +3814,7 @@ def main() -> int:
     (fwd_train, bwd_train), graph = phase_train(dev)
     on_train = {k: v - on_render[k] for k, v in probe_counts().items()}
     train = phase_bwd_timing(cfg, smi_name)
+    ipe_rows = phase_ipe(smi_name)
     bwd, bwd32 = train["fine"], train["fine_f32"]
     bf16_rows = [train["fine"], train["coarse"]]
     f32_rows = [train["fine_f32"], train["coarse_f32"]]
@@ -3715,7 +3962,8 @@ def main() -> int:
         "plain_ms": sigma["plain_ms"], "bound_ms": sigma["bound_ms"],
         "bound_by": sigma["bound_by"], "bound_cuda_core_ms": sigma["core_ms"],
         "replaced_path_ms": sigma["mlp_ms"], "library_ms": None,
-        "points": sigma["points"], "all_points": sigma["all_points"]}]
+        "points": sigma["points"], "all_points": sigma["all_points"]},
+        *ipe_rows]
     # the probes: launches from the anatomy entry points' run (their counts
     # read after the render frame and the train step are those paths')
     for name, row in probes.items():

@@ -4,6 +4,8 @@ Counterpart of ``nerf_fl_tpu/core/compositing.py``, with the reference's
 quirks kept: terminal bin delta 1e2, sigma noise only on the static path,
 ``beta_min`` added after compositing, and the white-background blend of the
 static decomposition map taken from the COMBINED opacity.
+``composite_intervals`` is mip-NeRF's ``volumetric_rendering``
+(``google/mipnerf`` internal/mip.py), which has no JAX counterpart.
 """
 from __future__ import annotations
 
@@ -147,3 +149,38 @@ def composite_solo_field(z_vals, rgbs, sigmas, *, white_back: bool = False,
         rgb = rgb + (1.0 - combined_opacity[..., None])
     depth = torch.sum(weights * z_vals, dim=-1)
     return rgb, depth
+
+
+class IntervalComposite(NamedTuple):
+    rgb: torch.Tensor        # (N, 3)
+    distance: torch.Tensor   # (N,)
+    acc: torch.Tensor        # (N,)
+    weights: torch.Tensor    # (N, S)
+
+
+def composite_intervals(t_vals: torch.Tensor, rgbs: torch.Tensor,
+                        sigmas: torch.Tensor, dirs: torch.Tensor, *,
+                        white_back: bool = False) -> IntervalComposite:
+    """mip-NeRF's ``volumetric_rendering`` over S intervals between the
+    edges ``t_vals`` (N, S + 1): delta = (t1 - t0) |d| (``dirs`` (N, 3)
+    not normalised), alpha = 1 - exp(-sigma delta), the exclusive
+    transmittance exp(-cumsum(sigma delta)), weights alpha T; the distance
+    is the weights' mean of the interval midpoints, NaN (no opacity) taken
+    as far, clipped to the edges; white background rgb + (1 - acc)."""
+    t_mids = 0.5 * (t_vals[:, :-1] + t_vals[:, 1:])
+    delta = (t_vals[:, 1:] - t_vals[:, :-1]) \
+        * torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    sd = sigmas * delta
+    alpha = 1 - torch.exp(-sd)
+    trans = torch.exp(-torch.cat([torch.zeros_like(sd[:, :1]),
+                                  torch.cumsum(sd[:, :-1], -1)], -1))
+    weights = alpha * trans
+    rgb = (weights[..., None] * rgbs).sum(-2)
+    acc = weights.sum(-1)
+    distance = torch.nan_to_num((weights * t_mids).sum(-1) / acc,
+                                nan=float("inf"))
+    distance = torch.minimum(torch.maximum(distance, t_vals[:, 0]),
+                             t_vals[:, -1])
+    if white_back:
+        rgb = rgb + (1 - acc[..., None])
+    return IntervalComposite(rgb, distance, acc, weights)

@@ -1,8 +1,10 @@
-"""Sinusoidal positional encoding with optional BARF coarse-to-fine annealing.
+"""Sinusoidal positional encoding with optional BARF coarse-to-fine annealing,
+and mip-NeRF's integrated positional encoding.
 
 Counterpart of ``nerf_fl_tpu/core/encoding.py``.  Channel order is
 ``[x, sin(f0 x), cos(f0 x), sin(f1 x), cos(f1 x), ...]``, each sin/cos block
-spanning the C input channels.
+spanning the C input channels.  ``integrated_pos_enc`` has no JAX
+counterpart; it is ``google/mipnerf``'s (internal/mip.py).
 """
 from __future__ import annotations
 
@@ -141,3 +143,22 @@ def embed(x: torch.Tensor, N_freqs: int, *, barf: bool = False, epoch=None,
                          schedule=schedule, device=x.device)
     return posenc(x, N_freqs, max_logscale=max_logscale, logscale=logscale,
                   weights=w, fast=fast)
+
+
+def integrated_pos_enc(mean: torch.Tensor, var: torch.Tensor, n_freqs: int,
+                       fast: bool = False) -> torch.Tensor:
+    """mip-NeRF's IPE (``integrated_pos_enc`` with ``diag=True``, degrees 0
+    to ``n_freqs``) of Gaussians with ``mean`` and diagonal ``var`` (..., 3):
+    (..., 6 n_freqs) = [sin(y) * w, cos(y) * w] with y the scaled means
+    [2^0 m, 2^1 m, ...] (each over the 3 components) and w = exp(-y_var /
+    2), y_var = [4^0 v, 4^1 v, ...]: all sines first, then all cosines.
+    ``fast``: the Cody-Waite ``sin_cw`` (the IPE kernels'), else
+    ``torch.sin`` / ``torch.cos`` (mip-NeRF's sin(y + pi / 2), exactly)."""
+    scales = freqs_on(n_freqs - 1, n_freqs, True, mean.dtype, mean.device)
+    shape = mean.shape[:-1] + (-1,)
+    y = (mean[..., None, :] * scales[:, None]).reshape(shape)
+    y_var = (var[..., None, :] * (scales ** 2)[:, None]).reshape(shape)
+    w = torch.exp(-0.5 * y_var)
+    if fast:
+        return torch.cat([fast_sin(y) * w, fast_cos(y) * w], -1)
+    return torch.cat([torch.sin(y) * w, torch.cos(y) * w], -1)

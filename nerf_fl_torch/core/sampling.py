@@ -1,5 +1,8 @@
 """Depth sampling: stratified coarse samples and inverse-CDF importance
-sampling.  Counterpart of ``nerf_fl_tpu/core/sampling.py``.
+sampling.  Counterpart of ``nerf_fl_tpu/core/sampling.py``; mip-NeRF's
+resampling of interval edges (``resample_intervals``,
+``sorted_piecewise_constant_pdf``) has no JAX counterpart and follows
+``google/mipnerf`` (internal/mip.py, internal/math.py).
 
 Stochastic draws come from a ``torch.Generator``, or are injected by the
 caller (``u``) so that tests can feed both packages the same numbers.  A
@@ -104,3 +107,72 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, N_importance: int,
     denom = cdf_hi - cdf_lo
     denom = torch.where(denom < eps, torch.ones_like(denom), denom)
     return bin_lo + (u - cdf_lo) / denom * (bin_hi - bin_lo)
+
+
+F32_EPS = float(torch.finfo(torch.float32).eps)
+
+
+def sorted_piecewise_constant_pdf(bins: torch.Tensor, weights: torch.Tensor,
+                                  num_samples: int, randomized: bool, *,
+                                  generator: Optional[torch.Generator] = None,
+                                  u: Optional[torch.Tensor] = None,
+                                  shard: Optional[Tuple[int, int]] = None
+                                  ) -> torch.Tensor:
+    """mip-NeRF's ``sorted_piecewise_constant_pdf``: (N, num_samples)
+    sorted samples of the piecewise-constant pdf ``weights`` (N, S) over
+    the edges ``bins`` (N, S + 1).  Weights summing under 1e-5 are padded
+    evenly up to it; the cdf is clipped at 1 and ends in 0 and 1.
+    Randomized, sample i is (i + U[0, 1)) / num_samples less a float32 eps
+    in width (one uniform (N, num_samples) draw from ``generator``, or
+    ``u``; ``shard`` is ``draw_rows``'), else evenly spaced over [0, 1 -
+    eps].  Each sample's interval is found by a search of the cdf (the
+    published code's mask and max / min finds the same one)."""
+    eps = 1e-5
+    n = weights.shape[0]
+    weight_sum = weights.sum(-1, keepdim=True)
+    padding = torch.clamp(eps - weight_sum, min=0)
+    weights = weights + padding / weights.shape[-1]
+    weight_sum = weight_sum + padding
+    pdf = weights / weight_sum
+    cdf = torch.clamp(torch.cumsum(pdf[:, :-1], -1), max=1)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf,
+                     torch.ones_like(cdf[:, :1])], -1)
+    if randomized:
+        s = 1 / num_samples
+        if u is None:
+            u = draw_rows(lambda sh: torch.rand(
+                sh, generator=generator, dtype=bins.dtype,
+                device=bins.device), (n, num_samples), shard)
+        u = torch.arange(num_samples, dtype=bins.dtype,
+                         device=bins.device) * s + u * (s - F32_EPS)
+        u = torch.clamp(u, max=1 - F32_EPS)
+    else:
+        u = torch.linspace(0.0, 1.0 - F32_EPS, num_samples, dtype=bins.dtype,
+                           device=bins.device).expand(n, num_samples)
+    last = cdf.shape[-1] - 1
+    below = torch.clamp(searchsorted_right(cdf, u) - 1, 0, last)
+    above = torch.clamp(below + 1, max=last)
+    bins_g0, bins_g1 = bins.gather(1, below), bins.gather(1, above)
+    cdf_g0, cdf_g1 = cdf.gather(1, below), cdf.gather(1, above)
+    t = torch.nan_to_num((u - cdf_g0) / (cdf_g1 - cdf_g0), 0.0)
+    t = torch.clamp(t, 0, 1)
+    return bins_g0 + t * (bins_g1 - bins_g0)
+
+
+def resample_intervals(t_vals: torch.Tensor, weights: torch.Tensor,
+                       padding: float, randomized: bool, *,
+                       generator: Optional[torch.Generator] = None,
+                       shard: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
+    """mip-NeRF's ``resample_along_rays``' new edges (N, S + 1) from the
+    edges ``t_vals`` (N, S + 1) and the previous level's weights (N, S):
+    the weights padded by their end values, the max of neighbours, then
+    their mean (the "blurpool"), plus ``padding``, sampled by
+    ``sorted_piecewise_constant_pdf`` at S + 1 edges.  The caller stops the
+    gradient."""
+    w = torch.cat([weights[:, :1], weights, weights[:, -1:]], -1)
+    w = torch.maximum(w[:, :-1], w[:, 1:])
+    w = 0.5 * (w[:, :-1] + w[:, 1:]) + padding
+    return sorted_piecewise_constant_pdf(t_vals, w, t_vals.shape[-1],
+                                         randomized, generator=generator,
+                                         shard=shard)

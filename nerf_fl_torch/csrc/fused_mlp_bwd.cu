@@ -83,6 +83,13 @@
 //     that a data-parallel rank's power-of-two share of a batch sums bit
 //     for bit as one rank's whole batch does.
 // Budget and bound are the forward's: the work at 165 TFLOP/s.
+//
+// mip-NeRF's field (fused_mlp_fwd.cu's IPE note) has an f32 instance of its
+// own, fused_mlp_bwd_ipe_f32_kernel (bwd_f32<true>), behind the same wgrad
+// kernel and reductions: its recompute takes the IPE and the skip at layer
+// 5, and since the Gaussians are no parameters it writes no d_inp and
+// leaves out the products that only feed it (tf::make_bwd_plan's
+// no_d_inp walk).
 #include "fused_mlp_common.cuh"
 
 namespace {
@@ -97,11 +104,13 @@ struct Layout {
   int n_layers;
 };
 
-Layout make_layout(int k0, int kd, int kt, int has_transient) {
+// skip: the trunk layer whose input is [encoding | hidden] (4; the IPE
+// kernels' 5).
+Layout make_layout(int k0, int kd, int kt, int has_transient, int skip = 4) {
   Layout L = {};
   const int shapes[N_LAYERS][2] = {
       {k0, W_TRUNK}, {W_TRUNK, W_TRUNK}, {W_TRUNK, W_TRUNK},
-      {W_TRUNK, W_TRUNK}, {k0 + W_TRUNK, W_TRUNK}, {W_TRUNK, W_TRUNK},
+      {W_TRUNK, W_TRUNK}, {W_TRUNK, W_TRUNK}, {W_TRUNK, W_TRUNK},
       {W_TRUNK, W_TRUNK}, {W_TRUNK, W_TRUNK}, {W_TRUNK, FS_OUT},
       {W_TRUNK + kd, W_HALF}, {W_HALF, OUT_LD}, {W_TRUNK + kt, W_HALF},
       {W_HALF, W_HALF}, {W_HALF, W_HALF}, {W_HALF, W_HALF},
@@ -109,7 +118,7 @@ Layout make_layout(int k0, int kd, int kt, int has_transient) {
   L.n_layers = has_transient ? N_LAYERS : L_T0;
   long long at = 0;
   for (int l = 0; l < L.n_layers; ++l) {
-    L.K[l] = shapes[l][0];
+    L.K[l] = l == skip ? k0 + W_TRUNK : shapes[l][0];
     L.N[l] = shapes[l][1];
     L.off[l] = at;
     at += (long long)L.K[l] * L.N[l] + L.N[l];
@@ -759,24 +768,32 @@ namespace tb {
 // Saves every layer's input activations and masked cotangents as tile
 // slots of 64 points x 64 columns (16 KB, the private layout's groups) for
 // the wgrad kernel, and per-warp f32 column sums of the cotangents for db.
-__global__ void __launch_bounds__(tf::T_THREADS, 1)
-fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
-                         const float* __restrict__ g,
-                         float* __restrict__ d_inp, int n,
-                         const unsigned char* __restrict__ image,
-                         const __grid_constant__ tf::Plan plan,
-                         const __grid_constant__ hb::Biases bias,
-                         const float* __restrict__ sx,
-                         const float* __restrict__ sd, int nfx, int nfd,
-                         int a_dim, int t_dim, int k0, int kd, int kt,
-                         int has_transient, unsigned char* scratch,
-                         const __grid_constant__ hop::TileMap tm,
-                         uint32_t* masks, float* dbpart, int db_stride,
-                         unsigned long long* runs) {
+// MIP: the IPE instance (fused_mlp_bwd_ipe_f32_kernel), the backward of
+// fused_mlp_fwd.cu's fused_mlp_fwd_ipe_f32_kernel: its recompute takes the
+// IPE and the skip at layer 5, and it computes no input cotangent (the
+// Gaussians are no parameters), so it leaves out the products that feed
+// only d_inp (dir -> d_tail, the skip layer's and layer 0's encoding
+// rows) and writes no d_inp.  The wgrad kernel and the reductions are the
+// f32 backward's, on its saved slots.
+template <bool MIP>
+__device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
+                                        const float* __restrict__ g,
+                                        float* __restrict__ d_inp, int n,
+                                        const unsigned char* __restrict__ image,
+                                        const tf::Plan& plan,
+                                        const hb::Biases& bias,
+                                        const float* __restrict__ sx,
+                                        const float* __restrict__ sd, int nfx,
+                                        int nfd, int a_dim, int t_dim, int k0,
+                                        int kd, int kt, int has_transient,
+                                        unsigned char* scratch,
+                                        const hop::TileMap& tm,
+                                        uint32_t* masks, float* dbpart,
+                                        int db_stride) {
   using tf::G_G;
   using tf::G_H;
   using tf::G_P;
-  count_run(runs);
+  constexpr int SKIP = MIP ? 5 : 4;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -851,9 +868,14 @@ fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
 
     // ------------------------------------------------ forward recompute
     drain();
-    tf::encode(act, G_P, inp, row0, n, true, 0, nfx, sx_s, 0, 0, k0, t);
-    hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
-                   4 * (6 + a_dim + t_dim), t);
+    if constexpr (MIP) {
+      tf::encode_ipe(act, G_P, inp, row0, n, nfx, k0, t);
+      hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n, 4 * 9, t);
+    } else {
+      tf::encode(act, G_P, inp, row0, n, true, 0, nfx, sx_s, 0, 0, k0, t);
+      hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
+                     4 * (6 + a_dim + t_dim), t);
+    }
     sync();
     save(tm.pe, k0, G_P);
 
@@ -862,7 +884,7 @@ fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
     uint32_t m4[4], m2[2];
     for (int i = 0; i < 8; ++i) {
       bool fresh = true;
-      if (i == 0 || i == 4)
+      if (i == 0 || i == SKIP)
         tf::mma_seg<W_TRUNK, false>(acc, none, act, G_P, k0, ring, fresh,
                                     elected, t);
       if (i != 0)
@@ -900,7 +922,7 @@ fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
       sync();
       save(tm.hd, W_HALF, G_P);
     }
-    if (has_transient) {
+    if (!MIP && has_transient) {
       drain();
       tf::encode(act, G_P, inp, row0, n, false, 0, 0, sd_s, 6 + a_dim, t_dim,
                  kt, t);
@@ -953,7 +975,7 @@ fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
       if (has_transient) dbrow[hop::bias_off(L_TH) + lane] = s;
     }
 
-    if (has_transient) {
+    if (!MIP && has_transient) {
       // heads -> t3 .. t0: each cotangent masked by its layer's ReLU
       for (int l = L_TH; l > L_T0; --l) {
         bool fresh = true;
@@ -1014,17 +1036,20 @@ fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
       else
         tf::store_cot<W_TRUNK, false, false, true>(
             acc, act, G_H, nullptr, dbrow + hop::bias_off(L_FS), fq, t, lane);
-      fresh = true;
-      tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, W_HALF, ring, fresh,
-                                 elected, t);
+      if constexpr (!MIP) {
+        fresh = true;
+        tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, W_HALF, ring,
+                                   fresh, elected, t);
+      }
       drain();
-      tf::store_cot<W_HALF, false, false, false>(acc64, act, G_P, nullptr,
-                                                 nullptr, fq, t, lane);
+      if constexpr (!MIP)
+        tf::store_cot<W_HALF, false, false, false>(acc64, act, G_P, nullptr,
+                                                   nullptr, fq, t, lane);
       sync();
       save(tm.g[L_FS], W_TRUNK, G_H);
     }
     // d_inp: dir through its PE, appearance directly
-    for (int e = t; e < tf::ROWS * (3 + a_dim); e += 128) {
+    for (int e = t; !MIP && e < tf::ROWS * (3 + a_dim); e += 128) {
       const int r = e / (3 + a_dim), c = e % (3 + a_dim);
       const size_t row = row0 + r;
       if (row >= (size_t)n) continue;
@@ -1038,7 +1063,7 @@ fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
     // fs2 ([d_xyz_final | g]) and the trunk, 7 .. 1: cotangent in place
     for (int l = L_FS; l >= 1; --l) {
       bool fresh = true;
-      if (l == 4) {
+      if (!MIP && l == 4) {
         // the pe rows of layer 4 first: d_pe's skip part -> P
         tf::mma_seg<W_HALF, false>(acc64, none, act, G_H, W_TRUNK, ring,
                                    fresh, elected, t);
@@ -1059,7 +1084,7 @@ fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
       save(tm.g[l - 1], W_TRUNK, G_H);
     }
     // layer 0: d_pe = its cotangent + the skip part -> P
-    {
+    if constexpr (!MIP) {
       bool fresh = true;
       tf::mma_seg<W_HALF, false>(acc64, none, act, G_H, W_TRUNK, ring, fresh,
                                  elected, t);
@@ -1067,7 +1092,7 @@ fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
                                                 nullptr, fq, t, lane);
       hop::wg_sync(0);
     }
-    for (int e = t; e < tf::ROWS * 3; e += 128) {
+    for (int e = t; !MIP && e < tf::ROWS * 3; e += 128) {
       const int r = e / 3, c = e % 3;
       const size_t row = row0 + r;
       if (row < (size_t)n)
@@ -1077,6 +1102,44 @@ fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
     }
   }
   if (elected) hop::bulk_wait_read();
+}
+
+__global__ void __launch_bounds__(tf::T_THREADS, 1)
+fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
+                         const float* __restrict__ g,
+                         float* __restrict__ d_inp, int n,
+                         const unsigned char* __restrict__ image,
+                         const __grid_constant__ tf::Plan plan,
+                         const __grid_constant__ hb::Biases bias,
+                         const float* __restrict__ sx,
+                         const float* __restrict__ sd, int nfx, int nfd,
+                         int a_dim, int t_dim, int k0, int kd, int kt,
+                         int has_transient, unsigned char* scratch,
+                         const __grid_constant__ hop::TileMap tm,
+                         uint32_t* masks, float* dbpart, int db_stride,
+                         unsigned long long* runs) {
+  count_run(runs);
+  bwd_f32<false>(inp, g, d_inp, n, image, plan, bias, sx, sd, nfx, nfd,
+                 a_dim, t_dim, k0, kd, kt, has_transient, scratch, tm, masks,
+                 dbpart, db_stride);
+}
+
+__global__ void __launch_bounds__(tf::T_THREADS, 1)
+fused_mlp_bwd_ipe_f32_kernel(const float* __restrict__ inp,
+                             const float* __restrict__ g, int n,
+                             const unsigned char* __restrict__ image,
+                             const __grid_constant__ tf::Plan plan,
+                             const __grid_constant__ hb::Biases bias,
+                             const float* __restrict__ sd, int nfx, int nfd,
+                             int k0, int kd, unsigned char* scratch,
+                             const __grid_constant__ hop::TileMap tm,
+                             uint32_t* masks, float* dbpart, int db_stride,
+                             unsigned long long* runs,
+                             unsigned long long* ipe_runs) {
+  count_run(runs);
+  count_run(ipe_runs);
+  bwd_f32<true>(inp, g, nullptr, n, image, plan, bias, sd, sd, nfx, nfd, 0,
+                0, k0, kd, 0, 0, scratch, tm, masks, dbpart, db_stride);
 }
 
 // ---- wgrad: dW_l = A_l^T G_l over all points, split-K, 3xTF32 ----
@@ -1391,7 +1454,7 @@ Work work_of(int n, int grid, const hop::TileMap& tm, int has_transient,
 
 // the wgrad's units: every layer's input cut into 64-row chunks, two a unit
 hb::WPlan make_wplan(const hop::TileMap& tm, const Layout& L, int k0, int kd,
-                     int kt, int has_transient) {
+                     int kt, int has_transient, int skip = 4) {
   hb::WPlan wp = {};
   struct Chunk { int tile, rows, row0; };
   Chunk ch[8];
@@ -1420,8 +1483,8 @@ hb::WPlan make_wplan(const hop::TileMap& tm, const Layout& L, int k0, int kd,
     n_ch = 0;
   };
   for (int l = 0; l < 8; ++l) {
-    if (l == 0 || l == 4) chunks(tm.pe, k0, 0);
-    if (l != 0) chunks(tm.h[l - 1], W_TRUNK, l == 4 ? k0 : 0);
+    if (l == 0 || l == skip) chunks(tm.pe, k0, 0);
+    if (l != 0) chunks(tm.h[l - 1], W_TRUNK, l == skip ? k0 : 0);
     emit(l, tm.g[l], 4, -1);
   }
   chunks(tm.h[7], W_TRUNK, 0);
@@ -1445,30 +1508,101 @@ hb::WPlan make_wplan(const hop::TileMap& tm, const Layout& L, int k0, int kd,
   return wp;
 }
 
+// The f32 reductions: the partial dW slabs and the per-warp db rows summed
+// in fixed trees, so that a data-parallel rank's share sums as the whole
+// does.
+int reduce_f32(int n, const Work& w, const Layout& L, const hb::DbMap& map,
+               float* dw_part, float* db_part, float* grads,
+               cudaStream_t stream) {
+  long long blocks = (L.stride + 255) / 256;
+  const int dw_grid = (int)(blocks < 1024 ? blocks : 1024);
+  float* runs = db_part + (long long)w.n_rb * 4 * w.db_stride;
+  const int db_runs = n > 0 ? w.db_runs : 0;
+  tb::reduce_dw_tree<<<dw_grid, 256, 0, stream>>>(dw_part, grads, L.stride,
+                                                   n > 0 ? w.splits : 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (db_runs > 0) {
+    tb::reduce_db_runs<<<dim3((w.db_stride + 127) / 128, db_runs), 128, 0,
+                         stream>>>(db_part, w.n_rb * 4, w.db_stride, runs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  tb::reduce_db_tree<<<(w.db_stride + 127) / 128, 128, 0, stream>>>(
+      runs, db_runs, w.db_stride, map, grads);
+  return (int)cudaGetLastError();
+}
+
+// One launch's shapes.  ipe: the IPE instance (mip-NeRF's field), f32
+// only: nfx IPE frequencies (k0 = 6 nfx rounded up to 16), no appearance,
+// no transient branch, the skip at layer 5.
+struct Shapes {
+  Dims d;
+  int skip;
+  Layout L;
+  hop::TileMap tm;
+};
+
+// false if the kernels do not take these shapes
+bool shapes(int n, int nfx, int nfd, int a_dim, int t_dim, int has_transient,
+            bool ipe, Shapes* s) {
+  if (!dims(n, nfx, nfd, a_dim, t_dim, has_transient, &s->d) ||
+      (ipe && (nfx < 1 || a_dim || t_dim || has_transient)))
+    return false;
+  if (ipe) s->d.k0 = (6 * nfx + 15) / 16 * 16;
+  s->skip = ipe ? 5 : 4;
+  s->L = make_layout(s->d.k0, s->d.kd, s->d.kt, has_transient, s->skip);
+  s->tm = hop::make_tile_map(s->d.k0, s->d.kd, s->d.kt, has_transient);
+  return true;
+}
+
+// Workspace sizes (nerf_fused_mlp_bwd_sizes' out[0..2]).
+int sizes(bool f32, int n, int grid, int nfx, int nfd, int a_dim, int t_dim,
+          int has_transient, bool ipe, long long* out) {
+  Shapes s;
+  if (grid < 0 || (ipe && !f32) ||
+      !shapes(n, nfx, nfd, a_dim, t_dim, has_transient, ipe, &s))
+    return (int)cudaErrorInvalidValue;
+  out[2] = s.L.stride;
+  // tiles of saved operands and ReLU bits; dW partial slabs and db rows
+  const Work w = work_of(n, grid, s.tm, has_transient, f32);
+  out[0] = w.tile_bytes + w.mask_bytes;
+  out[1] = (long long)w.splits * s.L.stride +
+           ((long long)w.n_rb * 4 + w.db_runs) * w.db_stride;
+  return 0;
+}
+
+// ipe_runs non-null: the IPE instance (f32 only; no d_inp), whose fused
+// kernel also adds one to *ipe_runs.
 int launch(bool f32, const float* inp, const float* g, float* d_inp, int n,
            const void* image, long long image_bytes, int grid,
            const float* const* b, const float* sx, const float* sd, int nfx,
            int nfd, int a_dim, int t_dim, int has_transient, void* scratch,
            float* partial, float* grads, unsigned long long* runs,
-           cudaStream_t stream) {
-  Dims d;
-  if (!dims(n, nfx, nfd, a_dim, t_dim, has_transient, &d))
+           unsigned long long* ipe_runs, cudaStream_t stream) {
+  const bool ipe = ipe_runs != nullptr;
+  Shapes s;
+  if ((ipe && !f32) ||
+      !shapes(n, nfx, nfd, a_dim, t_dim, has_transient, ipe, &s))
     return (int)cudaErrorInvalidValue;
-  const Layout L = make_layout(d.k0, d.kd, d.kt, has_transient);
-  const hop::TileMap tm = hop::make_tile_map(d.k0, d.kd, d.kt, has_transient);
+  const Dims& d = s.d;
+  const Layout& L = s.L;
+  const hop::TileMap& tm = s.tm;
   const Work w = work_of(n, grid, tm, has_transient, f32);
   // the wrapper's image must be the one this walk expects
   hop::Plan plan = {};
   tf::Plan plan32 = {};
   const int plan_bytes =
-      f32 ? tf::make_bwd_plan(plan32, d.k0, d.kd, d.kt, has_transient)
+      f32 ? tf::make_bwd_plan(plan32, d.k0, d.kd, d.kt, has_transient,
+                              s.skip, ipe)
           : hop::make_bwd_plan(plan, d.k0, d.kd, d.kt, has_transient);
   if (plan_bytes != image_bytes || plan.n_slabs > hop::MAX_SLABS ||
       plan32.n_stages > tf::MAX_PLAN)
     return (int)cudaErrorInvalidValue;
   if (grid < (w.n_tiles ? 1 : 0) || grid > w.n_tiles)
     return (int)cudaErrorInvalidValue;
-  const hb::WPlan wp = make_wplan(tm, L, d.k0, d.kd, d.kt, has_transient);
+  const hb::WPlan wp =
+      make_wplan(tm, L, d.k0, d.kd, d.kt, has_transient, s.skip);
   if (wp.n_units > hb::MAX_UNITS) return (int)cudaErrorInvalidValue;
   hb::Biases bias = {};
   hb::DbMap map = {};
@@ -1486,9 +1620,10 @@ int launch(bool f32, const float* inp, const float* g, float* d_inp, int n,
   const unsigned char* img = static_cast<const unsigned char*>(image);
   cudaError_t err;
   if (f32) {
-    err = cudaFuncSetAttribute(tb::fused_mlp_bwd_f32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               tf::B_SMEM);
+    err = cudaFuncSetAttribute(
+        ipe ? (const void*)tb::fused_mlp_bwd_ipe_f32_kernel
+            : (const void*)tb::fused_mlp_bwd_f32_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, tf::B_SMEM);
     if (err != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(tb::wgrad_f32_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1504,7 +1639,12 @@ int launch(bool f32, const float* inp, const float* g, float* d_inp, int n,
   }
   if (err != cudaSuccess) return (int)err;
   if (n > 0) {
-    if (f32)
+    if (ipe)
+      tb::fused_mlp_bwd_ipe_f32_kernel<<<grid, tf::T_THREADS, tf::B_SMEM,
+                                         stream>>>(
+          inp, g, n, img, plan32, bias, sd, nfx, nfd, d.k0, d.kd, tiles, tm,
+          masks, db_part, w.db_stride, runs, ipe_runs);
+    else if (f32)
       tb::fused_mlp_bwd_f32_kernel<<<grid, tf::T_THREADS, tf::B_SMEM,
                                      stream>>>(
           inp, g, d_inp, n, img, plan32, bias, sx, sd, nfx, nfd, a_dim, t_dim,
@@ -1531,24 +1671,7 @@ int launch(bool f32, const float* inp, const float* g, float* d_inp, int n,
   }
   long long blocks = (L.stride + 255) / 256;
   const int dw_grid = (int)(blocks < 1024 ? blocks : 1024);
-  if (f32) {
-    // fixed trees: a data-parallel rank's share sums as the whole does
-    float* runs = db_part + (long long)w.n_rb * 4 * w.db_stride;
-    const int db_runs = n > 0 ? w.db_runs : 0;
-    tb::reduce_dw_tree<<<dw_grid, 256, 0, stream>>>(dw_part, grads, L.stride,
-                                                     n > 0 ? w.splits : 0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    if (db_runs > 0) {
-      tb::reduce_db_runs<<<dim3((w.db_stride + 127) / 128, db_runs), 128, 0,
-                           stream>>>(db_part, w.n_rb * 4, w.db_stride, runs);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    tb::reduce_db_tree<<<(w.db_stride + 127) / 128, 128, 0, stream>>>(
-        runs, db_runs, w.db_stride, map, grads);
-    return (int)cudaGetLastError();
-  }
+  if (f32) return reduce_f32(n, w, L, map, dw_part, db_part, grads, stream);
   hb::reduce_dw<<<dw_grid, 256, 0, stream>>>(dw_part, grads, L.stride,
                                              n > 0 ? w.splits : 0);
   err = cudaGetLastError();
@@ -1570,19 +1693,9 @@ extern "C" {
 int nerf_fused_mlp_bwd_sizes(int dtype, int n, int grid, int nfx, int nfd,
                              int a_dim, int t_dim, int has_transient,
                              long long* out) {
-  Dims d;
-  if ((dtype != 0 && dtype != 1) || grid < 0 ||
-      !dims(n, nfx, nfd, a_dim, t_dim, has_transient, &d))
-    return (int)cudaErrorInvalidValue;
-  const Layout L = make_layout(d.k0, d.kd, d.kt, has_transient);
-  out[2] = L.stride;
-  // tiles of saved operands and ReLU bits; dW partial slabs and db rows
-  const hop::TileMap tm = hop::make_tile_map(d.k0, d.kd, d.kt, has_transient);
-  const Work w = work_of(n, grid, tm, has_transient, dtype == 0);
-  out[0] = w.tile_bytes + w.mask_bytes;
-  out[1] = (long long)w.splits * L.stride +
-           ((long long)w.n_rb * 4 + w.db_runs) * w.db_stride;
-  return 0;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return sizes(dtype == 0, n, grid, nfx, nfd, a_dim, t_dim, has_transient,
+               false, out);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  b is a host array of device pointers
@@ -1604,7 +1717,34 @@ int nerf_fused_mlp_bwd(int dtype, const float* inp, const float* g,
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return launch(dtype == 0, inp, g, d_inp, n, image, image_bytes, grid, b, sx,
                 sd, nfx, nfd, a_dim, t_dim, has_transient, scratch, partial,
-                grads, runs, static_cast<cudaStream_t>(stream));
+                grads, runs, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The IPE backward's workspace sizes (nerf_fused_mlp_bwd_sizes' out[0..2])
+// for nfx IPE and nfd direction frequencies.  Returns 0, or
+// cudaErrorInvalidValue for shapes it does not take.
+int nerf_fused_ipe_bwd_sizes(int n, int grid, int nfx, int nfd,
+                             long long* out) {
+  return sizes(true, n, grid, nfx, nfd, 0, 0, 0, true, out);
+}
+
+// The IPE backward (mip-NeRF's field, fused_mlp_bwd_ipe_f32_kernel, the
+// f32 wgrad and reductions): the packed (n, 128) rows [mean | dir | var |
+// 0] and the (n, 16) f32 cotangent g -> every layer's dW then db into
+// grads, in pack_weights' layer order of the IPE layout (11 layers, the
+// skip layer 5's input rows [enc | h]).  No input cotangent.  b: the f32
+// biases; image: fused_mlp.py:f32_weight_image(backward=True) of the IPE
+// layout.  The fused kernel adds one to *runs and to *ipe_runs each time
+// it runs.  Returns 0 or the cudaError_t of the first failed launch.
+int nerf_fused_ipe_bwd(const float* inp, const float* g, int n,
+                       const float* const* b, const void* image,
+                       long long image_bytes, int grid, const float* sd,
+                       int nfx, int nfd, void* scratch, float* partial,
+                       float* grads, unsigned long long* runs,
+                       unsigned long long* ipe_runs, void* stream) {
+  return launch(true, inp, g, nullptr, n, image, image_bytes, grid, b,
+                nullptr, sd, nfx, nfd, 0, 0, 0, scratch, partial, grads, runs,
+                ipe_runs, static_cast<cudaStream_t>(stream));
 }
 
 // The kernels' blocks, for reports: out[0] points a block, out[1] threads,

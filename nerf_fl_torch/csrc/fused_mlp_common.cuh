@@ -21,8 +21,9 @@
 //
 // The f32 Hopper block (namespace tf): the same producer, ring and
 // mbarriers, and f32 products on the tensor cores as three TF32 passes
-// (3xTF32), A from registers.  Both f32 fused kernels are built from it;
-// fused_mlp_fwd.cu says why it is laid out as it is.
+// (3xTF32), A from registers.  Both f32 fused kernels are built from it,
+// and their IPE instances (mip-NeRF's field: tf::encode_ipe, the skip at
+// layer 5); fused_mlp_fwd.cu says why it is laid out as it is.
 //
 // Numerics (all kernels): PE steps use __fmul_rn / __fadd_rn so that no
 // multiply-add is contracted; build without --use_fast_math.
@@ -850,12 +851,15 @@ inline void plan_seg(Plan& p, int& at, int k, int n) {
 }
 
 // Forward order (hop::make_plan's walk).  Returns the image's bytes.
-inline int make_plan(Plan& p, int k0, int kd, int kt, int has_transient) {
+// skip: the trunk layer that takes the encoding again beside the hidden
+// state (4, nerf_pl's; 5, mip-NeRF's: the IPE kernels').
+inline int make_plan(Plan& p, int k0, int kd, int kt, int has_transient,
+                     int skip = 4) {
   p = Plan{};
   int at = 0;
   plan_seg(p, at, k0, W_TRUNK);
   for (int l = 1; l < 8; ++l) {
-    if (l == 4) plan_seg(p, at, k0, W_TRUNK);
+    if (l == skip) plan_seg(p, at, k0, W_TRUNK);
     plan_seg(p, at, W_TRUNK, W_TRUNK);
   }
   plan_seg(p, at, W_TRUNK, FS_OUT);
@@ -873,13 +877,16 @@ inline int make_plan(Plan& p, int k0, int kd, int kt, int has_transient) {
 
 // Backward order (hop::make_bwd_plan's walk): the recompute, then the
 // dgrad stages, tiles of W itself (image rows are input rows, contraction
-// over output columns).
-inline int make_bwd_plan(Plan& p, int k0, int kd, int kt, int has_transient) {
+// over output columns).  skip as make_plan's; no_d_inp: the IPE kernels',
+// which take no input cotangent and so leave out the stages that only feed
+// it (dir -> d_tail, the skip layer's and layer 0's encoding rows).
+inline int make_bwd_plan(Plan& p, int k0, int kd, int kt, int has_transient,
+                         int skip = 4, bool no_d_inp = false) {
   p = Plan{};
   int at = 0;
   plan_seg(p, at, k0, W_TRUNK);
   for (int l = 1; l < 8; ++l) {
-    if (l == 4) plan_seg(p, at, k0, W_TRUNK);
+    if (l == skip) plan_seg(p, at, k0, W_TRUNK);
     plan_seg(p, at, W_TRUNK, W_TRUNK);
   }
   plan_seg(p, at, W_TRUNK, W_TRUNK);          // xyz_final
@@ -896,13 +903,14 @@ inline int make_bwd_plan(Plan& p, int k0, int kd, int kt, int has_transient) {
   }
   plan_seg(p, at, OUT_LD, W_HALF);            // rgb head
   plan_seg(p, at, W_HALF, W_TRUNK);           // dir -> d_xyz_final
-  plan_seg(p, at, W_HALF, W_HALF);            // dir -> d_tail
+  if (!no_d_inp) plan_seg(p, at, W_HALF, W_HALF);   // dir -> d_tail
   plan_seg(p, at, FS_OUT, W_TRUNK);           // fs2
   for (int l = 7; l >= 1; --l) {
-    if (l == 4) plan_seg(p, at, W_TRUNK, W_HALF);   // layer 4 -> d_pe
+    if (l == skip && !no_d_inp)
+      plan_seg(p, at, W_TRUNK, W_HALF);       // the skip layer -> d_pe
     plan_seg(p, at, W_TRUNK, W_TRUNK);
   }
-  plan_seg(p, at, W_TRUNK, W_HALF);           // layer 0 -> d_pe
+  if (!no_d_inp) plan_seg(p, at, W_TRUNK, W_HALF);  // layer 0 -> d_pe
   return at;
 }
 
@@ -1276,6 +1284,59 @@ __device__ __forceinline__ void encode(float4* act, int g0,
         }
         o[2 * h + e] = v;
       }
+    act[(g0 + j) * GROUP + t] = make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// Columns [0, width) of the integrated positional encoding (mip-NeRF's
+// IPE) of this thread's rows (16 w + g and + 8) into its private region g0.
+// Column c < 3 n_freq is sin(2^l m_k) exp(-4^l v_k / 2) with l = c / 3 and
+// k = c % 3, column c + 3 n_freq the same with the cosine (a quarter turn
+// added after reduction, as pe_at's); m = columns 0..2 of the packed row
+// (the Gaussian's mean), v = columns 6..8 (its diagonal variance).  Zeros
+// past 6 n_freq and in rows past n.  2^l m and -4^l v / 2 are exact, so
+// each value is one sin_cw and one expf, rounded once by the product.
+__device__ __forceinline__ void encode_ipe(float4* act, int g0,
+                                           const float* __restrict__ inp,
+                                           size_t row0, int n, int n_freq,
+                                           int width, int t) {
+  const int r = 16 * (t >> 5) + ((t & 31) >> 2), q = t & 3;
+  const int half = 3 * n_freq;
+  float m[2][3], v[2][3];
+  bool live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t row = row0 + r + 8 * h;
+    live[h] = row < (size_t)n;
+    const float* p = inp + (live[h] ? row : 0) * IN_LD;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      m[h][k] = live[h] ? p[k] : 0.0f;
+      v[h][k] = live[h] ? p[6 + k] : 0.0f;
+    }
+  }
+  for (int j = 0; j < width / 8; ++j) {
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * j + 2 * q + e;
+      const bool cosine = c >= half;
+      const int cc = cosine ? c - half : c;
+      const int l = cc / 3, k = cc % 3;
+      const float f = (float)(1 << l);                 // exact: 2^l
+      const float a = -0.5f * (float)(1 << l) * (float)(1 << l);   // -4^l / 2
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float val = 0.0f;
+        if (live[h] && c < 2 * half) {
+          const float mk = k == 0 ? m[h][0] : (k == 1 ? m[h][1] : m[h][2]);
+          const float vk = k == 0 ? v[h][0] : (k == 1 ? v[h][1] : v[h][2]);
+          val = __fmul_rn(sin_cw(__fmul_rn(mk, f), cosine ? 0.25f : 0.0f),
+                          expf(__fmul_rn(vk, a)));
+        }
+        o[2 * h + e] = val;
+      }
+    }
     act[(g0 + j) * GROUP + t] = make_float4(o[0], o[1], o[2], o[3]);
   }
 }

@@ -407,8 +407,10 @@ __device__ __forceinline__ TfBlock tf_block(unsigned char* smem_raw,
   return k;
 }
 
-// The trunk over P = PE(xyz): 8 x 256, the skip at layer 4; every layer
-// overwrites H in place once its products are done.
+// The trunk over P = PE(xyz): 8 x 256, the skip at layer SKIP (4; the IPE
+// kernels' 5, mip-NeRF's [h | enc] after layer 4, packed as [enc | h]);
+// every layer overwrites H in place once its products are done.
+template <int SKIP = 4>
 __device__ __forceinline__ void tf_trunk(float (&acc)[W_TRUNK / 2],
                                          float (&none)[8], float4* act,
                                          int k0, tf::Ring& ring,
@@ -416,7 +418,7 @@ __device__ __forceinline__ void tf_trunk(float (&acc)[W_TRUNK / 2],
                                          int fq, int t) {
   for (int i = 0; i < 8; ++i) {
     bool fresh = true;
-    if (i == 0 || i == 4)
+    if (i == 0 || i == SKIP)
       tf::mma_seg<W_TRUNK, false>(acc, none, act, tf::G_P, k0, ring, fresh,
                                   elected, t);
     if (i != 0)
@@ -429,19 +431,33 @@ __device__ __forceinline__ void tf_trunk(float (&acc)[W_TRUNK / 2],
 }
 
 // ----------------------------------------------------------------------
-// The f32 kernel.
+// The f32 kernel, and its IPE instance (MIP): mip-NeRF's field.
+//
+// The IPE instance (fused_mlp_fwd_ipe_f32_kernel) runs mip-NeRF's MLP
+// (Barron et al. 2021, google/mipnerf internal/models.py:MLP) at the same
+// widths: its packed row is [mean 0:3 | dir 3:6 | var 6:9 | 0], a cone
+// interval's Gaussian and the unit view direction; P takes the integrated
+// positional encoding of the Gaussian (tf::encode_ipe: 6 n_freq columns,
+// all sines first, each times its per-point attenuation), and the skip is
+// mip-NeRF's, [h | enc] into layer 5 after layer 4's ReLU, which the
+// packed weight holds as [enc | h], so that layer 5 reads P then H as
+// layer 4 does here.  Density is fs2's sigma column, mip-NeRF's bottleneck
+// its xyz_final, the condition layer the dir layer over [bottleneck |
+// PE(dir)], the rgb head the same: no appearance and no transient branch.
+// Everything else is the f32 kernel's code, so both levels of a mip-NeRF
+// step run the same block, ring and products.  It adds one to ipe_runs as
+// well as to runs, so the fused pair's count (kernel_runs) holds it.
 // ----------------------------------------------------------------------
-__global__ void __launch_bounds__(tf::T_THREADS, 1)
-fused_mlp_fwd_f32_kernel(const float* __restrict__ inp,
-                         float* __restrict__ out, int n,
-                         const unsigned char* __restrict__ image,
-                         const __grid_constant__ tf::Plan plan,
-                         const __grid_constant__ Biases bias,
-                         const float* __restrict__ sx,
-                         const float* __restrict__ sd, int nfx, int nfd,
-                         int a_dim, int t_dim, int k0, int kd, int kt,
-                         int has_transient, unsigned long long* runs) {
-  count_run(runs);
+template <bool MIP>
+__device__ __forceinline__ void fwd_f32(const float* __restrict__ inp,
+                                        float* __restrict__ out, int n,
+                                        const unsigned char* __restrict__ image,
+                                        const tf::Plan& plan,
+                                        const Biases& bias,
+                                        const float* __restrict__ sx,
+                                        const float* __restrict__ sd, int nfx,
+                                        int nfd, int a_dim, int t_dim, int k0,
+                                        int kd, int kt, int has_transient) {
   extern __shared__ unsigned char smem_raw[];
   const int n_layers = has_transient ? N_LAYERS : L_T0;
   const TfBlock k = tf_block<true>(smem_raw, bias, n_layers, sx, sd);
@@ -466,16 +482,22 @@ fused_mlp_fwd_f32_kernel(const float* __restrict__ inp,
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const size_t row0 = (size_t)tile * tf::ROWS;
-    // PE(xyz) -> P
-    tf::encode(act, tf::G_P, inp, row0, n, true, 0, nfx, k.sx_s, 0, 0, k0,
-               t);
-    hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
-                   4 * (6 + a_dim + t_dim), t);
+    // PE(xyz) (IPE(mean, var)) -> P
+    if constexpr (MIP) {
+      tf::encode_ipe(act, tf::G_P, inp, row0, n, nfx, k0, t);
+      hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n, 4 * 9, t);
+    } else {
+      tf::encode(act, tf::G_P, inp, row0, n, true, 0, nfx, k.sx_s, 0, 0, k0,
+                 t);
+      hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
+                     4 * (6 + a_dim + t_dim), t);
+    }
 
     float out8[8];
     {
       float acc[W_TRUNK / 2];
-      tf_trunk(acc, none, act, k0, ring, elected, bias_s, fq, t);
+      tf_trunk<MIP ? 5 : 4>(acc, none, act, k0, ring, elected, bias_s, fq,
+                            t);
       // fs2: xyz_final -> H, the sigma block -> out8
       float sig[8];
       bool fresh = true;
@@ -522,7 +544,7 @@ fused_mlp_fwd_f32_kernel(const float* __restrict__ inp,
         out8[4 * j + 3] = (head[4 * j + 3] + b.y) + out8[4 * j + 3];
       }
     }
-    if (has_transient) {
+    if (!MIP && has_transient) {
       // t tail -> P (the rgb head's products have read hd)
       tf::encode(act, tf::G_P, inp, row0, n, false, 0, 0, sd_s, 6 + a_dim,
                  t_dim, kt, t);
@@ -566,6 +588,36 @@ fused_mlp_fwd_f32_kernel(const float* __restrict__ inp,
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(tf::T_THREADS, 1)
+fused_mlp_fwd_f32_kernel(const float* __restrict__ inp,
+                         float* __restrict__ out, int n,
+                         const unsigned char* __restrict__ image,
+                         const __grid_constant__ tf::Plan plan,
+                         const __grid_constant__ Biases bias,
+                         const float* __restrict__ sx,
+                         const float* __restrict__ sd, int nfx, int nfd,
+                         int a_dim, int t_dim, int k0, int kd, int kt,
+                         int has_transient, unsigned long long* runs) {
+  count_run(runs);
+  fwd_f32<false>(inp, out, n, image, plan, bias, sx, sd, nfx, nfd, a_dim,
+                 t_dim, k0, kd, kt, has_transient);
+}
+
+__global__ void __launch_bounds__(tf::T_THREADS, 1)
+fused_mlp_fwd_ipe_f32_kernel(const float* __restrict__ inp,
+                             float* __restrict__ out, int n,
+                             const unsigned char* __restrict__ image,
+                             const __grid_constant__ tf::Plan plan,
+                             const __grid_constant__ Biases bias,
+                             const float* __restrict__ sd, int nfx, int nfd,
+                             int k0, int kd, unsigned long long* runs,
+                             unsigned long long* ipe_runs) {
+  count_run(runs);
+  count_run(ipe_runs);
+  fwd_f32<true>(inp, out, n, image, plan, bias, sd, sd, nfx, nfd, 0, 0, k0,
+                kd, 0, 0);
 }
 
 // ----------------------------------------------------------------------
@@ -663,17 +715,25 @@ bool dims(int n, int nfx, int nfd, int a_dim, int t_dim, Dims* d) {
          nfx <= 20 && nfd <= 20;
 }
 
+// ipe_runs non-null: the IPE instance (mip-NeRF's field), which also adds
+// one to *ipe_runs: nfx IPE frequencies (k0 = 6 nfx rounded up to 16),
+// no appearance, no transient branch, the skip at layer 5.
 int launch_f32(const float* inp, float* out, int n, const void* image,
                long long image_bytes, int grid, const float* const* b,
                const float* sx, const float* sd, int nfx, int nfd, int a_dim,
                int t_dim, int has_transient, unsigned long long* runs,
-               cudaStream_t stream) {
+               unsigned long long* ipe_runs, cudaStream_t stream) {
+  const bool ipe = ipe_runs != nullptr;
   Dims d;
-  if (!dims(n, nfx, nfd, a_dim, t_dim, &d)) return (int)cudaErrorInvalidValue;
+  if (!dims(n, nfx, nfd, a_dim, t_dim, &d) ||
+      (ipe && (nfx < 1 || a_dim || t_dim || has_transient)))
+    return (int)cudaErrorInvalidValue;
+  if (ipe) d.k0 = (6 * nfx + 15) / 16 * 16;
   if (!has_transient) d.kt = 0;
   tf::Plan plan;
   // the wrapper's image must be the one this walk expects
-  if (tf::make_plan(plan, d.k0, d.kd, d.kt, has_transient) != image_bytes ||
+  if (tf::make_plan(plan, d.k0, d.kd, d.kt, has_transient, ipe ? 5 : 4) !=
+          image_bytes ||
       plan.n_stages > tf::MAX_PLAN)
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (n + tf::ROWS - 1) / tf::ROWS;
@@ -682,13 +742,21 @@ int launch_f32(const float* inp, float* out, int n, const void* image,
   Biases bias = {};
   for (int l = 0; l < (has_transient ? N_LAYERS : L_T0); ++l) bias.b[l] = b[l];
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      tf::SMEM_BYTES);
+      ipe ? (const void*)fused_mlp_fwd_ipe_f32_kernel
+          : (const void*)fused_mlp_fwd_f32_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, tf::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
-  fused_mlp_fwd_f32_kernel<<<grid, tf::T_THREADS, tf::SMEM_BYTES, stream>>>(
-      inp, out, n, static_cast<const unsigned char*>(image), plan, bias, sx,
-      sd, nfx, nfd, a_dim, t_dim, d.k0, d.kd, d.kt, has_transient, runs);
+  const unsigned char* img = static_cast<const unsigned char*>(image);
+  if (ipe)
+    fused_mlp_fwd_ipe_f32_kernel<<<grid, tf::T_THREADS, tf::SMEM_BYTES,
+                                   stream>>>(inp, out, n, img, plan, bias, sd,
+                                             nfx, nfd, d.k0, d.kd, runs,
+                                             ipe_runs);
+  else
+    fused_mlp_fwd_f32_kernel<<<grid, tf::T_THREADS, tf::SMEM_BYTES, stream>>>(
+        inp, out, n, img, plan, bias, sx, sd, nfx, nfd, a_dim, t_dim, d.k0,
+        d.kd, d.kt, has_transient, runs);
   return (int)cudaGetLastError();
 }
 
@@ -772,8 +840,25 @@ int nerf_fused_mlp_fwd(int dtype, const float* inp, float* out, int n,
                        nfd, a_dim, t_dim, has_transient, runs, s);
   if (dtype == 0)
     return launch_f32(inp, out, n, image, image_bytes, grid, b, sx, sd, nfx,
-                      nfd, a_dim, t_dim, has_transient, runs, s);
+                      nfd, a_dim, t_dim, has_transient, runs, nullptr, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The IPE f32 kernel (mip-NeRF's field): packed (n, 128) f32 rows [mean |
+// dir | var | 0] -> (n, 16) f32 pre-activations (rgb in 0..2, density in
+// 3).  b: the f32 biases of pack_weights' first 11 layers (ipe=True); the
+// weights come from `image` (fused_mlp.py:f32_weight_image of the IPE
+// layout), and `grid` persistent blocks run.  nfx: IPE frequencies, nfd:
+// the direction's.  The kernel adds one to *runs and to *ipe_runs each
+// time it runs.  Returns 0 or the cudaError_t of the launch.
+int nerf_fused_ipe_fwd(const float* inp, float* out, int n,
+                       const float* const* b, const void* image,
+                       long long image_bytes, int grid, const float* sd,
+                       int nfx, int nfd, unsigned long long* runs,
+                       unsigned long long* ipe_runs, void* stream) {
+  return launch_f32(inp, out, n, image, image_bytes, grid, b, nullptr, sd, nfx,
+                    nfd, 0, 0, 0, runs, ipe_runs,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // The sigma-only f32 kernel: (n, 3) f32 positions `xyz` -> (n,) f32 static

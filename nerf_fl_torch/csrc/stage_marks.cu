@@ -11,7 +11,7 @@
 #define NERF_MARKS(X) \
   X(load) X(pose) X(sample) X(coarse_mlp) X(coarse_composite) X(pdf) \
   X(fine_mlp) X(fine_composite) X(loss) X(backward) X(pose_backward) \
-  X(optimizer) X(row) X(upload) X(end)
+  X(optimizer) X(row) X(upload) X(end) X(cast)
 
 #define NERF_KERNEL(s) extern "C" __global__ void nerf_mark_##s() {}
 NERF_MARKS(NERF_KERNEL)

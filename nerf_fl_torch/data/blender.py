@@ -11,7 +11,10 @@ package's.  Rays are world-space ('world' format), except on the train
 split under pose refinement: there each ray is its camera-frame direction
 with near and far ('camdir', 5 columns), posed inside the train step from
 the learned-pose table.  ``apply_refined_poses`` puts learned poses in
-place of the frames' own for eval.
+place of the frames' own for eval.  With ``mip`` (``--model mipnerf``) every
+split's rays are mip-NeRF's, 9 columns [o, d, radius, near, far]: through
+the pixel centres, the direction not normalised, each cone's base radius
+(``rays_np.get_cone_rays``; google/mipnerf's Blender loader).
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import numpy as np
 
 from .image_io import read_rgba, resize_lanczos
 from .perturbations import add_perturbation
-from .rays_np import blend_alpha_to_white, get_ray_directions, get_rays
+from .rays_np import (blend_alpha_to_white, get_cone_rays,
+                      get_ray_directions, get_rays)
 
 
 def _to_rgba_floats(img: np.ndarray) -> np.ndarray:
@@ -36,7 +40,7 @@ class BlenderDataset:
 
     def __init__(self, root_dir: str, split: str = "train",
                  img_wh=(800, 800), perturbation: Sequence[str] = (),
-                 refine_pose: bool = False):
+                 refine_pose: bool = False, mip: bool = False):
         assert img_wh[0] == img_wh[1], "image width must equal image height!"
         assert set(perturbation).issubset({"color", "occ"}), \
             'Only "color" and "occ" perturbations are supported!'
@@ -45,6 +49,9 @@ class BlenderDataset:
         self.img_wh = tuple(img_wh)
         self.perturbation = list(perturbation)
         self.refine_pose = refine_pose
+        self.mip = mip
+        if mip and refine_pose:
+            raise ValueError("mip-NeRF's rays have no pose refinement")
         self._refined = False           # apply_refined_poses sets it
         self.ray_format = "camdir" if (refine_pose and split == "train") \
             else "world"
@@ -64,6 +71,10 @@ class BlenderDataset:
         self.K[0, 0] = self.K[1, 1] = self.focal
         self.K[0, 2] = w / 2
         self.K[1, 2] = h / 2
+        if self.mip:
+            # through the pixel centres, as mip-NeRF's loader casts them
+            self.K[0, 2] -= 0.5
+            self.K[1, 2] -= 0.5
 
         self.near, self.far = 2.0, 6.0
         self.bounds = np.array([self.near, self.far], np.float32)
@@ -97,7 +108,11 @@ class BlenderDataset:
             rgbs_list.append(blend_alpha_to_white(_to_rgba_floats(img)))
             bounds = [np.full((n_px, 1), self.near, np.float32),
                       np.full((n_px, 1), self.far, np.float32)]
-            if self.ray_format == "world":
+            if self.mip:
+                rays_list.append(np.concatenate(
+                    [get_cone_rays(self.directions, self.poses[t])] + bounds,
+                    1))
+            elif self.ray_format == "world":
                 rays_list.append(np.concatenate(
                     list(get_rays(flat_dirs, self.poses[t])) + bounds, 1))
             else:       # the pose is applied in the train step
@@ -143,10 +158,11 @@ class BlenderDataset:
         rgba = _to_rgba_floats(img)
         valid_mask = rgba[:, 3] > 0
 
-        rays_o, rays_d = get_rays(self.directions, c2w)
-        n_px = len(rays_o)
+        cast = get_cone_rays(self.directions, c2w) if self.mip \
+            else np.concatenate(get_rays(self.directions, c2w), 1)
+        n_px = len(cast)
         rays = np.concatenate([
-            rays_o, rays_d,
+            cast,
             np.full((n_px, 1), self.near, np.float32),
             np.full((n_px, 1), self.far, np.float32)], 1)
 

@@ -34,6 +34,23 @@ def get_rays(directions: np.ndarray, c2w: np.ndarray):
     return rays_o.astype(np.float32), rays_d.astype(np.float32)
 
 
+def get_cone_rays(directions: np.ndarray, c2w: np.ndarray) -> np.ndarray:
+    """mip-NeRF's rays of one view (google/mipnerf internal/datasets.py's
+    Blender loader): (H * W, 7) [origin, direction, radius], the camera
+    directions (H, W, 3) rotated into the world and not normalised, each
+    cone's base radius the distance to the next row's direction (the last
+    row takes the one before it) times 2 / sqrt(12).  No JAX
+    counterpart."""
+    c2w = np.asarray(c2w, np.float32)
+    d = (directions.astype(np.float32) @ c2w[:3, :3].T).astype(np.float32)
+    dx = np.sqrt(np.sum((d[:-1] - d[1:]) ** 2, -1))
+    dx = np.concatenate([dx, dx[-2:-1]], 0)
+    radii = dx[..., None] * 2 / np.sqrt(12)
+    o = np.broadcast_to(c2w[:3, 3], d.shape)
+    return np.concatenate([o, d, radii], -1).reshape(-1, 7) \
+        .astype(np.float32)
+
+
 def get_ndc_rays(H: int, W: int, focal: float, near, rays_o, rays_d):
     """NDC warp; matches ray_utils.py:58-98."""
     t = -(near + rays_o[..., 2]) / rays_d[..., 2]

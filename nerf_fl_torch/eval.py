@@ -39,7 +39,7 @@ import numpy as np
 
 
 def get_opts(argv=None):
-    from .utils.cli import add_shared_flags
+    from .utils.cli import add_shared_flags, check_model_flags
     parser = ArgumentParser()
     add_shared_flags(parser, "eval")
     parser.add_argument('--scene_name', type=str, default='test',
@@ -64,7 +64,7 @@ def get_opts(argv=None):
                         help='Adam lr for --optimize_appearance')
     parser.add_argument('--opt_a_rays', type=int, default=4096,
                         help='left-half rays sampled for the fit')
-    return parser.parse_args(argv)
+    return check_model_flags(parser, parser.parse_args(argv))
 
 
 def max_split_ts(dataset, split: str) -> int:
@@ -231,6 +231,7 @@ def evaluate(dev, args, stats=None, mesh=None):
     kwargs = {'root_dir': args.root_dir, 'split': args.split}
     if args.dataset_name == 'blender':
         kwargs['img_wh'] = tuple(args.img_wh)
+        kwargs['mip'] = getattr(args, 'model', 'nerf') == 'mipnerf'
     elif args.dataset_name == 'llff':
         kwargs['img_wh'] = tuple(args.img_wh)
         kwargs['spheric_poses'] = args.spheric_poses

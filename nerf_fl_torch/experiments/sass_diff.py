@@ -41,12 +41,17 @@ def libraries(root: Path, srcs) -> Dict[str, str]:
 
 
 def kernels(lib: str) -> Dict[str, str]:
-    """Kernel name (namespace hash masked) -> its SASS."""
+    """Kernel name (namespace hash masked) -> its SASS, each line's runs
+    of blanks made one (cuobjdump pads the instruction column to the
+    widest of the whole library, so a kernel added beside another moves
+    the other's padding, not its code)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", lib], check=True,
                           capture_output=True, text=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)\n", ANON.sub("ANON", text))
-    return {parts[i]: parts[i + 1].strip() for i in range(1, len(parts), 2)}
+    return {parts[i]: "\n".join(" ".join(line.split())
+                                for line in parts[i + 1].strip().splitlines())
+            for i in range(1, len(parts), 2)}
 
 
 def main(argv=None) -> int:

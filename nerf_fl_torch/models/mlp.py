@@ -1,4 +1,5 @@
-"""The NeRF-W MLP as an ``nn.Module`` plus its plain forward.
+"""The NeRF-W MLP as an ``nn.Module`` plus its plain forward, and with the
+skip and the heads of mip-NeRF (``skip_order`` "hidden_first") its field.
 
 Counterpart of ``nerf_fl_tpu/models/mlp.py``.  Layer names follow the JAX
 parameter tree (``xyz.0..7``, ``xyz_final``, ``dir``, ``static_sigma``,
@@ -25,6 +26,15 @@ products over the model ranks before its bias.  The trunk alternates the
 two from layer 0 (the skip at 4 is column-parallel), and a sharded output
 is gathered (``tp.gather``) before the heads.  Without ``tp`` the
 functions below are the plain ones.
+
+mip-NeRF's MLP (Barron et al. 2021, google/mipnerf internal/models.py:MLP)
+is the same module: its trunk concatenates [h, enc] after layer 4's ReLU
+(``skips`` (5,), ``skip_order`` "hidden_first"), its density and
+bottleneck are ``static_sigma`` and ``xyz_final``, its condition layer
+``dir`` (on [bottleneck | PE(view direction)]) and its rgb layer
+``static_rgb``; ``apply_nerf(..., raw=True)`` returns the pre-activations
+and ``mip_heads`` applies mip-NeRF's activations.  ``init_nerf(...,
+init="glorot")`` draws its initialisation.
 """
 from __future__ import annotations
 
@@ -48,8 +58,13 @@ class NeRFConfig:
     encode_transient: bool = False
     in_channels_t: int = 16
     beta_min: float = 0.03
+    # the skip layer's input: [encoding | h] (nerf_pl's, "input_first") or
+    # [h | encoding] (mip-NeRF's, "hidden_first")
+    skip_order: str = "input_first"
 
     def __post_init__(self):
+        if self.skip_order not in ("input_first", "hidden_first"):
+            raise ValueError(f"skip_order {self.skip_order!r}")
         # the coarse model drops appearance/transient conditioning
         if self.typ == "coarse":
             object.__setattr__(self, "encode_appearance", False)
@@ -94,13 +109,22 @@ class NeRF(nn.Module):
 
 
 def init_nerf(cfg: NeRFConfig, *, generator: Optional[torch.Generator] = None,
-              device=None) -> NeRF:
-    """torch ``nn.Linear`` default init, U(-1/sqrt(fan_in), 1/sqrt(fan_in))
-    for weight and bias, drawn from ``generator``."""
+              device=None, init: str = "torch") -> NeRF:
+    """``init`` "torch": ``nn.Linear``'s default, U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) for weight and bias; "glorot": mip-NeRF's (flax's
+    glorot_uniform kernels, U(-a, a) with a = sqrt(6 / (fan_in +
+    fan_out)), and zero biases).  Drawn from ``generator``."""
+    if init not in ("torch", "glorot"):
+        raise ValueError(f"init {init!r}")
     model = NeRF(cfg, device=device)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Linear):
+                if init == "glorot":
+                    a = (6.0 / (m.in_features + m.out_features)) ** 0.5
+                    m.weight.uniform_(-a, a, generator=generator)
+                    m.bias.zero_()
+                    continue
                 bound = 1.0 / m.in_features ** 0.5
                 m.weight.uniform_(-bound, bound, generator=generator)
                 m.bias.uniform_(-bound, bound, generator=generator)
@@ -191,24 +215,27 @@ def apply_nerf(model: NeRF, xyz_emb: torch.Tensor,
                t_emb: Optional[torch.Tensor] = None, *,
                sigma_only: bool = False, output_transient: bool = False,
                compute_dtype=torch.float32,
-               samples_per_ray: Optional[int] = None
+               samples_per_ray: Optional[int] = None, raw: bool = False
                ) -> Dict[str, torch.Tensor]:
     """Plain forward returning named heads (static_sigma (B,), static_rgb
     (B, 3), transient_sigma/rgb/beta).  With ``samples_per_ray`` the
-    conditioning inputs dir_a_emb / t_emb are per ray."""
+    conditioning inputs dir_a_emb / t_emb are per ray.  ``raw``: the
+    pre-activations of density and rgb instead, {"raw_sigma" (B,),
+    "raw_rgb" (B, 3)} in f32 (mip-NeRF's heads are ``mip_heads``)."""
     cfg, dt, f32 = model.cfg, compute_dtype, torch.float32
     xyz_c = xyz_emb.to(dt)
     h = xyz_c
     for i, layer in enumerate(model.xyz):
         if i in cfg.skips:
-            h = _dense_cat([xyz_c, h], layer, dt)
+            h = _dense_cat([xyz_c, h] if cfg.skip_order == "input_first"
+                           else [h, xyz_c], layer, dt)
         else:
             h = _dense(h, layer, dt)
         h = torch.relu(h)
     h = _gathered(h, model.xyz[-1])    # an odd depth ends column-parallel
 
-    out = {"static_sigma": softplus(
-        _dense(h, model.static_sigma, dt, out_dtype=f32))[..., 0]}
+    raw_sigma = _dense(h, model.static_sigma, dt, out_dtype=f32)[..., 0]
+    out = {"static_sigma": softplus(raw_sigma)}
     if sigma_only:
         return out
 
@@ -219,8 +246,10 @@ def apply_nerf(model: NeRF, xyz_emb: torch.Tensor,
         dir_h = torch.relu(_dense_ray_cond(
             xyz_final, dir_a_emb, samples_per_ray, model.dir, dt))
     dir_h = _gathered(dir_h, model.dir)
-    out["static_rgb"] = torch.sigmoid(
-        _dense(dir_h, model.static_rgb, dt, out_dtype=f32))
+    raw_rgb = _dense(dir_h, model.static_rgb, dt, out_dtype=f32)
+    if raw:
+        return {"raw_sigma": raw_sigma, "raw_rgb": raw_rgb}
+    out["static_rgb"] = torch.sigmoid(raw_rgb)
     if not output_transient:
         return out
 
@@ -239,6 +268,16 @@ def apply_nerf(model: NeRF, xyz_emb: torch.Tensor,
     out["transient_beta"] = softplus(
         _dense(th, tp.beta, dt, out_dtype=f32))[..., 0]
     return out
+
+
+def mip_heads(raw_sigma: torch.Tensor, raw_rgb: torch.Tensor, *,
+              density_bias: float = -1.0, rgb_padding: float = 0.001):
+    """mip-NeRF's activations (``MipNerfModel``): density softplus(raw +
+    density_bias) and rgb sigmoid(raw) (1 + 2 rgb_padding) - rgb_padding.
+    Returns (sigma, rgb)."""
+    sigma = softplus(raw_sigma + density_bias)
+    rgb = torch.sigmoid(raw_rgb) * (1.0 + 2.0 * rgb_padding) - rgb_padding
+    return sigma, rgb
 
 
 def num_params(model: nn.Module) -> int:

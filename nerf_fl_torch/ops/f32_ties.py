@@ -71,9 +71,10 @@ def _matmul(flips: Dict[int, torch.Tensor], bs, has_transient: bool,
 
 def pre_activations(inp, net: fm.PackedNet, sx, sd, *, n_freq_xyz,
                     n_freq_dir, a_dim, t_dim, has_transient,
-                    matmul=torch.matmul):
+                    matmul=torch.matmul, ipe=False):
     """{packed layer: (N, cols) f32 pre-activation} of every hidden layer
-    of the plain f32 forward (its products taken by ``matmul``)."""
+    of the plain f32 forward (its products taken by ``matmul``; ``ipe``:
+    of the IPE layout)."""
     outs = []
 
     def mm(a, b):
@@ -83,7 +84,8 @@ def pre_activations(inp, net: fm.PackedNet, sx, sd, *, n_freq_xyz,
     c = fm._consts(n_freq_xyz, n_freq_dir, a_dim, inp.device)
     fm._forward(inp, net, sx, sd, c, n_freq_dir=n_freq_dir, a_dim=a_dim,
                 t_dim=t_dim, has_transient=has_transient,
-                dtype=torch.float32, matmul=mm)
+                dtype=torch.float32, matmul=mm,
+                ipe_freqs=n_freq_xyz if ipe else 0)
     return {i: outs[i] + net.bs[i] for i in _hidden(has_transient)}
 
 

@@ -11,12 +11,17 @@ tensors (or raises) and runs the plain versions only for tensors on the CPU.
 ``fused_sigma`` is the render's test-time coarse pass: the static sigma
 alone, in f32, through the sigma-only kernel of the same source
 (``fused_sigma_cuda``; plain version ``fused_sigma_reference``), with no
-backward.
+backward.  ``fused_apply_mip`` is mip-NeRF's field (``ipe=True`` below):
+the f32 pair's IPE instances, which take the integrated positional
+encoding of each point's Gaussian in place of PE(xyz) and the skip after
+layer 4 (packed layer 5, whose input rows are packed [enc | h]), and
+return no input cotangent.
 
 Layouts:
   * input, one packed (N, 128) f32 row per point:
     ``[xyz 0:3 | dir 3:6 | a 6:6+a_dim | t ...+t_dim | 0]`` (as the TPU
-    kernel's);
+    kernel's); with ``ipe``, ``[mean 0:3 | dir 3:6 | var 6:9 | 0]``
+    (``pack_ipe_inputs``);
   * output, (N, 16) f32 pre-activations: cols 0-2 static rgb, 3 static
     sigma, 4-6 transient rgb, 7 transient sigma, 8 beta, the rest zero;
   * weights, (K, N_out) row-major in the compute dtype, each K and N_out
@@ -36,7 +41,7 @@ from typing import Dict, List, NamedTuple
 import numpy as np
 import torch
 
-from ..core.encoding import sin_cw
+from ..core.encoding import integrated_pos_enc, sin_cw
 from ..models.mlp import NeRF, softplus
 from . import _build
 
@@ -54,6 +59,8 @@ COL_T_BETA = 8
 
 N_LAYERS = 16   # trunk 0..7, fs2, dir, rgb head, transient 0..3, t heads
 SIGMA_LAYERS = 9    # the sigma-only kernel's: trunk 0..7, fs2
+SKIP = 4            # the trunk layer that takes [PE | h] (nerf_pl's)
+IPE_SKIP = 5        # the IPE layout's: mip-NeRF's [h | enc], packed [enc | h]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -144,6 +151,18 @@ def pack_inputs(xyz, dirs, a_emb=None, t_emb=None) -> torch.Tensor:
     return torch.nn.functional.pad(inp, (0, LANES - inp.shape[-1]))
 
 
+def pack_ipe_inputs(mean, dirs, var) -> torch.Tensor:
+    """The IPE layout's (N, 128) f32 row per point: [mean | dir | var |
+    0], a Gaussian's mean and diagonal variance and the unit view
+    direction."""
+    return pack_inputs(mean, dirs, var)
+
+
+def ipe_k0(n_freq: int) -> int:
+    """Padded width of the IPE: 6 n_freq columns."""
+    return _round16(6 * n_freq)
+
+
 class PackedNet(NamedTuple):
     ws: List[torch.Tensor]    # (K, N_out) compute dtype, contiguous
     bs: List[torch.Tensor]    # (N_out,) f32
@@ -167,17 +186,19 @@ def field_linears(model: NeRF, has_transient: bool) -> List[torch.nn.Linear]:
 
 def pack_weights(model: NeRF, a_dim: int, has_transient: bool, dtype,
                  n_freq_xyz: int, n_freq_dir: int,
-                 t_dim: int = 0) -> PackedNet:
+                 t_dim: int = 0, ipe: bool = False) -> PackedNet:
     """Lay the nn.Linear (out, in) weights out as the kernel reads them:
     (in, out) row-major, zero-padded to 16-multiples.  Head columns land at
     their packed output positions.  Layer order: trunk 0..7, fs2 =
     [xyz_final | static sigma at col 256+3], dir, static rgb head, then with
     transient: transient 0..3, fused transient heads [rgb | sigma | beta] at
-    cols 4..8."""
+    cols 4..8.  ``ipe``: mip-NeRF's field (no appearance, no transient),
+    whose layer 5 takes [h | enc], packed as [enc padded to k0 | h], k0 =
+    ``ipe_k0(n_freq_xyz)``."""
     params = [t.detach() for lin in field_linears(model, has_transient)
               for t in (lin.weight, lin.bias)]
     return _pack(params, a_dim, has_transient, dtype, n_freq_xyz, n_freq_dir,
-                 t_dim)
+                 t_dim, ipe)
 
 
 def pack_sigma_weights(model: NeRF, n_freq_xyz: int) -> PackedNet:
@@ -189,13 +210,13 @@ def pack_sigma_weights(model: NeRF, n_freq_xyz: int) -> PackedNet:
 
 
 def _pack(params, a_dim: int, has_transient: bool, dtype, n_freq_xyz: int,
-          n_freq_dir: int, t_dim: int) -> PackedNet:
+          n_freq_dir: int, t_dim: int, ipe: bool = False) -> PackedNet:
     """``pack_weights`` from the flat [weight, bias, ...] list of
     ``field_linears`` order (of its first ten layers alone: the trunk and
     fs2, ``pack_sigma_weights``)."""
     f32 = torch.float32
     dev = params[0].device
-    k0 = _round16(3 + 6 * n_freq_xyz)
+    k0 = ipe_k0(n_freq_xyz) if ipe else _round16(3 + 6 * n_freq_xyz)
     kd = _round16(3 + 6 * n_freq_dir + a_dim)
     kt = _round16(t_dim) if has_transient else 0
     lw = [w.to(f32).t() for w in params[0::2]]       # (in, out)
@@ -222,8 +243,11 @@ def _pack(params, a_dim: int, has_transient: bool, dtype, n_freq_xyz: int,
     for i in range(8):
         if i == 0:
             w = pad_rows(lw[0], k0)
-        elif i == 4:
+        elif i == 4 and not ipe:
             w = torch.cat([pad_rows(lw[4][:n_xyz_in], k0), lw[4][n_xyz_in:]])
+        elif i == IPE_SKIP and ipe:
+            # mip-NeRF's [h | enc] rows as [enc | h]
+            w = torch.cat([pad_rows(lw[i][W_TRUNK:], k0), lw[i][:W_TRUNK]])
         else:
             w = lw[i]
         ws.append(w)
@@ -257,13 +281,15 @@ def _pack(params, a_dim: int, has_transient: bool, dtype, n_freq_xyz: int,
 
 def unpack_weight_grads(dws: List[torch.Tensor], dbs: List[torch.Tensor],
                         n_xyz_in: int, n_dir_in: int, n_t_in: int,
-                        has_transient: bool) -> List[torch.Tensor]:
+                        has_transient: bool,
+                        ipe: bool = False) -> List[torch.Tensor]:
     """Padded (K, N_out) f32 weight-grad slabs and (N_out,) bias grads ->
     the flat [dweight (out, in), dbias, ...] list of ``field_linears``
     order.  ``n_dir_in`` / ``n_t_in`` are the dir / first transient layer's
     conditioning widths beyond the 256 trunk columns (27 + a_dim, t_dim).
     Every padded row and column is dropped: the kernels' heads compute all
-    16 output columns, only the live ones are parameters."""
+    16 output columns, only the live ones are parameters.  ``ipe``: the
+    IPE layout's (``pack_weights``)."""
     k0 = dws[0].shape[0]
 
     def lin(dw, db):
@@ -277,8 +303,10 @@ def unpack_weight_grads(dws: List[torch.Tensor], dbs: List[torch.Tensor],
         dw = dws[i]
         if i == 0:
             dw = dw[:n_xyz_in]
-        elif i == 4:
+        elif i == 4 and not ipe:
             dw = torch.cat([dw[:n_xyz_in], dw[k0:]])
+        elif i == IPE_SKIP and ipe:
+            dw = torch.cat([dw[k0:], dw[:n_xyz_in]])
         out += lin(dw, dbs[i])
     c = W_TRUNK + COL_S_SIGMA
     out += lin(dws[8][:, :W_TRUNK], dbs[8][:W_TRUNK])
@@ -362,19 +390,20 @@ def _pieces(n: int):
     return [F32_PIECE] * (k - 1) + [n - F32_PIECE * (k - 1)]
 
 
-def _trunk_slabs(slabs, at, k0, cut):
-    """The trunk's slabs (layers 0..7, layer 4 cut per source) in
+def _trunk_slabs(slabs, at, k0, cut, skip=SKIP):
+    """The trunk's slabs (layers 0..7, layer ``skip`` cut per source) in
     consumption order; returns the next byte offset."""
     at = cut(slabs, at, 0, False, 0, k0, 0, W_TRUNK, W_TRUNK)
     for i in range(1, 8):
-        if i == 4:
-            at = cut(slabs, at, 4, False, 0, k0, 0, W_TRUNK, W_TRUNK)
-        at = cut(slabs, at, i, False, k0 if i == 4 else 0, W_TRUNK, 0,
+        if i == skip:
+            at = cut(slabs, at, i, False, 0, k0, 0, W_TRUNK, W_TRUNK)
+        at = cut(slabs, at, i, False, k0 if i == skip else 0, W_TRUNK, 0,
                  W_TRUNK, W_TRUNK)
     return at
 
 
-def _forward_slabs(slabs, at, k0, kd, kt, has_transient, heads, cut=_cut):
+def _forward_slabs(slabs, at, k0, kd, kt, has_transient, heads, cut=_cut,
+                   skip=SKIP):
     """The forward's slabs in consumption order.  A layer whose input is
     two sources ([pe | h], [xyz_final | tail]) is cut per source, so a slab
     never straddles them; a source's last slab may hold fewer than 64 rows
@@ -384,7 +413,7 @@ def _forward_slabs(slabs, at, k0, kd, kt, has_transient, heads, cut=_cut):
     def seg(layer, row0, rows, cols):
         return cut(slabs, at, layer, False, row0, rows, 0, cols, cols)
 
-    at = _trunk_slabs(slabs, at, k0, cut)
+    at = _trunk_slabs(slabs, at, k0, cut, skip)
     at = seg(8, 0, W_TRUNK, W_TRUNK + OUT_W if heads else W_TRUNK)
     at = seg(9, 0, W_TRUNK, W_HALF)
     at = seg(9, W_TRUNK, kd, W_HALF)
@@ -410,15 +439,20 @@ def image_plan(k0: int, kd: int, kt: int, has_transient: bool):
 
 
 def bwd_image_plan(k0: int, kd: int, kt: int, has_transient: bool,
-                   cut=_cut):
+                   cut=_cut, ipe: bool = False):
     """The bf16 backward kernel's slabs (make_bwd_plan in the same header):
     the forward recompute, then for each layer from the heads down the
     tiles of W that ``g W^T`` contracts over, 64 output columns a slab.  A
     layer with two input sources runs two products: its 256 trunk rows
     (height 256) and its other rows padded to 128 (the pe / dir / t part).
-    With ``cut=_cut32``, the f32 backward's stages (``f32_image_plan``)."""
+    With ``cut=_cut32``, the f32 backward's stages (``f32_image_plan``);
+    with ``ipe`` too, the IPE backward's (tf::make_bwd_plan with skip 5 and
+    no d_inp): the skip at layer 5, without the products that only feed
+    the input cotangent."""
+    skip = IPE_SKIP if ipe else SKIP
     slabs = []
-    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, False, cut)
+    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, False, cut,
+                        skip)
 
     def seg(layer, row0, rows, cols, height):
         return cut(slabs, at, layer, True, row0, rows, 0, cols, height)
@@ -431,26 +465,31 @@ def bwd_image_plan(k0: int, kd: int, kt: int, has_transient: bool,
         at = seg(11, W_TRUNK, kt, W_HALF, W_HALF)
     at = seg(10, 0, W_HALF, OUT_W, W_HALF)
     at = seg(9, 0, W_TRUNK, W_HALF, W_TRUNK)
-    at = seg(9, W_TRUNK, kd, W_HALF, W_HALF)
+    if not ipe:
+        at = seg(9, W_TRUNK, kd, W_HALF, W_HALF)
     at = seg(8, 0, W_TRUNK, W_TRUNK + OUT_W, W_TRUNK)
     for i in range(7, 0, -1):
-        if i == 4:
-            at = seg(4, 0, k0, W_TRUNK, W_HALF)
-        at = seg(i, k0 if i == 4 else 0, W_TRUNK, W_TRUNK, W_TRUNK)
-    at = seg(0, 0, k0, W_TRUNK, W_HALF)
+        if i == skip and not ipe:
+            at = seg(i, 0, k0, W_TRUNK, W_HALF)
+        at = seg(i, k0 if i == skip else 0, W_TRUNK, W_TRUNK, W_TRUNK)
+    if not ipe:
+        at = seg(0, 0, k0, W_TRUNK, W_HALF)
     return slabs, at
 
 
 def f32_image_plan(k0: int, kd: int, kt: int, has_transient: bool,
-                   backward: bool = False):
+                   backward: bool = False, ipe: bool = False):
     """The f32 kernels' stages (csrc/fused_mlp_common.cuh: tf::make_plan /
     tf::make_bwd_plan walk the same list) in consumption order, as ``Slab``
     rows of 32 contraction values and one output piece, and the image's
-    size in bytes: the bf16 images' walks cut by ``_cut32``."""
+    size in bytes: the bf16 images' walks cut by ``_cut32``.  ``ipe``: the
+    IPE kernels' (skip 5; the backward without the input cotangent's
+    stages)."""
     if backward:
-        return bwd_image_plan(k0, kd, kt, has_transient, cut=_cut32)
+        return bwd_image_plan(k0, kd, kt, has_transient, cut=_cut32, ipe=ipe)
     slabs = []
-    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, True, _cut32)
+    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, True, _cut32,
+                        IPE_SKIP if ipe else SKIP)
     return slabs, at
 
 
@@ -530,11 +569,11 @@ def f32_slab_index(shapes, slabs, nbytes: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _f32_image_index(k0: int, kd: int, kt: int, has_transient: bool,
-                     backward: bool = False) -> np.ndarray:
+                     backward: bool = False, ipe: bool = False) -> np.ndarray:
     """``f32_slab_index`` of the f32 kernels' image of ``PackedNet.ws``."""
-    slabs, nbytes = f32_image_plan(k0, kd, kt, has_transient, backward)
-    return f32_slab_index(_packed_shapes(k0, kd, kt, has_transient), slabs,
-                          nbytes)
+    slabs, nbytes = f32_image_plan(k0, kd, kt, has_transient, backward, ipe)
+    return f32_slab_index(_packed_shapes(k0, kd, kt, has_transient, ipe),
+                          slabs, nbytes)
 
 
 @functools.lru_cache(maxsize=8)
@@ -600,13 +639,16 @@ def tf32_split(x: torch.Tensor):
 
 
 def f32_weight_image(net: PackedNet, has_transient: bool,
-                     backward: bool = False) -> torch.Tensor:
+                     backward: bool = False, ipe: bool = False
+                     ) -> torch.Tensor:
     """``net.ws`` (f32) laid out as the f32 forward kernel (or, with
     ``backward``, the backward kernel) streams them: each weight split into
     its tf32 hi and lo parts (``tf32_split``), gathered through the cached
     ``_f32_image_index``: a flat f32 tensor of hi and lo parts and zero
-    padding.  Device launches: one cat, the split, one cat, one gather."""
-    key = ("f32", net.k0, net.kd, net.kt, bool(has_transient), bool(backward))
+    padding.  Device launches: one cat, the split, one cat, one gather.
+    ``ipe``: the IPE kernels' image of the IPE layout."""
+    key = ("f32", net.k0, net.kd, net.kt, bool(has_transient), bool(backward),
+           bool(ipe))
     hi, lo = tf32_split(torch.cat([w.reshape(-1) for w in net.ws]))
     return gather_image([hi, lo], key, lambda: _f32_image_index(*key[1:]))
 
@@ -695,28 +737,37 @@ def _layers(net: PackedNet, dtype, matmul):
     return mm, hidden
 
 
-def _trunk(pe, hidden):
-    """Layers 0..7 over the encoded positions, the skip at 4: (each
-    layer's input, each layer's output)."""
+def _trunk(pe, hidden, skip=SKIP):
+    """Layers 0..7 over the encoded positions, the skip at ``skip``
+    (packed [pe | h]): (each layer's input, each layer's output)."""
     ins, outs = [], []
     h = pe
     for i in range(8):
-        ins.append(torch.cat([pe, h], -1) if i == 4 else h)
+        ins.append(torch.cat([pe, h], -1) if i == skip else h)
         h = hidden(ins[-1], i)
         outs.append(h)
     return ins, outs
 
 
 def _forward(inp, net: PackedNet, sx, sd, c, *, n_freq_dir, a_dim, t_dim,
-             has_transient, dtype, matmul=torch.matmul):
+             has_transient, dtype, matmul=torch.matmul, ipe_freqs=0):
     """The fused forward in eager torch, keeping every activation the
     backward needs.  Returns (out, acts).  ``matmul``: the layer product
     (exact products, f32 sums; ``f32_ties.tf32x3_mm`` models the f32
-    kernels')."""
+    kernels').  ``ipe_freqs`` > 0: the IPE layout, its encoding at that
+    many frequencies (the kernels' tf::encode_ipe: ``integrated_pos_enc``
+    with the Cody-Waite sine) and the skip at layer 5."""
     bs = net.bs
     mm, hidden = _layers(net, dtype, matmul)
-    pe = _encode(inp, c["PxR"], c["phx"], c["trgx"], sx, 0, net.k0).to(dtype)
-    ins, outs = _trunk(pe, hidden)
+    if ipe_freqs:
+        enc = integrated_pos_enc(inp[:, 0:3], inp[:, 6:9], ipe_freqs,
+                                 fast=True)
+        pe = torch.nn.functional.pad(
+            enc, (0, net.k0 - enc.shape[1])).to(dtype)
+    else:
+        pe = _encode(inp, c["PxR"], c["phx"], c["trgx"], sx, 0,
+                     net.k0).to(dtype)
+    ins, outs = _trunk(pe, hidden, IPE_SKIP if ipe_freqs else SKIP)
     h = outs[-1]
     fs2 = mm(h, 8) + bs[8]
     xyz_final = fs2[:, :W_TRUNK].to(dtype)
@@ -747,12 +798,14 @@ def _forward(inp, net: PackedNet, sx, sd, c, *, n_freq_dir, a_dim, t_dim,
 def fused_mlp_reference(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
                         sd: torch.Tensor, *, n_freq_xyz: int, n_freq_dir: int,
                         a_dim: int, t_dim: int, has_transient: bool,
-                        dtype) -> torch.Tensor:
+                        dtype, ipe: bool = False) -> torch.Tensor:
     """The kernel's function in eager torch: packed (N, 128) f32 input ->
-    (N, 16) f32 pre-activations, with the kernel's rounding points."""
+    (N, 16) f32 pre-activations, with the kernel's rounding points.
+    ``ipe``: the IPE kernel's (``n_freq_xyz`` IPE frequencies)."""
     c = _consts(n_freq_xyz, n_freq_dir, a_dim, inp.device)
     return _forward(inp, net, sx, sd, c, n_freq_dir=n_freq_dir, a_dim=a_dim,
-                    t_dim=t_dim, has_transient=has_transient, dtype=dtype)[0]
+                    t_dim=t_dim, has_transient=has_transient, dtype=dtype,
+                    ipe_freqs=n_freq_xyz if ipe else 0)[0]
 
 
 def fused_sigma_reference(xyz: torch.Tensor, net: PackedNet,
@@ -776,7 +829,7 @@ def fused_mlp_bwd_reference(inp: torch.Tensor, net: PackedNet,
                             sx: torch.Tensor, sd: torch.Tensor,
                             g: torch.Tensor, *, n_freq_xyz: int,
                             n_freq_dir: int, a_dim: int, t_dim: int,
-                            has_transient: bool, dtype):
+                            has_transient: bool, dtype, ipe: bool = False):
     """The backward kernel's function in eager torch, step for step with
     ``nerf_fl_tpu/ops/fused_mlp.py:_bwd_kernel`` and its rounding points:
     recompute the forward, then backprop the (N, 16) f32 cotangent ``g`` of
@@ -784,21 +837,26 @@ def fused_mlp_bwd_reference(inp: torch.Tensor, net: PackedNet,
     weight and bias grads are f32 sums of exact products.  Returns
     (dws, dbs, d_inp): padded (K, N_out) and (N_out,) f32 grads per packed
     layer, and the (N, 128) f32 cotangent of the packed input.  (Not
-    autograd of ``fused_mlp_reference``: that would keep f32 cotangents.)"""
+    autograd of ``fused_mlp_reference``: that would keep f32 cotangents.)
+    ``ipe``: the IPE backward's, whose d_inp is None (it takes no input
+    cotangent)."""
     return _backward(inp, net, sx, sd, g, n_freq_xyz=n_freq_xyz,
                      n_freq_dir=n_freq_dir, a_dim=a_dim, t_dim=t_dim,
-                     has_transient=has_transient, dtype=dtype)
+                     has_transient=has_transient, dtype=dtype, ipe=ipe)
 
 
 def _backward(inp, net: PackedNet, sx, sd, g, *, n_freq_xyz, n_freq_dir,
-              a_dim, t_dim, has_transient, dtype, matmul=torch.matmul):
+              a_dim, t_dim, has_transient, dtype, matmul=torch.matmul,
+              ipe=False):
     """``fused_mlp_bwd_reference`` with its layer products (the forward's,
     the dgrad's and the wgrad's) taken by ``matmul``."""
     f32 = torch.float32
     c = _consts(n_freq_xyz, n_freq_dir, a_dim, inp.device)
     _, acts = _forward(inp, net, sx, sd, c, n_freq_dir=n_freq_dir,
                        a_dim=a_dim, t_dim=t_dim, has_transient=has_transient,
-                       dtype=dtype, matmul=matmul)
+                       dtype=dtype, matmul=matmul,
+                       ipe_freqs=n_freq_xyz if ipe else 0)
+    skip = IPE_SKIP if ipe else SKIP
     ws = net.ws
     dws: List[torch.Tensor] = [None] * len(ws)
     dbs: List[torch.Tensor] = [None] * len(ws)
@@ -832,8 +890,10 @@ def _backward(inp, net: PackedNet, sx, sd, g, *, n_freq_xyz, n_freq_dir,
     gg = dense_bwd(outs[7], None, torch.cat([d_xf, gd], -1), 8)
     for i in range(7, -1, -1):
         gg = dense_bwd(ins[i], outs[i], gg, i)
-        if i == 4:
+        if i == skip:
             d_pe_skip, gg = gg[:, :net.k0], gg[:, net.k0:]
+    if ipe:
+        return dws, dbs, None
     d_pe = add(gg, d_pe_skip)
 
     # PE chain rule: dE = where(trig, cos, 1) * scale * d_pe, summed per
@@ -897,6 +957,12 @@ def _lib() -> ctypes.CDLL:
          ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p])
     lib.nerf_fused_sigma_fwd.restype = ctypes.c_int
+    lib.nerf_fused_ipe_fwd.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    lib.nerf_fused_ipe_fwd.restype = ctypes.c_int
     lib.nerf_fused_mlp_fwd_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.nerf_fused_mlp_fwd_info.restype = None
     return lib
@@ -916,15 +982,28 @@ def _lib_bwd() -> ctypes.CDLL:
         + [ctypes.c_int] * 5
         + [ctypes.c_void_p] * 5)
     lib.nerf_fused_mlp_bwd.restype = ctypes.c_int
+    lib.nerf_fused_ipe_bwd_sizes.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)])
+    lib.nerf_fused_ipe_bwd_sizes.restype = ctypes.c_int
+    lib.nerf_fused_ipe_bwd.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 6)
+    lib.nerf_fused_ipe_bwd.restype = ctypes.c_int
     lib.nerf_fused_mlp_bwd_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.nerf_fused_mlp_bwd_info.restype = None
     return lib
 
 
-def _packed_shapes(k0: int, kd: int, kt: int, has_transient: bool):
-    """(K, N_out) of every packed layer, in ``pack_weights`` order."""
-    shapes = [(k0, W_TRUNK)] + [(W_TRUNK, W_TRUNK)] * 3 \
-        + [(k0 + W_TRUNK, W_TRUNK)] + [(W_TRUNK, W_TRUNK)] * 3 \
+def _packed_shapes(k0: int, kd: int, kt: int, has_transient: bool,
+                   ipe: bool = False):
+    """(K, N_out) of every packed layer, in ``pack_weights`` order (with
+    ``ipe``, the IPE layout's: the skip at layer 5)."""
+    skip = IPE_SKIP if ipe else SKIP
+    shapes = [(k0, W_TRUNK)] \
+        + [(k0 + W_TRUNK if i == skip else W_TRUNK, W_TRUNK)
+           for i in range(1, 8)] \
         + [(W_TRUNK, W_TRUNK + OUT_W), (W_TRUNK + kd, W_HALF),
            (W_HALF, OUT_W)]
     if has_transient:
@@ -939,7 +1018,8 @@ def _sigma_shapes(k0: int):
     return _packed_shapes(k0, 0, 0, False)[:SIGMA_LAYERS]
 
 
-def _check_operands(name, inp, net, sx, sd, has_transient, dtype):
+def _check_operands(name, inp, net, sx, sd, has_transient, dtype,
+                    ipe=False):
     """Raise unless the operands are what the kernels take; returns the
     packed layer shapes."""
     dev = inp.device
@@ -947,10 +1027,13 @@ def _check_operands(name, inp, net, sx, sd, has_transient, dtype):
         raise ValueError(f"{name} takes CUDA tensors")
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"unsupported compute dtype {dtype}")
+    if ipe and (dtype != torch.float32 or has_transient):
+        raise ValueError(f"{name}: the IPE kernels are f32 and have no "
+                         "transient branch")
     if inp.dtype != torch.float32 or inp.dim() != 2 \
             or inp.shape[1] != LANES or not inp.is_contiguous():
         raise ValueError("inp must be a contiguous (N, 128) float32 tensor")
-    shapes = _packed_shapes(net.k0, net.kd, net.kt, has_transient)
+    shapes = _packed_shapes(net.k0, net.kd, net.kt, has_transient, ipe)
     if len(net.ws) != len(shapes) or len(net.bs) != len(shapes):
         raise ValueError(f"expected {len(shapes)} packed layers")
     _check_layers(net, shapes, dtype, dev, sx, sd)
@@ -983,14 +1066,16 @@ def _ptrs(ts):
 
 
 def _image_and_grid(net: PackedNet, has_transient: bool, dtype,
-                    backward: bool, n: int, dev):
+                    backward: bool, n: int, dev, ipe: bool = False):
     """(image, its bytes, persistent blocks) of one launch: the bf16
     kernels' ``weight_image`` and 128-point tiles, the f32 kernels'
-    ``f32_weight_image`` and 64-point tiles."""
+    ``f32_weight_image`` (the IPE kernels' with ``ipe``) and 64-point
+    tiles."""
     if dtype == torch.bfloat16:
         image, rows = weight_image(net, has_transient, backward), TILE_ROWS
     else:
-        image, rows = f32_weight_image(net, has_transient, backward), F32_ROWS
+        image = f32_weight_image(net, has_transient, backward, ipe)
+        rows = F32_ROWS
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     return image, image.numel() * image.element_size(), \
         fwd_grid(n, n_sm, rows)
@@ -1000,8 +1085,10 @@ _RUNS: Dict[torch.device, torch.Tensor] = {}
 
 
 def _runs(dev: torch.device) -> torch.Tensor:
-    """The card's (3,) int64 counter of fused forward / backward / sigma-only
-    kernel runs, to which each kernel adds one from its first thread.  A
+    """The card's (5,) int64 counter of fused forward / backward /
+    sigma-only / IPE forward / IPE backward kernel runs, to which each
+    kernel adds one from its first thread (an IPE kernel to its slot and to
+    the fused pair's).  A
     CUDA graph bakes its address in, so it lives as long as the process; it
     is made outside any capture (a capture would record, and each replay
     repeat, its zeroing)."""
@@ -1011,7 +1098,7 @@ def _runs(dev: torch.device) -> torch.Tensor:
             raise RuntimeError("the fused kernels' run counter must exist "
                                "before a CUDA graph captures them: launch "
                                "once outside the capture first")
-        runs = _RUNS[dev] = torch.zeros(3, dtype=torch.int64, device=dev)
+        runs = _RUNS[dev] = torch.zeros(5, dtype=torch.int64, device=dev)
     return runs
 
 
@@ -1022,7 +1109,7 @@ def _counted(device):
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if dev not in _RUNS:
-        return [0, 0, 0]
+        return [0] * 5
     torch.cuda.synchronize(dev)
     return _RUNS[dev].tolist()
 
@@ -1033,9 +1120,10 @@ def kernel_runs(device=None):
     by the kernels themselves.  Unlike the wrappers' ``launches``, which
     count the host calls that launch (or, under a capture, record) a
     kernel, it counts each run of a CUDA graph's replay.  The sigma-only
-    kernel's runs are not among them (``sigma_runs``).  Synchronizes the
+    kernel's runs are not among them (``sigma_runs``); the IPE kernels'
+    are, and ``ipe_runs`` counts them apart too.  Synchronizes the
     device."""
-    fwd, bwd, _ = _counted(device)
+    fwd, bwd = _counted(device)[:2]
     return fwd, bwd
 
 
@@ -1046,31 +1134,49 @@ def sigma_runs(device=None) -> int:
     return _counted(device)[2]
 
 
+def ipe_runs(device=None):
+    """(forward, backward): the IPE kernels' runs on ``device`` in this
+    process, counted on the card by the kernels themselves (graph replays
+    included); ``kernel_runs`` counts them too.  Synchronizes the
+    device."""
+    c = _counted(device)
+    return c[3], c[4]
+
+
 def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
                        sd: torch.Tensor, *, n_freq_xyz: int, n_freq_dir: int,
                        a_dim: int, t_dim: int, has_transient: bool,
-                       dtype) -> torch.Tensor:
+                       dtype, ipe: bool = False) -> torch.Tensor:
     """Launch csrc/fused_mlp_fwd.cu on the current stream: packed (N, 128)
     f32 input -> (N, 16) f32 pre-activations.  bf16 runs the wgmma kernel
     on ``weight_image(net)``, f32 the 3xTF32 wgmma kernel on
     ``f32_weight_image(net)``, each with ``fwd_grid`` persistent blocks.
     Counts its launches in ``fused_mlp_fwd_cuda.launches``; the kernel
-    counts its runs on the card (``kernel_runs``)."""
+    counts its runs on the card (``kernel_runs``).  ``ipe``: the IPE kernel
+    (f32, no appearance or transient) on the IPE layout's image, which
+    counts its runs in ``ipe_runs`` as well."""
     _check_operands("fused_mlp_fwd_cuda", inp, net, sx, sd, has_transient,
-                    dtype)
+                    dtype, ipe)
     dev, n = inp.device, inp.shape[0]
     runs = _runs(dev)
     out = torch.empty((n, OUT_W), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     image, image_bytes, grid = _image_and_grid(net, has_transient, dtype,
-                                               False, n, dev)
+                                               False, n, dev, ipe)
     with torch.cuda.device(dev):
-        err = _lib().nerf_fused_mlp_fwd(
-            _DTYPE_CODE[dtype], inp.data_ptr(), out.data_ptr(), n,
-            _ptrs(net.bs), image.data_ptr(), image_bytes, grid,
-            sx.data_ptr(), sd.data_ptr(),
-            n_freq_xyz, n_freq_dir, a_dim, t_dim, int(has_transient),
-            runs.data_ptr(), stream)
+        if ipe:
+            err = _lib().nerf_fused_ipe_fwd(
+                inp.data_ptr(), out.data_ptr(), n, _ptrs(net.bs),
+                image.data_ptr(), image_bytes, grid, sd.data_ptr(),
+                n_freq_xyz, n_freq_dir, runs.data_ptr(),
+                runs.data_ptr() + 24, stream)
+        else:
+            err = _lib().nerf_fused_mlp_fwd(
+                _DTYPE_CODE[dtype], inp.data_ptr(), out.data_ptr(), n,
+                _ptrs(net.bs), image.data_ptr(), image_bytes, grid,
+                sx.data_ptr(), sd.data_ptr(),
+                n_freq_xyz, n_freq_dir, a_dim, t_dim, int(has_transient),
+                runs.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -1126,7 +1232,7 @@ fused_sigma_cuda.launches = 0
 def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
                        sd: torch.Tensor, g: torch.Tensor, *, n_freq_xyz: int,
                        n_freq_dir: int, a_dim: int, t_dim: int,
-                       has_transient: bool, dtype):
+                       has_transient: bool, dtype, ipe: bool = False):
     """Launch csrc/fused_mlp_bwd.cu on the current stream: the fused
     recompute + dgrad kernel on ``weight_image(net, backward=True)`` (bf16)
     or ``f32_weight_image(net, backward=True)`` (f32, 3xTF32) with
@@ -1136,9 +1242,11 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
     f32 cotangent ``g``; returns (dws, dbs, d_inp) as it does.
     Deterministic: two launches on the same inputs give bitwise-equal
     results.  Counts its launches in ``fused_mlp_bwd_cuda.launches``; the
-    fused kernel counts its runs on the card (``kernel_runs``)."""
+    fused kernel counts its runs on the card (``kernel_runs``).  ``ipe``:
+    the IPE backward (its runs also in ``ipe_runs``), which returns None
+    for d_inp."""
     shapes = _check_operands("fused_mlp_bwd_cuda", inp, net, sx, sd,
-                             has_transient, dtype)
+                             has_transient, dtype, ipe)
     dev, n = inp.device, inp.shape[0]
     runs = _runs(dev)
     if g.dtype != torch.float32 or tuple(g.shape) != (n, OUT_W) \
@@ -1147,19 +1255,24 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
                          "the input's device")
     lib = _lib_bwd()
     image, image_bytes, grid = _image_and_grid(net, has_transient, dtype,
-                                               True, n, dev)
+                                               True, n, dev, ipe)
     sizes = (ctypes.c_longlong * 3)()
-    err = lib.nerf_fused_mlp_bwd_sizes(
-        _DTYPE_CODE[dtype], n, grid, n_freq_xyz, n_freq_dir, a_dim, t_dim,
-        int(has_transient), sizes)
+    if ipe:
+        err = lib.nerf_fused_ipe_bwd_sizes(n, grid, n_freq_xyz, n_freq_dir,
+                                           sizes)
+    else:
+        err = lib.nerf_fused_mlp_bwd_sizes(
+            _DTYPE_CODE[dtype], n, grid, n_freq_xyz, n_freq_dir, a_dim,
+            t_dim, int(has_transient), sizes)
     if err != 0:
         raise ValueError(f"fused_mlp_bwd: unsupported shapes (error {err})")
     scratch_bytes, partial_floats, grad_floats = (int(v) for v in sizes)
     if grad_floats != sum(k * m + m for k, m in shapes):
         raise RuntimeError("fused_mlp_bwd: packed layout disagrees with the "
                            "kernel's")
-    # the kernels write d_inp's live columns only
-    d_inp = torch.zeros((n, LANES), dtype=torch.float32, device=dev)
+    # the kernels write d_inp's live columns only; the IPE kernels none
+    d_inp = None if ipe else torch.zeros((n, LANES), dtype=torch.float32,
+                                         device=dev)
     grads = torch.empty(grad_floats, dtype=torch.float32, device=dev)
     scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8,
                           device=dev)
@@ -1167,13 +1280,21 @@ def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
                           device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.nerf_fused_mlp_bwd(
-            _DTYPE_CODE[dtype], inp.data_ptr(), g.data_ptr(),
-            d_inp.data_ptr(), n, _ptrs(net.bs), image.data_ptr(),
-            image_bytes, grid, sx.data_ptr(), sd.data_ptr(), n_freq_xyz,
-            n_freq_dir, a_dim, t_dim, int(has_transient), scratch.data_ptr(),
-            partial.data_ptr(), grads.data_ptr(), runs.data_ptr() + 8,
-            stream)
+        if ipe:
+            err = lib.nerf_fused_ipe_bwd(
+                inp.data_ptr(), g.data_ptr(), n, _ptrs(net.bs),
+                image.data_ptr(), image_bytes, grid, sd.data_ptr(),
+                n_freq_xyz, n_freq_dir, scratch.data_ptr(),
+                partial.data_ptr(), grads.data_ptr(), runs.data_ptr() + 8,
+                runs.data_ptr() + 32, stream)
+        else:
+            err = lib.nerf_fused_mlp_bwd(
+                _DTYPE_CODE[dtype], inp.data_ptr(), g.data_ptr(),
+                d_inp.data_ptr(), n, _ptrs(net.bs), image.data_ptr(),
+                image_bytes, grid, sx.data_ptr(), sd.data_ptr(), n_freq_xyz,
+                n_freq_dir, a_dim, t_dim, int(has_transient),
+                scratch.data_ptr(), partial.data_ptr(), grads.data_ptr(),
+                runs.data_ptr() + 8, stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_bwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -1205,7 +1326,7 @@ class _FusedField(torch.autograd.Function):
     def forward(ctx, meta, inp, sx, sd, *params):
         net = _pack(params, meta["a_dim"], meta["has_transient"],
                     meta["dtype"], meta["n_freq_xyz"], meta["n_freq_dir"],
-                    meta["t_dim"])
+                    meta["t_dim"], meta["ipe"])
         run = fused_mlp_fwd_cuda if inp.is_cuda else fused_mlp_reference
         pre = run(inp, net, sx, sd, **meta)
         # conditioning widths for unpack_weight_grads, from the weights of
@@ -1225,7 +1346,8 @@ class _FusedField(torch.autograd.Function):
         dws, dbs, d_inp = run(inp, ctx.net, sx, sd, g.contiguous(),
                               **ctx.meta)
         grads = unpack_weight_grads(dws, dbs, *ctx.widths,
-                                    ctx.meta["has_transient"])
+                                    ctx.meta["has_transient"],
+                                    ctx.meta["ipe"])
         # the BARF scale rows are schedule values, not parameters
         return (None, d_inp, None, None, *grads)
 
@@ -1271,12 +1393,39 @@ def fused_apply_nerf(model: NeRF, xyz, dirs, a_emb=None, t_emb=None, *,
                                     barf_w_xyz, barf_w_dir, device=dev)
     meta = dict(n_freq_xyz=n_freq_xyz, n_freq_dir=n_freq_dir, a_dim=a_dim,
                 t_dim=t_dim, has_transient=bool(output_transient),
-                dtype=compute_dtype)
+                dtype=compute_dtype, ipe=False)
     params = [t for lin in field_linears(model, bool(output_transient))
               for t in (lin.weight, lin.bias)]
     pre = _FusedField.apply(meta, inp, sx.contiguous(), sd.contiguous(),
                             *params)
     return heads(pre, output_transient)
+
+
+def fused_apply_mip(model: NeRF, inp: torch.Tensor, *, n_freq_ipe: int = 16,
+                    n_freq_dir: int = 4) -> Dict[str, torch.Tensor]:
+    """mip-NeRF's field over packed (N, 128) IPE rows (``pack_ipe_inputs``:
+    each point's Gaussian and unit view direction) in f32, differentiable
+    in the field's parameters (not in the rows): CUDA tensors launch the
+    IPE kernels, CPU tensors run their plain versions.  ``model``: a
+    ``NeRF`` of the IPE layout (``NeRFConfig.skips`` (5,), ``skip_order``
+    "h_first", 6 ``n_freq_ipe`` inputs, no appearance or transient).
+    Returns {"raw_rgb": (N, 3), "raw_sigma": (N,)}, the pre-activations:
+    mip-NeRF's heads (``models.mlp.mip_heads``) come after."""
+    if inp.dim() != 2 or inp.shape[1] != LANES or inp.dtype != torch.float32:
+        raise ValueError("inp must be (N, 128) float32 IPE rows")
+    if model.xyz[0].weight.device != inp.device:
+        raise ValueError("fused_apply_mip: model and rows on different "
+                         "devices")
+    with torch.no_grad():
+        sd = default_scale_rows(0, n_freq_dir, 0, device=inp.device)[1]
+    meta = dict(n_freq_xyz=n_freq_ipe, n_freq_dir=n_freq_dir, a_dim=0,
+                t_dim=0, has_transient=False, dtype=torch.float32, ipe=True)
+    params = [t for lin in field_linears(model, False)
+              for t in (lin.weight, lin.bias)]
+    pre = _FusedField.apply(meta, inp.contiguous(), sd, sd.contiguous(),
+                            *params)
+    return {"raw_rgb": pre[:, COL_S_RGB:COL_S_RGB + 3],
+            "raw_sigma": pre[:, COL_S_SIGMA]}
 
 
 def grad_needed(model: NeRF, *xs: torch.Tensor) -> bool:

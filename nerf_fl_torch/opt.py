@@ -2,11 +2,13 @@
 
 The port's copy of the root ``opt.py``: every flag with the JAX CLI's type,
 default and choices, so a JAX command line parses here; the flags shared
-with eval are declared once in ``utils/cli.py``.
+with eval are declared once in ``utils/cli.py``.  The port adds mip-NeRF:
+``--model mipnerf`` (``utils/cli.PORT_ONLY``) and the ``--lr_scheduler``
+choice ``mip``.
 """
 import argparse
 
-from .utils.cli import add_shared_flags
+from .utils.cli import add_shared_flags, check_model_flags
 
 
 def get_parser():
@@ -71,8 +73,11 @@ def get_parser():
     parser.add_argument('--weight_decay', type=float, default=0,
                         help='L2 weight decay')
     parser.add_argument('--lr_scheduler', type=str, default='steplr',
-                        help='learning-rate schedule',
-                        choices=['steplr', 'cosine', 'poly'])
+                        help='learning-rate schedule (mip: mip-NeRF\'s '
+                             'delayed log-linear decay by the step, from '
+                             '--lr to --lr / 100 over the run, set each '
+                             'call of the step)',
+                        choices=['steplr', 'cosine', 'poly', 'mip'])
     # LR warmup (active for sgd/adam)
     parser.add_argument('--warmup_multiplier', type=float, default=1.0,
                         help='target multiplier reached at the end of the warmup ramp')
@@ -135,4 +140,5 @@ def get_parser():
 
 
 def get_opts(argv=None):
-    return get_parser().parse_args(argv)
+    parser = get_parser()
+    return check_model_flags(parser, parser.parse_args(argv))

@@ -10,6 +10,15 @@ test-time coarse ``sigma_only`` pass through the sigma-only kernel when it
 runs in float32 and records no gradient, the others through the fused
 pair.  The sigma-only pass in bfloat16 or under autograd, and every other
 architecture, run the plain ``models.mlp.apply_nerf``.
+
+``RenderConfig.model`` "mipnerf" renders mip-NeRF instead (Barron et al.
+2021, ``google/mipnerf`` internal/models.py:MipNerfModel; no JAX
+counterpart): rays of 9 columns [o, d (not normalised), radius, near,
+far], two levels of one shared field (``params["nerf"]``) over cone
+intervals, the second over as many intervals resampled from the first's
+weights with their gradient stopped (``_render_mip``).  In float32 both
+levels run the fused pair's IPE kernels (``fused_mlp.fused_apply_mip``),
+test time included; bfloat16 runs the plain ``apply_nerf``.
 """
 from __future__ import annotations
 
@@ -19,14 +28,19 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from ..core import compositing, encoding, sampling
+from ..core import compositing, cones, encoding, sampling
 from ..models.embeddings import embedding_lookup
-from ..models.mlp import NeRFConfig, apply_nerf
-from ..ops.fused_mlp import fused_apply_nerf, fused_sigma, grad_needed
+from ..models.mlp import NeRFConfig, apply_nerf, mip_heads
+from ..ops.fused_mlp import (fused_apply_mip, fused_apply_nerf, fused_sigma,
+                             grad_needed, pack_ipe_inputs)
 from ..ops.sorting import rank_merge_sorted
 from ..utils.spans import mark
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# mip-NeRF's (MipNerfModel's defaults): IPE degrees 0..16, the resampled
+# weights' padding
+MIP_IPE_FREQS = 16
+MIP_RESAMPLE_PADDING = 0.01
 
 
 @dataclass(frozen=True)
@@ -66,6 +80,16 @@ class RenderConfig:
     remat_mlp: bool = False
     mlp_depth: int = 8
     mlp_width: int = 256
+    # "nerf" (nerf_pl's NeRF / NeRF-W) or "mipnerf"
+    model: str = "nerf"
+
+    def __post_init__(self):
+        if self.model not in ("nerf", "mipnerf"):
+            raise ValueError(f"model {self.model!r}")
+        if self.model == "mipnerf" and (self.encode_a or self.encode_t
+                                        or self.refine_pose):
+            raise ValueError("mip-NeRF has no appearance or transient "
+                             "embedding and no pose refinement")
 
     @property
     def use_fast_trig(self) -> bool:
@@ -82,6 +106,13 @@ class RenderConfig:
         return 6 * self.N_emb_dir + 3
 
     def nerf_config(self, typ: str) -> NeRFConfig:
+        if self.model == "mipnerf":
+            # one field for both levels: [h, IPE] after layer D / 2
+            return NeRFConfig(
+                typ="coarse", D=self.mlp_depth, W=self.mlp_width,
+                skips=(self.mlp_depth // 2 + 1,), skip_order="hidden_first",
+                in_channels_xyz=6 * MIP_IPE_FREQS,
+                in_channels_dir=self.in_channels_dir)
         return NeRFConfig(
             typ=typ, D=self.mlp_depth, W=self.mlp_width,
             skips=(self.mlp_depth // 2,),
@@ -109,11 +140,34 @@ def _embed(cfg: RenderConfig, x, n_freqs, epoch):
 
 
 def _fused_ok(mcfg: NeRFConfig) -> bool:
-    """Whether the fused kernel supports this architecture."""
+    """Whether the fused kernel supports this architecture (mip-NeRF's
+    field: the IPE kernels)."""
+    if mcfg.skip_order == "hidden_first":
+        return (mcfg.D == 8 and mcfg.W == 256 and tuple(mcfg.skips) == (5,)
+                and mcfg.in_channels_xyz % 6 == 0
+                and 6 <= mcfg.in_channels_xyz <= 120
+                and mcfg.in_channels_dir <= 128 and mcfg.a_dim == 0
+                and not mcfg.encode_transient)
     return (mcfg.D == 8 and mcfg.W == 256 and tuple(mcfg.skips) == (4,)
             and mcfg.in_channels_xyz <= 128
             and mcfg.in_channels_dir + mcfg.a_dim <= 128
             and mcfg.in_channels_t <= 128)
+
+
+def _fused_on(model, mcfg: NeRFConfig, cfg: RenderConfig, dev) -> bool:
+    """Whether ``model`` runs on the fused kernels here: ``use_fused``
+    (None: on CUDA tensors), an architecture they take, and whole weights
+    (a tensor-parallel model holds a shard of each layer: the plain path,
+    as the JAX package's default under a model axis)."""
+    use_fused = cfg.use_fused if cfg.use_fused is not None \
+        else dev.type == "cuda"
+    if getattr(model.xyz[0], "tp", None) is not None:
+        if cfg.use_fused:
+            raise ValueError("use_fused=True cannot run a tensor-parallel "
+                             "(--model_parallel > 1) model: the fused "
+                             "kernel needs whole weights")
+        return False
+    return use_fused and _fused_ok(mcfg)
 
 
 def _run_mlp(model, mcfg: NeRFConfig, cfg: RenderConfig, xyz, dirs=None,
@@ -129,17 +183,7 @@ def _run_mlp(model, mcfg: NeRFConfig, cfg: RenderConfig, xyz, dirs=None,
     def per_sample(x):
         return flat(x[:, None, :].expand(N, S, x.shape[-1]))
 
-    use_fused = cfg.use_fused if cfg.use_fused is not None else xyz.is_cuda
-    if getattr(model.xyz[0], "tp", None) is not None:
-        # a tensor-parallel model holds a shard of each layer, and the
-        # fused kernel needs the whole weights: the plain path, as the JAX
-        # package's default under a model axis
-        if cfg.use_fused:
-            raise ValueError("use_fused=True cannot run a tensor-parallel "
-                             "(--model_parallel > 1) model: the fused "
-                             "kernel needs whole weights")
-        use_fused = False
-    fused = use_fused and _fused_ok(mcfg)
+    fused = _fused_on(model, mcfg, cfg, xyz.device)
     bw_x = bw_d = None
     if fused and cfg.refine_pose:
         bw_x, bw_d = (encoding.barf_weights(
@@ -183,6 +227,79 @@ def _run_mlp(model, mcfg: NeRFConfig, cfg: RenderConfig, xyz, dirs=None,
     return {k: v.reshape((N, S) + v.shape[1:]) for k, v in out.items()}
 
 
+def _render_mip(params: Dict[str, Any], rays: torch.Tensor,
+                cfg: RenderConfig, *, generator=None,
+                shard: Optional[Tuple[int, int]] = None
+                ) -> Dict[str, torch.Tensor]:
+    """mip-NeRF's two levels (``MipNerfModel.__call__``) over rays (N, 9)
+    [o, d, radius, near, far]: level 0 on ``N_samples`` stratified
+    intervals (``N_samples + 1`` edges in [near, far], jittered when
+    ``perturb`` > 0), level 1 on as many intervals resampled from level
+    0's weights (``sampling.resample_intervals``), their edges detached.
+    Each level casts its intervals' Gaussians (``cones.cast``), runs the
+    shared field ``params["nerf"]`` on their IPE and the unit view
+    direction's PE, applies ``mip_heads`` and composites
+    (``compositing.composite_intervals``); ``noise_std`` is not read (the
+    Blender recipe's density noise is 0).  Draws: level 0's jitter, level
+    1's uniforms.  Marks: ``sample``, then per level ``cast`` (the
+    Gaussians and the kernels' operand rows), ``coarse_mlp`` /
+    ``fine_mlp``, ``coarse_composite`` / ``fine_composite``, with ``pdf``
+    (the resampling) before level 1's ``cast``."""
+    dev = rays.device
+    model = params["nerf"]
+    mcfg = cfg.nerf_config("mip")
+    # the IPE kernels are f32 only: bf16 runs the plain path
+    fused = _fused_on(model, mcfg, cfg, dev) and cfg.dtype == torch.float32
+    randomized = cfg.perturb > 0
+    mark("sample", dev)
+    rays_o, rays_d, radii = rays[:, 0:3], rays[:, 3:6], rays[:, 6:7]
+    near, far = rays[:, 7:8], rays[:, 8:9]
+    t_vals = sampling.stratified_z_vals(
+        near, far, cfg.N_samples + 1, perturb=cfg.perturb,
+        generator=generator, shard=shard)
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    n_rays, S = rays.shape[0], cfg.N_samples
+    results: Dict[str, torch.Tensor] = {}
+    weights = None
+    for level in ("coarse", "fine"):
+        if level == "fine":
+            mark("pdf", dev)
+            t_vals = sampling.resample_intervals(
+                t_vals, weights, MIP_RESAMPLE_PADDING, randomized,
+                generator=generator, shard=shard).detach()
+        mark("cast", dev)
+        mean, var = cones.cast(t_vals, rays_o, rays_d, radii)
+        if fused:
+            operand = pack_ipe_inputs(
+                mean.reshape(-1, 3),
+                viewdirs[:, None, :].expand(n_rays, S, 3).reshape(-1, 3),
+                var.reshape(-1, 3)).contiguous()
+        else:
+            operand = encoding.integrated_pos_enc(
+                mean, var, MIP_IPE_FREQS, fast=cfg.use_fast_trig).reshape(
+                    n_rays * S, -1)
+        mark(f"{level}_mlp", dev)
+        if fused:
+            raw = fused_apply_mip(model, operand, n_freq_ipe=MIP_IPE_FREQS,
+                                  n_freq_dir=cfg.N_emb_dir)
+        else:
+            dir_emb = encoding.embed(viewdirs, cfg.N_emb_dir,
+                                     fast=cfg.use_fast_trig)
+            raw = apply_nerf(model, operand, dir_emb, compute_dtype=cfg.dtype,
+                             samples_per_ray=S, raw=True)
+        sigma, rgb = mip_heads(raw["raw_sigma"].reshape(n_rays, S),
+                               raw["raw_rgb"].reshape(n_rays, S, 3))
+        mark(f"{level}_composite", dev)
+        comp = compositing.composite_intervals(
+            t_vals, rgb, sigma, rays_d, white_back=cfg.white_back)
+        weights = comp.weights
+        results[f"rgb_{level}"] = comp.rgb
+        results[f"depth_{level}"] = comp.distance
+        results[f"opacity_{level}"] = comp.acc
+        results[f"weights_{level}"] = comp.weights
+    return results
+
+
 def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
                 cfg: RenderConfig, *, generator: Optional[torch.Generator] = None,
                 epoch=0.0, test_time: bool = False,
@@ -209,7 +326,14 @@ def render_rays(params: Dict[str, Any], rays: torch.Tensor, ts: torch.Tensor,
     ``sample``, ``coarse_mlp``, ``coarse_composite``, ``pdf`` (the fine
     samples and their positions), ``fine_mlp`` (with the embedding
     lookups) and ``fine_composite`` (with the solo fields' composites).
+
+    ``cfg.model`` "mipnerf": ``_render_mip`` over (N_rays, 9) rays; ``ts``
+    may be None, and ``test_time``, ``output_transient`` and the embedding
+    overrides change nothing (both levels render fully).
     """
+    if cfg.model == "mipnerf":
+        return _render_mip(params, rays, cfg, generator=generator,
+                           shard=shard)
     dev = rays.device
     mark("sample", dev)
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]

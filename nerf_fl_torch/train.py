@@ -5,6 +5,13 @@
         --batch_size 1024 --optimizer adam --lr 5e-4 --lr_scheduler cosine \
         --exp_name exp
 
+mip-NeRF at its Blender recipe (google/mipnerf configs/blender.gin):
+
+    python -m nerf_fl_torch.train --dataset_name blender --root_dir <lego> \
+        --model mipnerf --img_wh 800 800 --N_samples 128 --noise_std 0 \
+        --batch_size 4096 --optimizer adam --lr 5e-4 --lr_scheduler mip \
+        --device_pool on --steps_per_execution 10 --exp_name mip
+
 It runs on the card; ``NERF_FL_TORCH_DEVICE=cpu`` (or ``main(hparams,
 device="cpu")``) asks for the CPU, and without either and without a card
 it raises.  After fit it prints the host spans of the run
@@ -12,10 +19,12 @@ it raises.  After fit it prints the host spans of the run
 span's count and host seconds.  On the card its last line counts the fused
 kernels of the run: ``[kernels] N sub-steps; fused forward / backward: L /
 L host launches, R / R runs on the card; sigma-only forward: L host
-launches, R runs on the card`` (the wrappers' launches and the kernels' own
-count of their runs, CUDA graph replays included; the sigma-only kernel
-runs eval's f32 test-time coarse pass, so it reads 0 here: the train step
-and validation render the full coarse pass).
+launches, R runs on the card; IPE forward / backward (mip-NeRF's, among
+the fused): R / R runs on the card`` (the wrappers' launches and the
+kernels' own count of their runs, CUDA graph replays included; the
+sigma-only kernel runs eval's f32 test-time coarse pass, so it reads 0
+here: the train step and validation render the full coarse pass; the IPE
+kernels run both levels of ``--model mipnerf`` at f32, 2 + 2 a sub-step).
 
 ``--num_gpus D --model_parallel M`` (D x M > 1) trains data- and
 tensor-parallel: this process starts its ``D x M / --num_hosts`` ranks
@@ -48,7 +57,10 @@ def train(device, hparams) -> NeRFSystem:
               f"{fm.fused_mlp_bwd_cuda.launches} host launches, {runs[0]} / "
               f"{runs[1]} runs on the card; sigma-only forward: "
               f"{fm.fused_sigma_cuda.launches} host launches, "
-              f"{fm.sigma_runs(system.device)} runs on the card", flush=True)
+              f"{fm.sigma_runs(system.device)} runs on the card; IPE "
+              f"forward / backward (mip-NeRF's, among the fused): "
+              f"{'{} / {}'.format(*fm.ipe_runs(system.device))} runs on "
+              f"the card", flush=True)
     return system
 
 

@@ -39,4 +39,16 @@ def nerfw_loss(results: Dict, targets: torch.Tensor, coef: float = 1.0,
     return {k: coef * v for k, v in ret.items()}
 
 
-loss_dict = {"color": color_loss, "nerfw": nerfw_loss}
+def mip_loss(results: Dict, targets: torch.Tensor,
+             coarse_mult: float = 0.1) -> Dict[str, torch.Tensor]:
+    """mip-NeRF's loss (``train.py:train_step`` with lossmult 1, single-scale
+    Blender): each level's squared error summed over the channels and
+    averaged over the rays, the coarse level's times ``coarse_mult``
+    (``Config.coarse_loss_mult``).  Terms: c_l, f_l."""
+    def level(rgb):
+        return torch.mean(torch.sum((rgb - targets) ** 2, dim=-1))
+    return {"c_l": coarse_mult * level(results["rgb_coarse"]),
+            "f_l": level(results["rgb_fine"])}
+
+
+loss_dict = {"color": color_loss, "nerfw": nerfw_loss, "mip": mip_loss}

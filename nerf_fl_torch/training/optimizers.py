@@ -4,6 +4,8 @@ Counterpart of ``nerf_fl_tpu/training/optimizers.py``:
   * ``lr_for_epoch``: steplr (MultiStepLR), cosine (CosineAnnealingLR,
     eta_min 1e-8) and poly, each optionally behind a linear warmup over
     ``warmup_epochs`` (skipped for radam/ranger), stepped per epoch;
+    ``mip_lr``: mip-NeRF's delayed log-linear decay by the step (no JAX
+    counterpart; ``--lr_scheduler mip``, set per call of the step);
   * ``build_optimizer``: ``SGD`` (the JAX package's sgd chain written out
     here: weight decay added to the gradient, then optax's ``trace``,
     heavy-ball momentum with dampening 0), ``torch.optim.Adam`` with eps
@@ -56,6 +58,23 @@ def lr_for_epoch(hparams, epoch: int) -> float:
     if hparams.lr_scheduler == "poly":
         return base * (1 - e / hparams.num_epochs) ** hparams.poly_exp
     raise ValueError(f"scheduler not recognized: {hparams.lr_scheduler}")
+
+
+def mip_lr(step: int, lr_init: float = 5e-4, lr_final: float = 5e-6,
+           max_steps: int = 1_000_000, delay_steps: int = 2500,
+           delay_mult: float = 0.01) -> float:
+    """mip-NeRF's ``learning_rate_decay`` (internal/math.py) at ``step``:
+    log-linear from ``lr_init`` to ``lr_final`` over ``max_steps``, times
+    the delay ``delay_mult + (1 - delay_mult) sin(pi / 2 clip(step /
+    delay_steps, 0, 1))`` (Config's Blender values by default)."""
+    if delay_steps > 0:
+        delay = delay_mult + (1 - delay_mult) * math.sin(
+            0.5 * math.pi * min(max(step / delay_steps, 0.0), 1.0))
+    else:
+        delay = 1.0
+    t = min(max(step / max_steps, 0.0), 1.0)
+    return delay * math.exp(math.log(lr_init) * (1 - t)
+                            + math.log(lr_final) * t)
 
 
 def _grad(p: torch.Tensor) -> torch.Tensor:

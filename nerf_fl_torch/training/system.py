@@ -64,7 +64,9 @@ def build_params(cfg: RenderConfig, n_vocab: int, *,
                  device=None,
                  init_poses: Optional[np.ndarray] = None) -> Dict[str, Any]:
     """{'nerf_coarse', ['nerf_fine'], ['embedding_a'], ['embedding_t'],
-    ['learn_poses']}.
+    ['learn_poses']}; for mip-NeRF (``cfg.model`` "mipnerf") {'nerf'}, the
+    one field both levels share, initialised as mip-NeRF's (glorot),
+    whose weight gradients from the two levels add into one set.
 
     Everything is drawn on ``generator``'s device (the CPU with torch's
     default generator if None) and then moved to ``device``; a CPU
@@ -76,6 +78,9 @@ def build_params(cfg: RenderConfig, n_vocab: int, *,
     """
     dev = resolve_device(device)
     draw = generator.device if generator is not None else None
+    if cfg.model == "mipnerf":
+        return {"nerf": init_nerf(cfg.nerf_config("mip"), generator=generator,
+                                  device=draw, init="glorot").to(dev)}
     params: Dict[str, Any] = {
         "nerf_coarse": init_nerf(cfg.nerf_config("coarse"),
                                  generator=generator, device=draw)}
@@ -232,7 +237,8 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
     by 0 where a camera's second moment is still 0.  ``lerp`` gives
     ``before`` exactly at s = 0 and ``after`` exactly at s = 1."""
     loss_fn = loss_dict[loss_name]
-    typ = "fine" if cfg.N_importance > 0 else "coarse"
+    typ = "fine" if cfg.N_importance > 0 or cfg.model == "mipnerf" \
+        else "coarse"
     params_held = [p for group in optimizer.param_groups
                    for p in group["params"]]
     dev = params_held[0].device
@@ -260,7 +266,7 @@ def _train_body(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
                                        id_to_cam=idmap)
             if rays.requires_grad:
                 rays = PoseMark.apply(rays)
-        results = render_rays(params, rays, b["ts"], cfg,
+        results = render_rays(params, rays, b.get("ts"), cfg,
                               generator=generator, epoch=epoch, shard=shard)
         mark("loss", dev)
         loss_d = loss_fn(results, b["rgbs"])
@@ -724,7 +730,7 @@ def make_device_pool_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
 
 
 def params_device(params: Dict[str, Any]) -> torch.device:
-    m = params["nerf_coarse"]
+    m = params["nerf"] if "nerf" in params else params["nerf_coarse"]
     return m.xyz[0].weight.device
 
 
@@ -882,7 +888,8 @@ def config_from_hparams(hparams, white_back: bool) -> RenderConfig:
         use_fused=_TRISTATE[g("use_pallas", "auto")],
         fast_trig=_TRISTATE[g("fast_trig", "auto")],
         remat_mlp=g("remat_mlp", False),
-        mlp_depth=g("mlp_depth", 8), mlp_width=g("mlp_width", 256))
+        mlp_depth=g("mlp_depth", 8), mlp_width=g("mlp_width", 256),
+        model=g("model", "nerf"))
 
 
 _TRISTATE = {"auto": None, "on": True, "off": False}
@@ -1107,7 +1114,8 @@ class NeRFSystem:
                           use_cache=h.use_cache, refine_pose=refine)
         elif h.dataset_name == "blender":
             kwargs.update(img_wh=tuple(h.img_wh), perturbation=h.data_perturb,
-                          refine_pose=refine)
+                          refine_pose=refine,
+                          mip=getattr(h, "model", "nerf") == "mipnerf")
         elif h.dataset_name == "llff":
             kwargs.update(img_wh=tuple(h.img_wh),
                           spheric_poses=h.spheric_poses,
@@ -1116,6 +1124,8 @@ class NeRFSystem:
                                                           **kwargs)
         self.val_dataset = dataset_dict[h.dataset_name](split="val", **kwargs)
         self.cfg = config_from_hparams(h, self.train_dataset.white_back)
+        if self.cfg.model == "mipnerf":
+            self.loss_name = "mip"
         self.ray_format = getattr(self.train_dataset, "ray_format", "world")
         max_id = int(np.max(self.train_dataset.all_ts))
         if self.cfg.encode_a or self.cfg.encode_t:
@@ -1388,15 +1398,27 @@ class NeRFSystem:
 
         return before, after
 
+    def _mip_lr(self) -> float:
+        """``--lr_scheduler mip`` at the global step: mip-NeRF's decay from
+        --lr to --lr / 100 over the run's steps, behind its 2,500-step
+        delay (``optimizers.mip_lr``)."""
+        from .optimizers import mip_lr
+        total = max(1, self.hparams.num_epochs
+                    * max(1, self.batcher.steps_per_epoch()))
+        return mip_lr(self.global_step, lr_init=self.hparams.lr,
+                      lr_final=self.hparams.lr / 100, max_steps=total)
+
     def _frac_anneal(self) -> bool:
         return self.cfg.refine_pose and self.cfg.barf_schedule == "paper"
 
-    def _steps(self, epoch: int, lr: float, feed_box):
+    def _steps(self, epoch: int, lr, feed_box):
         """Yield (a call of the step, sub-steps it runs) for each step call
         of an epoch; a call whose first step is step i of the epoch trains
         at epoch ``epoch + i / steps_per_epoch`` under BARF's paper
-        schedule, else at ``epoch``."""
+        schedule, else at ``epoch``.  ``lr``: a float, or a function read
+        at each call (``--lr_scheduler mip``)."""
         h = self.hparams
+        at = lr if callable(lr) else (lambda: lr)
         spe, B = self.spe, h.batch_size
         gen = self.generator
         n_epoch = max(1, self.batcher.steps_per_epoch())
@@ -1413,11 +1435,12 @@ class NeRFSystem:
             for i in range(0, n_steps, spe):
                 if spe > 1:
                     yield (lambda i=i: self.train_step(
-                        self.params, pool, self._perm, i, n_steps, lr, ep(i),
-                        gen)), min(spe, n_steps - i)
+                        self.params, pool, self._perm, i, n_steps, at(),
+                        ep(i), gen)), min(spe, n_steps - i)
                 else:
                     yield (lambda i=i: self.train_step(
-                        self.params, pool, self._perm, i, lr, ep(i), gen)), 1
+                        self.params, pool, self._perm, i, at(), ep(i),
+                        gen)), 1
             return
         if spe > 1:
             def grouped(it=self.batcher.epoch(epoch)):
@@ -1438,13 +1461,14 @@ class NeRFSystem:
                                              device=self.device))
             for j, (stacked, valid, n_real) in enumerate(feed_box[-1]):
                 yield (lambda s=stacked, v=valid, e=ep(j * spe):
-                       self.train_step(self.params, s, lr, e, gen, v)), n_real
+                       self.train_step(self.params, s, at(), e, gen, v)), \
+                    n_real
             return
         feed_box.append(DevicePrefetcher(self.batcher.epoch(epoch),
                                          device=self.device))
         for j, batch in enumerate(feed_box[-1]):
             yield (lambda b=batch, e=ep(j): self.train_step(
-                self.params, b, lr, e, gen)), 1
+                self.params, b, at(), e, gen)), 1
 
     def fit(self):
         from . import checkpoints
@@ -1465,7 +1489,11 @@ class NeRFSystem:
         refresh = getattr(h, "refresh_every", 0) or 0
         last = (None, {})
         for epoch in range(self.start_epoch, h.num_epochs):
-            lr = lr_for_epoch(h, epoch)
+            if h.lr_scheduler == "mip":
+                # mip-NeRF's schedule by the step, read at each call
+                lr = self._mip_lr
+            else:
+                lr = lr_for_epoch(h, epoch)
             t0, n_rays, steps0 = time.time(), 0, self.global_step
             feeds = []
             try:
@@ -1482,7 +1510,7 @@ class NeRFSystem:
                         with span("nerf.fit.log_read"):
                             m = {k: float(v.reshape(-1)[n_real - 1])
                                  for k, v in metrics.items()}
-                        m["lr"] = lr
+                        m["lr"] = lr() if callable(lr) else lr
                         dt = time.time() - t0
                         if dt > 0:
                             m["train/rays_per_sec"] = n_rays / dt
@@ -1519,7 +1547,8 @@ class NeRFSystem:
                                 self.global_step)
             if viz is not None:
                 self.logger.images("val/GT_pred_depth", viz, self.global_step)
-            print(f"epoch {epoch}: lr={lr:.3e} val/loss={val_loss:.4f} "
+            print(f"epoch {epoch}: lr={lr() if callable(lr) else lr:.3e} "
+                  f"val/loss={val_loss:.4f} "
                   f"val/psnr={val_psnr:.2f}")
             with span("nerf.fit.checkpoint"), whole_params(
                     self.mesh, self.params, self.optimizer,

@@ -7,7 +7,8 @@ here too (``tests/test_torch_entry.py`` holds the parsers to each other).
 Per-mode differences are explicit overrides: --chunk's default, whether
 --ckpt_path is required, and the help of --refine_pose / --num_gpus.
 ``--use_pallas`` selects the fused CUDA kernels (``RenderConfig.use_fused``:
-auto None, on True, off False).
+auto None, on True, off False).  ``PORT_ONLY`` lists the port's own flags
+(``--model``), which ``check_model_flags`` holds to what mip-NeRF has.
 """
 from __future__ import annotations
 
@@ -131,7 +132,20 @@ _SHARED = [
     ("--mlp_width", dict(type=int, default=256,
                          help="field MLP hidden width W (reference "
                               "nerf.py:82, hardcoded 256)"), {}),
+    # ---- the port's own, which the JAX CLIs lack ----
+    ("--model", dict(type=str, default="nerf", choices=["nerf", "mipnerf"],
+                     help="nerf: NeRF / NeRF-W (nerf_pl's); mipnerf: "
+                          "mip-NeRF (google/mipnerf): cone-cast "
+                          "intervals, integrated positional encoding "
+                          "(degrees 0..16), one MLP for --N_samples coarse "
+                          "and as many resampled intervals, no density "
+                          "noise (blender only; no --encode_a, --encode_t "
+                          "or --refine_pose; --N_importance and "
+                          "--noise_std are not read)"), {}),
 ]
+
+# flags of the port that the JAX CLIs lack
+PORT_ONLY = ("--model",)
 
 # --steps_per_execution is train-only: K optimizer steps a call (a CUDA
 # graph of the step on the card); rendering has no optimizer loop.
@@ -139,6 +153,22 @@ _SHARED = [
 
 def shared_flag_names():
     return [flag for flag, _, _ in _SHARED]
+
+
+def check_model_flags(parser, args):
+    """Refuse, as a parse error, what ``--model mipnerf`` lacks: the
+    appearance and transient embeddings, pose refinement, and datasets
+    other than blender."""
+    if getattr(args, "model", "nerf") != "mipnerf":
+        return args
+    bad = [f for f, on in (("--encode_a", args.encode_a),
+                           ("--encode_t", args.encode_t),
+                           ("--refine_pose", args.refine_pose)) if on]
+    if bad:
+        parser.error(f"--model mipnerf has no {', '.join(bad)}")
+    if args.dataset_name != "blender":
+        parser.error("--model mipnerf reads the blender dataset only")
+    return args
 
 
 def add_shared_flags(parser, mode):

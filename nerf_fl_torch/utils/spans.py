@@ -32,7 +32,7 @@ import torch
 # in csrc/stage_marks.cu's order
 STAGES = ("load", "pose", "sample", "coarse_mlp", "coarse_composite", "pdf",
           "fine_mlp", "fine_composite", "loss", "backward", "pose_backward",
-          "optimizer", "row", "upload", "end")
+          "optimizer", "row", "upload", "end", "cast")
 _INDEX = {s: i for i, s in enumerate(STAGES)}
 
 

@@ -2,7 +2,11 @@
 
   * the port's train and eval parsers agree with the root ``opt.get_opts``
     and ``eval.get_opts`` on every flag: its option strings, type, default,
-    choices, nargs, requiredness and action;
+    choices, nargs, requiredness and action; the port adds only its own
+    flags (``utils.cli.PORT_ONLY``: mip-NeRF's ``--model``) and the
+    ``--lr_scheduler`` choice ``mip``, which train and
+    eval accept with ``--model mipnerf`` and refuse beside what mip-NeRF
+    lacks;
   * ``python -m nerf_fl_torch.train`` and ``python -m nerf_fl_torch.eval``
     run with NERF_FL_TORCH_DEVICE=cpu on a tiny scene, train starting from
     an untrained JAX checkpoint (weights only, loaded non-strictly);
@@ -82,8 +86,30 @@ def _eval_parser(module, monkeypatch):
     return seen["parser"]
 
 
+# the port's own additions to the JAX CLIs' flags
+PORT_ONLY = {"model"}
+PORT_CHOICES = {"lr_scheduler": ("mip",)}
+
+
+def _jax_part(got, want):
+    """The port's flags less its own, each JAX flag's choices less the
+    port's additions; asserts the port's own are exactly PORT_ONLY."""
+    assert set(got) - set(want) == PORT_ONLY
+    out = {}
+    for k, v in got.items():
+        if k in PORT_ONLY:
+            continue
+        extra = PORT_CHOICES.get(k)
+        if extra:
+            assert v[3][-len(extra):] == extra, k
+            v = v[:3] + (v[3][:-len(extra)],) + v[4:]
+        out[k] = v
+    return out
+
+
 def test_train_parser_matches_jax():
     want, got = _flags(jopt_cli.get_parser()), _flags(topt.get_parser())
+    got = _jax_part(got, want)
     assert list(got) == list(want)
     for k in want:
         assert got[k] == want[k], k
@@ -92,9 +118,55 @@ def test_train_parser_matches_jax():
 def test_eval_parser_matches_jax(monkeypatch):
     want = _flags(_eval_parser(jeval, monkeypatch))
     got = _flags(_eval_parser(teval, monkeypatch))
+    got = _jax_part(got, {**want, "lr_scheduler": None})
     assert list(got) == list(want)
     for k in want:
         assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("extra", [[], ["--encode_a"], ["--encode_t"],
+                                   ["--refine_pose"],
+                                   ["--dataset_name", "llff"]])
+def test_mipnerf_flag_is_accepted_and_refuses_what_it_lacks(extra, capsys):
+    """``--model mipnerf`` parses in train and eval, and either refuses
+    it beside --encode_a, --encode_t, --refine_pose or another dataset
+    than blender, as a parse error."""
+    base = ["--root_dir", "r", "--model", "mipnerf"]
+    for parse in (lambda a: topt.get_opts(a + ["--lr_scheduler", "mip"]),
+                  lambda a: teval.get_opts(a + ["--ckpt_path", "c"])):
+        if not extra:
+            args = parse(base)
+            assert args.model == "mipnerf"
+            continue
+        with pytest.raises(SystemExit):
+            parse(base + extra)
+        assert "--model mipnerf" in capsys.readouterr().err
+
+
+def test_mipnerf_train_and_eval_run_on_the_cpu(scene_and_jax_ckpt, tmp_path):
+    """``python -m nerf_fl_torch.train --model mipnerf`` (the device
+    pool, --lr_scheduler mip) and ``python -m nerf_fl_torch.eval --model
+    mipnerf`` of its checkpoint, on the CPU on the tiny scene."""
+    scene, _ = scene_and_jax_ckpt
+    env = {"NERF_FL_TORCH_DEVICE": "cpu"}
+    mip = ["--model", "mipnerf", "--N_samples", "8", "--mlp_width", "64",
+           "--img_wh", "40", "40"]
+    out = _run("nerf_fl_torch.train", [
+        "--root_dir", scene, *mip, "--noise_std", "0", "--batch_size", "256",
+        "--num_epochs",
+        "1", "--exp_name", "mip", "--save_path", "ckpts", "--lr_scheduler",
+        "mip", "--device_pool", "on"], tmp_path, env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    m = re.search(r"epoch 0: lr=([\d.e+-]+) val/loss=([\d.]+) "
+                  r"val/psnr=([\d.]+)", out.stdout)
+    assert m, out.stdout[-2000:]
+    assert 0 < float(m.group(1)) < 5e-4
+    ckpt = os.path.join(tmp_path, "ckpts", "mip", "epoch=0.ckpt")
+    out = _run("nerf_fl_torch.eval", [
+        "--root_dir", scene, *mip, "--split", "test", "--ckpt_path", ckpt,
+        "--scene_name", "mip"], tmp_path, env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert re.search(r"Mean PSNR : [\d.]+", out.stdout), out.stdout[-2000:]
 
 
 @pytest.fixture(scope="module")
