@@ -453,12 +453,14 @@ def fused_line(which, n, ms, flops, bound_ms, net, transient,
         plan = fm.bwd_image_plan if which == "bwd" else fm.image_plan
         image = plan(net.k0, net.kd, net.kt, transient)[1]
     kernel = f"fused_mlp_{which}_{'f32' if f32 else 'bf16'}_kernel"
+    block = (f"{info['threads']} threads" if which == "fwd" else
+             f"{info['bwd_threads']} threads ({info['bwd_consumers']} "
+             f"consumer warpgroups)")
     head = (f"[fused] fused_mlp_{which} {dtype} at {n} points: {ms:.3f} ms, "
             f"{flops / ms / 1e9:.1f} TFLOP/s on the unpadded work, "
             f"{100 * bound_ms / ms:.1f}% of bound; {info['rows']} rows a tile,"
             f" {tiles} tiles x {image} B = {tiles * image / 1e9:.3f} GB of "
-            f"weight slabs from L2 to shared memory; block {info['threads']} "
-            f"threads, ")
+            f"weight slabs from L2 to shared memory; block {block}, ")
     if which == "fwd":
         r = ptxas_info("fused_mlp_fwd", kernel)
         print(head + f"{r[0]} registers a thread at launch (spill {r[1]} / "

@@ -64,15 +64,21 @@
 // says why: the products as 3xTF32, hi*hi + lo*hi + hi*lo with each operand
 // split into tf32 hi and lo parts, about 2^-21 a product; the activations
 // f32 in a thread-private layout, A from registers):
-//   * fused_mlp_bwd_f32_kernel: persistent blocks of 64 points (one
-//     consumer warpgroup, a producer thread behind a three-stage ring of
-//     the f32 backward image, hi and lo parts); the recompute runs the f32
-//     forward's functions, so activations and ReLU masks are bit for bit
-//     the forward kernel's.  Its operands are saved as 16 KB slots of 64
+//   * fused_mlp_bwd_f32_kernel: persistent blocks of 64 points, a producer
+//     thread behind a three-stage ring of the f32 backward image (hi and
+//     lo parts), and two consumer warpgroups that split every product's
+//     output columns (a 256-wide layer's 128-column pieces, a 128-wide
+//     one's halves of 64), so that one's products run while the other
+//     splits its operands or waits for its stage, a thread holds at most
+//     64 accumulators, and the next 32 contraction values are loaded while
+//     the products of these run (tf::mma_seg_split); the recompute runs
+//     the f32 forward's functions, so activations and ReLU masks are bit
+//     for bit the forward kernel's.  Its operands are saved as 16 KB slots of 64
 //     points x 64 columns, copies of its private layout: about 97 slots x
 //     16 KB per 64 points, 3.2 GB at 131,072 points.  Shared memory 214,832
 //     bytes (96 KB activations, 4 KB heads' cotangent, 3 x 32 KB stages,
-//     13 KB biases and scale rows), 256 threads;
+//     13 KB biases and scale rows), 384 threads, 168 registers a thread at
+//     launch (232 for consumers after setmaxnreg);
 //   * wgrad_f32_kernel: tf32 wgmma reads its operands K-major only, so each
 //     block's 256 threads load a step's slots (32 points, 16-byte loads a
 //     step ahead), split them and store the hi and lo K-major images of
@@ -763,8 +769,16 @@ __global__ void reduce_db(const float* __restrict__ dbpart, int rows,
 // ======================================================================
 namespace tb {
 
-// Recompute, dgrad, PE chain rule, as fused_mlp_bwd_bf16_kernel with one
-// consumer warpgroup of 64 points and f32 values in its private layout.
+// Recompute, dgrad, PE chain rule, as fused_mlp_bwd_bf16_kernel with 64
+// points a block in the f32 private layout, computed by two consumer
+// warpgroups (tf::B_CONSUMERS) that split every product's output columns
+// (tf::mma_seg_split): warpgroup wg writes its share of each layer's
+// columns, its ReLU bits, cotangent masks and db column sums, so the
+// activations, saved slots, dW and db are those of one warpgroup computing
+// all columns, each column the same products in the same order.  A layer's
+// output overwrites its input in place, so a barrier over the 256 consumer
+// threads sits between a layer's products and its epilogue, and between
+// the epilogue and the next layer's products.
 // Saves every layer's input activations and masked cotangents as tile
 // slots of 64 points x 64 columns (16 KB, the private layout's groups) for
 // the wgrad kernel, and per-warp f32 column sums of the cotangents for db.
@@ -794,6 +808,7 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
   using tf::G_H;
   using tf::G_P;
   constexpr int SKIP = MIP ? 5 : 4;
+  constexpr int C = tf::B_CONSUMERS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -809,32 +824,34 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
 
   const int tid = threadIdx.x;
   const int n_layers = has_transient ? N_LAYERS : L_T0;
-  for (int c = tid; c < IN_LD; c += tf::T_THREADS) {
+  for (int c = tid; c < IN_LD; c += tf::B_THREADS) {
     sx_s[c] = sx[c];
     sd_s[c] = sd[c];
   }
   for (int l = 0; l < n_layers; ++l)
-    for (int c = tid; c < hop::layer_n(l); c += tf::T_THREADS)
+    for (int c = tid; c < hop::layer_n(l); c += tf::B_THREADS)
       bias_s[hop::bias_off(l) + c] = bias.b[l][c];
   if (tid == 0) {
     for (int s = 0; s < tf::STAGES; ++s) {
       hop::mbar_init(full + 8 * s, 1);
-      hop::mbar_init(empty + 8 * s, 1);
+      hop::mbar_init(empty + 8 * s, tf::B_EMPTY);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     hop::fence_async_smem();
   }
   __syncthreads();
 
+  const int wg = tid >> 7;
   const int n_tiles = (n + tf::ROWS - 1) / tf::ROWS;
-  if (tid >= 128) {
-    if (tid == 128)
-      tf::produce(image, plan, full, empty,
-                                hop::smem_u32(stages), tf::B_STAGE_BYTES,
-                                n_tiles);
+  if (wg == C) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == C * 128)
+      tf::produce(image, plan, full, empty, hop::smem_u32(stages),
+                  tf::B_STAGE_BYTES, n_tiles);
     return;
   }
-  const int t = tid, lane = tid & 31, warp = tid >> 5;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int t = tid & 127, lane = tid & 31, warp = t >> 5;
   const int fr = 16 * warp + (lane >> 2), fq = t & 3;
   const bool elected = t == 0;
   const uint32_t act_s = hop::smem_u32(smem);
@@ -842,18 +859,20 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
                    0, -1};
   const int dpe = 3 + 6 * nfd;
   const size_t n_rb = (size_t)n_tiles;
+  // ReLU bits, each warpgroup's own words of a layer (hb::MASK_WORDS)
   uint32_t* my_masks = masks + (size_t)blockIdx.x * hb::MASK_WORDS * 128 + t;
+  constexpr int W4 = W_TRUNK / 64 / C, W2 = W_HALF / 64 / C;
   float none[8];
 
   // shared-memory stores -> visible to the bulk stores and other threads
   auto sync = [&]() {
     hop::fence_async_smem();
-    hop::wg_sync(0);
+    tf::consumer_sync<C>();
   };
   // after this, regions handed to save() may be overwritten
   auto drain = [&]() {
     if (elected) hop::bulk_wait_read();
-    hop::wg_sync(0);
+    tf::consumer_sync<C>();
   };
   auto val = [&](int g0, int r, int c) { return act_f[tf::at(g0, r, c)]; };
 
@@ -863,86 +882,95 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
     float* dbrow = dbpart + (rb * 4 + warp) * (size_t)db_stride;
     auto save = [&](int id, int cols, int g0) {
       if (elected)
-        tf::save(scratch, id, cols, n_rb, rb, act_s + g0 * tf::GROUP_BYTES);
+        tf::save<C>(scratch, id, cols, n_rb, rb,
+                    act_s + g0 * tf::GROUP_BYTES, wg);
     };
 
     // ------------------------------------------------ forward recompute
     drain();
     if constexpr (MIP) {
-      tf::encode_ipe(act, G_P, inp, row0, n, nfx, k0, t);
-      hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n, 4 * 9, t);
+      tf::encode_ipe<C>(act, G_P, inp, row0, n, nfx, k0, t, wg);
+      if (wg == 0)
+        hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n, 4 * 9,
+                       t);
     } else {
-      tf::encode(act, G_P, inp, row0, n, true, 0, nfx, sx_s, 0, 0, k0, t);
-      hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
-                     4 * (6 + a_dim + t_dim), t);
+      tf::encode<IN_LD, C>(act, G_P, inp, row0, n, true, 0, nfx, sx_s, 0, 0,
+                           k0, t, wg);
+      if (wg == 0)
+        hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
+                       4 * (6 + a_dim + t_dim), t);
     }
     sync();
     save(tm.pe, k0, G_P);
 
-    float acc[W_TRUNK / 2];
-    float acc64[W_HALF / 2];
-    uint32_t m4[4], m2[2];
+    float acc[W_TRUNK / 2 / C];
+    float acc64[W_HALF / 2 / C];
+    uint32_t m4[W4], m2[W2];
     for (int i = 0; i < 8; ++i) {
       bool fresh = true;
       if (i == 0 || i == SKIP)
-        tf::mma_seg<W_TRUNK, false>(acc, none, act, G_P, k0, ring, fresh,
-                                    elected, t);
+        tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_P, k0, ring, fresh,
+                                       elected, t, wg);
       if (i != 0)
-        tf::mma_seg<W_TRUNK, false>(acc, none, act, G_H, W_TRUNK, ring, fresh,
-                                    elected, t);
+        tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_H, W_TRUNK, ring,
+                                       fresh, elected, t, wg);
       drain();
-      tf::store_hidden<W_TRUNK, true>(acc, act, G_H,
-                                      bias_s + hop::bias_off(i), fq, t, m4);
-      hb::put_masks(my_masks, 4 * i, m4);
+      tf::store_hidden<W_TRUNK, true, C>(acc, act, G_H,
+                                         bias_s + hop::bias_off(i), fq, t, m4,
+                                         wg);
+      hb::put_masks(my_masks, 4 * i + W4 * wg, m4);
       sync();
       save(tm.h[i], W_TRUNK, G_H);
     }
     {
       bool fresh = true;
-      tf::mma_seg<W_TRUNK, false>(acc, none, act, G_H, W_TRUNK, ring, fresh,
-                                  elected, t);
+      tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_H, W_TRUNK, ring,
+                                     fresh, elected, t, wg);
       drain();
-      tf::store_linear<W_TRUNK>(acc, act, G_H, bias_s + hop::bias_off(L_FS),
-                                fq, t);
+      tf::store_linear<W_TRUNK, C>(acc, act, G_H,
+                                   bias_s + hop::bias_off(L_FS), fq, t, wg);
     }
-    tf::encode(act, G_P, inp, row0, n, true, 3, nfd, sd_s, 6, a_dim, kd, t);
+    tf::encode<IN_LD, C>(act, G_P, inp, row0, n, true, 3, nfd, sd_s, 6, a_dim,
+                         kd, t, wg);
     sync();
     save(tm.xf, W_TRUNK, G_H);
     save(tm.dtail, kd, G_P);
     {
       bool fresh = true;
-      tf::mma_seg<W_HALF, false>(acc64, none, act, G_H, W_TRUNK, ring, fresh,
-                                 elected, t);
-      tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, kd, ring, fresh,
-                                 elected, t);
+      tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_H, W_TRUNK, ring,
+                                    fresh, elected, t, wg);
+      tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, kd, ring, fresh,
+                                    elected, t, wg);
       drain();
-      tf::store_hidden<W_HALF, true>(acc64, act, G_P,
-                                     bias_s + hop::bias_off(L_DIR), fq, t, m2);
-      hb::put_masks(my_masks, hb::M_HD, m2);
+      tf::store_hidden<W_HALF, true, C>(acc64, act, G_P,
+                                        bias_s + hop::bias_off(L_DIR), fq, t,
+                                        m2, wg);
+      hb::put_masks(my_masks, hb::M_HD + W2 * wg, m2);
       sync();
       save(tm.hd, W_HALF, G_P);
     }
     if (!MIP && has_transient) {
       drain();
-      tf::encode(act, G_P, inp, row0, n, false, 0, 0, sd_s, 6 + a_dim, t_dim,
-                 kt, t);
+      tf::encode<IN_LD, C>(act, G_P, inp, row0, n, false, 0, 0, sd_s,
+                           6 + a_dim, t_dim, kt, t, wg);
       sync();
       save(tm.ttail, kt, G_P);
       for (int l = L_T0; l < L_TH; ++l) {
         bool fresh = true;
         if (l == L_T0) {
-          tf::mma_seg<W_HALF, false>(acc64, none, act, G_H, W_TRUNK, ring,
-                                     fresh, elected, t);
-          tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, kt, ring, fresh,
-                                     elected, t);
+          tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_H, W_TRUNK, ring,
+                                        fresh, elected, t, wg);
+          tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, kt, ring,
+                                        fresh, elected, t, wg);
         } else {
-          tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, W_HALF, ring,
-                                     fresh, elected, t);
+          tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, W_HALF, ring,
+                                        fresh, elected, t, wg);
         }
         drain();
-        tf::store_hidden<W_HALF, true>(acc64, act, G_P,
-                                       bias_s + hop::bias_off(l), fq, t, m2);
-        hb::put_masks(my_masks, hb::M_TH + 2 * (l - L_T0), m2);
+        tf::store_hidden<W_HALF, true, C>(acc64, act, G_P,
+                                          bias_s + hop::bias_off(l), fq, t,
+                                          m2, wg);
+        hb::put_masks(my_masks, hb::M_TH + 2 * (l - L_T0) + W2 * wg, m2);
         sync();
         save(tm.th[l - L_T0], W_HALF, G_P);
       }
@@ -950,23 +978,23 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
 
     // ------------------------------------------------------- backward
     drain();
-    // the heads' cotangent -> G: this thread's own two rows and columns
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    // the heads' cotangent -> G: this thread's own two rows, warpgroup wg's
+    // 8-column group
+    {
       float2 v[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const size_t row = row0 + fr + 8 * h;
         v[h] = row < (size_t)n ? *reinterpret_cast<const float2*>(
-                                     g + row * OUT_LD + 8 * j + 2 * fq)
+                                     g + row * OUT_LD + 8 * wg + 2 * fq)
                                : make_float2(0.0f, 0.0f);
       }
-      act[(G_G + j) * tf::GROUP + t] =
+      act[(G_G + wg) * tf::GROUP + t] =
           make_float4(v[0].x, v[0].y, v[1].x, v[1].y);
     }
     sync();
     save(tm.gh, OUT_LD, G_G);
-    if (lane < OUT_LD) {
+    if (wg == 0 && lane < OUT_LD) {
       // db of both heads and of fs2's sigma block: G's column sums
       float s = 0.0f;
       for (int i = 0; i < 16; ++i) s += val(G_G, 16 * warp + i, lane);
@@ -980,32 +1008,33 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
       for (int l = L_TH; l > L_T0; --l) {
         bool fresh = true;
         if (l == L_TH)
-          tf::mma_seg<W_HALF, false>(acc64, none, act, G_G, OUT_LD, ring,
-                                     fresh, elected, t);
+          tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_G, OUT_LD, ring,
+                                        fresh, elected, t, wg);
         else
-          tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, W_HALF, ring,
-                                     fresh, elected, t);
+          tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, W_HALF, ring,
+                                        fresh, elected, t, wg);
         drain();
-        hb::get_masks(my_masks, hb::M_TH + 2 * (l - 1 - L_T0), m2);
-        tf::store_cot<W_HALF, true, false, true>(
-            acc64, act, G_P, m2, dbrow + hop::bias_off(l - 1), fq, t, lane);
+        hb::get_masks(my_masks, hb::M_TH + 2 * (l - 1 - L_T0) + W2 * wg, m2);
+        tf::store_cot<W_HALF, true, false, true, C>(
+            acc64, act, G_P, m2, dbrow + hop::bias_off(l - 1), fq, t, lane,
+            wg);
         sync();
         save(tm.g[l - 1], W_HALF, G_P);
       }
       // t0: d_xyz_final (transient part) -> H, d_t -> d_inp
       bool fresh = true;
-      tf::mma_seg<W_TRUNK, false>(acc, none, act, G_P, W_HALF, ring, fresh,
-                                  elected, t);
-      tf::store_cot<W_TRUNK, false, false, false>(acc, act, G_H, nullptr,
-                                                  nullptr, fq, t, lane);
+      tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_P, W_HALF, ring, fresh,
+                                     elected, t, wg);
+      tf::store_cot<W_TRUNK, false, false, false, C>(acc, act, G_H, nullptr,
+                                                     nullptr, fq, t, lane, wg);
       fresh = true;
-      tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, W_HALF, ring, fresh,
-                                 elected, t);
+      tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, W_HALF, ring,
+                                    fresh, elected, t, wg);
 #pragma unroll
-      for (int j = 0; j < W_HALF / 8; ++j) {
+      for (int j = 0; j < W_HALF / C / 8; ++j) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int c = 8 * j + 2 * fq + (i & 1);
+          const int c = W_HALF / C * wg + 8 * j + 2 * fq + (i & 1);
           const size_t row = row0 + fr + 8 * (i >> 1);
           if (c < t_dim && row < (size_t)n)
             d_inp[row * IN_LD + 6 + a_dim + c] = acc64[4 * j + i];
@@ -1015,12 +1044,12 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
     // rgb head -> hd's cotangent
     {
       bool fresh = true;
-      tf::mma_seg<W_HALF, false>(acc64, none, act, G_G, OUT_LD, ring, fresh,
-                                 elected, t);
+      tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_G, OUT_LD, ring,
+                                    fresh, elected, t, wg);
       drain();
-      hb::get_masks(my_masks, hb::M_HD, m2);
-      tf::store_cot<W_HALF, true, false, true>(
-          acc64, act, G_P, m2, dbrow + hop::bias_off(L_DIR), fq, t, lane);
+      hb::get_masks(my_masks, hb::M_HD + W2 * wg, m2);
+      tf::store_cot<W_HALF, true, false, true, C>(
+          acc64, act, G_P, m2, dbrow + hop::bias_off(L_DIR), fq, t, lane, wg);
       sync();
       save(tm.g[L_DIR], W_HALF, G_P);
     }
@@ -1028,28 +1057,30 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
     // d_tail -> P
     {
       bool fresh = true;
-      tf::mma_seg<W_TRUNK, false>(acc, none, act, G_P, W_HALF, ring, fresh,
-                                  elected, t);
+      tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_P, W_HALF, ring, fresh,
+                                     elected, t, wg);
       if (has_transient)
-        tf::store_cot<W_TRUNK, false, true, true>(
-            acc, act, G_H, nullptr, dbrow + hop::bias_off(L_FS), fq, t, lane);
+        tf::store_cot<W_TRUNK, false, true, true, C>(
+            acc, act, G_H, nullptr, dbrow + hop::bias_off(L_FS), fq, t, lane,
+            wg);
       else
-        tf::store_cot<W_TRUNK, false, false, true>(
-            acc, act, G_H, nullptr, dbrow + hop::bias_off(L_FS), fq, t, lane);
+        tf::store_cot<W_TRUNK, false, false, true, C>(
+            acc, act, G_H, nullptr, dbrow + hop::bias_off(L_FS), fq, t, lane,
+            wg);
       if constexpr (!MIP) {
         fresh = true;
-        tf::mma_seg<W_HALF, false>(acc64, none, act, G_P, W_HALF, ring,
-                                   fresh, elected, t);
+        tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, W_HALF, ring,
+                                      fresh, elected, t, wg);
       }
       drain();
       if constexpr (!MIP)
-        tf::store_cot<W_HALF, false, false, false>(acc64, act, G_P, nullptr,
-                                                   nullptr, fq, t, lane);
+        tf::store_cot<W_HALF, false, false, false, C>(
+            acc64, act, G_P, nullptr, nullptr, fq, t, lane, wg);
       sync();
       save(tm.g[L_FS], W_TRUNK, G_H);
     }
     // d_inp: dir through its PE, appearance directly
-    for (int e = t; !MIP && e < tf::ROWS * (3 + a_dim); e += 128) {
+    for (int e = tid; !MIP && e < tf::ROWS * (3 + a_dim); e += 128 * C) {
       const int r = e / (3 + a_dim), c = e % (3 + a_dim);
       const size_t row = row0 + r;
       if (row >= (size_t)n) continue;
@@ -1065,34 +1096,34 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
       bool fresh = true;
       if (!MIP && l == 4) {
         // the pe rows of layer 4 first: d_pe's skip part -> P
-        tf::mma_seg<W_HALF, false>(acc64, none, act, G_H, W_TRUNK, ring,
-                                   fresh, elected, t);
-        tf::store_cot<W_HALF, false, false, false>(acc64, act, G_P, nullptr,
-                                                   nullptr, fq, t, lane);
+        tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_H, W_TRUNK, ring,
+                                      fresh, elected, t, wg);
+        tf::store_cot<W_HALF, false, false, false, C>(
+            acc64, act, G_P, nullptr, nullptr, fq, t, lane, wg);
         fresh = true;
       }
-      tf::mma_seg<W_TRUNK, false>(acc, none, act, G_H, W_TRUNK, ring, fresh,
-                                  elected, t);
+      tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_H, W_TRUNK, ring,
+                                     fresh, elected, t, wg);
       if (l == L_FS)
-        tf::mma_seg<W_TRUNK, false>(acc, none, act, G_G, OUT_LD, ring, fresh,
-                                    elected, t);
+        tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_G, OUT_LD, ring,
+                                       fresh, elected, t, wg);
       drain();
-      hb::get_masks(my_masks, 4 * (l - 1), m4);
-      tf::store_cot<W_TRUNK, true, false, true>(
-          acc, act, G_H, m4, dbrow + hop::bias_off(l - 1), fq, t, lane);
+      hb::get_masks(my_masks, 4 * (l - 1) + W4 * wg, m4);
+      tf::store_cot<W_TRUNK, true, false, true, C>(
+          acc, act, G_H, m4, dbrow + hop::bias_off(l - 1), fq, t, lane, wg);
       sync();
       save(tm.g[l - 1], W_TRUNK, G_H);
     }
     // layer 0: d_pe = its cotangent + the skip part -> P
     if constexpr (!MIP) {
       bool fresh = true;
-      tf::mma_seg<W_HALF, false>(acc64, none, act, G_H, W_TRUNK, ring, fresh,
-                                 elected, t);
-      tf::store_cot<W_HALF, false, true, false>(acc64, act, G_P, nullptr,
-                                                nullptr, fq, t, lane);
-      hop::wg_sync(0);
+      tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_H, W_TRUNK, ring,
+                                    fresh, elected, t, wg);
+      tf::store_cot<W_HALF, false, true, false, C>(acc64, act, G_P, nullptr,
+                                                   nullptr, fq, t, lane, wg);
+      tf::consumer_sync<C>();
     }
-    for (int e = t; !MIP && e < tf::ROWS * 3; e += 128) {
+    for (int e = tid; !MIP && e < tf::ROWS * 3; e += 128 * C) {
       const int r = e / 3, c = e % 3;
       const size_t row = row0 + r;
       if (row < (size_t)n)
@@ -1104,7 +1135,7 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
   if (elected) hop::bulk_wait_read();
 }
 
-__global__ void __launch_bounds__(tf::T_THREADS, 1)
+__global__ void __launch_bounds__(tf::B_THREADS, 1)
 fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
                          const float* __restrict__ g,
                          float* __restrict__ d_inp, int n,
@@ -1124,7 +1155,7 @@ fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
                  dbpart, db_stride);
 }
 
-__global__ void __launch_bounds__(tf::T_THREADS, 1)
+__global__ void __launch_bounds__(tf::B_THREADS, 1)
 fused_mlp_bwd_ipe_f32_kernel(const float* __restrict__ inp,
                              const float* __restrict__ g, int n,
                              const unsigned char* __restrict__ image,
@@ -1640,12 +1671,12 @@ int launch(bool f32, const float* inp, const float* g, float* d_inp, int n,
   if (err != cudaSuccess) return (int)err;
   if (n > 0) {
     if (ipe)
-      tb::fused_mlp_bwd_ipe_f32_kernel<<<grid, tf::T_THREADS, tf::B_SMEM,
+      tb::fused_mlp_bwd_ipe_f32_kernel<<<grid, tf::B_THREADS, tf::B_SMEM,
                                          stream>>>(
           inp, g, n, img, plan32, bias, sd, nfx, nfd, d.k0, d.kd, tiles, tm,
           masks, db_part, w.db_stride, runs, ipe_runs);
     else if (f32)
-      tb::fused_mlp_bwd_f32_kernel<<<grid, tf::T_THREADS, tf::B_SMEM,
+      tb::fused_mlp_bwd_f32_kernel<<<grid, tf::B_THREADS, tf::B_SMEM,
                                      stream>>>(
           inp, g, d_inp, n, img, plan32, bias, sx, sd, nfx, nfd, a_dim, t_dim,
           d.k0, d.kd, d.kt, has_transient, tiles, tm, masks, db_part,
@@ -1747,10 +1778,12 @@ int nerf_fused_ipe_bwd(const float* inp, const float* g, int n,
                 ipe_runs, static_cast<cudaStream_t>(stream));
 }
 
-// The kernels' blocks, for reports: out[0] points a block, out[1] threads,
-// out[2] / out[3] shared-memory bytes of the fused and the wgrad kernel,
-// out[4] the wgrad's splits of the points (bfloat16) or its 64-point row
-// blocks a split (float32); bfloat16 in out[0..4], float32 in out[5..9].
+// The kernels' blocks, for reports: out[0] points a block, out[1] threads
+// of the fused kernel, out[2] / out[3] shared-memory bytes of the fused and
+// the wgrad kernel, out[4] the wgrad's splits of the points (bfloat16) or
+// its 64-point row blocks a split (float32); bfloat16 in out[0..4],
+// float32 in out[5..9]; out[10] / out[11] the fused kernel's consumer
+// warpgroups, bfloat16 / float32.
 void nerf_fused_mlp_bwd_info(int* out) {
   out[0] = hop::ROWS;
   out[1] = hop::H_THREADS;
@@ -1758,10 +1791,12 @@ void nerf_fused_mlp_bwd_info(int* out) {
   out[3] = hb::W_SMEM;
   out[4] = hb::SPLITS;
   out[5] = tf::ROWS;
-  out[6] = tf::T_THREADS;
+  out[6] = tf::B_THREADS;
   out[7] = tf::B_SMEM;
   out[8] = tb::W_SMEM;
   out[9] = tb::W_ROW_BLOCKS;
+  out[10] = hop::CONSUMERS;
+  out[11] = tf::B_CONSUMERS;
 }
 
 }  // extern "C"

@@ -805,8 +805,11 @@ namespace tf {
 
 using hop::Ring;
 
-constexpr int ROWS = 64;                  // points a block: one consumer warpgroup
-constexpr int T_THREADS = 256;            // the consumers and a producer warpgroup
+constexpr int ROWS = 64;                  // points a block
+constexpr int T_THREADS = 256;            // one consumer and a producer warpgroup
+constexpr int B_CONSUMERS = 2;            // the backward's consumer warpgroups
+constexpr int B_THREADS = 128 * (B_CONSUMERS + 1);   // and its producer's
+constexpr int B_EMPTY = 4 * B_CONSUMERS;  // arrivals that free a backward stage
 constexpr int GROUP = 128;                // float4s of an 8-column group, one a consumer thread
 constexpr int GROUP_BYTES = GROUP * 16;   // 2 KB
 constexpr int SLOT_BYTES = 8 * GROUP_BYTES;   // a saved tile: 64 points x 64 columns
@@ -984,6 +987,30 @@ template <> struct Wgmma32<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
+template <> struct Wgmma32<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
 template <> struct Wgmma32<16> {
   static __device__ __forceinline__ void run(float (&d)[8],
                                              const uint32_t (&a)[4],
@@ -1118,11 +1145,22 @@ template <> struct WgmmaSS<16> {
 // (g0 + c / 8) * GROUP + t, component 2 ((r / 8) % 2) + c % 2.  A thread's
 // float4 of group j is so its accumulators 4 j .. 4 j + 3, and, split, its
 // A fragment of the contraction values 8 j .. 8 j + 7 in the image's order
-// (Wgmma32).  A product reads only the thread's own activations and its
-// epilogue writes only them: no barrier between layers.
+// (Wgmma32).  With one consumer warpgroup a product reads only the
+// thread's own activations and its epilogue writes only them: no barrier
+// between layers.  With C consumer warpgroups (the backward's two) thread t
+// of each holds the same rows, and warpgroup w computes and writes the
+// column groups of its share of each layer's output (w N / C ..), so a
+// product reads every warpgroup's writes: a barrier over the consumers
+// between layers.
 __device__ __forceinline__ int at(int g0, int r, int c) {
   return ((g0 + (c >> 3)) * GROUP + 32 * (r >> 4) + 4 * (r & 7) +
           ((c & 7) >> 1)) * 4 + 2 * ((r >> 3) & 1) + (c & 1);
+}
+
+// barrier over C consumer warpgroups (hop::wg_sync's id 1 when C = 1)
+template <int C>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * C) : "memory");
 }
 
 // A float4 of the private layout as hi and lo A fragments.
@@ -1134,21 +1172,109 @@ __device__ __forceinline__ void split_a(const float4 v, uint32_t (&hi)[4],
   split(v.w, hi[3], lo[3]);
 }
 
+// mma_seg for C consumer warpgroups (see mma_seg).
+template <int N, int C>
+__device__ __forceinline__ void mma_seg_split(float (&acc)[N / 2 / C],
+                                              const float4* act, int g0,
+                                              int cols, Ring& r, bool& fresh,
+                                              int t, int wg) {
+  static_assert(C == 2 && (N == W_TRUNK || N == W_HALF), "two consumers");
+  constexpr int PIECES = N == W_TRUNK ? 2 : 1;
+  constexpr int NP = N / C;
+  float(&d)[NP / 2] = acc;
+  const uint32_t rows = PIECES == 1 ? wg * NP * 128 : 0;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 v[4];
+  uint32_t ah[4][4], al[4][4];
+  // the A values of the KC columns at k0 (zeros past cols)
+  auto load = [&](int k0) {
+    const int steps = min(KC, cols - k0) / 8;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      v[kk] = kk < steps ? act[(g0 + k0 / 8 + kk) * GROUP + t] : zero;
+  };
+  const bool lead = (t & 31) == 0;
+  // the ring's next stage, once it has landed
+  auto take = [&]() {
+    hop::mbar_wait(r.full + 8 * r.stage, r.phase);
+    const int s = r.stage;
+    if (++r.stage == STAGES) {
+      r.stage = 0;
+      r.phase ^= 1;
+    }
+    return s;
+  };
+  // the other warpgroup's piece: seen to land, then passed
+  auto pass = [&]() {
+    const int s = take();
+    if (lead) hop::mbar_arrive(r.empty + 8 * s);
+  };
+  load(0);
+  for (int k0 = 0; k0 < cols; k0 += KC) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) split_a(v[kk], ah[kk], al[kk]);
+    if (PIECES == 2 && wg == 1) pass();   // piece 0: warpgroup 0's
+    const int s = take();
+    const uint32_t hi = r.buf + s * r.stride + rows;
+    const uint32_t lo = hi + PIECE * 128;
+    const int sd = fresh ? 0 : 1;
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      Wgmma32<NP>::run(d, ah[kk], hop::kdesc(hi + 32 * kk),
+                       kk == 0 ? sd : 1);
+      Wgmma32<NP>::run(d, al[kk], hop::kdesc(hi + 32 * kk), 1);
+      Wgmma32<NP>::run(d, ah[kk], hop::kdesc(lo + 32 * kk), 1);
+    }
+    hop::wgmma_commit();
+    fresh = false;
+    if (k0 + KC < cols) load(k0 + KC);
+    // this warp's products are done
+    hop::wgmma_wait<0>();
+    if (lead) hop::mbar_arrive(r.empty + 8 * s);
+    if (PIECES == 2 && wg == 0) pass();   // piece 1: warpgroup 1's
+  }
+  hop::fence_acc(acc);
+}
+
 // One segment of a layer's contraction: `cols` input columns (a multiple
 // of 16) of this thread's private region g0, KC a stage; each stage holds
-// one output piece of the layer's N columns (256: two pieces of 128, whose
-// accumulators are acc's halves).  Three passes a k8 step: hi x hi, lo x
-// hi, hi x lo.  SIG: fs2, whose last piece has 16 more rows, the sigma
-// block, multiplied into sig.  A stage's products all issue whatever its
-// real columns (the image and the A fragments are zero past them): no
-// wgmma sits behind a branch, which ptxas would answer by serializing
-// them.  The A registers are rewritten every KC columns, so the products of
-// those columns are waited for before the next.
-template <int N, bool SIG>
-__device__ __forceinline__ void mma_seg(float (&acc)[N / 2], float (&sig)[8],
-                                        const float4* act, int g0, int cols,
-                                        Ring& r, bool& fresh, bool elected,
-                                        int t) {
+// one output piece of the layer's N columns (256: two pieces of 128).
+// Three passes a k8 step: hi x hi, lo x hi, hi x lo.  A stage's products
+// all issue whatever its real columns (the image and the A fragments are
+// zero past them): no wgmma sits behind a branch, which ptxas would answer
+// by serializing them.
+// C = 1 (the forward kernels): acc is the layer's N columns (256: the two
+// pieces' accumulators are acc's halves); SIG: fs2, whose last piece has
+// 16 more rows, the sigma block, multiplied into sig.  The A registers are
+// rewritten every KC columns, so the products of those columns are waited
+// for before the next.
+// C = 2 (the backward): warpgroup wg computes N / 2 columns, piece wg of a
+// 256-wide layer (a stage of its own) or rows 64 wg .. of a 128-wide
+// layer's one stage, 64 accumulators a thread at most; the next KC
+// columns' A values are loaded while this KC's products run, and split
+// once they are done.  Every warp waits for every stage of the ring in
+// order and then arrives on its "empty" barrier once (B_EMPTY: 4 C): a
+// stage it reads after its own products, the other warpgroup's piece of a
+// 256-wide layer as soon as it has seen it land (warpgroup 1 before its
+// own piece, warpgroup 0 after releasing its own).  A parity wait is only
+// sound on a stage whose previous fill the waiter has seen land (copies
+// may land out of order) and whose next fill cannot land before the waiter
+// has seen this one; a warp that skipped stages, or a stage released for
+// a warpgroup by one of its warps, breaks one or the other.  With three
+// stages a warpgroup holds one at a time, one in use by each warpgroup and
+// one landing: keeping a second in flight (wait<1>) starves the other
+// warpgroup of stages.
+template <int N, bool SIG, int C = 1>
+__device__ __forceinline__ void mma_seg(float (&acc)[N / 2 / C],
+                                        float (&sig)[8], const float4* act,
+                                        int g0, int cols, Ring& r,
+                                        bool& fresh, bool elected, int t,
+                                        int wg = 0) {
+  if constexpr (C > 1) {
+    mma_seg_split<N, C>(acc, act, g0, cols, r, fresh, t, wg);
+    return;
+  }
   constexpr int PIECES = N == W_TRUNK ? 2 : 1;
   constexpr int NP = N / PIECES;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -1247,13 +1373,14 @@ __device__ __forceinline__ float pe_at(float x0, float x1, float x2, int c,
 // src (pe_at), then n_extra columns copied from column extra_src; without,
 // the copied columns alone; zeros past them and in rows past n.  LD: the
 // input's row stride in floats (the packed row's, or 3 for bare positions).
-template <int LD = IN_LD>
+// C consumer warpgroups: warpgroup wg writes every C-th 8-column group.
+template <int LD = IN_LD, int C = 1>
 __device__ __forceinline__ void encode(float4* act, int g0,
                                        const float* __restrict__ inp,
                                        size_t row0, int n, bool pe, int src,
                                        int n_freq, const float* scale,
                                        int extra_src, int n_extra, int width,
-                                       int t) {
+                                       int t, int wg = 0) {
   const int r = 16 * (t >> 5) + ((t & 31) >> 2), q = t & 3;
   const int first = pe ? 3 + 6 * n_freq : 0;
   float x[2][3];
@@ -1268,7 +1395,7 @@ __device__ __forceinline__ void encode(float4* act, int g0,
     for (int k = 0; k < 3; ++k)
       x[h][k] = live[h] && pe ? p[h][src + k] : 0.0f;
   }
-  for (int j = 0; j < width / 8; ++j) {
+  for (int j = C == 1 ? 0 : wg; j < width / 8; j += C) {
     float o[4];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -1295,11 +1422,13 @@ __device__ __forceinline__ void encode(float4* act, int g0,
 // added after reduction, as pe_at's); m = columns 0..2 of the packed row
 // (the Gaussian's mean), v = columns 6..8 (its diagonal variance).  Zeros
 // past 6 n_freq and in rows past n.  2^l m and -4^l v / 2 are exact, so
-// each value is one sin_cw and one expf, rounded once by the product.
+// each value is one sin_cw and one expf, rounded once by the product.  C
+// consumer warpgroups: warpgroup wg writes every C-th 8-column group.
+template <int C = 1>
 __device__ __forceinline__ void encode_ipe(float4* act, int g0,
                                            const float* __restrict__ inp,
                                            size_t row0, int n, int n_freq,
-                                           int width, int t) {
+                                           int width, int t, int wg = 0) {
   const int r = 16 * (t >> 5) + ((t & 31) >> 2), q = t & 3;
   const int half = 3 * n_freq;
   float m[2][3], v[2][3];
@@ -1315,7 +1444,7 @@ __device__ __forceinline__ void encode_ipe(float4* act, int g0,
       v[h][k] = live[h] ? p[6 + k] : 0.0f;
     }
   }
-  for (int j = 0; j < width / 8; ++j) {
+  for (int j = C == 1 ? 0 : wg; j < width / 8; j += C) {
     float o[4];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -1344,17 +1473,22 @@ __device__ __forceinline__ void encode_ipe(float4* act, int g0,
 // Hidden layer epilogue: relu(sum + bias) in f32 into region g0; with M
 // also the ReLU bits (hop::store_hidden_mask's packing: bit i of word
 // 4 j / 32, at 4 j % 32 + i, for accumulator 4 j + i, set where the stored
-// value is positive).
-template <int N, bool M>
-__device__ __forceinline__ void store_hidden(const float (&acc)[N / 2],
+// value is positive).  C consumer warpgroups: acc is warpgroup wg's share
+// of the N columns (mma_seg's), stored as those columns.
+template <int N, bool M, int C = 1>
+__device__ __forceinline__ void store_hidden(const float (&acc)[N / 2 / C],
                                              float4* act, int g0,
                                              const float* bias, int q, int t,
-                                             uint32_t* m) {
+                                             uint32_t* m, int wg = 0) {
+  constexpr int NC = N / C;
+  const int c0 = C == 1 ? 0 : wg * NC;
+  g0 += c0 / 8;
+  bias += c0;
   if (M)
 #pragma unroll
-    for (int w = 0; w < N / 64; ++w) m[w] = 0;
+    for (int w = 0; w < NC / 64; ++w) m[w] = 0;
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
+  for (int j = 0; j < NC / 8; ++j) {
     const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * q);
     const float4 o = make_float4(
         fmaxf(acc[4 * j] + b.x, 0.0f), fmaxf(acc[4 * j + 1] + b.y, 0.0f),
@@ -1367,13 +1501,18 @@ __device__ __forceinline__ void store_hidden(const float (&acc)[N / 2],
   }
 }
 
-// fs2's xyz_final: sum + bias in f32 into region g0
-template <int N>
-__device__ __forceinline__ void store_linear(const float (&acc)[N / 2],
+// fs2's xyz_final: sum + bias in f32 into region g0 (C: store_hidden's)
+template <int N, int C = 1>
+__device__ __forceinline__ void store_linear(const float (&acc)[N / 2 / C],
                                              float4* act, int g0,
-                                             const float* bias, int q, int t) {
+                                             const float* bias, int q, int t,
+                                             int wg = 0) {
+  constexpr int NC = N / C;
+  const int c0 = C == 1 ? 0 : wg * NC;
+  g0 += c0 / 8;
+  bias += c0;
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
+  for (int j = 0; j < NC / 8; ++j) {
     const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * q);
     act[(g0 + j) * GROUP + t] =
         make_float4(acc[4 * j] + b.x, acc[4 * j + 1] + b.y,
@@ -1384,14 +1523,19 @@ __device__ __forceinline__ void store_linear(const float (&acc)[N / 2],
 // dgrad epilogue (hop::store_cot's, in f32): ADD, plus the value already
 // there; MASK, zero where the forward activation was not positive (bits of
 // m, as store_hidden made them); DB, the column sums of the stored values
-// over this warp's 16 rows to db[column] (lanes 0..3).
-template <int N, bool MASK, bool ADD, bool DB>
-__device__ __forceinline__ void store_cot(const float (&acc)[N / 2],
+// over this warp's 16 rows to db[column] (lanes 0..3).  C: store_hidden's
+// (db is the layer's whole row).
+template <int N, bool MASK, bool ADD, bool DB, int C = 1>
+__device__ __forceinline__ void store_cot(const float (&acc)[N / 2 / C],
                                           float4* act, int g0,
                                           const uint32_t* m, float* db, int q,
-                                          int t, int lane) {
+                                          int t, int lane, int wg = 0) {
+  constexpr int NC = N / C;
+  const int c0 = C == 1 ? 0 : wg * NC;
+  g0 += c0 / 8;
+  if constexpr (DB) db += c0;
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
+  for (int j = 0; j < NC / 8; ++j) {
     float4* p = act + (g0 + j) * GROUP + t;
     float4 v = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
                            acc[4 * j + 3]);
@@ -1420,12 +1564,14 @@ __device__ __forceinline__ void store_cot(const float (&acc)[N / 2],
 
 // The first ceil(cols / 8) groups of the private region at src (a shared
 // address) to tile slots tile, tile + 1, ... of row block rb in the
-// scratch: slot i of rb at ((i * n_rb) + rb) * SLOT_BYTES.  One thread.
+// scratch: slot i of rb at ((i * n_rb) + rb) * SLOT_BYTES.  One thread of
+// each of C consumer warpgroups: warpgroup wg's takes every C-th slot.
+template <int C = 1>
 __device__ __forceinline__ void save(unsigned char* scratch, int tile,
                                      int cols, size_t n_rb, size_t rb,
-                                     uint32_t src) {
+                                     uint32_t src, int wg = 0) {
   const int groups = (cols + 7) / 8;
-  for (int i = 0; 8 * i < groups; ++i)
+  for (int i = C == 1 ? 0 : wg; 8 * i < groups; i += C)
     hop::bulk_s2g(scratch + ((size_t)(tile + i) * n_rb + rb) * SLOT_BYTES,
                   src + i * SLOT_BYTES,
                   (groups - 8 * i < 8 ? groups - 8 * i : 8) * GROUP_BYTES);

@@ -7,7 +7,9 @@ Shapes: the train step's fine pass (131,072 points, appearance 48,
 transient) and coarse pass (65,536 points, no appearance or transient),
 forward and backward, and a render chunk (4,194,304 points, fine) forward;
 the flagship's random weights and points from one seed, as chip_smoke.py's
-phase 7 draws them; then chip_smoke.py's 400 x 400 frame (phase 3, host
+phase 7 draws them; mip-NeRF's IPE pair (f32) at one level of the mip
+cell's sub-step (524,288 points; chip_smoke.py's ``ipe_case``, its
+cotangent in the four live columns), forward and backward; then chip_smoke.py's 400 x 400 frame (phase 3, host
 clock around ``render_chunked``, the median of 3) at each dtype.  Times are CUDA events around one launch, the median of
 --reps after two warm-up launches; beside each time, the sha256 of the
 launch's outputs (the backward's grads and d_inp), so that two checkouts'
@@ -87,6 +89,31 @@ def frame_ms(dev, dtype: str, reps: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def ipe_pair(dev, gen, reps: int, out: dict, n: int = 524_288) -> None:
+    """The IPE forward and backward at ``n`` points into ``out``."""
+    import torch
+    import chip_smoke as cs
+    from nerf_fl_torch.ops import fused_mlp as fm
+    inp, net, sx, sd = cs.ipe_case(dev, n, 6)
+    g = torch.zeros(n, fm.OUT_W)
+    g[:, :4] = torch.randn(n, 4, generator=gen)
+    g = g.to(dev)
+    kw = dict(cs.IPE_DIMS, dtype=torch.float32)
+    tag = "ipe float32"
+    with torch.no_grad():
+        f_ms = median_ms(lambda: fm.fused_mlp_fwd_cuda(inp, net, sx, sd,
+                                                       **kw), reps)
+        f_sha = digest(fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw))
+    b_ms = median_ms(lambda: fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw),
+                     reps)
+    dws, dbs, _ = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    b_sha = digest(*dws, *dbs)
+    out["ms"].update({f"{tag} fwd": f_ms, f"{tag} bwd": b_ms})
+    out["sha256"].update({f"{tag} fwd": f_sha, f"{tag} bwd": b_sha})
+    print(f"[f32_kernels] {tag} ({n} points): forward {f_ms:.3f} ms "
+          f"({f_sha}), backward {b_ms:.3f} ms ({b_sha})", flush=True)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
@@ -148,6 +175,7 @@ def main(argv=None) -> dict:
                 out["sha256"][f"{tag} bwd"] = b_sha
                 line += f", backward {b_ms:.3f} ms ({b_sha})"
             print(line, flush=True)
+    ipe_pair(dev, gen, args.reps, out)
     out["frame_ms"] = {d: frame_ms(dev, d) for d in ("float32", "bfloat16")}
     print(f"[f32_kernels] 400 x 400 frame: float32 "
           f"{out['frame_ms']['float32']:.1f} ms, bfloat16 "

@@ -928,15 +928,18 @@ def _backward(inp, net: PackedNet, sx, sd, g, *, n_freq_xyz, n_freq_dir,
 
 def kernel_block_info(dtype=torch.bfloat16):
     """The ``dtype`` kernels' blocks as their sources define them (the
-    card's build): points a block, threads, dynamic shared-memory bytes,
-    ring depth, and the wgrad's split of the points: bf16 ``splits`` (a
-    fixed count), f32 ``split_rows`` (64-point row blocks a split)."""
-    f, b = (ctypes.c_int * 8)(), (ctypes.c_int * 10)()
+    card's build): points a block, the forward's threads, dynamic
+    shared-memory bytes, ring depth, the fused backward's threads and
+    consumer warpgroups, and the wgrad's split of the points: bf16
+    ``splits`` (a fixed count), f32 ``split_rows`` (64-point row blocks a
+    split)."""
+    f, b = (ctypes.c_int * 8)(), (ctypes.c_int * 12)()
     _lib().nerf_fused_mlp_fwd_info(f)
     _lib_bwd().nerf_fused_mlp_bwd_info(b)
     i, j = (0, 0) if dtype == torch.bfloat16 else (4, 5)
     return {"rows": f[i], "threads": f[i + 1], "fwd_smem": f[i + 2],
-            "stages": f[i + 3], "bwd_smem": b[j + 2],
+            "stages": f[i + 3], "bwd_threads": b[j + 1],
+            "bwd_consumers": b[10 + j // 5], "bwd_smem": b[j + 2],
             "wgrad_smem": b[j + 3],
             ("splits" if j == 0 else "split_rows"): b[j + 4]}
 

@@ -264,6 +264,99 @@ def test_backward_through_wrapper_fills_grads(transient):
         assert x.grad is not None and torch.isfinite(x.grad).all()
 
 
+# around the f32 kernels' 64-point tile, and many tiles with a ragged end
+F32_RAGGED = [1, 63, 65, 64 * 133 + 5]
+
+
+def _f32_bwd_gate(got, inp, net, sx, sd, g, kw):
+    """The f32 backward's gate (test_bwd_kernel_matches_plain_on_card's):
+    within 1e-4 of each tensor's largest against the plain backward with
+    the kernel's side of each ReLU tie, at most 8% of points tied."""
+    from nerf_fl_torch.ops import f32_ties
+    ref, st = f32_ties.matched_backward(got[2], inp, net, sx, sd, g,
+                                        tol=2e-6, **kw)
+    assert st["tie_points"] <= max(1, 0.08 * st["points"]), st
+    for x, y in zip(got[0] + got[1] + [got[2]], ref[0] + ref[1] + [ref[2]]):
+        assert x.shape == y.shape and torch.isfinite(x).all()
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()) \
+            + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dim,transient", [(48, True), (0, False)])
+@pytest.mark.parametrize("n", F32_RAGGED)
+def test_f32_bwd_two_warpgroups_match_plain_at_ragged_sizes_on_card(
+        n, a_dim, transient):
+    """The f32 backward's two consumer warpgroups around its 64-point tile
+    and over 134 tiles with a ragged end, with and without the transient
+    branch: the tie-matched gate, and two launches bitwise equal."""
+    dev = _card()
+    inp, net, sx, sd, g, kw = _bwd_case(dev, "float32", transient, a_dim, n)
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got[0] + got[1] + [got[2]],
+                    again[0] + again[1] + [again[2]]):
+        assert torch.equal(x, y)
+    _f32_bwd_gate(got, inp, net, sx, sd, g, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [63, 64 * 133 + 5])
+def test_f32_bwd_leaves_d_inp_rows_past_n_on_card(n):
+    """Launched on a d_inp with 64 rows past N that hold a marker, the f32
+    backward writes rows 0..N-1 as the wrapper's launch does and leaves the
+    marker rows as they were."""
+    import ctypes
+    dev = _card()
+    inp, net, sx, sd, g, kw = _bwd_case(dev, "float32", True, 48, n)
+    want = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)[2]
+    lib = fm._lib_bwd()
+    image, image_bytes, grid = fm._image_and_grid(net, True, torch.float32,
+                                                  True, n, dev)
+    sizes = (ctypes.c_longlong * 3)()
+    assert lib.nerf_fused_mlp_bwd_sizes(0, n, grid, 10, 4, 48, 16, 1,
+                                        sizes) == 0
+    scratch = torch.empty(max(int(sizes[0]), 1), dtype=torch.uint8,
+                          device=dev)
+    partial = torch.empty(max(int(sizes[1]), 1), device=dev)
+    grads = torch.empty(int(sizes[2]), device=dev)
+    d_inp = torch.zeros(n + 64, fm.LANES, device=dev)
+    d_inp[n:] = 7.0
+    runs = fm._runs(dev)
+    err = lib.nerf_fused_mlp_bwd(
+        0, inp.data_ptr(), g.data_ptr(), d_inp.data_ptr(), n,
+        fm._ptrs(net.bs), image.data_ptr(), image_bytes, grid,
+        sx.data_ptr(), sd.data_ptr(), 10, 4, 48, 16, 1, scratch.data_ptr(),
+        partial.data_ptr(), grads.data_ptr(), runs.data_ptr() + 8,
+        torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(d_inp[:n], want)
+    assert bool((d_inp[n:] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_f32_bwd_block_is_two_consumer_warpgroups_on_card():
+    """The f32 backward's block as the source defines it: 384 threads, two
+    consumer warpgroups, shared memory within the card's 232,448 bytes; its
+    two instances built without spills and without a ptxas C7520 line
+    (wgmma serialized)."""
+    from nerf_fl_torch.ops import _build
+    _card()
+    info = fm.kernel_block_info(torch.float32)
+    assert (info["bwd_threads"], info["bwd_consumers"]) == (384, 2)
+    assert info["bwd_smem"] <= 232_448
+    log = _build.build_log("fused_mlp_bwd").splitlines()
+    for kernel in ("fused_mlp_bwd_f32_kernel", "fused_mlp_bwd_ipe_f32_kernel"):
+        at = [i for i, line in enumerate(log)
+              if "Compiling entry function" in line and kernel in line]
+        assert len(at) == 1, kernel
+        report = " ".join(log[at[0]:at[0] + 4])
+        assert "0 bytes spill stores, 0 bytes spill loads" in report, report
+        assert not [line for line in log if "C7520" in line and kernel in line]
+
+
 def _sigma_case(dev, n, nfx=10, barf=None):
     """The f32 forward's operands (fine model, a_dim 0, transient) and the
     sigma-only kernel's (the positions as they are, the same packed net and

@@ -138,6 +138,24 @@ def test_ablation_patterns_match_the_sources(variant):
         fused_ablation.main(n=128, device="cpu")
 
 
+@pytest.mark.parametrize("variant", sorted(fused_ablation.BWD_F32_VARIANTS))
+def test_f32_bwd_ablation_patterns_match_the_sources(variant):
+    """The f32 backward's ablations edit the shared header alone, each
+    pattern at least once; hi_hi_only reaches both the one- and the
+    two-warpgroup product loop (the backward's)."""
+    variants = fused_ablation.BWD_F32_VARIANTS
+    texts = fused_ablation.patched_sources(variant, variants=variants)
+    plain = {p.name: p.read_text() for p in CSRC.iterdir()}
+    changed = {n for n in texts if texts[n] != plain[n]}
+    assert changed == (set() if variant == "as_is"
+                       else {"fused_mlp_common.cuh"})
+    if variant == "hi_hi_only":
+        for _, old, _, _ in variants[variant]:
+            assert plain["fused_mlp_common.cuh"].count(old) == 2
+    with pytest.raises(ValueError, match="need a card"):
+        fused_ablation.main(n=128, device="cpu", kernel="bwd_f32")
+
+
 @pytest.mark.parametrize("variant", sorted(sin_ablation.VARIANTS))
 def test_sin_ablation_patterns_match_the_source(variant):
     """The sin kernel's layouts edit anatomy_pe.cu alone, each pattern

@@ -112,6 +112,35 @@ def test_ipe_bwd_kernel_matches_plain_on_card(n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 65, 64 * 133 + 5])
+def test_ipe_bwd_two_warpgroups_at_ragged_sizes_on_card(n):
+    """The IPE backward's two consumer warpgroups around its 64-point tile
+    and over 134 tiles with a ragged end: test_ipe_bwd_kernel_matches_plain
+    _on_card's gate (tied points at a zero cotangent, 1e-4 of each tensor's
+    largest) and two launches bitwise equal."""
+    from nerf_fl_torch.ops import f32_ties
+    dev = _card()
+    _, inp, net, sx, sd = _case(dev, n, seed=2)
+    g = torch.zeros(n, 16, device=dev)
+    g[:, :4] = torch.randn(n, 4, generator=torch.Generator().manual_seed(6)
+                           ).to(dev)
+    ties = f32_ties.tie_units(inp, net, sx, sd, tol=2e-6,
+                              **{k: v for k, v in KW.items() if k != "dtype"})
+    tied = torch.stack([t.any(1) for t in ties.values()]).any(0)
+    assert int(tied.sum()) <= max(1, 0.08 * n)
+    g[tied] = 0.0
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **KW)
+    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **KW)
+    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **KW)
+    torch.cuda.synchronize()
+    for x, y, z in zip(got[0] + got[1], ref[0] + ref[1], again[0] + again[1]):
+        assert x.shape == y.shape and torch.isfinite(x).all()
+        assert torch.equal(x, z)
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()) \
+            + 1e-30
+
+
+@pytest.mark.cuda
 def test_ipe_kernels_refuse_bf16_and_transient_on_card():
     dev = _card()
     _, inp, net, sx, sd = _case(dev, 64)
@@ -187,11 +216,13 @@ def sass_digests(lib: str):
 
 @pytest.mark.cuda
 def test_fused_pair_instances_keep_their_machine_code_on_card():
-    """Every kernel of the fused pair's sources that the IPE instances did
-    not add has the SASS recorded from the sources before them
-    (tools/records/sass_fused_pair.json, built on the card with the same
+    """Every kernel of the fused pair's sources has the SASS recorded in
+    tools/records/sass_fused_pair.json (built on the card with the same
     nvcc; re-record with ``python -m
-    nerf_fl_torch.experiments.sass_diff``'s digests if nvcc changes)."""
+    nerf_fl_torch.experiments.sass_diff``'s digests if nvcc changes): the
+    forward, sigma and bf16 kernels as the sources before the IPE
+    instances and the two-warpgroup f32 backward built them, the f32
+    backward's two instances as that design builds them."""
     _card()
     from nerf_fl_torch.ops import _build
     record = json.loads(RECORD.read_text())
