@@ -324,8 +324,7 @@ TP_BF16_LOSS_RTOL, TP_BF16_MEAN, TP_BF16_MAX = 1e-4, TP_LR / 2, \
 TP_TILE, TP_RENDER_TOL = 32, 1e-5
 ARM_WINDOWS = 3                # phase 7's arm sub-steps: timing windows
 # phase 15: one level of the mip cell's sub-step (4,096 rays x 128
-# intervals) and phase 4's render chunk; the IPE kernels' shapes (their
-# keyword arguments but the dtype, float32)
+# intervals) and phase 4's render chunk
 IPE_POINTS, IPE_CHUNK = 524_288, 4_194_304
 # The IPE backward's tie band: it writes no d_inp from which to read the
 # kernel's side of a tie (f32_ties.matched_backward), so every point with
@@ -339,8 +338,6 @@ IPE_POINTS, IPE_CHUNK = 524_288, 4_194_304
 # 2.0-2.5e-6 of zero), at most 2.0e-5 at 1e-5 (8.3% of the points).
 # 8e-6: 2.8x the largest gap, about 6.6% of the points (TIE_SHARE_MAX 8%)
 IPE_TIE = 8e-6
-IPE_DIMS = dict(n_freq_xyz=16, n_freq_dir=4, a_dim=0, t_dim=0,
-                has_transient=False, ipe=True)
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, HBM B/s
 PEAKS = {"H100 SXM": (989e12, 3.35e12), "H100 PCIe": (756e12, 2.0e12),
@@ -436,22 +433,17 @@ def ptxas_info(src: str, kernel: str):
     fail(f"no ptxas report for {kernel} in csrc/{src}.cu's build log")
 
 
-def fused_line(which, n, ms, flops, bound_ms, net, transient,
-               dtype="bfloat16"):
-    """The [fused] line of one kernel at one shape: rate on the unpadded
-    work, share of the bound, and what the block moves and takes.  Bytes
-    are reckoned from the plans, not measured."""
+def fused_line(which, n, ms, flops, bound_ms, net):
+    """The [fused] line of one kernel of ``net``'s layout at one shape: rate
+    on the unpadded work, share of the bound, and what the block moves and
+    takes.  Bytes are reckoned from the plans, not measured."""
     import torch
     from nerf_fl_torch.ops import fused_mlp as fm
-    f32 = dtype == "float32"
-    info = fm.kernel_block_info(torch.float32 if f32 else torch.bfloat16)
+    f32 = net.layout.dtype == torch.float32
+    dtype = str(net.layout.dtype).split(".")[-1]
+    info = fm.kernel_block_info(net.layout.dtype)
     tiles = fm.fwd_tiles(n, info["rows"])
-    if f32:
-        image = fm.f32_image_plan(net.k0, net.kd, net.kt, transient,
-                                  which == "bwd")[1]
-    else:
-        plan = fm.bwd_image_plan if which == "bwd" else fm.image_plan
-        image = plan(net.k0, net.kd, net.kt, transient)[1]
+    image = fm.image_plan(net.layout, which == "bwd")[1]
     kernel = f"fused_mlp_{which}_{'f32' if f32 else 'bf16'}_kernel"
     block = (f"{info['threads']} threads" if which == "fwd" else
              f"{info['bwd_threads']} threads ({info['bwd_consumers']} "
@@ -470,7 +462,7 @@ def fused_line(which, n, ms, flops, bound_ms, net, transient,
     r = ptxas_info("fused_mlp_bwd", kernel)
     w = ptxas_info("fused_mlp_bwd", "wgrad_f32_kernel" if f32
                    else "wgrad_kernel")
-    saved, read = fm.bwd_tile_counts(net.k0, net.kd, net.kt, transient)
+    saved, read = fm.bwd_tile_counts(net.layout)
     blocks = -(-n // 64)                     # 64-point row blocks
     tile_kb = 16 if f32 else 8
     slabs = -(-blocks // info["split_rows"]) if f32 \
@@ -540,14 +532,11 @@ def phase_kernels(dev):
             for transient in (True, False):
                 inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
                 for dtype in (torch.bfloat16, torch.float32):
-                    net = fm.pack_weights(model, a_dim, transient, dtype,
-                                          10, 4, 16)
-                    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
-                              t_dim=16 if transient else 0,
-                              has_transient=transient, dtype=dtype)
+                    net = fm.pack_weights(model, fm.Layout(
+                        dtype, 10, 4, a_dim, 16 if transient else 0))
                     errs, faults = fwd_errors(
-                        fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw),
-                        fm.fused_mlp_reference(inp, net, sx, sd, **kw),
+                        fm.fused_mlp_fwd_cuda(inp, net, sx, sd),
+                        fm.fused_mlp_reference(inp, net, sx, sd),
                         transient, dtype)
                     failures += [f"kernel != plain: a_dim={a_dim} barf={barf} "
                                  f"transient={transient} {dtype}: {f}"
@@ -743,7 +732,7 @@ def profile_frame(frame, what="frame"):
 
 def fused_case(dev, cfg, n, seed):
     """The flagship fine pass's forward operands at ``n`` random points:
-    (inp, net, sx, sd, kw) of fused_mlp_fwd_cuda / fused_mlp_reference."""
+    (inp, net, sx, sd) of fused_mlp_fwd_cuda / fused_mlp_reference."""
     import torch
     from nerf_fl_torch.models import init_nerf
     from nerf_fl_torch.ops import fused_mlp as fm
@@ -752,14 +741,11 @@ def fused_case(dev, cfg, n, seed):
     model = init_nerf(cfg.nerf_config("fine"), generator=gen).to(dev)
     xyz, dirs, a, t = make_points(n, cfg.N_a, cfg.N_tau, gen, dev)
     inp = fm.pack_inputs(xyz, dirs, a, t)
-    net = fm.pack_weights(model, cfg.N_a, True, cfg.dtype, cfg.N_emb_xyz,
-                          cfg.N_emb_dir, cfg.N_tau)
+    net = fm.pack_weights(model, fm.layout_for(cfg.nerf_config("fine"),
+                                               cfg.dtype, transient=True))
     sx, sd = fm.default_scale_rows(cfg.N_emb_xyz, cfg.N_emb_dir, cfg.N_a,
                                    device=dev)
-    kw = dict(n_freq_xyz=cfg.N_emb_xyz, n_freq_dir=cfg.N_emb_dir,
-              a_dim=cfg.N_a, t_dim=cfg.N_tau, has_transient=True,
-              dtype=cfg.dtype)
-    return inp, net, sx, sd, kw
+    return inp, net, sx, sd
 
 
 def phase_timing(dev, cfg, smi_name):
@@ -768,22 +754,22 @@ def phase_timing(dev, cfg, smi_name):
     from nerf_fl_torch.ops import fused_mlp as fm
 
     n = 32 * 1024 * (cfg.N_samples + cfg.N_importance)     # 4,194,304
-    inp, net, sx, sd, kw = fused_case(dev, cfg, n, 2)
+    inp, net, sx, sd = fused_case(dev, cfg, n, 2)
     dtype = cfg.dtype
     with torch.no_grad():
-        errs, faults = fwd_errors(fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw),
-                                  fm.fused_mlp_reference(inp, net, sx, sd,
-                                                         **kw), True, dtype)
+        errs, faults = fwd_errors(fm.fused_mlp_fwd_cuda(inp, net, sx, sd),
+                                  fm.fused_mlp_reference(inp, net, sx, sd),
+                                  True, dtype)
         print(f"[timing] fused_mlp_fwd vs plain at {n} points: max_abs_err "
               + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
         if faults:
             fail(f"forward kernel != plain at {n} points: " + "; ".join(faults))
         for _ in range(2):                                   # warm up
-            fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+            fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
         k_ms, k_all = cuda_ms(lambda: fm.fused_mlp_fwd_cuda(
-            inp, net, sx, sd, **kw), 7)
+            inp, net, sx, sd), 7)
         p_ms, p_all = cuda_ms(lambda: fm.fused_mlp_reference(
-            inp, net, sx, sd, **kw), 5)
+            inp, net, sx, sd), 5)
     flops = 2.0 * fine_macs(cfg) * n
     w_bytes = sum(w.numel() * w.element_size() for w in net.ws) \
         + sum(b.numel() * 4 for b in net.bs)
@@ -800,25 +786,25 @@ def phase_timing(dev, cfg, smi_name):
           f"({peak_flops / 1e12:.0f} TFLOP/s bf16, {peak_bw / 1e12:.2f} TB/s);"
           f" {flops / k_ms / 1e9:.1f} TFLOP/s achieved = "
           f"{100 * bound_ms / k_ms:.1f}% of bound")
-    fused_line("fwd", n, k_ms, flops, bound_ms, net, True)
+    fused_line("fwd", n, k_ms, flops, bound_ms, net)
 
     # the f32 kernel at the same shape (the CLIs' default dtype)
-    inp, net, sx, sd, kw = fused_case(dev, replace(cfg, compute_dtype=
+    inp, net, sx, sd = fused_case(dev, replace(cfg, compute_dtype=
                                                    "float32"), n, 2)
     with torch.no_grad():
         errs32, faults = fwd_errors(
-            fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw),
-            fm.fused_mlp_reference(inp, net, sx, sd, **kw), True,
+            fm.fused_mlp_fwd_cuda(inp, net, sx, sd),
+            fm.fused_mlp_reference(inp, net, sx, sd), True,
             torch.float32)
         if faults:
             fail(f"f32 forward kernel != plain at {n} points: "
                  + "; ".join(faults))
         for _ in range(2):
-            fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+            fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
         f_ms, f_all = cuda_ms(lambda: fm.fused_mlp_fwd_cuda(
-            inp, net, sx, sd, **kw), 7)
+            inp, net, sx, sd), 7)
         fp_ms, fp_all = cuda_ms(lambda: fm.fused_mlp_reference(
-            inp, net, sx, sd, **kw), 5)
+            inp, net, sx, sd), 5)
     w32 = sum(w.numel() * 4 for w in net.ws) + sum(b.numel() * 4
                                                    for b in net.bs)
     b32, by32, core32 = f32_bounds(flops, n_bytes - w_bytes + w32, part,
@@ -829,9 +815,8 @@ def phase_timing(dev, cfg, smi_name):
           f"{b32:.3f} ms by {by32} as three TF32 passes "
           f"({100 * b32 / f_ms:.1f}% of it), {core32:.3f} ms on the CUDA "
           f"cores ({peak_for(smi_name)[0]} f32 peak)")
-    fused_line("fwd", n, f_ms, flops, b32, net, True, "float32")
-    sigma = sigma_timing(inp, net, sx, sd, kw, cfg, part, peak_flops,
-                         peak_bw)
+    fused_line("fwd", n, f_ms, flops, b32, net)
+    sigma = sigma_timing(inp, net, sx, sd, cfg, part, peak_flops, peak_bw)
     return (k_ms, p_ms, bound_ms, bound_by, max(errs.values()),
             dict(ms=f_ms, plain_ms=fp_ms, bound_ms=b32, bound_by=by32,
                  core_ms=core32, err=max(errs32.values())), sigma)
@@ -844,7 +829,7 @@ def render_chunk(cfg) -> int:
     return val_chunk_cap(32 * 1024, cfg.N_samples, cfg.N_importance)
 
 
-def sigma_timing(inp, net, sx, sd, kw, cfg, part, peak_flops, peak_bw):
+def sigma_timing(inp, net, sx, sd, cfg, part, peak_flops, peak_bw):
     """The sigma-only kernel at the size of its launches in the f32 frame
     (a render chunk's rays x N_samples coarse samples): its pre-activation
     bit for bit the f32 kernel's sigma column and within F32_ATOL of its
@@ -858,7 +843,7 @@ def sigma_timing(inp, net, sx, sd, kw, cfg, part, peak_flops, peak_bw):
     from nerf_fl_torch.models.mlp import apply_nerf
     from nerf_fl_torch.ops import fused_mlp as fm
 
-    n, nfx = inp.shape[0], kw["n_freq_xyz"]
+    n, nfx = inp.shape[0], net.layout.n_freq_xyz
     m = render_chunk(cfg) * cfg.N_samples
     x, W = cfg.in_channels_xyz, cfg.mlp_width
     macs = x * W + 6 * W * W + (x + W) * W + W
@@ -867,7 +852,7 @@ def sigma_timing(inp, net, sx, sd, kw, cfg, part, peak_flops, peak_bw):
                           inp.device)
 
     def sigma(xyz):
-        return fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=nfx)
+        return fm.fused_sigma_cuda(xyz, net, sx)
 
     def bounds(points):
         return f32_bounds(2.0 * macs * points, points * (3 + 1) * 4, part,
@@ -878,12 +863,12 @@ def sigma_timing(inp, net, sx, sd, kw, cfg, part, peak_flops, peak_bw):
         for k in (m, n):
             xyz = xyz_all[:k]
             if not torch.equal(sigma(xyz), fm.fused_mlp_fwd_cuda(
-                    inp[:k], net, sx, sd, **kw)[:, fm.COL_S_SIGMA]):
+                    inp[:k], net, sx, sd)[:, fm.COL_S_SIGMA]):
                 fail(f"sigma-only kernel at {k} points: not bit for bit the "
                      f"f32 kernel's sigma column")
         xyz = xyz_all[:m]
         err = float((sigma(xyz) - fm.fused_sigma_reference(
-            xyz, net, sx, n_freq_xyz=nfx)).abs().max())
+            xyz, net, sx)).abs().max())
         if not err <= F32_ATOL:
             fail(f"sigma-only kernel at {m} points: {err:.2e} from its plain "
                  f"version (limit {F32_ATOL})")
@@ -891,7 +876,7 @@ def sigma_timing(inp, net, sx, sd, kw, cfg, part, peak_flops, peak_bw):
             sigma(xyz)
         ms, runs = cuda_ms(lambda: sigma(xyz), 7)
         plain_ms, _ = cuda_ms(lambda: fm.fused_sigma_reference(
-            xyz, net, sx, n_freq_xyz=nfx), 5)
+            xyz, net, sx), 5)
         mlp_ms, mlp_runs = cuda_ms(lambda: apply_nerf(
             model, encoding.embed(xyz, nfx), sigma_only=True), 5)
         ms_all, runs_all = cuda_ms(lambda: sigma(xyz_all), 5)
@@ -915,13 +900,12 @@ def sigma_timing(inp, net, sx, sd, kw, cfg, part, peak_flops, peak_bw):
                 all_points=dict(points=n, ms=ms_all, bound_ms=bound_all))
 
 
-def bwd_errors(got, ref, a_dim, transient):
-    """Per unpacked tensor (every weight and bias grad, then d_inp): (max
-    |d|, max |ref|, ||d||, ||ref||)."""
+def bwd_errors(got, ref, layout):
+    """Per unpacked tensor of a net of ``layout`` (every weight and bias
+    grad, then d_inp): (max |d|, max |ref|, ||d||, ||ref||)."""
     from nerf_fl_torch.ops import fused_mlp as fm
-    widths = (63, 27 + a_dim, 16, transient)
-    pairs = list(zip(fm.unpack_weight_grads(got[0], got[1], *widths),
-                     fm.unpack_weight_grads(ref[0], ref[1], *widths)))
+    pairs = list(zip(fm.unpack_weight_grads(got[0], got[1], layout),
+                     fm.unpack_weight_grads(ref[0], ref[1], layout)))
     pairs.append((got[2], ref[2]))
     out = []
     for x, y in pairs:
@@ -946,14 +930,14 @@ def norm_rel(errs) -> float:
     return max(e[2] / max(e[3], 1e-30) for e in errs)
 
 
-def f32_bwd_reference(got, inp, net, sx, sd, g, kw):
+def f32_bwd_reference(got, inp, net, sx, sd, g):
     """The f32 backward gates' reference for the kernel's output ``got``:
     the plain backward with the kernel's side of each ReLU tie
     (f32_ties.matched_backward, TIE_F32), its stats, a fault if more than
     TIE_SHARE_MAX of the points have a tie unit, and a note for the line."""
     from nerf_fl_torch.ops import f32_ties
     ref, st = f32_ties.matched_backward(got[2], inp, net, sx, sd, g,
-                                        tol=TIE_F32, **kw)
+                                        tol=TIE_F32)
     faults = [f"{st['tie_points']} of {st['points']} points have a tie "
               f"unit, over {TIE_SHARE_MAX:g} of them"] \
         if st["tie_points"] > TIE_SHARE_MAX * st["points"] else []
@@ -1000,15 +984,11 @@ def phase_bwd_kernels(dev):
             for transient in (True, False):
                 inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
                 for dtype in (torch.bfloat16, torch.float32):
-                    net = fm.pack_weights(model, a_dim, transient, dtype,
-                                          10, 4, 16)
-                    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
-                              t_dim=16 if transient else 0,
-                              has_transient=transient, dtype=dtype)
-                    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-                    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-                    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g,
-                                                     **kw)
+                    net = fm.pack_weights(model, fm.Layout(
+                        dtype, 10, 4, a_dim, 16 if transient else 0))
+                    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+                    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+                    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g)
                     torch.cuda.synchronize()
                     name = str(dtype).split(".")[-1]
                     tag = (f"a_dim={a_dim} barf={barf} transient={transient}"
@@ -1017,7 +997,7 @@ def phase_bwd_kernels(dev):
                     if dtype == torch.float32:
                         plain = ref
                         ref, _, faults, note = f32_bwd_reference(
-                            got, inp, net, sx, sd, g, kw)
+                            got, inp, net, sx, sd, g)
                         failures += [f"{tag}: {f}" for f in faults]
                         every = (f"; {note}; against the plain sides "
                                  f"{worst_rel(got, plain):.1e} (not gated)")
@@ -1027,7 +1007,7 @@ def phase_bwd_kernels(dev):
                     if not all(torch.equal(x, y) for x, y in zip(
                             outs, again[0] + again[1] + [again[2]])):
                         failures.append(f"two launches differ: {tag}")
-                    errs = bwd_errors(got, ref, a_dim, transient)
+                    errs = bwd_errors(got, ref, net.layout)
                     failures += [f"backward kernel != plain {tag}: {f}"
                                  for f in bwd_faults(errs, dtype)]
                     rel = [e[0] / max(e[1], 1e-30) for e in errs]
@@ -1343,30 +1323,28 @@ def phase_bwd_timing(cfg, smi_name):
         g = torch.zeros(n, fm.OUT_W)
         g[:, :9] = torch.randn(n, 9, generator=gen)
         g = g.to(dev)
-        net = fm.pack_weights(model, a_dim, transient, dtype,
-                              cfg.N_emb_xyz, cfg.N_emb_dir, cfg.N_tau)
+        net = fm.pack_weights(model, fm.Layout(
+            dtype, cfg.N_emb_xyz, cfg.N_emb_dir, a_dim,
+            cfg.N_tau if transient else 0))
         sx, sd = fm.default_scale_rows(cfg.N_emb_xyz, cfg.N_emb_dir, a_dim,
                                        device=dev)
-        kw = dict(n_freq_xyz=cfg.N_emb_xyz, n_freq_dir=cfg.N_emb_dir,
-                  a_dim=a_dim, t_dim=cfg.N_tau if transient else 0,
-                  has_transient=transient, dtype=dtype)
         with torch.no_grad():
             f_errs, faults = fwd_errors(
-                fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw),
-                fm.fused_mlp_reference(inp, net, sx, sd, **kw), transient,
+                fm.fused_mlp_fwd_cuda(inp, net, sx, sd),
+                fm.fused_mlp_reference(inp, net, sx, sd), transient,
                 dtype)
-        got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-        ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+        got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+        ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g)
         st, limit = None, f"limit {BWD_BF16_NORM:g} norm-rel"
         if f32:
             plain_rel = worst_rel(got, ref)
             ref, st, tie_faults, note = f32_bwd_reference(got, inp, net, sx,
-                                                          sd, g, kw)
+                                                          sd, g)
             faults += tie_faults
             limit = (f"limit {BWD_F32_REL:g} of each tensor's largest, "
                      f"every point, the kernel's side of each ReLU tie: "
                      f"{note}; against the plain sides {plain_rel:.1e}")
-        errs = bwd_errors(got, ref, a_dim, transient)
+        errs = bwd_errors(got, ref, net.layout)
         faults += bwd_faults(errs, dtype)
         print(f"[bwd timing] {name} {dname}: at {n} points, fused_mlp_fwd "
               f"vs plain max_abs_err {max(f_errs.values()):.2e}; "
@@ -1379,15 +1357,15 @@ def phase_bwd_timing(cfg, smi_name):
                  + "; ".join(faults))
         with torch.no_grad():
             for _ in range(2):                               # warm up
-                fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+                fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
             f_ms, _ = cuda_ms(lambda: fm.fused_mlp_fwd_cuda(
-                inp, net, sx, sd, **kw), 7)
+                inp, net, sx, sd), 7)
         for _ in range(2):
-            fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+            fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
         k_ms, k_all = cuda_ms(lambda: fm.fused_mlp_bwd_cuda(
-            inp, net, sx, sd, g, **kw), 7)
+            inp, net, sx, sd, g), 7)
         p_ms, p_all = cuda_ms(lambda: fm.fused_mlp_bwd_reference(
-            inp, net, sx, sd, g, **kw), 5)
+            inp, net, sx, sd, g), 5)
         # forward recompute + dgrad + wgrad: 3x the forward's operations
         flops = 3 * 2.0 * fine_macs(cfg, a_dim, transient) * n
         w_bytes = sum(w.numel() * w.element_size() for w in net.ws) \
@@ -1417,8 +1395,8 @@ def phase_bwd_timing(cfg, smi_name):
               + (f"; {core_ms:.3f} ms on the CUDA cores" if f32 else ""))
         # the forward at this shape: a third of the operations; its bytes
         # are inp, out and the weights, far under its operations' time
-        fused_line("fwd", n, f_ms, flops / 3, f_bound, net, transient, dname)
-        fused_line("bwd", n, k_ms, flops, bound_ms, net, transient, dname)
+        fused_line("fwd", n, f_ms, flops / 3, f_bound, net)
+        fused_line("bwd", n, k_ms, flops, bound_ms, net)
         key = f"{name}_f32" if f32 else name
         out[key] = dict(ms=k_ms, fwd_ms=f_ms, plain_ms=p_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
@@ -1434,15 +1412,15 @@ def ipe_case(dev, n, seed):
     """A mip-NeRF field (glorot weights, every parameter nudged off its
     initial value so that no bias sits at 0) and n packed rows of Gaussians
     along cone intervals at the Blender recipe's scale: (inp, net, sx, sd)
-    of fused_mlp_fwd_cuda / fused_mlp_reference at IPE_DIMS."""
+    of fused_mlp_fwd_cuda / fused_mlp_reference in the IPE layout."""
     import torch
     from nerf_fl_torch.models import init_nerf
     from nerf_fl_torch.ops import fused_mlp as fm
     from nerf_fl_torch.render import RenderConfig
 
     gen = torch.Generator().manual_seed(seed)
-    model = init_nerf(RenderConfig(model="mipnerf").nerf_config("mip"),
-                      generator=gen, init="glorot")
+    mcfg = RenderConfig(model="mipnerf").nerf_config("mip")
+    model = init_nerf(mcfg, generator=gen, init="glorot")
     with torch.no_grad():
         for p in model.parameters():
             p.add_(0.02 * torch.randn(p.shape, generator=gen))
@@ -1452,7 +1430,7 @@ def ipe_case(dev, n, seed):
     d = torch.randn(n, 3, generator=gen)
     d = d / d.norm(dim=-1, keepdim=True)
     inp = fm.pack_ipe_inputs(mean.to(dev), d.to(dev), var.to(dev))
-    net = fm.pack_weights(model, 0, False, torch.float32, 16, 4, 0, ipe=True)
+    net = fm.pack_weights(model, fm.layout_for(mcfg, torch.float32))
     sx, sd = fm.default_scale_rows(0, 4, 0, device=dev)
     return inp.contiguous(), net, sx, sd
 
@@ -1471,13 +1449,12 @@ def phase_ipe(smi_name):
     with open(os.path.join(HERE, "benchmark", "configs",
                            "mipnerf_lego.json")) as f:
         conf = json.load(f)
-    kw = dict(IPE_DIMS, dtype=torch.float32)
     out = {}
     for n in (IPE_POINTS, IPE_CHUNK):
         inp, net, sx, sd = ipe_case(dev, n, 5)
         with torch.no_grad():
-            got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
-            ref = fm.fused_mlp_reference(inp, net, sx, sd, **kw)
+            got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
+            ref = fm.fused_mlp_reference(inp, net, sx, sd)
             err = float((got - ref).abs().max())
             pad = float(got[:, 4:].abs().max())
             if not torch.isfinite(got).all() or err > F32_ATOL or pad != 0:
@@ -1485,11 +1462,11 @@ def phase_ipe(smi_name):
                      f"{err:.3e} (limit {F32_ATOL:g}), padding {pad:g}")
             del got, ref
             for _ in range(2):                               # warm up
-                fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+                fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
             k_ms, k_all = cuda_ms(lambda: fm.fused_mlp_fwd_cuda(
-                inp, net, sx, sd, **kw), 7)
+                inp, net, sx, sd), 7)
             p_ms, _ = cuda_ms(lambda: fm.fused_mlp_reference(
-                inp, net, sx, sd, **kw), 3)
+                inp, net, sx, sd), 3)
         flops, n_bytes = flops_mip.fused_fwd(conf, n)
         bound, by, core = f32_bounds(flops, n_bytes, part, peak_flops,
                                      peak_bw)
@@ -1513,8 +1490,8 @@ def phase_ipe(smi_name):
     g = torch.zeros(n, fm.OUT_W)
     g[:, :4] = torch.randn(n, 4, generator=torch.Generator().manual_seed(7))
     g = g.to(dev)
-    pre = f32_ties.pre_activations(inp, net, sx, sd, **IPE_DIMS)
-    model = f32_ties.pre_activations(inp, net, sx, sd, **IPE_DIMS,
+    pre = f32_ties.pre_activations(inp, net, sx, sd)
+    model = f32_ties.pre_activations(inp, net, sx, sd,
                                      matmul=f32_ties.tf32x3_mm)
     gap = max(float((pre[i] - model[i]).abs().max()) for i in pre)
     tied = torch.stack([p.abs().lt(IPE_TIE).any(1)
@@ -1525,9 +1502,9 @@ def phase_ipe(smi_name):
         fail(f"IPE backward: {n_tied} of {n} points have a tie unit, over "
              f"{TIE_SHARE_MAX:g} of them")
     g[tied] = 0.0
-    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g)
     torch.cuda.synchronize()
     rel = [float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
            for x, y in zip(got[0] + got[1], ref[0] + ref[1])]
@@ -1545,11 +1522,11 @@ def phase_ipe(smi_name):
              + "; ".join(faults))
     del got, again, ref
     for _ in range(2):
-        fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+        fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
     b_ms, b_all = cuda_ms(lambda: fm.fused_mlp_bwd_cuda(
-        inp, net, sx, sd, g, **kw), 7)
+        inp, net, sx, sd, g), 7)
     bp_ms, _ = cuda_ms(lambda: fm.fused_mlp_bwd_reference(
-        inp, net, sx, sd, g, **kw), 3)
+        inp, net, sx, sd, g), 3)
     flops, n_bytes = flops_mip.fused_bwd(conf, n)
     bound, by, core = f32_bounds(flops, n_bytes, part, peak_flops, peak_bw)
     print(f"[ipe] fused_mlp_bwd_ipe float32 at {n} points: worst max-rel "
@@ -3648,18 +3625,17 @@ def phase_anatomy(dev, cfg, smi_name):
         # the fused forward kernel on the same number of points, as it is
         # and without its encoders (fused_ablation.py's no_encoders variant:
         # wrong values, time only), per call and queued
-        inp, net, sx, sd, kw = fused_case(dev, cfg, n, 5)
+        inp, net, sx, sd = fused_case(dev, cfg, n, 5)
 
         def fused():
-            return fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+            return fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
 
         for _ in range(2):
             fused()
         fused_ms, _ = cuda_ms(fused, 7)
         fused_q, _ = queued_ms(fused)
         flops = 2.0 * fine_macs(cfg) * n
-        fused_line("fwd", n, fused_ms, flops, flops / peak_bf16 * 1e3, net,
-                   True)
+        fused_line("fwd", n, fused_ms, flops, flops / peak_bf16 * 1e3, net)
         t0 = time.perf_counter()
         with built_from(patched_sources("no_encoders"),
                         _build.BUILD / "ablation" / "no_encoders",

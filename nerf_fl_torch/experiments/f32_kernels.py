@@ -98,15 +98,14 @@ def ipe_pair(dev, gen, reps: int, out: dict, n: int = 524_288) -> None:
     g = torch.zeros(n, fm.OUT_W)
     g[:, :4] = torch.randn(n, 4, generator=gen)
     g = g.to(dev)
-    kw = dict(cs.IPE_DIMS, dtype=torch.float32)
     tag = "ipe float32"
     with torch.no_grad():
-        f_ms = median_ms(lambda: fm.fused_mlp_fwd_cuda(inp, net, sx, sd,
-                                                       **kw), reps)
-        f_sha = digest(fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw))
-    b_ms = median_ms(lambda: fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw),
+        f_ms = median_ms(lambda: fm.fused_mlp_fwd_cuda(inp, net, sx, sd),
+                         reps)
+        f_sha = digest(fm.fused_mlp_fwd_cuda(inp, net, sx, sd))
+    b_ms = median_ms(lambda: fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g),
                      reps)
-    dws, dbs, _ = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    dws, dbs, _ = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
     b_sha = digest(*dws, *dbs)
     out["ms"].update({f"{tag} fwd": f_ms, f"{tag} bwd": b_ms})
     out["sha256"].update({f"{tag} fwd": f_sha, f"{tag} bwd": b_sha})
@@ -152,24 +151,21 @@ def main(argv=None) -> dict:
         g = g.to(dev)
         sx, sd = fm.default_scale_rows(10, 4, a_dim, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
-            net = fm.pack_weights(model, a_dim, transient, dtype, 10, 4, 16)
-            kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
-                      t_dim=16 if transient else 0, has_transient=transient,
-                      dtype=dtype)
+            net = fm.pack_weights(model, fm.Layout(
+                dtype, 10, 4, a_dim, 16 if transient else 0))
             tag = f"{name} {str(dtype).split('.')[-1]}"
             with torch.no_grad():
                 f_ms = median_ms(lambda: fm.fused_mlp_fwd_cuda(
-                    inp, net, sx, sd, **kw), args.reps)
-                f_sha = digest(fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw))
+                    inp, net, sx, sd), args.reps)
+                f_sha = digest(fm.fused_mlp_fwd_cuda(inp, net, sx, sd))
             out["ms"][f"{tag} fwd"] = f_ms
             out["sha256"][f"{tag} fwd"] = f_sha
             line = (f"[f32_kernels] {tag} ({n} points): forward {f_ms:.3f} "
                     f"ms ({f_sha})")
             if bwd:
                 b_ms = median_ms(lambda: fm.fused_mlp_bwd_cuda(
-                    inp, net, sx, sd, g, **kw), args.reps)
-                dws, dbs, d_inp = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g,
-                                                        **kw)
+                    inp, net, sx, sd, g), args.reps)
+                dws, dbs, d_inp = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
                 b_sha = digest(*dws, *dbs, d_inp)
                 out["ms"][f"{tag} bwd"] = b_ms
                 out["sha256"][f"{tag} bwd"] = b_sha

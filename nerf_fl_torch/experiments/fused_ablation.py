@@ -190,15 +190,13 @@ def main(n: Optional[int] = None, reps: int = 7, device=None,
     g = torch.zeros(n, fm.OUT_W)
     g[:, :9] = torch.randn(n, 9, generator=gen)
     g = g.to(dev)
-    net = fm.pack_weights(model, 48, True, dtype, 10, 4, 16)
+    net = fm.pack_weights(model, fm.Layout(dtype, 10, 4, 48, 16))
     sx, sd = fm.default_scale_rows(10, 4, 48, device=dev)
-    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=48, t_dim=16,
-              has_transient=True, dtype=dtype)
 
     def run():
         if bwd:
-            return fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-        return fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
+            return fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+        return fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
 
     ms, fused = {}, {}
     src = Path(csrc).resolve() / "nerf_fl_torch" / "csrc" if csrc else None

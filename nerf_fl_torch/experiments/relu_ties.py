@@ -58,15 +58,9 @@ def main(argv=None):
     g[:, :9] = torch.randn(n, 9, generator=gen)
     inp = fm.pack_inputs(xyz, d, a, t).to(dev)
     g = g.to(dev)
-    net = fm.pack_weights(model.to(dev), a_dim, True, torch.float32, 10, 4,
-                          16)
+    net = fm.pack_weights(model.to(dev),
+                          fm.Layout(torch.float32, 10, 4, a_dim, 16))
     sx, sd = fm.default_scale_rows(10, 4, a_dim, device=dev)
-    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim, t_dim=16,
-              has_transient=True, dtype=torch.float32)
-    hidden = list(range(8)) + [9, 11, 12, 13, 14]
-
-    hid = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim, t_dim=16,
-               has_transient=True)
 
     def worst(got, ref):
         return max(float((x - y).abs().max()) / max(float(y.abs().max()),
@@ -79,25 +73,25 @@ def main(argv=None):
         "f32_reversed": lambda x, y: torch.flip(x, [-1]) @ torch.flip(y, [0]),
         "float64": lambda x, y: (x.double() @ y.double()).float(),
     }
-    ref_pre = f32_ties.pre_activations(inp, net, sx, sd, **hid)
-    plain = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+    ref_pre = f32_ties.pre_activations(inp, net, sx, sd)
+    plain = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g)
     tie_points = int(torch.stack([m.any(1) for m in f32_ties.tie_units(
-        inp, net, sx, sd, tol=args.tol, **hid).values()]).any(0).sum())
+        inp, net, sx, sd, tol=args.tol).values()]).any(0).sum())
     out = {"n": n, "seed": args.seed, "tol": args.tol,
            "device": str(dev), "tie_points": tie_points, "models": {}}
     print(f"[relu_ties] {n} points, seed {args.seed}: {tie_points} points "
           f"have a hidden pre-activation within {args.tol:g} of 0")
     for name, mm in models.items():
-        pre = f32_ties.pre_activations(inp, net, sx, sd, matmul=mm, **hid)
+        pre = f32_ties.pre_activations(inp, net, sx, sd, matmul=mm)
         flips = {i: (pre[i] > 0) != (q > 0) for i, q in ref_pre.items()}
         n_flip = sum(int(f.sum()) for f in flips.values())
         far = max([float(ref_pre[i][f].abs().max())
                    for i, f in flips.items() if f.any()] or [0.0])
         delta = max(float((pre[i] - q).abs().max())
                     for i, q in ref_pre.items())
-        got = fm._backward(inp, net, sx, sd, g, matmul=mm, **kw)
+        got = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, matmul=mm)
         matched, st = f32_ties.matched_backward(got[2], inp, net, sx, sd, g,
-                                                tol=args.tol, **kw)
+                                                tol=args.tol)
         row = {"flipped_units": n_flip, "max_pre_delta": delta,
                "farthest_flip": far, "bwd_worst_rel": worst(got, plain),
                "bwd_worst_rel_matched": worst(got, matched),

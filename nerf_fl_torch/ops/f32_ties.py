@@ -44,16 +44,17 @@ def _hidden(has_transient: bool):
     return [i for i in HIDDEN if has_transient or i < 11]
 
 
-def _matmul(flips: Dict[int, torch.Tensor], bs, has_transient: bool,
+def _matmul(flips: Dict[int, torch.Tensor], net: fm.PackedNet,
             base=torch.matmul):
-    """A ``matmul`` for ``fused_mlp._forward`` / ``_backward`` (which take
-    packed layer i's forward product as their i-th call) that puts every
-    unit marked in ``flips[i]`` on the other side of its ReLU: an alive
-    unit's pre-activation becomes 0, a dead one's the least positive value
-    ``product + bias`` can reach.  Either way it moves by no more than the
-    unit's |pre-activation| plus one unit in the last place of the bias."""
+    """A ``matmul`` for ``fused_mlp._forward`` / ``fused_mlp_bwd_reference``
+    of ``net`` (which take packed layer i's forward product as their i-th
+    call) that puts every unit marked in ``flips[i]`` on the other side of
+    its ReLU: an alive unit's pre-activation becomes 0, a dead one's the
+    least positive value ``product + bias`` can reach.  Either way it moves
+    by no more than the unit's |pre-activation| plus one unit in the last
+    place of the bias."""
     calls = [0]
-    n_fwd = 16 if has_transient else 11
+    bs, n_fwd = net.bs, len(net.bs)
 
     def mm(a, b):
         i = calls[0]
@@ -69,35 +70,30 @@ def _matmul(flips: Dict[int, torch.Tensor], bs, has_transient: bool,
     return mm
 
 
-def pre_activations(inp, net: fm.PackedNet, sx, sd, *, n_freq_xyz,
-                    n_freq_dir, a_dim, t_dim, has_transient,
-                    matmul=torch.matmul, ipe=False):
+def pre_activations(inp, net: fm.PackedNet, sx, sd, matmul=torch.matmul):
     """{packed layer: (N, cols) f32 pre-activation} of every hidden layer
-    of the plain f32 forward (its products taken by ``matmul``; ``ipe``:
-    of the IPE layout)."""
+    of the plain forward of the f32 ``net`` (its products taken by
+    ``matmul``)."""
     outs = []
 
     def mm(a, b):
         outs.append(matmul(a, b))
         return outs[-1]
 
-    c = fm._consts(n_freq_xyz, n_freq_dir, a_dim, inp.device)
-    fm._forward(inp, net, sx, sd, c, n_freq_dir=n_freq_dir, a_dim=a_dim,
-                t_dim=t_dim, has_transient=has_transient,
-                dtype=torch.float32, matmul=mm,
-                ipe_freqs=n_freq_xyz if ipe else 0)
-    return {i: outs[i] + net.bs[i] for i in _hidden(has_transient)}
+    fm._forward(inp, net, sx, sd, mm)
+    return {i: outs[i] + net.bs[i]
+            for i in _hidden(net.layout.has_transient)}
 
 
-def tie_units(inp, net: fm.PackedNet, sx, sd, *, tol: float, **kw):
+def tie_units(inp, net: fm.PackedNet, sx, sd, *, tol: float):
     """{packed layer: (N, cols) bool}: the hidden units whose plain f32
     pre-activation lies within ``tol`` of zero."""
     return {i: p.abs() < tol
-            for i, p in pre_activations(inp, net, sx, sd, **kw).items()}
+            for i, p in pre_activations(inp, net, sx, sd).items()}
 
 
 def matched_backward(d_inp: torch.Tensor, inp, net: fm.PackedNet, sx, sd,
-                     g, *, tol: float, **kw):
+                     g, *, tol: float):
     """(ref, stats): ``fused_mlp_bwd_reference``'s (dws, dbs, d_inp) with
     each point's first ``MAX_TIES`` tie units (``tie_units(tol)``, in layer
     and column order) on the side of their ReLU whose d_inp lies closest
@@ -107,8 +103,7 @@ def matched_backward(d_inp: torch.Tensor, inp, net: fm.PackedNet, sx, sd,
     ``MAX_TIES`` (those keep the plain decision), points on which the
     matched side differs from the plain one, and the largest plain
     |pre-activation| of a unit taken to its other side."""
-    pre = pre_activations(inp, net, sx, sd,
-                          **{k: v for k, v in kw.items() if k != "dtype"})
+    pre = pre_activations(inp, net, sx, sd)
     ties = {i: p.abs() < tol for i, p in pre.items()}
     layers = list(ties)
     cat = torch.cat([ties[i] for i in layers], 1)
@@ -123,9 +118,8 @@ def matched_backward(d_inp: torch.Tensor, inp, net: fm.PackedNet, sx, sd,
                                         1)))
 
     def backward(choice):
-        return fm._backward(inp, net, sx, sd, g,
-                            matmul=_matmul(flips(choice), net.bs,
-                                           kw["has_transient"]), **kw)
+        return fm.fused_mlp_bwd_reference(
+            inp, net, sx, sd, g, matmul=_matmul(flips(choice), net))
 
     n = inp.shape[0]
     best = torch.zeros(n, dtype=torch.int64, device=inp.device)

@@ -3,46 +3,48 @@ kernels, their plain PyTorch versions and the autograd wrapper.
 
 Counterpart of ``nerf_fl_tpu/ops/fused_mlp.py``.  The kernels are
 ``csrc/fused_mlp_fwd.cu`` and ``csrc/fused_mlp_bwd.cu``; this module packs
-their operands and launches them, and keeps ``fused_mlp_reference`` and
-``fused_mlp_bwd_reference``, the same arithmetic in eager torch with the
-same rounding points.  ``fused_apply_nerf`` is differentiable: it runs both
-through a ``torch.autograd.Function`` that launches the kernels for CUDA
-tensors (or raises) and runs the plain versions only for tensors on the CPU.
-``fused_sigma`` is the render's test-time coarse pass: the static sigma
-alone, in f32, through the sigma-only kernel of the same source
-(``fused_sigma_cuda``; plain version ``fused_sigma_reference``), with no
-backward.  ``fused_apply_mip`` is mip-NeRF's field (``ipe=True`` below):
-the f32 pair's IPE instances, which take the integrated positional
-encoding of each point's Gaussian in place of PE(xyz) and the skip after
-layer 4 (packed layer 5, whose input rows are packed [enc | h]), and
-return no input cotangent.
+their operands, launches them, and keeps their plain versions
+(``fused_mlp_reference``, ``fused_mlp_bwd_reference``), the same
+arithmetic in eager torch with the same rounding points.  The entries:
+``fused_apply_nerf``, differentiable through a ``torch.autograd.Function``
+(kernels for CUDA tensors, the plain versions for CPU ones);
+``fused_sigma``, the render's test-time coarse pass, the static sigma
+alone in f32 through the sigma-only kernel, with no backward;
+``fused_apply_mip``, mip-NeRF's field through the f32 pair's IPE
+instances (the integrated positional encoding of each point's Gaussian in
+place of PE(xyz), the skip after layer 4, no input cotangent).
+
+A ``Layout`` says what a packed net is; ``pack_weights`` sets it on the
+``PackedNet``, and a launch reads from it the packed shapes, the image,
+the tile rows, the C entry point and the run-counter slots.
+``layout_for`` alone says which configurations a kernel takes.
 
 Layouts:
   * input, one packed (N, 128) f32 row per point:
     ``[xyz 0:3 | dir 3:6 | a 6:6+a_dim | t ...+t_dim | 0]`` (as the TPU
-    kernel's); with ``ipe``, ``[mean 0:3 | dir 3:6 | var 6:9 | 0]``
+    kernel's); the IPE layout's ``[mean 0:3 | dir 3:6 | var 6:9 | 0]``
     (``pack_ipe_inputs``);
   * output, (N, 16) f32 pre-activations: cols 0-2 static rgb, 3 static
     sigma, 4-6 transient rgb, 7 transient sigma, 8 beta, the rest zero;
   * weights, (K, N_out) row-major in the compute dtype, each K and N_out
     padded with zeros only to the next multiple of 16 (the tensor-core
-    granule).  Biases f32.  See ``pack_weights``.  The bf16 kernels stream
-    them from ``weight_image``, the same values cut into 64-row slabs in the
-    layout their tensor-core operand has in shared memory; the f32 kernels
-    from ``f32_weight_image``, each weight split into tf32 hi and lo parts
-    (``tf32_split``) and cut into stages of 32 rows.
+    granule).  Biases f32.  See ``pack_weights``.  The kernels stream them
+    from ``weight_image``: cut into slabs in the layout their tensor-core
+    operand has in shared memory, in f32 split into tf32 hi and lo parts.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, NamedTuple
+from collections import namedtuple
+from dataclasses import dataclass
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..core.encoding import integrated_pos_enc, sin_cw
-from ..models.mlp import NeRF, softplus
+from ..models.mlp import NeRF, NeRFConfig, softplus
 from . import _build
 
 LANES = 128
@@ -75,9 +77,137 @@ F32_PIECE = 128     # output columns of a stage (the last of fs2's 272: 144)
 # a thread holds columns 2q and 2q + 1 of its group at indices q and q + 4
 F32_K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
+# the slots of the card's int64 run counter, in order: each kernel adds one
+# to its own from its first thread (an IPE kernel to the fused pair's too)
+RUN_SLOTS = ("fwd", "bwd", "sigma", "ipe_fwd", "ipe_bwd")
+
+# the layout variants
+FULL = "full"       # NeRF / NeRF-W: the fused pair, bf16 or f32
+SIGMA = "sigma"     # the trunk and fs2 alone: the sigma-only kernel, f32
+IPE = "ipe"         # mip-NeRF's field: the fused pair's IPE instances, f32
+# a variant's C entry points (forward, backward, the backward's sizes),
+# whether they take a leading compute-dtype code, their scale rows ("x":
+# PE(xyz)'s, "d": the direction tail's), how many of (n_freq_xyz,
+# n_freq_dir, a_dim, t_dim, has_transient) they take, and the run-counter
+# slots the forward and the backward add one to
+_Entry = namedtuple("_Entry", "fwd bwd sizes dtype_code rows n_nums "
+                    "fwd_slots bwd_slots")
+_ENTRY = {
+    FULL: _Entry("nerf_fused_mlp_fwd", "nerf_fused_mlp_bwd",
+                 "nerf_fused_mlp_bwd_sizes", True, "xd", 5, ("fwd",),
+                 ("bwd",)),
+    SIGMA: _Entry("nerf_fused_sigma_fwd", None, None, False, "x", 1,
+                  ("sigma",), ()),
+    IPE: _Entry("nerf_fused_ipe_fwd", "nerf_fused_ipe_bwd",
+                "nerf_fused_ipe_bwd_sizes", False, "d", 2,
+                ("fwd", "ipe_fwd"), ("bwd", "ipe_bwd")),
+}
+
 
 def _round16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+@dataclass(frozen=True)
+class Layout:
+    """What a packed net is, and so which kernel, image, grid and run
+    counter a launch of it takes.  ``variant``: ``FULL``, NeRF / NeRF-W's
+    field (the skip at layer 4: [PE(xyz) | h]); ``SIGMA``, its trunk and
+    fs2 alone; ``IPE``, mip-NeRF's field (layer 5 takes [h | enc], packed
+    [enc | h]; no input cotangent).  ``dtype``: bf16 or f32 (``SIGMA`` and
+    ``IPE``: f32).  ``n_freq_xyz`` / ``n_freq_dir``: the PE (IPE)
+    frequencies; ``a_dim`` / ``t_dim``: the appearance / transient
+    embedding widths, ``t_dim`` 0 meaning no transient branch."""
+    dtype: torch.dtype
+    n_freq_xyz: int = 10
+    n_freq_dir: int = 4
+    a_dim: int = 0
+    t_dim: int = 0
+    variant: str = FULL
+
+    def __post_init__(self):
+        if self.dtype not in _DTYPE_CODE:
+            raise TypeError(f"unsupported compute dtype {self.dtype}")
+        if self.variant not in _ENTRY:
+            raise ValueError(f"layout variant {self.variant!r}")
+        if self.variant != FULL and (self.dtype != torch.float32
+                                     or self.a_dim or self.t_dim):
+            raise ValueError("the sigma-only and IPE kernels are f32 and "
+                             "take no appearance or transient embedding")
+        if self.variant == SIGMA:
+            object.__setattr__(self, "n_freq_dir", 0)
+
+    # derived: the skip layer; whether the backward leaves out the input
+    # cotangent; the widths of the encoded positions (PE(xyz) or IPE) and
+    # of [PE(dir) | a], and k0 / kd / kt padded; a kernel block's points
+    has_transient = property(lambda self: self.t_dim > 0)
+    skip = property(lambda self: IPE_SKIP if self.variant == IPE else SKIP)
+    no_d_inp = property(lambda self: self.variant == IPE)
+    x_in = property(lambda self: 6 * self.n_freq_xyz
+                    + (0 if self.variant == IPE else 3))
+    d_in = property(lambda self: 3 + 6 * self.n_freq_dir + self.a_dim)
+    k0 = property(lambda self: _round16(self.x_in))
+    kd = property(lambda self: _round16(self.d_in))
+    kt = property(lambda self: _round16(self.t_dim))
+    rows = property(lambda self: TILE_ROWS if self.dtype == torch.bfloat16
+                    else F32_ROWS)
+
+    @functools.cached_property
+    def shapes(self):
+        """(K, N_out) of every packed layer, in ``pack_weights`` order."""
+        shapes = [(self.k0, W_TRUNK)] \
+            + [(self.k0 + W_TRUNK if i == self.skip else W_TRUNK, W_TRUNK)
+               for i in range(1, 8)] + [(W_TRUNK, W_TRUNK + OUT_W)]
+        if self.variant == SIGMA:
+            return shapes
+        shapes += [(W_TRUNK + self.kd, W_HALF), (W_HALF, OUT_W)]
+        if self.has_transient:
+            shapes += [(W_TRUNK + self.kt, W_HALF)] \
+                + [(W_HALF, W_HALF)] * 3 + [(W_HALF, OUT_W)]
+        return shapes
+
+    @property
+    def sigma(self) -> "Layout":
+        """The sigma-only kernel's layout of this net's trunk and fs2: it
+        reads f32 nets of the skip-4 layout, full or sigma-only."""
+        if self.dtype != torch.float32 or self.variant == IPE:
+            raise ValueError("the sigma-only kernel takes f32 nets of the "
+                             "skip-4 layout")
+        return Layout(torch.float32, self.n_freq_xyz, 0, variant=SIGMA)
+
+
+def layout_for(mcfg: NeRFConfig, dtype, *, sigma_only: bool = False,
+               needs_grad: bool = False,
+               transient: bool = False) -> Optional[Layout]:
+    """The layout in which a hand-written kernel runs a field of ``mcfg``
+    in ``dtype`` (``sigma_only``: its static sigma alone; ``needs_grad``:
+    under autograd; ``transient``: with its transient heads), or None where
+    none takes that case and the plain ``apply_nerf`` runs it.  The kernels
+    take depth 8 and width 256: nerf_pl's field (the skip at layer 4, its
+    encodings, [PE(dir) | a] and t each at most 128 wide) in bf16 or f32,
+    its sigma-only pass in f32 with no backward; mip-NeRF's (``skip_order``
+    "hidden_first", the skip at layer 5, 1 to 20 IPE frequencies, no
+    appearance or transient) in f32."""
+    n_xyz, n_dir = mcfg.in_channels_xyz, mcfg.in_channels_dir
+    if mcfg.D != 8 or mcfg.W != W_TRUNK or dtype not in _DTYPE_CODE \
+            or n_dir > LANES or (n_dir - 3) % 6:
+        return None
+    if mcfg.skip_order == "hidden_first":
+        if tuple(mcfg.skips) != (IPE_SKIP,) or dtype != torch.float32 \
+                or sigma_only or n_xyz % 6 or not 6 <= n_xyz <= 120 \
+                or mcfg.a_dim or mcfg.encode_transient:
+            return None
+        return Layout(torch.float32, n_xyz // 6, (n_dir - 3) // 6,
+                      variant=IPE)
+    if tuple(mcfg.skips) != (SKIP,) or n_xyz > LANES or (n_xyz - 3) % 6 \
+            or n_dir + mcfg.a_dim > LANES or mcfg.in_channels_t > LANES:
+        return None
+    if sigma_only:
+        if dtype != torch.float32 or needs_grad:
+            return None
+        return Layout(torch.float32, (n_xyz - 3) // 6, variant=SIGMA)
+    return Layout(dtype, (n_xyz - 3) // 6, (n_dir - 3) // 6, mcfg.a_dim,
+                  mcfg.in_channels_t if transient else 0)
 
 
 # ----------------------------------------------------------------------
@@ -158,17 +288,10 @@ def pack_ipe_inputs(mean, dirs, var) -> torch.Tensor:
     return pack_inputs(mean, dirs, var)
 
 
-def ipe_k0(n_freq: int) -> int:
-    """Padded width of the IPE: 6 n_freq columns."""
-    return _round16(6 * n_freq)
-
-
 class PackedNet(NamedTuple):
     ws: List[torch.Tensor]    # (K, N_out) compute dtype, contiguous
     bs: List[torch.Tensor]    # (N_out,) f32
-    k0: int                   # padded PE(xyz) width
-    kd: int                   # padded [PE(dir) | a] width
-    kt: int                   # padded t width (0 without transient)
+    layout: Layout
 
 
 def field_linears(model: NeRF, has_transient: bool) -> List[torch.nn.Linear]:
@@ -184,44 +307,34 @@ def field_linears(model: NeRF, has_transient: bool) -> List[torch.nn.Linear]:
     return lins
 
 
-def pack_weights(model: NeRF, a_dim: int, has_transient: bool, dtype,
-                 n_freq_xyz: int, n_freq_dir: int,
-                 t_dim: int = 0, ipe: bool = False) -> PackedNet:
-    """Lay the nn.Linear (out, in) weights out as the kernel reads them:
-    (in, out) row-major, zero-padded to 16-multiples.  Head columns land at
-    their packed output positions.  Layer order: trunk 0..7, fs2 =
-    [xyz_final | static sigma at col 256+3], dir, static rgb head, then with
-    transient: transient 0..3, fused transient heads [rgb | sigma | beta] at
-    cols 4..8.  ``ipe``: mip-NeRF's field (no appearance, no transient),
-    whose layer 5 takes [h | enc], packed as [enc padded to k0 | h], k0 =
-    ``ipe_k0(n_freq_xyz)``."""
-    params = [t.detach() for lin in field_linears(model, has_transient)
-              for t in (lin.weight, lin.bias)]
-    return _pack(params, a_dim, has_transient, dtype, n_freq_xyz, n_freq_dir,
-                 t_dim, ipe)
+def pack_weights(model: NeRF, layout: Layout) -> PackedNet:
+    """Lay the nn.Linear (out, in) weights of ``model`` out as the kernels
+    of ``layout`` read them: (in, out) row-major, zero-padded to
+    16-multiples, head columns at their packed output positions.  Layer
+    order: trunk 0..7, fs2 = [xyz_final | static sigma at col 256+3], dir,
+    static rgb head, then with transient: transient 0..3, fused transient
+    heads [rgb | sigma | beta] at cols 4..8; ``SIGMA`` the trunk and fs2
+    alone; ``IPE``'s layer 5 mip-NeRF's [h | enc] as [enc padded | h]."""
+    lins = field_linears(model, layout.has_transient)
+    if layout.variant == SIGMA:
+        lins = lins[:10]
+    params = [t.detach() for lin in lins for t in (lin.weight, lin.bias)]
+    return _pack(params, layout)
 
 
-def pack_sigma_weights(model: NeRF, n_freq_xyz: int) -> PackedNet:
-    """``pack_weights``' first ``SIGMA_LAYERS`` layers in f32 (the trunk and
-    fs2), all that the sigma-only kernel reads."""
-    params = [t.detach() for lin in field_linears(model, False)[:10]
-              for t in (lin.weight, lin.bias)]
-    return _pack(params, 0, False, torch.float32, n_freq_xyz, 0, 0)
-
-
-def _pack(params, a_dim: int, has_transient: bool, dtype, n_freq_xyz: int,
-          n_freq_dir: int, t_dim: int, ipe: bool = False) -> PackedNet:
-    """``pack_weights`` from the flat [weight, bias, ...] list of
-    ``field_linears`` order (of its first ten layers alone: the trunk and
-    fs2, ``pack_sigma_weights``)."""
+def _pack(params, lay: Layout) -> PackedNet:
+    """``pack_weights`` from the flat [weight, bias, ...] list."""
     f32 = torch.float32
     dev = params[0].device
-    k0 = ipe_k0(n_freq_xyz) if ipe else _round16(3 + 6 * n_freq_xyz)
-    kd = _round16(3 + 6 * n_freq_dir + a_dim)
-    kt = _round16(t_dim) if has_transient else 0
+    k0, kd, kt = lay.k0, lay.kd, lay.kt
     lw = [w.to(f32).t() for w in params[0::2]]       # (in, out)
     lb = [b.to(f32) for b in params[1::2]]
-    n_xyz_in = lw[0].shape[0]
+    live = [lw[i].shape[0] for i in (0, 10, 12) if i < len(lw)]
+    want = [lay.x_in, W_TRUNK + lay.d_in, W_TRUNK + lay.t_dim][:len(live)]
+    if live != want:
+        raise ValueError(f"the field's input widths {live} are not its "
+                         f"layout's {want}")
+    n_xyz_in = lay.x_in
 
     def pad_rows(w, rows):
         return torch.nn.functional.pad(w, (0, 0, 0, rows - w.shape[0]))
@@ -243,11 +356,11 @@ def _pack(params, a_dim: int, has_transient: bool, dtype, n_freq_xyz: int,
     for i in range(8):
         if i == 0:
             w = pad_rows(lw[0], k0)
-        elif i == 4 and not ipe:
-            w = torch.cat([pad_rows(lw[4][:n_xyz_in], k0), lw[4][n_xyz_in:]])
-        elif i == IPE_SKIP and ipe:
+        elif i == lay.skip and lay.variant == IPE:
             # mip-NeRF's [h | enc] rows as [enc | h]
             w = torch.cat([pad_rows(lw[i][W_TRUNK:], k0), lw[i][:W_TRUNK]])
+        elif i == lay.skip:
+            w = torch.cat([pad_rows(lw[i][:n_xyz_in], k0), lw[i][n_xyz_in:]])
         else:
             w = lw[i]
         ws.append(w)
@@ -257,7 +370,7 @@ def _pack(params, a_dim: int, has_transient: bool, dtype, n_freq_xyz: int,
                    [(0, lw[8]), (W_TRUNK + COL_S_SIGMA, lw[9])]))
     bs.append(bias_at(W_TRUNK + OUT_W,
                       [(0, lb[8]), (W_TRUNK + COL_S_SIGMA, lb[9])]))
-    if len(lw) > 10:
+    if lay.variant != SIGMA:
         # dir branch: (256 + kd, 128)
         ws.append(torch.cat([lw[10][:W_TRUNK],
                              pad_rows(lw[10][W_TRUNK:], kd)]))
@@ -265,7 +378,7 @@ def _pack(params, a_dim: int, has_transient: bool, dtype, n_freq_xyz: int,
         # static rgb head at output cols 0..2: (128, 16)
         ws.append(cols(W_HALF, OUT_W, [(COL_S_RGB, lw[11])]))
         bs.append(bias_at(OUT_W, [(COL_S_RGB, lb[11])]))
-    if has_transient:
+    if lay.has_transient:
         ws.append(torch.cat([lw[12][:W_TRUNK],
                              pad_rows(lw[12][W_TRUNK:], kt)]))
         bs.append(lb[12])
@@ -274,48 +387,41 @@ def _pack(params, a_dim: int, has_transient: bool, dtype, n_freq_xyz: int,
         heads_at = [(COL_T_RGB, 16), (COL_T_SIGMA, 17), (COL_T_BETA, 18)]
         ws.append(cols(W_HALF, OUT_W, [(c, lw[j]) for c, j in heads_at]))
         bs.append(bias_at(OUT_W, [(c, lb[j]) for c, j in heads_at]))
-    ws = [w.to(dtype).contiguous() for w in ws]
+    ws = [w.to(lay.dtype).contiguous() for w in ws]
     bs = [b.contiguous() for b in bs]
-    return PackedNet(ws, bs, k0, kd, kt)
+    return PackedNet(ws, bs, lay)
 
 
 def unpack_weight_grads(dws: List[torch.Tensor], dbs: List[torch.Tensor],
-                        n_xyz_in: int, n_dir_in: int, n_t_in: int,
-                        has_transient: bool,
-                        ipe: bool = False) -> List[torch.Tensor]:
-    """Padded (K, N_out) f32 weight-grad slabs and (N_out,) bias grads ->
-    the flat [dweight (out, in), dbias, ...] list of ``field_linears``
-    order.  ``n_dir_in`` / ``n_t_in`` are the dir / first transient layer's
-    conditioning widths beyond the 256 trunk columns (27 + a_dim, t_dim).
-    Every padded row and column is dropped: the kernels' heads compute all
-    16 output columns, only the live ones are parameters.  ``ipe``: the
-    IPE layout's (``pack_weights``)."""
-    k0 = dws[0].shape[0]
+                        layout: Layout) -> List[torch.Tensor]:
+    """Padded (K, N_out) f32 weight-grad slabs and (N_out,) bias grads of a
+    net of ``layout`` -> the flat [dweight (out, in), dbias, ...] list of
+    ``field_linears`` order.  Every padded row and column is dropped: the
+    kernels' heads compute all 16 output columns, only the live ones are
+    parameters."""
+    k0, n_xyz_in, skip = layout.k0, layout.x_in, layout.skip
 
     def lin(dw, db):
         return [dw.t().contiguous(), db.contiguous()]
-
-    def split(dw, at, n, rest):
-        return torch.cat([dw[:at], dw[rest:rest + n]])
 
     out = []
     for i in range(8):
         dw = dws[i]
         if i == 0:
             dw = dw[:n_xyz_in]
-        elif i == 4 and not ipe:
-            dw = torch.cat([dw[:n_xyz_in], dw[k0:]])
-        elif i == IPE_SKIP and ipe:
+        elif i == skip and layout.variant == IPE:
             dw = torch.cat([dw[k0:], dw[:n_xyz_in]])
+        elif i == skip:
+            dw = torch.cat([dw[:n_xyz_in], dw[k0:]])
         out += lin(dw, dbs[i])
     c = W_TRUNK + COL_S_SIGMA
     out += lin(dws[8][:, :W_TRUNK], dbs[8][:W_TRUNK])
     out += lin(dws[8][:, c:c + 1], dbs[8][c:c + 1])
-    out += lin(dws[9][:W_TRUNK + n_dir_in], dbs[9])
+    out += lin(dws[9][:W_TRUNK + layout.d_in], dbs[9])
     out += lin(dws[10][:, COL_S_RGB:COL_S_RGB + 3],
                dbs[10][COL_S_RGB:COL_S_RGB + 3])
-    if has_transient:
-        out += lin(dws[11][:W_TRUNK + n_t_in], dbs[11])
+    if layout.has_transient:
+        out += lin(dws[11][:W_TRUNK + layout.t_dim], dbs[11])
         for i in (12, 13, 14):
             out += lin(dws[i], dbs[i])
         for c, n in ((COL_T_RGB, 3), (COL_T_SIGMA, 1), (COL_T_BETA, 1)):
@@ -324,12 +430,12 @@ def unpack_weight_grads(dws: List[torch.Tensor], dbs: List[torch.Tensor],
 
 
 # ----------------------------------------------------------------------
-# the bf16 forward kernel's weight image and grid
+# the kernels' weight images and grid
 # ----------------------------------------------------------------------
 
 class Slab(NamedTuple):
-    """One weight slab of an image: ``height`` image rows of 64 contraction
-    values (128 bytes).  Forward slabs (``dgrad`` False) are W^T tiles: image
+    """One weight slab of an image: ``height`` image rows of 128 bytes (64
+    bf16 or 32 tf32 contraction values).  Forward slabs (``dgrad`` False) are W^T tiles: image
     row i is output column ``col0 + i``, contraction value k is input row
     ``row0 + k`` (``rows`` of them are real).  Dgrad slabs are tiles of W
     itself: image row i is input row ``row0 + i`` (``rows`` real),
@@ -344,31 +450,19 @@ class Slab(NamedTuple):
     at: int         # byte offset in the image
 
 
-def _cut(slabs, at, layer, dgrad, row0, rows, col0, cols, height):
-    """Append the slabs of one segment (one per 64 contraction values);
-    returns the next byte offset."""
-    n = cols if dgrad else rows
-    for c in range(0, n, SLAB_K):
-        m = min(SLAB_K, n - c)
-        if dgrad:
-            slabs.append(Slab(layer, True, row0, rows, col0 + c, m, height, at))
-        else:
-            slabs.append(Slab(layer, False, row0 + c, m, col0, cols, height, at))
-        at += height * SLAB_K * 2
-    return at
-
-
-def _cut32(slabs, at, layer, dgrad, row0, rows, col0, cols, height):
-    """``_cut`` for the f32 kernels: one stage per 32 contraction values
-    and output piece (``_pieces(height)`` image rows, starting at the
-    piece's first output column, or input row for dgrad), the hi then the
-    lo part, each ``height`` rows of 32 tf32 values (128 bytes).  A stage's
+def _cut(slabs, at, layer, dgrad, row0, rows, col0, cols, height,
+         f32=False):
+    """Append the slabs of one segment; returns the next byte offset: one
+    per 64 contraction values, ``height`` image rows of 128 bytes; with
+    ``f32``, the f32 kernels' stages, one per 32 contraction values and
+    output piece (``_pieces(height)``), the hi then the lo part.  A slab's
     ``rows`` / ``cols`` count the real ones of its own range."""
+    kc, pieces = (F32_K, _pieces(height)) if f32 else (SLAB_K, [height])
     n = cols if dgrad else rows
-    for c in range(0, n, F32_K):
-        m = min(F32_K, n - c)
+    for c in range(0, n, kc):
+        m = min(kc, n - c)
         p0 = 0
-        for h in _pieces(height):
+        for h in pieces:
             if dgrad:
                 slabs.append(Slab(layer, True, row0 + p0,
                                   max(0, min(h, rows - p0)), col0 + c, m, h,
@@ -376,7 +470,7 @@ def _cut32(slabs, at, layer, dgrad, row0, rows, col0, cols, height):
             else:
                 slabs.append(Slab(layer, False, row0 + c, m, col0 + p0,
                                   max(0, min(h, cols - p0)), h, at))
-            at += 2 * h * F32_K * 4
+            at += (2 if f32 else 1) * h * 128
             p0 += h
     return at
 
@@ -390,165 +484,96 @@ def _pieces(n: int):
     return [F32_PIECE] * (k - 1) + [n - F32_PIECE * (k - 1)]
 
 
-def _trunk_slabs(slabs, at, k0, cut, skip=SKIP):
-    """The trunk's slabs (layers 0..7, layer ``skip`` cut per source) in
-    consumption order; returns the next byte offset."""
-    at = cut(slabs, at, 0, False, 0, k0, 0, W_TRUNK, W_TRUNK)
+def image_plan(lay: Layout, backward: bool = False):
+    """The weight slabs (``_cut``) of ``lay``'s kernel (``backward``: its
+    backward kernel) in the order it consumes them, and the image's bytes;
+    csrc/fused_mlp_common.cuh's hop:: (bf16) and tf:: (f32) make_plan,
+    make_bwd_plan and make_sigma_plan walk the same lists.  A layer whose
+    input is two sources ([pe | h], [xyz_final | tail]) is cut per source,
+    its last slab zero-padded.  The sigma-only kernel's: the trunk, then
+    fs2's 16-column sigma block alone.  The backward's: the forward's
+    recompute without fs2's sigma block and the heads, then from the heads
+    down the tiles of W that ``g W^T`` contracts over, a layer of two
+    sources as two products (its 256 trunk rows, and its other rows padded
+    to 128); the IPE layout's without the input cotangent's products."""
+    f32 = lay.dtype == torch.float32
+    k0, kd, kt, skip = lay.k0, lay.kd, lay.kt, lay.skip
+    heads = not backward
+    slabs, at = [], 0
+
+    def seg(layer, row0, rows, cols, height=None, dgrad=False, col0=0):
+        nonlocal at
+        at = _cut(slabs, at, layer, dgrad, row0, rows, col0, cols,
+                  cols if height is None else height, f32)
+
+    seg(0, 0, k0, W_TRUNK)
     for i in range(1, 8):
         if i == skip:
-            at = cut(slabs, at, i, False, 0, k0, 0, W_TRUNK, W_TRUNK)
-        at = cut(slabs, at, i, False, k0 if i == skip else 0, W_TRUNK, 0,
-                 W_TRUNK, W_TRUNK)
-    return at
-
-
-def _forward_slabs(slabs, at, k0, kd, kt, has_transient, heads, cut=_cut,
-                   skip=SKIP):
-    """The forward's slabs in consumption order.  A layer whose input is
-    two sources ([pe | h], [xyz_final | tail]) is cut per source, so a slab
-    never straddles them; a source's last slab may hold fewer than 64 rows
-    and is zero-padded.  ``heads``: with fs2's sigma block and the two
-    heads (the backward's recompute needs neither).  ``cut``: ``_cut`` (the
-    bf16 image) or ``_cut32`` (the f32 image)."""
-    def seg(layer, row0, rows, cols):
-        return cut(slabs, at, layer, False, row0, rows, 0, cols, cols)
-
-    at = _trunk_slabs(slabs, at, k0, cut, skip)
-    at = seg(8, 0, W_TRUNK, W_TRUNK + OUT_W if heads else W_TRUNK)
-    at = seg(9, 0, W_TRUNK, W_HALF)
-    at = seg(9, W_TRUNK, kd, W_HALF)
+            seg(i, 0, k0, W_TRUNK)
+        seg(i, k0 if i == skip else 0, W_TRUNK, W_TRUNK)
+    if lay.variant == SIGMA:
+        if backward:
+            raise ValueError("the sigma-only kernel has no backward")
+        seg(8, 0, W_TRUNK, OUT_W, col0=W_TRUNK)
+        return slabs, at
+    seg(8, 0, W_TRUNK, W_TRUNK + OUT_W if heads else W_TRUNK)
+    seg(9, 0, W_TRUNK, W_HALF)
+    seg(9, W_TRUNK, kd, W_HALF)
     if heads:
-        at = seg(10, 0, W_HALF, OUT_W)
-    if has_transient:
-        at = seg(11, 0, W_TRUNK, W_HALF)
-        at = seg(11, W_TRUNK, kt, W_HALF)
+        seg(10, 0, W_HALF, OUT_W)
+    if lay.has_transient:
+        seg(11, 0, W_TRUNK, W_HALF)
+        seg(11, W_TRUNK, kt, W_HALF)
         for i in (12, 13, 14):
-            at = seg(i, 0, W_HALF, W_HALF)
+            seg(i, 0, W_HALF, W_HALF)
         if heads:
-            at = seg(15, 0, W_HALF, OUT_W)
-    return at
+            seg(15, 0, W_HALF, OUT_W)
+    if not backward:
+        return slabs, at
 
+    def dgrad(layer, row0, rows, cols, height):
+        seg(layer, row0, rows, cols, height, dgrad=True)
 
-def image_plan(k0: int, kd: int, kt: int, has_transient: bool):
-    """The weight slabs in the order the bf16 forward kernel consumes them
-    (csrc/fused_mlp_common.cuh:make_plan walks the same list), and the
-    image's size in bytes."""
-    slabs = []
-    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, True)
-    return slabs, at
-
-
-def bwd_image_plan(k0: int, kd: int, kt: int, has_transient: bool,
-                   cut=_cut, ipe: bool = False):
-    """The bf16 backward kernel's slabs (make_bwd_plan in the same header):
-    the forward recompute, then for each layer from the heads down the
-    tiles of W that ``g W^T`` contracts over, 64 output columns a slab.  A
-    layer with two input sources runs two products: its 256 trunk rows
-    (height 256) and its other rows padded to 128 (the pe / dir / t part).
-    With ``cut=_cut32``, the f32 backward's stages (``f32_image_plan``);
-    with ``ipe`` too, the IPE backward's (tf::make_bwd_plan with skip 5 and
-    no d_inp): the skip at layer 5, without the products that only feed
-    the input cotangent."""
-    skip = IPE_SKIP if ipe else SKIP
-    slabs = []
-    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, False, cut,
-                        skip)
-
-    def seg(layer, row0, rows, cols, height):
-        return cut(slabs, at, layer, True, row0, rows, 0, cols, height)
-
-    if has_transient:
-        at = seg(15, 0, W_HALF, OUT_W, W_HALF)
+    d_inp = not lay.no_d_inp
+    if lay.has_transient:
+        dgrad(15, 0, W_HALF, OUT_W, W_HALF)
         for i in (14, 13, 12):
-            at = seg(i, 0, W_HALF, W_HALF, W_HALF)
-        at = seg(11, 0, W_TRUNK, W_HALF, W_TRUNK)
-        at = seg(11, W_TRUNK, kt, W_HALF, W_HALF)
-    at = seg(10, 0, W_HALF, OUT_W, W_HALF)
-    at = seg(9, 0, W_TRUNK, W_HALF, W_TRUNK)
-    if not ipe:
-        at = seg(9, W_TRUNK, kd, W_HALF, W_HALF)
-    at = seg(8, 0, W_TRUNK, W_TRUNK + OUT_W, W_TRUNK)
+            dgrad(i, 0, W_HALF, W_HALF, W_HALF)
+        dgrad(11, 0, W_TRUNK, W_HALF, W_TRUNK)
+        dgrad(11, W_TRUNK, kt, W_HALF, W_HALF)
+    dgrad(10, 0, W_HALF, OUT_W, W_HALF)
+    dgrad(9, 0, W_TRUNK, W_HALF, W_TRUNK)
+    if d_inp:
+        dgrad(9, W_TRUNK, kd, W_HALF, W_HALF)
+    dgrad(8, 0, W_TRUNK, W_TRUNK + OUT_W, W_TRUNK)
     for i in range(7, 0, -1):
-        if i == skip and not ipe:
-            at = seg(i, 0, k0, W_TRUNK, W_HALF)
-        at = seg(i, k0 if i == skip else 0, W_TRUNK, W_TRUNK, W_TRUNK)
-    if not ipe:
-        at = seg(0, 0, k0, W_TRUNK, W_HALF)
+        if i == skip and d_inp:
+            dgrad(i, 0, k0, W_TRUNK, W_HALF)
+        dgrad(i, k0 if i == skip else 0, W_TRUNK, W_TRUNK, W_TRUNK)
+    if d_inp:
+        dgrad(0, 0, k0, W_TRUNK, W_HALF)
     return slabs, at
 
 
-def f32_image_plan(k0: int, kd: int, kt: int, has_transient: bool,
-                   backward: bool = False, ipe: bool = False):
-    """The f32 kernels' stages (csrc/fused_mlp_common.cuh: tf::make_plan /
-    tf::make_bwd_plan walk the same list) in consumption order, as ``Slab``
-    rows of 32 contraction values and one output piece, and the image's
-    size in bytes: the bf16 images' walks cut by ``_cut32``.  ``ipe``: the
-    IPE kernels' (skip 5; the backward without the input cotangent's
-    stages)."""
-    if backward:
-        return bwd_image_plan(k0, kd, kt, has_transient, cut=_cut32, ipe=ipe)
-    slabs = []
-    at = _forward_slabs(slabs, 0, k0, kd, kt, has_transient, True, _cut32,
-                        IPE_SKIP if ipe else SKIP)
-    return slabs, at
-
-
-def f32_sigma_plan(k0: int):
-    """``f32_image_plan`` of the sigma-only kernel (the header's
-    tf::make_sigma_plan): the trunk's stages, then fs2's 16-column sigma
-    block alone as one (256, 16) segment."""
-    slabs = []
-    at = _trunk_slabs(slabs, 0, k0, _cut32)
-    at = _cut32(slabs, at, 8, False, 0, W_TRUNK, W_TRUNK, OUT_W, OUT_W)
-    return slabs, at
-
-
-def slab_index(shapes, slabs, nbytes: int) -> np.ndarray:
-    """For every bf16 element of an image of ``slabs`` (``nbytes`` long) cut
+def slab_index(shapes, slabs, nbytes: int, parts: int = 1) -> np.ndarray:
+    """For every element of an image of ``slabs`` (``nbytes`` long) cut
     from layers of (K, N_out) ``shapes``, its index in the flat
     concatenation of those layers (row-major, layer after layer; a slab's
-    ``layer`` is its position in ``shapes``), or the index one past its end
-    for zero padding.
+    ``layer`` is its position in ``shapes``), or one past its end for zero
+    padding.  ``parts`` 2: an f32 image, a stage the hi then the lo part,
+    indexing [hi parts of those layers, lo parts, one zero].
 
     A slab is a wgmma B operand's shared-memory image, K-major with the
-    128-byte swizzle: one image row of 64 contraction values per column of
-    the product, and 16-byte chunk c of image row i stored at chunk
-    ``c ^ (i % 8)``.  So element [slab][i][c ^ (i % 8)][e] is contraction
-    value ``8 c + e`` of image row i (see ``Slab``)."""
-    base = np.concatenate([[0], np.cumsum([k * m for k, m in shapes])])
-    idx = np.full(nbytes // 2, base[-1], np.int64)
-    for sl in slabs:
-        n_out = shapes[sl.layer][1]
-        i = np.arange(sl.height)[:, None, None]
-        c = np.arange(8)[None, :, None]
-        e = np.arange(8)[None, None, :]
-        k = 8 * c + e + 0 * i
-        if sl.dgrad:
-            src = base[sl.layer] + (sl.row0 + i) * n_out + sl.col0 + k
-            real = (i < sl.rows) & (k < sl.cols)
-        else:
-            src = base[sl.layer] + (sl.row0 + k) * n_out + sl.col0 + i
-            real = (k < sl.rows) & (i < sl.cols)
-        dst = sl.at // 2 + i * SLAB_K + 8 * (c ^ (i % 8)) + e
-        idx[dst.ravel()] = np.where(real, src, base[-1]).ravel()
-    return idx
-
-
-def f32_slab_index(shapes, slabs, nbytes: int) -> np.ndarray:
-    """For every f32 element of an f32 image of ``slabs`` (``nbytes``
-    long) cut from layers of (K, N_out) ``shapes``: its index into the
-    concatenation [hi parts of those layers, lo parts, one zero], so that
-    an image is that concatenation gathered through it.
-
-    A stage is the hi then the lo part of a wgmma B operand's K-major
-    image: one row of 32 tf32 values (128 bytes) per image row, 16-byte
-    chunk c of row i at chunk ``c ^ (i % 8)``, and position k of a row holds
-    contraction value ``8 (k // 8) + F32_K_ORDER[k % 8]`` of the stage."""
+    128-byte swizzle: an image row of contraction values (64 bf16, 32 tf32)
+    per column of the product (``Slab``), its 16-byte chunk c at chunk
+    ``c ^ (i % 8)`` of row i; in tf32 position k of a row holds contraction
+    value ``8 (k // 8) + F32_K_ORDER[k % 8]``."""
     base = np.concatenate([[0], np.cumsum([k * m for k, m in shapes])])
     total = int(base[-1])
-    idx = np.full(nbytes // 4, 2 * total, np.int64)
-    order = np.asarray(F32_K_ORDER)
-    k = np.arange(F32_K)[None, :]
+    kc, chunk, size = (F32_K, 4, 4) if parts == 2 else (SLAB_K, 8, 2)
+    idx = np.full(nbytes // size, parts * total, np.int64)
+    order = np.asarray(F32_K_ORDER if parts == 2 else range(8))
+    k = np.arange(kc)[None, :]
     kk = 8 * (k // 8) + order[k % 8]
     for sl in slabs:
         n_out = shapes[sl.layer][1]
@@ -559,39 +584,20 @@ def f32_slab_index(shapes, slabs, nbytes: int) -> np.ndarray:
         else:
             src = base[sl.layer] + (sl.row0 + kk) * n_out + sl.col0 + i
             real = (kk < sl.rows) & (i < sl.cols)
-        pos = i * F32_K + 4 * ((k // 4) ^ (i % 8)) + k % 4
-        for part in (0, 1):
-            dst = sl.at // 4 + part * sl.height * F32_K + pos
+        pos = i * kc + chunk * ((k // chunk) ^ (i % 8)) + k % chunk
+        for part in range(parts):
+            dst = sl.at // size + part * sl.height * kc + pos
             idx[dst.ravel()] = np.where(real, src + part * total,
-                                        2 * total).ravel()
+                                        parts * total).ravel()
     return idx
 
 
 @functools.lru_cache(maxsize=32)
-def _f32_image_index(k0: int, kd: int, kt: int, has_transient: bool,
-                     backward: bool = False, ipe: bool = False) -> np.ndarray:
-    """``f32_slab_index`` of the f32 kernels' image of ``PackedNet.ws``."""
-    slabs, nbytes = f32_image_plan(k0, kd, kt, has_transient, backward, ipe)
-    return f32_slab_index(_packed_shapes(k0, kd, kt, has_transient, ipe),
-                          slabs, nbytes)
-
-
-@functools.lru_cache(maxsize=8)
-def _f32_sigma_index(k0: int) -> np.ndarray:
-    """``f32_slab_index`` of the sigma-only kernel's image of the first
-    ``SIGMA_LAYERS`` of ``PackedNet.ws``."""
-    slabs, nbytes = f32_sigma_plan(k0)
-    return f32_slab_index(_sigma_shapes(k0), slabs, nbytes)
-
-
-@functools.lru_cache(maxsize=32)
-def _image_index(k0: int, kd: int, kt: int, has_transient: bool,
-                 backward: bool = False) -> np.ndarray:
-    """``slab_index`` of the fused kernels' image of ``PackedNet.ws``."""
-    slabs, nbytes = (bwd_image_plan if backward else image_plan)(
-        k0, kd, kt, has_transient)
-    return slab_index(_packed_shapes(k0, kd, kt, has_transient), slabs,
-                      nbytes)
+def image_index(lay: Layout, backward: bool = False) -> np.ndarray:
+    """``slab_index`` of ``lay``'s image: what ``weight_image`` gathers."""
+    slabs, nbytes = image_plan(lay, backward)
+    return slab_index(lay.shapes, slabs, nbytes,
+                      2 if lay.dtype == torch.float32 else 1)
 
 
 _IMAGE_INDEX_ON = {}
@@ -600,9 +606,8 @@ _IMAGE_INDEX_ON = {}
 def gather_image(ws, key, index) -> torch.Tensor:
     """The tensors ``ws`` (bf16 weights, or the f32 weights' tf32 hi and lo
     parts) laid out as an image: a flat tensor on their device through the
-    numpy index ``index()`` into their concatenation (``slab_index``,
-    ``f32_slab_index``), whose device copy is cached under ``key``.  Two
-    device launches: one cat, one gather."""
+    numpy index ``index()`` into their concatenation (``slab_index``),
+    whose device copy is cached under ``key``.  One cat, one gather."""
     dev = ws[0].device
     idx = _IMAGE_INDEX_ON.get(key + (dev,))
     if idx is None:
@@ -610,16 +615,6 @@ def gather_image(ws, key, index) -> torch.Tensor:
         _IMAGE_INDEX_ON[key + (dev,)] = idx
     flat = torch.cat([w.reshape(-1) for w in ws] + [ws[0].new_zeros(1)])
     return flat.index_select(0, idx)
-
-
-def weight_image(net: PackedNet, has_transient: bool,
-                 backward: bool = False) -> torch.Tensor:
-    """``net.ws`` (bf16) laid out as the bf16 forward kernel (or, with
-    ``backward``, the backward kernel) streams them: a flat bf16 tensor
-    whose elements are the weights, each at least once, and zero padding
-    (``_image_index``; the forward's image is a permutation)."""
-    key = (net.k0, net.kd, net.kt, bool(has_transient), bool(backward))
-    return gather_image(net.ws, key, lambda: _image_index(*key))
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -638,34 +633,23 @@ def tf32_split(x: torch.Tensor):
     return hi, tf32_round(x.to(torch.float32) - hi)
 
 
-def f32_weight_image(net: PackedNet, has_transient: bool,
-                     backward: bool = False, ipe: bool = False
-                     ) -> torch.Tensor:
-    """``net.ws`` (f32) laid out as the f32 forward kernel (or, with
-    ``backward``, the backward kernel) streams them: each weight split into
-    its tf32 hi and lo parts (``tf32_split``), gathered through the cached
-    ``_f32_image_index``: a flat f32 tensor of hi and lo parts and zero
-    padding.  Device launches: one cat, the split, one cat, one gather.
-    ``ipe``: the IPE kernels' image of the IPE layout."""
-    key = ("f32", net.k0, net.kd, net.kt, bool(has_transient), bool(backward),
-           bool(ipe))
-    hi, lo = tf32_split(torch.cat([w.reshape(-1) for w in net.ws]))
-    return gather_image([hi, lo], key, lambda: _f32_image_index(*key[1:]))
+def weight_image(net: PackedNet, backward: bool = False) -> torch.Tensor:
+    """``net.ws`` as its layout's kernel (``backward``: its backward kernel)
+    streams them, gathered through the cached ``image_index``: each weight
+    at least once (the bf16 forward's image is a permutation), in f32 as
+    its tf32 hi and lo parts (``tf32_split``), and zero padding.  Device
+    launches: one cat, one gather; in f32 the split and one cat more."""
+    lay, ws = net.layout, net.ws
+    if lay.dtype == torch.float32:
+        ws = tf32_split(torch.cat([w.reshape(-1) for w in ws]))
+    return gather_image(ws, (lay, bool(backward)),
+                        lambda: image_index(lay, backward))
 
 
-def f32_sigma_image(net: PackedNet) -> torch.Tensor:
-    """``f32_weight_image`` of the sigma-only kernel, from the first
-    ``SIGMA_LAYERS`` of ``net.ws`` (the trunk and fs2)."""
-    key = ("f32-sigma", net.k0)
-    hi, lo = tf32_split(torch.cat([w.reshape(-1)
-                                   for w in net.ws[:SIGMA_LAYERS]]))
-    return gather_image([hi, lo], key, lambda: _f32_sigma_index(net.k0))
-
-
-def bwd_tile_counts(k0: int, kd: int, kt: int, has_transient: bool):
+def bwd_tile_counts(lay: Layout):
     """Operand tiles (64 points x 64 columns, 8 KB in bf16) the bf16
-    backward moves per 64 points: (saved by the fused kernel, read by the
-    wgrad kernel).  Saved: every layer's input activations and cotangent,
+    backward of ``lay`` moves per 64 points: (saved by the fused kernel,
+    read by the wgrad kernel).  Saved: every layer's input activations and cotangent,
     each once (the heads and fs2's sigma block share one cotangent tile).
     Read: a wgrad block takes two 64-row chunks of a layer's input and all
     of its cotangent, so the cotangent is read once per two chunks
@@ -673,11 +657,12 @@ def bwd_tile_counts(k0: int, kd: int, kt: int, has_transient: bool):
     def t(cols):
         return -(-cols // SLAB_K)
 
+    k0, kd, kt = lay.k0, lay.kd, lay.kt
     # (input chunks, cotangent tiles) per packed layer
     layers = [(t(k0), 4)] + [(4, 4)] * 3 + [(t(k0) + 4, 4)] + [(4, 4)] * 3 \
         + [(4, 5), (4 + t(kd), 2), (2, 1)]
     saved = t(k0) + 8 * 4 + 4 + t(kd) + 2 + 1 + 9 * 4 + 2
-    if has_transient:
+    if lay.has_transient:
         layers += [(4 + t(kt), 2)] + [(2, 2)] * 3 + [(2, 1)]
         saved += t(kt) + 4 * 2 + 4 * 2
     read = sum(a + -(-a // 2) * g for a, g in layers)
@@ -717,16 +702,17 @@ def _encode(inp, R, ph, trg, scale, src, width):
     return torch.where(trg > 0, sin_cw(E, ph), E) * scale
 
 
-def _consts(n_freq_xyz, n_freq_dir, a_dim, device):
+def _consts(lay: Layout, device):
     return {k: torch.as_tensor(v, device=device)
-            for k, v in _encoder_consts(n_freq_xyz, n_freq_dir, a_dim).items()}
+            for k, v in _encoder_consts(lay.n_freq_xyz, lay.n_freq_dir,
+                                        lay.a_dim).items()}
 
 
-def _layers(net: PackedNet, dtype, matmul):
+def _layers(net: PackedNet, matmul):
     """(mm, hidden) of the packed layers: ``mm(a, i)``, the f32 product
     with layer i's weight (by ``matmul``); ``hidden(a, i)``, that product
-    rounded to ``dtype``, plus the rounded bias, ReLU."""
-    f32 = torch.float32
+    rounded to the layout's dtype, plus the rounded bias, ReLU."""
+    f32, dtype = torch.float32, net.layout.dtype
 
     def mm(a, i):                       # f32 accumulation of exact products
         return matmul(a.to(f32), net.ws[i].to(f32))
@@ -749,44 +735,44 @@ def _trunk(pe, hidden, skip=SKIP):
     return ins, outs
 
 
-def _forward(inp, net: PackedNet, sx, sd, c, *, n_freq_dir, a_dim, t_dim,
-             has_transient, dtype, matmul=torch.matmul, ipe_freqs=0):
+def _forward(inp, net: PackedNet, sx, sd, matmul=torch.matmul):
     """The fused forward in eager torch, keeping every activation the
     backward needs.  Returns (out, acts).  ``matmul``: the layer product
     (exact products, f32 sums; ``f32_ties.tf32x3_mm`` models the f32
-    kernels').  ``ipe_freqs`` > 0: the IPE layout, its encoding at that
-    many frequencies (the kernels' tf::encode_ipe: ``integrated_pos_enc``
-    with the Cody-Waite sine) and the skip at layer 5."""
-    bs = net.bs
-    mm, hidden = _layers(net, dtype, matmul)
-    if ipe_freqs:
-        enc = integrated_pos_enc(inp[:, 0:3], inp[:, 6:9], ipe_freqs,
+    kernels').  The IPE layout encodes as the kernels' tf::encode_ipe:
+    ``integrated_pos_enc`` with the Cody-Waite sine."""
+    lay, bs = net.layout, net.bs
+    dtype, a_dim, t_dim = lay.dtype, lay.a_dim, lay.t_dim
+    c = _consts(lay, inp.device)
+    mm, hidden = _layers(net, matmul)
+    if lay.variant == IPE:
+        enc = integrated_pos_enc(inp[:, 0:3], inp[:, 6:9], lay.n_freq_xyz,
                                  fast=True)
         pe = torch.nn.functional.pad(
-            enc, (0, net.k0 - enc.shape[1])).to(dtype)
+            enc, (0, lay.k0 - enc.shape[1])).to(dtype)
     else:
         pe = _encode(inp, c["PxR"], c["phx"], c["trgx"], sx, 0,
-                     net.k0).to(dtype)
-    ins, outs = _trunk(pe, hidden, IPE_SKIP if ipe_freqs else SKIP)
+                     lay.k0).to(dtype)
+    ins, outs = _trunk(pe, hidden, lay.skip)
     h = outs[-1]
     fs2 = mm(h, 8) + bs[8]
     xyz_final = fs2[:, :W_TRUNK].to(dtype)
 
-    d_tail = _encode(inp, c["PdR"], c["phd"], c["trgd"], sd, 3, net.kd)
+    d_tail = _encode(inp, c["PdR"], c["phd"], c["trgd"], sd, 3, lay.kd)
     if a_dim:
-        ma = c["ma"][:, :net.kd]
-        d_pe = 3 + 6 * n_freq_dir
+        ma = c["ma"][:, :lay.kd]
+        d_pe = 3 + 6 * lay.n_freq_dir
         a_cols = torch.nn.functional.pad(
-            inp[:, 6:6 + a_dim], (d_pe, net.kd - d_pe - a_dim))
+            inp[:, 6:6 + a_dim], (d_pe, lay.kd - d_pe - a_dim))
         d_tail = torch.where(ma > 0, a_cols, d_tail)
     din = torch.cat([xyz_final, d_tail.to(dtype)], -1)
     hd = hidden(din, 9)
     out = (mm(hd, 10) + bs[10]) + fs2[:, W_TRUNK:]
     acts = {"ins": ins, "outs": outs, "din": din, "hd": hd}
-    if has_transient:
+    if lay.has_transient:
         t0 = 6 + a_dim
         t = torch.nn.functional.pad(inp[:, t0:t0 + t_dim],
-                                    (0, net.kt - t_dim)).to(dtype)
+                                    (0, lay.kt - t_dim)).to(dtype)
         tacts = [torch.cat([xyz_final, t], -1)]
         for i in (11, 12, 13, 14):
             tacts.append(hidden(tacts[-1], i))
@@ -796,29 +782,30 @@ def _forward(inp, net: PackedNet, sx, sd, c, *, n_freq_dir, a_dim, t_dim,
 
 
 def fused_mlp_reference(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
-                        sd: torch.Tensor, *, n_freq_xyz: int, n_freq_dir: int,
-                        a_dim: int, t_dim: int, has_transient: bool,
-                        dtype, ipe: bool = False) -> torch.Tensor:
+                        sd: torch.Tensor) -> torch.Tensor:
     """The kernel's function in eager torch: packed (N, 128) f32 input ->
-    (N, 16) f32 pre-activations, with the kernel's rounding points.
-    ``ipe``: the IPE kernel's (``n_freq_xyz`` IPE frequencies)."""
-    c = _consts(n_freq_xyz, n_freq_dir, a_dim, inp.device)
-    return _forward(inp, net, sx, sd, c, n_freq_dir=n_freq_dir, a_dim=a_dim,
-                    t_dim=t_dim, has_transient=has_transient, dtype=dtype,
-                    ipe_freqs=n_freq_xyz if ipe else 0)[0]
+    (N, 16) f32 pre-activations, with the kernel's rounding points."""
+    return _forward(inp, net, sx, sd)[0]
+
+
+def _sigma_net(net: PackedNet) -> PackedNet:
+    """``net`` as the sigma-only kernel reads it: its trunk and fs2 under
+    its layout's ``sigma``."""
+    return PackedNet(net.ws[:SIGMA_LAYERS], net.bs[:SIGMA_LAYERS],
+                     net.layout.sigma)
 
 
 def fused_sigma_reference(xyz: torch.Tensor, net: PackedNet,
-                          sx: torch.Tensor, *,
-                          n_freq_xyz: int) -> torch.Tensor:
+                          sx: torch.Tensor) -> torch.Tensor:
     """The sigma-only kernel's function in eager torch: (N, 3) f32
     positions -> (N,) f32 static-sigma pre-activations, through PE(xyz)
-    times the scale row ``sx``, the trunk (``fused_mlp_reference``'s at
-    f32) and fs2's 16-column sigma block plus its f32 bias: column
-    ``COL_S_SIGMA`` of ``fused_mlp_reference``'s output at f32."""
-    c = _consts(n_freq_xyz, 0, 0, xyz.device)
-    _, hidden = _layers(net, torch.float32, torch.matmul)
-    pe = _encode(xyz, c["PxR"], c["phx"], c["trgx"], sx, 0, net.k0)
+    times the scale row ``sx``, the trunk and fs2's 16-column sigma block
+    plus its f32 bias: column ``COL_S_SIGMA`` of ``fused_mlp_reference``'s
+    output for an f32 net of the skip-4 layout, full or sigma-only."""
+    net = _sigma_net(net)
+    c = _consts(net.layout, xyz.device)
+    _, hidden = _layers(net, torch.matmul)
+    pe = _encode(xyz, c["PxR"], c["phx"], c["trgx"], sx, 0, net.layout.k0)
     _, outs = _trunk(pe, hidden)
     block = slice(W_TRUNK, W_TRUNK + OUT_W)
     return (torch.matmul(outs[-1], net.ws[8][:, block])
@@ -827,36 +814,22 @@ def fused_sigma_reference(xyz: torch.Tensor, net: PackedNet,
 
 def fused_mlp_bwd_reference(inp: torch.Tensor, net: PackedNet,
                             sx: torch.Tensor, sd: torch.Tensor,
-                            g: torch.Tensor, *, n_freq_xyz: int,
-                            n_freq_dir: int, a_dim: int, t_dim: int,
-                            has_transient: bool, dtype, ipe: bool = False):
+                            g: torch.Tensor, matmul=torch.matmul):
     """The backward kernel's function in eager torch, step for step with
     ``nerf_fl_tpu/ops/fused_mlp.py:_bwd_kernel`` and its rounding points:
     recompute the forward, then backprop the (N, 16) f32 cotangent ``g`` of
-    the pre-activations.  Inter-layer cotangents are rounded to ``dtype``;
-    weight and bias grads are f32 sums of exact products.  Returns
-    (dws, dbs, d_inp): padded (K, N_out) and (N_out,) f32 grads per packed
-    layer, and the (N, 128) f32 cotangent of the packed input.  (Not
+    the pre-activations.  Inter-layer cotangents are rounded to the
+    layout's dtype; weight and bias grads are f32 sums of exact products.
+    Returns (dws, dbs, d_inp): padded (K, N_out) and (N_out,) f32 grads per
+    packed layer, and the (N, 128) f32 cotangent of the packed input, None
+    for the IPE layout (its kernels take no input cotangent).  (Not
     autograd of ``fused_mlp_reference``: that would keep f32 cotangents.)
-    ``ipe``: the IPE backward's, whose d_inp is None (it takes no input
-    cotangent)."""
-    return _backward(inp, net, sx, sd, g, n_freq_xyz=n_freq_xyz,
-                     n_freq_dir=n_freq_dir, a_dim=a_dim, t_dim=t_dim,
-                     has_transient=has_transient, dtype=dtype, ipe=ipe)
-
-
-def _backward(inp, net: PackedNet, sx, sd, g, *, n_freq_xyz, n_freq_dir,
-              a_dim, t_dim, has_transient, dtype, matmul=torch.matmul,
-              ipe=False):
-    """``fused_mlp_bwd_reference`` with its layer products (the forward's,
-    the dgrad's and the wgrad's) taken by ``matmul``."""
+    ``matmul`` takes every layer product."""
     f32 = torch.float32
-    c = _consts(n_freq_xyz, n_freq_dir, a_dim, inp.device)
-    _, acts = _forward(inp, net, sx, sd, c, n_freq_dir=n_freq_dir,
-                       a_dim=a_dim, t_dim=t_dim, has_transient=has_transient,
-                       dtype=dtype, matmul=matmul,
-                       ipe_freqs=n_freq_xyz if ipe else 0)
-    skip = IPE_SKIP if ipe else SKIP
+    lay = net.layout
+    dtype, a_dim, t_dim = lay.dtype, lay.a_dim, lay.t_dim
+    c = _consts(lay, inp.device)
+    _, acts = _forward(inp, net, sx, sd, matmul)
     ws = net.ws
     dws: List[torch.Tensor] = [None] * len(ws)
     dbs: List[torch.Tensor] = [None] * len(ws)
@@ -877,7 +850,7 @@ def _backward(inp, net: PackedNet, sx, sd, g, *, n_freq_xyz, n_freq_dir,
     d_hd = dense_bwd(acts["hd"], None, gd, 10)
     d_din = dense_bwd(acts["din"], acts["hd"], d_hd, 9)
     d_xf, d_dtail = d_din[:, :W_TRUNK], d_din[:, W_TRUNK:]
-    if has_transient:
+    if lay.has_transient:
         tacts = acts["tacts"]
         gt = dense_bwd(tacts[4], None, gd, 15)
         for k in (2, 1, 0):
@@ -890,9 +863,9 @@ def _backward(inp, net: PackedNet, sx, sd, g, *, n_freq_xyz, n_freq_dir,
     gg = dense_bwd(outs[7], None, torch.cat([d_xf, gd], -1), 8)
     for i in range(7, -1, -1):
         gg = dense_bwd(ins[i], outs[i], gg, i)
-        if i == skip:
-            d_pe_skip, gg = gg[:, :net.k0], gg[:, net.k0:]
-    if ipe:
+        if i == lay.skip:
+            d_pe_skip, gg = gg[:, :lay.k0], gg[:, lay.k0:]
+    if lay.no_d_inp:
         return dws, dbs, None
     d_pe = add(gg, d_pe_skip)
 
@@ -910,14 +883,14 @@ def _backward(inp, net: PackedNet, sx, sd, g, *, n_freq_xyz, n_freq_dir,
 
     d_inp = torch.zeros(inp.shape, dtype=f32, device=inp.device)
     d_inp[:, 0:3] = torch.stack(d_enc(c["PxR"], c["phx"], c["trgx"], sx, 0,
-                                      net.k0, d_pe), 1)
+                                      lay.k0, d_pe), 1)
     d_inp[:, 3:6] = torch.stack(d_enc(c["PdR"], c["phd"], c["trgd"], sd, 3,
-                                      net.kd, d_dtail,
-                                      c["ma"][:, :net.kd]), 1)
+                                      lay.kd, d_dtail,
+                                      c["ma"][:, :lay.kd]), 1)
     if a_dim:
-        d_pe_dim = 3 + 6 * n_freq_dir
+        d_pe_dim = 3 + 6 * lay.n_freq_dir
         d_inp[:, 6:6 + a_dim] = d_dtail[:, d_pe_dim:d_pe_dim + a_dim].to(f32)
-    if has_transient:
+    if lay.has_transient:
         d_inp[:, 6 + a_dim:6 + a_dim + t_dim] = d_ttail[:, :t_dim].to(f32)
     return dws, dbs, d_inp
 
@@ -944,245 +917,190 @@ def kernel_block_info(dtype=torch.bfloat16):
             ("splits" if j == 0 else "split_rows"): b[j + 4]}
 
 
+_V, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PV, _PI, _PL = (ctypes.POINTER(t) for t in (_V, _I, _L))
+# each library's entry points and their arguments (the _info ones return
+# nothing, the others a CUDA error)
+_ARGTYPES = {
+    "fused_mlp_fwd": {
+        "nerf_fused_mlp_fwd":
+            [_I, _V, _V, _I, _PV, _V, _L, _I, _V, _V] + [_I] * 5 + [_V] * 2,
+        "nerf_fused_sigma_fwd": [_V, _V, _I, _PV, _V, _L, _I, _V, _I, _V, _V],
+        "nerf_fused_ipe_fwd":
+            [_V, _V, _I, _PV, _V, _L, _I, _V, _I, _I] + [_V] * 3,
+        "nerf_fused_mlp_fwd_info": [_PI]},
+    "fused_mlp_bwd": {
+        "nerf_fused_mlp_bwd_sizes": [_I] * 8 + [_PL],
+        "nerf_fused_mlp_bwd":
+            [_I, _V, _V, _V, _I, _PV, _V, _L, _I, _V, _V] + [_I] * 5
+            + [_V] * 5,
+        "nerf_fused_ipe_bwd_sizes": [_I] * 4 + [_PL],
+        "nerf_fused_ipe_bwd":
+            [_V, _V, _I, _PV, _V, _L, _I, _V, _I, _I] + [_V] * 6,
+        "nerf_fused_mlp_bwd_info": [_PI]},
+}
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    for symbol, argtypes in _ARGTYPES[name].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = None if symbol.endswith("_info") else _I
+    return lib
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_mlp_fwd")
-    lib.nerf_fused_mlp_fwd.argtypes = (
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.POINTER(ctypes.c_void_p),
-         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p]
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p])
-    lib.nerf_fused_mlp_fwd.restype = ctypes.c_int
-    lib.nerf_fused_sigma_fwd.argtypes = (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p])
-    lib.nerf_fused_sigma_fwd.restype = ctypes.c_int
-    lib.nerf_fused_ipe_fwd.argtypes = (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    lib.nerf_fused_ipe_fwd.restype = ctypes.c_int
-    lib.nerf_fused_mlp_fwd_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.nerf_fused_mlp_fwd_info.restype = None
-    return lib
+    return _load("fused_mlp_fwd")
 
 
 @functools.lru_cache(maxsize=1)
 def _lib_bwd() -> ctypes.CDLL:
-    lib = _build.load("fused_mlp_bwd")
-    lib.nerf_fused_mlp_bwd_sizes.argtypes = (
-        [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)])
-    lib.nerf_fused_mlp_bwd_sizes.restype = ctypes.c_int
-    lib.nerf_fused_mlp_bwd.argtypes = (
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int,
-         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        + [ctypes.c_int] * 5
-        + [ctypes.c_void_p] * 5)
-    lib.nerf_fused_mlp_bwd.restype = ctypes.c_int
-    lib.nerf_fused_ipe_bwd_sizes.argtypes = (
-        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)])
-    lib.nerf_fused_ipe_bwd_sizes.restype = ctypes.c_int
-    lib.nerf_fused_ipe_bwd.argtypes = (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * 6)
-    lib.nerf_fused_ipe_bwd.restype = ctypes.c_int
-    lib.nerf_fused_mlp_bwd_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.nerf_fused_mlp_bwd_info.restype = None
-    return lib
+    return _load("fused_mlp_bwd")
 
 
-def _packed_shapes(k0: int, kd: int, kt: int, has_transient: bool,
-                   ipe: bool = False):
-    """(K, N_out) of every packed layer, in ``pack_weights`` order (with
-    ``ipe``, the IPE layout's: the skip at layer 5)."""
-    skip = IPE_SKIP if ipe else SKIP
-    shapes = [(k0, W_TRUNK)] \
-        + [(k0 + W_TRUNK if i == skip else W_TRUNK, W_TRUNK)
-           for i in range(1, 8)] \
-        + [(W_TRUNK, W_TRUNK + OUT_W), (W_TRUNK + kd, W_HALF),
-           (W_HALF, OUT_W)]
-    if has_transient:
-        shapes += [(W_TRUNK + kt, W_HALF)] + [(W_HALF, W_HALF)] * 3 \
-            + [(W_HALF, OUT_W)]
-    return shapes
-
-
-def _sigma_shapes(k0: int):
-    """The sigma-only kernel's packed (K, N_out) shapes: the trunk's and
-    fs2's."""
-    return _packed_shapes(k0, 0, 0, False)[:SIGMA_LAYERS]
-
-
-def _check_operands(name, inp, net, sx, sd, has_transient, dtype,
-                    ipe=False):
-    """Raise unless the operands are what the kernels take; returns the
-    packed layer shapes."""
-    dev = inp.device
+def _check_operands(name, x, cols, net, *rows):
+    """Raise unless ``x`` is a (N, cols) f32 CUDA tensor whose values one
+    launch can index, the packed layers have their layout's shapes and
+    dtype (biases f32) and the scale rows are (1, 128) f32, all contiguous
+    on its device."""
+    dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors")
-    if dtype not in _DTYPE_CODE:
-        raise TypeError(f"unsupported compute dtype {dtype}")
-    if ipe and (dtype != torch.float32 or has_transient):
-        raise ValueError(f"{name}: the IPE kernels are f32 and have no "
-                         "transient branch")
-    if inp.dtype != torch.float32 or inp.dim() != 2 \
-            or inp.shape[1] != LANES or not inp.is_contiguous():
-        raise ValueError("inp must be a contiguous (N, 128) float32 tensor")
-    shapes = _packed_shapes(net.k0, net.kd, net.kt, has_transient, ipe)
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != cols \
+            or not x.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous (N, {cols}) float32 "
+                         "tensor")
+    if x.shape[0] >= 2 ** 31 // (LANES if cols == LANES else 1):
+        raise ValueError(f"too many points for one launch: {x.shape[0]}")
+    shapes = net.layout.shapes
     if len(net.ws) != len(shapes) or len(net.bs) != len(shapes):
         raise ValueError(f"expected {len(shapes)} packed layers")
-    _check_layers(net, shapes, dtype, dev, sx, sd)
-    if inp.shape[0] >= 2 ** 31 // LANES:
-        raise ValueError(f"too many points for one launch: {inp.shape[0]}")
-    return shapes
-
-
-def _check_layers(net, shapes, dtype, dev, *rows):
-    """Raise unless the first ``len(shapes)`` packed layers have those
-    (K, N_out) shapes in ``dtype`` (biases f32), contiguous on ``dev``, and
-    each scale row is a contiguous (1, 128) f32 row there."""
-    for w, b, s in zip(net.ws, net.bs, shapes):
-        if tuple(w.shape) != s or w.dtype != dtype or w.device != dev \
-                or not w.is_contiguous():
-            raise ValueError(f"packed weight {tuple(w.shape)} {w.dtype} does "
-                             f"not match {s} {dtype} on {dev}")
-        if tuple(b.shape) != (s[1],) or b.dtype != torch.float32 \
-                or b.device != dev or not b.is_contiguous():
-            raise ValueError(f"packed bias {tuple(b.shape)} does not match "
-                             f"({s[1]},) float32 on {dev}")
-    for r in rows:
-        if tuple(r.shape) != (1, LANES) or r.dtype != torch.float32 \
-                or r.device != dev or not r.is_contiguous():
-            raise ValueError("scale rows must be contiguous (1, 128) float32")
+    f32 = torch.float32
+    want = [(w, s, net.layout.dtype) for w, s in zip(net.ws, shapes)] \
+        + [(b, (s[1],), f32) for b, s in zip(net.bs, shapes)] \
+        + [(r, (1, LANES), f32) for r in rows]
+    for t, shape, dtype in want:
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: operand {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device} is not a contiguous {shape} "
+                             f"{dtype} tensor on {dev}")
 
 
 def _ptrs(ts):
     return (ctypes.c_void_p * N_LAYERS)(*[t.data_ptr() for t in ts])
 
 
-def _image_and_grid(net: PackedNet, has_transient: bool, dtype,
-                    backward: bool, n: int, dev, ipe: bool = False):
-    """(image, its bytes, persistent blocks) of one launch: the bf16
-    kernels' ``weight_image`` and 128-point tiles, the f32 kernels'
-    ``f32_weight_image`` (the IPE kernels' with ``ipe``) and 64-point
-    tiles."""
-    if dtype == torch.bfloat16:
-        image, rows = weight_image(net, has_transient, backward), TILE_ROWS
-    else:
-        image = f32_weight_image(net, has_transient, backward, ipe)
-        rows = F32_ROWS
+def _grid(net: PackedNet, n: int, dev) -> int:
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    return image, image.numel() * image.element_size(), \
-        fwd_grid(n, n_sm, rows)
+    return fwd_grid(n, n_sm, net.layout.rows)
+
+
+def _c_layout(lay: Layout):
+    """What ``lay``'s entry points take of it: (dtype code, numbers)."""
+    e = _ENTRY[lay.variant]
+    code = (_DTYPE_CODE[lay.dtype],) if e.dtype_code else ()
+    nums = (lay.n_freq_xyz, lay.n_freq_dir, lay.a_dim, lay.t_dim,
+            int(lay.has_transient))
+    return code, nums[:e.n_nums]
+
+
+def _launch(net, backward, image, data, grid, sx, sd, tail=()):
+    """Launch the forward (``backward``: backward) kernel of ``net``'s
+    layout on the current stream of ``data``' device, streaming ``image``
+    (``weight_image(net, backward)``): ``data`` (the operands and the point
+    count) and ``tail`` (the backward's buffers) in the places its entry
+    point takes them (``_ENTRY``)."""
+    e, dev = _ENTRY[net.layout.variant], data[0].device
+    runs = _runs(dev)
+    symbol, slots = (e.bwd, e.bwd_slots) if backward else (e.fwd, e.fwd_slots)
+    code, nums = _c_layout(net.layout)
+    rows = [{"x": sx, "d": sd}[r].data_ptr() for r in e.rows]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = getattr(_lib_bwd() if backward else _lib(), symbol)(
+            *code, *[x if isinstance(x, int) else x.data_ptr() for x in data],
+            _ptrs(net.bs), image.data_ptr(),
+            image.numel() * image.element_size(), grid, *rows, *nums,
+            *[x.data_ptr() for x in tail],
+            *[runs.data_ptr() + 8 * RUN_SLOTS.index(s) for s in slots],
+            stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
+                           f"{err}")
 
 
 _RUNS: Dict[torch.device, torch.Tensor] = {}
 
 
 def _runs(dev: torch.device) -> torch.Tensor:
-    """The card's (5,) int64 counter of fused forward / backward /
-    sigma-only / IPE forward / IPE backward kernel runs, to which each
-    kernel adds one from its first thread (an IPE kernel to its slot and to
-    the fused pair's).  A
-    CUDA graph bakes its address in, so it lives as long as the process; it
-    is made outside any capture (a capture would record, and each replay
-    repeat, its zeroing)."""
+    """The card's int64 run counter (``RUN_SLOTS``).  A CUDA graph bakes
+    its address in, so it lives as long as the process; it is made outside
+    any capture (a capture would record, and each replay repeat, its
+    zeroing)."""
     runs = _RUNS.get(dev)
     if runs is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the fused kernels' run counter must exist "
                                "before a CUDA graph captures them: launch "
                                "once outside the capture first")
-        runs = _RUNS[dev] = torch.zeros(5, dtype=torch.int64, device=dev)
+        runs = _RUNS[dev] = torch.zeros(len(RUN_SLOTS), dtype=torch.int64,
+                                        device=dev)
     return runs
 
 
-def _counted(device):
+def _counted(device) -> Dict[str, int]:
     """The run counter of ``device`` (None: the current CUDA device) read
-    back after a synchronize, or zeros where no kernel has run."""
+    back after a synchronize, by slot, or zeros where no kernel has run."""
     dev = torch.device(device if device is not None else "cuda")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if dev not in _RUNS:
-        return [0] * 5
+        return dict.fromkeys(RUN_SLOTS, 0)
     torch.cuda.synchronize(dev)
-    return _RUNS[dev].tolist()
+    return dict(zip(RUN_SLOTS, _RUNS[dev].tolist()))
 
 
 def kernel_runs(device=None):
     """(forward, backward): the fused kernels that have run on ``device``
     (None: the current CUDA device) in this process, counted on the card
-    by the kernels themselves.  Unlike the wrappers' ``launches``, which
-    count the host calls that launch (or, under a capture, record) a
-    kernel, it counts each run of a CUDA graph's replay.  The sigma-only
-    kernel's runs are not among them (``sigma_runs``); the IPE kernels'
-    are, and ``ipe_runs`` counts them apart too.  Synchronizes the
-    device."""
-    fwd, bwd = _counted(device)[:2]
-    return fwd, bwd
+    by the kernels themselves: unlike the wrappers' ``launches`` (host
+    calls), each run of a CUDA graph's replay.  The IPE kernels' runs are
+    among them, the sigma-only kernel's not.  Synchronizes the device."""
+    c = _counted(device)
+    return c["fwd"], c["bwd"]
 
 
 def sigma_runs(device=None) -> int:
-    """The sigma-only kernel's runs on ``device`` in this process, counted
-    on the card by the kernel itself, as ``kernel_runs`` counts the fused
-    pair's.  Synchronizes the device."""
-    return _counted(device)[2]
+    """The sigma-only kernel's runs on ``device``, as ``kernel_runs``."""
+    return _counted(device)["sigma"]
 
 
 def ipe_runs(device=None):
-    """(forward, backward): the IPE kernels' runs on ``device`` in this
-    process, counted on the card by the kernels themselves (graph replays
-    included); ``kernel_runs`` counts them too.  Synchronizes the
-    device."""
+    """(forward, backward): the IPE kernels' runs on ``device``, as
+    ``kernel_runs`` (which counts them too)."""
     c = _counted(device)
-    return c[3], c[4]
+    return c["ipe_fwd"], c["ipe_bwd"]
 
 
 def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
-                       sd: torch.Tensor, *, n_freq_xyz: int, n_freq_dir: int,
-                       a_dim: int, t_dim: int, has_transient: bool,
-                       dtype, ipe: bool = False) -> torch.Tensor:
-    """Launch csrc/fused_mlp_fwd.cu on the current stream: packed (N, 128)
-    f32 input -> (N, 16) f32 pre-activations.  bf16 runs the wgmma kernel
-    on ``weight_image(net)``, f32 the 3xTF32 wgmma kernel on
-    ``f32_weight_image(net)``, each with ``fwd_grid`` persistent blocks.
-    Counts its launches in ``fused_mlp_fwd_cuda.launches``; the kernel
-    counts its runs on the card (``kernel_runs``).  ``ipe``: the IPE kernel
-    (f32, no appearance or transient) on the IPE layout's image, which
-    counts its runs in ``ipe_runs`` as well."""
-    _check_operands("fused_mlp_fwd_cuda", inp, net, sx, sd, has_transient,
-                    dtype, ipe)
-    dev, n = inp.device, inp.shape[0]
-    runs = _runs(dev)
-    out = torch.empty((n, OUT_W), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    image, image_bytes, grid = _image_and_grid(net, has_transient, dtype,
-                                               False, n, dev, ipe)
-    with torch.cuda.device(dev):
-        if ipe:
-            err = _lib().nerf_fused_ipe_fwd(
-                inp.data_ptr(), out.data_ptr(), n, _ptrs(net.bs),
-                image.data_ptr(), image_bytes, grid, sd.data_ptr(),
-                n_freq_xyz, n_freq_dir, runs.data_ptr(),
-                runs.data_ptr() + 24, stream)
-        else:
-            err = _lib().nerf_fused_mlp_fwd(
-                _DTYPE_CODE[dtype], inp.data_ptr(), out.data_ptr(), n,
-                _ptrs(net.bs), image.data_ptr(), image_bytes, grid,
-                sx.data_ptr(), sd.data_ptr(),
-                n_freq_xyz, n_freq_dir, a_dim, t_dim, int(has_transient),
-                runs.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_fwd kernel launch failed: CUDA error "
-                           f"{err}")
+                       sd: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/fused_mlp_fwd.cu's kernel of ``net``'s layout on the
+    current stream: packed (N, 128) f32 input -> (N, 16) f32
+    pre-activations: bf16 the wgmma kernel, f32 the 3xTF32 one (the IPE
+    layout its IPE instance), on ``weight_image(net)`` with ``fwd_grid``
+    persistent blocks.  Counts its launches in
+    ``fused_mlp_fwd_cuda.launches``; the kernel counts its runs on the card
+    (``kernel_runs``; the IPE kernel in ``ipe_runs`` too)."""
+    if net.layout.variant == SIGMA:
+        raise ValueError("a sigma-only net runs on fused_sigma_cuda")
+    _check_operands("fused_mlp_fwd_cuda", inp, LANES, net, sx, sd)
+    n = inp.shape[0]
+    out = torch.empty((n, OUT_W), dtype=torch.float32, device=inp.device)
+    _launch(net, False, weight_image(net), (inp, out, n),
+            _grid(net, n, inp.device), sx, sd)
     fused_mlp_fwd_cuda.launches += 1
     return out
 
@@ -1190,41 +1108,20 @@ def fused_mlp_fwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
 fused_mlp_fwd_cuda.launches = 0
 
 
-def fused_sigma_cuda(xyz: torch.Tensor, net: PackedNet, sx: torch.Tensor, *,
-                     n_freq_xyz: int) -> torch.Tensor:
+def fused_sigma_cuda(xyz: torch.Tensor, net: PackedNet,
+                     sx: torch.Tensor) -> torch.Tensor:
     """Launch csrc/fused_mlp_fwd.cu's sigma-only kernel on the current
     stream: (N, 3) f32 positions -> (N,) f32 static-sigma pre-activations,
     the f32 kernel's column ``COL_S_SIGMA`` for the same points and
-    weights.  ``net``: an f32 ``PackedNet`` (its trunk and fs2 are read:
-    ``pack_sigma_weights`` packs no more); the kernel streams
-    ``f32_sigma_image(net)`` with ``fwd_grid`` persistent blocks of 64
-    points.  Counts its launches in ``fused_sigma_cuda.launches``; the
-    kernel counts its runs on the card (``sigma_runs``)."""
-    dev, n = xyz.device, xyz.shape[0]
-    if dev.type != "cuda":
-        raise ValueError("fused_sigma_cuda takes CUDA tensors")
-    if xyz.dtype != torch.float32 or xyz.dim() != 2 or xyz.shape[1] != 3 \
-            or not xyz.is_contiguous():
-        raise ValueError("xyz must be a contiguous (N, 3) float32 tensor")
-    if len(net.ws) < SIGMA_LAYERS or len(net.bs) < SIGMA_LAYERS:
-        raise ValueError(f"expected at least {SIGMA_LAYERS} packed layers")
-    _check_layers(net, _sigma_shapes(net.k0), torch.float32, dev, sx)
-    if n >= 2 ** 31:
-        raise ValueError(f"too many points for one launch: {n}")
-    runs = _runs(dev)
-    out = torch.empty(n, dtype=torch.float32, device=dev)
-    image = f32_sigma_image(net)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _lib().nerf_fused_sigma_fwd(
-            xyz.data_ptr(), out.data_ptr(), n, _ptrs(net.bs[:SIGMA_LAYERS]),
-            image.data_ptr(), image.numel() * image.element_size(),
-            fwd_grid(n, n_sm, F32_ROWS), sx.data_ptr(), n_freq_xyz,
-            runs.data_ptr() + 16, stream)
-    if err != 0:
-        raise RuntimeError(f"fused sigma kernel launch failed: CUDA error "
-                           f"{err}")
+    weights, of an f32 net of the skip-4 layout, full or sigma-only (its
+    trunk and fs2 are read).  Counts its launches in
+    ``fused_sigma_cuda.launches``, its runs in ``sigma_runs``."""
+    net = _sigma_net(net)
+    _check_operands("fused_sigma_cuda", xyz, 3, net, sx)
+    n = xyz.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=xyz.device)
+    _launch(net, False, weight_image(net), (xyz, out, n),
+            _grid(net, n, xyz.device), sx, None)
     fused_sigma_cuda.launches += 1
     return out
 
@@ -1233,81 +1130,51 @@ fused_sigma_cuda.launches = 0
 
 
 def fused_mlp_bwd_cuda(inp: torch.Tensor, net: PackedNet, sx: torch.Tensor,
-                       sd: torch.Tensor, g: torch.Tensor, *, n_freq_xyz: int,
-                       n_freq_dir: int, a_dim: int, t_dim: int,
-                       has_transient: bool, dtype, ipe: bool = False):
-    """Launch csrc/fused_mlp_bwd.cu on the current stream: the fused
-    recompute + dgrad kernel on ``weight_image(net, backward=True)`` (bf16)
-    or ``f32_weight_image(net, backward=True)`` (f32, 3xTF32) with
-    ``fwd_grid`` persistent blocks, the split-K wgrad kernel over the
-    operand tiles it saved, and the fixed-order reductions of dW and db.
-    Same operands as ``fused_mlp_bwd_reference`` plus the (N, 16)
-    f32 cotangent ``g``; returns (dws, dbs, d_inp) as it does.
-    Deterministic: two launches on the same inputs give bitwise-equal
-    results.  Counts its launches in ``fused_mlp_bwd_cuda.launches``; the
-    fused kernel counts its runs on the card (``kernel_runs``).  ``ipe``:
-    the IPE backward (its runs also in ``ipe_runs``), which returns None
-    for d_inp."""
-    shapes = _check_operands("fused_mlp_bwd_cuda", inp, net, sx, sd,
-                             has_transient, dtype, ipe)
+                       sd: torch.Tensor, g: torch.Tensor):
+    """Launch csrc/fused_mlp_bwd.cu's backward of ``net``'s layout on the
+    current stream: the fused recompute + dgrad kernel on
+    ``weight_image(net, backward=True)`` with ``fwd_grid`` persistent
+    blocks, the split-K wgrad kernel over the operand tiles it saved, and
+    the fixed-order reductions of dW and db.  Operands and result as
+    ``fused_mlp_bwd_reference``'s.  Deterministic: two launches on the same
+    inputs give bitwise-equal results.  Counts its launches in
+    ``fused_mlp_bwd_cuda.launches``, its runs as the forward does."""
+    lay, e = net.layout, _ENTRY[net.layout.variant]
+    if e.bwd is None:
+        raise ValueError("a sigma-only net has no backward")
+    _check_operands("fused_mlp_bwd_cuda", inp, LANES, net, sx, sd)
     dev, n = inp.device, inp.shape[0]
-    runs = _runs(dev)
     if g.dtype != torch.float32 or tuple(g.shape) != (n, OUT_W) \
             or g.device != dev or not g.is_contiguous():
         raise ValueError("g must be a contiguous (N, 16) float32 tensor on "
                          "the input's device")
-    lib = _lib_bwd()
-    image, image_bytes, grid = _image_and_grid(net, has_transient, dtype,
-                                               True, n, dev, ipe)
+    # the image first: its temporaries are freed before the buffers below
+    # are made, which keeps them out of the launch's peak memory
+    image, grid = weight_image(net, backward=True), _grid(net, n, dev)
     sizes = (ctypes.c_longlong * 3)()
-    if ipe:
-        err = lib.nerf_fused_ipe_bwd_sizes(n, grid, n_freq_xyz, n_freq_dir,
-                                           sizes)
-    else:
-        err = lib.nerf_fused_mlp_bwd_sizes(
-            _DTYPE_CODE[dtype], n, grid, n_freq_xyz, n_freq_dir, a_dim,
-            t_dim, int(has_transient), sizes)
-    if err != 0:
-        raise ValueError(f"fused_mlp_bwd: unsupported shapes (error {err})")
+    code, nums = _c_layout(lay)
+    if getattr(_lib_bwd(), e.sizes)(*code, n, grid, *nums, sizes) != 0:
+        raise ValueError("fused_mlp_bwd: unsupported shapes")
     scratch_bytes, partial_floats, grad_floats = (int(v) for v in sizes)
-    if grad_floats != sum(k * m + m for k, m in shapes):
+    if grad_floats != sum(k * m + m for k, m in lay.shapes):
         raise RuntimeError("fused_mlp_bwd: packed layout disagrees with the "
                            "kernel's")
     # the kernels write d_inp's live columns only; the IPE kernels none
-    d_inp = None if ipe else torch.zeros((n, LANES), dtype=torch.float32,
-                                         device=dev)
+    d_inp = None if lay.no_d_inp else torch.zeros(
+        (n, LANES), dtype=torch.float32, device=dev)
     grads = torch.empty(grad_floats, dtype=torch.float32, device=dev)
     scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8,
                           device=dev)
     partial = torch.empty(max(partial_floats, 1), dtype=torch.float32,
                           device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        if ipe:
-            err = lib.nerf_fused_ipe_bwd(
-                inp.data_ptr(), g.data_ptr(), n, _ptrs(net.bs),
-                image.data_ptr(), image_bytes, grid, sd.data_ptr(),
-                n_freq_xyz, n_freq_dir, scratch.data_ptr(),
-                partial.data_ptr(), grads.data_ptr(), runs.data_ptr() + 8,
-                runs.data_ptr() + 32, stream)
-        else:
-            err = lib.nerf_fused_mlp_bwd(
-                _DTYPE_CODE[dtype], inp.data_ptr(), g.data_ptr(),
-                d_inp.data_ptr(), n, _ptrs(net.bs), image.data_ptr(),
-                image_bytes, grid, sx.data_ptr(), sd.data_ptr(), n_freq_xyz,
-                n_freq_dir, a_dim, t_dim, int(has_transient),
-                scratch.data_ptr(), partial.data_ptr(), grads.data_ptr(),
-                runs.data_ptr() + 8, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_bwd kernel launch failed: CUDA error "
-                           f"{err}")
+    operands = [x for x in (inp, g, d_inp) if x is not None]
+    _launch(net, True, image, (*operands, n), grid, sx, sd,
+            (scratch, partial, grads))
     fused_mlp_bwd_cuda.launches += 1
-    dws, dbs, at = [], [], 0
-    for k, m in shapes:
-        dws.append(grads[at:at + k * m].view(k, m))
-        dbs.append(grads[at + k * m:at + k * m + m])
-        at += k * m + m
-    return dws, dbs, d_inp
+    per = list(zip(grads.split([k * m + m for k, m in lay.shapes]),
+                   lay.shapes))
+    return ([x[:k * m].view(k, m) for x, (k, m) in per],
+            [x[k * m:] for x, (k, m) in per], d_inp)
 
 
 fused_mlp_bwd_cuda.launches = 0
@@ -1319,26 +1186,17 @@ fused_mlp_bwd_cuda.launches = 0
 
 class _FusedField(torch.autograd.Function):
     """Fused PE + MLP with its hand-written backward, as JAX's custom_vjp
-    (``nerf_fl_tpu/ops/fused_mlp.py:588-639``).  Inputs: a dict of static
-    settings, the packed input, the scale rows, and the f32 (weight, bias)
-    pairs of ``field_linears`` order.  The weights are packed to the
-    compute dtype inside ``forward``, so their grads reach ``.grad`` in f32.
-    CUDA tensors launch the kernels; CPU tensors run the plain versions."""
+    (``nerf_fl_tpu/ops/fused_mlp.py:588-639``): the ``Layout``, the packed
+    input, the scale rows and the f32 (weight, bias) pairs of
+    ``field_linears`` order, packed inside ``forward`` so that their grads
+    reach ``.grad`` in f32.  CUDA tensors launch the kernels; CPU tensors
+    run the plain versions."""
 
     @staticmethod
-    def forward(ctx, meta, inp, sx, sd, *params):
-        net = _pack(params, meta["a_dim"], meta["has_transient"],
-                    meta["dtype"], meta["n_freq_xyz"], meta["n_freq_dir"],
-                    meta["t_dim"], meta["ipe"])
+    def forward(ctx, layout, inp, sx, sd, *params):
+        ctx.net = net = _pack(params, layout)
         run = fused_mlp_fwd_cuda if inp.is_cuda else fused_mlp_reference
-        pre = run(inp, net, sx, sd, **meta)
-        # conditioning widths for unpack_weight_grads, from the weights of
-        # xyz.0, dir and transient.layers.0 (field_linears order)
-        lw = params[0::2]
-        ctx.meta, ctx.net = meta, net
-        ctx.widths = (lw[0].shape[1], lw[10].shape[1] - W_TRUNK,
-                      lw[12].shape[1] - W_TRUNK
-                      if meta["has_transient"] else 0)
+        pre = run(inp, net, sx, sd)
         ctx.save_for_backward(inp, sx, sd)
         return pre
 
@@ -1346,34 +1204,39 @@ class _FusedField(torch.autograd.Function):
     def backward(ctx, g):
         inp, sx, sd = ctx.saved_tensors
         run = fused_mlp_bwd_cuda if inp.is_cuda else fused_mlp_bwd_reference
-        dws, dbs, d_inp = run(inp, ctx.net, sx, sd, g.contiguous(),
-                              **ctx.meta)
-        grads = unpack_weight_grads(dws, dbs, *ctx.widths,
-                                    ctx.meta["has_transient"],
-                                    ctx.meta["ipe"])
+        dws, dbs, d_inp = run(inp, ctx.net, sx, sd, g.contiguous())
+        grads = unpack_weight_grads(dws, dbs, ctx.net.layout)
         # the BARF scale rows are schedule values, not parameters
         return (None, d_inp, None, None, *grads)
 
 
-def fused_apply_nerf(model: NeRF, xyz, dirs, a_emb=None, t_emb=None, *,
-                     output_transient: bool = False,
-                     compute_dtype=torch.bfloat16,
-                     n_freq_xyz: int = 10, n_freq_dir: int = 4,
-                     barf_w_xyz=None, barf_w_dir=None
+def _field_params(name, model: NeRF, layout: Layout, dev):
+    """``model``'s (weight, bias) pairs of ``field_linears`` order for
+    ``layout``, which must be on ``dev``."""
+    if model.xyz[0].weight.device != dev:
+        raise ValueError(f"{name}: model and inputs on different devices")
+    return [t for lin in field_linears(model, layout.has_transient)
+            for t in (lin.weight, lin.bias)]
+
+
+def fused_apply_nerf(model: NeRF, layout: Layout, xyz, dirs, a_emb=None,
+                     t_emb=None, *, barf_w_xyz=None, barf_w_dir=None
                      ) -> Dict[str, torch.Tensor]:
     """Fused PE + MLP in place of embed + models.mlp.apply_nerf,
     differentiable in the field's parameters and in every input.
 
-    xyz, dirs: (N, 3) raw positions and per-point view directions (the PE
+    ``layout``: a ``FULL`` layout of ``model`` (``layout_for``).  xyz,
+    dirs: (N, 3) raw positions and per-point view directions (the PE
     happens in the kernel); a_emb (N, a_dim) or None; t_emb (N, t_dim),
-    required when output_transient; barf_w_xyz / barf_w_dir: (N_freqs,)
-    BARF annealing weights or None.  CUDA tensors launch the forward kernel
-    (and the backward kernel under autograd); CPU tensors run the plain
-    versions.  Returns the same named-head dict as apply_nerf.
+    read where the layout has the transient branch; barf_w_xyz /
+    barf_w_dir: (N_freqs,) BARF annealing weights or None.  CUDA tensors
+    launch the forward kernel (and the backward kernel under autograd); CPU
+    tensors run the plain versions.  Returns apply_nerf's named-head dict.
     """
-    if output_transient and t_emb is None:
-        raise ValueError("output_transient needs t_emb")
-    if not output_transient:
+    transient = layout.has_transient
+    if transient and t_emb is None:
+        raise ValueError("a transient layout needs t_emb")
+    if not transient:
         t_emb = None
     inputs = [x for x in (xyz, dirs, a_emb, t_emb) if x is not None]
     dev = xyz.device
@@ -1385,47 +1248,36 @@ def fused_apply_nerf(model: NeRF, xyz, dirs, a_emb=None, t_emb=None, *,
             raise ValueError("fused_apply_nerf: inputs must be (N, C) float")
     if xyz.shape[1] != 3 or dirs.shape[1] != 3:
         raise ValueError("xyz and dirs must be (N, 3)")
-    if model.xyz[0].weight.device != dev:
-        raise ValueError("fused_apply_nerf: model and inputs on different "
-                         "devices")
-    a_dim = 0 if a_emb is None else a_emb.shape[-1]
-    t_dim = 0 if t_emb is None else t_emb.shape[-1]
+    widths = tuple(0 if x is None else x.shape[-1] for x in (a_emb, t_emb))
+    if widths != (layout.a_dim, layout.t_dim):
+        raise ValueError(f"embedding widths {widths} are not the layout's "
+                         f"{(layout.a_dim, layout.t_dim)}")
+    params = _field_params("fused_apply_nerf", model, layout, dev)
     inp = pack_inputs(xyz, dirs, a_emb, t_emb).contiguous()
     with torch.no_grad():
-        sx, sd = default_scale_rows(n_freq_xyz, n_freq_dir, a_dim,
-                                    barf_w_xyz, barf_w_dir, device=dev)
-    meta = dict(n_freq_xyz=n_freq_xyz, n_freq_dir=n_freq_dir, a_dim=a_dim,
-                t_dim=t_dim, has_transient=bool(output_transient),
-                dtype=compute_dtype, ipe=False)
-    params = [t for lin in field_linears(model, bool(output_transient))
-              for t in (lin.weight, lin.bias)]
-    pre = _FusedField.apply(meta, inp, sx.contiguous(), sd.contiguous(),
+        sx, sd = default_scale_rows(layout.n_freq_xyz, layout.n_freq_dir,
+                                    layout.a_dim, barf_w_xyz, barf_w_dir,
+                                    device=dev)
+    pre = _FusedField.apply(layout, inp, sx.contiguous(), sd.contiguous(),
                             *params)
-    return heads(pre, output_transient)
+    return heads(pre, transient)
 
 
-def fused_apply_mip(model: NeRF, inp: torch.Tensor, *, n_freq_ipe: int = 16,
-                    n_freq_dir: int = 4) -> Dict[str, torch.Tensor]:
+def fused_apply_mip(model: NeRF, layout: Layout,
+                    inp: torch.Tensor) -> Dict[str, torch.Tensor]:
     """mip-NeRF's field over packed (N, 128) IPE rows (``pack_ipe_inputs``:
     each point's Gaussian and unit view direction) in f32, differentiable
     in the field's parameters (not in the rows): CUDA tensors launch the
-    IPE kernels, CPU tensors run their plain versions.  ``model``: a
-    ``NeRF`` of the IPE layout (``NeRFConfig.skips`` (5,), ``skip_order``
-    "h_first", 6 ``n_freq_ipe`` inputs, no appearance or transient).
-    Returns {"raw_rgb": (N, 3), "raw_sigma": (N,)}, the pre-activations:
-    mip-NeRF's heads (``models.mlp.mip_heads``) come after."""
+    IPE kernels, CPU tensors run their plain versions.  ``layout``: the IPE
+    layout of ``model`` (``layout_for``).  Returns {"raw_rgb": (N, 3),
+    "raw_sigma": (N,)}, the pre-activations before ``models.mlp.mip_heads``."""
     if inp.dim() != 2 or inp.shape[1] != LANES or inp.dtype != torch.float32:
         raise ValueError("inp must be (N, 128) float32 IPE rows")
-    if model.xyz[0].weight.device != inp.device:
-        raise ValueError("fused_apply_mip: model and rows on different "
-                         "devices")
+    params = _field_params("fused_apply_mip", model, layout, inp.device)
     with torch.no_grad():
-        sd = default_scale_rows(0, n_freq_dir, 0, device=inp.device)[1]
-    meta = dict(n_freq_xyz=n_freq_ipe, n_freq_dir=n_freq_dir, a_dim=0,
-                t_dim=0, has_transient=False, dtype=torch.float32, ipe=True)
-    params = [t for lin in field_linears(model, False)
-              for t in (lin.weight, lin.bias)]
-    pre = _FusedField.apply(meta, inp.contiguous(), sd, sd.contiguous(),
+        sd = default_scale_rows(0, layout.n_freq_dir, 0,
+                                device=inp.device)[1]
+    pre = _FusedField.apply(layout, inp.contiguous(), sd, sd.contiguous(),
                             *params)
     return {"raw_rgb": pre[:, COL_S_RGB:COL_S_RGB + 3],
             "raw_sigma": pre[:, COL_S_SIGMA]}
@@ -1439,29 +1291,27 @@ def grad_needed(model: NeRF, *xs: torch.Tensor) -> bool:
         or any(p.requires_grad for p in model.parameters()))
 
 
-def fused_sigma(model: NeRF, xyz: torch.Tensor, *, n_freq_xyz: int = 10,
+def fused_sigma(model: NeRF, layout: Layout, xyz: torch.Tensor, *,
                 barf_w_xyz=None) -> Dict[str, torch.Tensor]:
     """The static sigma alone, in f32, of (N, 3) raw positions: PE(xyz)
     (with BARF's annealing weights ``barf_w_xyz``, (n_freq_xyz,) or None),
     the trunk and the sigma head, as ``apply_nerf(..., sigma_only=True)``
-    computes them, in the f32 fused kernel's arithmetic.  CUDA tensors
-    launch the sigma-only kernel (``fused_sigma_cuda``), CPU tensors run
-    its plain version.  It has no backward: it raises where autograd would
-    record the pass (``grad_needed``).  Returns {"static_sigma": (N,)}."""
+    computes them, in the f32 fused kernel's arithmetic, for ``model`` of
+    ``layout`` (its ``sigma`` is taken).  CUDA tensors launch the sigma-only
+    kernel (``fused_sigma_cuda``), CPU tensors run its plain version.  No
+    backward: it raises where autograd would record the pass
+    (``grad_needed``).  Returns {"static_sigma": (N,)}."""
     if grad_needed(model, xyz):
         raise ValueError("fused_sigma has no backward: run it under "
                          "torch.no_grad() or on tensors that need no grad")
     if xyz.dim() != 2 or xyz.shape[1] != 3:
         raise ValueError("xyz must be (N, 3)")
-    dev = xyz.device
-    if model.xyz[0].weight.device != dev:
-        raise ValueError("fused_sigma: model and positions on different "
-                         "devices")
-    net = pack_sigma_weights(model, n_freq_xyz)
-    sx = default_scale_rows(n_freq_xyz, 0, 0, barf_w_xyz, device=dev)[0]
+    _field_params("fused_sigma", model, layout.sigma, xyz.device)
+    net = pack_weights(model, layout.sigma)
+    sx = default_scale_rows(layout.n_freq_xyz, 0, 0, barf_w_xyz,
+                            device=xyz.device)[0]
     run = fused_sigma_cuda if xyz.is_cuda else fused_sigma_reference
-    pre = run(xyz.to(torch.float32).contiguous(), net, sx.contiguous(),
-              n_freq_xyz=n_freq_xyz)
+    pre = run(xyz.to(torch.float32).contiguous(), net, sx.contiguous())
     return {"static_sigma": softplus(pre)}
 
 

@@ -5,20 +5,20 @@ Counterpart of ``nerf_fl_tpu/render/renderer.py``.  The result dict is keyed
 exactly as the JAX one for every ``test_time`` / ``output_transient``
 combination.  Every pass goes through the fused PE + MLP kernels
 (``ops/fused_mlp.py``; forward, and backward under autograd) whenever the
-tensors are on CUDA and the architecture is one the kernels take: the
-test-time coarse ``sigma_only`` pass through the sigma-only kernel when it
-runs in float32 and records no gradient, the others through the fused
-pair.  The sigma-only pass in bfloat16 or under autograd, and every other
-architecture, run the plain ``models.mlp.apply_nerf``.
+tensors are on CUDA and ``fused_mlp.layout_for`` gives the pass a kernel's
+layout: the test-time coarse ``sigma_only`` pass the sigma-only kernel's,
+the others the fused pair's.  Where it gives none, the plain
+``models.mlp.apply_nerf`` runs the pass.
 
 ``RenderConfig.model`` "mipnerf" renders mip-NeRF instead (Barron et al.
 2021, ``google/mipnerf`` internal/models.py:MipNerfModel; no JAX
 counterpart): rays of 9 columns [o, d (not normalised), radius, near,
 far], two levels of one shared field (``params["nerf"]``) over cone
 intervals, the second over as many intervals resampled from the first's
-weights with their gradient stopped (``_render_mip``).  In float32 both
-levels run the fused pair's IPE kernels (``fused_mlp.fused_apply_mip``),
-test time included; bfloat16 runs the plain ``apply_nerf``.
+weights with their gradient stopped (``_render_mip``).  Where ``layout_for``
+gives the IPE layout, both levels run the fused pair's IPE kernels
+(``fused_mlp.fused_apply_mip``), test time included; otherwise the plain
+``apply_nerf``.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ from ..core import compositing, cones, encoding, sampling
 from ..models.embeddings import embedding_lookup
 from ..models.mlp import NeRFConfig, apply_nerf, mip_heads
 from ..ops.fused_mlp import (fused_apply_mip, fused_apply_nerf, fused_sigma,
-                             grad_needed, pack_ipe_inputs)
+                             grad_needed, layout_for, pack_ipe_inputs)
 from ..ops.sorting import rank_merge_sorted
 from ..utils.spans import mark
 
@@ -48,9 +48,9 @@ class RenderConfig:
     """Render/model hyperparameters; field names track the JAX RenderConfig.
 
     ``use_fused`` is the counterpart of ``use_pallas``: None runs the fused
-    kernel whenever the tensors are on CUDA and ``_fused_ok`` holds, True
-    runs it (its plain version on CPU tensors) wherever ``_fused_ok`` holds,
-    False never runs it.
+    kernels whenever the tensors are on CUDA and ``fused_mlp.layout_for``
+    gives a layout, True runs them (their plain versions on CPU tensors)
+    wherever it gives one, False never runs them.
 
     ``remat_mlp`` recomputes the plain path's field MLP in the backward
     (``torch.utils.checkpoint``) instead of keeping its activations.  It
@@ -139,35 +139,25 @@ def _embed(cfg: RenderConfig, x, n_freqs, epoch):
         fast=cfg.use_fast_trig, schedule=cfg.barf_schedule)
 
 
-def _fused_ok(mcfg: NeRFConfig) -> bool:
-    """Whether the fused kernel supports this architecture (mip-NeRF's
-    field: the IPE kernels)."""
-    if mcfg.skip_order == "hidden_first":
-        return (mcfg.D == 8 and mcfg.W == 256 and tuple(mcfg.skips) == (5,)
-                and mcfg.in_channels_xyz % 6 == 0
-                and 6 <= mcfg.in_channels_xyz <= 120
-                and mcfg.in_channels_dir <= 128 and mcfg.a_dim == 0
-                and not mcfg.encode_transient)
-    return (mcfg.D == 8 and mcfg.W == 256 and tuple(mcfg.skips) == (4,)
-            and mcfg.in_channels_xyz <= 128
-            and mcfg.in_channels_dir + mcfg.a_dim <= 128
-            and mcfg.in_channels_t <= 128)
-
-
-def _fused_on(model, mcfg: NeRFConfig, cfg: RenderConfig, dev) -> bool:
-    """Whether ``model`` runs on the fused kernels here: ``use_fused``
-    (None: on CUDA tensors), an architecture they take, and whole weights
-    (a tensor-parallel model holds a shard of each layer: the plain path,
-    as the JAX package's default under a model axis)."""
+def _fused_layout(model, mcfg: NeRFConfig, cfg: RenderConfig, x, *,
+                  sigma_only=False, transient=False):
+    """The kernels' layout for a pass of ``model`` over ``x`` here, or None
+    for the plain path: ``use_fused`` (None: on CUDA tensors), whole
+    weights (a tensor-parallel model holds a shard of each layer: the plain
+    path, as the JAX package's default under a model axis), and
+    ``fused_mlp.layout_for``."""
     use_fused = cfg.use_fused if cfg.use_fused is not None \
-        else dev.type == "cuda"
+        else x.device.type == "cuda"
     if getattr(model.xyz[0], "tp", None) is not None:
         if cfg.use_fused:
             raise ValueError("use_fused=True cannot run a tensor-parallel "
                              "(--model_parallel > 1) model: the fused "
                              "kernel needs whole weights")
-        return False
-    return use_fused and _fused_ok(mcfg)
+        return None
+    if not use_fused:
+        return None
+    return layout_for(mcfg, cfg.dtype, sigma_only=sigma_only,
+                      needs_grad=grad_needed(model, x), transient=transient)
 
 
 def _run_mlp(model, mcfg: NeRFConfig, cfg: RenderConfig, xyz, dirs=None,
@@ -183,25 +173,21 @@ def _run_mlp(model, mcfg: NeRFConfig, cfg: RenderConfig, xyz, dirs=None,
     def per_sample(x):
         return flat(x[:, None, :].expand(N, S, x.shape[-1]))
 
-    fused = _fused_on(model, mcfg, cfg, xyz.device)
+    layout = _fused_layout(model, mcfg, cfg, xyz, sigma_only=sigma_only,
+                           transient=output_transient)
     bw_x = bw_d = None
-    if fused and cfg.refine_pose:
+    if layout is not None and cfg.refine_pose:
         bw_x, bw_d = (encoding.barf_weights(
             epoch, n, cfg.barf_epoch_start, cfg.barf_epoch_end,
             schedule=cfg.barf_schedule, device=xyz.device)
             for n in (cfg.N_emb_xyz, cfg.N_emb_dir))
-    if fused and sigma_only and cfg.dtype == torch.float32 \
-            and not grad_needed(model, xyz):
-        # the sigma-only kernel has no backward and no bf16 mode
-        out = fused_sigma(model, flat(xyz), n_freq_xyz=cfg.N_emb_xyz,
-                          barf_w_xyz=bw_x)
-    elif fused and not sigma_only:
+    if layout is not None and sigma_only:
+        out = fused_sigma(model, layout, flat(xyz), barf_w_xyz=bw_x)
+    elif layout is not None:
         out = fused_apply_nerf(
-            model, flat(xyz), per_sample(dirs),
+            model, layout, flat(xyz), per_sample(dirs),
             per_sample(a_emb) if a_emb is not None else None,
             per_sample(t_emb) if output_transient else None,
-            output_transient=output_transient, compute_dtype=cfg.dtype,
-            n_freq_xyz=cfg.N_emb_xyz, n_freq_dir=cfg.N_emb_dir,
             barf_w_xyz=bw_x, barf_w_dir=bw_d)
     else:
         xyz_emb = flat(_embed(cfg, xyz, cfg.N_emb_xyz, epoch))
@@ -248,8 +234,7 @@ def _render_mip(params: Dict[str, Any], rays: torch.Tensor,
     dev = rays.device
     model = params["nerf"]
     mcfg = cfg.nerf_config("mip")
-    # the IPE kernels are f32 only: bf16 runs the plain path
-    fused = _fused_on(model, mcfg, cfg, dev) and cfg.dtype == torch.float32
+    layout = _fused_layout(model, mcfg, cfg, rays)
     randomized = cfg.perturb > 0
     mark("sample", dev)
     rays_o, rays_d, radii = rays[:, 0:3], rays[:, 3:6], rays[:, 6:7]
@@ -269,7 +254,7 @@ def _render_mip(params: Dict[str, Any], rays: torch.Tensor,
                 generator=generator, shard=shard).detach()
         mark("cast", dev)
         mean, var = cones.cast(t_vals, rays_o, rays_d, radii)
-        if fused:
+        if layout is not None:
             operand = pack_ipe_inputs(
                 mean.reshape(-1, 3),
                 viewdirs[:, None, :].expand(n_rays, S, 3).reshape(-1, 3),
@@ -279,9 +264,8 @@ def _render_mip(params: Dict[str, Any], rays: torch.Tensor,
                 mean, var, MIP_IPE_FREQS, fast=cfg.use_fast_trig).reshape(
                     n_rays * S, -1)
         mark(f"{level}_mlp", dev)
-        if fused:
-            raw = fused_apply_mip(model, operand, n_freq_ipe=MIP_IPE_FREQS,
-                                  n_freq_dir=cfg.N_emb_dir)
+        if layout is not None:
+            raw = fused_apply_mip(model, layout, operand)
         else:
             dir_emb = encoding.embed(viewdirs, cfg.N_emb_dir,
                                      fast=cfg.use_fast_trig)

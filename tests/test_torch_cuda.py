@@ -69,14 +69,13 @@ def test_kernel_matches_plain_on_card(dtype, a_dim, transient):
     model, (xyz, dirs, a, t) = _inputs(dev, a_dim)
     dt = getattr(torch, dtype)
     inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
-    net = fm.pack_weights(model, a_dim, transient, dt, 10, 4, 16)
+    net = fm.pack_weights(model, fm.Layout(dt, 10, 4, a_dim,
+                                           16 if transient else 0))
     sx, sd = fm.default_scale_rows(10, 4, a_dim, device=dev)
-    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
-              t_dim=16 if transient else 0, has_transient=transient, dtype=dt)
     before = fm.fused_mlp_fwd_cuda.launches
     runs = fm.kernel_runs(dev)
-    got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
-    ref = fm.fused_mlp_reference(inp, net, sx, sd, **kw)
+    got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
+    ref = fm.fused_mlp_reference(inp, net, sx, sd)
     torch.cuda.synchronize()
     assert fm.fused_mlp_fwd_cuda.launches == before + 1
     assert fm.kernel_runs(dev) == (runs[0] + 1, runs[1])
@@ -94,13 +93,11 @@ def test_kernel_matches_plain_at_ragged_sizes_on_card(n, a_dim, transient):
     dev = _card()
     model, (xyz, dirs, a, t) = _inputs(dev, a_dim, n=n)
     inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
-    net = fm.pack_weights(model, a_dim, transient, torch.bfloat16, 10, 4, 16)
+    net = fm.pack_weights(model, fm.Layout(torch.bfloat16, 10, 4, a_dim,
+                                           16 if transient else 0))
     sx, sd = fm.default_scale_rows(10, 4, a_dim, device=dev)
-    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
-              t_dim=16 if transient else 0, has_transient=transient,
-              dtype=torch.bfloat16)
-    got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
-    ref = fm.fused_mlp_reference(inp, net, sx, sd, **kw)
+    got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
+    ref = fm.fused_mlp_reference(inp, net, sx, sd)
     torch.cuda.synchronize()
     assert got.shape == (n, 16) and torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, rtol=0, atol=3e-2)
@@ -110,12 +107,9 @@ def test_kernel_matches_plain_at_ragged_sizes_on_card(n, a_dim, transient):
 def test_fwd_kernel_takes_no_points_on_card():
     dev = _card()
     model, (xyz, dirs, a, t) = _inputs(dev, n=0)
-    net = fm.pack_weights(model, 48, True, torch.bfloat16, 10, 4, 16)
+    net = fm.pack_weights(model, fm.Layout(torch.bfloat16, 10, 4, 48, 16))
     sx, sd = fm.default_scale_rows(10, 4, 48, device=dev)
-    out = fm.fused_mlp_fwd_cuda(
-        fm.pack_inputs(xyz, dirs, a, t), net, sx, sd, n_freq_xyz=10,
-        n_freq_dir=4, a_dim=48, t_dim=16, has_transient=True,
-        dtype=torch.bfloat16)
+    out = fm.fused_mlp_fwd_cuda(fm.pack_inputs(xyz, dirs, a, t), net, sx, sd)
     torch.cuda.synchronize()
     assert out.shape == (0, 16)
 
@@ -124,14 +118,13 @@ def _bwd_case(dev, dtype, transient, a_dim=48, n=N, nfx=10, nfd=4):
     model, (xyz, dirs, a, t) = _inputs(dev, a_dim, n=n, nfx=nfx, nfd=nfd)
     dt = getattr(torch, dtype)
     inp = fm.pack_inputs(xyz, dirs, a, t if transient else None)
-    net = fm.pack_weights(model, a_dim, transient, dt, nfx, nfd, 16)
+    net = fm.pack_weights(model, fm.Layout(dt, nfx, nfd, a_dim,
+                                           16 if transient else 0))
     sx, sd = fm.default_scale_rows(nfx, nfd, a_dim, device=dev)
     g = torch.zeros(n, 16, device=dev)
     g[:, :9] = torch.randn(n, 9, generator=torch.Generator().manual_seed(5)
                            ).to(dev)
-    kw = dict(n_freq_xyz=nfx, n_freq_dir=nfd, a_dim=a_dim,
-              t_dim=16 if transient else 0, has_transient=transient, dtype=dt)
-    return inp, net, sx, sd, g, kw
+    return inp, net, sx, sd, g
 
 
 @pytest.mark.cuda
@@ -145,17 +138,17 @@ def test_bwd_kernel_matches_plain_on_card(dtype, transient):
     f32 products can decide that ReLU either way); bf16 2e-2."""
     from nerf_fl_torch.ops import f32_ties
     dev = _card()
-    inp, net, sx, sd, g, kw = _bwd_case(dev, dtype, transient)
+    inp, net, sx, sd, g = _bwd_case(dev, dtype, transient)
     before = fm.fused_mlp_bwd_cuda.launches
-    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
     torch.cuda.synchronize()
     assert fm.fused_mlp_bwd_cuda.launches == before + 1
     if dtype == "float32":
         ref, st = f32_ties.matched_backward(got[2], inp, net, sx, sd, g,
-                                            tol=2e-6, **kw)
+                                            tol=2e-6)
         assert st["tie_points"] <= 0.08 * st["points"], st
     else:
-        ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+        ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g)
     rel = 1e-4 if dtype == "float32" else 2e-2
     for x, y in zip(got[0] + got[1] + [got[2]], ref[0] + ref[1] + [ref[2]]):
         assert x.shape == y.shape
@@ -176,10 +169,10 @@ def test_bwd_kernel_matches_plain_at_ragged_sizes_on_card(n, a_dim, transient):
     largest (the first design read 9.3e-2 there), which a max-abs limit
     cannot tell from a fault."""
     dev = _card()
-    inp, net, sx, sd, g, kw = _bwd_case(dev, "bfloat16", transient, a_dim, n)
-    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+    inp, net, sx, sd, g = _bwd_case(dev, "bfloat16", transient, a_dim, n)
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g)
     torch.cuda.synchronize()
     for x, y, z in zip(got[0] + got[1] + [got[2]], ref[0] + ref[1] + [ref[2]],
                        again[0] + again[1] + [again[2]]):
@@ -188,8 +181,8 @@ def test_bwd_kernel_matches_plain_at_ragged_sizes_on_card(n, a_dim, transient):
         assert float((x - y).norm()) <= 2e-2 * float(y.norm()) + 1e-30
 
 
-# frequency counts besides the flagship's 10 / 4 that renderer._fused_ok
-# sends to the kernels (6 n_xyz + 3 <= 128, 6 n_dir + 3 + a_dim <= 128):
+# frequency counts besides the flagship's 10 / 4 that fused_mlp.layout_for
+# gives the kernels (6 n_xyz + 3 <= 128, 6 n_dir + 3 + a_dim <= 128):
 # k0 = 48, 64, 128 and kd = 64, 80 with appearance 48
 FREQS = [(nfx, nfd) for nfx in (5, 8, 20) for nfd in (2, 4)]
 
@@ -200,11 +193,11 @@ FREQS = [(nfx, nfd) for nfx in (5, 8, 20) for nfd in (2, 4)]
 def test_kernel_matches_plain_at_other_frequency_counts_on_card(dtype, nfx,
                                                                nfd):
     dev = _card()
-    inp, net, sx, sd, _, kw = _bwd_case(dev, dtype, True, nfx=nfx, nfd=nfd)
-    assert (net.k0, net.kd) == (-(-(3 + 6 * nfx) // 16) * 16,
+    inp, net, sx, sd, _ = _bwd_case(dev, dtype, True, nfx=nfx, nfd=nfd)
+    assert (net.layout.k0, net.layout.kd) == (-(-(3 + 6 * nfx) // 16) * 16,
                                 -(-(3 + 6 * nfd + 48) // 16) * 16)
-    got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
-    ref = fm.fused_mlp_reference(inp, net, sx, sd, **kw)
+    got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
+    ref = fm.fused_mlp_reference(inp, net, sx, sd)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, rtol=0,
@@ -218,10 +211,10 @@ def test_bwd_kernel_matches_plain_at_other_frequency_counts_on_card(nfx, nfd):
     tensor (the highest frequency multiplies an input's cotangent by
     2^19)."""
     dev = _card()
-    inp, net, sx, sd, g, kw = _bwd_case(dev, "bfloat16", True, nfx=nfx,
+    inp, net, sx, sd, g = _bwd_case(dev, "bfloat16", True, nfx=nfx,
                                         nfd=nfd)
-    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g)
     torch.cuda.synchronize()
     for x, y in zip(got[0] + got[1] + [got[2]], ref[0] + ref[1] + [ref[2]]):
         assert x.shape == y.shape and torch.isfinite(x).all()
@@ -232,9 +225,9 @@ def test_bwd_kernel_matches_plain_at_other_frequency_counts_on_card(nfx, nfd):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_kernel_is_deterministic(dtype):
     dev = _card()
-    inp, net, sx, sd, g, kw = _bwd_case(dev, dtype, True)
-    a = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-    b = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    inp, net, sx, sd, g = _bwd_case(dev, dtype, True)
+    a = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+    b = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
     for x, y in zip(a[0] + a[1] + [a[2]], b[0] + b[1] + [b[2]]):
         assert torch.equal(x, y)
 
@@ -248,8 +241,9 @@ def test_backward_through_wrapper_fills_grads(transient):
     a.requires_grad_(True)
     before = (fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches)
     runs = fm.kernel_runs(dev)
-    out = fm.fused_apply_nerf(model, xyz, dirs, a, t if transient else None,
-                              output_transient=transient)
+    out = fm.fused_apply_nerf(
+        model, fm.Layout(torch.bfloat16, 10, 4, 48, 16 if transient else 0),
+        xyz, dirs, a, t if transient else None)
     sum(v.sum() for v in out.values()).backward()
     torch.cuda.synchronize()
     assert (fm.fused_mlp_fwd_cuda.launches, fm.fused_mlp_bwd_cuda.launches) \
@@ -268,13 +262,13 @@ def test_backward_through_wrapper_fills_grads(transient):
 F32_RAGGED = [1, 63, 65, 64 * 133 + 5]
 
 
-def _f32_bwd_gate(got, inp, net, sx, sd, g, kw):
+def _f32_bwd_gate(got, inp, net, sx, sd, g):
     """The f32 backward's gate (test_bwd_kernel_matches_plain_on_card's):
     within 1e-4 of each tensor's largest against the plain backward with
     the kernel's side of each ReLU tie, at most 8% of points tied."""
     from nerf_fl_torch.ops import f32_ties
     ref, st = f32_ties.matched_backward(got[2], inp, net, sx, sd, g,
-                                        tol=2e-6, **kw)
+                                        tol=2e-6)
     assert st["tie_points"] <= max(1, 0.08 * st["points"]), st
     for x, y in zip(got[0] + got[1] + [got[2]], ref[0] + ref[1] + [ref[2]]):
         assert x.shape == y.shape and torch.isfinite(x).all()
@@ -291,14 +285,14 @@ def test_f32_bwd_two_warpgroups_match_plain_at_ragged_sizes_on_card(
     and over 134 tiles with a ragged end, with and without the transient
     branch: the tie-matched gate, and two launches bitwise equal."""
     dev = _card()
-    inp, net, sx, sd, g, kw = _bwd_case(dev, "float32", transient, a_dim, n)
-    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
-    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)
+    inp, net, sx, sd, g = _bwd_case(dev, "float32", transient, a_dim, n)
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
     torch.cuda.synchronize()
     for x, y in zip(got[0] + got[1] + [got[2]],
                     again[0] + again[1] + [again[2]]):
         assert torch.equal(x, y)
-    _f32_bwd_gate(got, inp, net, sx, sd, g, kw)
+    _f32_bwd_gate(got, inp, net, sx, sd, g)
 
 
 @pytest.mark.cuda
@@ -309,11 +303,11 @@ def test_f32_bwd_leaves_d_inp_rows_past_n_on_card(n):
     marker rows as they were."""
     import ctypes
     dev = _card()
-    inp, net, sx, sd, g, kw = _bwd_case(dev, "float32", True, 48, n)
-    want = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **kw)[2]
+    inp, net, sx, sd, g = _bwd_case(dev, "float32", True, 48, n)
+    want = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)[2]
     lib = fm._lib_bwd()
-    image, image_bytes, grid = fm._image_and_grid(net, True, torch.float32,
-                                                  True, n, dev)
+    image, grid = fm.weight_image(net, True), fm._grid(net, n, dev)
+    image_bytes = image.numel() * image.element_size()
     sizes = (ctypes.c_longlong * 3)()
     assert lib.nerf_fused_mlp_bwd_sizes(0, n, grid, 10, 4, 48, 16, 1,
                                         sizes) == 0
@@ -328,7 +322,8 @@ def test_f32_bwd_leaves_d_inp_rows_past_n_on_card(n):
         0, inp.data_ptr(), g.data_ptr(), d_inp.data_ptr(), n,
         fm._ptrs(net.bs), image.data_ptr(), image_bytes, grid,
         sx.data_ptr(), sd.data_ptr(), 10, 4, 48, 16, 1, scratch.data_ptr(),
-        partial.data_ptr(), grads.data_ptr(), runs.data_ptr() + 8,
+        partial.data_ptr(), grads.data_ptr(),
+        runs.data_ptr() + 8 * fm.RUN_SLOTS.index("bwd"),
         torch.cuda.current_stream(dev).cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
@@ -366,11 +361,9 @@ def _sigma_case(dev, n, nfx=10, barf=None):
     bw = None if barf is None else barf_weights(6.0, nfx, 4, 8,
                                                 schedule=barf, device=dev)
     inp = fm.pack_inputs(xyz, dirs, None, t)
-    net = fm.pack_weights(model, 0, True, torch.float32, nfx, 4, 16)
+    net = fm.pack_weights(model, fm.Layout(torch.float32, nfx, 4, 0, 16))
     sx, sd = fm.default_scale_rows(nfx, 4, 0, bw, device=dev)
-    kw = dict(n_freq_xyz=nfx, n_freq_dir=4, a_dim=0, t_dim=16,
-              has_transient=True, dtype=torch.float32)
-    return xyz.contiguous(), inp, net, sx, sd, kw
+    return xyz.contiguous(), inp, net, sx, sd
 
 
 @pytest.mark.cuda
@@ -383,10 +376,10 @@ def test_sigma_kernel_is_the_f32_kernels_sigma_column_on_card(n, nfx, barf):
     same order on the same accumulator), at a ragged 100,003 points and at
     none; and its plain version within the f32 limit, 2e-4."""
     dev = _card()
-    xyz, inp, net, sx, sd, kw = _sigma_case(dev, n, nfx, barf)
-    got = fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=nfx)
-    full = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **kw)
-    ref = fm.fused_sigma_reference(xyz, net, sx, n_freq_xyz=nfx)
+    xyz, inp, net, sx, sd = _sigma_case(dev, n, nfx, barf)
+    got = fm.fused_sigma_cuda(xyz, net, sx)
+    full = fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
+    ref = fm.fused_sigma_reference(xyz, net, sx)
     torch.cuda.synchronize()
     assert got.shape == (n,) and torch.isfinite(got).all()
     assert torch.equal(got, full[:, fm.COL_S_SIGMA])
@@ -399,11 +392,11 @@ def test_sigma_kernel_counts_its_own_runs_on_card():
     run count (``sigma_runs``) and leaves the fused pair's
     (``kernel_runs``) as it was."""
     dev = _card()
-    xyz, _, net, sx, _, _ = _sigma_case(dev, N)
-    fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=10)       # the counter
+    xyz, _, net, sx, _ = _sigma_case(dev, N)
+    fm.fused_sigma_cuda(xyz, net, sx)       # the counter
     before = fm.fused_sigma_cuda.launches
     runs, sig = fm.kernel_runs(dev), fm.sigma_runs(dev)
-    fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=10)
+    fm.fused_sigma_cuda(xyz, net, sx)
     assert fm.fused_sigma_cuda.launches == before + 1
     assert fm.sigma_runs(dev) == sig + 1
     assert fm.kernel_runs(dev) == runs
@@ -417,11 +410,11 @@ def test_sigma_kernel_record_escapes_the_benchmarks_patterns_on_card():
     from torch.profiler import ProfilerActivity, profile
     from benchmark import trace
     dev = _card()
-    xyz, _, net, sx, _, _ = _sigma_case(dev, N)
-    fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=10)
+    xyz, _, net, sx, _ = _sigma_case(dev, N)
+    fm.fused_sigma_cuda(xyz, net, sx)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fm.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=10)
+        fm.fused_sigma_cuda(xyz, net, sx)
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages()
              if "sigma_trunk_f32_kernel" in e.key]

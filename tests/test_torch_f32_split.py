@@ -88,7 +88,8 @@ def _net(a_dim, transient, seed=0):
                                  in_channels_a=a_dim or 48,
                                  encode_transient=True),
                       generator=torch.Generator().manual_seed(seed))
-    return fm.pack_weights(model, a_dim, transient, torch.float32, 10, 4, 16)
+    return fm.pack_weights(model, fm.Layout(torch.float32, 10, 4, a_dim,
+                                            16 if transient else 0))
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -100,11 +101,10 @@ def test_f32_image_round_trips_to_the_packed_slabs(a_dim, transient,
     lo rebuilds each weight to 2^-21; every weight is in the image (the
     forward's holds each once a part) and the rest is zero."""
     net = _net(a_dim, transient)
-    image = fm.f32_weight_image(net, transient, backward)
-    slabs, nbytes = fm.f32_image_plan(net.k0, net.kd, net.kt, transient,
-                                      backward)
+    image = fm.weight_image(net, backward)
+    slabs, nbytes = fm.image_plan(net.layout, backward)
     assert image.dtype == torch.float32 and image.numel() * 4 == nbytes
-    idx = fm._f32_image_index(net.k0, net.kd, net.kt, transient, backward)
+    idx = fm.image_index(net.layout, backward)
     flat = torch.cat([w.reshape(-1) for w in net.ws])
     total = flat.numel()
     hi, lo = fm.tf32_split(flat)
@@ -134,8 +134,8 @@ def test_f32_image_is_the_swizzled_operand_image(backward):
     weight at contraction value 8 (k // 8) + F32_K_ORDER[k % 8]; the lo part
     follows the hi part, laid out the same."""
     net = _net(48, True, seed=1)
-    image = fm.f32_weight_image(net, True, backward)
-    slabs, _ = fm.f32_image_plan(net.k0, net.kd, net.kt, True, backward)
+    image = fm.weight_image(net, backward)
+    slabs, _ = fm.image_plan(net.layout, backward)
     assert [s.at for s in slabs] == list(np.cumsum(
         [0] + [2 * s.height * 128 for s in slabs[:-1]]))
     _check_stages(image, slabs, net, 12)
@@ -170,26 +170,27 @@ def test_f32_sigma_image_is_the_trunk_and_the_sigma_block(n_freq_xyz):
     model = init_nerf(NeRFConfig(typ="coarse",
                                  in_channels_xyz=3 + 6 * n_freq_xyz),
                       generator=torch.Generator().manual_seed(2))
-    net = fm.pack_weights(model, 0, False, torch.float32, n_freq_xyz, 4)
-    full, _ = fm.f32_image_plan(net.k0, net.kd, 0, False)
-    slabs, nbytes = fm.f32_sigma_plan(net.k0)
+    net = fm.pack_weights(model, fm.Layout(torch.float32, n_freq_xyz, 4))
+    full, _ = fm.image_plan(net.layout)
+    slabs, nbytes = fm.image_plan(net.layout.sigma)
     trunk = [sl for sl in full if sl.layer < 8]
     assert slabs[:len(trunk)] == trunk
     tail = slabs[len(trunk):]
     assert [(sl.layer, sl.row0, sl.rows, sl.col0, sl.cols, sl.height)
             for sl in tail] == [(8, k, 32, 256, 16, 16)
                                 for k in range(0, 256, 32)]
-    image = fm.f32_sigma_image(net)
+    image = fm.weight_image(fm.pack_weights(model, net.layout.sigma))
     assert image.numel() * 4 == nbytes == tail[-1].at + 2 * 16 * 128
     n = tail[0].at // 4
-    assert torch.equal(image[:n], fm.f32_weight_image(net, False)[:n])
+    assert torch.equal(image[:n], fm.weight_image(net)[:n])
     _check_stages(image, tail, net, 64)
 
 
 def _header_plan_program():
     """A host program from the header's own tf::Plan, plan_seg, make_plan,
-    make_bwd_plan and make_sigma_plan that prints each walk's bytes and
-    stage rows (bw: 0 forward, 1 backward, 2 the sigma-only forward)."""
+    make_bwd_plan and make_sigma_plan that reads lines of (k0, kd, kt,
+    has_transient, skip, no_d_inp, walk) and prints each walk's bytes and
+    stage rows (walk: 0 forward, 1 backward, 2 the sigma-only forward)."""
     hdr = (CSRC / "fused_mlp_common.cuh").read_text()
     tf_ns = hdr[hdr.index("namespace tf {"):]
     body = tf_ns[tf_ns.index("struct Plan {"):
@@ -204,10 +205,12 @@ def _header_plan_program():
 #include <cstdio>
 int main(int argc, char** argv) {
   static Plan p;
-  int k0, kd, kt, tr, bw;
-  while (scanf("%d %d %d %d %d", &k0, &kd, &kt, &tr, &bw) == 5) {
+  int k0, kd, kt, tr, skip, nod, bw;
+  while (scanf("%d %d %d %d %d %d %d", &k0, &kd, &kt, &tr, &skip, &nod,
+               &bw) == 7) {
     int at = bw == 2 ? make_sigma_plan(p, k0)
-             : bw ? make_bwd_plan(p, k0, kd, kt, tr) : make_plan(p, k0, kd, kt, tr);
+             : bw ? make_bwd_plan(p, k0, kd, kt, tr, skip, nod != 0)
+                  : make_plan(p, k0, kd, kt, tr, skip);
     printf("%d %d", at, p.n_stages);
     for (int i = 0; i < p.n_stages && i < MAX_PLAN; ++i) printf(" %d", p.rows[i]);
     printf("\n");
@@ -217,53 +220,85 @@ int main(int argc, char** argv) {
     return consts + body + main
 
 
-CASES = [(64, 80, 16, 1), (64, 32, 0, 0), (128, 128, 128, 1), (48, 16, 16, 1)]
-
-
-@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
-def test_f32_plan_is_the_kernels_walk(tmp_path):
-    """The header's tf::make_plan / make_bwd_plan, compiled for the host,
-    give f32_image_plan's stage heights and bytes for both walks (the
-    launcher also refuses an image of another size on the card)."""
-    src = tmp_path / "plan.cpp"
-    src.write_text(_header_plan_program())
-    exe = tmp_path / "plan"
-    subprocess.run(["g++", "-std=c++17", "-O0", "-o", str(exe), str(src)],
-                   check=True)
-    query = "".join(f"{k0} {kd} {kt} {tr} {bw}\n" for k0, kd, kt, tr in CASES
-                    for bw in (0, 1))
+def header_walks(exe, layouts_walks):
+    """The header's (bytes, stage heights) of each (layout, walk), walk 0
+    forward, 1 backward, 2 sigma-only, from the compiled ``exe``."""
+    query = "".join(f"{lay.k0} {lay.kd} {lay.kt} {int(lay.has_transient)} "
+                    f"{lay.skip} {int(lay.no_d_inp)} {walk}\n"
+                    for lay, walk in layouts_walks)
     lines = subprocess.run([str(exe)], input=query, capture_output=True,
                            text=True, check=True).stdout.splitlines()
-    i = 0
-    for k0, kd, kt, tr in CASES:
-        for bw in (0, 1):
-            nums = [int(v) for v in lines[i].split()]
-            i += 1
-            slabs, nbytes = fm.f32_image_plan(k0, kd, kt, bool(tr), bool(bw))
-            assert nums[0] == nbytes and nums[1] == len(slabs) <= 384
-            assert nums[2:] == [s.height for s in slabs]
+    return [(nums[0], nums[1], nums[2:])
+            for nums in ([int(v) for v in line.split()] for line in lines)]
 
 
-@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
-def test_f32_sigma_plan_is_the_kernels_walk(tmp_path):
-    """The header's tf::make_sigma_plan, compiled for the host, gives
-    f32_sigma_plan's stage heights and bytes (the sigma
+@pytest.fixture(scope="module")
+def plan_exe(tmp_path_factory):
+    """The header's walks compiled for the host once for the module."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    tmp = tmp_path_factory.mktemp("plan")
+    (tmp / "plan.cpp").write_text(_header_plan_program())
+    subprocess.run(["g++", "-std=c++17", "-O0", "-o", str(tmp / "plan"),
+                    str(tmp / "plan.cpp")], check=True)
+    return tmp / "plan"
+
+
+def _cfg_layout(n_xyz, n_dir, a_dim=0, t_dim=0, mip=False):
+    """``layout_for``'s f32 layout of a field with those frequencies and
+    embedding widths (``mip``: mip-NeRF's field, IPE frequencies)."""
+    if mip:
+        mcfg = NeRFConfig(skips=(5,), skip_order="hidden_first",
+                          in_channels_xyz=6 * n_xyz,
+                          in_channels_dir=3 + 6 * n_dir)
+    else:
+        mcfg = NeRFConfig(typ="fine", in_channels_xyz=3 + 6 * n_xyz,
+                          in_channels_dir=3 + 6 * n_dir,
+                          encode_appearance=a_dim > 0,
+                          in_channels_a=a_dim or 48,
+                          encode_transient=t_dim > 0,
+                          in_channels_t=t_dim or 16)
+    lay = fm.layout_for(mcfg, torch.float32, transient=t_dim > 0)
+    assert lay is not None
+    return lay
+
+
+# (k0, kd, kt): (64, 80, 16) the flagship's fine net, (64, 32, 0) its coarse
+# one, (128, 128, 128) the widest, (48, 16, 16) a narrow one; the IPE
+# layouts at (96, 32), (48, 32) and (112, 48)
+PLAN_LAYOUTS = {
+    "fine": (10, 4, 48, 16), "coarse": (10, 4), "wide": (20, 20, 0, 120),
+    "narrow": (7, 2, 0, 16), "ipe16": (16, 4, 0, 0, True),
+    "ipe8": (8, 4, 0, 0, True), "ipe18": (18, 6, 0, 0, True)}
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("name", sorted(PLAN_LAYOUTS))
+def test_f32_plan_is_the_kernels_walk(plan_exe, name, backward):
+    """The header's tf::make_plan / make_bwd_plan, compiled for the host,
+    give ``image_plan``'s stage heights and bytes for each layout that
+    ``layout_for`` gives in f32, both walks (the launcher also refuses an
+    image of another size on the card)."""
+    lay = _cfg_layout(*PLAN_LAYOUTS[name])
+    (nbytes, n, heights), = header_walks(plan_exe, [(lay, int(backward))])
+    slabs, want = fm.image_plan(lay, backward)
+    assert nbytes == want and n == len(slabs) <= 384
+    assert heights == [s.height for s in slabs]
+
+
+def test_f32_sigma_plan_is_the_kernels_walk(plan_exe):
+    """The header's tf::make_sigma_plan, compiled for the host, gives the
+    sigma layout's ``image_plan`` stage heights and bytes (the sigma
     launcher also refuses an image of another size on the card)."""
-    src = tmp_path / "plan.cpp"
-    src.write_text(_header_plan_program())
-    exe = tmp_path / "plan"
-    subprocess.run(["g++", "-std=c++17", "-O0", "-o", str(exe), str(src)],
-                   check=True)
-    k0s = sorted({k0 for k0, *_ in CASES})
-    lines = subprocess.run([str(exe)], input="".join(
-        f"{k0} 0 0 0 2\n" for k0 in k0s), capture_output=True, text=True,
-        check=True).stdout.splitlines()
-    for k0, line in zip(k0s, lines):
-        nums = [int(v) for v in line.split()]
-        slabs, nbytes = fm.f32_sigma_plan(k0)
-        assert nums[0] == nbytes and nums[1] == len(slabs) <= 384
-        assert nums[2:] == [s.height for s in slabs]
-        assert nums[-8:] == [16] * 8
+    lays = [_cfg_layout(*PLAN_LAYOUTS[k]).sigma
+            for k in ("fine", "wide", "narrow")]
+    assert sorted(lay.k0 for lay in lays) == [48, 64, 128]
+    for lay, (nbytes, n, heights) in zip(
+            lays, header_walks(plan_exe, [(lay, 2) for lay in lays])):
+        slabs, want = fm.image_plan(lay)
+        assert nbytes == want and n == len(slabs) <= 384
+        assert heights == [s.height for s in slabs]
+        assert heights[-8:] == [16] * 8
 
 
 def test_f32_shared_memory_budget():
@@ -328,13 +363,10 @@ def _t(x):
 
 
 def _split_forward(model, inp, a_dim, transient, bw, matmul):
-    net = fm.pack_weights(model, a_dim, transient, torch.float32, 10, 4, 16)
+    net = fm.pack_weights(model, fm.Layout(torch.float32, 10, 4, a_dim,
+                                           16 if transient else 0))
     sx, sd = fm.default_scale_rows(10, 4, a_dim, *map(_t, bw))
-    c = fm._consts(10, 4, a_dim, inp.device)
-    out, _ = fm._forward(inp, net, sx, sd, c, n_freq_dir=4, a_dim=a_dim,
-                         t_dim=16 if transient else 0,
-                         has_transient=transient, dtype=torch.float32,
-                         matmul=matmul)
+    out, _ = fm._forward(inp, net, sx, sd, matmul)
     return fm.heads(out, transient)
 
 
@@ -385,14 +417,13 @@ def _backward_pairs(transient, a_dim, barf, matmul):
     ref = jf.unpack_weight_grads(outs[:len(ws)], jp, a_dim, transient)
     ref_inp = np.asarray(outs[len(ws)])
 
-    net = fm.pack_weights(model, a_dim, transient, torch.float32, 10, 4, 16)
+    net = fm.pack_weights(model, fm.Layout(torch.float32, 10, 4, a_dim,
+                                           16 if transient else 0))
     sx, sd = fm.default_scale_rows(10, 4, a_dim, *map(_t, bw))
-    dws, dbs, d_inp = fm._backward(
+    dws, dbs, d_inp = fm.fused_mlp_bwd_reference(
         torch.from_numpy(inp), net, sx, sd,
-        torch.from_numpy(g[:, :16]).contiguous(), n_freq_xyz=10,
-        n_freq_dir=4, a_dim=a_dim, t_dim=16 if transient else 0,
-        has_transient=transient, dtype=torch.float32, matmul=matmul)
-    flat = fm.unpack_weight_grads(dws, dbs, 63, 27 + a_dim, 16, transient)
+        torch.from_numpy(g[:, :16]).contiguous(), matmul=matmul)
+    flat = fm.unpack_weight_grads(dws, dbs, net.layout)
     params = [p for lin in fm.field_linears(model, transient)
               for p in (lin.weight, lin.bias)]
     for p, x in zip(params, flat):
@@ -461,14 +492,7 @@ def _tie_case(n, seed=1, a_dim=48, transient=True):
     sx, sd = fm.default_scale_rows(10, 4, a_dim)
     g = torch.zeros(n, 16)
     g[:, :9] = torch.from_numpy(rng.normal(0, 1, (n, 9)).astype(np.float32))
-    kw = dict(n_freq_xyz=10, n_freq_dir=4, a_dim=a_dim,
-              t_dim=16 if transient else 0, has_transient=transient,
-              dtype=torch.float32)
-    return inp, net, sx, sd, g, kw
-
-
-def _no_dtype(kw):
-    return {k: v for k, v in kw.items() if k != "dtype"}
+    return inp, net, sx, sd, g
 
 
 def _worst(got, ref):
@@ -481,19 +505,17 @@ def test_tie_units_are_the_small_pre_activations():
     """``tie_units`` marks exactly the hidden units whose plain forward
     pre-activation lies within tol of zero: checked against the
     pre-activations computed layer by layer here."""
-    inp, net, sx, sd, _, kw = _tie_case(300, seed=3)
-    c = fm._consts(10, 4, 48, inp.device)
-    _, acts = fm._forward(inp, net, sx, sd, c, n_freq_dir=4, a_dim=48,
-                          t_dim=16, has_transient=True, dtype=torch.float32)
+    inp, net, sx, sd, _ = _tie_case(300, seed=3)
+    _, acts = fm._forward(inp, net, sx, sd)
     ins = acts["ins"] + [acts["din"]] + acts["tacts"][:4]
     pre = {i: x @ net.ws[i] + net.bs[i] for x, i in zip(ins, f32_ties.HIDDEN)}
     for tol in (1e-5, 1e-4, 1e-3):
-        ties = f32_ties.tie_units(inp, net, sx, sd, tol=tol, **_no_dtype(kw))
+        ties = f32_ties.tie_units(inp, net, sx, sd, tol=tol)
         assert list(ties) == list(f32_ties.HIDDEN)
         for i, p in pre.items():
             assert torch.equal(ties[i], p.abs() < tol)
     tie_points = torch.stack([m.any(1) for m in f32_ties.tie_units(
-        inp, net, sx, sd, tol=1e-4, **_no_dtype(kw)).values()]).any(0)
+        inp, net, sx, sd, tol=1e-4).values()]).any(0)
     assert 0 < int(tie_points.sum()) < 300
 
 
@@ -502,13 +524,12 @@ def test_flipping_matmul_moves_only_the_marked_relus():
     the other side of their ReLU, each within its |pre-activation| plus one
     unit in the last place of its bias, and touch no other unit of that
     layer or any layer before it."""
-    inp, net, sx, sd, _, kw = _tie_case(300, seed=4)
-    plain = f32_ties.pre_activations(inp, net, sx, sd, **_no_dtype(kw))
+    inp, net, sx, sd, _ = _tie_case(300, seed=4)
+    plain = f32_ties.pre_activations(inp, net, sx, sd)
     mark = torch.zeros_like(plain[7], dtype=torch.bool)
     mark[::7, ::5] = True
     moved = f32_ties.pre_activations(
-        inp, net, sx, sd, **_no_dtype(kw),
-        matmul=f32_ties._matmul({7: mark}, net.bs, True))
+        inp, net, sx, sd, matmul=f32_ties._matmul({7: mark}, net))
     for i in range(7):
         assert torch.equal(moved[i], plain[i])
     p, q = plain[7], moved[7]
@@ -525,8 +546,8 @@ def test_matched_backward_holds_a_kernel_that_decides_ties_otherwise():
     matched plain backward on every tensor over all 8,000 points, while
     against the plain sides its d_inp or a dW is far off; the matched
     reference finds the points it moved."""
-    inp, net, sx, sd, g, kw = _tie_case(8000)
-    ties = f32_ties.tie_units(inp, net, sx, sd, tol=TIE_F32, **_no_dtype(kw))
+    inp, net, sx, sd, g = _tie_case(8000)
+    ties = f32_ties.tie_units(inp, net, sx, sd, tol=TIE_F32)
     forced = {}
     for i, m in ties.items():
         f = m.clone()
@@ -535,11 +556,12 @@ def test_matched_backward_holds_a_kernel_that_decides_ties_otherwise():
     n_forced = int(torch.stack([f.any(1) for f in forced.values()]
                                ).any(0).sum())
     assert n_forced > 0
-    got = fm._backward(inp, net, sx, sd, g, **kw, matmul=f32_ties._matmul(
-        forced, net.bs, True, base=f32_ties.tf32x3_mm))
-    plain = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **kw)
+    got = fm.fused_mlp_bwd_reference(
+        inp, net, sx, sd, g,
+        matmul=f32_ties._matmul(forced, net, base=f32_ties.tf32x3_mm))
+    plain = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g)
     ref, st = f32_ties.matched_backward(got[2], inp, net, sx, sd, g,
-                                        tol=TIE_F32, **kw)
+                                        tol=TIE_F32)
     assert _worst(got, plain) > 100 * BWD_F32_REL
     assert _worst(got, ref) <= BWD_F32_REL
     assert 0 < st["tie_points"] <= TIE_SHARE_MAX * st["points"]
@@ -551,16 +573,16 @@ def test_matched_backward_does_not_absorb_a_fault():
     """What is not a tie stays a fault: one TF32 pass in place of three,
     and a kernel that takes a unit far from zero to its other side, are
     both far outside BWD_F32_REL of the matched reference."""
-    inp, net, sx, sd, g, kw = _tie_case(2000, seed=2)
-    pre = f32_ties.pre_activations(inp, net, sx, sd, **_no_dtype(kw))
+    inp, net, sx, sd, g = _tie_case(2000, seed=2)
+    pre = f32_ties.pre_activations(inp, net, sx, sd)
     far = (pre[3].abs() > 1e-2) & (pre[3].abs() < 1e-1)
     far &= torch.cumsum(far.to(torch.int32).view(-1), 0).view_as(far) <= 40
 
     def one_pass(x, y):
         return fm.tf32_round(x) @ fm.tf32_round(y)
 
-    for mm in (one_pass, f32_ties._matmul({3: far}, net.bs, True)):
-        got = fm._backward(inp, net, sx, sd, g, **kw, matmul=mm)
+    for mm in (one_pass, f32_ties._matmul({3: far}, net)):
+        got = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, matmul=mm)
         ref, _ = f32_ties.matched_backward(got[2], inp, net, sx, sd, g,
-                                           tol=TIE_F32, **kw)
+                                           tol=TIE_F32)
         assert _worst(got, ref) > 10 * BWD_F32_REL

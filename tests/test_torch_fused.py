@@ -63,8 +63,9 @@ def test_plain_fused_matches_pallas(transient, a_dim, barf):
         barf_w_xyz=bw[0], barf_w_dir=bw[1], interpret=True)
     with torch.no_grad():
         got = tf.fused_apply_nerf(
-            model, _t(xyz), _t(dirs), _t(a), _t(t) if transient else None,
-            output_transient=transient, compute_dtype=torch.float32,
+            model, tf.Layout(torch.float32, 10, 4, a_dim,
+                             16 if transient else 0),
+            _t(xyz), _t(dirs), _t(a), _t(t) if transient else None,
             barf_w_xyz=_t(bw[0]), barf_w_dir=_t(bw[1]))
     assert set(got) == set(ref)
     for k in ref:
@@ -81,9 +82,9 @@ def test_plain_fused_bf16_close_to_pallas():
                               output_transient=True,
                               compute_dtype=jnp.bfloat16, interpret=True)
     with torch.no_grad():
-        got = tf.fused_apply_nerf(model, _t(xyz), _t(dirs), _t(a), _t(t),
-                                  output_transient=True,
-                                  compute_dtype=torch.bfloat16)
+        got = tf.fused_apply_nerf(model, tf.Layout(torch.bfloat16, 10, 4, 48,
+                                                   16),
+                                  _t(xyz), _t(dirs), _t(a), _t(t))
     for k in ref:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
                                    atol=3e-2, err_msg=k)
@@ -110,11 +111,11 @@ def test_pack_layout_matches_jax(a_dim):
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     # weights: every port block is the JAX block without its all-zero
     # padding, and nothing the JAX layout holds is dropped
-    net = tf.pack_weights(model, a_dim, True, torch.float32, 10, 4, 16)
+    net = tf.pack_weights(model, tf.Layout(torch.float32, 10, 4, a_dim, 16))
     jw = [np.asarray(w) for w in
           jf.pack_weights(jax.tree_util.tree_map(jnp.asarray, jp), a_dim,
                           True, jnp.float32)]
-    k0, kd, kt = net.k0, net.kd, net.kt
+    k0, kd, kt = net.layout.k0, net.layout.kd, net.layout.kt
     assert (k0, kd, kt) == (64, 80 if a_dim else 32, 16)
     row_maps = {0: [(0, k0, 0)], 4: [(0, k0, 0), (k0, k0 + 256, 128)],
                 9: [(0, 256, 0), (256, 256 + kd, 256)],
@@ -160,12 +161,10 @@ def test_softplus_matches_jax_for_large_inputs():
 def test_kernel_launcher_rejects_cpu_tensors():
     _, model, xyz, dirs, a, t = _setup(48, seed=3)
     inp = tf.pack_inputs(_t(xyz), _t(dirs), _t(a), _t(t))
-    net = tf.pack_weights(model, 48, True, torch.bfloat16, 10, 4, 16)
+    net = tf.pack_weights(model, tf.Layout(torch.bfloat16, 10, 4, 48, 16))
     sx, sd = tf.default_scale_rows(10, 4, 48)
     with pytest.raises(ValueError, match="CUDA"):
-        tf.fused_mlp_fwd_cuda(inp, net, sx, sd, n_freq_xyz=10, n_freq_dir=4,
-                              a_dim=48, t_dim=16, has_transient=True,
-                              dtype=torch.bfloat16)
+        tf.fused_mlp_fwd_cuda(inp, net, sx, sd)
 
 
 def _coarse(n_freq_xyz, seed=4, n=N):
@@ -192,20 +191,18 @@ def test_plain_sigma_matches_plain_mlp_and_the_fused_column(barf, n_freq_xyz):
     bw = None if barf is None else encoding.barf_weights(
         6.0, n_freq_xyz, 4, 8, schedule=barf)
     with torch.no_grad():
-        got = tf.fused_sigma(model, xyz, n_freq_xyz=n_freq_xyz,
-                             barf_w_xyz=bw)["static_sigma"]
+        got = tf.fused_sigma(model, tf.Layout(torch.float32, n_freq_xyz,
+                                              variant=tf.SIGMA),
+                             xyz, barf_w_xyz=bw)["static_sigma"]
         ref = apply_nerf(model, encoding.embed(
             xyz, n_freq_xyz, barf=barf is not None, epoch=6.0,
             schedule=barf or "fork"), sigma_only=True)["static_sigma"]
-        net = tf.pack_weights(model, 0, False, torch.float32, n_freq_xyz, 4)
+        net = tf.pack_weights(model, tf.Layout(torch.float32, n_freq_xyz, 4))
         sx, sd = tf.default_scale_rows(n_freq_xyz, 4, 0, bw)
         dirs = torch.from_numpy(np.random.default_rng(5).normal(
             0, 1, (N, 3)).astype(np.float32))
-        full = tf.fused_mlp_reference(
-            tf.pack_inputs(xyz, dirs), net, sx, sd, n_freq_xyz=n_freq_xyz,
-            n_freq_dir=4, a_dim=0, t_dim=0, has_transient=False,
-            dtype=torch.float32)
-        pre = tf.fused_sigma_reference(xyz, net, sx, n_freq_xyz=n_freq_xyz)
+        full = tf.fused_mlp_reference(tf.pack_inputs(xyz, dirs), net, sx, sd)
+        pre = tf.fused_sigma_reference(xyz, net, sx)
     assert got.shape == ref.shape == (N,)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL)
     torch.testing.assert_close(pre, full[:, tf.COL_S_SIGMA])
@@ -214,13 +211,14 @@ def test_plain_sigma_matches_plain_mlp_and_the_fused_column(barf, n_freq_xyz):
 
 @pytest.mark.parametrize("n_freq_xyz", [10, 5])
 def test_sigma_packing_is_the_trunk_and_fs2(n_freq_xyz):
-    """``pack_sigma_weights`` gives ``pack_weights``' first SIGMA_LAYERS
-    layers in f32, weights and biases, and no more."""
+    """``pack_weights`` at the sigma layout gives the full layout's first
+    SIGMA_LAYERS layers in f32, weights and biases, and no more."""
     model, _ = _coarse(n_freq_xyz)
-    full = tf.pack_weights(model, 0, False, torch.float32, n_freq_xyz, 4)
-    net = tf.pack_sigma_weights(model, n_freq_xyz)
+    full = tf.pack_weights(model, tf.Layout(torch.float32, n_freq_xyz, 4))
+    net = tf.pack_weights(model, full.layout.sigma)
     assert len(net.ws) == len(net.bs) == tf.SIGMA_LAYERS
-    assert net.k0 == full.k0
+    assert net.layout.shapes == full.layout.shapes[:tf.SIGMA_LAYERS]
+    assert net.layout.k0 == full.layout.k0
     for got, want in zip(net.ws + net.bs, full.ws[:tf.SIGMA_LAYERS]
                          + full.bs[:tf.SIGMA_LAYERS]):
         assert torch.equal(got, want)
@@ -228,9 +226,10 @@ def test_sigma_packing_is_the_trunk_and_fs2(n_freq_xyz):
 
 def test_sigma_launcher_rejects_cpu_tensors_and_autograd():
     model, xyz = _coarse(10)
-    net = tf.pack_weights(model, 0, False, torch.float32, 10, 4)
+    lay = tf.Layout(torch.float32, 10, 4)
+    net = tf.pack_weights(model, lay)
     sx, _ = tf.default_scale_rows(10, 4, 0)
     with pytest.raises(ValueError, match="CUDA"):
-        tf.fused_sigma_cuda(xyz, net, sx, n_freq_xyz=10)
+        tf.fused_sigma_cuda(xyz, net, sx)
     with pytest.raises(ValueError, match="no backward"):
-        tf.fused_sigma(model, xyz)
+        tf.fused_sigma(model, lay, xyz)

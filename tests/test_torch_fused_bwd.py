@@ -51,9 +51,10 @@ def _setup(a_dim, transient, n, seed=0):
                        for x in (xyz, dirs, a, t)], rng
 
 
-def _port_grads(model, dws, dbs, a_dim, transient):
+def _port_grads(model, dws, dbs, layout):
     """Unpacked grads in the JAX tree layout, through the model's .grad."""
-    flat = tf.unpack_weight_grads(dws, dbs, 63, 27 + a_dim, 16, transient)
+    transient = layout.has_transient
+    flat = tf.unpack_weight_grads(dws, dbs, layout)
     params = [p for lin in tf.field_linears(model, transient)
               for p in (lin.weight, lin.bias)]
     assert len(flat) == len(params)
@@ -90,16 +91,14 @@ def _compare_bwd(transient, a_dim, barf, dtype, seed=0):
     ref = jf.unpack_weight_grads(outs[:len(ws)], jp, a_dim, transient)
     ref_inp = np.asarray(outs[len(ws)])
 
-    net = tf.pack_weights(model, a_dim, transient, getattr(torch, dtype),
-                          10, 4, 16)
+    net = tf.pack_weights(model, tf.Layout(getattr(torch, dtype), 10, 4,
+                                           a_dim, 16 if transient else 0))
     sx, sd = tf.default_scale_rows(
         10, 4, a_dim, *(None if w is None else torch.tensor(w) for w in bw))
     dws, dbs, d_inp = tf.fused_mlp_bwd_reference(
         torch.from_numpy(inp), net, sx, sd,
-        torch.from_numpy(g[:, :16]).contiguous(), n_freq_xyz=10,
-        n_freq_dir=4, a_dim=a_dim, t_dim=16 if transient else 0,
-        has_transient=transient, dtype=getattr(torch, dtype))
-    got = _port_grads(model, dws, dbs, a_dim, transient)
+        torch.from_numpy(g[:, :16]).contiguous())
+    got = _port_grads(model, dws, dbs, net.layout)
     assert not d_inp[:, live:].any() and not ref_inp[:, live:].any()
     flat_got = jax.tree_util.tree_leaves_with_path(got)
     flat_ref = jax.tree_util.tree_leaves_with_path(ref)
@@ -154,8 +153,9 @@ def test_function_grads_match_jax_grad(transient):
 
     ins = [None if v is None else torch.tensor(v, requires_grad=True)
            for v in (xyz, dirs, a, t)]
-    out = tf.fused_apply_nerf(model, *ins, output_transient=transient,
-                              compute_dtype=torch.float32)
+    out = tf.fused_apply_nerf(
+        model, tf.Layout(torch.float32, 10, 4, a_dim, 16 if transient else 0),
+        *ins)
     sum(v.sum() for v in out.values()).backward()
     got = [grads_to_numpy_tree({"nerf_fine": model})["nerf_fine"]]
     if not transient:
@@ -178,8 +178,9 @@ def test_unpack_inverts_pack(transient):
     _, model, _, _ = _setup(48, True, 1)
     params = [p.detach() for lin in tf.field_linears(model, transient)
               for p in (lin.weight, lin.bias)]
-    net = tf._pack(params, 48, transient, torch.float32, 10, 4, 16)
-    back = tf.unpack_weight_grads(net.ws, net.bs, 63, 27 + 48, 16, transient)
+    net = tf._pack(params, tf.Layout(torch.float32, 10, 4, 48,
+                                     16 if transient else 0))
+    back = tf.unpack_weight_grads(net.ws, net.bs, net.layout)
     assert len(back) == len(params)
     for x, y in zip(back, params):
         torch.testing.assert_close(x, y, rtol=0, atol=0)

@@ -147,12 +147,10 @@ def test_plain_field_with_ipe_is_the_published_mlp():
     inp = fm.pack_ipe_inputs(mean.reshape(-1, 3),
                              vd[:, None].expand(N_RAYS, S, 3).reshape(-1, 3),
                              var.reshape(-1, 3))
-    net = fm.pack_weights(model, 0, False, torch.float32, 16, 4, 0, ipe=True)
+    net = fm.pack_weights(model, fm.layout_for(cfg.nerf_config("mip"),
+                                               torch.float32))
     sx, sd = fm.default_scale_rows(0, 4, 0)
-    pre = fm.fused_mlp_reference(inp, net, sx, sd, n_freq_xyz=16,
-                                 n_freq_dir=4, a_dim=0, t_dim=0,
-                                 has_transient=False, dtype=torch.float32,
-                                 ipe=True)
+    pre = fm.fused_mlp_reference(inp, net, sx, sd)
     _close(pre[:, :3], raw_rgb.reshape(-1, 3))
     _close(pre[:, 3], raw_density.reshape(-1))
     assert float(pre[:, 4:].abs().max()) == 0.0
@@ -320,64 +318,53 @@ def test_ipe_layout_packs_and_unpacks_the_skip_as_h_first():
     cfg = _cfg()
     params, _ = _params(cfg)
     model = params["nerf"]
-    net = fm.pack_weights(model, 0, False, torch.float32, 16, 4, 0, ipe=True)
-    assert net.k0 == 96 and net.kd == 32 and len(net.ws) == 11
-    assert [tuple(x.shape) for x in net.ws] == \
-        fm._packed_shapes(96, 32, 0, False, ipe=True)
+    lay = fm.layout_for(cfg.nerf_config("mip"), torch.float32)
+    assert lay == fm.Layout(torch.float32, 16, 4, variant=fm.IPE)
+    net = fm.pack_weights(model, lay)
+    assert lay.k0 == 96 and lay.kd == 32 and len(net.ws) == 11
+    assert [tuple(x.shape) for x in net.ws] == lay.shapes
+    assert lay.shapes[5] == (96 + 256, 256)
     w5 = model.xyz[5].weight.detach().t()
     assert torch.equal(net.ws[5][:96], w5[256:])
     assert torch.equal(net.ws[5][96:], w5[:256])
-    grads = fm.unpack_weight_grads(net.ws, net.bs, 96, 27, 0, False, ipe=True)
+    grads = fm.unpack_weight_grads(net.ws, net.bs, lay)
     lins = fm.field_linears(model, False)
     for lin, (dw, db) in zip(lins, zip(grads[0::2], grads[1::2])):
         assert dw.shape == lin.weight.shape and db.shape == lin.bias.shape
     assert torch.equal(grads[10], model.xyz[5].weight.detach())
     for backward in (False, True):
-        image = fm.f32_weight_image(net, False, backward, ipe=True)
-        slabs, nbytes = fm.f32_image_plan(96, 32, 0, False, backward,
-                                          ipe=True)
+        image = fm.weight_image(net, backward)
+        slabs, nbytes = fm.image_plan(lay, backward)
         assert image.numel() * 4 == nbytes
         hi = fm.tf32_split(torch.cat([x.reshape(-1) for x in net.ws]))[0]
         assert set(hi[hi != 0].tolist()) <= set(image.tolist())
 
 
-def _plan_program():
-    """The header's tf::Plan walks as a host program: the IPE walks (skip
-    5, and the backward without the input cotangent's stages)."""
-    from test_torch_f32_split import _header_plan_program
-    src = _header_plan_program()
-    head, main = src.split("#include <cstdio>")
-    main = main.replace(
-        "bw ? make_bwd_plan(p, k0, kd, kt, tr) : make_plan(p, k0, kd, kt, tr)",
-        "bw ? make_bwd_plan(p, k0, kd, kt, tr, 5, true)"
-        " : make_plan(p, k0, kd, kt, tr, 5)")
-    return head + "#include <cstdio>" + main
-
-
 @pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
 def test_ipe_plans_are_the_kernels_walks(tmp_path):
+    """The header's tf::Plan walks with skip 5, the backward without the
+    input cotangent's stages, compiled for the host, give the IPE layouts'
+    ``image_plan`` stage heights and bytes."""
+    from test_torch_f32_split import _header_plan_program, header_walks
     src = tmp_path / "plan.cpp"
-    src.write_text(_plan_program())
+    src.write_text(_header_plan_program())
     exe = tmp_path / "plan"
     subprocess.run(["g++", "-std=c++17", "-O0", "-o", str(exe), str(src)],
                    check=True)
-    cases = [(96, 32, 0, 0), (48, 32, 0, 0), (112, 48, 0, 0)]
-    query = "".join(f"{k0} {kd} {kt} {tr} {bw}\n" for k0, kd, kt, tr in cases
-                    for bw in (0, 1))
-    lines = subprocess.run([str(exe)], input=query, capture_output=True,
-                           text=True, check=True).stdout.splitlines()
-    i = 0
-    for k0, kd, kt, tr in cases:
-        for bw in (0, 1):
-            nums = [int(v) for v in lines[i].split()]
-            i += 1
-            slabs, nbytes = fm.f32_image_plan(k0, kd, kt, bool(tr), bool(bw),
-                                              ipe=True)
-            assert nums[0] == nbytes and nums[1] == len(slabs) <= 384
-            assert nums[2:] == [s.height for s in slabs]
+    lays = [fm.Layout(torch.float32, nx, nd, variant=fm.IPE)
+            for nx, nd in ((16, 4), (8, 4), (18, 6))]
+    assert [(lay.k0, lay.kd) for lay in lays] == [(96, 32), (48, 32),
+                                                  (112, 48)]
+    walks = [(lay, bw) for lay in lays for bw in (0, 1)]
+    for (lay, bw), (nbytes, n, heights) in zip(walks,
+                                               header_walks(exe, walks)):
+        slabs, want = fm.image_plan(lay, bool(bw))
+        assert nbytes == want and n == len(slabs) <= 384
+        assert heights == [s.height for s in slabs]
     # the IPE backward leaves out the input cotangent's stages
-    full = fm.f32_image_plan(96, 32, 0, False, True)[1]
-    assert fm.f32_image_plan(96, 32, 0, False, True, ipe=True)[1] < full
+    full = fm.Layout(torch.float32, 15, 4)
+    assert full.k0 == 96
+    assert fm.image_plan(lays[0], True)[1] < fm.image_plan(full, True)[1]
 
 
 def _tiny_mip_cell():

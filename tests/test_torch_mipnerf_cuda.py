@@ -17,6 +17,7 @@ from which ``ops/f32_ties.matched_backward`` could read the kernel's side,
 so those points add nothing to any gradient on either side (at most 8% of
 the points, chip_smoke.py's TIE_SHARE_MAX).
 """
+import dataclasses
 import json
 from pathlib import Path
 
@@ -29,8 +30,6 @@ from nerf_fl_torch.ops import fused_mlp as fm
 from nerf_fl_torch.render.renderer import RenderConfig
 
 RAGGED = [1, 63, 65, 1001, 70_001]
-KW = dict(n_freq_xyz=16, n_freq_dir=4, a_dim=0, t_dim=0, has_transient=False,
-          dtype=torch.float32, ipe=True)
 RECORD = Path(__file__).resolve().parents[1] / "nerf_fl_torch" / "tools" \
     / "records" / "sass_fused_pair.json"
 
@@ -48,7 +47,8 @@ def _case(dev, n, seed=0):
     intervals at the Blender recipe's scale."""
     cfg = RenderConfig(model="mipnerf")
     gen = torch.Generator().manual_seed(seed)
-    model = init_nerf(cfg.nerf_config("mip"), generator=gen, init="glorot")
+    mcfg = cfg.nerf_config("mip")
+    model = init_nerf(mcfg, generator=gen, init="glorot")
     with torch.no_grad():
         for p in model.parameters():
             p.add_(0.02 * torch.randn(p.shape, generator=gen))
@@ -61,7 +61,7 @@ def _case(dev, n, seed=0):
     to = [torch.tensor(x, dtype=torch.float32, device=dev)
           for x in (mean, d, var)]
     inp = fm.pack_ipe_inputs(*to).contiguous()
-    net = fm.pack_weights(model, 0, False, torch.float32, 16, 4, 0, ipe=True)
+    net = fm.pack_weights(model, fm.layout_for(mcfg, torch.float32))
     sx, sd = fm.default_scale_rows(0, 4, 0, device=dev)
     return model, inp, net, sx, sd
 
@@ -72,8 +72,8 @@ def test_ipe_kernel_matches_plain_on_card(n):
     dev = _card()
     _, inp, net, sx, sd = _case(dev, n)
     runs, ipe = fm.kernel_runs(dev), fm.ipe_runs(dev)
-    got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **KW)
-    ref = fm.fused_mlp_reference(inp, net, sx, sd, **KW)
+    got = fm.fused_mlp_fwd_cuda(inp, net, sx, sd)
+    ref = fm.fused_mlp_reference(inp, net, sx, sd)
     torch.cuda.synchronize()
     assert fm.kernel_runs(dev) == (runs[0] + 1, runs[1])
     assert fm.ipe_runs(dev) == (ipe[0] + 1, ipe[1])
@@ -91,15 +91,14 @@ def test_ipe_bwd_kernel_matches_plain_on_card(n):
     g = torch.zeros(n, 16, device=dev)
     g[:, :4] = torch.randn(n, 4, generator=torch.Generator().manual_seed(5)
                            ).to(dev)
-    ties = f32_ties.tie_units(inp, net, sx, sd, tol=2e-6,
-                              **{k: v for k, v in KW.items() if k != "dtype"})
+    ties = f32_ties.tie_units(inp, net, sx, sd, tol=2e-6)
     tied = torch.stack([t.any(1) for t in ties.values()]).any(0)
     assert int(tied.sum()) <= max(1, 0.08 * n)
     g[tied] = 0.0
     runs, ipe = fm.kernel_runs(dev), fm.ipe_runs(dev)
-    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **KW)
-    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **KW)
-    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **KW)
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g)
     torch.cuda.synchronize()
     assert fm.kernel_runs(dev) == (runs[0], runs[1] + 2)
     assert fm.ipe_runs(dev) == (ipe[0], ipe[1] + 2)
@@ -124,14 +123,13 @@ def test_ipe_bwd_two_warpgroups_at_ragged_sizes_on_card(n):
     g = torch.zeros(n, 16, device=dev)
     g[:, :4] = torch.randn(n, 4, generator=torch.Generator().manual_seed(6)
                            ).to(dev)
-    ties = f32_ties.tie_units(inp, net, sx, sd, tol=2e-6,
-                              **{k: v for k, v in KW.items() if k != "dtype"})
+    ties = f32_ties.tie_units(inp, net, sx, sd, tol=2e-6)
     tied = torch.stack([t.any(1) for t in ties.values()]).any(0)
     assert int(tied.sum()) <= max(1, 0.08 * n)
     g[tied] = 0.0
-    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **KW)
-    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g, **KW)
-    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g, **KW)
+    got = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+    again = fm.fused_mlp_bwd_cuda(inp, net, sx, sd, g)
+    ref = fm.fused_mlp_bwd_reference(inp, net, sx, sd, g)
     torch.cuda.synchronize()
     for x, y, z in zip(got[0] + got[1], ref[0] + ref[1], again[0] + again[1]):
         assert x.shape == y.shape and torch.isfinite(x).all()
@@ -144,12 +142,10 @@ def test_ipe_bwd_two_warpgroups_at_ragged_sizes_on_card(n):
 def test_ipe_kernels_refuse_bf16_and_transient_on_card():
     dev = _card()
     _, inp, net, sx, sd = _case(dev, 64)
-    with pytest.raises(ValueError):
-        fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **{**KW,
-                                                  "dtype": torch.bfloat16})
-    with pytest.raises(ValueError):
-        fm.fused_mlp_fwd_cuda(inp, net, sx, sd, **{**KW,
-                                                  "has_transient": True})
+    for bad in ({"dtype": torch.bfloat16}, {"t_dim": 16}):
+        with pytest.raises(ValueError):
+            fm.fused_mlp_fwd_cuda(inp, net._replace(layout=dataclasses.replace(
+                net.layout, **bad)), sx, sd)
 
 
 @pytest.mark.cuda

@@ -125,7 +125,8 @@ def test_fused_wrapper_on_cpu_does_not_launch():
     g = torch.Generator().manual_seed(1)
     x = [torch.randn(37, c, generator=g) for c in (3, 3, 48, 16)]
     before = fm.fused_mlp_fwd_cuda.launches
-    out = fm.fused_apply_nerf(model, *x, output_transient=True)
+    out = fm.fused_apply_nerf(model, fm.Layout(torch.bfloat16, 10, 4, 48, 16),
+                              *x)
     assert fm.fused_mlp_fwd_cuda.launches == before == 0
     assert out["static_rgb"].shape == (37, 3)
     assert torch.isfinite(out["transient_beta"]).all()
