@@ -445,8 +445,8 @@ def fused_line(which, n, ms, flops, bound_ms, net):
     tiles = fm.fwd_tiles(n, info["rows"])
     image = fm.image_plan(net.layout, which == "bwd")[1]
     kernel = f"fused_mlp_{which}_{'f32' if f32 else 'bf16'}_kernel"
-    block = (f"{info['threads']} threads" if which == "fwd" else
-             f"{info['bwd_threads']} threads ({info['bwd_consumers']} "
+    side = "" if which == "fwd" else "bwd_"
+    block = (f"{info[side + 'threads']} threads ({info[side + 'consumers']} "
              f"consumer warpgroups)")
     head = (f"[fused] fused_mlp_{which} {dtype} at {n} points: {ms:.3f} ms, "
             f"{flops / ms / 1e9:.1f} TFLOP/s on the unpadded work, "

@@ -71,7 +71,7 @@
 //     one's halves of 64), so that one's products run while the other
 //     splits its operands or waits for its stage, a thread holds at most
 //     64 accumulators, and the next 32 contraction values are loaded while
-//     the products of these run (tf::mma_seg_split); the recompute runs
+//     the products of these run (tf::mma_seg); the recompute runs
 //     the f32 forward's functions, so activations and ReLU masks are bit
 //     for bit the forward kernel's.  Its operands are saved as 16 KB slots of 64
 //     points x 64 columns, copies of its private layout: about 97 slots x
@@ -771,8 +771,8 @@ namespace tb {
 
 // Recompute, dgrad, PE chain rule, as fused_mlp_bwd_bf16_kernel with 64
 // points a block in the f32 private layout, computed by two consumer
-// warpgroups (tf::B_CONSUMERS) that split every product's output columns
-// (tf::mma_seg_split): warpgroup wg writes its share of each layer's
+// warpgroups (tf::CONSUMERS) that split every product's output columns
+// (tf::mma_seg): warpgroup wg writes its share of each layer's
 // columns, its ReLU bits, cotangent masks and db column sums, so the
 // activations, saved slots, dW and db are those of one warpgroup computing
 // all columns, each column the same products in the same order.  A layer's
@@ -808,7 +808,7 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
   using tf::G_H;
   using tf::G_P;
   constexpr int SKIP = MIP ? 5 : 4;
-  constexpr int C = tf::B_CONSUMERS;
+  constexpr int C = tf::CONSUMERS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -824,17 +824,17 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
 
   const int tid = threadIdx.x;
   const int n_layers = has_transient ? N_LAYERS : L_T0;
-  for (int c = tid; c < IN_LD; c += tf::B_THREADS) {
+  for (int c = tid; c < IN_LD; c += tf::THREADS) {
     sx_s[c] = sx[c];
     sd_s[c] = sd[c];
   }
   for (int l = 0; l < n_layers; ++l)
-    for (int c = tid; c < hop::layer_n(l); c += tf::B_THREADS)
+    for (int c = tid; c < hop::layer_n(l); c += tf::THREADS)
       bias_s[hop::bias_off(l) + c] = bias.b[l][c];
   if (tid == 0) {
     for (int s = 0; s < tf::STAGES; ++s) {
       hop::mbar_init(full + 8 * s, 1);
-      hop::mbar_init(empty + 8 * s, tf::B_EMPTY);
+      hop::mbar_init(empty + 8 * s, tf::RELEASES);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     hop::fence_async_smem();
@@ -867,12 +867,12 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
   // shared-memory stores -> visible to the bulk stores and other threads
   auto sync = [&]() {
     hop::fence_async_smem();
-    tf::consumer_sync<C>();
+    tf::consumer_sync();
   };
   // after this, regions handed to save() may be overwritten
   auto drain = [&]() {
     if (elected) hop::bulk_wait_read();
-    tf::consumer_sync<C>();
+    tf::consumer_sync();
   };
   auto val = [&](int g0, int r, int c) { return act_f[tf::at(g0, r, c)]; };
 
@@ -882,20 +882,18 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
     float* dbrow = dbpart + (rb * 4 + warp) * (size_t)db_stride;
     auto save = [&](int id, int cols, int g0) {
       if (elected)
-        tf::save<C>(scratch, id, cols, n_rb, rb,
-                    act_s + g0 * tf::GROUP_BYTES, wg);
+        tf::save(scratch, id, cols, n_rb, rb, act_s + g0 * tf::GROUP_BYTES, wg);
     };
 
     // ------------------------------------------------ forward recompute
     drain();
     if constexpr (MIP) {
-      tf::encode_ipe<C>(act, G_P, inp, row0, n, nfx, k0, t, wg);
+      tf::encode_ipe(act, G_P, inp, row0, n, nfx, k0, t, wg);
       if (wg == 0)
         hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n, 4 * 9,
                        t);
     } else {
-      tf::encode<IN_LD, C>(act, G_P, inp, row0, n, true, 0, nfx, sx_s, 0, 0,
-                           k0, t, wg);
+      tf::encode(act, G_P, inp, row0, n, true, 0, nfx, sx_s, 0, 0, k0, t, wg);
       if (wg == 0)
         hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
                        4 * (6 + a_dim + t_dim), t);
@@ -909,67 +907,59 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
     for (int i = 0; i < 8; ++i) {
       bool fresh = true;
       if (i == 0 || i == SKIP)
-        tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_P, k0, ring, fresh,
-                                       elected, t, wg);
+        tf::mma_seg<W_TRUNK>(acc, none, act, G_P, k0, ring, fresh, t, wg);
       if (i != 0)
-        tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_H, W_TRUNK, ring,
-                                       fresh, elected, t, wg);
+        tf::mma_seg<W_TRUNK>(acc, none, act, G_H, W_TRUNK, ring, fresh, t, wg);
       drain();
-      tf::store_hidden<W_TRUNK, true, C>(acc, act, G_H,
-                                         bias_s + hop::bias_off(i), fq, t, m4,
-                                         wg);
+      tf::store_hidden<W_TRUNK, true>(acc, act, G_H, bias_s + hop::bias_off(i),
+                                      fq, t, m4, wg);
       hb::put_masks(my_masks, 4 * i + W4 * wg, m4);
       sync();
       save(tm.h[i], W_TRUNK, G_H);
     }
     {
       bool fresh = true;
-      tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_H, W_TRUNK, ring,
-                                     fresh, elected, t, wg);
+      tf::mma_seg<W_TRUNK>(acc, none, act, G_H, W_TRUNK, ring, fresh, t, wg);
       drain();
-      tf::store_linear<W_TRUNK, C>(acc, act, G_H,
-                                   bias_s + hop::bias_off(L_FS), fq, t, wg);
+      tf::store_linear<W_TRUNK>(acc, act, G_H, bias_s + hop::bias_off(L_FS), fq,
+                                t, wg);
     }
-    tf::encode<IN_LD, C>(act, G_P, inp, row0, n, true, 3, nfd, sd_s, 6, a_dim,
-                         kd, t, wg);
+    tf::encode(act, G_P, inp, row0, n, true, 3, nfd, sd_s, 6, a_dim, kd, t, wg);
     sync();
     save(tm.xf, W_TRUNK, G_H);
     save(tm.dtail, kd, G_P);
     {
       bool fresh = true;
-      tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_H, W_TRUNK, ring,
-                                    fresh, elected, t, wg);
-      tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, kd, ring, fresh,
-                                    elected, t, wg);
+      tf::mma_seg<W_HALF>(acc64, none, act, G_H, W_TRUNK, ring, fresh, t, wg);
+      tf::mma_seg<W_HALF>(acc64, none, act, G_P, kd, ring, fresh, t, wg);
       drain();
-      tf::store_hidden<W_HALF, true, C>(acc64, act, G_P,
-                                        bias_s + hop::bias_off(L_DIR), fq, t,
-                                        m2, wg);
+      tf::store_hidden<W_HALF, true>(acc64, act, G_P,
+                                     bias_s + hop::bias_off(L_DIR), fq, t, m2,
+                                     wg);
       hb::put_masks(my_masks, hb::M_HD + W2 * wg, m2);
       sync();
       save(tm.hd, W_HALF, G_P);
     }
     if (!MIP && has_transient) {
       drain();
-      tf::encode<IN_LD, C>(act, G_P, inp, row0, n, false, 0, 0, sd_s,
-                           6 + a_dim, t_dim, kt, t, wg);
+      tf::encode(act, G_P, inp, row0, n, false, 0, 0, sd_s, 6 + a_dim, t_dim,
+                 kt, t, wg);
       sync();
       save(tm.ttail, kt, G_P);
       for (int l = L_T0; l < L_TH; ++l) {
         bool fresh = true;
         if (l == L_T0) {
-          tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_H, W_TRUNK, ring,
-                                        fresh, elected, t, wg);
-          tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, kt, ring,
-                                        fresh, elected, t, wg);
+          tf::mma_seg<W_HALF>(acc64, none, act, G_H, W_TRUNK, ring, fresh, t,
+                              wg);
+          tf::mma_seg<W_HALF>(acc64, none, act, G_P, kt, ring, fresh, t, wg);
         } else {
-          tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, W_HALF, ring,
-                                        fresh, elected, t, wg);
+          tf::mma_seg<W_HALF>(acc64, none, act, G_P, W_HALF, ring, fresh, t,
+                              wg);
         }
         drain();
-        tf::store_hidden<W_HALF, true, C>(acc64, act, G_P,
-                                          bias_s + hop::bias_off(l), fq, t,
-                                          m2, wg);
+        tf::store_hidden<W_HALF, true>(acc64, act, G_P,
+                                       bias_s + hop::bias_off(l), fq, t, m2,
+                                       wg);
         hb::put_masks(my_masks, hb::M_TH + 2 * (l - L_T0) + W2 * wg, m2);
         sync();
         save(tm.th[l - L_T0], W_HALF, G_P);
@@ -1008,28 +998,26 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
       for (int l = L_TH; l > L_T0; --l) {
         bool fresh = true;
         if (l == L_TH)
-          tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_G, OUT_LD, ring,
-                                        fresh, elected, t, wg);
+          tf::mma_seg<W_HALF>(acc64, none, act, G_G, OUT_LD, ring, fresh, t,
+                              wg);
         else
-          tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, W_HALF, ring,
-                                        fresh, elected, t, wg);
+          tf::mma_seg<W_HALF>(acc64, none, act, G_P, W_HALF, ring, fresh, t,
+                              wg);
         drain();
         hb::get_masks(my_masks, hb::M_TH + 2 * (l - 1 - L_T0) + W2 * wg, m2);
-        tf::store_cot<W_HALF, true, false, true, C>(
-            acc64, act, G_P, m2, dbrow + hop::bias_off(l - 1), fq, t, lane,
-            wg);
+        tf::store_cot<W_HALF, true, false, true>(acc64, act, G_P, m2,
+                                                 dbrow + hop::bias_off(l - 1),
+                                                 fq, t, lane, wg);
         sync();
         save(tm.g[l - 1], W_HALF, G_P);
       }
       // t0: d_xyz_final (transient part) -> H, d_t -> d_inp
       bool fresh = true;
-      tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_P, W_HALF, ring, fresh,
-                                     elected, t, wg);
-      tf::store_cot<W_TRUNK, false, false, false, C>(acc, act, G_H, nullptr,
-                                                     nullptr, fq, t, lane, wg);
+      tf::mma_seg<W_TRUNK>(acc, none, act, G_P, W_HALF, ring, fresh, t, wg);
+      tf::store_cot<W_TRUNK, false, false, false>(acc, act, G_H, nullptr,
+                                                  nullptr, fq, t, lane, wg);
       fresh = true;
-      tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, W_HALF, ring,
-                                    fresh, elected, t, wg);
+      tf::mma_seg<W_HALF>(acc64, none, act, G_P, W_HALF, ring, fresh, t, wg);
 #pragma unroll
       for (int j = 0; j < W_HALF / C / 8; ++j) {
 #pragma unroll
@@ -1044,12 +1032,12 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
     // rgb head -> hd's cotangent
     {
       bool fresh = true;
-      tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_G, OUT_LD, ring,
-                                    fresh, elected, t, wg);
+      tf::mma_seg<W_HALF>(acc64, none, act, G_G, OUT_LD, ring, fresh, t, wg);
       drain();
       hb::get_masks(my_masks, hb::M_HD + W2 * wg, m2);
-      tf::store_cot<W_HALF, true, false, true, C>(
-          acc64, act, G_P, m2, dbrow + hop::bias_off(L_DIR), fq, t, lane, wg);
+      tf::store_cot<W_HALF, true, false, true>(acc64, act, G_P, m2,
+                                               dbrow + hop::bias_off(L_DIR), fq,
+                                               t, lane, wg);
       sync();
       save(tm.g[L_DIR], W_HALF, G_P);
     }
@@ -1057,25 +1045,23 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
     // d_tail -> P
     {
       bool fresh = true;
-      tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_P, W_HALF, ring, fresh,
-                                     elected, t, wg);
+      tf::mma_seg<W_TRUNK>(acc, none, act, G_P, W_HALF, ring, fresh, t, wg);
       if (has_transient)
-        tf::store_cot<W_TRUNK, false, true, true, C>(
-            acc, act, G_H, nullptr, dbrow + hop::bias_off(L_FS), fq, t, lane,
-            wg);
+        tf::store_cot<W_TRUNK, false, true, true>(acc, act, G_H, nullptr,
+                                                  dbrow + hop::bias_off(L_FS),
+                                                  fq, t, lane, wg);
       else
-        tf::store_cot<W_TRUNK, false, false, true, C>(
-            acc, act, G_H, nullptr, dbrow + hop::bias_off(L_FS), fq, t, lane,
-            wg);
+        tf::store_cot<W_TRUNK, false, false, true>(acc, act, G_H, nullptr,
+                                                   dbrow + hop::bias_off(L_FS),
+                                                   fq, t, lane, wg);
       if constexpr (!MIP) {
         fresh = true;
-        tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_P, W_HALF, ring,
-                                      fresh, elected, t, wg);
+        tf::mma_seg<W_HALF>(acc64, none, act, G_P, W_HALF, ring, fresh, t, wg);
       }
       drain();
       if constexpr (!MIP)
-        tf::store_cot<W_HALF, false, false, false, C>(
-            acc64, act, G_P, nullptr, nullptr, fq, t, lane, wg);
+        tf::store_cot<W_HALF, false, false, false>(acc64, act, G_P, nullptr,
+                                                   nullptr, fq, t, lane, wg);
       sync();
       save(tm.g[L_FS], W_TRUNK, G_H);
     }
@@ -1096,32 +1082,29 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
       bool fresh = true;
       if (!MIP && l == 4) {
         // the pe rows of layer 4 first: d_pe's skip part -> P
-        tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_H, W_TRUNK, ring,
-                                      fresh, elected, t, wg);
-        tf::store_cot<W_HALF, false, false, false, C>(
-            acc64, act, G_P, nullptr, nullptr, fq, t, lane, wg);
+        tf::mma_seg<W_HALF>(acc64, none, act, G_H, W_TRUNK, ring, fresh, t, wg);
+        tf::store_cot<W_HALF, false, false, false>(acc64, act, G_P, nullptr,
+                                                   nullptr, fq, t, lane, wg);
         fresh = true;
       }
-      tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_H, W_TRUNK, ring,
-                                     fresh, elected, t, wg);
+      tf::mma_seg<W_TRUNK>(acc, none, act, G_H, W_TRUNK, ring, fresh, t, wg);
       if (l == L_FS)
-        tf::mma_seg<W_TRUNK, false, C>(acc, none, act, G_G, OUT_LD, ring,
-                                       fresh, elected, t, wg);
+        tf::mma_seg<W_TRUNK>(acc, none, act, G_G, OUT_LD, ring, fresh, t, wg);
       drain();
       hb::get_masks(my_masks, 4 * (l - 1) + W4 * wg, m4);
-      tf::store_cot<W_TRUNK, true, false, true, C>(
-          acc, act, G_H, m4, dbrow + hop::bias_off(l - 1), fq, t, lane, wg);
+      tf::store_cot<W_TRUNK, true, false, true>(acc, act, G_H, m4,
+                                                dbrow + hop::bias_off(l - 1),
+                                                fq, t, lane, wg);
       sync();
       save(tm.g[l - 1], W_TRUNK, G_H);
     }
     // layer 0: d_pe = its cotangent + the skip part -> P
     if constexpr (!MIP) {
       bool fresh = true;
-      tf::mma_seg<W_HALF, false, C>(acc64, none, act, G_H, W_TRUNK, ring,
-                                    fresh, elected, t, wg);
-      tf::store_cot<W_HALF, false, true, false, C>(acc64, act, G_P, nullptr,
-                                                   nullptr, fq, t, lane, wg);
-      tf::consumer_sync<C>();
+      tf::mma_seg<W_HALF>(acc64, none, act, G_H, W_TRUNK, ring, fresh, t, wg);
+      tf::store_cot<W_HALF, false, true, false>(acc64, act, G_P, nullptr,
+                                                nullptr, fq, t, lane, wg);
+      tf::consumer_sync();
     }
     for (int e = tid; !MIP && e < tf::ROWS * 3; e += 128 * C) {
       const int r = e / 3, c = e % 3;
@@ -1135,7 +1118,7 @@ __device__ __forceinline__ void bwd_f32(const float* __restrict__ inp,
   if (elected) hop::bulk_wait_read();
 }
 
-__global__ void __launch_bounds__(tf::B_THREADS, 1)
+__global__ void __launch_bounds__(tf::THREADS, 1)
 fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
                          const float* __restrict__ g,
                          float* __restrict__ d_inp, int n,
@@ -1155,7 +1138,7 @@ fused_mlp_bwd_f32_kernel(const float* __restrict__ inp,
                  dbpart, db_stride);
 }
 
-__global__ void __launch_bounds__(tf::B_THREADS, 1)
+__global__ void __launch_bounds__(tf::THREADS, 1)
 fused_mlp_bwd_ipe_f32_kernel(const float* __restrict__ inp,
                              const float* __restrict__ g, int n,
                              const unsigned char* __restrict__ image,
@@ -1671,12 +1654,12 @@ int launch(bool f32, const float* inp, const float* g, float* d_inp, int n,
   if (err != cudaSuccess) return (int)err;
   if (n > 0) {
     if (ipe)
-      tb::fused_mlp_bwd_ipe_f32_kernel<<<grid, tf::B_THREADS, tf::B_SMEM,
+      tb::fused_mlp_bwd_ipe_f32_kernel<<<grid, tf::THREADS, tf::B_SMEM,
                                          stream>>>(
           inp, g, n, img, plan32, bias, sd, nfx, nfd, d.k0, d.kd, tiles, tm,
           masks, db_part, w.db_stride, runs, ipe_runs);
     else if (f32)
-      tb::fused_mlp_bwd_f32_kernel<<<grid, tf::B_THREADS, tf::B_SMEM,
+      tb::fused_mlp_bwd_f32_kernel<<<grid, tf::THREADS, tf::B_SMEM,
                                      stream>>>(
           inp, g, d_inp, n, img, plan32, bias, sx, sd, nfx, nfd, a_dim, t_dim,
           d.k0, d.kd, d.kt, has_transient, tiles, tm, masks, db_part,
@@ -1791,12 +1774,12 @@ void nerf_fused_mlp_bwd_info(int* out) {
   out[3] = hb::W_SMEM;
   out[4] = hb::SPLITS;
   out[5] = tf::ROWS;
-  out[6] = tf::B_THREADS;
+  out[6] = tf::THREADS;
   out[7] = tf::B_SMEM;
   out[8] = tb::W_SMEM;
   out[9] = tb::W_ROW_BLOCKS;
   out[10] = hop::CONSUMERS;
-  out[11] = tf::B_CONSUMERS;
+  out[11] = tf::CONSUMERS;
 }
 
 }  // extern "C"

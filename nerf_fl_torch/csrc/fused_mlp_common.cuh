@@ -20,10 +20,12 @@
 // stays resident and needs no ring.
 //
 // The f32 Hopper block (namespace tf): the same producer, ring and
-// mbarriers, and f32 products on the tensor cores as three TF32 passes
-// (3xTF32), A from registers.  Both f32 fused kernels are built from it,
-// and their IPE instances (mip-NeRF's field: tf::encode_ipe, the skip at
-// layer 5); fused_mlp_fwd.cu says why it is laid out as it is.
+// mbarriers, f32 products on the tensor cores as three TF32 passes
+// (3xTF32), A from registers, and two consumer warpgroups on the same 64
+// rows that split each layer's output columns.  Both f32 fused kernels,
+// the sigma-only kernel and the IPE instances (mip-NeRF's field:
+// tf::encode_ipe, the skip at layer 5) are built from it;
+// fused_mlp_fwd.cu says why it is laid out as it is.
 //
 // Numerics (all kernels): PE steps use __fmul_rn / __fadd_rn so that no
 // multiply-add is contracted; build without --use_fast_math.
@@ -806,10 +808,9 @@ namespace tf {
 using hop::Ring;
 
 constexpr int ROWS = 64;                  // points a block
-constexpr int T_THREADS = 256;            // one consumer and a producer warpgroup
-constexpr int B_CONSUMERS = 2;            // the backward's consumer warpgroups
-constexpr int B_THREADS = 128 * (B_CONSUMERS + 1);   // and its producer's
-constexpr int B_EMPTY = 4 * B_CONSUMERS;  // arrivals that free a backward stage
+constexpr int CONSUMERS = 2;              // consumer warpgroups, all ROWS each
+constexpr int THREADS = 128 * (CONSUMERS + 1);   // and the producer's
+constexpr int RELEASES = 4 * CONSUMERS;   // arrivals that free a stage, a warp's
 constexpr int GROUP = 128;                // float4s of an 8-column group, one a consumer thread
 constexpr int GROUP_BYTES = GROUP * 16;   // 2 KB
 constexpr int SLOT_BYTES = 8 * GROUP_BYTES;   // a saved tile: 64 points x 64 columns
@@ -1145,22 +1146,18 @@ template <> struct WgmmaSS<16> {
 // (g0 + c / 8) * GROUP + t, component 2 ((r / 8) % 2) + c % 2.  A thread's
 // float4 of group j is so its accumulators 4 j .. 4 j + 3, and, split, its
 // A fragment of the contraction values 8 j .. 8 j + 7 in the image's order
-// (Wgmma32).  With one consumer warpgroup a product reads only the
-// thread's own activations and its epilogue writes only them: no barrier
-// between layers.  With C consumer warpgroups (the backward's two) thread t
-// of each holds the same rows, and warpgroup w computes and writes the
-// column groups of its share of each layer's output (w N / C ..), so a
-// product reads every warpgroup's writes: a barrier over the consumers
-// between layers.
+// (Wgmma32).  Thread t of each of the CONSUMERS warpgroups holds the same
+// rows, and warpgroup w computes and writes the column groups of its share
+// of each layer's output (w N / CONSUMERS ..), so a product reads every
+// warpgroup's writes: a barrier over the consumers between layers.
 __device__ __forceinline__ int at(int g0, int r, int c) {
   return ((g0 + (c >> 3)) * GROUP + 32 * (r >> 4) + 4 * (r & 7) +
           ((c & 7) >> 1)) * 4 + 2 * ((r >> 3) & 1) + (c & 1);
 }
 
-// barrier over C consumer warpgroups (hop::wg_sync's id 1 when C = 1)
-template <int C>
+// barrier over the consumer warpgroups
 __device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * C) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * CONSUMERS) : "memory");
 }
 
 // A float4 of the private layout as hi and lo A fragments.
@@ -1172,17 +1169,53 @@ __device__ __forceinline__ void split_a(const float4 v, uint32_t (&hi)[4],
   split(v.w, hi[3], lo[3]);
 }
 
-// mma_seg for C consumer warpgroups (see mma_seg).
-template <int N, int C>
-__device__ __forceinline__ void mma_seg_split(float (&acc)[N / 2 / C],
-                                              const float4* act, int g0,
-                                              int cols, Ring& r, bool& fresh,
-                                              int t, int wg) {
-  static_assert(C == 2 && (N == W_TRUNK || N == W_HALF), "two consumers");
+// Accumulators a thread holds of an N-column product: its warpgroup's
+// share, or all 16 columns of a head (warpgroup 1 computes those).
+template <int N> __host__ __device__ constexpr int share() {
+  return N == OUT_LD ? OUT_LD / 2 : N / 2 / CONSUMERS;
+}
+
+// One segment of a layer's contraction: `cols` input columns (a multiple
+// of 16) of the private region g0, KC a stage; each stage holds one output
+// piece of the layer's N columns (256: two pieces of 128), hi rows then lo
+// rows.  Three passes a k8 step: hi x hi, lo x hi, hi x lo.  A stage's
+// products all issue whatever its real columns (the image and the A
+// fragments are zero past them): no wgmma sits behind a branch, which
+// ptxas would answer by serializing them.
+// Warpgroup wg computes its share of the N columns: piece wg of a 256-wide
+// layer (a stage of its own) or rows 64 wg .. of a 128-wide layer's one stage,
+// 64 accumulators a thread at most.  A 16-column product (N = OUT_LD: the
+// heads, the sigma kernel's sigma block) is warpgroup 1's whole, while
+// warpgroup 0 passes its stages.  SIG (fs2): piece 1 has 16 more rows, the
+// sigma block, which warpgroup 1 multiplies into sig beside its piece;
+// warpgroup 0 issues the same products on rows of its own stage and never reads
+// that sig, so that which products a stage issues does not depend on the
+// warpgroup.  The next KC columns' A values are loaded while this KC's products
+// run, and split once they are done.  Every warp waits for every stage of the
+// ring in order and then arrives on its "empty" barrier once (RELEASES): a
+// stage it reads after its own products, the other warpgroup's piece of a
+// 256-wide layer as soon as it has seen it land (warpgroup 1 before its own
+// piece, warpgroup 0 after releasing its own).  A parity wait is only sound on
+// a stage whose previous fill the waiter has seen land (copies may land out of
+// order) and whose next fill cannot land before the waiter has seen this one; a
+// warp that skipped stages, or a stage released for a warpgroup by one of its
+// warps, breaks one or the other.  With three stages a warpgroup holds one at a
+// time, one in use by each warpgroup and one landing: keeping a second in
+// flight (wait<1>) starves the other warpgroup of stages.
+template <int N, bool SIG = false>
+__device__ __forceinline__ void mma_seg(float (&acc)[share<N>()],
+                                        float (&sig)[8], const float4* act,
+                                        int g0, int cols, Ring& r,
+                                        bool& fresh, int t, int wg) {
+  static_assert(N == W_TRUNK || N == W_HALF || N == OUT_LD, "widths");
+  static_assert(!SIG || N == W_TRUNK, "the sigma block rides fs2");
   constexpr int PIECES = N == W_TRUNK ? 2 : 1;
-  constexpr int NP = N / C;
+  constexpr int NP = 2 * share<N>();
   float(&d)[NP / 2] = acc;
-  const uint32_t rows = PIECES == 1 ? wg * NP * 128 : 0;
+  const uint32_t rows = N == W_HALF ? wg * NP * 128 : 0;
+  // image rows of a part of this warpgroup's stage
+  const uint32_t height =
+      N == OUT_LD ? OUT_LD : PIECE + (SIG && wg == 1 ? OUT_LD : 0);
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float4 v[4];
   uint32_t ah[4][4], al[4][4];
@@ -1209,6 +1242,10 @@ __device__ __forceinline__ void mma_seg_split(float (&acc)[N / 2 / C],
     const int s = take();
     if (lead) hop::mbar_arrive(r.empty + 8 * s);
   };
+  if (N == OUT_LD && wg == 0) {   // warpgroup 1's product
+    for (int k0 = 0; k0 < cols; k0 += KC) pass();
+    return;
+  }
   load(0);
   for (int k0 = 0; k0 < cols; k0 += KC) {
 #pragma unroll
@@ -1216,7 +1253,7 @@ __device__ __forceinline__ void mma_seg_split(float (&acc)[N / 2 / C],
     if (PIECES == 2 && wg == 1) pass();   // piece 0: warpgroup 0's
     const int s = take();
     const uint32_t hi = r.buf + s * r.stride + rows;
-    const uint32_t lo = hi + PIECE * 128;
+    const uint32_t lo = hi + height * 128;
     const int sd = fresh ? 0 : 1;
     hop::wgmma_fence();
 #pragma unroll
@@ -1225,6 +1262,12 @@ __device__ __forceinline__ void mma_seg_split(float (&acc)[N / 2 / C],
                        kk == 0 ? sd : 1);
       Wgmma32<NP>::run(d, al[kk], hop::kdesc(hi + 32 * kk), 1);
       Wgmma32<NP>::run(d, ah[kk], hop::kdesc(lo + 32 * kk), 1);
+      if constexpr (SIG) {
+        const uint32_t b = hi + NP * 128 + 32 * kk;
+        Wgmma32<16>::run(sig, ah[kk], hop::kdesc(b), kk == 0 ? sd : 1);
+        Wgmma32<16>::run(sig, al[kk], hop::kdesc(b), 1);
+        Wgmma32<16>::run(sig, ah[kk], hop::kdesc(b + height * 128), 1);
+      }
     }
     hop::wgmma_commit();
     fresh = false;
@@ -1235,98 +1278,7 @@ __device__ __forceinline__ void mma_seg_split(float (&acc)[N / 2 / C],
     if (PIECES == 2 && wg == 0) pass();   // piece 1: warpgroup 1's
   }
   hop::fence_acc(acc);
-}
-
-// One segment of a layer's contraction: `cols` input columns (a multiple
-// of 16) of this thread's private region g0, KC a stage; each stage holds
-// one output piece of the layer's N columns (256: two pieces of 128).
-// Three passes a k8 step: hi x hi, lo x hi, hi x lo.  A stage's products
-// all issue whatever its real columns (the image and the A fragments are
-// zero past them): no wgmma sits behind a branch, which ptxas would answer
-// by serializing them.
-// C = 1 (the forward kernels): acc is the layer's N columns (256: the two
-// pieces' accumulators are acc's halves); SIG: fs2, whose last piece has
-// 16 more rows, the sigma block, multiplied into sig.  The A registers are
-// rewritten every KC columns, so the products of those columns are waited
-// for before the next.
-// C = 2 (the backward): warpgroup wg computes N / 2 columns, piece wg of a
-// 256-wide layer (a stage of its own) or rows 64 wg .. of a 128-wide
-// layer's one stage, 64 accumulators a thread at most; the next KC
-// columns' A values are loaded while this KC's products run, and split
-// once they are done.  Every warp waits for every stage of the ring in
-// order and then arrives on its "empty" barrier once (B_EMPTY: 4 C): a
-// stage it reads after its own products, the other warpgroup's piece of a
-// 256-wide layer as soon as it has seen it land (warpgroup 1 before its
-// own piece, warpgroup 0 after releasing its own).  A parity wait is only
-// sound on a stage whose previous fill the waiter has seen land (copies
-// may land out of order) and whose next fill cannot land before the waiter
-// has seen this one; a warp that skipped stages, or a stage released for
-// a warpgroup by one of its warps, breaks one or the other.  With three
-// stages a warpgroup holds one at a time, one in use by each warpgroup and
-// one landing: keeping a second in flight (wait<1>) starves the other
-// warpgroup of stages.
-template <int N, bool SIG, int C = 1>
-__device__ __forceinline__ void mma_seg(float (&acc)[N / 2 / C],
-                                        float (&sig)[8], const float4* act,
-                                        int g0, int cols, Ring& r,
-                                        bool& fresh, bool elected, int t,
-                                        int wg = 0) {
-  if constexpr (C > 1) {
-    mma_seg_split<N, C>(acc, act, g0, cols, r, fresh, t, wg);
-    return;
-  }
-  constexpr int PIECES = N == W_TRUNK ? 2 : 1;
-  constexpr int NP = N / PIECES;
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int k0 = 0; k0 < cols; k0 += KC) {
-    const int steps = min(KC, cols - k0) / 8;
-    uint32_t ah[4][4], al[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      split_a(kk < steps ? act[(g0 + k0 / 8 + kk) * GROUP + t] : zero,
-              ah[kk], al[kk]);
-    const int sd = fresh ? 0 : 1;
-    hop::wgmma_fence();
-    int prev = 0;
-#pragma unroll
-    for (int h = 0; h < PIECES; ++h) {
-      float(&d)[NP / 2] =
-          *reinterpret_cast<float(*)[NP / 2]>(acc + h * (NP / 2));
-      const bool with_sig = SIG && h == PIECES - 1;
-      hop::mbar_wait(r.full + 8 * r.stage, r.phase);
-      const uint32_t hi = r.buf + r.stage * r.stride;
-      const uint32_t lo = hi + (NP + (with_sig ? OUT_LD : 0)) * 128;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        Wgmma32<NP>::run(d, ah[kk], hop::kdesc(hi + 32 * kk),
-                         kk == 0 ? sd : 1);
-        Wgmma32<NP>::run(d, al[kk], hop::kdesc(hi + 32 * kk), 1);
-        Wgmma32<NP>::run(d, ah[kk], hop::kdesc(lo + 32 * kk), 1);
-        if (with_sig) {
-          const uint32_t s = NP * 128 + 32 * kk;
-          Wgmma32<16>::run(sig, ah[kk], hop::kdesc(hi + s), kk == 0 ? sd : 1);
-          Wgmma32<16>::run(sig, al[kk], hop::kdesc(hi + s), 1);
-          Wgmma32<16>::run(sig, ah[kk], hop::kdesc(lo + s), 1);
-        }
-      }
-      hop::wgmma_commit();
-      if (h > 0) {
-        // the previous piece's products are done: its stage is free
-        hop::wgmma_wait<1>();
-        if (elected) hop::mbar_arrive(r.empty + 8 * prev);
-      }
-      prev = r.stage;
-      if (++r.stage == STAGES) {
-        r.stage = 0;
-        r.phase ^= 1;
-      }
-    }
-    fresh = false;
-    hop::wgmma_wait<0>();
-    if (elected) hop::mbar_arrive(r.empty + 8 * prev);
-  }
-  hop::fence_acc(acc);
-  if (SIG) hop::fence_acc(sig);
+  if constexpr (SIG) hop::fence_acc(sig);
 }
 
 // The producer: one thread streams the plan's stages through the ring once
@@ -1373,14 +1325,14 @@ __device__ __forceinline__ float pe_at(float x0, float x1, float x2, int c,
 // src (pe_at), then n_extra columns copied from column extra_src; without,
 // the copied columns alone; zeros past them and in rows past n.  LD: the
 // input's row stride in floats (the packed row's, or 3 for bare positions).
-// C consumer warpgroups: warpgroup wg writes every C-th 8-column group.
-template <int LD = IN_LD, int C = 1>
+// Warpgroup wg writes every CONSUMERS-th 8-column group from its wg-th.
+template <int LD = IN_LD>
 __device__ __forceinline__ void encode(float4* act, int g0,
                                        const float* __restrict__ inp,
                                        size_t row0, int n, bool pe, int src,
                                        int n_freq, const float* scale,
                                        int extra_src, int n_extra, int width,
-                                       int t, int wg = 0) {
+                                       int t, int wg) {
   const int r = 16 * (t >> 5) + ((t & 31) >> 2), q = t & 3;
   const int first = pe ? 3 + 6 * n_freq : 0;
   float x[2][3];
@@ -1395,7 +1347,7 @@ __device__ __forceinline__ void encode(float4* act, int g0,
     for (int k = 0; k < 3; ++k)
       x[h][k] = live[h] && pe ? p[h][src + k] : 0.0f;
   }
-  for (int j = C == 1 ? 0 : wg; j < width / 8; j += C) {
+  for (int j = wg; j < width / 8; j += CONSUMERS) {
     float o[4];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -1422,13 +1374,12 @@ __device__ __forceinline__ void encode(float4* act, int g0,
 // added after reduction, as pe_at's); m = columns 0..2 of the packed row
 // (the Gaussian's mean), v = columns 6..8 (its diagonal variance).  Zeros
 // past 6 n_freq and in rows past n.  2^l m and -4^l v / 2 are exact, so
-// each value is one sin_cw and one expf, rounded once by the product.  C
-// consumer warpgroups: warpgroup wg writes every C-th 8-column group.
-template <int C = 1>
+// each value is one sin_cw and one expf, rounded once by the product.
+// Warpgroup wg writes every CONSUMERS-th 8-column group from its wg-th.
 __device__ __forceinline__ void encode_ipe(float4* act, int g0,
                                            const float* __restrict__ inp,
                                            size_t row0, int n, int n_freq,
-                                           int width, int t, int wg = 0) {
+                                           int width, int t, int wg) {
   const int r = 16 * (t >> 5) + ((t & 31) >> 2), q = t & 3;
   const int half = 3 * n_freq;
   float m[2][3], v[2][3];
@@ -1444,7 +1395,7 @@ __device__ __forceinline__ void encode_ipe(float4* act, int g0,
       v[h][k] = live[h] ? p[6 + k] : 0.0f;
     }
   }
-  for (int j = C == 1 ? 0 : wg; j < width / 8; j += C) {
+  for (int j = wg; j < width / 8; j += CONSUMERS) {
     float o[4];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -1473,15 +1424,15 @@ __device__ __forceinline__ void encode_ipe(float4* act, int g0,
 // Hidden layer epilogue: relu(sum + bias) in f32 into region g0; with M
 // also the ReLU bits (hop::store_hidden_mask's packing: bit i of word
 // 4 j / 32, at 4 j % 32 + i, for accumulator 4 j + i, set where the stored
-// value is positive).  C consumer warpgroups: acc is warpgroup wg's share
-// of the N columns (mma_seg's), stored as those columns.
-template <int N, bool M, int C = 1>
-__device__ __forceinline__ void store_hidden(const float (&acc)[N / 2 / C],
+// value is positive).  acc is warpgroup wg's share of the N columns
+// (mma_seg's), stored as those columns.
+template <int N, bool M>
+__device__ __forceinline__ void store_hidden(const float (&acc)[share<N>()],
                                              float4* act, int g0,
                                              const float* bias, int q, int t,
-                                             uint32_t* m, int wg = 0) {
-  constexpr int NC = N / C;
-  const int c0 = C == 1 ? 0 : wg * NC;
+                                             uint32_t* m, int wg) {
+  constexpr int NC = N / CONSUMERS;
+  const int c0 = wg * NC;
   g0 += c0 / 8;
   bias += c0;
   if (M)
@@ -1501,14 +1452,14 @@ __device__ __forceinline__ void store_hidden(const float (&acc)[N / 2 / C],
   }
 }
 
-// fs2's xyz_final: sum + bias in f32 into region g0 (C: store_hidden's)
-template <int N, int C = 1>
-__device__ __forceinline__ void store_linear(const float (&acc)[N / 2 / C],
+// fs2's xyz_final: sum + bias in f32 into region g0 (store_hidden's share)
+template <int N>
+__device__ __forceinline__ void store_linear(const float (&acc)[share<N>()],
                                              float4* act, int g0,
                                              const float* bias, int q, int t,
-                                             int wg = 0) {
-  constexpr int NC = N / C;
-  const int c0 = C == 1 ? 0 : wg * NC;
+                                             int wg) {
+  constexpr int NC = N / CONSUMERS;
+  const int c0 = wg * NC;
   g0 += c0 / 8;
   bias += c0;
 #pragma unroll
@@ -1523,15 +1474,15 @@ __device__ __forceinline__ void store_linear(const float (&acc)[N / 2 / C],
 // dgrad epilogue (hop::store_cot's, in f32): ADD, plus the value already
 // there; MASK, zero where the forward activation was not positive (bits of
 // m, as store_hidden made them); DB, the column sums of the stored values
-// over this warp's 16 rows to db[column] (lanes 0..3).  C: store_hidden's
-// (db is the layer's whole row).
-template <int N, bool MASK, bool ADD, bool DB, int C = 1>
-__device__ __forceinline__ void store_cot(const float (&acc)[N / 2 / C],
+// over this warp's 16 rows to db[column] (lanes 0..3).  acc: store_hidden's
+// share (db is the layer's whole row).
+template <int N, bool MASK, bool ADD, bool DB>
+__device__ __forceinline__ void store_cot(const float (&acc)[share<N>()],
                                           float4* act, int g0,
                                           const uint32_t* m, float* db, int q,
-                                          int t, int lane, int wg = 0) {
-  constexpr int NC = N / C;
-  const int c0 = C == 1 ? 0 : wg * NC;
+                                          int t, int lane, int wg) {
+  constexpr int NC = N / CONSUMERS;
+  const int c0 = wg * NC;
   g0 += c0 / 8;
   if constexpr (DB) db += c0;
 #pragma unroll
@@ -1565,13 +1516,12 @@ __device__ __forceinline__ void store_cot(const float (&acc)[N / 2 / C],
 // The first ceil(cols / 8) groups of the private region at src (a shared
 // address) to tile slots tile, tile + 1, ... of row block rb in the
 // scratch: slot i of rb at ((i * n_rb) + rb) * SLOT_BYTES.  One thread of
-// each of C consumer warpgroups: warpgroup wg's takes every C-th slot.
-template <int C = 1>
+// each consumer warpgroup: warpgroup wg's takes every CONSUMERS-th slot.
 __device__ __forceinline__ void save(unsigned char* scratch, int tile,
                                      int cols, size_t n_rb, size_t rb,
-                                     uint32_t src, int wg = 0) {
+                                     uint32_t src, int wg) {
   const int groups = (cols + 7) / 8;
-  for (int i = C == 1 ? 0 : wg; 8 * i < groups; i += C)
+  for (int i = wg; 8 * i < groups; i += CONSUMERS)
     hop::bulk_s2g(scratch + ((size_t)(tile + i) * n_rb + rb) * SLOT_BYTES,
                   src + i * SLOT_BYTES,
                   (groups - 8 * i < 8 ? groups - 8 * i : 8) * GROUP_BYTES);

@@ -91,22 +91,38 @@
 //     activations stay f32 in shared memory in a private layout, where the
 //     thread that holds an element in a product's accumulator fragments is
 //     the one that gives it as A to the next layer.  A k8 step's A fragment
-//     is one float4 of the thread's own values (the image orders each 8
-//     contraction values 0, 2, 4, 6, 1, 3, 5, 7 to match), split in
-//     registers; no barrier inside a tile;
+//     is one float4 (the image orders each 8 contraction values 0, 2, 4, 6,
+//     1, 3, 5, 7 to match), split in registers;
 //   * budget: a 64-row f32 tile of ACT_W = 384 columns is 96 KB, and hi +
 //     lo copies of it as tf32 would be 192 KB of the block's 227 KB, so the
 //     activations are stored once as f32 and split in registers, and a
-//     block is one consumer warpgroup of 64 points.  Shared memory 223,024
-//     bytes: 96 KB activations, 3 x 36 KB stages, 13 KB biases and scale
-//     rows, 1 KB alignment; one block an SM.  256 threads (the consumers
-//     and a producer warpgroup) may take 255 registers each at launch, so
-//     no setmaxnreg: a consumer holds 128 accumulators at N = 256 (two
-//     pieces of 64) and 32 A registers;
-//   * the products of 32 contraction values are waited for before the next
-//     32 are split into the same registers, so the tensor cores idle while
-//     the next A fragments load; each weight byte from L2 serves 64 points,
-//     half the bf16 kernel's reuse.
+//     block holds 64 points.  Shared memory 223,024 bytes: 96 KB
+//     activations, 3 x 36 KB stages, 13 KB biases and scale rows, 1 KB
+//     alignment; one block an SM;
+//   * two consumer warpgroups on the same 64 rows split each layer's output
+//     columns (tf::mma_seg; the f32 backward's block): a 256-wide layer's
+//     pieces of 128 columns are a stage each, a 128-wide layer's halves of
+//     64 share one stage; fs2's sigma block rides warpgroup 1's piece, and
+//     the N = 16 heads are warpgroup 1's while warpgroup 0 passes their
+//     stages.  A thread holds at most 64 accumulators beside its 32 A
+//     registers, the next 32 contraction values' A values load while this
+//     stage's products run, and one warpgroup's products run while the
+//     other splits its operands, waits for its stage or stores its
+//     epilogue.  Each warpgroup stores its share of a layer's output in
+//     place, so a barrier over the 256 consumer threads sits between a
+//     layer's products and its epilogue and between the epilogue and the
+//     next products; the encoders write every other 8-column group each.
+//     Every consumer warp waits for every stage in order and arrives once
+//     to free it (tf::RELEASES, 8).  Block: 384 threads, setmaxnreg 40
+//     for the producer warpgroup and 232 for the consumers, 168 registers
+//     a thread at launch, no spill, no ptxas C7520.  The one-warpgroup
+//     design it replaced (256 threads, 128 accumulators a thread at N =
+//     256, 255 registers with 572 / 860 B of spill, its products
+//     serialized by ptxas, C7520) took ~96.6 ms for the render chunk's
+//     4,194,304 points on an H100 (700 W), this one ~54.5, against a
+//     three-pass bound of 34.8;
+//   * each weight byte from L2 serves 64 points, half the bf16 kernel's
+//     reuse.
 //
 // Numerics follow the TPU kernel exactly (at f32 "round to the compute
 // type" is the identity; the split products are the one difference):
@@ -349,9 +365,9 @@ fused_mlp_fwd_bf16_kernel(const float* __restrict__ inp,
 }
 
 // ----------------------------------------------------------------------
-// The f32 kernels' common parts.  A block of either f32 kernel below is one
-// consumer warpgroup (64 rows) and a producer warpgroup of which one
-// thread works.
+// The f32 kernels' common parts.  A block of either f32 kernel below is a
+// producer warpgroup of which one thread works and two consumer warpgroups
+// on the same 64 rows that split each layer's output columns.
 // ----------------------------------------------------------------------
 // The block's shared memory: activations, the weight ring's stages, the
 // biases and the scale rows, then the ring's barriers.
@@ -388,17 +404,17 @@ __device__ __forceinline__ TfBlock tf_block(unsigned char* smem_raw,
   k.empty = k.full + 8 * tf::STAGES;
 
   const int tid = threadIdx.x;
-  for (int c = tid; c < IN_LD; c += tf::T_THREADS) {
+  for (int c = tid; c < IN_LD; c += tf::THREADS) {
     k.sx_s[c] = sx[c];
     if (DIR) k.sd_s[c] = sd[c];
   }
   for (int l = 0; l < n_layers; ++l)
-    for (int c = tid; c < hop::layer_n(l); c += tf::T_THREADS)
+    for (int c = tid; c < hop::layer_n(l); c += tf::THREADS)
       k.bias_s[hop::bias_off(l) + c] = bias.b[l][c];
   if (tid == 0) {
     for (int s = 0; s < tf::STAGES; ++s) {
       hop::mbar_init(k.full + 8 * s, 1);
-      hop::mbar_init(k.empty + 8 * s, 1);
+      hop::mbar_init(k.empty + 8 * s, tf::RELEASES);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     hop::fence_async_smem();
@@ -409,24 +425,24 @@ __device__ __forceinline__ TfBlock tf_block(unsigned char* smem_raw,
 
 // The trunk over P = PE(xyz): 8 x 256, the skip at layer SKIP (4; the IPE
 // kernels' 5, mip-NeRF's [h | enc] after layer 4, packed as [enc | h]);
-// every layer overwrites H in place once its products are done.
+// every layer overwrites H in place once both warpgroups' products are
+// done, and its output is whole before the next layer's products.
 template <int SKIP = 4>
-__device__ __forceinline__ void tf_trunk(float (&acc)[W_TRUNK / 2],
-                                         float (&none)[8], float4* act,
-                                         int k0, tf::Ring& ring,
-                                         bool elected, const float* bias_s,
-                                         int fq, int t) {
+__device__ __forceinline__ void tf_trunk(
+    float (&acc)[tf::share<W_TRUNK>()], float (&none)[8], float4* act,
+    int k0, tf::Ring& ring, const float* bias_s, int fq, int t, int wg) {
   for (int i = 0; i < 8; ++i) {
     bool fresh = true;
     if (i == 0 || i == SKIP)
-      tf::mma_seg<W_TRUNK, false>(acc, none, act, tf::G_P, k0, ring, fresh,
-                                  elected, t);
+      tf::mma_seg<W_TRUNK>(acc, none, act, tf::G_P, k0, ring, fresh, t, wg);
     if (i != 0)
-      tf::mma_seg<W_TRUNK, false>(acc, none, act, tf::G_H, W_TRUNK, ring,
-                                  fresh, elected, t);
+      tf::mma_seg<W_TRUNK>(acc, none, act, tf::G_H, W_TRUNK, ring, fresh, t,
+                           wg);
+    tf::consumer_sync();
     tf::store_hidden<W_TRUNK, false>(acc, act, tf::G_H,
                                      bias_s + hop::bias_off(i), fq, t,
-                                     nullptr);
+                                     nullptr, wg);
+    tf::consumer_sync();
   }
 }
 
@@ -447,6 +463,11 @@ __device__ __forceinline__ void tf_trunk(float (&acc)[W_TRUNK / 2],
 // Everything else is the f32 kernel's code, so both levels of a mip-NeRF
 // step run the same block, ring and products.  It adds one to ipe_runs as
 // well as to runs, so the fused pair's count (kernel_runs) holds it.
+//
+// Warpgroup 1 holds the output: fs2's sigma block rides its piece and
+// both heads are its products (tf::mma_seg), so out8 is whole in its
+// registers and it stores the tile's rows; warpgroup 0's out8 is never
+// read.
 // ----------------------------------------------------------------------
 template <bool MIP>
 __device__ __forceinline__ void fwd_f32(const float* __restrict__ inp,
@@ -458,6 +479,8 @@ __device__ __forceinline__ void fwd_f32(const float* __restrict__ inp,
                                         const float* __restrict__ sd, int nfx,
                                         int nfd, int a_dim, int t_dim, int k0,
                                         int kd, int kt, int has_transient) {
+  using tf::G_H;
+  using tf::G_P;
   extern __shared__ unsigned char smem_raw[];
   const int n_layers = has_transient ? N_LAYERS : L_T0;
   const TfBlock k = tf_block<true>(smem_raw, bias, n_layers, sx, sd);
@@ -467,44 +490,52 @@ __device__ __forceinline__ void fwd_f32(const float* __restrict__ inp,
 
   const int n_tiles = (n + tf::ROWS - 1) / tf::ROWS;
   const int tid = threadIdx.x;
-  if (tid >= 128) {
+  const int wg = tid >> 7;
+  if (wg == tf::CONSUMERS) {
     // the producer warpgroup: its first thread streams the plan's stages
-    if (tid == 128)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == tf::CONSUMERS * 128)
       tf::produce(image, plan, k.full, k.empty, hop::smem_u32(k.stages),
                   tf::STAGE_BYTES, n_tiles);
     return;
   }
-  const int t = tid;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int t = tid & 127;
   const int fr = 16 * (t >> 5) + ((t & 31) >> 2), fq = t & 3;
-  const bool elected = t == 0;
   tf::Ring ring = k.ring();
   float none[8];
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const size_t row0 = (size_t)tile * tf::ROWS;
+    // the last tile's heads have read P
+    tf::consumer_sync();
     // PE(xyz) (IPE(mean, var)) -> P
     if constexpr (MIP) {
-      tf::encode_ipe(act, tf::G_P, inp, row0, n, nfx, k0, t);
-      hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n, 4 * 9, t);
+      tf::encode_ipe(act, G_P, inp, row0, n, nfx, k0, t, wg);
+      if (wg == 0)
+        hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n, 4 * 9,
+                       t);
     } else {
-      tf::encode(act, tf::G_P, inp, row0, n, true, 0, nfx, k.sx_s, 0, 0, k0,
-                 t);
-      hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
-                     4 * (6 + a_dim + t_dim), t);
+      tf::encode(act, G_P, inp, row0, n, true, 0, nfx, k.sx_s, 0, 0, k0, t,
+                 wg);
+      if (wg == 0)
+        hop::next_rows(inp, row0 + (size_t)gridDim.x * tf::ROWS, n,
+                       4 * (6 + a_dim + t_dim), t);
     }
+    tf::consumer_sync();
 
     float out8[8];
     {
-      float acc[W_TRUNK / 2];
-      tf_trunk<MIP ? 5 : 4>(acc, none, act, k0, ring, elected, bias_s, fq,
-                            t);
+      float acc[tf::share<W_TRUNK>()];
+      tf_trunk<MIP ? 5 : 4>(acc, none, act, k0, ring, bias_s, fq, t, wg);
       // fs2: xyz_final -> H, the sigma block -> out8
       float sig[8];
       bool fresh = true;
-      tf::mma_seg<W_TRUNK, true>(acc, sig, act, tf::G_H, W_TRUNK, ring, fresh,
-                                 elected, t);
+      tf::mma_seg<W_TRUNK, true>(acc, sig, act, G_H, W_TRUNK, ring, fresh, t,
+                                 wg);
+      tf::consumer_sync();
       const float* bfs = bias_s + hop::bias_off(L_FS);
-      tf::store_linear<W_TRUNK>(acc, act, tf::G_H, bfs, fq, t);
+      tf::store_linear<W_TRUNK>(acc, act, G_H, bfs, fq, t, wg);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const float2 b = *reinterpret_cast<const float2*>(
@@ -516,24 +547,24 @@ __device__ __forceinline__ void fwd_f32(const float* __restrict__ inp,
       }
     }
     // dir tail [PE(dir) | a | 0] -> P
-    tf::encode(act, tf::G_P, inp, row0, n, true, 3, nfd, sd_s, 6, a_dim, kd,
-               t);
+    tf::encode(act, G_P, inp, row0, n, true, 3, nfd, sd_s, 6, a_dim, kd, t,
+               wg);
+    tf::consumer_sync();
 
-    float acc[W_HALF / 2];
+    float acc[tf::share<W_HALF>()];
     float head[8];
     // dir layer [xyz_final | tail] -> hd in P; static rgb head
     {
       bool fresh = true;
-      tf::mma_seg<W_HALF, false>(acc, none, act, tf::G_H, W_TRUNK, ring,
-                                 fresh, elected, t);
-      tf::mma_seg<W_HALF, false>(acc, none, act, tf::G_P, kd, ring, fresh,
-                                 elected, t);
-      tf::store_hidden<W_HALF, false>(acc, act, tf::G_P,
+      tf::mma_seg<W_HALF>(acc, none, act, G_H, W_TRUNK, ring, fresh, t, wg);
+      tf::mma_seg<W_HALF>(acc, none, act, G_P, kd, ring, fresh, t, wg);
+      tf::consumer_sync();
+      tf::store_hidden<W_HALF, false>(acc, act, G_P,
                                       bias_s + hop::bias_off(L_DIR), fq, t,
-                                      nullptr);
+                                      nullptr, wg);
+      tf::consumer_sync();
       fresh = true;
-      tf::mma_seg<OUT_LD, false>(head, none, act, tf::G_P, W_HALF, ring,
-                                 fresh, elected, t);
+      tf::mma_seg<OUT_LD>(head, none, act, G_P, W_HALF, ring, fresh, t, wg);
       const float* bh = bias_s + hop::bias_off(L_RGB);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -545,27 +576,29 @@ __device__ __forceinline__ void fwd_f32(const float* __restrict__ inp,
       }
     }
     if (!MIP && has_transient) {
-      // t tail -> P (the rgb head's products have read hd)
-      tf::encode(act, tf::G_P, inp, row0, n, false, 0, 0, sd_s, 6 + a_dim,
-                 t_dim, kt, t);
+      // t tail -> P, once the rgb head's products have read hd
+      tf::consumer_sync();
+      tf::encode(act, G_P, inp, row0, n, false, 0, 0, sd_s, 6 + a_dim, t_dim,
+                 kt, t, wg);
+      tf::consumer_sync();
       for (int l = L_T0; l < L_TH; ++l) {
         bool fresh = true;
         if (l == L_T0) {
-          tf::mma_seg<W_HALF, false>(acc, none, act, tf::G_H, W_TRUNK, ring,
-                                     fresh, elected, t);
-          tf::mma_seg<W_HALF, false>(acc, none, act, tf::G_P, kt, ring,
-                                     fresh, elected, t);
+          tf::mma_seg<W_HALF>(acc, none, act, G_H, W_TRUNK, ring, fresh, t,
+                              wg);
+          tf::mma_seg<W_HALF>(acc, none, act, G_P, kt, ring, fresh, t, wg);
         } else {
-          tf::mma_seg<W_HALF, false>(acc, none, act, tf::G_P, W_HALF, ring,
-                                     fresh, elected, t);
+          tf::mma_seg<W_HALF>(acc, none, act, G_P, W_HALF, ring, fresh, t,
+                              wg);
         }
-        tf::store_hidden<W_HALF, false>(acc, act, tf::G_P,
+        tf::consumer_sync();
+        tf::store_hidden<W_HALF, false>(acc, act, G_P,
                                         bias_s + hop::bias_off(l), fq, t,
-                                        nullptr);
+                                        nullptr, wg);
+        tf::consumer_sync();
       }
       bool fresh = true;
-      tf::mma_seg<OUT_LD, false>(head, none, act, tf::G_P, W_HALF, ring,
-                                 fresh, elected, t);
+      tf::mma_seg<OUT_LD>(head, none, act, G_P, W_HALF, ring, fresh, t, wg);
       const float* bh = bias_s + hop::bias_off(L_TH);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -576,11 +609,11 @@ __device__ __forceinline__ void fwd_f32(const float* __restrict__ inp,
         out8[4 * j + 3] = out8[4 * j + 3] + (head[4 * j + 3] + b.y);
       }
     }
-    // rows past n are not stored
+    // warpgroup 1's out8; rows past n are not stored
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const size_t row = row0 + fr + 8 * h;
-      if (row < (size_t)n) {
+      if (wg == 1 && row < (size_t)n) {
 #pragma unroll
         for (int j = 0; j < 2; ++j)
           *reinterpret_cast<float2*>(out + row * OUT_LD + 8 * j + 2 * fq) =
@@ -590,7 +623,7 @@ __device__ __forceinline__ void fwd_f32(const float* __restrict__ inp,
   }
 }
 
-__global__ void __launch_bounds__(tf::T_THREADS, 1)
+__global__ void __launch_bounds__(tf::THREADS, 1)
 fused_mlp_fwd_f32_kernel(const float* __restrict__ inp,
                          float* __restrict__ out, int n,
                          const unsigned char* __restrict__ image,
@@ -605,7 +638,7 @@ fused_mlp_fwd_f32_kernel(const float* __restrict__ inp,
                  t_dim, k0, kd, kt, has_transient);
 }
 
-__global__ void __launch_bounds__(tf::T_THREADS, 1)
+__global__ void __launch_bounds__(tf::THREADS, 1)
 fused_mlp_fwd_ipe_f32_kernel(const float* __restrict__ inp,
                              float* __restrict__ out, int n,
                              const unsigned char* __restrict__ image,
@@ -638,19 +671,19 @@ fused_mlp_fwd_ipe_f32_kernel(const float* __restrict__ inp,
 // numerics, and it shares that kernel's prologue (tf_block) and trunk
 // (tf_trunk): the producer, ring and stages (the image is
 // fused_mlp.py:f32_sigma_image, the walk tf::make_sigma_plan: the trunk's
-// stages, then fs2's 16-column sigma block alone as one (256, 16)
-// segment), A from registers, 3xTF32 products with f32 accumulation,
-// hidden layers relu(sum + bias), the sigma block an N = 16
-// product plus its f32 bias.  Its sigma is column 3 of the f32 kernel's
-// output for the same points and weights, bit for bit: the same products
-// in the same order on the same accumulator.  It leaves out xyz_final's
-// 256 columns, the dir tail and layer, the rgb head and the transient
-// branch (28% of the f32 kernel's work), and it reads the positions as
-// they are, (N, 3) f32 (tf::encode<3>), not the packed 512-byte row, and
-// writes one f32 pre-activation a point.  Its runs are counted in a slot
-// of their own, so kernel_runs() still counts the fused pair alone.
+// stages, then fs2's 16-column sigma block alone as one (256, 16) segment),
+// the two consumer warpgroups, A from registers, 3xTF32 products with f32
+// accumulation, hidden layers relu(sum + bias), the sigma block an N = 16
+// product (warpgroup 1's, which stores it) plus its f32 bias.  Its sigma is
+// column 3 of the f32 kernel's output for the same points and weights, bit for
+// bit: the same products in the same order on the same accumulator.  It leaves
+// out xyz_final's 256 columns, the dir tail and layer, the rgb head and the
+// transient branch (28% of the f32 kernel's work), and it reads the positions
+// as they are, (N, 3) f32 (tf::encode<3>), not the packed 512-byte row, and
+// writes one f32 pre-activation a point.  Its runs are counted in a slot of
+// their own, so kernel_runs() still counts the fused pair alone.
 // ----------------------------------------------------------------------
-__global__ void __launch_bounds__(tf::T_THREADS, 1)
+__global__ void __launch_bounds__(tf::THREADS, 1)
 sigma_trunk_f32_kernel(const float* __restrict__ xyz,
                        float* __restrict__ out, int n,
                        const unsigned char* __restrict__ image,
@@ -665,16 +698,18 @@ sigma_trunk_f32_kernel(const float* __restrict__ xyz,
 
   const int n_tiles = (n + tf::ROWS - 1) / tf::ROWS;
   const int tid = threadIdx.x;
-  if (tid >= 128) {
+  const int wg = tid >> 7;
+  if (wg == tf::CONSUMERS) {
     // the producer warpgroup: its first thread streams the plan's stages
-    if (tid == 128)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == tf::CONSUMERS * 128)
       tf::produce(image, plan, k.full, k.empty, hop::smem_u32(k.stages),
                   tf::STAGE_BYTES, n_tiles);
     return;
   }
-  const int t = tid;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int t = tid & 127;
   const int fr = 16 * (t >> 5) + ((t & 31) >> 2), fq = t & 3;
-  const bool elected = t == 0;
   tf::Ring ring = k.ring();
   float none[8];
   // static sigma is column 3 of the sigma block: the second value of the
@@ -683,17 +718,17 @@ sigma_trunk_f32_kernel(const float* __restrict__ xyz,
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const size_t row0 = (size_t)tile * tf::ROWS;
-    // PE(xyz) -> P
+    // PE(xyz) -> P (the last tile read P at its skip layer, barriers ago)
     tf::encode<3>(act, tf::G_P, xyz, row0, n, true, 0, nfx, k.sx_s, 0, 0,
-                  k0, t);
-    float acc[W_TRUNK / 2];
-    tf_trunk(acc, none, act, k0, ring, elected, k.bias_s, fq, t);
+                  k0, t, wg);
+    tf::consumer_sync();
+    float acc[tf::share<W_TRUNK>()];
+    tf_trunk(acc, none, act, k0, ring, k.bias_s, fq, t, wg);
     // fs2's sigma block alone
     float sig[8];
     bool fresh = true;
-    tf::mma_seg<OUT_LD, false>(sig, none, act, tf::G_H, W_TRUNK, ring, fresh,
-                               elected, t);
-    if (fq == 1) {
+    tf::mma_seg<OUT_LD>(sig, none, act, tf::G_H, W_TRUNK, ring, fresh, t, wg);
+    if (wg == 1 && fq == 1) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const size_t row = row0 + fr + 8 * h;
@@ -749,12 +784,12 @@ int launch_f32(const float* inp, float* out, int n, const void* image,
   if (n == 0) return 0;
   const unsigned char* img = static_cast<const unsigned char*>(image);
   if (ipe)
-    fused_mlp_fwd_ipe_f32_kernel<<<grid, tf::T_THREADS, tf::SMEM_BYTES,
+    fused_mlp_fwd_ipe_f32_kernel<<<grid, tf::THREADS, tf::SMEM_BYTES,
                                    stream>>>(inp, out, n, img, plan, bias, sd,
                                              nfx, nfd, d.k0, d.kd, runs,
                                              ipe_runs);
   else
-    fused_mlp_fwd_f32_kernel<<<grid, tf::T_THREADS, tf::SMEM_BYTES, stream>>>(
+    fused_mlp_fwd_f32_kernel<<<grid, tf::THREADS, tf::SMEM_BYTES, stream>>>(
         inp, out, n, img, plan, bias, sx, sd, nfx, nfd, a_dim, t_dim, d.k0,
         d.kd, d.kt, has_transient, runs);
   return (int)cudaGetLastError();
@@ -810,7 +845,7 @@ int launch_sigma(const float* xyz, float* out, int n, const void* image,
       tf::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
-  sigma_trunk_f32_kernel<<<grid, tf::T_THREADS, tf::SMEM_BYTES, stream>>>(
+  sigma_trunk_f32_kernel<<<grid, tf::THREADS, tf::SMEM_BYTES, stream>>>(
       xyz, out, n, static_cast<const unsigned char*>(image), plan, bias, sx,
       nfx, k0, runs);
   return (int)cudaGetLastError();
@@ -877,16 +912,19 @@ int nerf_fused_sigma_fwd(const float* xyz, float* out, int n,
 
 // The kernels' blocks, for reports: out[0] points a block, out[1]
 // threads, out[2] shared-memory bytes, out[3] stages in the weight ring;
-// bfloat16 in out[0..3], float32 in out[4..7].
+// bfloat16 in out[0..3], float32 in out[4..7]; out[8] / out[9] the
+// consumer warpgroups, bfloat16 / float32.
 void nerf_fused_mlp_fwd_info(int* out) {
   out[0] = hop::ROWS;
   out[1] = hop::H_THREADS;
   out[2] = hop::SMEM_BYTES;
   out[3] = hop::STAGES;
   out[4] = tf::ROWS;
-  out[5] = tf::T_THREADS;
+  out[5] = tf::THREADS;
   out[6] = tf::SMEM_BYTES;
   out[7] = tf::STAGES;
+  out[8] = hop::CONSUMERS;
+  out[9] = tf::CONSUMERS;
 }
 
 }  // extern "C"

@@ -9,8 +9,11 @@ forward and backward, and a render chunk (4,194,304 points, fine) forward;
 the flagship's random weights and points from one seed, as chip_smoke.py's
 phase 7 draws them; mip-NeRF's IPE pair (f32) at one level of the mip
 cell's sub-step (524,288 points; chip_smoke.py's ``ipe_case``, its
-cotangent in the four live columns), forward and backward; then chip_smoke.py's 400 x 400 frame (phase 3, host
-clock around ``render_chunked``, the median of 3) at each dtype.  Times are CUDA events around one launch, the median of
+cotangent in the four live columns), forward and backward; the sigma-only
+kernel of the render's test-time coarse pass (f32) at a frame chunk's
+2,097,152 coarse points and at 4,194,304; then chip_smoke.py's 400 x 400
+frame (phase 3, host clock around ``render_chunked``, the median of 3) at
+each dtype.  Times are CUDA events around one launch, the median of
 --reps after two warm-up launches; beside each time, the sha256 of the
 launch's outputs (the backward's grads and d_inp), so that two checkouts'
 kernels can be held bit for bit on the same inputs.  It runs as a file so
@@ -31,6 +34,7 @@ from pathlib import Path
 SHAPES = (("fine", 131_072, 48, True, True),
           ("coarse", 65_536, 0, False, True),
           ("render_chunk", 4_194_304, 48, True, False))
+SIGMA_POINTS = (2_097_152, 4_194_304)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -113,6 +117,27 @@ def ipe_pair(dev, gen, reps: int, out: dict, n: int = 524_288) -> None:
           f"({f_sha}), backward {b_ms:.3f} ms ({b_sha})", flush=True)
 
 
+def sigma_kernel(dev, gen, reps: int, out: dict) -> None:
+    """The sigma-only kernel at each of SIGMA_POINTS into ``out``: the
+    coarse net (no appearance or transient) on positions in [-3, 3)."""
+    import torch
+    from nerf_fl_torch.models import NeRFConfig, init_nerf
+    from nerf_fl_torch.ops import fused_mlp as fm
+    model = init_nerf(NeRFConfig(typ="coarse"), generator=gen).to(dev)
+    net = fm.pack_weights(model, fm.Layout(torch.float32, 10, 4))
+    sx, _ = fm.default_scale_rows(10, 4, 0, device=dev)
+    for n in SIGMA_POINTS:
+        xyz = (torch.rand(n, 3, generator=gen) * 6 - 3).to(dev)
+        tag = f"sigma float32 {n}"
+        with torch.no_grad():
+            ms = median_ms(lambda: fm.fused_sigma_cuda(xyz, net, sx), reps)
+            sha = digest(fm.fused_sigma_cuda(xyz, net, sx))
+        out["ms"][tag] = ms
+        out["sha256"][tag] = sha
+        print(f"[f32_kernels] {tag} points: sigma-only {ms:.3f} ms "
+              f"({sha})", flush=True)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
@@ -172,6 +197,7 @@ def main(argv=None) -> dict:
                 line += f", backward {b_ms:.3f} ms ({b_sha})"
             print(line, flush=True)
     ipe_pair(dev, gen, args.reps, out)
+    sigma_kernel(dev, gen, args.reps, out)
     out["frame_ms"] = {d: frame_ms(dev, d) for d in ("float32", "bfloat16")}
     print(f"[f32_kernels] 400 x 400 frame: float32 "
           f"{out['frame_ms']['float32']:.1f} ms, bfloat16 "

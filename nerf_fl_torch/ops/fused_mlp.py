@@ -70,7 +70,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 TILE_ROWS = 128     # points a block holds at a time
 SLAB_K = 64         # input rows of a weight slab: one 128-byte swizzle row
 # the f32 kernels' block (namespace tf)
-F32_ROWS = 64       # points a block: one consumer warpgroup
+F32_ROWS = 64       # points a block, which two consumer warpgroups share
 F32_K = 32          # contraction values of a stage: one 128-byte tf32 row
 F32_PIECE = 128     # output columns of a stage (the last of fs2's 272: 144)
 # the order of each 8 contraction values in an f32 stage: the A fragment of
@@ -901,17 +901,18 @@ def fused_mlp_bwd_reference(inp: torch.Tensor, net: PackedNet,
 
 def kernel_block_info(dtype=torch.bfloat16):
     """The ``dtype`` kernels' blocks as their sources define them (the
-    card's build): points a block, the forward's threads, dynamic
-    shared-memory bytes, ring depth, the fused backward's threads and
-    consumer warpgroups, and the wgrad's split of the points: bf16
-    ``splits`` (a fixed count), f32 ``split_rows`` (64-point row blocks a
-    split)."""
-    f, b = (ctypes.c_int * 8)(), (ctypes.c_int * 12)()
+    card's build): points a block, the forward's threads and consumer
+    warpgroups, dynamic shared-memory bytes, ring depth, the fused
+    backward's threads and consumer warpgroups, and the wgrad's split of
+    the points: bf16 ``splits`` (a fixed count), f32 ``split_rows``
+    (64-point row blocks a split)."""
+    f, b = (ctypes.c_int * 10)(), (ctypes.c_int * 12)()
     _lib().nerf_fused_mlp_fwd_info(f)
     _lib_bwd().nerf_fused_mlp_bwd_info(b)
     i, j = (0, 0) if dtype == torch.bfloat16 else (4, 5)
-    return {"rows": f[i], "threads": f[i + 1], "fwd_smem": f[i + 2],
-            "stages": f[i + 3], "bwd_threads": b[j + 1],
+    return {"rows": f[i], "threads": f[i + 1], "consumers": f[8 + i // 4],
+            "fwd_smem": f[i + 2], "stages": f[i + 3],
+            "bwd_threads": b[j + 1],
             "bwd_consumers": b[10 + j // 5], "bwd_smem": b[j + 2],
             "wgrad_smem": b[j + 3],
             ("splits" if j == 0 else "split_rows"): b[j + 4]}

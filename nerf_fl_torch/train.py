@@ -24,7 +24,10 @@ the fused): R / R runs on the card`` (the wrappers' launches and the
 kernels' own count of their runs, CUDA graph replays included; the
 sigma-only kernel runs eval's f32 test-time coarse pass, so it reads 0
 here: the train step and validation render the full coarse pass; the IPE
-kernels run both levels of ``--model mipnerf`` at f32, 2 + 2 a sub-step).
+kernels run both levels of ``--model mipnerf`` at f32, 2 + 2 a sub-step),
+and, after a fused launch, the blocks of the run's compute dtype:
+``; float32 blocks: forward T threads (C consumer warpgroups), backward T
+(C)``.
 
 ``--num_gpus D --model_parallel M`` (D x M > 1) trains data- and
 tensor-parallel: this process starts its ``D x M / --num_hosts`` ranks
@@ -50,8 +53,16 @@ def train(device, hparams) -> NeRFSystem:
     system.fit()
     print(f"[spans] {spans.STORE.summary()}", flush=True)
     if system.device.type == "cuda":
+        import torch
         from .ops import fused_mlp as fm
         runs = fm.kernel_runs(system.device)
+        blocks = ""
+        if fm.fused_mlp_fwd_cuda.launches:
+            dtype = system.cfg.compute_dtype
+            b = fm.kernel_block_info(getattr(torch, dtype))
+            blocks = (f"; {dtype} blocks: forward {b['threads']} threads "
+                      f"({b['consumers']} consumer warpgroups), backward "
+                      f"{b['bwd_threads']} ({b['bwd_consumers']})")
         print(f"[kernels] {system.global_step} sub-steps; fused forward / "
               f"backward: {fm.fused_mlp_fwd_cuda.launches} / "
               f"{fm.fused_mlp_bwd_cuda.launches} host launches, {runs[0]} / "
@@ -60,7 +71,7 @@ def train(device, hparams) -> NeRFSystem:
               f"{fm.sigma_runs(system.device)} runs on the card; IPE "
               f"forward / backward (mip-NeRF's, among the fused): "
               f"{'{} / {}'.format(*fm.ipe_runs(system.device))} runs on "
-              f"the card", flush=True)
+              f"the card{blocks}", flush=True)
     return system
 
 

@@ -352,6 +352,29 @@ def test_f32_bwd_block_is_two_consumer_warpgroups_on_card():
         assert not [line for line in log if "C7520" in line and kernel in line]
 
 
+@pytest.mark.cuda
+def test_f32_fwd_block_is_two_consumer_warpgroups_on_card():
+    """The f32 forward side's block as the source defines it: 384 threads,
+    two consumer warpgroups, shared memory within the card's 232,448
+    bytes; the f32 forward, its IPE instance and the sigma-only kernel
+    built without spills and without a ptxas C7520 line (wgmma
+    serialized)."""
+    from nerf_fl_torch.ops import _build
+    _card()
+    info = fm.kernel_block_info(torch.float32)
+    assert (info["threads"], info["consumers"]) == (384, 2)
+    assert info["fwd_smem"] <= 232_448
+    log = _build.build_log("fused_mlp_fwd").splitlines()
+    for kernel in ("fused_mlp_fwd_f32_kernel", "fused_mlp_fwd_ipe_f32_kernel",
+                   "sigma_trunk_f32_kernel"):
+        at = [i for i, line in enumerate(log)
+              if "Compiling entry function" in line and kernel in line]
+        assert len(at) == 1, kernel
+        report = " ".join(log[at[0]:at[0] + 4])
+        assert "0 bytes spill stores, 0 bytes spill loads" in report, report
+        assert not [line for line in log if "C7520" in line and kernel in line]
+
+
 def _sigma_case(dev, n, nfx=10, barf=None):
     """The f32 forward's operands (fine model, a_dim 0, transient) and the
     sigma-only kernel's (the positions as they are, the same packed net and

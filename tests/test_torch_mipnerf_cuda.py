@@ -216,9 +216,10 @@ def test_fused_pair_instances_keep_their_machine_code_on_card():
     tools/records/sass_fused_pair.json (built on the card with the same
     nvcc; re-record with ``python -m
     nerf_fl_torch.experiments.sass_diff``'s digests if nvcc changes): the
-    forward, sigma and bf16 kernels as the sources before the IPE
-    instances and the two-warpgroup f32 backward built them, the f32
-    backward's two instances as that design builds them."""
+    bf16 kernels as the sources before the IPE instances and the
+    two-warpgroup f32 kernels built them, and the f32 kernels (the
+    backward's two instances, the forward's two and the sigma-only one) as
+    the two-consumer-warpgroup design builds them."""
     _card()
     from nerf_fl_torch.ops import _build
     record = json.loads(RECORD.read_text())
